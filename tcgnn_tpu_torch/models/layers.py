@@ -1,0 +1,81 @@
+"""GNN layers: GCN and GIN convolutions and the SAG primitive (PyTorch port).
+
+Counterpart of ``tcgnn_tpu.models.layers`` with the same schedule:
+
+* ``gcn_conv`` — ``aggregate(X @ W)``, or ``aggregate(X) @ W`` when the input
+  is narrow (``aggregate_first``);
+* ``gin_conv`` — ``aggregate(X) @ W``;
+* ``sag``      — pure aggregation.
+
+Weights keep the JAX layout ``[in, out]``.  Dense products are plain torch
+(cuBLAS on the card); aggregation runs K1 through ``TiledGraph.spmm``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tcgnn_tpu_torch.graph import TiledGraph
+
+
+def _ct(graph) -> torch.dtype:
+    """The graph's compute dtype (f32 configs keep everything f32)."""
+    cfg = getattr(graph, "config", None)
+    return cfg.compute_dtype if cfg is not None else torch.float32
+
+
+def _amp_dot(a: torch.Tensor, w: torch.Tensor, ct: torch.dtype) -> torch.Tensor:
+    """Dense update product in the compute dtype: operands in ``ct``, f32
+    accumulation (cuBLAS accumulates bf16 products in f32), output in ``ct``."""
+    return torch.matmul(a.to(ct), w.to(ct))
+
+
+def aggregate_first(in_dim: int, out_dim: int) -> bool:
+    """GCN's schedule on the condensed route: aggregate before projecting
+    when the input is no wider than ``max(out_dim, 128)``.  ``A(XW) ==
+    (AX)W`` exactly; the gather costs per row, so a narrow input is cheap to
+    aggregate.  Kept identical to the JAX package so both run the same
+    schedule."""
+    return in_dim <= max(out_dim, 128)
+
+
+def gcn_conv(
+    weights: torch.Tensor,
+    x: torch.Tensor,
+    graph: TiledGraph,
+    norm: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """GEMM node update and SpMM neighbour aggregation.
+
+    ``norm`` is an optional per-node ``deg^-1/2`` vector: applied before and
+    after aggregation it gives symmetric GCN normalization
+    ``D^-1/2 A D^-1/2``.
+    """
+    in_dim, out_dim = weights.shape
+    ct = _ct(graph)
+    x = x.to(ct)
+    nv = None if norm is None else norm.to(ct)
+    if aggregate_first(in_dim, out_dim):
+        h = x if nv is None else x * nv[: x.shape[0], None]
+        agg = graph.spmm(h)
+        if nv is not None:
+            agg = agg * nv[: agg.shape[0], None].to(agg.dtype)
+        return _amp_dot(agg, weights, ct)
+    x_prime = _amp_dot(x, weights, ct)
+    if nv is not None:
+        x_prime = x_prime * nv[: x_prime.shape[0], None]
+    out = graph.spmm(x_prime)
+    if nv is not None:
+        out = out * nv[: out.shape[0], None].to(out.dtype)
+    return out
+
+
+def gin_conv(weights: torch.Tensor, x: torch.Tensor, graph: TiledGraph) -> torch.Tensor:
+    """SpMM aggregation first, then GEMM update."""
+    ct = _ct(graph)
+    return _amp_dot(graph.spmm(x.to(ct)), weights, ct)
+
+
+def sag(x: torch.Tensor, graph: TiledGraph) -> torch.Tensor:
+    """Pure scatter-and-gather aggregation."""
+    return graph.spmm(x)

@@ -1,0 +1,131 @@
+"""Dense-tile SpMM over SGT-tiled graphs (K1 of the port).
+
+Counterpart of ``tcgnn_tpu.ops.spmm.spmm_tc_dense``: ``out = A @ x`` where A
+is given as SGT-condensed dense tiles ``a_tiles [B, blk_h, blk_w]`` (int8
+counts, or the compute dtype when a count exceeds 127) plus per-block
+gather columns ``meta.col_ids``.  The contract is the JAX op's: ``x`` is cast
+to the compute dtype before the gather, products accumulate in f32, and the
+output is stored once in the compute dtype.
+
+``spmm_tc_dense`` launches the hand-written CUDA kernel
+(``csrc/spmm_dense.cu``) for a CUDA tensor, and runs the plain PyTorch
+version ``spmm_tc_dense_torch`` for a CPU tensor only.  Its two counters,
+``spmm_tc_dense.launches`` and ``spmm_tc_dense.plain_calls``, record which
+path ran.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tcgnn_tpu_torch.ops import _kernels
+from tcgnn_tpu_torch.sgt.translate import KERNEL_RUN_BLOCKS, TorchSGTMeta
+
+_FEAT_KIND = {torch.float32: 0, torch.bfloat16: 1}
+_TILE_KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+KERNEL_MAX_BLK_W = 128  # a warp holds a tile row in 4 registers a lane
+
+
+def spmm_tc_dense_torch(
+    x: torch.Tensor, meta: TorchSGTMeta, a_tiles: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch version of K1: ``x[col_ids]``, a batched tile product,
+    then a sum per window."""
+    cfg = meta.config
+    ct = cfg.compute_dtype
+    n, d = x.shape
+    xg = x.to(ct).index_select(0, meta.col_ids).view(meta.num_blocks, cfg.blk_w, d)
+    part = torch.bmm(a_tiles.to(ct).float(), xg.float())  # [B, blk_h, d]
+    out = torch.zeros(
+        (meta.num_windows, cfg.blk_h, d), dtype=torch.float32, device=x.device
+    )
+    out.index_add_(0, meta.block_window, part)
+    return out.view(-1, d)[:n].to(ct)
+
+
+def _check_kernel_args(x, meta, a_tiles):
+    cfg = meta.config
+    if cfg.compute_dtype not in _FEAT_KIND:
+        raise TypeError(f"spmm_tc_dense: no kernel for compute dtype {cfg.compute_dtype}")
+    if cfg.blk_w > KERNEL_MAX_BLK_W:
+        raise ValueError(f"spmm_tc_dense: the kernel takes blk_w <= {KERNEL_MAX_BLK_W}")
+    if a_tiles.dtype not in _TILE_KIND:
+        raise TypeError(f"spmm_tc_dense: no kernel for tile dtype {a_tiles.dtype}")
+    if tuple(a_tiles.shape) != (meta.num_blocks, cfg.blk_h, cfg.blk_w):
+        raise ValueError(
+            f"spmm_tc_dense: tiles of shape {tuple(a_tiles.shape)}, expected "
+            f"{(meta.num_blocks, cfg.blk_h, cfg.blk_w)}"
+        )
+    for name, t in (("a_tiles", a_tiles), ("col_ids", meta.col_ids),
+                    ("win_start", meta.win_start), ("run_window", meta.run_window),
+                    ("run_block", meta.run_block)):
+        if t.device != x.device:
+            raise ValueError(f"spmm_tc_dense: {name} on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"spmm_tc_dense: {name} is not contiguous")
+        if name != "a_tiles" and t.dtype != torch.int32:
+            raise TypeError(f"spmm_tc_dense: {name} must be int32")
+    if x.numel() >= 2**31:
+        raise ValueError("spmm_tc_dense: x has 2**31 elements or more")
+
+
+def _spmm_dense_cuda(x, meta, a_tiles):
+    _check_kernel_args(x, meta, a_tiles)
+    cfg = meta.config
+    n, d = x.shape
+    x = x.to(cfg.compute_dtype).contiguous()
+    out = torch.empty((n, d), dtype=cfg.compute_dtype, device=x.device)
+    if n == 0 or d == 0:
+        return out
+    lib = _kernels.load_spmm_dense()
+    # Windows of more than KERNEL_RUN_BLOCKS TC blocks are split over thread
+    # blocks that sum in f32: into `out` for f32, into this buffer for bf16.
+    split = meta.max_window_blocks > KERNEL_RUN_BLOCKS
+    accum = None
+    if split and cfg.compute_dtype != torch.float32:
+        accum = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.tcgnn_spmm_dense(
+            x.data_ptr(), a_tiles.data_ptr(), meta.col_ids.data_ptr(),
+            meta.win_start.data_ptr(), meta.run_window.data_ptr(),
+            meta.run_block.data_ptr(), out.data_ptr(),
+            None if accum is None else accum.data_ptr(),
+            n, d, meta.num_windows, meta.run_window.shape[0], KERNEL_RUN_BLOCKS,
+            int(split), cfg.blk_h, cfg.blk_w,
+            _FEAT_KIND[cfg.compute_dtype], _TILE_KIND[a_tiles.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        msg = lib.tcgnn_cuda_error_string(err).decode()
+        raise RuntimeError(f"spmm_dense kernel launch failed: {msg} ({err})")
+    spmm_tc_dense.launches += 1
+    return out
+
+
+def spmm_tc_dense(
+    x: torch.Tensor, meta: TorchSGTMeta, a_tiles: torch.Tensor
+) -> torch.Tensor:
+    """Tensor-core-style SpMM via dense A-tiles: ``out = A @ x``, [N, d] in
+    the compute dtype.  A CUDA tensor runs the kernel (or raises); a CPU
+    tensor runs the plain version."""
+    if x.dim() != 2 or x.shape[0] != meta.num_nodes:
+        raise ValueError(
+            f"spmm_tc_dense: x of shape {tuple(x.shape)}, expected "
+            f"[{meta.num_nodes}, d]"
+        )
+    if x.device.type == "cuda":
+        return _spmm_dense_cuda(x, meta, a_tiles)
+    if x.device.type != "cpu":
+        raise ValueError(f"spmm_tc_dense: no kernel for device {x.device}")
+    spmm_tc_dense.plain_calls += 1
+    return spmm_tc_dense_torch(x, meta, a_tiles)
+
+
+spmm_tc_dense.launches = 0
+spmm_tc_dense.plain_calls = 0
+
+
+def reset_counts() -> None:
+    """Set ``spmm_tc_dense.launches`` and ``.plain_calls`` to 0."""
+    spmm_tc_dense.launches = 0
+    spmm_tc_dense.plain_calls = 0

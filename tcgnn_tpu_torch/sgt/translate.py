@@ -1,0 +1,311 @@
+"""Sparse Graph Translation (SGT): condense CSR adjacency into dense tiles.
+
+Counterpart of ``tcgnn_tpu.sgt.translate``: its vectorized NumPy pass,
+carried over for the dense-tile route (``emit_chunks=False``) with the same
+output, field by field (``tests/test_torch_sgt.py`` holds the two packages
+to it).  Per ``blk_h``-row window, the distinct neighbour column ids are
+ranked in sorted order; edge ``e`` with neighbour ``c`` in window ``w``
+lands at condensed column ``rank_w(c)``, i.e. TC block ``rank // blk_w``,
+in-block column ``rank % blk_w``, in-window row ``row(e) % blk_h``.
+
+The JAX package's native C++ pass and its chunk layout are not carried over.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tcgnn_tpu_torch.config import DEFAULT_CONFIG, TileConfig
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _pad_blocks(real_blocks_per_window: np.ndarray, config: TileConfig) -> np.ndarray:
+    """Blocks per window, padded as the JAX package pads them.
+
+    Empty windows get one padding block so every output row is written, and
+    counts round up to ``config.block_group``.  Padding blocks have all-zero
+    tiles and padding columns 0, so they contribute nothing.
+    """
+    g = max(int(config.block_group), 1)
+    return (_cdiv(np.maximum(real_blocks_per_window, 1), g) * g).astype(
+        real_blocks_per_window.dtype
+    )
+
+
+# TC blocks one thread block of the CUDA SpMM walks: a window of more blocks
+# is split into runs of this many (see csrc/spmm_dense.cu).
+KERNEL_RUN_BLOCKS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class TorchSGTMeta:
+    """Device-side metadata the SpMM kernel and its plain version read.
+
+    ``win_start[w]`` is window ``w``'s first block (the cumulative sum of
+    ``block_partition``): the CUDA kernel walks a window's blocks itself
+    instead of following the TPU grid's per-block first/last flags.  It
+    walks them in runs of at most ``KERNEL_RUN_BLOCKS``, one thread block a
+    run: run ``t`` belongs to window ``run_window[t]`` and starts at block
+    ``run_block[t]``.
+    """
+
+    config: TileConfig
+    num_nodes: int
+    num_edges: int
+    num_windows: int
+    num_blocks: int
+    max_window_blocks: int  # most TC blocks in one window (padding included)
+    col_ids: torch.Tensor  # [B * blk_w] int32
+    block_window: torch.Tensor  # [B] int32
+    win_start: torch.Tensor  # [W + 1] int32
+    run_window: torch.Tensor  # [R] int32
+    run_block: torch.Tensor  # [R] int32
+
+
+@dataclasses.dataclass
+class SGTMeta:
+    """Host (NumPy) tiling metadata produced by :func:`sparse_graph_translate`.
+
+    Shapes use W = num_windows, B = num_blocks.
+    """
+
+    config: TileConfig
+    num_nodes: int
+    num_edges: int
+    # TC blocks per row window, padded (empty windows get 1 padding block).
+    block_partition: np.ndarray  # [W] int32
+    # Count of real blocks: the printed `TC_Blocks` statistic.
+    num_real_blocks: int
+    # Global source-node id of each condensed column; padding columns -> 0.
+    col_ids: np.ndarray  # [B * blk_w] int32
+    block_window: np.ndarray  # [B] int32
+    block_first_in_window: np.ndarray  # [B] int32 (0/1)
+    # Flat dense-tile position of each CSR edge:
+    # block * blk_h * blk_w + r * blk_w + c.
+    edge_pos: np.ndarray  # [num_edges] int64
+    # Structural tiles (build_tiles=True): int8 counts, f32 when a count
+    # exceeds 127.
+    a_tiles: Optional[np.ndarray] = None  # [B, blk_h, blk_w]
+
+    @property
+    def num_windows(self) -> int:
+        return int(self.block_partition.shape[0])
+
+    @property
+    def num_blocks(self) -> int:
+        return int(self.col_ids.shape[0] // self.config.blk_w)
+
+    @property
+    def exp_edges(self) -> int:
+        """`Exp_Edges` = TC_Blocks * blk_h * blk_w."""
+        return self.num_real_blocks * self.config.blk_h * self.config.blk_w
+
+    def to(self, device) -> TorchSGTMeta:
+        """Upload what the dense-tile SpMM reads to ``device``."""
+        win_start = np.zeros(self.num_windows + 1, dtype=np.int64)
+        np.cumsum(self.block_partition, out=win_start[1:])
+        if win_start[-1] >= 2**31:
+            raise ValueError("block count overflows int32")
+        runs = _cdiv(self.block_partition.astype(np.int64), KERNEL_RUN_BLOCKS)
+        run_window = np.repeat(np.arange(self.num_windows, dtype=np.int64), runs)
+        first_run = np.cumsum(runs) - runs
+        run_block = win_start[run_window] + KERNEL_RUN_BLOCKS * (
+            np.arange(len(run_window), dtype=np.int64) - first_run[run_window]
+        )
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+        return TorchSGTMeta(
+            config=self.config,
+            num_nodes=self.num_nodes,
+            num_edges=self.num_edges,
+            num_windows=self.num_windows,
+            num_blocks=self.num_blocks,
+            max_window_blocks=int(self.block_partition.max()),
+            col_ids=dev(self.col_ids),
+            block_window=dev(self.block_window),
+            win_start=dev(win_start),
+            run_window=dev(run_window),
+            run_block=dev(run_block),
+        )
+
+
+def _window_pairs(row_pointers, column_index, num_nodes, num_cols, blk_h):
+    """The sort+dedup of the SGT pass: each edge's row, the unique
+    ``window * num_cols + column`` keys in sorted order, and each edge's key
+    id."""
+    degrees = np.diff(row_pointers)
+    edge_row = np.repeat(np.arange(num_nodes, dtype=np.int64), degrees)
+    key = (edge_row // blk_h) * np.int64(num_cols) + column_index
+    uniq_key, edge_pair = np.unique(key, return_inverse=True)
+    return edge_row, uniq_key, edge_pair
+
+
+def _num_cols(column_index, num_nodes, num_cols):
+    num_edges = int(column_index.shape[0])
+    if num_cols is None:
+        num_cols = num_nodes
+    return max(int(num_cols), int(column_index.max()) + 1 if num_edges else 1)
+
+
+def sparse_graph_translate(
+    row_pointers: np.ndarray,
+    column_index: np.ndarray,
+    num_nodes: Optional[int] = None,
+    config: TileConfig = DEFAULT_CONFIG,
+    num_cols: Optional[int] = None,
+    build_tiles: bool = False,
+) -> SGTMeta:
+    """Run the SGT tiling pass over a CSR adjacency.
+
+    Args:
+      row_pointers: CSR indptr, shape [N+1], int.
+      column_index: CSR indices, shape [nnz], int.
+      num_nodes: N (row count); defaults to len(row_pointers) - 1.
+      config: tile geometry.
+      num_cols: column-space size; defaults to num_nodes.
+      build_tiles: also build the structural dense tiles (``meta.a_tiles``).
+    """
+    blk_h, blk_w = config.blk_h, config.blk_w
+    row_pointers = np.asarray(row_pointers, dtype=np.int64)
+    column_index = np.asarray(column_index, dtype=np.int64)
+    if num_nodes is None:
+        num_nodes = len(row_pointers) - 1
+    num_edges = int(column_index.shape[0])
+    num_windows = max(_cdiv(num_nodes, blk_h), 1)
+    num_cols = _num_cols(column_index, num_nodes, num_cols)
+    tile = blk_h * blk_w
+
+    # ---- condensed-column ranking: a pair's rank within its window is its
+    # condensed column.
+    edge_row, uniq_key, edge_pair = _window_pairs(
+        row_pointers, column_index, num_nodes, num_cols, blk_h
+    )
+    pair_window = (uniq_key // num_cols).astype(np.int64)
+    pair_col = (uniq_key % num_cols).astype(np.int64)
+    uniques_per_window = np.bincount(pair_window, minlength=num_windows)
+    window_pair_start = np.zeros(num_windows + 1, dtype=np.int64)
+    np.cumsum(uniques_per_window, out=window_pair_start[1:])
+    pair_rank = (
+        np.arange(len(uniq_key), dtype=np.int64) - window_pair_start[pair_window]
+    )
+
+    # ---- block partition -------------------------------------------------
+    real_blocks_per_window = _cdiv(uniques_per_window, blk_w)
+    num_real_blocks = int(real_blocks_per_window.sum())
+    blocks_per_window = _pad_blocks(real_blocks_per_window, config)
+    block_start = np.zeros(num_windows + 1, dtype=np.int64)
+    np.cumsum(blocks_per_window, out=block_start[1:])
+    num_blocks = int(block_start[-1])
+
+    # ---- per-block condensed-column gather table -------------------------
+    pair_block = block_start[pair_window] + pair_rank // blk_w
+    col_ids = np.zeros(num_blocks * blk_w, dtype=np.int32)
+    col_ids[pair_block * blk_w + pair_rank % blk_w] = pair_col
+
+    # ---- edge -> (block, row, col) ---------------------------------------
+    edge_rank = pair_rank[edge_pair]
+    edge_block = pair_block[edge_pair]
+    edge_c = (edge_rank % blk_w).astype(np.int32)
+    edge_r = (edge_row % blk_h).astype(np.int32)
+    edge_pos = (
+        edge_block * np.int64(tile)
+        + edge_r.astype(np.int64) * blk_w
+        + edge_c.astype(np.int64)
+    )
+    a_tiles = None
+    if build_tiles:
+        # Counts per slot; scattered from the O(E) unique positions so no
+        # tile-sized int64 intermediate is made.
+        pos, cnt = np.unique(edge_pos, return_counts=True)
+        a_tiles = np.zeros(
+            num_blocks * tile, np.int8 if cnt.max(initial=0) <= 127 else np.float32
+        )
+        a_tiles[pos] = cnt
+        a_tiles = a_tiles.reshape(num_blocks, blk_h, blk_w)
+
+    window_of_block = np.repeat(
+        np.arange(num_windows, dtype=np.int32), blocks_per_window
+    )
+    block_first_in_window = np.zeros(num_blocks, dtype=np.int32)
+    block_first_in_window[block_start[:-1]] = 1
+
+    return SGTMeta(
+        config=config,
+        num_nodes=int(num_nodes),
+        num_edges=num_edges,
+        block_partition=blocks_per_window.astype(np.int32),
+        num_real_blocks=num_real_blocks,
+        col_ids=col_ids,
+        block_window=window_of_block,
+        block_first_in_window=block_first_in_window,
+        edge_pos=edge_pos,
+        a_tiles=a_tiles,
+    )
+
+
+def build_a_tiles_host(meta: SGTMeta, weights: Optional[np.ndarray] = None) -> np.ndarray:
+    """Host-side dense A-tile build (f32 NumPy, bincount scatter)."""
+    if weights is None and meta.a_tiles is not None:
+        return meta.a_tiles
+    cfg = meta.config
+    size = meta.num_blocks * cfg.blk_h * cfg.blk_w
+    if weights is None:
+        # Simple graphs have one edge per slot: assign, then check the sum
+        # and redo with the exact bincount if a duplicate collapsed.
+        flat = np.zeros(size, np.float32)
+        flat[meta.edge_pos] = 1.0
+        if int(flat.sum(dtype=np.int64)) == meta.num_edges:
+            return flat.reshape(meta.num_blocks, cfg.blk_h, cfg.blk_w)
+    flat = np.bincount(
+        meta.edge_pos,
+        weights=None if weights is None else weights.astype(np.float64),
+        minlength=size,
+    ).astype(np.float32)
+    return flat.reshape(meta.num_blocks, cfg.blk_h, cfg.blk_w)
+
+
+def count_blocks(
+    row_pointers: np.ndarray,
+    column_index: np.ndarray,
+    num_nodes: int,
+    config: TileConfig = DEFAULT_CONFIG,
+) -> int:
+    """Total block count (padding blocks included) without the full pass:
+    sizes the dense tiles before they are built."""
+    num_windows = max(_cdiv(num_nodes, config.blk_h), 1)
+    row_pointers = np.asarray(row_pointers, dtype=np.int64)
+    column_index = np.asarray(column_index, dtype=np.int64)
+    num_cols = _num_cols(column_index, num_nodes, None)
+    _, uniq_key, _ = _window_pairs(
+        row_pointers, column_index, num_nodes, num_cols, config.blk_h
+    )
+    real = _cdiv(np.bincount(uniq_key // num_cols, minlength=num_windows), config.blk_w)
+    return int(_pad_blocks(real, config).sum())
+
+
+def transpose_csr(row_pointers: np.ndarray, column_index: np.ndarray, num_nodes: int):
+    """CSR of the transposed adjacency, for the backward on directed graphs.
+
+    Returns:
+      (t_row_pointers, t_column_index, t_edge_src): transpose CSR plus, per
+      transpose edge k, the id of the corresponding forward edge.
+    """
+    degrees = np.diff(np.asarray(row_pointers, dtype=np.int64))
+    src = np.repeat(np.arange(num_nodes, dtype=np.int64), degrees)
+    dst = np.asarray(column_index, dtype=np.int64)
+    # Stable sort by dst: within a transpose row the src columns come out
+    # ascending, i.e. CSR-sorted.
+    order = np.argsort(dst, kind="stable")
+    t_cols = src[order].astype(np.int32)
+    t_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
+    np.cumsum(np.bincount(dst, minlength=num_nodes), out=t_ptr[1:])
+    return t_ptr.astype(np.int32), t_cols, order.astype(np.int32)

@@ -1,0 +1,212 @@
+"""Full-graph GNN trainer CLI (PyTorch port of ``tcgnn_tpu.train``).
+
+Single device: SGT preprocessing timed as ``Prep. (ms)`` with the
+``TC_Blocks`` / ``Exp_Edges`` statistics, then full-batch training with Adam
+(lr 0.01) and NLL over all nodes: 10 warm-up epochs, then ``--epochs`` timed
+epochs reported as ``Train (ms)``.  The timed loop reads no value from the
+device; it is bracketed by ``torch.cuda.synchronize()``.
+
+The device is explicit (``--device``, default ``cuda``) and the trainer never
+moves to another one: without a card, ``--device cuda`` raises.
+
+Run:  python -m tcgnn_tpu_torch.train --dataset pubmed --model gcn --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tcgnn_tpu_torch.config import TileConfig
+from tcgnn_tpu_torch.data import dataset as data_lib
+from tcgnn_tpu_torch.data import synthetic
+from tcgnn_tpu_torch.graph import TiledGraph
+from tcgnn_tpu_torch.models import nets
+
+WARMUP_EPOCHS = 10
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="TC-GNN trainer (PyTorch/CUDA port)")
+    p.add_argument("--dataset", type=str, default="amazon0601")
+    p.add_argument("--dim", type=int, default=None,
+                   help="input feature width (default: the dataset's own)")
+    p.add_argument("--num_layers", type=int, default=2)
+    p.add_argument("--hidden", type=int, default=16)
+    p.add_argument("--classes", type=int, default=None,
+                   help="class count (default: the dataset's own)")
+    p.add_argument("--epochs", type=int, default=200)
+    p.add_argument("--model", type=str, default="gcn", choices=["gcn", "gin", "agnn"])
+    p.add_argument("--data_dir", type=str, default="tcgnn-ae-graphs/")
+    p.add_argument("--blk_h", type=int, default=512)
+    p.add_argument("--blk_w", type=int, default=128)
+    p.add_argument(
+        "--block_group", type=int, default=0,
+        help="SGT block-count padding granule (0 = auto, which is 1 here)",
+    )
+    p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--lr", type=float, default=0.01)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--symmetric", action="store_true",
+                   help="declare A symmetric (skip the transpose tiling)")
+    p.add_argument("--gcn_norm", action="store_true",
+                   help="symmetric D^-1/2 A D^-1/2 normalization")
+    p.add_argument("--dropout", type=float, default=0.5)
+    p.add_argument("--no_dropout", action="store_true")
+    p.add_argument(
+        "--no_hoist", action="store_true",
+        help="recompute the loop-invariant layer-1 aggregate every epoch "
+        "instead of hoisting it out of the training loop (exact either way)",
+    )
+    p.add_argument("--eval", action="store_true", help="report train/test accuracy")
+    p.add_argument("--mesh", type=str, default=None, metavar="GxF",
+                   help="distributed training (not ported yet)")
+    p.add_argument("--device", type=str, default="cuda")
+    return p
+
+
+def load_dataset(args) -> data_lib.GraphDataset:
+    dim = 96 if args.dim is None else args.dim
+    classes = 22 if args.classes is None else args.classes
+    npz = os.path.join(args.data_dir, args.dataset + ".npz")
+    if os.path.exists(npz):
+        return data_lib.load_npz(npz, dim, classes, seed=args.seed)
+    txt = os.path.join(args.data_dir, args.dataset + ".txt")
+    if os.path.exists(txt):
+        return data_lib.load_txt(txt, dim, classes, seed=args.seed)
+    print(f"# dataset {args.dataset}: synthetic (no file in {args.data_dir})")
+    return synthetic.synthesize(args.dataset, args.dim, args.classes, seed=args.seed)
+
+
+def make_config(args) -> TileConfig:
+    return TileConfig(
+        blk_h=args.blk_h,
+        blk_w=args.blk_w,
+        compute_dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
+        block_group=args.block_group,
+    )
+
+
+def make_train_step(
+    graph: TiledGraph, net: nets.GNN, x, y, optimizer, dropout_rate, norm=None,
+    hoist: bool = True, generator: torch.Generator | None = None,
+):
+    """One full-batch epoch per call: forward, NLL over all nodes, Adam
+    update.  Returns the epoch's loss (before the update) as a device tensor.
+
+    ``hoist`` computes the loop-invariant layer-1 aggregate once
+    (``nets.hoist_l1_aggregate``), removing that SpMM and its transpose
+    from every epoch; exact for GCN and GIN.  ``generator`` draws the
+    dropout masks (no dropout without one, or at rate 0).
+    """
+    l1_agg = nets.hoist_l1_aggregate(net.kind, x, graph, norm=norm) if hoist else None
+    gen = generator if dropout_rate > 0 else None
+
+    def step() -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        logp = net(x, graph, dropout_generator=gen, dropout_rate=dropout_rate,
+                   norm=norm, l1_agg=l1_agg)
+        loss = F.nll_loss(logp, y)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def main(argv=None) -> dict:
+    args = build_argparser().parse_args(argv)
+    print(args)
+    if args.model == "agnn":
+        raise NotImplementedError("AGNN is not ported yet (ROADMAP.md, Queue 1 item 3)")
+    if args.mesh:
+        raise NotImplementedError(
+            "distributed training is not ported yet (ROADMAP.md, Queue 1 item 8)"
+        )
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda, but torch finds no CUDA device")
+    # f32 means f32: no TF32 in the dense products.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    ds = load_dataset(args)
+    cfg = make_config(args)
+
+    # ---- SGT preprocessing and upload (the "Prep." stage) ----------------
+    start = time.perf_counter()
+    graph = TiledGraph(
+        ds.row_pointers, ds.column_index, ds.num_nodes, cfg,
+        symmetric=args.symmetric, device=device,
+    )
+    sync()
+    prep = time.perf_counter() - start
+    print("TC_Blocks:\t{}\nExp_Edges:\t{}".format(graph.tc_blocks, graph.exp_edges))
+    print("Prep. (ms):\t{:.3f}".format(prep * 1e3))
+    print("Prep host (ms):\t{:.3f}".format(graph.prep_host_s * 1e3))
+
+    x = torch.from_numpy(ds.x).to(device)
+    y = torch.from_numpy(ds.y.astype(np.int64)).to(device)
+
+    # ---- model + optimizer -------------------------------------------------
+    net = nets.init_net(
+        torch.Generator().manual_seed(args.seed), args.model, ds.num_features,
+        args.hidden, ds.num_classes, args.num_layers, device=device,
+    )
+    optimizer = torch.optim.Adam(net.parameters(), lr=args.lr)
+    dropout = 0.0 if args.no_dropout else args.dropout
+    norm = (
+        torch.from_numpy(1.0 / ds.norm_degrees()).to(device) if args.gcn_norm else None
+    )
+    step = make_train_step(
+        graph, net, x, y, optimizer, dropout, norm=norm, hoist=not args.no_hoist,
+        generator=torch.Generator(device=device).manual_seed(args.seed + 1),
+    )
+
+    # ---- warm-up epochs, then timed epochs ----------------------------------
+    first_loss = loss = step()
+    for _ in range(WARMUP_EPOCHS - 1):
+        loss = step()
+    sync()
+    start_train = time.perf_counter()
+    for _ in range(args.epochs):
+        loss = step()
+    sync()
+    train_time = time.perf_counter() - start_train
+    epochs_run = max(args.epochs, 1)
+    final_loss = float(loss)
+
+    print("Final loss:\t{:.6f}".format(final_loss))
+    print("Train (ms):\t{:6.3f}".format(train_time * 1e3 / epochs_run))
+
+    if args.eval:
+        with torch.no_grad():
+            pred = net(x, graph, norm=norm).argmax(dim=1)
+        for split, mask in (("train", ds.train_mask), ("test", ds.test_mask)):
+            if mask.any():
+                m = torch.from_numpy(mask).to(device)
+                acc = float((pred[m] == y[m]).float().mean())
+                print("Acc {}:\t{:.4f}".format(split, acc))
+
+    return {
+        "tc_blocks": graph.tc_blocks,
+        "exp_edges": graph.exp_edges,
+        "prep_ms": prep * 1e3,
+        "prep_host_ms": graph.prep_host_s * 1e3,
+        "first_loss": float(first_loss),
+        "final_loss": final_loss,
+        "train_ms": train_time * 1e3 / epochs_run,
+    }
+
+
+if __name__ == "__main__":
+    main()
