@@ -5,18 +5,33 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits nonzero:
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
-  2. build K1 (``tcgnn_tpu_torch/csrc/spmm_dense.cu``) with nvcc for sm_90a;
+  2. build K1-K4 (``tcgnn_tpu_torch/csrc/{spmm_dense,spmm_sfused,
+     sddmm_dense}.cu``) with nvcc for sm_90a, one nvcc per source, all at
+     once, printing ``-Xptxas -v``;
   3. K1 against its plain PyTorch version on the card: pubmed tiling at
      512x128 and 16x8, d in {16, 500}, f32 and bf16; a graph with a
      duplicate count above 127 (float tiles); an asymmetric graph through
-     its transpose tiling;
+     its transpose tiling, and through weighted tiles;
   4. autograd: ``TiledGraph.spmm`` forward and backward, kernel against
      plain version and CSR oracle, on the asymmetric graph;
-  5. the main path through ``tcgnn_tpu_torch.train.main``: pubmed GCN with
-     and without ``--no_hoist``, and GIN, 20 timed epochs each; the loss must
-     be finite and fall, K1 must have launched and the plain version must
-     not have run;
-  6. K1 and the plain version timed with CUDA events at the pubmed shapes.
+  5. K2, K3 and K4 against their plain versions and f64 CSR oracles:
+     pubmed at 512x128 and 16x8, d in {32, 3} (AGNN's hidden and class
+     widths), f32 and bf16, K2's value operand shared and separate; K4 on
+     the asymmetric graph too;
+  6. autograd of the AGNN ops, forward and backward, against f64 oracles:
+     ``agnn_aggregate`` (K2/K3, gradient of the attention weights included)
+     on pubmed, and the weighted SpMM and SDDMM (K1/K4) on the asymmetric
+     graph;
+  7. the main path through ``tcgnn_tpu_torch.train.main``, 20 timed epochs
+     each: pubmed GCN with and without ``--no_hoist``, and GIN (K1); AGNN,
+     hidden 32, on pubmed with 2 layers and with 4 (K2/K3), and with 2
+     layers on the asymmetric graph (K4 and weighted K1).  The loss must be
+     finite and fall, except in the 4-layer AGNN run: that configuration
+     overflows to nan in f32, as in the JAX package, and is only timed.
+     Each run must have launched its kernels, and no plain version may have
+     run;
+  8. every kernel and its plain version timed with CUDA events at the
+     pubmed shapes.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
@@ -24,11 +39,14 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -36,19 +54,42 @@ import torch
 
 from tcgnn_tpu_torch import TileConfig, TiledGraph, train
 from tcgnn_tpu_torch.data import coo_to_csr, powerlaw_graph, synthesize
-from tcgnn_tpu_torch.ops import _kernels
-from tcgnn_tpu_torch.ops.reference import spmm_ref
-from tcgnn_tpu_torch.ops.spmm import reset_counts, spmm_tc_dense, spmm_tc_dense_torch
+from tcgnn_tpu_torch.ops import (
+    _kernels,
+    build_a_tiles,
+    reset_counts,
+    sddmm_tc_dense,
+    sddmm_tc_dense_torch,
+    spmm_sfused,
+    spmm_sfused_bwd,
+    spmm_sfused_bwd_torch,
+    spmm_sfused_torch,
+    spmm_tc_dense,
+    spmm_tc_dense_torch,
+)
+from tcgnn_tpu_torch.ops.reference import sddmm_ref, sfused_bwd_ref, sfused_ref, spmm_ref
 from tcgnn_tpu_torch.sgt.translate import sparse_graph_translate, transpose_csr
 
-# Summation order is the only difference between K1 and its references, so
-# rtol applies to the sum of the magnitudes of the summed terms, |A| @ |x|
-# (an f32 sum's rounding error scales with it, not with the result: the
-# pubmed hub row sums 17,058 terms that largely cancel).
+# Summation order is the only difference between a kernel and its
+# references, so rtol applies to the sum of the magnitudes of the summed
+# terms (|A| @ |x| for K1; the oracle over absolute values for K2-K4): an
+# f32 sum's rounding error scales with it, not with the result (the pubmed
+# hub row sums 17,058 terms that largely cancel).
 F32_TOL = dict(rtol=1e-5, atol=1e-4)
-BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # bf16 output store: 8 mantissa bits
+# bf16: one rounding of a stored sum (K1), or of a score whose last f32 bit
+# the summation order moved (K2, K3): 8 mantissa bits.
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 GEOMETRIES = {"512x128": (512, 128), "16x8": (16, 8)}
 TIMING_RUNS = 25
+KERNEL_SOURCES = ("spmm_dense", "spmm_sfused", "sddmm_dense")
+# name, source, TPU kernel it replaces, wrapper
+KERNELS = {
+    "K1": ("spmm_dense (K1)", "spmm_dense", "tcgnn_tpu/ops/spmm.py:249", spmm_tc_dense),
+    "K2": ("spmm_sfused (K2)", "spmm_sfused", "tcgnn_tpu/ops/spmm.py:1335", spmm_sfused),
+    "K3": ("spmm_sfused_bwd (K3)", "spmm_sfused", "tcgnn_tpu/ops/spmm.py:1487",
+           spmm_sfused_bwd),
+    "K4": ("sddmm_dense (K4)", "sddmm_dense", "tcgnn_tpu/ops/sddmm.py:264", sddmm_tc_dense),
+}
 
 
 def card_line() -> str:
@@ -71,7 +112,7 @@ def compare(name, got, want, mag, tol) -> float:
         torch.all(err <= tol["atol"] + tol["rtol"] * mag)
     )
     print(f"  {name}: max_abs_err={max_abs:.3e} "
-          f"(rtol={tol['rtol']} of |A||x|, atol={tol['atol']}) {'ok' if ok else 'FAIL'}")
+          f"(rtol={tol['rtol']} of the magnitude, atol={tol['atol']}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its reference")
     return max_abs
@@ -79,32 +120,38 @@ def compare(name, got, want, mag, tol) -> float:
 
 class Csr:
     """A CSR adjacency on the card, for the f64 oracle ``A @ x`` and the
-    magnitude ``|A| @ |x|``."""
+    magnitude ``|A| @ |x|`` (optionally with per-edge weights ``w``)."""
 
     def __init__(self, rp, ci, dev):
         self.ptr = torch.from_numpy(np.asarray(rp)).to(dev)
         self.idx = torch.from_numpy(np.asarray(ci)).to(dev)
 
-    def oracle(self, x):
-        return spmm_ref(x.double(), self.ptr, self.idx)
+    def oracle(self, x, w=None):
+        return spmm_ref(x.double(), self.ptr, self.idx, None if w is None else w.double())
 
-    def magnitude(self, x):
-        return spmm_ref(x.double().abs(), self.ptr, self.idx)
+    def magnitude(self, x, w=None):
+        return spmm_ref(x.double().abs(), self.ptr, self.idx,
+                        None if w is None else w.double().abs())
 
 
-def check_case(name, x, meta, tiles, csr, errs=None):
+def with_dtype(meta, dtype):
+    return dataclasses.replace(meta, config=dataclasses.replace(meta.config, compute_dtype=dtype))
+
+
+def check_case(name, x, meta, tiles, csr, errs=None, w=None):
     """K1 on (meta, tiles) against the plain version (f32 and bf16) and, in
-    f32, the CSR oracle.  Records the f32 error against the plain version."""
-    mag = csr.magnitude(x)
+    f32, the CSR oracle.  Records the f32 error against the plain version.
+    ``w``: the tiles are ``build_a_tiles(meta, w)``, and stay f32 under bf16
+    (the kernel rounds them as it reads them)."""
+    mag = csr.magnitude(x, w)
     got = spmm_tc_dense(x, meta, tiles)
     err = compare(f"{name} f32 vs plain", got, spmm_tc_dense_torch(x, meta, tiles), mag, F32_TOL)
-    compare(f"{name} f32 vs CSR oracle (f64)", got, csr.oracle(x), mag, F32_TOL)
+    compare(f"{name} f32 vs CSR oracle (f64)", got, csr.oracle(x, w), mag, F32_TOL)
     if errs is not None:
         errs[name] = err
-    mb = dataclasses.replace(
-        meta, config=dataclasses.replace(meta.config, compute_dtype=torch.bfloat16))
+    mb = with_dtype(meta, torch.bfloat16)
     xb = x.to(torch.bfloat16)
-    tb = tiles if tiles.dtype == torch.int8 else tiles.to(torch.bfloat16)
+    tb = tiles if tiles.dtype == torch.int8 or w is not None else tiles.to(torch.bfloat16)
     got = spmm_tc_dense(xb, mb, tb)
     if got.dtype != torch.bfloat16:
         raise AssertionError(f"{name}: bf16 config stored {got.dtype}")
@@ -167,6 +214,9 @@ def phase_transpose_and_autograd(dev) -> dict:
             raise AssertionError("test graph came out symmetric")
         dy = randn((n, 48), 13, dev)
         check_case(f"asymmetric {bh}x{bw} transpose", dy, g.meta_t, g.a_struct_t, csr_t, errs)
+        w = randn((g.num_edges,), 19, dev)
+        check_case(f"asymmetric {bh}x{bw} weighted", dy, g.meta, build_a_tiles(g.meta, w), csr,
+                   errs, w=w)
 
         x = randn((n, 48), 17, dev).requires_grad_(True)
         out = g.spmm(x)
@@ -184,31 +234,183 @@ def phase_transpose_and_autograd(dev) -> dict:
     return errs
 
 
-def phase_train() -> tuple[list, int]:
-    """Phase 5: the main path, through the trainer's entry point."""
-    runs = [
-        ["--model", "gcn", "--no_hoist"],
-        ["--model", "gcn"],
-        ["--model", "gin"],
-    ]
+def check_agnn_kernels(name, meta, tiles, csr, d, dev, errs):
+    """K2 (value operand shared and separate), K3 and K4 on one tiling at
+    width d, f32 and bf16, against the plain versions and, in f32, the f64
+    CSR oracles (K4 in bf16 too: its products are exact in f32)."""
+    n = meta.num_nodes
+    ptr, idx = csr.ptr, csr.idx
+    xl, xr, xv = (randn((n, d), 30 + i, dev) * 0.3 for i in range(3))
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        m, tag = with_dtype(meta, dtype), f"{name} d={d} {str(dtype)[6:]}"
+        ab = [t.to(dtype).double() for t in (xl, xr, xv)]  # the compute-dtype operands
+        for share in (True, False):
+            v = xr if share else xv
+            got = spmm_sfused(xl, xr, v, m, tiles)
+            mag = sfused_ref(ab[0].abs(), ab[1].abs(), (ab[1] if share else ab[2]).abs(), ptr, idx)
+            what = "shared" if share else "separate"
+            err = compare(f"K2 {tag} xv {what} vs plain", got,
+                          spmm_sfused_torch(xl, xr, v, m, tiles), mag, tol)
+            if dtype == torch.float32:
+                errs["K2"][f"{tag} {what}"] = err
+                compare(f"K2 {tag} xv {what} vs CSR oracle (f64)", got,
+                        sfused_ref(ab[0], ab[1], ab[1] if share else ab[2], ptr, idx), mag, tol)
+        dx3, u = spmm_sfused_bwd(xl, xr, m, tiles)
+        p_dx3, p_u = spmm_sfused_bwd_torch(xl, xr, m, tiles)
+        mag_dx3, mag_u = sfused_bwd_ref(ab[0].abs(), ab[1].abs(), ptr, idx)
+        err = max(compare(f"K3 {tag} dx3 vs plain", dx3, p_dx3, mag_dx3, tol),
+                  compare(f"K3 {tag} u vs plain", u, p_u, mag_u, tol))
+        if dtype == torch.float32:
+            errs["K3"][tag] = err
+            o_dx3, o_u = sfused_bwd_ref(ab[0], ab[1], ptr, idx)
+            compare(f"K3 {tag} dx3 vs CSR oracle (f64)", dx3, o_dx3, mag_dx3, tol)
+            compare(f"K3 {tag} u vs CSR oracle (f64)", u, o_u, mag_u, tol)
+        check_sddmm(tag, xl, xr, m, csr, ab, errs)
+
+
+def check_sddmm(tag, xa, xb, meta, csr, ab, errs):
+    """K4 against its plain version and the f64 oracle (``ab``: the
+    compute-dtype operands in f64)."""
+    got = sddmm_tc_dense(xa, meta, xb)
+    mag = sddmm_ref(ab[0].abs(), csr.ptr, csr.idx, ab[1].abs())
+    err = compare(f"K4 {tag} vs plain", got, sddmm_tc_dense_torch(xa, meta, xb), mag, F32_TOL)
+    compare(f"K4 {tag} vs CSR oracle (f64)", got, sddmm_ref(ab[0], csr.ptr, csr.idx, ab[1]), mag,
+            F32_TOL)
+    if meta.config.compute_dtype == torch.float32:
+        errs["K4"][tag] = err
+
+
+def phase_agnn_kernels(ds, dev) -> dict:
+    """Phase 5.  Returns, per kernel, the f32 max abs error of each case
+    against the plain version."""
+    errs = {"K2": {}, "K3": {}, "K4": {}}
+    csr = Csr(ds.row_pointers, ds.column_index, dev)
+    for geo, (bh, bw) in GEOMETRIES.items():
+        host = sparse_graph_translate(ds.row_pointers, ds.column_index, ds.num_nodes,
+                                      TileConfig(blk_h=bh, blk_w=bw), build_tiles=True)
+        meta, tiles = host.to(dev), torch.from_numpy(host.a_tiles).to(dev)
+        for d in (32, 3):
+            check_agnn_kernels(f"pubmed {geo}", meta, tiles, csr, d, dev, errs)
+    n, rp, ci = asymmetric_graph()
+    csr = Csr(rp, ci, dev)
+    for bh, bw in GEOMETRIES.values():
+        g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw), device=dev)
+        xa, xb = randn((n, 32), 40, dev), randn((n, 32), 41, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            ab = [t.to(dtype).double() for t in (xa, xb)]
+            check_sddmm(f"asymmetric {bh}x{bw} {str(dtype)[6:]}", xa, xb,
+                        with_dtype(g.meta, dtype), csr, ab, errs)
+    return errs
+
+
+def oracle_grads(fn, inputs):
+    """``fn``'s scalar value and the gradients of its inputs, in f64, at the
+    inputs and at their absolute values (every gradient here is a sum of
+    products of the inputs, so the second bounds each summed term)."""
     results = []
-    reset_counts()
-    for extra in runs:
-        before = spmm_tc_dense.launches
+    for transform in (lambda t: t, torch.abs):
+        leaves = [transform(t.detach().double()).requires_grad_(True) for t in inputs]
+        fn(*leaves).backward()
+        results.append([t.grad for t in leaves])
+    return results
+
+
+def phase_agnn_autograd(ds, dev) -> None:
+    """Phase 6: the AGNN ops, forward and backward, against f64 oracles."""
+    csr = Csr(ds.row_pointers, ds.column_index, dev)
+    n = ds.num_nodes
+    for geo, (bh, bw) in GEOMETRIES.items():
+        g = TiledGraph(ds.row_pointers, ds.column_index, n, TileConfig(blk_h=bh, blk_w=bw),
+                       device=dev)
+        x, r = randn((n, 32), 50, dev) * 0.3, randn((n, 32), 51, dev)
+        att = torch.tensor([[0.6, -0.3]], device=dev)
+        leaves = [x.clone().requires_grad_(True), att.clone().requires_grad_(True)]
+        out = g.agnn_aggregate(*leaves)
+        (out * r).sum().backward()
+        x64, a64 = x.double(), att.double()
+        compare(f"agnn_aggregate {geo} forward vs oracle (f64)", out.detach(),
+                a64.mean() * sfused_ref(x64, x64, x64, csr.ptr, csr.idx),
+                a64.abs().mean() * sfused_ref(x64.abs(), x64.abs(), x64.abs(), csr.ptr, csr.idx),
+                F32_TOL)
+        want, mag = oracle_grads(
+            lambda x_, a_, r_: (a_.mean() * sfused_ref(x_, x_, x_, csr.ptr, csr.idx) * r_).sum(),
+            [x, att, r])
+        compare(f"agnn_aggregate {geo} dx vs oracle (f64)", leaves[0].grad, want[0], mag[0],
+                F32_TOL)
+        compare(f"agnn_aggregate {geo} datt vs oracle (f64)", leaves[1].grad, want[1], mag[1],
+                F32_TOL)
+
+    n, rp, ci = asymmetric_graph()
+    csr = Csr(rp, ci, dev)
+    for bh, bw in GEOMETRIES.values():
+        g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw), device=dev)
+        x, w = randn((n, 16), 52, dev), randn((g.num_edges,), 53, dev)
+        r, re = randn((n, 16), 54, dev), randn((g.num_edges,), 55, dev)
+        leaves = [x.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+        out, e = g.spmm_weighted(*leaves), g.sddmm(leaves[0])
+        ((out * r).sum() + (e * re).sum()).backward()
+        name = f"spmm_weighted + sddmm {bh}x{bw}"
+        compare(f"{name} forward (spmm_weighted) vs oracle (f64)", out.detach(), csr.oracle(x, w),
+                csr.magnitude(x, w), F32_TOL)
+        compare(f"{name} forward (sddmm) vs oracle (f64)", e.detach(),
+                sddmm_ref(x.double(), csr.ptr, csr.idx),
+                sddmm_ref(x.double().abs(), csr.ptr, csr.idx), F32_TOL)
+        want, mag = oracle_grads(
+            lambda x_, w_, r_, re_: (spmm_ref(x_, csr.ptr, csr.idx, w_) * r_).sum()
+            + (sddmm_ref(x_, csr.ptr, csr.idx) * re_).sum(),
+            [x, w, r, re])
+        compare(f"{name} dx vs oracle (f64)", leaves[0].grad, want[0], mag[0], F32_TOL)
+        compare(f"{name} dw vs oracle (f64)", leaves[1].grad, want[1], mag[1], F32_TOL)
+
+
+def write_asymmetric_dataset(directory) -> str:
+    """The asymmetric graph as the trainer's ``.npz`` format, with random
+    labels of 4 classes."""
+    n, rp, ci = asymmetric_graph()
+    rows = np.repeat(np.arange(n), np.diff(rp))
+    y = np.random.default_rng(12).integers(0, 4, n).astype(np.int32)
+    np.savez(os.path.join(directory, "asymmetric.npz"), src_li=rows, dst_li=ci, num_nodes=n, y=y)
+    return "asymmetric"
+
+
+def phase_train(data_dir) -> tuple[list, dict]:
+    """Phase 7: the main path, through the trainer's entry point.  Every
+    count is set to 0 just before each run and read just after it; returns
+    the runs and each kernel's launches summed over them."""
+    asym = write_asymmetric_dataset(data_dir)
+    agnn = ["--model", "agnn", "--hidden", "32"]
+    runs = [  # label, arguments, kernels the run must launch, loss must fall
+        ("gcn --no_hoist", ["--model", "gcn", "--no_hoist"], ("K1",), True),
+        ("gcn", ["--model", "gcn"], ("K1",), True),
+        ("gin", ["--model", "gin"], ("K1",), True),
+        ("agnn 2 layers", [*agnn, "--num_layers", "2"], ("K2", "K3"), True),
+        ("agnn 4 layers", [*agnn, "--num_layers", "4"], ("K2", "K3"), False),
+        ("agnn 2 layers, asymmetric graph",
+         [*agnn, "--num_layers", "2", "--data_dir", data_dir, "--dataset", asym, "--dim", "64"],
+         ("K1", "K4"), True),
+    ]
+    results, launches = [], {k: 0 for k in KERNELS}
+    for label, extra, expected, must_fall in runs:
         print(f"--- train.main {' '.join(extra)}")
-        r = train.main(["--dataset", "pubmed", "--device", "cuda", "--epochs", "20", *extra])
-        launched = spmm_tc_dense.launches - before
+        args = ["--dataset", "pubmed", "--device", "cuda", "--epochs", "20", *extra]
+        reset_counts()
+        r = train.main(args)
+        counts = {k: (w.launches, w.plain_calls) for k, (_, _, _, w) in KERNELS.items()}
         print(f"  first loss {r['first_loss']:.6f}  final loss {r['final_loss']:.6f}  "
-              f"K1 launches {launched}  plain calls {spmm_tc_dense.plain_calls}")
-        if not math.isfinite(r["final_loss"]) or not r["final_loss"] < r["first_loss"]:
-            raise AssertionError(f"{extra}: loss did not fall ({r['first_loss']} -> {r['final_loss']})")
-        if launched <= 0 or spmm_tc_dense.plain_calls != 0:
-            raise AssertionError(f"{extra}: K1 launches {launched}, plain calls "
-                                 f"{spmm_tc_dense.plain_calls}")
-        if r["tc_blocks"] != 334:
+              + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}" for k, c in counts.items()))
+        if must_fall and not (math.isfinite(r["final_loss"])
+                              and r["final_loss"] < r["first_loss"]):
+            raise AssertionError(f"{label}: loss did not fall "
+                                 f"({r['first_loss']} -> {r['final_loss']})")
+        if any(counts[k][0] <= 0 for k in expected) or any(c[1] for c in counts.values()):
+            raise AssertionError(f"{label}: expected launches of {expected}, no plain calls; "
+                                 f"got {counts}")
+        if "--data_dir" not in extra and r["tc_blocks"] != 334:
             raise AssertionError(f"pubmed at 512x128 gave {r['tc_blocks']} TC blocks, not 334")
-        results.append((" ".join(extra), r))
-    return results, spmm_tc_dense.launches
+        for k, c in counts.items():
+            launches[k] += c[0]
+        results.append((label, r))
+    return results, launches
 
 
 def median_ms(fn, runs=TIMING_RUNS) -> float:
@@ -225,28 +427,49 @@ def median_ms(fn, runs=TIMING_RUNS) -> float:
     return statistics.median(times)
 
 
+def timed_pair(kernel, plain) -> tuple[float, float]:
+    """Median ms of kernel and plain version, in turns: plain, kernel,
+    kernel, plain."""
+    p1, k1, k2, p2 = median_ms(plain), median_ms(kernel), median_ms(kernel), median_ms(plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
 def phase_timing(ds, dev, card) -> dict:
-    """Phase 6: K1 and the plain version at the pubmed shapes (f32), in
-    turns: plain, kernel, kernel, plain."""
+    """Phase 8: each kernel and its plain version at the pubmed shapes
+    (f32): K1 at d=16 and 500 (GCN's layer-2 and hoisted layer-1
+    aggregates), K2-K4 at d=32 and 3 (AGNN's hidden and class widths)."""
     times = {}
     for geo, (bh, bw) in GEOMETRIES.items():
         g = TiledGraph(ds.row_pointers, ds.column_index, ds.num_nodes,
                        TileConfig(blk_h=bh, blk_w=bw), device=dev)
-        for d, what in ((16, "layer-2 aggregate, d=16"), (500, "hoisted layer-1 aggregate, d=500")):
+        m, a = g.meta, g.a_struct
+        for d in (16, 500):
             x = randn((ds.num_nodes, d), 100 + d, dev)
-
-            def kernel():
-                spmm_tc_dense(x, g.meta, g.a_struct)
-
-            def plain():
-                spmm_tc_dense_torch(x, g.meta, g.a_struct)
-
-            p1, k1, k2, p2 = median_ms(plain), median_ms(kernel), median_ms(kernel), median_ms(plain)
-            k, p = (k1 + k2) / 2, (p1 + p2) / 2
-            times[(geo, d)] = (k, p)
-            print(f"  time {geo} {what}: K1 {k:.4f} ms, plain {p:.4f} ms "
-                  f"(median of {TIMING_RUNS}, CUDA events; card: {card})")
+            times[("K1", geo, d)] = timed_pair(lambda: spmm_tc_dense(x, m, a),
+                                               lambda: spmm_tc_dense_torch(x, m, a))
+        for d in (32, 3):
+            x, dy = randn((ds.num_nodes, d), 200 + d, dev) * 0.3, randn((ds.num_nodes, d), 300, dev)
+            times[("K2", geo, d)] = timed_pair(lambda: spmm_sfused(x, x, x, m, a),
+                                               lambda: spmm_sfused_torch(x, x, x, m, a))
+            times[("K3", geo, d)] = timed_pair(lambda: spmm_sfused_bwd(x, dy, m, a),
+                                               lambda: spmm_sfused_bwd_torch(x, dy, m, a))
+            times[("K4", geo, d)] = timed_pair(lambda: sddmm_tc_dense(x, m, x),
+                                               lambda: sddmm_tc_dense_torch(x, m, x))
+    for (k, geo, d), (kt, pt) in times.items():
+        print(f"  time {KERNELS[k][0]} {geo} d={d}: kernel {kt:.4f} ms, plain {pt:.4f} ms "
+              f"(median of {TIMING_RUNS}, CUDA events; card: {card})")
     return times
+
+
+def build_kernels():
+    """One nvcc per source, all started together; prints ``-Xptxas -v``."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(lambda name: _kernels.build(name, verbose=True), KERNEL_SOURCES))
+    for name in KERNEL_SOURCES:
+        _kernels.load(name)
+    print(f"K1-K4 build (nvcc, sm_90a, {len(KERNEL_SOURCES)} sources at once): "
+          f"{time.perf_counter() - t0:.2f} s")
 
 
 def main():
@@ -261,42 +484,47 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    # ---- 2. build K1 ---------------------------------------------------------
-    t0 = time.perf_counter()
-    _kernels.build("spmm_dense", verbose=True)
-    _kernels.load_spmm_dense()
-    print(f"K1 build (nvcc, sm_90a): {time.perf_counter() - t0:.2f} s")
+    # ---- 2. build K1-K4 -------------------------------------------------------
+    build_kernels()
 
-    # ---- 3-4. kernel against plain version ------------------------------------
+    # ---- 3-6. kernels against plain versions and oracles ---------------------
     ds = synthesize("pubmed", seed=0)
     print(f"pubmed: N={ds.num_nodes} E={ds.num_edges} d={ds.num_features}")
-    errs = phase_compare(ds, dev)
-    errs.update(phase_transpose_and_autograd(dev))
+    errs = {"K1": phase_compare(ds, dev)}
+    errs["K1"].update(phase_transpose_and_autograd(dev))
+    errs.update(phase_agnn_kernels(ds, dev))
+    phase_agnn_autograd(ds, dev)
     torch.cuda.synchronize()
 
-    # ---- 5. the main path ---------------------------------------------------
-    runs, launches = phase_train()
+    # ---- 7. the main path ---------------------------------------------------
+    with tempfile.TemporaryDirectory() as data_dir:
+        runs, launches = phase_train(data_dir)
 
-    # ---- 6. timing ----------------------------------------------------------
+    # ---- 8. timing ----------------------------------------------------------
     times = phase_timing(ds, dev, card)
     torch.cuda.synchronize()
 
     for name, r in runs:
         print(f"main path [{name}]: TC_Blocks {r['tc_blocks']}  Prep. (ms) {r['prep_ms']:.3f}  "
               f"Prep host (ms) {r['prep_host_ms']:.3f}  Train (ms) {r['train_ms']:.3f}  "
-              f"Final loss {r['final_loss']:.6f}  (card: {card})")
-    k16, p16 = times[("512x128", 16)]
+              f"First loss {r['first_loss']:.6f}  Final loss {r['final_loss']:.6f}  "
+              f"(card: {card})")
+    width = {"K1": 16, "K2": 32, "K3": 32, "K4": 32}  # the pubmed 512x128 times reported
+    kernels = []
+    for k, (name, source, replaces, _) in KERNELS.items():
+        kt, pt = times[(k, "512x128", width[k])]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"tcgnn_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces,
+            "launches": launches[k],
+            "max_abs_err": max(errs[k].values()),
+            "ms": kt,
+            "plain_ms": pt,
+        })
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "spmm_dense (K1)",
-        "route": "cuda",
-        "source": "tcgnn_tpu_torch/csrc/spmm_dense.cu",
-        "replaces": "tcgnn_tpu/ops/spmm.py:249",
-        "launches": launches,
-        "max_abs_err": max(errs.values()),
-        "ms": k16,
-        "plain_ms": p16,
-    }]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -64,6 +64,16 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
 
+// A value rounded to the feature type, as the TPU kernel casts its tiles
+// (`a_ref[k].astype(compute_dtype)`): weighted f32 tiles round to bf16
+// under bf16.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
@@ -114,7 +124,7 @@ spmm_dense_kernel(const FeatT* __restrict__ x, const TileT* __restrict__ tiles,
 #pragma unroll
       for (int q = 0; q < kMaxChunks; ++q) {
         const int k = q * 32 + lane;
-        a[i][q] = row_ok && k < blk_w ? to_f32(tile[(size_t)r * blk_w + k]) : 0.f;
+        a[i][q] = row_ok && k < blk_w ? round_to<FeatT>(to_f32(tile[(size_t)r * blk_w + k])) : 0.f;
       }
     }
 #pragma unroll

@@ -1,17 +1,23 @@
-"""GNN layers: GCN and GIN convolutions and the SAG primitive (PyTorch port).
+"""GNN layers: GCN, GIN and AGNN convolutions and the SAG primitive (PyTorch port).
 
 Counterpart of ``tcgnn_tpu.models.layers`` with the same schedule:
 
-* ``gcn_conv`` — ``aggregate(X @ W)``, or ``aggregate(X) @ W`` when the input
-  is narrow (``aggregate_first``);
-* ``gin_conv`` — ``aggregate(X) @ W``;
-* ``sag``      — pure aggregation.
+* ``gcn_conv``  — ``aggregate(X @ W)``, or ``aggregate(X) @ W`` when the
+  input is narrow (``aggregate_first``);
+* ``gin_conv``  — ``aggregate(X) @ W``;
+* ``agnn_conv`` — ``X' = X @ W``, then attention-weighted aggregation:
+  the score-fused ``TiledGraph.agnn_aggregate`` (K2/K3) where the graph has
+  it, else per-edge scores (K4) and one weighted SpMM (K1) per head;
+* ``sag``       — pure aggregation.
 
 Weights keep the JAX layout ``[in, out]``.  Dense products are plain torch
-(cuBLAS on the card); aggregation runs K1 through ``TiledGraph.spmm``.
+(cuBLAS on the card); aggregation runs the port's kernels through
+``TiledGraph``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -74,6 +80,43 @@ def gin_conv(weights: torch.Tensor, x: torch.Tensor, graph: TiledGraph) -> torch
     """SpMM aggregation first, then GEMM update."""
     ct = _ct(graph)
     return _amp_dot(graph.spmm(x.to(ct)), weights, ct)
+
+
+def init_agnn(generator: torch.Generator, in_dim: int, out_dim: int, n_heads: int = 1):
+    """AGNN parameters, uniform on ``±1/sqrt(out_dim)`` (the JAX
+    ``init_agnn``): ``weights [in, out]`` and ``attention_w [1, n_heads]``,
+    drawn from ``generator`` in that order."""
+    stdv = 1.0 / math.sqrt(out_dim)
+
+    def uniform(shape):
+        u = torch.rand(shape, generator=generator, device=generator.device)
+        return u * (2 * stdv) - stdv
+
+    return {"weights": uniform((in_dim, out_dim)), "attention_w": uniform((1, n_heads))}
+
+
+def agnn_conv(
+    weights: torch.Tensor, attention_w: torch.Tensor, x: torch.Tensor, graph: TiledGraph
+) -> torch.Tensor:
+    """Projection, edge scores, per-head attention, weighted aggregation.
+
+    Attention is ``att_e^h = c_h * e_e`` with ``e = <x'_i, x'_j>``, so the
+    head-averaged output is ``mean(c) * (A ⊙ S) x'``: on a graph with
+    ``agnn_aggregate`` (symmetric) that is one score-fused pass for any head
+    count.  Otherwise the reference schedule: scores once, one weighted SpMM
+    per head, then the head average.
+    """
+    x_prime = _amp_dot(x, weights, _ct(graph))
+    fused = getattr(graph, "agnn_aggregate", None)
+    if fused is not None:
+        return fused(x_prime, attention_w)
+    n_heads = attention_w.shape[1]
+    edge_feature = graph.sddmm(x_prime)  # [E] f32
+    edge_attentions = edge_feature[:, None] * attention_w  # [E, n_heads]
+    out = graph.spmm_weighted(x_prime, edge_attentions[:, 0])
+    for h in range(1, n_heads):
+        out = out + graph.spmm_weighted(x_prime, edge_attentions[:, h])
+    return out / n_heads
 
 
 def sag(x: torch.Tensor, graph: TiledGraph) -> torch.Tensor:

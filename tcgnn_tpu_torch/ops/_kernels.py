@@ -16,6 +16,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -66,16 +68,76 @@ def build(name: str, verbose: bool = False) -> Path:
     return lib
 
 
-def load_spmm_dense(verbose: bool = False) -> ctypes.CDLL:
-    """The K1 library, with every C function's argument types declared
-    (an undeclared pointer argument would be cut to 32 bits)."""
-    if "spmm_dense" in _loaded and not verbose:
-        return _loaded["spmm_dense"]
-    lib = ctypes.CDLL(str(build("spmm_dense", verbose=verbose)))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tcgnn_spmm_dense.argtypes = [p] * 8 + [i] * 10 + [p]
-    lib.tcgnn_spmm_dense.restype = i
-    lib.tcgnn_cuda_error_string.argtypes = [i]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Every C function of each library, with its argument types: an undeclared
+# pointer argument would be cut to 32 bits.  Each returns a cudaError_t.
+SIGNATURES = {
+    "spmm_dense": {"tcgnn_spmm_dense": [_P] * 8 + [_I] * 10 + [_P]},
+    "sddmm_dense": {"tcgnn_sddmm_dense": [_P] * 5 + [_I] * 3 + [_P]},
+    "spmm_sfused": {
+        "tcgnn_spmm_sfused": [_P] * 9 + [_I] * 9 + [_P],
+        "tcgnn_spmm_sfused_bwd": [_P] * 9 + [_I] * 9 + [_P],
+    },
+}
+
+
+def load(name: str, verbose: bool = False) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu``, built at first use, with
+    every C function's argument types declared."""
+    if name in _loaded and not verbose:
+        return _loaded[name]
+    lib = ctypes.CDLL(str(build(name, verbose=verbose)))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _I
+    lib.tcgnn_cuda_error_string.argtypes = [_I]
     lib.tcgnn_cuda_error_string.restype = ctypes.c_char_p
-    _loaded["spmm_dense"] = lib
+    _loaded[name] = lib
     return lib
+
+
+def check_operands(op: str, device, tiles=None, **index) -> None:
+    """Raise unless the tiles and every index array lie on ``device`` and
+    are contiguous (a kernel reads them through raw pointers), and the index
+    arrays are int32."""
+    for name, t in dict(index, a_tiles=tiles).items():
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{op}: {name} on {t.device}, features on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} is not contiguous")
+        if name in index and t.dtype != torch.int32:
+            raise TypeError(f"{op}: {name} must be int32")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The handle of the current stream on ``t``'s device, for a launch."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = lib.tcgnn_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+# Every kernel wrapper, each with two counters: ``launches`` (kernel
+# launches) and ``plain_calls`` (runs of the plain version on a CPU tensor).
+COUNTED = []
+
+
+def counted(wrapper):
+    """Give a kernel wrapper its two counters, at 0."""
+    wrapper.launches = 0
+    wrapper.plain_calls = 0
+    COUNTED.append(wrapper)
+    return wrapper
+
+
+def reset_counts() -> None:
+    """Set every kernel wrapper's ``launches`` and ``plain_calls`` to 0."""
+    for wrapper in COUNTED:
+        wrapper.launches = 0
+        wrapper.plain_calls = 0

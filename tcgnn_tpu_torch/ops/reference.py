@@ -3,7 +3,12 @@
 Independent of the tiling: a row gather plus ``index_add_``.
 
 * ``spmm_ref``  — ``out[i] = sum_{e=(i,j)} w_e * X[j]``;
-* ``sddmm_ref`` — ``e_(i,j) = <X[i], X[j]>``.
+* ``sddmm_ref`` — ``e_(i,j) = <Xa[i], Xb[j]>``;
+* ``sfused_ref`` — the score-fused SpMM, ``out[i] = sum_{e=(i,j)}
+  <Xl[i], Xr[j]> * Xv[j]``;
+* ``sfused_bwd_ref`` — its one-pass backward terms ``(dx3, u)``.
+
+Run them in f64 for an oracle of the f32 kernels.
 """
 
 from __future__ import annotations
@@ -40,7 +45,39 @@ def sddmm_ref(
     x: torch.Tensor,
     row_pointers: torch.Tensor,
     column_index: torch.Tensor,
+    xb: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Oracle SDDMM: per-edge dot product ``e = <x[row_e], x[col_e]>``."""
+    """Oracle SDDMM: per-edge dot product ``e = <x[row_e], xb[col_e]>``
+    (``xb`` defaults to ``x``)."""
     rows = edge_rows_from_csr(row_pointers, column_index.shape[0])
-    return torch.sum(x[rows] * x[column_index.long()], dim=-1)
+    xb = x if xb is None else xb
+    return torch.sum(x[rows] * xb[column_index.long()], dim=-1)
+
+
+def sfused_ref(
+    xl: torch.Tensor,
+    xr: torch.Tensor,
+    xv: torch.Tensor,
+    row_pointers: torch.Tensor,
+    column_index: torch.Tensor,
+) -> torch.Tensor:
+    """Oracle score-fused SpMM: ``out = (A ⊙ (xl @ xr^T)) @ xv`` per edge."""
+    scores = sddmm_ref(xl, row_pointers, column_index, xr)
+    return spmm_ref(xv, row_pointers, column_index, scores)
+
+
+def sfused_bwd_ref(
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    row_pointers: torch.Tensor,
+    column_index: torch.Tensor,
+):
+    """Oracle of the one-pass AGNN backward: per edge (i, j),
+    ``dx3[i] += s * dy[j] + (t + w) * x[j]`` and ``u[i] += s * x[j]`` with
+    ``s = <x_i, x_j>``, ``t = <dy_i, x_j>``, ``w = <x_i, dy_j>``."""
+    s = sddmm_ref(x, row_pointers, column_index)
+    tw = sddmm_ref(dy, row_pointers, column_index, x) + sddmm_ref(
+        x, row_pointers, column_index, dy)
+    dx3 = spmm_ref(dy, row_pointers, column_index, s) + spmm_ref(
+        x, row_pointers, column_index, tw)
+    return dx3, spmm_ref(x, row_pointers, column_index, s)

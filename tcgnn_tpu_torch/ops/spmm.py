@@ -11,7 +11,9 @@ output is stored once in the compute dtype.
 (``csrc/spmm_dense.cu``) for a CUDA tensor, and runs the plain PyTorch
 version ``spmm_tc_dense_torch`` for a CPU tensor only.  Its two counters,
 ``spmm_tc_dense.launches`` and ``spmm_tc_dense.plain_calls``, record which
-path ran.
+path ran.  ``build_a_tiles`` scatters per-edge weights into f32 tiles for
+the weighted SpMM (AGNN's attention); the kernel rounds them to the compute
+dtype as it reads them, as the JAX kernel does.
 """
 
 from __future__ import annotations
@@ -19,11 +21,34 @@ from __future__ import annotations
 import torch
 
 from tcgnn_tpu_torch.ops import _kernels
+from tcgnn_tpu_torch.ops._kernels import reset_counts  # noqa: F401  (re-export)
 from tcgnn_tpu_torch.sgt.translate import KERNEL_RUN_BLOCKS, TorchSGTMeta
 
-_FEAT_KIND = {torch.float32: 0, torch.bfloat16: 1}
-_TILE_KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+FEAT_KIND = {torch.float32: 0, torch.bfloat16: 1}
+TILE_KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 KERNEL_MAX_BLK_W = 128  # a warp holds a tile row in 4 registers a lane
+
+
+def build_a_tiles(
+    meta: TorchSGTMeta, edge_weights: torch.Tensor, dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """Weighted dense A-tiles ``[B, blk_h, blk_w]``: each edge's weight
+    scattered to its tile position (``meta.edge_pos``); duplicate edges sum.
+
+    Counterpart of ``tcgnn_tpu.ops.spmm.build_a_tiles``, an XLA scatter-add
+    there and ``index_add_`` here (atomic on the card).
+    """
+    cfg = meta.config
+    if edge_weights.shape != (meta.num_edges,):
+        raise ValueError(
+            f"build_a_tiles: weights of shape {tuple(edge_weights.shape)}, "
+            f"expected ({meta.num_edges},)"
+        )
+    flat = torch.zeros(
+        meta.num_blocks * cfg.blk_h * cfg.blk_w, dtype=dtype, device=edge_weights.device
+    )
+    flat.index_add_(0, meta.edge_pos, edge_weights.to(dtype))
+    return flat.view(meta.num_blocks, cfg.blk_h, cfg.blk_w)
 
 
 def spmm_tc_dense_torch(
@@ -43,41 +68,39 @@ def spmm_tc_dense_torch(
     return out.view(-1, d)[:n].to(ct)
 
 
-def _check_kernel_args(x, meta, a_tiles):
+def check_tiled_operands(op: str, x, meta, a_tiles) -> None:
+    """What a kernel over the condensed tiles (K1, K2, K3) takes: the
+    compute dtype and the tiles it has a kernel for, blk_w <= 128, and
+    the tiles and window metadata on x's device, contiguous."""
     cfg = meta.config
-    if cfg.compute_dtype not in _FEAT_KIND:
-        raise TypeError(f"spmm_tc_dense: no kernel for compute dtype {cfg.compute_dtype}")
+    if cfg.compute_dtype not in FEAT_KIND:
+        raise TypeError(f"{op}: no kernel for compute dtype {cfg.compute_dtype}")
     if cfg.blk_w > KERNEL_MAX_BLK_W:
-        raise ValueError(f"spmm_tc_dense: the kernel takes blk_w <= {KERNEL_MAX_BLK_W}")
-    if a_tiles.dtype not in _TILE_KIND:
-        raise TypeError(f"spmm_tc_dense: no kernel for tile dtype {a_tiles.dtype}")
+        raise ValueError(f"{op}: the kernel takes blk_w <= {KERNEL_MAX_BLK_W}")
+    if a_tiles.dtype not in TILE_KIND:
+        raise TypeError(f"{op}: no kernel for tile dtype {a_tiles.dtype}")
     if tuple(a_tiles.shape) != (meta.num_blocks, cfg.blk_h, cfg.blk_w):
         raise ValueError(
-            f"spmm_tc_dense: tiles of shape {tuple(a_tiles.shape)}, expected "
+            f"{op}: tiles of shape {tuple(a_tiles.shape)}, expected "
             f"{(meta.num_blocks, cfg.blk_h, cfg.blk_w)}"
         )
-    for name, t in (("a_tiles", a_tiles), ("col_ids", meta.col_ids),
-                    ("win_start", meta.win_start), ("run_window", meta.run_window),
-                    ("run_block", meta.run_block)):
-        if t.device != x.device:
-            raise ValueError(f"spmm_tc_dense: {name} on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"spmm_tc_dense: {name} is not contiguous")
-        if name != "a_tiles" and t.dtype != torch.int32:
-            raise TypeError(f"spmm_tc_dense: {name} must be int32")
+    _kernels.check_operands(
+        op, x.device, a_tiles, col_ids=meta.col_ids, win_start=meta.win_start,
+        run_window=meta.run_window, run_block=meta.run_block,
+    )
     if x.numel() >= 2**31:
-        raise ValueError("spmm_tc_dense: x has 2**31 elements or more")
+        raise ValueError(f"{op}: x has 2**31 elements or more")
 
 
 def _spmm_dense_cuda(x, meta, a_tiles):
-    _check_kernel_args(x, meta, a_tiles)
+    check_tiled_operands("spmm_tc_dense", x, meta, a_tiles)
     cfg = meta.config
     n, d = x.shape
     x = x.to(cfg.compute_dtype).contiguous()
     out = torch.empty((n, d), dtype=cfg.compute_dtype, device=x.device)
     if n == 0 or d == 0:
         return out
-    lib = _kernels.load_spmm_dense()
+    lib = _kernels.load("spmm_dense")
     # Windows of more than KERNEL_RUN_BLOCKS TC blocks are split over thread
     # blocks that sum in f32: into `out` for f32, into this buffer for bf16.
     split = meta.max_window_blocks > KERNEL_RUN_BLOCKS
@@ -92,16 +115,15 @@ def _spmm_dense_cuda(x, meta, a_tiles):
             None if accum is None else accum.data_ptr(),
             n, d, meta.num_windows, meta.run_window.shape[0], KERNEL_RUN_BLOCKS,
             int(split), cfg.blk_h, cfg.blk_w,
-            _FEAT_KIND[cfg.compute_dtype], _TILE_KIND[a_tiles.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
+            FEAT_KIND[cfg.compute_dtype], TILE_KIND[a_tiles.dtype],
+            _kernels.stream_of(x),
         )
-    if err != 0:
-        msg = lib.tcgnn_cuda_error_string(err).decode()
-        raise RuntimeError(f"spmm_dense kernel launch failed: {msg} ({err})")
+    _kernels.check(lib, err, "spmm_dense")
     spmm_tc_dense.launches += 1
     return out
 
 
+@_kernels.counted
 def spmm_tc_dense(
     x: torch.Tensor, meta: TorchSGTMeta, a_tiles: torch.Tensor
 ) -> torch.Tensor:
@@ -120,12 +142,3 @@ def spmm_tc_dense(
     spmm_tc_dense.plain_calls += 1
     return spmm_tc_dense_torch(x, meta, a_tiles)
 
-
-spmm_tc_dense.launches = 0
-spmm_tc_dense.plain_calls = 0
-
-
-def reset_counts() -> None:
-    """Set ``spmm_tc_dense.launches`` and ``.plain_calls`` to 0."""
-    spmm_tc_dense.launches = 0
-    spmm_tc_dense.plain_calls = 0

@@ -54,6 +54,11 @@ class TorchSGTMeta:
     walks them in runs of at most ``KERNEL_RUN_BLOCKS``, one thread block a
     run: run ``t`` belongs to window ``run_window[t]`` and starts at block
     ``run_block[t]``.
+
+    Per CSR edge ``e``: ``edge_pos[e]`` is its flat dense-tile position
+    (where the weighted tiles and the tile-space SDDMM put it), and
+    ``edge_rows[e]`` / ``edge_cols[e]`` its row and column, read back from
+    that position, which the per-edge SDDMM kernel reads.
     """
 
     config: TileConfig
@@ -67,6 +72,9 @@ class TorchSGTMeta:
     win_start: torch.Tensor  # [W + 1] int32
     run_window: torch.Tensor  # [R] int32
     run_block: torch.Tensor  # [R] int32
+    edge_pos: torch.Tensor  # [E] int32
+    edge_rows: torch.Tensor  # [E] int32
+    edge_cols: torch.Tensor  # [E] int32
 
 
 @dataclasses.dataclass
@@ -108,17 +116,22 @@ class SGTMeta:
         return self.num_real_blocks * self.config.blk_h * self.config.blk_w
 
     def to(self, device) -> TorchSGTMeta:
-        """Upload what the dense-tile SpMM reads to ``device``."""
+        """Upload what the dense-tile ops read to ``device``."""
         win_start = np.zeros(self.num_windows + 1, dtype=np.int64)
         np.cumsum(self.block_partition, out=win_start[1:])
-        if win_start[-1] >= 2**31:
-            raise ValueError("block count overflows int32")
+        blk_h, blk_w = self.config.blk_h, self.config.blk_w
+        if win_start[-1] * blk_h * blk_w >= 2**31:
+            raise ValueError("dense-tile index space overflows int32")
         runs = _cdiv(self.block_partition.astype(np.int64), KERNEL_RUN_BLOCKS)
         run_window = np.repeat(np.arange(self.num_windows, dtype=np.int64), runs)
         first_run = np.cumsum(runs) - runs
         run_block = win_start[run_window] + KERNEL_RUN_BLOCKS * (
             np.arange(len(run_window), dtype=np.int64) - first_run[run_window]
         )
+
+        edge_block, in_tile = np.divmod(self.edge_pos, blk_h * blk_w)
+        edge_rows = self.block_window[edge_block].astype(np.int64) * blk_h + in_tile // blk_w
+        edge_cols = self.col_ids[edge_block * blk_w + in_tile % blk_w]
 
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
@@ -135,6 +148,9 @@ class SGTMeta:
             win_start=dev(win_start),
             run_window=dev(run_window),
             run_block=dev(run_block),
+            edge_pos=dev(self.edge_pos),
+            edge_rows=dev(edge_rows),
+            edge_cols=dev(edge_cols),
         )
 
 

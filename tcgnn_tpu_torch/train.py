@@ -10,6 +10,7 @@ The device is explicit (``--device``, default ``cuda``) and the trainer never
 moves to another one: without a card, ``--device cuda`` raises.
 
 Run:  python -m tcgnn_tpu_torch.train --dataset pubmed --model gcn --device cuda
+      python -m tcgnn_tpu_torch.train --dataset pubmed --model agnn --hidden 32 --device cuda
 """
 
 from __future__ import annotations
@@ -42,6 +43,10 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="class count (default: the dataset's own)")
     p.add_argument("--epochs", type=int, default=200)
     p.add_argument("--model", type=str, default="gcn", choices=["gcn", "gin", "agnn"])
+    p.add_argument(
+        "--n_heads", type=int, default=1,
+        help="AGNN attention heads (head-averaged)",
+    )
     p.add_argument("--data_dir", type=str, default="tcgnn-ae-graphs/")
     p.add_argument("--blk_h", type=int, default=512)
     p.add_argument("--blk_w", type=int, default=128)
@@ -101,7 +106,7 @@ def make_train_step(
 
     ``hoist`` computes the loop-invariant layer-1 aggregate once
     (``nets.hoist_l1_aggregate``), removing that SpMM and its transpose
-    from every epoch; exact for GCN and GIN.  ``generator`` draws the
+    from every epoch; exact for GCN and GIN, and no change for AGNN.  ``generator`` draws the
     dropout masks (no dropout without one, or at rate 0).
     """
     l1_agg = nets.hoist_l1_aggregate(net.kind, x, graph, norm=norm) if hoist else None
@@ -122,8 +127,6 @@ def make_train_step(
 def main(argv=None) -> dict:
     args = build_argparser().parse_args(argv)
     print(args)
-    if args.model == "agnn":
-        raise NotImplementedError("AGNN is not ported yet (ROADMAP.md, Queue 1 item 3)")
     if args.mesh:
         raise NotImplementedError(
             "distributed training is not ported yet (ROADMAP.md, Queue 1 item 8)"
@@ -146,7 +149,7 @@ def main(argv=None) -> dict:
     start = time.perf_counter()
     graph = TiledGraph(
         ds.row_pointers, ds.column_index, ds.num_nodes, cfg,
-        symmetric=args.symmetric, device=device,
+        symmetric=args.symmetric, device=device, weighted_traffic=args.model == "agnn",
     )
     sync()
     prep = time.perf_counter() - start
@@ -160,7 +163,7 @@ def main(argv=None) -> dict:
     # ---- model + optimizer -------------------------------------------------
     net = nets.init_net(
         torch.Generator().manual_seed(args.seed), args.model, ds.num_features,
-        args.hidden, ds.num_classes, args.num_layers, device=device,
+        args.hidden, ds.num_classes, args.num_layers, device=device, n_heads=args.n_heads,
     )
     optimizer = torch.optim.Adam(net.parameters(), lr=args.lr)
     dropout = 0.0 if args.no_dropout else args.dropout

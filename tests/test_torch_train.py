@@ -143,10 +143,23 @@ def test_cli_prints_contract(capsys):
     assert np.isfinite(r["final_loss"]) and r["tc_blocks"] > 0
 
 
-@pytest.mark.parametrize("flag", [["--model", "agnn"], ["--mesh", "2x1"]])
+@pytest.mark.parametrize("flag", [["--mesh", "2x1"]])
 def test_cli_unported_paths_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_train.main(["--dataset", "rand_100_400", "--device", "cpu", *flag])
+
+
+def test_cli_agnn_prints_contract(capsys):
+    r = port_train.main([
+        "--dataset", "rand_200_1000", "--dim", "8", "--classes", "3", "--epochs", "3",
+        "--blk_h", "16", "--blk_w", "16", "--device", "cpu", "--model", "agnn",
+        "--n_heads", "2", "--hidden", "8",
+    ])
+    out = capsys.readouterr().out
+    for line in ("TC_Blocks:", "Exp_Edges:", "Prep. (ms):", "Prep host (ms):",
+                 "Final loss:", "Train (ms):"):
+        assert line in out
+    assert np.isfinite(r["final_loss"]) and r["tc_blocks"] > 0
 
 
 def test_cli_never_falls_back_to_cpu():
@@ -158,13 +171,16 @@ def test_cli_never_falls_back_to_cpu():
 
 def test_port_imports_no_jax():
     """In a fresh process (this one has JAX loaded by conftest), importing
-    the port and running its CLI loads neither JAX nor the JAX package."""
+    the port and running its CLI (GCN and AGNN) loads neither JAX nor the
+    JAX package."""
     code = (
         "import sys\n"
         "import tcgnn_tpu_torch\n"
         "from tcgnn_tpu_torch import train\n"
-        "train.main(['--dataset', 'rand_120_500', '--dim', '6', '--classes', '3',"
-        " '--epochs', '2', '--blk_h', '16', '--blk_w', '8', '--device', 'cpu'])\n"
+        "for model in ('gcn', 'agnn'):\n"
+        "    train.main(['--dataset', 'rand_120_500', '--dim', '6', '--classes', '3',"
+        " '--epochs', '2', '--blk_h', '16', '--blk_w', '8', '--device', 'cpu',"
+        " '--model', model])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tcgnn_tpu'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n"
