@@ -1,23 +1,43 @@
 """TiledGraph: an SGT-tiled graph with differentiable graph ops (PyTorch port).
 
-Counterpart of ``tcgnn_tpu.graph.TiledGraph`` for the condensed dense-tile
-route only.  It owns the forward and the transpose tiling (shared when the
-adjacency is symmetric), builds the int8 structural tiles on the host and
-uploads them once, and exposes its ops as ``torch.autograd.Function``s with
-exact backwards, on directed graphs too:
+Counterpart of ``tcgnn_tpu.graph.TiledGraph`` for the dense-tile routes:
+the condensed route and the block-diagonal (BD) route.  It picks the route
+by the JAX package's rules, so both packages send every graph the same
+way; builds the tiles on the host or the device and uploads them once; and
+exposes its ops as ``torch.autograd.Function``s with exact backwards, on
+directed graphs too:
 
-* ``spmm(x)`` — ``A @ x``: K1 forward, K1 over the transpose tiles backward;
-* ``spmm_weighted(x, w)`` — ``(A ⊙ w) @ x`` with per-edge weights: K1 over
-  weighted tiles (``build_a_tiles``); backward ``dx`` by K1 over the
-  transpose's weighted tiles, ``dw`` by K4 (``sddmm(dy, x)``);
-* ``sddmm(x)`` — per-edge ``<x_i, x_j>``: K4; backward by the two weighted
-  SpMMs;
+* ``spmm(x)`` — ``A @ x``.  Condensed: K1 forward, K1 over the transpose
+  tiles backward.  BD: K5 over the pack (the transpose pack backward) plus
+  K1 over the residual's condensed tiles;
+* ``spmm_weighted(x, w)`` — ``(A ⊙ w) @ x`` with per-edge weights.
+  Condensed: K1 over weighted tiles (``build_a_tiles``).  BD: K5 over a
+  weighted pack (``bd_scatter_weights``) plus K1 over the residual's
+  weighted tiles.  Backward ``dx`` the same over the transpose, ``dw`` by
+  K4 (``sddmm(dy, x)``);
+* ``sddmm(x)`` — per-edge ``<x_i, x_j>``: K4 (over every edge's row and
+  column on the BD route); backward by the two weighted SpMMs;
 * ``agnn_aggregate(x, att_w)`` — ``mean(att_w) * (A ⊙ x x^T) @ x``, AGNN's
-  head-averaged aggregation: K2 forward, K3 backward.  Only on symmetric
-  graphs (``None`` otherwise), as in the JAX package.
+  head-averaged aggregation on symmetric graphs (``None`` otherwise, as in
+  the JAX package).  Condensed: K2 forward, K3 backward.  BD: K6 forward
+  and K7 backward, plus K2/K3 over the residual.
 
-Not carried over yet (``ROADMAP.md``): the block-diagonal route, and the
-chunk and streamed routes for graphs over the dense-tile budget.
+What the port does differently from the JAX BD route, changing no value:
+
+* the residual's SpMM is always K1.  JAX sometimes takes an XLA block-output
+  product there (``spmm_tc_blockout``) to dodge Pallas per-grid-step
+  latency, and pads the residual to 8 blocks for it: TPU workarounds;
+* the BD SDDMM is K4 over every edge's (row, col), covered and residual
+  alike, in place of ``bd_sddmm_edges`` (whose 10 MB bin-chunk slabs are a
+  TPU gather-locality workaround) and the residual dots with their scatter.
+  Every score is still an f32 dot of compute-dtype rows;
+* K5 takes any offset set (JAX's einsum fallback for offsets past its
+  3-panel halo is a Pallas limit).  The AGNN gate (``bd_ok``) and the
+  int32-addressable pack rule stay as they are, so the routes agree; index
+  arithmetic is 64-bit regardless.
+
+Not carried over yet (``ROADMAP.md``): the chunk and streamed routes for
+graphs over the dense-tile budget.
 """
 
 from __future__ import annotations
@@ -30,10 +50,21 @@ import numpy as np
 import torch
 
 from tcgnn_tpu_torch.config import DEFAULT_CONFIG, TileConfig
-from tcgnn_tpu_torch.ops.sddmm import sddmm_tc_dense
+from tcgnn_tpu_torch.ops.blockdiag import (
+    BD_BIN_GROUP,
+    bd_scatter_weights,
+    bd_sfused,
+    bd_sfused_bwd,
+    build_bd_pack,
+    padded_bins,
+    spmm_block_diag,
+)
+from tcgnn_tpu_torch.ops.sddmm import EdgeList, sddmm_tc_dense
 from tcgnn_tpu_torch.ops.sfused import spmm_sfused, spmm_sfused_bwd
 from tcgnn_tpu_torch.ops.spmm import build_a_tiles, spmm_tc_dense
+from tcgnn_tpu_torch.sgt.blockdiag import BDMeta, extract_block_diag
 from tcgnn_tpu_torch.sgt.translate import (
+    TorchSGTMeta,
     build_a_tiles_host,
     count_blocks,
     sparse_graph_translate,
@@ -47,26 +78,24 @@ DENSE_TILE_BUDGET_BYTES = 8 << 30
 
 
 class _SpMM(torch.autograd.Function):
-    """``A @ x`` forward, ``A^T @ dy`` backward, both on K1."""
+    """``A @ x`` forward, ``A^T @ dy`` backward."""
 
     @staticmethod
     def forward(ctx, x, graph):
         ctx.graph = graph
         ctx.x_dtype = x.dtype
-        return spmm_tc_dense(x, graph.meta, graph.a_struct)
+        return graph._spmm_f(x)
 
     @staticmethod
     def backward(ctx, dy):
-        g = ctx.graph
-        dx = spmm_tc_dense(dy.contiguous(), g.meta_t, g.a_struct_t)
-        return dx.to(ctx.x_dtype), None
+        return ctx.graph._spmm_b(dy.contiguous()).to(ctx.x_dtype), None
 
 
 class _SpMMWeighted(torch.autograd.Function):
-    """``(A ⊙ w) @ x`` (TC-GNN's ``forward_AGNN``): K1 over weighted tiles.
+    """``(A ⊙ w) @ x`` (TC-GNN's ``forward_AGNN``).
 
-    Backward: ``dx[j] = sum_{e=(i,j)} w_e dy[i]``, K1 over the transpose
-    tiles weighted by ``w[t_edge_src]``; ``dw_e = <dy[row_e], x[col_e]>``,
+    Backward: ``dx[j] = sum_{e=(i,j)} w_e dy[i]``, the weighted SpMM over
+    the transpose with ``w[t_edge_src]``; ``dw_e = <dy[row_e], x[col_e]>``,
     K4."""
 
     @staticmethod
@@ -84,7 +113,7 @@ class _SpMMWeighted(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = g._spmm_w_t(dy, w).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = sddmm_tc_dense(dy, g.meta, x).to(w.dtype)
+            dw = g._sddmm(dy, x).to(w.dtype)
         return dx, dw, None
 
 
@@ -98,7 +127,7 @@ class _SDDMM(torch.autograd.Function):
     def forward(ctx, x, graph):
         ctx.graph = graph
         ctx.save_for_backward(x)
-        return sddmm_tc_dense(x, graph.meta, x)
+        return graph._sddmm(x, x)
 
     @staticmethod
     def backward(ctx, de):
@@ -111,39 +140,67 @@ class _SDDMM(torch.autograd.Function):
 
 class _AGNNAggregate(torch.autograd.Function):
     """AGNN's head-averaged aggregation on a symmetric graph:
-    ``mean(att_w) * (A ⊙ S) @ x`` with ``S = x x^T`` (K2).
+    ``mean(att_w) * (A ⊙ S) @ x`` with ``S = x x^T`` (K2, or K6 on BD).
 
     Every head's attention is a scalar gate on the same edge score
     (``att_e^h = c_h e_e``), so the mean of the H weighted aggregations is
-    one score-fused pass.  Backward (K3, one pass): ``dx = mean(c) * dx3``
-    and ``d c_h = <dy, u> / H`` with ``(dx3, u)`` as in
-    ``ops.sfused.spmm_sfused_bwd``; ``A`` symmetric turns the column-space
-    term into a row-space one."""
+    one score-fused pass.  Backward (K3, or K7 on BD, one pass):
+    ``dx = mean(c) * dx3`` and ``d c_h = <dy, u> / H`` with ``(dx3, u)`` as
+    in ``ops.sfused.spmm_sfused_bwd``; ``A`` symmetric turns the
+    column-space term into a row-space one."""
 
     @staticmethod
     def forward(ctx, x, att_w, graph):
         ctx.graph = graph
         ctx.save_for_backward(x, att_w)
-        out = spmm_sfused(x, x, x, graph.meta, graph.a_struct)
-        # The gate in the aggregate's own dtype (f32), as in JAX.
+        out = graph._agnn_f(x)
+        # The gate in the aggregate's own dtype, as in JAX.
         return out * att_w.mean().to(out.dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x, att_w = ctx.saved_tensors
-        g = ctx.graph
-        dx3, u = spmm_sfused_bwd(x, dy.contiguous(), g.meta, g.a_struct)
+        dx3, u = ctx.graph._agnn_b(x, dy.contiguous())
         dx = (att_w.mean().to(dx3.dtype) * dx3).to(x.dtype)
         d_cbar = torch.dot(dy.float().reshape(-1), u.float().reshape(-1))
         datt = (d_cbar / att_w.numel()).to(att_w.dtype).expand(att_w.shape).clone()
         return dx, datt, None
 
 
+@dataclasses.dataclass
+class BDPack:
+    """One direction of the BD route on the device: the pack, the
+    residual's condensed tiles, and the covered and residual edges'
+    addresses for the weighted ops (CSR order of that direction)."""
+
+    offsets: tuple
+    pack: torch.Tensor                   # [Bp, bn, K*bn] int8 / int16 counts
+    res_meta: Optional[TorchSGTMeta]     # residual tiling, None when fully covered
+    res_a: Optional[torch.Tensor]        # its structural tiles
+    cov_pack: Optional[torch.Tensor]     # [E_cov] int64 pack positions; None unless addressable
+    cov_ids: torch.Tensor                # [E_cov] int64 covered edges
+    res_ids: Optional[torch.Tensor]      # [E_res] int64 residual edges
+
+
+def _pack_elems(m: BDMeta) -> int:
+    return padded_bins(m.num_bins) * m.bin_rows * len(m.offsets) * m.bin_rows
+
+
+def _bd_addressable(m: BDMeta) -> bool:
+    """The JAX package's rule: per-edge BD ops only on packs whose flat
+    index space fits int32 (its indices are int32).  Kept so both packages
+    route the same ops; the port's indices are int64."""
+    return _pack_elems(m) + 1 < 2**31
+
+
 class TiledGraph:
     """Device-resident SGT-tiled graph.  Build once per graph (the
-    ``Prep. (ms)`` stage); reuse across layers and epochs."""
+    ``Prep. (ms)`` stage); reuse across layers and epochs.
 
-    block_diag = False
+    ``block_diag``: ``None`` takes the BD route where the JAX package takes
+    it; ``False`` keeps the condensed route; ``True`` raises below the BD
+    coverage gate."""
+
     dense_tiles = True
 
     def __init__(
@@ -155,6 +212,7 @@ class TiledGraph:
         symmetric: bool = False,
         device: torch.device | str = "cuda",
         weighted_traffic: bool = False,
+        block_diag: Optional[bool] = None,
     ):
         row_pointers = np.asarray(row_pointers)
         column_index = np.asarray(column_index)
@@ -168,8 +226,8 @@ class TiledGraph:
             config = dataclasses.replace(config, block_group=1)
         self.config = config
 
-        # Host-pass seconds (transpose, symmetry check, SGT, tile build):
-        # everything before the uploads.
+        # ---- host passes (transpose, symmetry, routing, BD extraction, SGT,
+        # tile builds): everything before the uploads, timed as prep_host_s.
         t0 = time.perf_counter()
         t_ptr, t_idx, t_src = transpose_csr(row_pointers, column_index, num_nodes)
         if not symmetric and len(t_ptr) == len(row_pointers):
@@ -179,45 +237,122 @@ class TiledGraph:
             )
         self.symmetric = symmetric
 
+        def extract_bd():
+            """Both directions' BD decompositions, or None below the gate."""
+            bdm = extract_block_diag(row_pointers, column_index, num_nodes)
+            if bdm is None:
+                return None
+            bdm_t = bdm if symmetric else extract_block_diag(t_ptr, t_idx, num_nodes)
+            return None if bdm_t is None else (bdm, bdm_t)
+
         tile_elems = config.blk_h * config.blk_w
         nb_f = count_blocks(row_pointers, column_index, num_nodes, config)
         nb_t = nb_f if symmetric else count_blocks(t_ptr, t_idx, num_nodes, config)
+        fits_int32 = max(nb_f, nb_t) * tile_elems < 2**31
         dense_bytes = (nb_f if symmetric else nb_f + nb_t) * tile_elems
+        bd_pair, bd_probed = None, False
         if weighted_traffic and not symmetric:
             # Attention on an asymmetric graph builds weighted tiles per
             # call, several alive at once across forward and backward:
-            # budget 4 such arrays at the compute dtype's width (the JAX
-            # rule, without its block-diagonal probe).  Symmetric graphs
-            # take the score-fused kernels, which build none.
-            dense_bytes += 4 * nb_f * tile_elems * config.compute_dtype.itemsize
-        if max(nb_f, nb_t) * tile_elems >= 2**31 or dense_bytes > DENSE_TILE_BUDGET_BYTES:
+            # budget 4 such arrays at the compute dtype's width.  A BD graph
+            # builds transient weighted packs instead (3 at the widest
+            # offset count), so probe the BD decomposition before sending a
+            # banded graph past the budget.  Symmetric graphs take the
+            # score-fused kernels, which build none.
+            itemsize = config.compute_dtype.itemsize
+            weighted_extra = 4 * nb_f * tile_elems * itemsize
+            if (block_diag is not False and fits_int32
+                    and dense_bytes <= DENSE_TILE_BUDGET_BYTES
+                    < dense_bytes + weighted_extra):
+                bd_pair, bd_probed = extract_bd(), True
+                if bd_pair is not None:
+                    bdm, bdm_t = bd_pair
+                    kmax = max(len(bdm.offsets), len(bdm_t.offsets))
+                    weighted_extra = 3 * kmax * bdm.num_bins * bdm.bin_rows**2 * itemsize
+            dense_bytes += weighted_extra
+        if not fits_int32 or dense_bytes > DENSE_TILE_BUDGET_BYTES:
             raise NotImplementedError(
                 f"graph needs {dense_bytes} bytes of dense tiles, over the "
                 f"dense-tile budget of {DENSE_TILE_BUDGET_BYTES}: the chunk and "
                 "streamed routes (ROADMAP.md, Queue 1 item 5) are not ported yet"
             )
 
+        if block_diag is not False and not bd_probed:
+            bd_pair = extract_bd()
+        if block_diag and bd_pair is None:
+            raise ValueError(
+                "block_diag requested but coverage is below the gate for this graph/ordering"
+            )
+        self.block_diag = bd_pair is not None
+        self.bd_offsets = self.bd_offsets_t = None
+        self.bd_full_coverage = self.bd_addressable = False
+        if self.block_diag:
+            bdm, bdm_t = bd_pair
+            self.bd_offsets, self.bd_offsets_t = bdm.offsets, bdm_t.offsets
+            self.bd_full_coverage = bdm.coverage == 1.0 and bdm_t.coverage == 1.0
+            self.bd_addressable = _bd_addressable(bdm) and _bd_addressable(bdm_t)
+        # A fully covered, addressable BD graph reads no condensed tiles; the
+        # SGT pass still runs, for the TC_Blocks statistic.
+        needs_condensed = not (
+            self.block_diag and self.bd_full_coverage and self.bd_addressable
+        )
         self.host_meta = sparse_graph_translate(
-            row_pointers, column_index, num_nodes, config, build_tiles=True
+            row_pointers, column_index, num_nodes, config, build_tiles=needs_condensed
         )
         self.host_meta_t = (
             self.host_meta
             if symmetric
-            else sparse_graph_translate(t_ptr, t_idx, num_nodes, config, build_tiles=True)
+            else sparse_graph_translate(t_ptr, t_idx, num_nodes, config,
+                                        build_tiles=needs_condensed)
         )
+        def residual_sgt(m):
+            """The SGT tiling of a BD decomposition's residual, if any."""
+            if m.res_ptr is None:
+                return None
+            return sparse_graph_translate(m.res_ptr, m.res_idx, self.num_nodes, config,
+                                          build_tiles=True)
+
+        if self.block_diag:
+            res_host = residual_sgt(bdm)
+            res_host_t = res_host if symmetric else residual_sgt(bdm_t)
+        # K4 reads each edge's row and column: from the condensed meta where
+        # it is uploaded, else from an edge list.
+        edge_rows = None if needs_condensed else np.repeat(
+            np.arange(self.num_nodes, dtype=np.int32), np.diff(row_pointers))
         self.prep_host_s = time.perf_counter() - t0
 
-        self.meta = self.host_meta.to(self.device)
-        self.a_struct = self._upload_tiles(self.host_meta)
-        if symmetric:
-            self.meta_t, self.a_struct_t = self.meta, self.a_struct
-        else:
-            self.meta_t = self.host_meta_t.to(self.device)
-            self.a_struct_t = self._upload_tiles(self.host_meta_t)
+        # ---- uploads --------------------------------------------------------
+        self.meta = self.meta_t = self.a_struct = self.a_struct_t = None
+        if needs_condensed:
+            self.meta = self.host_meta.to(self.device)
+            self.a_struct = self._upload_tiles(self.host_meta)
+            if symmetric:
+                self.meta_t, self.a_struct_t = self.meta, self.a_struct
+            else:
+                self.meta_t = self.host_meta_t.to(self.device)
+                self.a_struct_t = self._upload_tiles(self.host_meta_t)
         # Transpose edge k is forward edge t_edge_src[k]: per-edge weights in
         # CSR order, taken to the transpose's order.
         self.t_edge_src = torch.from_numpy(t_src.astype(np.int64)).to(self.device)
-        self.agnn_aggregate = self._agnn_aggregate if symmetric else None
+
+        self.bd = self.bd_t = None
+        if self.block_diag:
+            self.bd = self._bd_dev(bdm, res_host)
+            self.bd_t = self.bd if symmetric else self._bd_dev(bdm_t, res_host_t)
+        self._sddmm_meta = self.meta if needs_condensed else EdgeList.from_rows(
+            edge_rows, column_index, self.num_nodes, config, self.device)
+
+        # Score-fused AGNN on symmetric graphs.  BD takes K6/K7 where the
+        # JAX kernel's 3-panel halo covers the offsets and the residual is
+        # symmetric (a sign-symmetric offset set, A being symmetric); a
+        # fully covered BD graph outside that gate has no condensed tiles
+        # and takes the per-edge route, as in JAX.
+        self._agnn_bd = self.block_diag and symmetric and (
+            max(abs(o) for o in self.bd_offsets) <= BD_BIN_GROUP
+            and (self.bd_full_coverage or set(self.bd_offsets) == {-o for o in self.bd_offsets})
+        )
+        fused = symmetric and (self._agnn_bd or self.meta is not None)
+        self.agnn_aggregate = self._agnn_aggregate if fused else None
 
     def _upload_tiles(self, host_meta) -> torch.Tensor:
         """int8 structural tiles; the compute dtype when a duplicate count
@@ -226,6 +361,25 @@ class TiledGraph:
         if tiles.dtype != torch.int8:
             tiles = tiles.to(self.config.compute_dtype)
         return tiles.to(self.device)
+
+    def _bd_dev(self, m: BDMeta, res_host) -> BDPack:
+        """One direction's BD arrays on the device."""
+        dev = self.device
+
+        def ids(a):
+            return None if a is None else torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+
+        pack = build_bd_pack(ids(m.tile_idx), torch.from_numpy(m.tile_cnt).to(dev),
+                             k=len(m.offsets), nbins=m.num_bins, bn=m.bin_rows)
+        return BDPack(
+            offsets=m.offsets,
+            pack=pack,
+            res_meta=None if res_host is None else res_host.to(dev),
+            res_a=None if res_host is None else self._upload_tiles(res_host),
+            cov_pack=ids(m.packed_cov_idx()) if _bd_addressable(m) else None,
+            cov_ids=ids(m.cov_edge_ids),
+            res_ids=ids(m.res_edge_ids),
+        )
 
     @property
     def tc_blocks(self) -> int:
@@ -249,17 +403,76 @@ class TiledGraph:
         return _SDDMM.apply(x, self)
 
     def _agnn_aggregate(self, x: torch.Tensor, att_w: torch.Tensor) -> torch.Tensor:
-        """Differentiable ``mean(att_w) * (A ⊙ x x^T) @ x``, f32 (symmetric
-        graphs only; ``agnn_aggregate`` is ``None`` otherwise)."""
+        """Differentiable ``mean(att_w) * (A ⊙ x x^T) @ x`` (symmetric graphs
+        only; ``agnn_aggregate`` is ``None`` otherwise): f32 on the condensed
+        route, the compute dtype on a fully covered BD graph."""
         return _AGNNAggregate.apply(x, att_w, self)
 
+    # ---- the ops without autograd ------------------------------------------
+
+    def _bd_spmm(self, x, bd: BDPack, pack: torch.Tensor, res_tiles):
+        out = spmm_block_diag(x, pack, offsets=bd.offsets, cfg=self.config)
+        if bd.res_meta is not None:
+            out = out + spmm_tc_dense(x, bd.res_meta, res_tiles)
+        return out
+
+    def _spmm_f(self, x):
+        """``A @ x``."""
+        if self.block_diag:
+            return self._bd_spmm(x, self.bd, self.bd.pack, self.bd.res_a)
+        return spmm_tc_dense(x, self.meta, self.a_struct)
+
+    def _spmm_b(self, dy):
+        """``A^T @ dy``."""
+        if self.block_diag:
+            return self._bd_spmm(dy, self.bd_t, self.bd_t.pack, self.bd_t.res_a)
+        return spmm_tc_dense(dy, self.meta_t, self.a_struct_t)
+
+    def _bd_weighted(self, x, w, bd: BDPack):
+        """``(A ⊙ w) @ x`` on the BD route, ``w`` in ``bd``'s CSR order."""
+        p = bd.pack
+        wp = bd_scatter_weights(w[bd.cov_ids], bd.cov_pack, bp=p.shape[0], bn=p.shape[1],
+                                k=len(bd.offsets), dtype=self.config.compute_dtype)
+        res = None if bd.res_meta is None else build_a_tiles(bd.res_meta, w[bd.res_ids])
+        return self._bd_spmm(x, bd, wp, res)
+
     def _spmm_w(self, x, w):
-        """``(A ⊙ w) @ x``, no autograd."""
+        """``(A ⊙ w) @ x``."""
+        if self.bd_addressable:
+            return self._bd_weighted(x, w, self.bd)
         return spmm_tc_dense(x, self.meta, build_a_tiles(self.meta, w))
 
     def _spmm_w_t(self, dy, w):
-        """``(A ⊙ w)^T @ dy`` over the transpose tiling, no autograd."""
-        return spmm_tc_dense(dy, self.meta_t, build_a_tiles(self.meta_t, w[self.t_edge_src]))
+        """``(A ⊙ w)^T @ dy``, over the transpose."""
+        wt = w[self.t_edge_src]
+        if self.bd_addressable:
+            return self._bd_weighted(dy, wt, self.bd_t)
+        return spmm_tc_dense(dy, self.meta_t, build_a_tiles(self.meta_t, wt))
+
+    def _sddmm(self, xa, xb):
+        """Per-edge ``<xa[row_e], xb[col_e]>``, [E] f32 (K4)."""
+        return sddmm_tc_dense(xa, self._sddmm_meta, xb)
+
+    def _agnn_f(self, x):
+        """``(A ⊙ x x^T) @ x``."""
+        if self._agnn_bd:
+            bd = self.bd
+            out = bd_sfused(x, x, x, bd.pack, offsets=bd.offsets, cfg=self.config)
+            if bd.res_meta is not None:
+                out = out + spmm_sfused(x, x, x, bd.res_meta, bd.res_a)
+            return out
+        return spmm_sfused(x, x, x, self.meta, self.a_struct)
+
+    def _agnn_b(self, x, dy):
+        """``(dx3, u)`` of the one-pass AGNN backward."""
+        if self._agnn_bd:
+            bd = self.bd
+            dx3, u = bd_sfused_bwd(x, dy, bd.pack, offsets=bd.offsets, cfg=self.config)
+            if bd.res_meta is not None:
+                dx3_r, u_r = spmm_sfused_bwd(x, dy, bd.res_meta, bd.res_a)
+                dx3, u = dx3 + dx3_r, u + u_r
+            return dx3, u
+        return spmm_sfused_bwd(x, dy, self.meta, self.a_struct)
 
 
 def tiled_graph_from_dataset(ds, config: TileConfig = DEFAULT_CONFIG, **kw) -> TiledGraph:

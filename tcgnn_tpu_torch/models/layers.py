@@ -2,12 +2,13 @@
 
 Counterpart of ``tcgnn_tpu.models.layers`` with the same schedule:
 
-* ``gcn_conv``  — ``aggregate(X @ W)``, or ``aggregate(X) @ W`` when the
-  input is narrow (``aggregate_first``);
+* ``gcn_conv``  — ``aggregate(X @ W)``, or ``aggregate(X) @ W`` when that
+  is cheaper on the graph's route (``aggregate_first``);
 * ``gin_conv``  — ``aggregate(X) @ W``;
 * ``agnn_conv`` — ``X' = X @ W``, then attention-weighted aggregation:
-  the score-fused ``TiledGraph.agnn_aggregate`` (K2/K3) where the graph has
-  it, else per-edge scores (K4) and one weighted SpMM (K1) per head;
+  the score-fused ``TiledGraph.agnn_aggregate`` (K2/K3, or K6/K7 on the
+  block-diagonal route) where the graph has it, else per-edge scores (K4)
+  and one weighted SpMM (K1, or K5) per head;
 * ``sag``       — pure aggregation.
 
 Weights keep the JAX layout ``[in, out]``.  Dense products are plain torch
@@ -36,12 +37,17 @@ def _amp_dot(a: torch.Tensor, w: torch.Tensor, ct: torch.dtype) -> torch.Tensor:
     return torch.matmul(a.to(ct), w.to(ct))
 
 
-def aggregate_first(in_dim: int, out_dim: int) -> bool:
-    """GCN's schedule on the condensed route: aggregate before projecting
-    when the input is no wider than ``max(out_dim, 128)``.  ``A(XW) ==
-    (AX)W`` exactly; the gather costs per row, so a narrow input is cheap to
-    aggregate.  Kept identical to the JAX package so both run the same
-    schedule."""
+def aggregate_first(in_dim: int, out_dim: int, block_diag: bool = False) -> bool:
+    """GCN's schedule: aggregate before projecting when that is cheaper.
+    ``A(XW) == (AX)W`` exactly.  On the condensed route the gather costs per
+    row, so an input no wider than ``max(out_dim, 128)`` is aggregated
+    first.  On the block-diagonal route the cost scales with the feature
+    width, so the narrower side is aggregated (ties aggregate first).  Kept
+    identical to the JAX package off the TPU (whose TPU rule compares
+    widths padded to 128 lanes, which the GPU does not pad), so both run the
+    same schedule."""
+    if block_diag:
+        return in_dim <= out_dim
     return in_dim <= max(out_dim, 128)
 
 
@@ -61,7 +67,7 @@ def gcn_conv(
     ct = _ct(graph)
     x = x.to(ct)
     nv = None if norm is None else norm.to(ct)
-    if aggregate_first(in_dim, out_dim):
+    if aggregate_first(in_dim, out_dim, getattr(graph, "block_diag", False)):
         h = x if nv is None else x * nv[: x.shape[0], None]
         agg = graph.spmm(h)
         if nv is not None:

@@ -1,6 +1,16 @@
 from tcgnn_tpu_torch.ops._kernels import reset_counts
+from tcgnn_tpu_torch.ops.blockdiag import (
+    bd_scatter_weights,
+    bd_sfused,
+    bd_sfused_bwd,
+    bd_sfused_bwd_torch,
+    bd_sfused_torch,
+    build_bd_pack,
+    spmm_block_diag,
+    spmm_block_diag_torch,
+)
 from tcgnn_tpu_torch.ops.reference import sddmm_ref, sfused_bwd_ref, sfused_ref, spmm_ref
-from tcgnn_tpu_torch.ops.sddmm import sddmm_tc_dense, sddmm_tc_dense_torch
+from tcgnn_tpu_torch.ops.sddmm import EdgeList, sddmm_tc_dense, sddmm_tc_dense_torch
 from tcgnn_tpu_torch.ops.sfused import (
     spmm_sfused,
     spmm_sfused_bwd,
@@ -11,7 +21,9 @@ from tcgnn_tpu_torch.ops.spmm import build_a_tiles, spmm_tc_dense, spmm_tc_dense
 
 __all__ = [
     "reset_counts", "build_a_tiles", "spmm_tc_dense", "spmm_tc_dense_torch",
-    "sddmm_tc_dense", "sddmm_tc_dense_torch", "spmm_sfused", "spmm_sfused_torch",
-    "spmm_sfused_bwd", "spmm_sfused_bwd_torch", "spmm_ref", "sddmm_ref", "sfused_ref",
+    "EdgeList", "sddmm_tc_dense", "sddmm_tc_dense_torch", "spmm_sfused", "spmm_sfused_torch",
+    "spmm_sfused_bwd", "spmm_sfused_bwd_torch", "build_bd_pack", "bd_scatter_weights",
+    "spmm_block_diag", "spmm_block_diag_torch", "bd_sfused", "bd_sfused_torch",
+    "bd_sfused_bwd", "bd_sfused_bwd_torch", "spmm_ref", "sddmm_ref", "sfused_ref",
     "sfused_bwd_ref",
 ]

@@ -78,6 +78,11 @@ SIGNATURES = {
         "tcgnn_spmm_sfused": [_P] * 9 + [_I] * 9 + [_P],
         "tcgnn_spmm_sfused_bwd": [_P] * 9 + [_I] * 9 + [_P],
     },
+    "spmm_bd": {
+        "tcgnn_spmm_bd": [_P] * 4 + [_I] * 6 + [_P],
+        "tcgnn_bd_sfused": [_P] * 6 + [_I] * 6 + [_P],
+        "tcgnn_bd_sfused_bwd": [_P] * 6 + [_I] * 6 + [_P],
+    },
 }
 
 

@@ -11,12 +11,22 @@ for a CPU tensor only.  The plain version is the JAX algorithm: score tiles
 ``xa[window] @ xb[col_ids]^T`` as a batched product, then each edge's entry
 read out at ``meta.edge_pos``.  Counters: ``sddmm_tc_dense.launches`` and
 ``.plain_calls``.
+
+The kernel reads only each edge's row and column, so ``meta`` may also be
+an ``EdgeList``: the block-diagonal route's SDDMM is K4 over every edge
+(the JAX package's ``bd_sddmm_edges`` and its residual dots, whose bin-chunk
+slabs are a TPU gather-locality device).  Its plain version is the per-edge
+dot.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
+from tcgnn_tpu_torch.config import TileConfig
 from tcgnn_tpu_torch.ops import _kernels
 from tcgnn_tpu_torch.ops.spmm import FEAT_KIND
 from tcgnn_tpu_torch.sgt.translate import TorchSGTMeta
@@ -28,17 +38,40 @@ from tcgnn_tpu_torch.sgt.translate import TorchSGTMeta
 SDDMM_EDGE_DOT_BYTES = 512 << 20
 
 
+@dataclasses.dataclass(frozen=True)
+class EdgeList:
+    """Each CSR edge's row and column (int32, on the features' device):
+    what K4 reads, for graphs without condensed tiles."""
+
+    config: TileConfig
+    num_nodes: int
+    num_edges: int
+    edge_rows: torch.Tensor  # [E] int32
+    edge_cols: torch.Tensor  # [E] int32
+
+    @classmethod
+    def from_rows(cls, edge_rows, column_index, num_nodes, config, device) -> "EdgeList":
+        """From each CSR edge's row (host array) and the column index."""
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+        return cls(config, int(num_nodes), len(column_index), dev(edge_rows), dev(column_index))
+
+
 def sddmm_tc_dense_torch(
-    xa: torch.Tensor, meta: TorchSGTMeta, xb: torch.Tensor | None = None
+    xa: torch.Tensor, meta: TorchSGTMeta | EdgeList, xb: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Plain PyTorch version of K4: score tiles by a batched product, then
-    the per-edge extraction by ``edge_pos``."""
+    the per-edge extraction by ``edge_pos``; for an ``EdgeList``, or tiles
+    past ``SDDMM_EDGE_DOT_BYTES``, each edge's dot."""
     cfg = meta.config
     ct = cfg.compute_dtype
     a = xa.to(ct)
     b = a if xb is None else xb.to(ct)
     n, d = a.shape
-    if meta.num_blocks * cfg.blk_h * cfg.blk_w * 4 > SDDMM_EDGE_DOT_BYTES:
+    if (isinstance(meta, EdgeList)
+            or meta.num_blocks * cfg.blk_h * cfg.blk_w * 4 > SDDMM_EDGE_DOT_BYTES):
         return (a.index_select(0, meta.edge_rows).float()
                 * b.index_select(0, meta.edge_cols).float()).sum(1)
     a_win = torch.nn.functional.pad(a, (0, 0, 0, meta.num_windows * cfg.blk_h - n))
@@ -76,7 +109,7 @@ def _sddmm_cuda(xa, xb, meta):
 
 @_kernels.counted
 def sddmm_tc_dense(
-    xa: torch.Tensor, meta: TorchSGTMeta, xb: torch.Tensor | None = None
+    xa: torch.Tensor, meta: TorchSGTMeta | EdgeList, xb: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Per-edge ``e = <xa[row_e], xb[col_e]>`` (CSR order), ``[E]`` f32;
     ``xb=None`` means ``xb = xa``.  A CUDA tensor runs the kernel (or

@@ -1,3 +1,10 @@
+from tcgnn_tpu_torch.sgt.blockdiag import BDMeta, bd_coverage, extract_block_diag
+from tcgnn_tpu_torch.sgt.reorder import (
+    apply_permutation,
+    permute_csr,
+    rcm_permutation,
+    reorder_dataset,
+)
 from tcgnn_tpu_torch.sgt.translate import (
     KERNEL_RUN_BLOCKS,
     SGTMeta,
@@ -9,6 +16,7 @@ from tcgnn_tpu_torch.sgt.translate import (
 )
 
 __all__ = [
-    "KERNEL_RUN_BLOCKS", "SGTMeta", "TorchSGTMeta", "build_a_tiles_host", "count_blocks",
-    "sparse_graph_translate", "transpose_csr",
+    "BDMeta", "bd_coverage", "extract_block_diag", "apply_permutation", "permute_csr",
+    "rcm_permutation", "reorder_dataset", "KERNEL_RUN_BLOCKS", "SGTMeta", "TorchSGTMeta",
+    "build_a_tiles_host", "count_blocks", "sparse_graph_translate", "transpose_csr",
 ]

@@ -9,8 +9,9 @@ device; it is bracketed by ``torch.cuda.synchronize()``.
 The device is explicit (``--device``, default ``cuda``) and the trainer never
 moves to another one: without a card, ``--device cuda`` raises.
 
-Run:  python -m tcgnn_tpu_torch.train --dataset pubmed --model gcn --device cuda
-      python -m tcgnn_tpu_torch.train --dataset pubmed --model agnn --hidden 32 --device cuda
+Run:  python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --model gcn
+      python -m tcgnn_tpu_torch.train --dataset DD --dim 89 --classes 2 --model agnn --hidden 32
+      python -m tcgnn_tpu_torch.train --dataset DD --dim 89 --classes 2 --reorder rcm
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ from tcgnn_tpu_torch.config import TileConfig
 from tcgnn_tpu_torch.data import dataset as data_lib
 from tcgnn_tpu_torch.data import synthetic
 from tcgnn_tpu_torch.graph import TiledGraph
+from tcgnn_tpu_torch import profiling
 from tcgnn_tpu_torch.models import nets
+from tcgnn_tpu_torch.sgt import reorder
 
 WARMUP_EPOCHS = 10
 
@@ -35,12 +38,10 @@ WARMUP_EPOCHS = 10
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="TC-GNN trainer (PyTorch/CUDA port)")
     p.add_argument("--dataset", type=str, default="amazon0601")
-    p.add_argument("--dim", type=int, default=None,
-                   help="input feature width (default: the dataset's own)")
+    p.add_argument("--dim", type=int, default=96, help="input embedding dimension")
     p.add_argument("--num_layers", type=int, default=2)
     p.add_argument("--hidden", type=int, default=16)
-    p.add_argument("--classes", type=int, default=None,
-                   help="class count (default: the dataset's own)")
+    p.add_argument("--classes", type=int, default=22)
     p.add_argument("--epochs", type=int, default=200)
     p.add_argument("--model", type=str, default="gcn", choices=["gcn", "gin", "agnn"])
     p.add_argument(
@@ -59,6 +60,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--symmetric", action="store_true",
                    help="declare A symmetric (skip the transpose tiling)")
+    p.add_argument(
+        "--reorder", default="none", choices=list(reorder.REORDER_METHODS),
+        help="node reordering before tiling: rcm narrows the band so banded "
+        "graphs reach the block-diagonal route (community: not ported yet)",
+    )
     p.add_argument("--gcn_norm", action="store_true",
                    help="symmetric D^-1/2 A D^-1/2 normalization")
     p.add_argument("--dropout", type=float, default=0.5)
@@ -69,6 +75,9 @@ def build_argparser() -> argparse.ArgumentParser:
         "instead of hoisting it out of the training loop (exact either way)",
     )
     p.add_argument("--eval", action="store_true", help="report train/test accuracy")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="trace the timed epochs with torch.profiler into this directory "
+                   "and print the device's busy time, idle share and largest items")
     p.add_argument("--mesh", type=str, default=None, metavar="GxF",
                    help="distributed training (not ported yet)")
     p.add_argument("--device", type=str, default="cuda")
@@ -76,14 +85,12 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def load_dataset(args) -> data_lib.GraphDataset:
-    dim = 96 if args.dim is None else args.dim
-    classes = 22 if args.classes is None else args.classes
     npz = os.path.join(args.data_dir, args.dataset + ".npz")
     if os.path.exists(npz):
-        return data_lib.load_npz(npz, dim, classes, seed=args.seed)
+        return data_lib.load_npz(npz, args.dim, args.classes, seed=args.seed)
     txt = os.path.join(args.data_dir, args.dataset + ".txt")
     if os.path.exists(txt):
-        return data_lib.load_txt(txt, dim, classes, seed=args.seed)
+        return data_lib.load_txt(txt, args.dim, args.classes, seed=args.seed)
     print(f"# dataset {args.dataset}: synthetic (no file in {args.data_dir})")
     return synthetic.synthesize(args.dataset, args.dim, args.classes, seed=args.seed)
 
@@ -144,6 +151,10 @@ def main(argv=None) -> dict:
 
     ds = load_dataset(args)
     cfg = make_config(args)
+    if args.reorder != "none":
+        start = time.perf_counter()
+        reorder.reorder_dataset(ds, args.reorder)
+        print("Reorder (ms):\t{:.3f}".format((time.perf_counter() - start) * 1e3))
 
     # ---- SGT preprocessing and upload (the "Prep." stage) ----------------
     start = time.perf_counter()
@@ -180,12 +191,13 @@ def main(argv=None) -> dict:
     for _ in range(WARMUP_EPOCHS - 1):
         loss = step()
     sync()
-    start_train = time.perf_counter()
-    for _ in range(args.epochs):
-        loss = step()
-    sync()
-    train_time = time.perf_counter() - start_train
     epochs_run = max(args.epochs, 1)
+    with profiling.trace(args.profile_dir, device, epochs_run) as prof:
+        start_train = time.perf_counter()
+        for _ in range(args.epochs):
+            loss = step()
+        sync()
+        train_time = time.perf_counter() - start_train
     final_loss = float(loss)
 
     print("Final loss:\t{:.6f}".format(final_loss))
@@ -201,6 +213,7 @@ def main(argv=None) -> dict:
                 print("Acc {}:\t{:.4f}".format(split, acc))
 
     return {
+        "block_diag": graph.block_diag,
         "tc_blocks": graph.tc_blocks,
         "exp_edges": graph.exp_edges,
         "prep_ms": prep * 1e3,
@@ -208,6 +221,7 @@ def main(argv=None) -> dict:
         "first_loss": float(first_loss),
         "final_loss": final_loss,
         "train_ms": train_time * 1e3 / epochs_run,
+        "profile": prof or None,
     }
 
 

@@ -56,7 +56,7 @@ def graphs(symmetric, dtype="f32", geometry=(16, 16)):
     pt, jt = DTYPES[dtype]
     bh, bw = geometry
     g = TiledGraph(rp, ci, N, TileConfig(blk_h=bh, blk_w=bw, compute_dtype=pt), device="cpu",
-                   weighted_traffic=True)
+                   weighted_traffic=True, block_diag=False)
     jg = JaxTiledGraph(rp, ci, N, JaxTileConfig(blk_h=bh, blk_w=bw, compute_dtype=jt),
                        dense_tiles=True, block_diag=False, weighted_traffic=True)
     assert g.symmetric == jg.symmetric == symmetric
@@ -230,12 +230,12 @@ def test_weighted_traffic_counts_in_the_budget(monkeypatch):
     naming the chunk route's ROADMAP item; a symmetric graph needs none."""
     rp, ci = edges(False)
     cfg = TileConfig(blk_h=16, blk_w=16)
-    g = TiledGraph(rp, ci, N, cfg, device="cpu")
+    g = TiledGraph(rp, ci, N, cfg, device="cpu", block_diag=False)
     struct_bytes = (g.host_meta.num_blocks + g.host_meta_t.num_blocks) * 256
     monkeypatch.setattr(port_graph, "DENSE_TILE_BUDGET_BYTES", struct_bytes)
-    TiledGraph(rp, ci, N, cfg, device="cpu")
+    TiledGraph(rp, ci, N, cfg, device="cpu", block_diag=False)
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        TiledGraph(rp, ci, N, cfg, device="cpu", weighted_traffic=True)
+        TiledGraph(rp, ci, N, cfg, device="cpu", weighted_traffic=True, block_diag=False)
     rs, cs = edges(True)
     monkeypatch.setattr(port_graph, "DENSE_TILE_BUDGET_BYTES", 1 << 30)
-    TiledGraph(rs, cs, N, cfg, device="cpu", weighted_traffic=True)
+    TiledGraph(rs, cs, N, cfg, device="cpu", weighted_traffic=True, block_diag=False)

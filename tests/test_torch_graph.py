@@ -34,7 +34,7 @@ def test_spmm_and_grad_match_jax_vjp(directed, geometry):
     n = 240
     rp, ci = make_csr(directed, n)
     bh, bw = geometry
-    g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw), device="cpu")
+    g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw), device="cpu", block_diag=False)
     jg = JaxTiledGraph(rp, ci, n, JaxTileConfig(blk_h=bh, blk_w=bw),
                        dense_tiles=True, block_diag=False)
     assert g.symmetric == jg.symmetric == (not directed)
@@ -55,10 +55,11 @@ def test_spmm_and_grad_match_jax_vjp(directed, geometry):
 
 def test_symmetric_graph_shares_its_tiling():
     rp, ci = make_csr(directed=False)
-    g = TiledGraph(rp, ci, 240, TileConfig(blk_h=16, blk_w=8), device="cpu")
+    g = TiledGraph(rp, ci, 240, TileConfig(blk_h=16, blk_w=8), device="cpu", block_diag=False)
     assert g.symmetric and g.meta_t is g.meta and g.a_struct_t is g.a_struct
     assert g.a_struct.dtype == torch.int8 and not g.block_diag and g.dense_tiles
-    d = TiledGraph(*make_csr(directed=True), 240, TileConfig(blk_h=16, blk_w=8), device="cpu")
+    d = TiledGraph(*make_csr(directed=True), 240, TileConfig(blk_h=16, blk_w=8), device="cpu",
+                   block_diag=False)
     assert not d.symmetric and d.meta_t is not d.meta
 
 
@@ -69,11 +70,11 @@ def test_duplicate_counts_over_127_use_compute_dtype_tiles():
                         np.concatenate([dst, np.full(150, 2)]), n)
     for dtype in (torch.float32, torch.bfloat16):
         g = TiledGraph(rp, ci, n, TileConfig(blk_h=16, blk_w=8, compute_dtype=dtype),
-                       device="cpu")
+                       device="cpu", block_diag=False)
         assert g.a_struct.dtype == dtype
     jg = JaxTiledGraph(rp, ci, n, JaxTileConfig(blk_h=16, blk_w=8), dense_tiles=True,
                        block_diag=False)
-    g = TiledGraph(rp, ci, n, TileConfig(blk_h=16, blk_w=8), device="cpu")
+    g = TiledGraph(rp, ci, n, TileConfig(blk_h=16, blk_w=8), device="cpu", block_diag=False)
     x = np.random.default_rng(0).standard_normal((n, 9), dtype=np.float32)
     np.testing.assert_allclose(g.spmm(torch.from_numpy(x)).numpy(),
                                np.asarray(jg.spmm(jnp.asarray(x))), **F32)
@@ -82,7 +83,7 @@ def test_duplicate_counts_over_127_use_compute_dtype_tiles():
 def test_bf16_config_stores_bf16_and_casts_grad_to_primal():
     rp, ci = make_csr(directed=True)
     g = TiledGraph(rp, ci, 240, TileConfig(blk_h=16, blk_w=8, compute_dtype=torch.bfloat16),
-                   device="cpu")
+                   device="cpu", block_diag=False)
     x = torch.randn(240, 8, generator=torch.Generator().manual_seed(1), requires_grad=True)
     out = g.spmm(x)
     assert out.dtype == torch.bfloat16
@@ -92,7 +93,8 @@ def test_bf16_config_stores_bf16_and_casts_grad_to_primal():
 
 def test_block_group_auto_resolves_to_one():
     rp, ci = make_csr(directed=False)
-    g = TiledGraph(rp, ci, 240, TileConfig(blk_h=16, blk_w=8, block_group=0), device="cpu")
+    g = TiledGraph(rp, ci, 240, TileConfig(blk_h=16, blk_w=8, block_group=0), device="cpu",
+                   block_diag=False)
     assert g.config.block_group == 1
 
 
@@ -100,4 +102,4 @@ def test_over_budget_graph_raises(monkeypatch):
     monkeypatch.setattr(port_graph, "DENSE_TILE_BUDGET_BYTES", 1024)
     rp, ci = make_csr(directed=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TiledGraph(rp, ci, 240, TileConfig(blk_h=16, blk_w=8), device="cpu")
+        TiledGraph(rp, ci, 240, TileConfig(blk_h=16, blk_w=8), device="cpu", block_diag=False)

@@ -1,4 +1,4 @@
-"""The CUDA kernels (K1 to K4) against their plain PyTorch versions, on the card.
+"""The CUDA kernels (K1 to K7) against their plain PyTorch versions, on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  This
 file imports neither JAX nor the JAX package, so it runs on a machine
@@ -11,8 +11,9 @@ magnitude is the same sum over absolute values (``|A| @ |x|`` for K1, the
 CSR oracle on ``|x|`` for K2-K4), since the kernel and the plain version
 differ only in summation order and an f32 sum's rounding error scales with
 the magnitudes summed; bf16 ``2e-2`` on the same scale, for the one
-rounding of the stored sums (K1) or of a score whose last f32 bit the
-summation order moved (K2, K3).
+rounding of the stored sums (K1, K5-K7) or of a score whose last f32 bit
+the summation order moved (K2, K3, K6, K7).  For K5-K7 the magnitude is the
+plain version's own output on absolute values (pack and features).
 """
 
 import dataclasses
@@ -23,9 +24,16 @@ import torch
 
 from tcgnn_tpu_torch import TileConfig, TiledGraph
 from tcgnn_tpu_torch.data import coo_to_csr, powerlaw_graph
-from tcgnn_tpu_torch.models import agnn_conv
+from tcgnn_tpu_torch.data.synthetic import component_union_graph
+from tcgnn_tpu_torch.models import agnn_conv, gcn_conv
 from tcgnn_tpu_torch.ops import (
+    bd_sfused,
+    bd_sfused_bwd,
+    bd_sfused_bwd_torch,
+    bd_sfused_torch,
     build_a_tiles,
+    spmm_block_diag,
+    spmm_block_diag_torch,
     sddmm_tc_dense,
     sddmm_tc_dense_torch,
     spmm_sfused,
@@ -83,7 +91,8 @@ def within(got, want, mag, rtol, atol):
 def test_kernel_matches_plain(cuda, kind, geometry, dtype, d):
     n, rp, ci = graph(kind)
     bh, bw = geometry
-    g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw, compute_dtype=dtype), device=cuda)
+    g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw, compute_dtype=dtype), device=cuda,
+                   block_diag=False)
     x = torch.randn(n, d, generator=torch.Generator().manual_seed(d)).to(cuda)
     before = spmm_tc_dense.launches
     got = spmm_tc_dense(x, g.meta, g.a_struct)
@@ -103,7 +112,7 @@ def test_autograd_on_card_matches_cpu(cuda, geometry):
     dy = torch.randn(n, 24, generator=torch.Generator().manual_seed(1))
     results = []
     for dev in (torch.device("cpu"), cuda):
-        g = TiledGraph(rp, ci, n, cfg, device=dev)
+        g = TiledGraph(rp, ci, n, cfg, device=dev, block_diag=False)
         assert not g.symmetric
         xd = x.to(dev).detach().requires_grad_(True)
         out = g.spmm(xd)
@@ -116,7 +125,7 @@ def test_autograd_on_card_matches_cpu(cuda, geometry):
 
 def test_counts_and_device_checks(cuda):
     n, rp, ci = graph("directed")
-    g = TiledGraph(rp, ci, n, TileConfig(blk_h=16, blk_w=8), device=cuda)
+    g = TiledGraph(rp, ci, n, TileConfig(blk_h=16, blk_w=8), device=cuda, block_diag=False)
     cpu_meta = dataclasses.replace(g.meta, col_ids=g.meta.col_ids.cpu())
     with pytest.raises(ValueError, match="col_ids on cpu"):
         spmm_tc_dense(torch.zeros(n, 4, device=cuda), cpu_meta, g.a_struct)
@@ -149,7 +158,8 @@ def csr(rp, ci, dev):
 def test_sfused_kernel_matches_plain(cuda, kind, geometry, dtype, d, share):
     n, rp, ci = graph(kind)
     bh, bw = geometry
-    g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw, compute_dtype=dtype), device=cuda)
+    g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw, compute_dtype=dtype), device=cuda,
+                   block_diag=False)
     xl, xr = randn((n, d), 1, cuda, 0.3), randn((n, d), 2, cuda, 0.3)
     xv = xr if share else randn((n, d), 3, cuda, 0.3)
     before = spmm_sfused.launches
@@ -170,7 +180,8 @@ def test_sfused_kernel_matches_plain(cuda, kind, geometry, dtype, d, share):
 def test_sfused_bwd_kernel_matches_plain(cuda, kind, geometry, dtype, d):
     n, rp, ci = graph(kind)
     bh, bw = geometry
-    g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw, compute_dtype=dtype), device=cuda)
+    g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw, compute_dtype=dtype), device=cuda,
+                   block_diag=False)
     x, dy = randn((n, d), 4, cuda, 0.3), randn((n, d), 5, cuda, 0.3)
     before = spmm_sfused_bwd.launches
     dx3, u = spmm_sfused_bwd(x, dy, g.meta, g.a_struct)
@@ -193,7 +204,8 @@ def test_sfused_bwd_kernel_matches_plain(cuda, kind, geometry, dtype, d):
 def test_sddmm_kernel_matches_plain(cuda, kind, geometry, dtype, d):
     n, rp, ci = graph(kind)
     bh, bw = geometry
-    g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw, compute_dtype=dtype), device=cuda)
+    g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw, compute_dtype=dtype), device=cuda,
+                   block_diag=False)
     xa, xb = randn((n, d), 6, cuda), randn((n, d), 7, cuda)
     before = sddmm_tc_dense.launches
     got = sddmm_tc_dense(xa, g.meta, xb)
@@ -214,7 +226,7 @@ def test_weighted_tiles_round_to_bf16_in_k1(cuda):
     n = 101
     rp, ci = coo_to_csr(np.zeros(100, int), np.arange(1, 101), n)
     g = TiledGraph(rp, ci, n, TileConfig(blk_h=16, blk_w=8, compute_dtype=torch.bfloat16),
-                   device=cuda)
+                   device=cuda, block_diag=False)
     tiles = build_a_tiles(g.meta, torch.full((100,), 1.005859375, device=cuda))
     x = torch.ones(n, 1, device=cuda)
     got = spmm_tc_dense(x, g.meta, tiles)
@@ -224,7 +236,7 @@ def test_weighted_tiles_round_to_bf16_in_k1(cuda):
 
 def test_sfused_rejects_wide_features(cuda):
     n, rp, ci = graph("directed")
-    g = TiledGraph(rp, ci, n, TileConfig(blk_h=16, blk_w=8), device=cuda)
+    g = TiledGraph(rp, ci, n, TileConfig(blk_h=16, blk_w=8), device=cuda, block_diag=False)
     x = torch.zeros(n, 130, device=cuda)
     with pytest.raises(ValueError, match="d <= 128"):
         spmm_sfused(x, x, x, g.meta, g.a_struct)
@@ -251,10 +263,164 @@ def test_agnn_autograd_on_card_matches_cpu(cuda, kind, geometry):
     r = torch.randn(n, 16, generator=torch.Generator().manual_seed(2))
     results = []
     for dev in (torch.device("cpu"), cuda):
-        g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw), device=dev)
+        g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw), device=dev, block_diag=False)
         assert (g.agnn_aggregate is not None) == (kind == "symmetric")
         leaves = [t.to(dev, copy=True).requires_grad_(True) for t in (x, w, att)]
         out = agnn_conv(leaves[1], leaves[2], leaves[0], g)
+        (out * r.to(dev)).sum().backward()
+        results.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for got, want in zip(results[1], results[0]):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * max(scale, 1.0))
+
+
+# ---- K5, K6, K7: the block-diagonal kernels ----------------------------------
+
+BD_OFFSETS = {"diag": (0,), "tri": (-1, 0, 1), "hepta": (-3, -2, -1, 0, 1, 2, 3),
+              "upper": (0, 1, 2), "octa": (-4, -3, -2, -1, 0, 1, 2, 3)}
+
+
+def bd_pack(n, offsets, kind, dev, seed=0):
+    """A random pack [Bp, 128, K*128] of about 5 entries a row (DD's
+    density): int8 counts 1-3; int16, with one entry in 500 a count of
+    128-300; or float / bfloat16 normal weights."""
+    g = torch.Generator().manual_seed(seed)
+    bp = -(-(-(-n // 128)) // 8) * 8
+    shape = (bp, 128, len(offsets) * 128)
+    mask = torch.rand(shape, generator=g) < 5 / shape[2]
+    if kind in ("int8", "int16"):
+        counts = torch.randint(1, 4, shape, generator=g)
+        if kind == "int16":
+            big = torch.rand(shape, generator=g) < 0.002
+            counts = torch.where(big, torch.randint(128, 301, shape, generator=g), counts)
+        pack = (mask * counts).to(torch.int8 if kind == "int8" else torch.int16)
+    else:
+        pack = (mask * torch.randn(shape, generator=g)).to(
+            torch.float32 if kind == "float" else torch.bfloat16)
+    return pack.to(dev)
+
+
+def bd_cfg(dtype):
+    return TileConfig(compute_dtype=dtype)
+
+
+@pytest.mark.parametrize("offsets", list(BD_OFFSETS))
+@pytest.mark.parametrize("kind", ["int8", "int16", "float", "bfloat16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(1000, 3), (1100, 16), (1100, 89), (1000, 200)])
+def test_bd_spmm_kernel_matches_plain(cuda, offsets, kind, dtype, n, d):
+    offs = BD_OFFSETS[offsets]
+    pack = bd_pack(n, offs, kind, cuda)
+    x = randn((n, d), 20, cuda)
+    cfg = bd_cfg(dtype)
+    before = spmm_block_diag.launches
+    got = spmm_block_diag(x, pack, offsets=offs, cfg=cfg)
+    torch.cuda.synchronize()
+    assert spmm_block_diag.launches == before + 1 and got.dtype == dtype and got.shape == (n, d)
+    mag = spmm_block_diag_torch(x.abs(), pack.float().abs(), offsets=offs,
+                                cfg=bd_cfg(torch.float32))
+    within(got, spmm_block_diag_torch(x, pack, offsets=offs, cfg=cfg), mag, **tol(dtype))
+
+
+BD_SHARING = {"all_one": "xxx", "l_is_r": "xxv", "l_is_v": "xrx", "v_is_r": "lxx",
+              "separate": "lrv"}
+
+
+@pytest.mark.parametrize("offsets", list(BD_OFFSETS))
+@pytest.mark.parametrize("kind", ["int8", "int16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2, 32, 70])
+@pytest.mark.parametrize("sharing", list(BD_SHARING))
+def test_bd_sfused_kernel_matches_plain(cuda, offsets, kind, dtype, d, sharing):
+    n, offs = 1100, BD_OFFSETS[offsets]
+    pack = bd_pack(n, offs, kind, cuda, seed=1)
+    ops = {k: randn((n, d), 21 + i, cuda, 0.3) for i, k in enumerate("xlrv")}
+    args = [ops[k] for k in BD_SHARING[sharing]]
+    cfg = bd_cfg(dtype)
+    before = bd_sfused.launches
+    got = bd_sfused(*args, pack, offsets=offs, cfg=cfg)
+    torch.cuda.synchronize()
+    assert bd_sfused.launches == before + 1 and got.dtype == dtype and got.shape == (n, d)
+    mag = bd_sfused_torch(*(a.abs() for a in args), pack.float().abs(), offsets=offs,
+                          cfg=bd_cfg(torch.float32))
+    within(got, bd_sfused_torch(*args, pack, offsets=offs, cfg=cfg), mag, **tol(dtype))
+
+
+@pytest.mark.parametrize("offsets", list(BD_OFFSETS))
+@pytest.mark.parametrize("kind", ["int8", "int16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(1000, 2), (1100, 32), (1100, 70)])
+def test_bd_sfused_bwd_kernel_matches_plain(cuda, offsets, kind, dtype, n, d):
+    offs = BD_OFFSETS[offsets]
+    pack = bd_pack(n, offs, kind, cuda, seed=2)
+    x, dy = randn((n, d), 30, cuda, 0.3), randn((n, d), 31, cuda, 0.3)
+    cfg = bd_cfg(dtype)
+    before = bd_sfused_bwd.launches
+    dx3, u = bd_sfused_bwd(x, dy, pack, offsets=offs, cfg=cfg)
+    torch.cuda.synchronize()
+    assert bd_sfused_bwd.launches == before + 1 and dx3.dtype == u.dtype == dtype
+    mag_dx3, mag_u = bd_sfused_bwd_torch(x.abs(), dy.abs(), pack.float().abs(), offsets=offs,
+                                         cfg=bd_cfg(torch.float32))
+    want_dx3, want_u = bd_sfused_bwd_torch(x, dy, pack, offsets=offs, cfg=cfg)
+    within(dx3, want_dx3, mag_dx3, **tol(dtype))
+    within(u, want_u, mag_u, **tol(dtype))
+
+
+def test_bd_kernels_reject_what_they_do_not_take(cuda):
+    offs = BD_OFFSETS["tri"]
+    pack = bd_pack(300, offs, "int8", cuda)
+    x = torch.zeros(300, 130, device=cuda)
+    with pytest.raises(ValueError, match="d <= 128"):
+        bd_sfused(x, x, x, pack, offsets=offs, cfg=bd_cfg(torch.float32))
+    with pytest.raises(ValueError, match="d <= 128"):
+        bd_sfused_bwd(x, x, pack, offsets=offs, cfg=bd_cfg(torch.float32))
+    nine = tuple(range(-4, 5))
+    with pytest.raises(ValueError, match="offsets"):
+        spmm_block_diag(x, bd_pack(300, nine, "int8", cuda), offsets=nine,
+                        cfg=bd_cfg(torch.float32))
+    with pytest.raises(ValueError, match="on cpu"):
+        spmm_block_diag(x, pack.cpu(), offsets=offs, cfg=bd_cfg(torch.float32))
+
+
+def bd_graph(kind):
+    """A symmetric union graph with 3% random long-range edges (a residual),
+    or a directed band with random edges."""
+    rng = np.random.default_rng(7)
+    if kind == "directed_band":
+        n = 3000
+        src = rng.integers(0, n, 9000)
+        dst = np.clip(src + rng.integers(-100, 101, 9000), 0, n - 1)
+        src, dst = np.concatenate([src, rng.integers(0, n, 300)]), np.concatenate(
+            [dst, rng.integers(0, n, 300)])
+    else:
+        n = 3000
+        src, dst = component_union_graph(n, 7000, 100, seed=2)
+        e, far = rng.integers(0, n, (2, 100))
+        src, dst = np.concatenate([src, e, far]), np.concatenate([dst, far, e])
+    return (n, *coo_to_csr(src, dst, n))
+
+
+@pytest.mark.parametrize("kind", ["union_with_residual", "directed_band"])
+@pytest.mark.parametrize("model", ["gcn", "agnn"])
+def test_bd_autograd_on_card_matches_cpu(cuda, kind, model):
+    """A GCN or AGNN layer on the BD route, forward and every gradient: K5
+    with K1 (and K6/K7 with K2/K3, or K4 and weighted K5), against the plain
+    versions on the CPU."""
+    n, rp, ci = bd_graph(kind)
+    x = torch.randn(n, 20, generator=torch.Generator().manual_seed(0)) * 0.3
+    w = torch.randn(20, 16, generator=torch.Generator().manual_seed(1)) * 0.25
+    att = torch.tensor([[0.6, -0.3]])
+    r = torch.randn(n, 16, generator=torch.Generator().manual_seed(2))
+    results = []
+    for dev in (torch.device("cpu"), cuda):
+        g = TiledGraph(rp, ci, n, TileConfig(128, 128), device=dev, weighted_traffic=True)
+        assert g.block_diag and not g.bd_full_coverage
+        leaves = [t.to(dev, copy=True).requires_grad_(True) for t in (x, w, att)]
+        if model == "agnn":
+            out = agnn_conv(leaves[1], leaves[2], leaves[0], g)
+        else:
+            out = gcn_conv(leaves[1], leaves[0], g)
+            leaves = leaves[:2]
         (out * r.to(dev)).sum().backward()
         results.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
     for got, want in zip(results[1], results[0]):

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from tcgnn_tpu.config import TileConfig as JaxTileConfig
 from tcgnn_tpu.graph import TiledGraph as JaxTiledGraph
 from tcgnn_tpu.models import nets as jax_nets
+from tcgnn_tpu.train import build_argparser as jax_build_argparser
 from tcgnn_tpu.train import make_train_step as jax_make_train_step
 from tcgnn_tpu_torch import train as port_train
 from tcgnn_tpu_torch.config import TileConfig
@@ -39,7 +40,7 @@ def setup(kind, dim, seed=0):
     src, dst = powerlaw_graph(N, 800, seed=seed + 3)
     keep = (src < dst) | (src % 3 == 0)  # directed: the backward needs A^T
     rp, ci = coo_to_csr(src[keep], dst[keep], N)
-    g = TiledGraph(rp, ci, N, TileConfig(blk_h=16, blk_w=16), device="cpu")
+    g = TiledGraph(rp, ci, N, TileConfig(blk_h=16, blk_w=16), device="cpu", block_diag=False)
     jg = JaxTiledGraph(rp, ci, N, JaxTileConfig(blk_h=16, blk_w=16), dense_tiles=True,
                        block_diag=False)
     rng = np.random.default_rng(seed)
@@ -162,6 +163,17 @@ def test_cli_agnn_prints_contract(capsys):
     assert np.isfinite(r["final_loss"]) and r["tc_blocks"] > 0
 
 
+def test_cli_defaults_match_jax():
+    """Every option the two trainers share has the same default, so the same
+    arguments build the same model (``--device`` is the port's own)."""
+    jax_opts = {a.dest: a.default for a in jax_build_argparser()._actions}
+    port_opts = {a.dest: a.default for a in port_train.build_argparser()._actions}
+    shared = sorted(set(jax_opts) & set(port_opts) - {"help"})
+    assert {"dim", "classes", "reorder", "dataset", "hidden", "epochs"} <= set(shared)
+    assert set(port_opts) - set(jax_opts) == {"device"}
+    assert {k: port_opts[k] for k in shared} == {k: jax_opts[k] for k in shared}
+
+
 def test_cli_never_falls_back_to_cpu():
     if torch.cuda.is_available():
         pytest.skip("a card is present: --device cuda is valid here")
@@ -171,16 +183,19 @@ def test_cli_never_falls_back_to_cpu():
 
 def test_port_imports_no_jax():
     """In a fresh process (this one has JAX loaded by conftest), importing
-    the port and running its CLI (GCN and AGNN) loads neither JAX nor the
-    JAX package."""
+    the port and running its CLI (GCN and AGNN, on the condensed route and
+    on the block-diagonal route after ``--reorder rcm``) loads neither JAX
+    nor the JAX package."""
     code = (
         "import sys\n"
         "import tcgnn_tpu_torch\n"
         "from tcgnn_tpu_torch import train\n"
         "for model in ('gcn', 'agnn'):\n"
-        "    train.main(['--dataset', 'rand_120_500', '--dim', '6', '--classes', '3',"
-        " '--epochs', '2', '--blk_h', '16', '--blk_w', '8', '--device', 'cpu',"
-        " '--model', model])\n"
+        "    for extra in (['--dataset', 'rand_2000_8000'],"
+        " ['--dataset', 'PROTEINS_full', '--reorder', 'rcm']):\n"
+        "        r = train.main([*extra, '--dim', '6', '--classes', '3', '--epochs', '2',"
+        " '--blk_h', '16', '--blk_w', '8', '--device', 'cpu', '--model', model])\n"
+        "        assert r['block_diag'] == (extra[1] == 'PROTEINS_full'), r\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tcgnn_tpu'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n"
@@ -189,3 +204,25 @@ def test_port_imports_no_jax():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "NO_JAX_OK" in proc.stdout and "Train (ms):" in proc.stdout
+    assert "Reorder (ms):" in proc.stdout
+
+
+def test_profile_union_counts_overlap_once():
+    from tcgnn_tpu_torch.profiling import union_us
+
+    assert union_us([]) == 0.0
+    assert union_us([(5.0, 9.0), (0.0, 2.0), (1.0, 3.0), (9.0, 10.0), (20.0, 21.5)]) == 9.5
+
+
+def test_cli_profile_dir_on_cpu(tmp_path, capsys):
+    """``--profile_dir`` traces the timed epochs into a Chrome trace; off the
+    card the device figures are reported as not measured."""
+    r = port_train.main(["--dataset", "rand_300_1200", "--dim", "8", "--classes", "3",
+                         "--epochs", "2", "--blk_h", "16", "--blk_w", "8", "--device", "cpu",
+                         "--profile_dir", str(tmp_path)])
+    assert (tmp_path / "trace.json").stat().st_size > 0
+    assert r["profile"]["busy_ms"] is None and r["profile"]["epochs"] == 2
+    assert "device time not measured" in capsys.readouterr().out
+    r = port_train.main(["--dataset", "rand_300_1200", "--dim", "8", "--classes", "3",
+                         "--epochs", "1", "--blk_h", "16", "--blk_w", "8", "--device", "cpu"])
+    assert r["profile"] is None
