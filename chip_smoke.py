@@ -5,9 +5,9 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits nonzero:
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
-  2. build K1-K7 (``tcgnn_tpu_torch/csrc/{spmm_dense,spmm_sfused,
-     sddmm_dense,spmm_bd}.cu``) with nvcc for sm_90a, one nvcc per source,
-     all at once, printing ``-Xptxas -v``;
+  2. build K1-K9 (``tcgnn_tpu_torch/csrc/{spmm_dense,spmm_sfused,
+     sddmm_dense,spmm_bd,chunk}.cu``) with nvcc for sm_90a, one nvcc per
+     source, all at once, printing ``-Xptxas -v``;
   3. K1 against its plain PyTorch version on the card: pubmed tiling at
      512x128 and 16x8, d in {16, 500}, f32 and bf16; a graph with a
      duplicate count above 127 (float tiles); an asymmetric graph through
@@ -31,23 +31,46 @@ Phases, in order; any failure raises and exits nonzero:
   8. autograd on the block-diagonal route against f64 oracles: ``spmm``,
      ``agnn_aggregate`` (attention gradient included), ``spmm_weighted``
      and ``sddmm`` on DD and on the asymmetric banded graph;
-  9. the main path through ``tcgnn_tpu_torch.train.main``, 20 timed epochs
-     each: pubmed (``--dim 500 --classes 3``) GCN with and without
+  9. K8 and K9 against their plain versions and f64 CSR oracles: pubmed's
+     chunk layout (``dense_tiles=False``) at 512x128 (edge_chunk 128) and
+     16x8 (32), flat and cut into window segments by small budgets; K8 at d
+     in {16, 41, 500}, K9 at d in {32, 3} with one matrix and two, f32 and
+     bf16, K8 weighted and not;
+ 10. autograd on the streamed route (``dense_tiles=False, streamed=True``):
+     ``spmm``, ``spmm_weighted`` and ``sddmm`` on the asymmetric graph,
+     against f64 oracle autograd;
+ 11. the main path through ``tcgnn_tpu_torch.train.main``, 20 timed epochs
+     each unless named: pubmed (``--dim 500 --classes 3``) GCN with and without
      ``--no_hoist``, GIN (K1), AGNN hidden 32 with 2 and 4 layers (K2/K3),
      AGNN 2 layers on the asymmetric graph (K4 and weighted K1); DD
      (``--dim 89 --classes 2``) GCN with and without ``--no_hoist``, GIN
      (K5, and K1 for the residual), AGNN with 2 and 4 layers (K6/K7, K2/K3
      for the residual), GCN after ``--reorder rcm``; Yeast GCN (K5 alone:
      fully covered, no condensed tiles); AGNN 2 layers on the banded graph
-     (K4, K5 over weighted packs, K1).  Each run must take the expected
-     route and launch its kernels, and no plain version may have run; the
-     loss must be finite and fall, except in the 4-layer AGNN runs (pubmed
-     overflows to nan in f32, as in the JAX package), which are only timed;
- 10. every kernel and its plain version timed with CUDA events: K1-K4 at
-     the pubmed shapes, K5-K7 at DD's.
+     (K4, K5 over weighted packs, K1); reddit (``--dim 602 --classes 41``,
+     the streamed route, TC_Blocks 265,565) GCN hoisted (K8) and AGNN hidden
+     32, 2 layers (K8 and K9).  Each run must take the expected route and
+     launch its kernels and no others of K1-K9, and no plain version may
+     have run; the loss must be finite and fall, except in the 4-layer AGNN
+     runs (pubmed overflows to nan in f32, as in the JAX package), which are
+     only timed.  The reddit runs print the peak host RSS and device memory.
+     After the reddit GCN run, on its graph: the segment layout, and K8 (d=16,
+     602, and 32 and 41 weighted) and K9 (d=32 and 41, one matrix and two)
+     against their plain versions at the main path's shapes, each timed
+     beside its bound;
+ 12. every kernel and its plain version timed with CUDA events (K1-K4, K8
+     and K9 at the pubmed shapes, K5-K7 at DD's), each beside its bound
+     (``csr_bound``: the function's own operands, a CSR adjacency's indices
+     and pointers and the dense inputs and outputs, over 3.35 TB/s, or its
+     f32 operations over 67 TFLOP/s, whichever is larger; the same for every
+     kernel) and the one PyTorch call that computes the same function, where
+     there is one: ``torch.sparse.mm`` on a CSR tensor (K1, K5, K8),
+     ``torch.sparse.sampled_addmm`` (K4, K9).  Yardsticks only: nothing on
+     the main path calls them.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
+Every phase prints its elapsed seconds.  The line before the last is
+``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
+Nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -57,6 +80,7 @@ import dataclasses
 import json
 import math
 import os
+import resource
 import statistics
 import subprocess
 import tempfile
@@ -78,19 +102,24 @@ from tcgnn_tpu_torch.ops import (
     build_a_tiles,
     build_bd_pack,
     reset_counts,
+    sddmm_tc,
     sddmm_tc_dense,
     sddmm_tc_dense_torch,
+    sddmm_tc_torch,
     spmm_sfused,
     spmm_sfused_bwd,
     spmm_sfused_bwd_torch,
     spmm_sfused_torch,
     spmm_block_diag,
     spmm_block_diag_torch,
+    spmm_tc,
     spmm_tc_dense,
     spmm_tc_dense_torch,
+    spmm_tc_torch,
 )
 from tcgnn_tpu_torch.ops.reference import sddmm_ref, sfused_bwd_ref, sfused_ref, spmm_ref
 from tcgnn_tpu_torch.sgt.blockdiag import extract_block_diag
+from tcgnn_tpu_torch.sgt.stream import segment_chunks
 from tcgnn_tpu_torch.sgt.translate import sparse_graph_translate, transpose_csr
 
 # Summation order is the only difference between a kernel and its
@@ -103,19 +132,27 @@ F32_TOL = dict(rtol=1e-5, atol=1e-4)
 # the summation order moved (K2, K3): 8 mantissa bits.
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 GEOMETRIES = {"512x128": (512, 128), "16x8": (16, 8)}
+CHUNK_GEOMETRIES = {"512x128": (512, 128, 128), "16x8": (16, 8, 32)}
 TIMING_RUNS = 25
-KERNEL_SOURCES = ("spmm_dense", "spmm_sfused", "sddmm_dense", "spmm_bd")
-# name, source, TPU kernel it replaces, wrapper
+KERNEL_SOURCES = ("spmm_dense", "spmm_sfused", "sddmm_dense", "spmm_bd", "chunk")
+# name, source, TPU kernel it replaces, wrappers that launch it
 KERNELS = {
-    "K1": ("spmm_dense (K1)", "spmm_dense", "tcgnn_tpu/ops/spmm.py:249", spmm_tc_dense),
-    "K2": ("spmm_sfused (K2)", "spmm_sfused", "tcgnn_tpu/ops/spmm.py:1335", spmm_sfused),
+    "K1": ("spmm_dense (K1)", "spmm_dense", "tcgnn_tpu/ops/spmm.py:249", (spmm_tc_dense,)),
+    "K2": ("spmm_sfused (K2)", "spmm_sfused", "tcgnn_tpu/ops/spmm.py:1335", (spmm_sfused,)),
     "K3": ("spmm_sfused_bwd (K3)", "spmm_sfused", "tcgnn_tpu/ops/spmm.py:1487",
-           spmm_sfused_bwd),
-    "K4": ("sddmm_dense (K4)", "sddmm_dense", "tcgnn_tpu/ops/sddmm.py:264", sddmm_tc_dense),
-    "K5": ("spmm_bd (K5)", "spmm_bd", "tcgnn_tpu/ops/spmm.py:813", spmm_block_diag),
-    "K6": ("bd_sfused (K6)", "spmm_bd", "tcgnn_tpu/ops/spmm.py:928", bd_sfused),
-    "K7": ("bd_sfused_bwd (K7)", "spmm_bd", "tcgnn_tpu/ops/spmm.py:1094", bd_sfused_bwd),
+           (spmm_sfused_bwd,)),
+    "K4": ("sddmm_dense (K4)", "sddmm_dense", "tcgnn_tpu/ops/sddmm.py:264", (sddmm_tc_dense,)),
+    "K5": ("spmm_bd (K5)", "spmm_bd", "tcgnn_tpu/ops/spmm.py:813", (spmm_block_diag,)),
+    "K6": ("bd_sfused (K6)", "spmm_bd", "tcgnn_tpu/ops/spmm.py:928", (bd_sfused,)),
+    "K7": ("bd_sfused_bwd (K7)", "spmm_bd", "tcgnn_tpu/ops/spmm.py:1094", (bd_sfused_bwd,)),
+    "K8": ("spmm_chunk (K8)", "chunk", "tcgnn_tpu/ops/spmm.py:82", (spmm_tc,)),
+    "K9": ("sddmm_chunk (K9)", "chunk", "tcgnn_tpu/ops/sddmm.py:44", (sddmm_tc,)),
 }
+# The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): memory rate and
+# f32 rate outside the tensor cores (every kernel here multiplies in f32 on
+# the CUDA cores).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def card_line() -> str:
@@ -572,6 +609,150 @@ def phase_bd_autograd(dd, dev) -> None:
         check_weighted_autograd(name, g, csr, dev)
 
 
+# ---- the chunk and streamed routes -----------------------------------------
+
+def chunk_layouts(ds, dev):
+    """pubmed's chunk layout at each chunk geometry, flat and cut into window
+    segments by small budgets: name -> meta."""
+    layouts = {}
+    for geo, (bh, bw, ec) in CHUNK_GEOMETRIES.items():
+        host = sparse_graph_translate(ds.row_pointers, ds.column_index, ds.num_nodes,
+                                      TileConfig(blk_h=bh, blk_w=bw, edge_chunk=ec),
+                                      emit_chunks=True)
+        # Budgets of half the graph: the hub's window fits, and the graph
+        # takes a few segments.
+        segs = segment_chunks(host, max_chunks=host.num_chunks // 2,
+                              max_slab_rows=host.num_blocks * bw // 2)
+        if segs.num_segments < 2:
+            raise AssertionError(f"pubmed {geo}: expected several segments")
+        print(f"pubmed {geo} chunks: {host.num_chunks} chunks of {ec} slots, "
+              f"{segs.num_segments} segments of {segs.wseg} windows, C_max {segs.seg_r.shape[1]}")
+        layouts[f"{geo} flat"] = host.to_chunks(dev)
+        layouts[f"{geo} segments"] = segs.to(dev)
+    return layouts
+
+
+def phase_chunk_kernels(ds, dev) -> dict:
+    """Phase 9: K8 and K9 on pubmed's chunk layouts against their plain
+    versions and the f64 CSR oracles (K8 at d=41 too: AGNN's class width on
+    reddit).  Both store f32 under bf16 too, so
+    every comparison takes the f32 tolerance.  Returns, per kernel, the f32
+    max abs error of each case against the plain version."""
+    errs = {"K8": {}, "K9": {}}
+    csr = Csr(ds.row_pointers, ds.column_index, dev)
+    n, e = ds.num_nodes, ds.num_edges
+    for name, meta in chunk_layouts(ds, dev).items():
+        for dtype in (torch.float32, torch.bfloat16):
+            m, dt = with_dtype(meta, dtype), str(dtype)[6:]
+            for d in (16, 41, 500):
+                x = randn((n, d), 110 + d, dev)
+                for w in (None, randn((e,), 111, dev)):
+                    tag = f"K8 {name} d={d} {dt}{'' if w is None else ' weighted'}"
+                    x64 = x.to(dtype).double()
+                    w64 = None if w is None else w.to(dtype).double()
+                    mag = spmm_ref(x64.abs(), csr.ptr, csr.idx, None if w is None else w64.abs())
+                    got = spmm_tc(x, m, w)
+                    if got.dtype != torch.float32:
+                        raise AssertionError(f"{tag}: stored {got.dtype}, expected float32")
+                    err = compare(f"{tag} vs plain", got, spmm_tc_torch(x, m, w), mag, F32_TOL)
+                    compare(f"{tag} vs CSR oracle (f64)", got,
+                            spmm_ref(x64, csr.ptr, csr.idx, w64), mag, F32_TOL)
+                    if dtype == torch.float32:
+                        errs["K8"][tag] = err
+            for d in (32, 3):
+                xa, xb = randn((n, d), 120 + d, dev), randn((n, d), 121 + d, dev)
+                for two in (False, True):
+                    tag = f"K9 {name} d={d} {dt} {'two matrices' if two else 'one matrix'}"
+                    a64 = xa.to(dtype).double()
+                    b64 = xb.to(dtype).double() if two else a64
+                    got = sddmm_tc(xa, m, xb if two else None)
+                    mag = sddmm_ref(a64.abs(), csr.ptr, csr.idx, b64.abs())
+                    err = compare(f"{tag} vs plain", got,
+                                  sddmm_tc_torch(xa, m, xb if two else None), mag, F32_TOL)
+                    compare(f"{tag} vs CSR oracle (f64)", got,
+                            sddmm_ref(a64, csr.ptr, csr.idx, b64), mag, F32_TOL)
+                    if dtype == torch.float32:
+                        errs["K9"][tag] = err
+    return errs
+
+
+def phase_chunk_autograd(dev) -> None:
+    """Phase 10: ``spmm``, ``spmm_weighted`` and ``sddmm`` on the streamed
+    route (K8 forward and over the transpose's segments, K9), forward and
+    backward, against f64 oracle autograd, on the asymmetric graph."""
+    n, rp, ci = asymmetric_graph()
+    csr = Csr(rp, ci, dev)
+    t_ptr, t_idx, _ = transpose_csr(rp, ci, n)
+    csr_t = Csr(t_ptr, t_idx, dev)
+    for geo, (bh, bw, ec) in CHUNK_GEOMETRIES.items():
+        g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw, edge_chunk=ec), device=dev,
+                       dense_tiles=False, streamed=True)
+        if g.dense_tiles or not g.streamed or g.symmetric or g.agnn_aggregate is not None:
+            raise AssertionError(f"asymmetric {geo}: expected the streamed route, no fused AGNN")
+        x, dy = randn((n, 24), 130, dev), randn((n, 24), 131, dev)
+        xl = x.clone().requires_grad_(True)
+        out = g.spmm(xl)
+        (out * dy).sum().backward()
+        compare(f"streamed spmm {geo} forward vs oracle (f64)", out.detach(), csr.oracle(x),
+                csr.magnitude(x), F32_TOL)
+        compare(f"streamed spmm {geo} grad vs oracle of A^T (f64)", xl.grad, csr_t.oracle(dy),
+                csr_t.magnitude(dy), F32_TOL)
+        check_weighted_autograd(f"streamed {geo}", g, csr, dev)
+
+
+def check_reddit_kernels(g, dev, card) -> dict:
+    """Phase 11, after the reddit GCN run, on that run's graph: K8 and K9 on
+    the streamed route's segments (each direction) at the main path's
+    shapes, against their plain versions (the tolerance's magnitude is the
+    plain version over absolute values: an f64 oracle would need [E, d]).
+    K8: d=16 (GCN's layer 2), d=602 (the hoisted layer-1 aggregate), d=32
+    and 41 weighted (AGNN's hidden and class widths); K9 at d=32 and 41 with
+    one matrix and two.  Prints the segment layout, and each shape's kernel
+    time beside its bound.  Returns, per kernel, the max abs error of each
+    case."""
+    errs = {"K8": {}, "K9": {}}
+    n, e = g.num_nodes, g.num_edges
+    layouts = {"A": g.chunks} if g.chunks_t is g.chunks else {"A": g.chunks, "A^T": g.chunks_t}
+    w = randn((e,), 140, dev)
+    for name, m in layouts.items():
+        stacked = nbytes(m.seg_col_ids, m.seg_r, m.seg_c, m.seg_edge_id, m.seg_block,
+                         m.seg_window, m.seg_chunks)
+        print(f"reddit {name}: {m.num_segments} segments of {m.wseg} windows, C_max "
+              f"{m.max_chunks}, {m.num_real_chunks} real chunks; chunk metadata "
+              f"{stacked / 1e6:.1f} MB stacked")
+        if name == "A":
+            # What the flat layout (to_chunks) would upload: the real
+            # chunks' slots, block and window ids, the TC blocks' col_ids.
+            flat = (4 * m.num_real_chunks * (3 * m.config.edge_chunk + 2)
+                    + 4 * g.tc_blocks * m.config.blk_w)
+            print(f"  the flat layout's: {flat / 1e6:.1f} MB")
+        for d, wd in ((16, None), (602, None), (32, w), (41, w)):
+            x = randn((n, d), 141 + d, dev)
+            tag = f"K8 reddit {name} d={d}{'' if wd is None else ' weighted'}"
+            mag = spmm_tc_torch(x.abs(), m, None if wd is None else wd.abs())
+            errs["K8"][tag] = compare(f"{tag} vs plain", spmm_tc(x, m, wd),
+                                      spmm_tc_torch(x, m, wd), mag, F32_TOL)
+            del mag
+            ms = median_ms(lambda: spmm_tc(x, m, wd), runs=5)
+            b = csr_bound(e, n, 2 * nbytes(x), 2 * e * d, weighted=wd is not None)
+            print(f"  time {tag}: {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) "
+                  f"(median of 5, CUDA events; card: {card})")
+        for d in (32, 41):
+            xa, xb = randn((n, d), 150 + d, dev), randn((n, d), 151 + d, dev)
+            for two in (False, True):
+                tag = f"K9 reddit {name} d={d} {'two matrices' if two else 'one matrix'}"
+                other = xb if two else None
+                mag = sddmm_tc_torch(xa.abs(), m, None if other is None else other.abs())
+                errs["K9"][tag] = compare(f"{tag} vs plain", sddmm_tc(xa, m, other),
+                                          sddmm_tc_torch(xa, m, other), mag, F32_TOL)
+                del mag
+                ms = median_ms(lambda: sddmm_tc(xa, m, other), runs=5)
+                b = csr_bound(e, n, nbytes(xa) * (2 if two else 1) + 4 * e, 2 * e * d)
+                print(f"  time {tag}: {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) "
+                      f"(median of 5, CUDA events; card: {card})")
+    return errs
+
+
 def write_dataset(directory, name, graph) -> str:
     """A graph as the trainer's ``.npz`` format, with random labels of 4
     classes."""
@@ -582,72 +763,94 @@ def write_dataset(directory, name, graph) -> str:
     return name
 
 
-def phase_train(data_dir) -> tuple[list, dict]:
-    """Phase 9: the main path, through the trainer's entry point.  Every
+def phase_train(data_dir, dev, card) -> tuple[list, dict, dict]:
+    """Phase 11: the main path, through the trainer's entry point.  Every
     count is set to 0 just before each run and read just after it; returns
-    the runs and each kernel's launches summed over them."""
+    the runs, each kernel's launches summed over them, and the errors of
+    ``check_reddit_kernels``, run on the reddit GCN run's graph once its
+    counts are read."""
     asym = write_dataset(data_dir, "asymmetric", asymmetric_graph)
     banded = write_dataset(data_dir, "banded", banded_graph)
     pubmed = ["--dataset", "pubmed", "--dim", "500", "--classes", "3"]
     dd = ["--dataset", "DD", "--dim", "89", "--classes", "2"]
+    reddit = ["--dataset", "reddit", "--dim", "602", "--classes", "41"]
     agnn = ["--model", "agnn", "--hidden", "32"]
-    bd_kernels = ("K5", "K6", "K7")
-    # label, arguments, kernels the run must launch, kernels it must not,
-    # loss must fall, BD route
+    condensed, bd, streamed = (True, False, False), (True, False, True), (False, True, False)
+    # label, arguments, kernels the run must launch, loss must fall, route
+    # (dense_tiles, streamed, block_diag), TC blocks (None: not checked);
+    # every other kernel of K1-K9 must not launch
     runs = [
-        ("gcn --no_hoist", [*pubmed, "--model", "gcn", "--no_hoist"], ("K1",), bd_kernels,
-         True, False),
-        ("gcn", [*pubmed, "--model", "gcn"], ("K1",), bd_kernels, True, False),
-        ("gin", [*pubmed, "--model", "gin"], ("K1",), bd_kernels, True, False),
-        ("agnn 2 layers", [*pubmed, *agnn, "--num_layers", "2"], ("K2", "K3"), bd_kernels,
-         True, False),
-        ("agnn 4 layers", [*pubmed, *agnn, "--num_layers", "4"], ("K2", "K3"), bd_kernels,
-         False, False),
+        ("gcn --no_hoist", [*pubmed, "--model", "gcn", "--no_hoist"], ("K1",), True, condensed,
+         334),
+        ("gcn", [*pubmed, "--model", "gcn"], ("K1",), True, condensed, 334),
+        ("gin", [*pubmed, "--model", "gin"], ("K1",), True, condensed, 334),
+        ("agnn 2 layers", [*pubmed, *agnn, "--num_layers", "2"], ("K2", "K3"), True, condensed,
+         334),
+        ("agnn 4 layers", [*pubmed, *agnn, "--num_layers", "4"], ("K2", "K3"), False, condensed,
+         334),
         ("agnn 2 layers, asymmetric graph",
          [*agnn, "--num_layers", "2", "--data_dir", data_dir, "--dataset", asym, "--dim", "64"],
-         ("K1", "K4"), bd_kernels, True, False),
-        ("DD gcn --no_hoist", [*dd, "--model", "gcn", "--no_hoist"], ("K5", "K1"), (), True,
-         True),
-        ("DD gcn", [*dd, "--model", "gcn"], ("K5", "K1"), (), True, True),
-        ("DD gin", [*dd, "--model", "gin"], ("K5", "K1"), (), True, True),
-        ("DD agnn 2 layers", [*dd, *agnn, "--num_layers", "2"], ("K6", "K7", "K2", "K3"), (),
-         True, True),
-        ("DD agnn 4 layers", [*dd, *agnn, "--num_layers", "4"], ("K6", "K7", "K2", "K3"), (),
-         False, True),
-        ("DD gcn --reorder rcm", [*dd, "--model", "gcn", "--reorder", "rcm"], ("K5",), (), True,
-         True),
+         ("K1", "K4"), True, condensed, None),
+        ("DD gcn --no_hoist", [*dd, "--model", "gcn", "--no_hoist"], ("K5", "K1"), True, bd,
+         None),
+        ("DD gcn", [*dd, "--model", "gcn"], ("K5", "K1"), True, bd, None),
+        ("DD gin", [*dd, "--model", "gin"], ("K5", "K1"), True, bd, None),
+        ("DD agnn 2 layers", [*dd, *agnn, "--num_layers", "2"], ("K6", "K7", "K2", "K3"), True,
+         bd, None),
+        ("DD agnn 4 layers", [*dd, *agnn, "--num_layers", "4"], ("K6", "K7", "K2", "K3"), False,
+         bd, None),
+        ("DD gcn --reorder rcm", [*dd, "--model", "gcn", "--reorder", "rcm"], ("K5", "K1"),
+         True, bd, None),
         ("Yeast gcn", ["--dataset", "Yeast", "--dim", "74", "--classes", "2", "--model", "gcn"],
-         ("K5",), ("K1",), True, True),
+         ("K5",), True, bd, None),
         ("agnn 2 layers, banded graph",
          [*agnn, "--num_layers", "2", "--data_dir", data_dir, "--dataset", banded, "--dim", "64"],
-         ("K5", "K4", "K1"), ("K6", "K7"), True, True),
+         ("K5", "K4", "K1"), True, bd, None),
+        ("reddit gcn", [*reddit, "--model", "gcn"], ("K8",), True, streamed, 265_565),
+        ("reddit agnn 2 layers", [*reddit, *agnn, "--num_layers", "2"], ("K8", "K9"), True,
+         streamed, 265_565),
     ]
-    results, launches = [], {k: 0 for k in KERNELS}
-    for label, extra, expected, absent, must_fall, bd_route in runs:
+    results, launches, reddit_errs = [], {k: 0 for k in KERNELS}, {}
+    for label, extra, expected, must_fall, route, tc_blocks in runs:
         print(f"--- train.main {' '.join(extra)}")
+        t0 = time.perf_counter()
         args = ["--device", "cuda", "--epochs", "20", *extra]
+        torch.cuda.reset_peak_memory_stats()
         reset_counts()
         r = train.main(args)
-        counts = {k: (w.launches, w.plain_calls) for k, (_, _, _, w) in KERNELS.items()}
-        print(f"  block_diag {r['block_diag']}  first loss {r['first_loss']:.6f}  final loss "
-              f"{r['final_loss']:.6f}  "
+        counts = {k: (sum(w.launches for w in ws), sum(w.plain_calls for w in ws))
+                  for k, (_, _, _, ws) in KERNELS.items()}
+        r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        r["peak_rss"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        r["seconds"] = time.perf_counter() - t0
+        print(f"  route {(r['dense_tiles'], r['streamed'], r['block_diag'])}  first loss "
+              f"{r['first_loss']:.6f}  final loss {r['final_loss']:.6f}  "
               + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}" for k, c in counts.items()))
         if must_fall and not (math.isfinite(r["final_loss"])
                               and r["final_loss"] < r["first_loss"]):
             raise AssertionError(f"{label}: loss did not fall "
                                  f"({r['first_loss']} -> {r['final_loss']})")
-        if (any(counts[k][0] <= 0 for k in expected) or any(counts[k][0] for k in absent)
+        if (any(counts[k][0] <= 0 for k in expected)
+                or any(c[0] for k, c in counts.items() if k not in expected)
                 or any(c[1] for c in counts.values())):
-            raise AssertionError(f"{label}: expected launches of {expected}, none of {absent}, "
-                                 f"no plain calls; got {counts}")
-        if r["block_diag"] != bd_route:
-            raise AssertionError(f"{label}: block_diag {r['block_diag']}, expected {bd_route}")
-        if "pubmed" in extra and r["tc_blocks"] != 334:
-            raise AssertionError(f"pubmed at 512x128 gave {r['tc_blocks']} TC blocks, not 334")
+            raise AssertionError(f"{label}: expected launches of {expected} and no other "
+                                 f"kernel, no plain calls; got {counts}")
+        if (r["dense_tiles"], r["streamed"], r["block_diag"]) != route:
+            raise AssertionError(f"{label}: route {(r['dense_tiles'], r['streamed'], r['block_diag'])}"
+                                 f", expected {route}")
+        if tc_blocks is not None and r["tc_blocks"] != tc_blocks:
+            raise AssertionError(f"{label}: {r['tc_blocks']} TC blocks, expected {tc_blocks}")
         for k, c in counts.items():
             launches[k] += c[0]
+        graph = r.pop("graph")
+        if label == "reddit gcn":
+            t1 = time.perf_counter()
+            reddit_errs = check_reddit_kernels(graph, dev, card)
+            print(f"  reddit kernel checks done in {time.perf_counter() - t1:.1f} s")
+        del graph
         results.append((label, r))
-    return results, launches
+        torch.cuda.empty_cache()
+    return results, launches, reddit_errs
 
 
 def median_ms(fn, runs=TIMING_RUNS) -> float:
@@ -671,11 +874,49 @@ def timed_pair(kernel, plain) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def phase_timing(ds, dev, card) -> dict:
-    """Phase 10: each kernel and its plain version at the pubmed shapes
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes, flops) -> tuple[float, str]:
+    """The least time the card could take (ms): each input read once and
+    each output written once at the memory rate, or the f32 operations at
+    the f32 rate, whichever is larger, and which one it is."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def csr_bound(nnz, n, dense_bytes, flops, weighted=False) -> tuple[float, str]:
+    """``bound`` for a function over a CSR adjacency of ``nnz`` edges on
+    ``n`` rows: what it must read of the graph is the int32 column indices,
+    the n+1 int32 row pointers and, weighted, an f32 weight an edge; the
+    dense operands read once and outputs written once are ``dense_bytes``.
+    The same for every kernel, whatever layout it reads."""
+    return bound(4 * nnz + 4 * (n + 1) + (4 * nnz if weighted else 0) + dense_bytes, flops)
+
+
+def csr_tensor(ptr, idx, n, dev) -> torch.Tensor:
+    """A float CSR adjacency (ones) on the card, for the library yardsticks."""
+    ptr = torch.as_tensor(np.asarray(ptr), dtype=torch.int64)
+    idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64)
+    vals = torch.ones(idx.numel(), dtype=torch.float32)
+    return torch.sparse_csr_tensor(ptr, idx, vals, size=(n, n)).to(dev)
+
+
+def record(kt, pt, b, lib_ms) -> dict:
+    return {"ms": kt, "plain_ms": pt, "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms}
+
+
+def phase_timing(ds, dev) -> tuple[dict, dict]:
+    """Phase 12: each kernel and its plain version at the pubmed shapes
     (f32): K1 at d=16 and 500 (GCN's layer-2 and hoisted layer-1
-    aggregates), K2-K4 at d=32 and 3 (AGNN's hidden and class widths)."""
-    times = {}
+    aggregates), K2-K4 at d=32 and 3 (AGNN's hidden and class widths), K8 on
+    the flat chunk layout at d=16 and 500, K9 at d=32 and 3.  Returns the
+    times, and for the reported shape of each kernel (512x128, d=16 for the
+    SpMMs, 32 for the others) its record with bound and library time."""
+    times, records = {}, {}
+    n, e = ds.num_nodes, ds.num_edges
+    a_csr = csr_tensor(ds.row_pointers, ds.column_index, n, dev)
     for geo, (bh, bw) in GEOMETRIES.items():
         g = TiledGraph(ds.row_pointers, ds.column_index, ds.num_nodes,
                        TileConfig(blk_h=bh, blk_w=bw), device=dev)
@@ -684,6 +925,10 @@ def phase_timing(ds, dev, card) -> dict:
             x = randn((ds.num_nodes, d), 100 + d, dev)
             times[("K1", geo, d)] = timed_pair(lambda: spmm_tc_dense(x, m, a),
                                                lambda: spmm_tc_dense_torch(x, m, a))
+            if geo == "512x128" and d == 16:
+                records["K1"] = record(*times[("K1", geo, d)],
+                                       csr_bound(e, n, 2 * nbytes(x), 2 * e * d),
+                                       median_ms(lambda: torch.sparse.mm(a_csr, x)))
         for d in (32, 3):
             x, dy = randn((ds.num_nodes, d), 200 + d, dev) * 0.3, randn((ds.num_nodes, d), 300, dev)
             times[("K2", geo, d)] = timed_pair(lambda: spmm_sfused(x, x, x, m, a),
@@ -692,21 +937,60 @@ def phase_timing(ds, dev, card) -> dict:
                                                lambda: spmm_sfused_bwd_torch(x, dy, m, a))
             times[("K4", geo, d)] = timed_pair(lambda: sddmm_tc_dense(x, m, x),
                                                lambda: sddmm_tc_dense_torch(x, m, x))
-    return times
+            if geo == "512x128" and d == 32:
+                xt = x.t().contiguous()
+                records["K2"] = record(*times[("K2", geo, d)],
+                                       csr_bound(e, n, 2 * nbytes(x), 4 * e * d), None)
+                records["K3"] = record(*times[("K3", geo, d)],
+                                       csr_bound(e, n, 4 * nbytes(x), 12 * e * d), None)
+                records["K4"] = record(
+                    *times[("K4", geo, d)],
+                    csr_bound(e, n, nbytes(x) + 4 * e, 2 * e * d),
+                    median_ms(lambda: torch.sparse.sampled_addmm(a_csr, x, xt, beta=0.0)))
+    for geo, (bh, bw, ec) in CHUNK_GEOMETRIES.items():
+        host = sparse_graph_translate(ds.row_pointers, ds.column_index, ds.num_nodes,
+                                      TileConfig(blk_h=bh, blk_w=bw, edge_chunk=ec),
+                                      emit_chunks=True)
+        m = host.to_chunks(dev)
+        for d in (16, 500):
+            x = randn((ds.num_nodes, d), 700 + d, dev)
+            times[("K8", geo, d)] = timed_pair(lambda: spmm_tc(x, m), lambda: spmm_tc_torch(x, m))
+            if geo == "512x128" and d == 16:
+                records["K8"] = record(*times[("K8", geo, d)],
+                                       csr_bound(e, n, 2 * nbytes(x), 2 * e * d),
+                                       median_ms(lambda: torch.sparse.mm(a_csr, x)))
+        for d in (32, 3):
+            x = randn((ds.num_nodes, d), 800 + d, dev)
+            times[("K9", geo, d)] = timed_pair(lambda: sddmm_tc(x, m), lambda: sddmm_tc_torch(x, m))
+            if geo == "512x128" and d == 32:
+                xt = x.t().contiguous()
+                records["K9"] = record(
+                    *times[("K9", geo, d)], csr_bound(e, n, nbytes(x) + 4 * e, 2 * e * d),
+                    median_ms(lambda: torch.sparse.sampled_addmm(a_csr, x, xt, beta=0.0)))
+    return times, records
 
 
-def phase_bd_timing(dd, dev) -> dict:
-    """Phase 10, BD part: K5 at DD's d=2, 16 and 89 (a hoisted GCN epoch's
+def phase_bd_timing(dd, dev) -> tuple[dict, dict]:
+    """Phase 12, BD part: K5 at DD's d=2, 16 and 89 (a hoisted GCN epoch's
     width, GCN's hidden and input widths), K6 and K7 at d=32 and 2 (AGNN's
-    hidden and class widths), f32, against their plain versions."""
-    times = {}
+    hidden and class widths), f32, against their plain versions; records at
+    d=16 (K5) and 32 (K6, K7)."""
+    times, records = {}, {}
     g = TiledGraph(dd.row_pointers, dd.column_index, dd.num_nodes, TileConfig(), device=dev)
     p, offs, cfg, n = g.bd.pack, g.bd_offsets, TileConfig(), dd.num_nodes
+    cov = covered_csr(dd.row_pointers, dd.column_index,
+                      extract_block_diag(dd.row_pointers, dd.column_index, n), dev)
+    nnz = cov.idx.numel()  # the covered edges: the work K5-K7 do
+    cov_csr = csr_tensor(cov.ptr.cpu(), cov.idx.cpu(), n, dev)
     for d in (2, 16, 89):
         x = randn((n, d), 400 + d, dev)
         times[("K5", "DD", d)] = timed_pair(
             lambda: spmm_block_diag(x, p, offsets=offs, cfg=cfg),
             lambda: spmm_block_diag_torch(x, p, offsets=offs, cfg=cfg))
+        if d == 16:
+            records["K5"] = record(*times[("K5", "DD", d)],
+                                   csr_bound(nnz, n, 2 * nbytes(x), 2 * nnz * d),
+                                   median_ms(lambda: torch.sparse.mm(cov_csr, x)))
     for d in (32, 2):
         x, dy = randn((n, d), 500 + d, dev) * 0.3, randn((n, d), 600, dev)
         times[("K6", "DD", d)] = timed_pair(
@@ -715,7 +999,12 @@ def phase_bd_timing(dd, dev) -> dict:
         times[("K7", "DD", d)] = timed_pair(
             lambda: bd_sfused_bwd(x, dy, p, offsets=offs, cfg=cfg),
             lambda: bd_sfused_bwd_torch(x, dy, p, offsets=offs, cfg=cfg))
-    return times
+        if d == 32:
+            records["K6"] = record(*times[("K6", "DD", d)],
+                                   csr_bound(nnz, n, 2 * nbytes(x), 4 * nnz * d), None)
+            records["K7"] = record(*times[("K7", "DD", d)],
+                                   csr_bound(nnz, n, 4 * nbytes(x), 12 * nnz * d), None)
+    return times, records
 
 
 def build_kernels():
@@ -725,8 +1014,17 @@ def build_kernels():
         list(pool.map(lambda name: _kernels.build(name, verbose=True), KERNEL_SOURCES))
     for name in KERNEL_SOURCES:
         _kernels.load(name)
-    print(f"K1-K7 build (nvcc, sm_90a, {len(KERNEL_SOURCES)} sources at once): "
+    print(f"K1-K9 build (nvcc, sm_90a, {len(KERNEL_SOURCES)} sources at once): "
           f"{time.perf_counter() - t0:.2f} s")
+
+
+def phase_start(name) -> float:
+    print(f"=== phase {name}", flush=True)
+    return time.perf_counter()
+
+
+def phase_end(t0) -> None:
+    print(f"=== phase done in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main():
@@ -741,10 +1039,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    # ---- 2. build K1-K7 -------------------------------------------------------
+    # ---- 2. build K1-K9 -------------------------------------------------------
+    t0 = phase_start("2. build")
     build_kernels()
+    phase_end(t0)
 
     # ---- 3-6. K1-K4 against plain versions and oracles -----------------------
+    t0 = phase_start("3-6. K1-K4")
     ds = synthesize("pubmed", seed=0)
     print(f"pubmed: N={ds.num_nodes} E={ds.num_edges} d={ds.num_features}")
     errs = {"K1": phase_compare(ds, dev)}
@@ -752,37 +1053,54 @@ def main():
     errs.update(phase_agnn_kernels(ds, dev))
     phase_agnn_autograd(ds, dev)
     torch.cuda.synchronize()
+    phase_end(t0)
 
     # ---- 7-8. K5-K7 and the BD route against plain versions and oracles ------
+    t0 = phase_start("7-8. K5-K7 and the BD route")
     dd = synthesize("DD", 89, 2)
     print(f"DD: N={dd.num_nodes} E={dd.num_edges} d={dd.num_features}")
     errs.update(phase_bd_kernels(dd, dev))
     phase_bd_autograd(dd, dev)
     torch.cuda.synchronize()
+    phase_end(t0)
 
-    # ---- 9. the main path ---------------------------------------------------
-    with tempfile.TemporaryDirectory() as data_dir:
-        runs, launches = phase_train(data_dir)
-
-    # ---- 10. timing ---------------------------------------------------------
-    times = phase_timing(ds, dev, card)
-    times.update(phase_bd_timing(dd, dev))
+    # ---- 9-10. K8, K9 and the streamed route against plain versions and oracles
+    t0 = phase_start("9-10. K8, K9 and the streamed route")
+    errs.update(phase_chunk_kernels(ds, dev))
+    phase_chunk_autograd(dev)
     torch.cuda.synchronize()
+    phase_end(t0)
+
+    # ---- 11. the main path --------------------------------------------------
+    t0 = phase_start("11. the main path")
+    with tempfile.TemporaryDirectory() as data_dir:
+        runs, launches, reddit_errs = phase_train(data_dir, dev, card)
+    for k, kernel_errs in reddit_errs.items():
+        errs[k].update(kernel_errs)
+    phase_end(t0)
+
+    # ---- 12. timing ---------------------------------------------------------
+    t0 = phase_start("12. timing")
+    times, records = phase_timing(ds, dev)
+    bd_times, bd_records = phase_bd_timing(dd, dev)
+    times.update(bd_times)
+    records.update(bd_records)
+    torch.cuda.synchronize()
+    phase_end(t0)
     for (k, geo, d), (kt, pt) in times.items():
         print(f"  time {KERNELS[k][0]} {geo} d={d}: kernel {kt:.4f} ms, plain {pt:.4f} ms "
               f"(median of {TIMING_RUNS}, CUDA events; card: {card})")
 
     for name, r in runs:
-        print(f"main path [{name}]: block_diag {r['block_diag']}  TC_Blocks {r['tc_blocks']}  "
+        print(f"main path [{name}]: dense_tiles {r['dense_tiles']}  streamed {r['streamed']}  "
+              f"block_diag {r['block_diag']}  TC_Blocks {r['tc_blocks']}  "
               f"Prep. (ms) {r['prep_ms']:.3f}  Prep host (ms) {r['prep_host_ms']:.3f}  "
               f"Train (ms) {r['train_ms']:.3f}  First loss {r['first_loss']:.6f}  "
-              f"Final loss {r['final_loss']:.6f}  (card: {card})")
-    # The times reported: pubmed 512x128 for K1-K4, DD for K5-K7.
-    shape = {"K1": ("512x128", 16), "K2": ("512x128", 32), "K3": ("512x128", 32),
-             "K4": ("512x128", 32), "K5": ("DD", 16), "K6": ("DD", 32), "K7": ("DD", 32)}
+              f"Final loss {r['final_loss']:.6f}  peak host RSS {r['peak_rss'] / 2**30:.2f} GiB  "
+              f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB  "
+              f"run {r['seconds']:.1f} s  (card: {card})")
     kernels = []
     for k, (name, source, replaces, _) in KERNELS.items():
-        kt, pt = times[(k, *shape[k])]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -790,9 +1108,11 @@ def main():
             "replaces": replaces,
             "launches": launches[k],
             "max_abs_err": max(errs[k].values()),
-            "ms": kt,
-            "plain_ms": pt,
+            **records[k],
         })
+        print(f"  {name}: {records[k]['ms']:.4f} ms, plain {records[k]['plain_ms']:.4f}, bound "
+              f"{records[k]['bound_ms']:.4f} ({records[k]['bound_by']}), library "
+              f"{records[k]['library_ms']} (card: {card})")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,17 +25,16 @@ def coo_to_csr(src: np.ndarray, dst: np.ndarray, num_nodes: int):
     """Build CSR (indptr, indices) from a COO edge list.
 
     Row = src, col = dst, columns sorted within a row; duplicate edges are
-    kept (their counts add up in the tiles).
+    kept (their counts add up in the tiles).  The JAX package's two stable
+    index sorts give the same arrays as one sort of the (row, column) keys:
+    equal keys are the same edge.
     """
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
-    order = np.argsort(src, kind="stable")
-    indices = dst[order].astype(np.int32)
+    span = np.int64(max(num_nodes, int(dst.max()) + 1 if len(dst) else 1))
+    indices = (np.sort(src * span + dst) % span).astype(np.int32)
     indptr = np.zeros(num_nodes + 1, dtype=np.int64)
     np.cumsum(np.bincount(src, minlength=num_nodes), out=indptr[1:])
-    row_of_edge = np.repeat(np.arange(num_nodes, dtype=np.int64), np.diff(indptr))
-    order2 = np.lexsort((indices, row_of_edge))
-    indices = indices[order2]
     return indptr.astype(np.int32), indices
 
 

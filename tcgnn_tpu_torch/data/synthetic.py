@@ -43,6 +43,20 @@ TU_COLLECTIONS = {
 }
 
 
+def _unique(keys: np.ndarray) -> np.ndarray:
+    """``np.unique(keys)`` of a 1-D integer array (the sorted distinct
+    values), by a sort and a mask.  Some NumPy builds take a hash-table path
+    for ``np.unique`` that is far slower than a sort on tens of millions of
+    keys (reddit's)."""
+    keys = np.sort(keys)
+    if keys.size:
+        keep = np.empty(keys.size, dtype=bool)
+        keep[0] = True
+        np.not_equal(keys[1:], keys[:-1], out=keep[1:])
+        keys = keys[keep]
+    return keys
+
+
 def component_union_graph(
     num_nodes: int,
     num_edges: int,
@@ -99,7 +113,7 @@ def component_union_graph(
         keep = u != v
         a = np.minimum(u[keep], v[keep])
         b = np.maximum(u[keep], v[keep])
-        keys = np.unique(np.concatenate([keys, a * np.int64(num_nodes) + b]))
+        keys = _unique(np.concatenate([keys, a * np.int64(num_nodes) + b]))
     if len(keys) > target_pairs:
         # Keep every path edge (connectivity); trim extras only.
         extra = np.setdiff1d(keys, path_keys, assume_unique=False)
@@ -157,7 +171,7 @@ def powerlaw_graph(
             keep = src != dst
             a = np.minimum(src[keep], dst[keep])
             b = np.maximum(src[keep], dst[keep])
-            keys = np.unique(
+            keys = _unique(
                 np.concatenate([keys, a * np.int64(num_nodes) + b])
             )
             deficit = target_pairs - len(keys)
@@ -198,7 +212,7 @@ def powerlaw_graph(
         src, dst = src[keep], dst[keep]
         a = np.minimum(src, dst).astype(np.int64)
         b = np.maximum(src, dst).astype(np.int64)
-        keys = np.unique(np.concatenate([keys, a * np.int64(num_nodes) + b]))
+        keys = _unique(np.concatenate([keys, a * np.int64(num_nodes) + b]))
 
     if len(keys) > target_pairs:
         keys = rng.choice(keys, size=target_pairs, replace=False)

@@ -1,11 +1,12 @@
 """TiledGraph: an SGT-tiled graph with differentiable graph ops (PyTorch port).
 
-Counterpart of ``tcgnn_tpu.graph.TiledGraph`` for the dense-tile routes:
-the condensed route and the block-diagonal (BD) route.  It picks the route
-by the JAX package's rules, so both packages send every graph the same
-way; builds the tiles on the host or the device and uploads them once; and
-exposes its ops as ``torch.autograd.Function``s with exact backwards, on
-directed graphs too:
+Counterpart of ``tcgnn_tpu.graph.TiledGraph``, with its four routes: the
+condensed dense-tile route, the block-diagonal (BD) route, and, for graphs
+over the dense-tile budget, the chunk route and the streamed route.  It picks
+the route by the JAX package's rules, so both packages send every graph the
+same way; builds the tiles or chunks on the host and uploads what the route
+reads once; and exposes its ops as ``torch.autograd.Function``s with exact
+backwards, on directed graphs too:
 
 * ``spmm(x)`` — ``A @ x``.  Condensed: K1 forward, K1 over the transpose
   tiles backward.  BD: K5 over the pack (the transpose pack backward) plus
@@ -36,8 +37,31 @@ What the port does differently from the JAX BD route, changing no value:
   int32-addressable pack rule stay as they are, so the routes agree; index
   arithmetic is 64-bit regardless.
 
-Not carried over yet (``ROADMAP.md``): the chunk and streamed routes for
-graphs over the dense-tile budget.
+The chunk route (``dense_tiles`` False; the JAX rule: the int8 tiles of
+both directions, plus AGNN's weighted tiles on an asymmetric graph, over
+``DENSE_TILE_BUDGET_BYTES``, or an index space past int32) lays each TC
+block's edges out in uniform chunks of ``edge_chunk`` slots; past the TPU's
+one-shot limits (``sgt/stream.py``: reddit) the chunks are cut into window
+segments, the streamed route (``streamed``).  Every op is K8 (``spmm``,
+``spmm_weighted``, forward and over the transpose's chunks backward, with
+``w[t_edge_src]``) or K9 (``sddmm``, and ``dw``); ``agnn_aggregate`` is
+``None``, so AGNN takes the per-edge ops, as in JAX.  The ops return f32
+whatever the compute dtype, as the JAX chunk kernels store it.  Only the
+chunk or segment metadata is uploaded: no tiles, no per-edge arrays but
+``t_edge_src``; the host layout is dropped once uploaded (``host_meta`` is
+None), keeping ``tc_blocks`` and ``exp_edges``.  Where the port differs from the JAX chunk routes, changing
+no value:
+
+* the kernels gather rows of x themselves: no condensed slab ``x[col_ids]``
+  (the TPU's DMA layout) is formed;
+* the segments are a grid axis of one launch, not a scan of S launches;
+* K9 writes each score to its edge (CSR order): no scores in chunk order,
+  no ``edge_perm`` gather (``edge_perm`` stays on the host).
+
+``block_group`` 0 (auto) resolves to 1 here; the JAX CLI's auto resolves to
+2 on block-dense graphs (reddit) when its native pass is present.  That
+changes only padding blocks, hence padding chunks: TC_Blocks and every op
+value stay the same.
 """
 
 from __future__ import annotations
@@ -59,10 +83,12 @@ from tcgnn_tpu_torch.ops.blockdiag import (
     padded_bins,
     spmm_block_diag,
 )
+from tcgnn_tpu_torch.ops.chunk import sddmm_tc, spmm_tc
 from tcgnn_tpu_torch.ops.sddmm import EdgeList, sddmm_tc_dense
 from tcgnn_tpu_torch.ops.sfused import spmm_sfused, spmm_sfused_bwd
 from tcgnn_tpu_torch.ops.spmm import build_a_tiles, spmm_tc_dense
 from tcgnn_tpu_torch.sgt.blockdiag import BDMeta, extract_block_diag
+from tcgnn_tpu_torch.sgt.stream import needs_streaming, segment_chunks
 from tcgnn_tpu_torch.sgt.translate import (
     TorchSGTMeta,
     build_a_tiles_host,
@@ -72,8 +98,8 @@ from tcgnn_tpu_torch.sgt.translate import (
 )
 
 # Dense-tile bytes (int8 structural tiles, forward + transpose) above which
-# the JAX package switches to its chunk route.  Kept at the JAX value so
-# both packages route the same graphs; re-deriving it for 80 GB is queued.
+# the graph takes the chunk route.  Kept at the JAX value so both packages
+# route the same graphs; re-deriving it for 80 GB is queued.
 DENSE_TILE_BUDGET_BYTES = 8 << 30
 
 
@@ -197,11 +223,13 @@ class TiledGraph:
     """Device-resident SGT-tiled graph.  Build once per graph (the
     ``Prep. (ms)`` stage); reuse across layers and epochs.
 
-    ``block_diag``: ``None`` takes the BD route where the JAX package takes
-    it; ``False`` keeps the condensed route; ``True`` raises below the BD
-    coverage gate."""
-
-    dense_tiles = True
+    ``dense_tiles``: ``None`` decides by the budget, as the JAX package
+    does; ``False`` takes the chunk route; ``True`` keeps the dense tiles
+    (raises if their index space overflows int32).  ``streamed``: ``None``
+    streams a chunk-route graph past the TPU's one-shot limits; ``True``
+    forces it (raises with dense tiles).  ``block_diag`` (dense tiles only):
+    ``None`` takes the BD route where the JAX package takes it; ``False``
+    keeps the condensed route; ``True`` raises below the BD coverage gate."""
 
     def __init__(
         self,
@@ -213,6 +241,8 @@ class TiledGraph:
         device: torch.device | str = "cuda",
         weighted_traffic: bool = False,
         block_diag: Optional[bool] = None,
+        dense_tiles: Optional[bool] = None,
+        streamed: Optional[bool] = None,
     ):
         row_pointers = np.asarray(row_pointers)
         column_index = np.asarray(column_index)
@@ -261,7 +291,7 @@ class TiledGraph:
             # score-fused kernels, which build none.
             itemsize = config.compute_dtype.itemsize
             weighted_extra = 4 * nb_f * tile_elems * itemsize
-            if (block_diag is not False and fits_int32
+            if (dense_tiles is not False and block_diag is not False and fits_int32
                     and dense_bytes <= DENSE_TILE_BUDGET_BYTES
                     < dense_bytes + weighted_extra):
                 bd_pair, bd_probed = extract_bd(), True
@@ -270,13 +300,19 @@ class TiledGraph:
                     kmax = max(len(bdm.offsets), len(bdm_t.offsets))
                     weighted_extra = 3 * kmax * bdm.num_bins * bdm.bin_rows**2 * itemsize
             dense_bytes += weighted_extra
-        if not fits_int32 or dense_bytes > DENSE_TILE_BUDGET_BYTES:
-            raise NotImplementedError(
-                f"graph needs {dense_bytes} bytes of dense tiles, over the "
-                f"dense-tile budget of {DENSE_TILE_BUDGET_BYTES}: the chunk and "
-                "streamed routes (ROADMAP.md, Queue 1 item 5) are not ported yet"
-            )
+        if dense_tiles is None:
+            dense_tiles = fits_int32 and dense_bytes <= DENSE_TILE_BUDGET_BYTES
+        elif dense_tiles and not fits_int32:
+            raise ValueError("dense-tile index space overflows int32 for this graph")
+        if streamed and dense_tiles:
+            raise ValueError("streamed chunk path requires dense_tiles=False")
+        self.dense_tiles = dense_tiles
 
+        if not dense_tiles:
+            self._init_chunk_route(row_pointers, column_index, t_ptr, t_idx, t_src, streamed, t0)
+            return
+
+        self.streamed = False
         if block_diag is not False and not bd_probed:
             bd_pair = extract_bd()
         if block_diag and bd_pair is None:
@@ -305,6 +341,7 @@ class TiledGraph:
             else sparse_graph_translate(t_ptr, t_idx, num_nodes, config,
                                         build_tiles=needs_condensed)
         )
+        self.tc_blocks, self.exp_edges = self.host_meta.num_real_blocks, self.host_meta.exp_edges
         def residual_sgt(m):
             """The SGT tiling of a BD decomposition's residual, if any."""
             if m.res_ptr is None:
@@ -354,6 +391,37 @@ class TiledGraph:
         fused = symmetric and (self._agnn_bd or self.meta is not None)
         self.agnn_aggregate = self._agnn_aggregate if fused else None
 
+    def _init_chunk_route(self, row_pointers, column_index, t_ptr, t_idx, t_src, streamed, t0):
+        """The chunk route: the chunk layouts of both directions (or their
+        window segments), uploaded; no tiles.  ``t0`` starts the host-pass
+        clock (``prep_host_s``)."""
+        cfg, n = self.config, self.num_nodes
+        self.block_diag = False
+        self.bd = self.bd_t = self.bd_offsets = self.bd_offsets_t = None
+        self.bd_full_coverage = self.bd_addressable = self._agnn_bd = False
+        self.meta = self.meta_t = self.a_struct = self.a_struct_t = None
+        self.agnn_aggregate = None
+        host = sparse_graph_translate(row_pointers, column_index, n, cfg, emit_chunks=True)
+        host_t = host if self.symmetric else sparse_graph_translate(
+            t_ptr, t_idx, n, cfg, emit_chunks=True)
+        self.tc_blocks, self.exp_edges = host.num_real_blocks, host.exp_edges
+        if streamed is None:
+            streamed = needs_streaming(host) or needs_streaming(host_t)
+        self.streamed = streamed
+        if streamed:
+            host = segment_chunks(host)
+            host_t = host if self.symmetric else segment_chunks(host_t)
+        self.prep_host_s = time.perf_counter() - t0
+
+        # The host arrays (several GB on reddit) go once uploaded.
+        def upload(h):
+            return h.to(self.device) if streamed else h.to_chunks(self.device)
+
+        self.chunks = upload(host)
+        self.chunks_t = self.chunks if self.symmetric else upload(host_t)
+        self.host_meta = self.host_meta_t = None
+        self.t_edge_src = torch.from_numpy(t_src.astype(np.int64)).to(self.device)
+
     def _upload_tiles(self, host_meta) -> torch.Tensor:
         """int8 structural tiles; the compute dtype when a duplicate count
         exceeds 127."""
@@ -381,21 +449,14 @@ class TiledGraph:
             res_ids=ids(m.res_edge_ids),
         )
 
-    @property
-    def tc_blocks(self) -> int:
-        return self.host_meta.num_real_blocks
-
-    @property
-    def exp_edges(self) -> int:
-        return self.host_meta.exp_edges
-
     def spmm(self, x: torch.Tensor) -> torch.Tensor:
-        """Differentiable ``A @ x`` in the compute dtype."""
+        """Differentiable ``A @ x``, in the compute dtype (f32 on the chunk
+        route)."""
         return _SpMM.apply(x, self)
 
     def spmm_weighted(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Differentiable ``(A ⊙ w) @ x`` for per-edge weights ``w`` [E] (CSR
-        order), in the compute dtype."""
+        order), in the compute dtype (f32 on the chunk route)."""
         return _SpMMWeighted.apply(x, w, self)
 
     def sddmm(self, x: torch.Tensor) -> torch.Tensor:
@@ -418,12 +479,16 @@ class TiledGraph:
 
     def _spmm_f(self, x):
         """``A @ x``."""
+        if not self.dense_tiles:
+            return spmm_tc(x, self.chunks)
         if self.block_diag:
             return self._bd_spmm(x, self.bd, self.bd.pack, self.bd.res_a)
         return spmm_tc_dense(x, self.meta, self.a_struct)
 
     def _spmm_b(self, dy):
         """``A^T @ dy``."""
+        if not self.dense_tiles:
+            return spmm_tc(dy, self.chunks_t)
         if self.block_diag:
             return self._bd_spmm(dy, self.bd_t, self.bd_t.pack, self.bd_t.res_a)
         return spmm_tc_dense(dy, self.meta_t, self.a_struct_t)
@@ -438,6 +503,8 @@ class TiledGraph:
 
     def _spmm_w(self, x, w):
         """``(A ⊙ w) @ x``."""
+        if not self.dense_tiles:
+            return spmm_tc(x, self.chunks, w)
         if self.bd_addressable:
             return self._bd_weighted(x, w, self.bd)
         return spmm_tc_dense(x, self.meta, build_a_tiles(self.meta, w))
@@ -445,12 +512,17 @@ class TiledGraph:
     def _spmm_w_t(self, dy, w):
         """``(A ⊙ w)^T @ dy``, over the transpose."""
         wt = w[self.t_edge_src]
+        if not self.dense_tiles:
+            return spmm_tc(dy, self.chunks_t, wt)
         if self.bd_addressable:
             return self._bd_weighted(dy, wt, self.bd_t)
         return spmm_tc_dense(dy, self.meta_t, build_a_tiles(self.meta_t, wt))
 
     def _sddmm(self, xa, xb):
-        """Per-edge ``<xa[row_e], xb[col_e]>``, [E] f32 (K4)."""
+        """Per-edge ``<xa[row_e], xb[col_e]>``, [E] f32 (K4, or K9 on the
+        chunk route)."""
+        if not self.dense_tiles:
+            return sddmm_tc(xa, self.chunks, xb)
         return sddmm_tc_dense(xa, self._sddmm_meta, xb)
 
     def _agnn_f(self, x):

@@ -9,6 +9,16 @@ from tcgnn_tpu_torch.ops.blockdiag import (
     spmm_block_diag,
     spmm_block_diag_torch,
 )
+from tcgnn_tpu_torch.ops.chunk import (
+    sddmm_tc,
+    sddmm_tc_streamed,
+    sddmm_tc_streamed_torch,
+    sddmm_tc_torch,
+    spmm_tc,
+    spmm_tc_streamed,
+    spmm_tc_streamed_torch,
+    spmm_tc_torch,
+)
 from tcgnn_tpu_torch.ops.reference import sddmm_ref, sfused_bwd_ref, sfused_ref, spmm_ref
 from tcgnn_tpu_torch.ops.sddmm import EdgeList, sddmm_tc_dense, sddmm_tc_dense_torch
 from tcgnn_tpu_torch.ops.sfused import (
@@ -25,5 +35,6 @@ __all__ = [
     "spmm_sfused_bwd", "spmm_sfused_bwd_torch", "build_bd_pack", "bd_scatter_weights",
     "spmm_block_diag", "spmm_block_diag_torch", "bd_sfused", "bd_sfused_torch",
     "bd_sfused_bwd", "bd_sfused_bwd_torch", "spmm_ref", "sddmm_ref", "sfused_ref",
-    "sfused_bwd_ref",
+    "sfused_bwd_ref", "spmm_tc", "spmm_tc_torch", "spmm_tc_streamed", "spmm_tc_streamed_torch",
+    "sddmm_tc", "sddmm_tc_torch", "sddmm_tc_streamed", "sddmm_tc_streamed_torch",
 ]

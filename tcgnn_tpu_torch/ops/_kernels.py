@@ -83,6 +83,10 @@ SIGNATURES = {
         "tcgnn_bd_sfused": [_P] * 6 + [_I] * 6 + [_P],
         "tcgnn_bd_sfused_bwd": [_P] * 6 + [_I] * 6 + [_P],
     },
+    "chunk": {
+        "tcgnn_spmm_chunk": [_P] * 10 + [_I] * 10 + [_P],
+        "tcgnn_sddmm_chunk": [_P] * 10 + [_I] * 9 + [_P],
+    },
 }
 
 

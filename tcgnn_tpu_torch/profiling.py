@@ -11,7 +11,7 @@ epochs in it under ``--profile_dir``.  ``device_ms`` is the device time per
 call of one function (a kernel or its plain version).
 
 Run on the card from the repository root:
-    python -m tcgnn_tpu_torch.profiling [OUT_DIR]  # the BD epochs, and K5-K7
+    python -m tcgnn_tpu_torch.profiling [OUT_DIR [GROUP ...]]  # groups: bd (and K5-K7), reddit
     python -m tcgnn_tpu_torch.train --dataset DD --dim 89 --classes 2 --profile_dir prof/
 """
 
@@ -121,10 +121,28 @@ def device_ms(fn, calls: int = 25) -> float:
     return sum(e.time_range.end - e.time_range.start for e in _device_events(prof)) / calls / 1e3
 
 
-def main(out_dir: str = "prof_traces") -> None:
-    """The BD route's epochs (DD GCN hoisted and not, DD AGNN 2 layers,
-    Yeast GCN), each run with the profiler off and then on (traces under
-    ``out_dir``), and K5-K7 against their plain versions at DD's shapes."""
+# Configurations of ``main``, by group: the BD route's epochs and reddit's
+# (the streamed route).  Each runs with the profiler off and then on.
+CONFIGS = {
+    "bd": (
+        ["--dataset", "DD", "--dim", "89", "--classes", "2", "--model", "gcn"],
+        ["--dataset", "DD", "--dim", "89", "--classes", "2", "--model", "gcn", "--no_hoist"],
+        ["--dataset", "DD", "--dim", "89", "--classes", "2", "--model", "agnn", "--hidden", "32"],
+        ["--dataset", "Yeast", "--dim", "74", "--classes", "2", "--model", "gcn"],
+    ),
+    "reddit": (
+        ["--dataset", "reddit", "--dim", "602", "--classes", "41", "--model", "gcn"],
+        ["--dataset", "reddit", "--dim", "602", "--classes", "41", "--model", "agnn",
+         "--hidden", "32", "--num_layers", "2"],
+    ),
+}
+
+
+def main(out_dir: str = "prof_traces", *groups: str) -> None:
+    """The epochs of the given groups of ``CONFIGS`` (all by default), each
+    run with the profiler off and then on (traces under ``out_dir``), and
+    with the ``bd`` group K5-K7 against their plain versions at DD's
+    shapes."""
     from tcgnn_tpu_torch import TileConfig, TiledGraph, train  # train imports this module
     from tcgnn_tpu_torch.data import synthesize
     from tcgnn_tpu_torch.ops import (
@@ -134,17 +152,17 @@ def main(out_dir: str = "prof_traces") -> None:
 
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
+    groups = groups or tuple(CONFIGS)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    dd = ["--dataset", "DD", "--dim", "89", "--classes", "2"]
-    for i, argv in enumerate(([*dd, "--model", "gcn"], [*dd, "--model", "gcn", "--no_hoist"],
-                              [*dd, "--model", "agnn", "--hidden", "32"],
-                              ["--dataset", "Yeast", "--dim", "74", "--classes", "2",
-                               "--model", "gcn"])):
-        for extra in ([], ["--profile_dir", os.path.join(out_dir, f"trace{i}")]):
-            print("---", " ".join(argv + extra))
-            train.main([*argv, "--epochs", "50", *extra])
-            torch.cuda.empty_cache()
+    for group in groups:
+        for i, argv in enumerate(CONFIGS[group]):
+            for extra in ([], ["--profile_dir", os.path.join(out_dir, f"{group}{i}")]):
+                print("---", " ".join(argv + extra))
+                train.main([*argv, "--epochs", "50", *extra])
+                torch.cuda.empty_cache()
+    if "bd" not in groups:
+        return
 
     ds = synthesize("DD", 89, 2)
     dev = torch.device("cuda")
@@ -168,4 +186,4 @@ def main(out_dir: str = "prof_traces") -> None:
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:2])
+    main(*sys.argv[1:])

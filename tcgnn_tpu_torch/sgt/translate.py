@@ -1,14 +1,23 @@
 """Sparse Graph Translation (SGT): condense CSR adjacency into dense tiles.
 
 Counterpart of ``tcgnn_tpu.sgt.translate``: its vectorized NumPy pass,
-carried over for the dense-tile route (``emit_chunks=False``) with the same
-output, field by field (``tests/test_torch_sgt.py`` holds the two packages
-to it).  Per ``blk_h``-row window, the distinct neighbour column ids are
-ranked in sorted order; edge ``e`` with neighbour ``c`` in window ``w``
-lands at condensed column ``rank_w(c)``, i.e. TC block ``rank // blk_w``,
-in-block column ``rank % blk_w``, in-window row ``row(e) % blk_h``.
+carried over with the same output, field by field (``tests/test_torch_sgt.py``
+and ``tests/test_torch_chunk.py`` hold the two packages to it).  Per
+``blk_h``-row window, the distinct neighbour column ids are ranked in sorted
+order; edge ``e`` with neighbour ``c`` in window ``w`` lands at condensed
+column ``rank_w(c)``, i.e. TC block ``rank // blk_w``, in-block column
+``rank % blk_w``, in-window row ``row(e) % blk_h``.
 
-The JAX package's native C++ pass and its chunk layout are not carried over.
+``emit_chunks=True`` also lays out the chunk route's uniform edge chunks:
+each TC block's edges, in CSR order, padded to a multiple of
+``config.edge_chunk`` slots (``chunk_r`` / ``chunk_c`` / ``chunk_edge_id``
+per slot, the owning block and window per chunk, and ``edge_perm``, each
+edge's slot).  ``SGTMeta.to_chunks(device)`` uploads what the chunk kernels
+(K8, K9) read, as a stack of one segment (``TorchChunkMeta``; the streamed
+route's segments, ``sgt/stream.py``, are the same layout with more).
+
+The JAX package's native C++ pass is not carried over: the NumPy pass gives
+the same arrays.
 """
 
 from __future__ import annotations
@@ -77,6 +86,56 @@ class TorchSGTMeta:
     edge_cols: torch.Tensor  # [E] int32
 
 
+@dataclasses.dataclass(frozen=True)
+class TorchChunkMeta:
+    """Device-side chunk layout that the chunk kernels (K8, K9) and their
+    plain versions read: S window segments of ``wseg`` windows each, every
+    segment padded to ``max_chunks`` chunks of EC = ``config.edge_chunk``
+    slots.  The chunk route's flat layout is one segment (``wseg`` = W).
+
+    Chunk ``i`` of segment ``s`` belongs to TC block ``seg_block[s, i]`` and
+    window ``seg_window[s, i]``, both segment-relative; slot ``k`` holds the
+    edge ``seg_edge_id[s, i, k]`` (CSR order), whose output row is
+    ``(s * wseg + seg_window[s, i]) * blk_h + seg_r[s, i, k]`` and whose
+    source row is ``seg_col_ids[s, seg_block[s, i] * blk_w + seg_c[s, i, k]]``.
+    A padding slot has row ``blk_h`` and edge ``num_edges``; chunks from
+    ``seg_chunks[s]`` on are padding chunks, all of padding slots.
+    """
+
+    config: TileConfig
+    num_nodes: int
+    num_edges: int
+    num_windows: int
+    wseg: int
+    num_segments: int
+    max_chunks: int
+    num_real_chunks: int
+    seg_col_ids: torch.Tensor  # [S, B_max * blk_w] int32
+    seg_r: torch.Tensor  # [S, C_max, EC] int32
+    seg_c: torch.Tensor  # [S, C_max, EC] int32
+    seg_edge_id: torch.Tensor  # [S, C_max, EC] int32
+    seg_block: torch.Tensor  # [S, C_max] int32
+    seg_window: torch.Tensor  # [S, C_max] int32
+    seg_chunks: torch.Tensor  # [S] int32
+
+    @classmethod
+    def upload(cls, config, num_nodes, num_edges, num_windows, wseg, seg_col_ids, seg_r, seg_c,
+               seg_edge_id, seg_block, seg_window, seg_chunks, device) -> "TorchChunkMeta":
+        """From host arrays of the stacked layout."""
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+        return cls(
+            config=config, num_nodes=int(num_nodes), num_edges=int(num_edges),
+            num_windows=int(num_windows), wseg=int(wseg), num_segments=int(seg_r.shape[0]),
+            max_chunks=int(seg_r.shape[1]), num_real_chunks=int(np.sum(seg_chunks)),
+            seg_col_ids=dev(seg_col_ids), seg_r=dev(seg_r), seg_c=dev(seg_c),
+            seg_edge_id=dev(seg_edge_id), seg_block=dev(seg_block),
+            seg_window=dev(seg_window), seg_chunks=dev(seg_chunks),
+        )
+
+
 @dataclasses.dataclass
 class SGTMeta:
     """Host (NumPy) tiling metadata produced by :func:`sparse_graph_translate`.
@@ -101,6 +160,16 @@ class SGTMeta:
     # Structural tiles (build_tiles=True): int8 counts, f32 when a count
     # exceeds 127.
     a_tiles: Optional[np.ndarray] = None  # [B, blk_h, blk_w]
+    # Uniform chunk layout (emit_chunks=True); Cn chunks of EC slots.
+    chunk_r: Optional[np.ndarray] = None  # [Cn, EC] int32; blk_h marks a padding slot
+    chunk_c: Optional[np.ndarray] = None  # [Cn, EC] int32, column in the block
+    chunk_edge_id: Optional[np.ndarray] = None  # [Cn, EC] int32; num_edges marks padding
+    chunk_block: Optional[np.ndarray] = None  # [Cn] int32, owning block
+    chunk_window: Optional[np.ndarray] = None  # [Cn] int32, owning window
+    chunk_first_in_window: Optional[np.ndarray] = None  # [Cn] int32 (0/1)
+    chunk_first_in_block: Optional[np.ndarray] = None  # [Cn] int32 (0/1)
+    # Each CSR edge's slot in the layout (chunk * EC + lane).
+    edge_perm: Optional[np.ndarray] = None  # [E] int32
 
     @property
     def num_windows(self) -> int:
@@ -109,6 +178,22 @@ class SGTMeta:
     @property
     def num_blocks(self) -> int:
         return int(self.col_ids.shape[0] // self.config.blk_w)
+
+    @property
+    def num_chunks(self) -> int:
+        return 0 if self.chunk_block is None else int(self.chunk_block.shape[0])
+
+    def to_chunks(self, device) -> TorchChunkMeta:
+        """Upload the chunk layout (``emit_chunks=True``) to ``device`` as a
+        stack of one segment spanning every window."""
+        if self.chunk_r is None:
+            raise ValueError("to_chunks needs the chunk layout: translate with emit_chunks=True")
+        return TorchChunkMeta.upload(
+            self.config, self.num_nodes, self.num_edges, self.num_windows, self.num_windows,
+            self.col_ids[None], self.chunk_r[None], self.chunk_c[None],
+            self.chunk_edge_id[None], self.chunk_block[None], self.chunk_window[None],
+            np.array([self.num_chunks], np.int32), device,
+        )
 
     @property
     def exp_edges(self) -> int:
@@ -179,6 +264,7 @@ def sparse_graph_translate(
     config: TileConfig = DEFAULT_CONFIG,
     num_cols: Optional[int] = None,
     build_tiles: bool = False,
+    emit_chunks: bool = False,
 ) -> SGTMeta:
     """Run the SGT tiling pass over a CSR adjacency.
 
@@ -189,6 +275,8 @@ def sparse_graph_translate(
       config: tile geometry.
       num_cols: column-space size; defaults to num_nodes.
       build_tiles: also build the structural dense tiles (``meta.a_tiles``).
+      emit_chunks: also lay out the uniform edge chunks of the chunk route
+        (the ``chunk_*`` fields and ``edge_perm``).
     """
     blk_h, blk_w = config.blk_h, config.blk_w
     row_pointers = np.asarray(row_pointers, dtype=np.int64)
@@ -254,7 +342,7 @@ def sparse_graph_translate(
     block_first_in_window = np.zeros(num_blocks, dtype=np.int32)
     block_first_in_window[block_start[:-1]] = 1
 
-    return SGTMeta(
+    meta = SGTMeta(
         config=config,
         num_nodes=int(num_nodes),
         num_edges=num_edges,
@@ -266,6 +354,52 @@ def sparse_graph_translate(
         edge_pos=edge_pos,
         a_tiles=a_tiles,
     )
+    if emit_chunks:
+        _chunk_layout(meta, block_start)
+    return meta
+
+
+def _chunk_layout(meta: SGTMeta, block_start: np.ndarray) -> None:
+    """Fill ``meta``'s uniform chunk layout (the JAX NumPy path).  Edges
+    sorted by owning block, CSR order kept within a block; each block's run
+    padded to a multiple of EC; a window's blocks stay adjacent."""
+    config = meta.config
+    blk_w, ec, tile = config.blk_w, config.edge_chunk, config.blk_h * config.blk_w
+    num_blocks, num_edges = meta.num_blocks, meta.num_edges
+    edge_block = meta.edge_pos // tile
+    rem = meta.edge_pos % tile
+    edge_r = (rem // blk_w).astype(np.int32)
+    edge_c = (rem % blk_w).astype(np.int32)
+    order = np.argsort(edge_block, kind="stable")
+    edges_per_block = np.bincount(edge_block, minlength=num_blocks)
+    chunks_per_block = np.maximum(_cdiv(edges_per_block, ec), 1)
+    block_chunk_start = np.zeros(num_blocks + 1, dtype=np.int64)
+    np.cumsum(chunks_per_block, out=block_chunk_start[1:])
+    num_chunks = int(block_chunk_start[-1])
+
+    # Slot of each (sorted) edge within its block.
+    block_edge_start = np.zeros(num_blocks + 1, dtype=np.int64)
+    np.cumsum(edges_per_block, out=block_edge_start[1:])
+    sorted_block = edge_block[order]
+    slot_in_block = np.arange(num_edges, dtype=np.int64) - block_edge_start[sorted_block]
+    flat_slot = (block_chunk_start[sorted_block] + slot_in_block // ec) * ec + slot_in_block % ec
+
+    meta.chunk_r = np.full((num_chunks, ec), config.row_sentinel, dtype=np.int32)
+    meta.chunk_c = np.zeros((num_chunks, ec), dtype=np.int32)
+    meta.chunk_edge_id = np.full((num_chunks, ec), num_edges, dtype=np.int32)
+    meta.chunk_r.reshape(-1)[flat_slot] = edge_r[order]
+    meta.chunk_c.reshape(-1)[flat_slot] = edge_c[order]
+    meta.chunk_edge_id.reshape(-1)[flat_slot] = order.astype(np.int32)
+    meta.edge_perm = np.empty(num_edges, dtype=np.int32)
+    meta.edge_perm[order] = flat_slot.astype(np.int32)
+
+    # Per-chunk scalars.
+    meta.chunk_block = np.repeat(np.arange(num_blocks, dtype=np.int32), chunks_per_block)
+    meta.chunk_window = meta.block_window[meta.chunk_block]
+    meta.chunk_first_in_block = np.zeros(num_chunks, dtype=np.int32)
+    meta.chunk_first_in_block[block_chunk_start[:-1]] = 1
+    meta.chunk_first_in_window = np.zeros(num_chunks, dtype=np.int32)
+    meta.chunk_first_in_window[block_chunk_start[block_start[:-1]]] = 1
 
 
 def build_a_tiles_host(meta: SGTMeta, weights: Optional[np.ndarray] = None) -> np.ndarray:

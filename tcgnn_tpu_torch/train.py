@@ -12,6 +12,7 @@ moves to another one: without a card, ``--device cuda`` raises.
 Run:  python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --model gcn
       python -m tcgnn_tpu_torch.train --dataset DD --dim 89 --classes 2 --model agnn --hidden 32
       python -m tcgnn_tpu_torch.train --dataset DD --dim 89 --classes 2 --reorder rcm
+      python -m tcgnn_tpu_torch.train --dataset reddit --dim 602 --classes 41 --model gcn
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--data_dir", type=str, default="tcgnn-ae-graphs/")
     p.add_argument("--blk_h", type=int, default=512)
     p.add_argument("--blk_w", type=int, default=128)
+    p.add_argument("--edge_chunk", type=int, default=128,
+                   help="edge slots per chunk of the chunk and streamed routes")
     p.add_argument(
         "--block_group", type=int, default=0,
         help="SGT block-count padding granule (0 = auto, which is 1 here)",
@@ -101,6 +104,7 @@ def make_config(args) -> TileConfig:
         blk_w=args.blk_w,
         compute_dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
         block_group=args.block_group,
+        edge_chunk=args.edge_chunk,
     )
 
 
@@ -167,6 +171,8 @@ def main(argv=None) -> dict:
     print("TC_Blocks:\t{}\nExp_Edges:\t{}".format(graph.tc_blocks, graph.exp_edges))
     print("Prep. (ms):\t{:.3f}".format(prep * 1e3))
     print("Prep host (ms):\t{:.3f}".format(graph.prep_host_s * 1e3))
+    print("Route:\tdense_tiles={} streamed={} block_diag={}".format(
+        graph.dense_tiles, graph.streamed, graph.block_diag))
 
     x = torch.from_numpy(ds.x).to(device)
     y = torch.from_numpy(ds.y.astype(np.int64)).to(device)
@@ -213,6 +219,8 @@ def main(argv=None) -> dict:
                 print("Acc {}:\t{:.4f}".format(split, acc))
 
     return {
+        "dense_tiles": graph.dense_tiles,
+        "streamed": graph.streamed,
         "block_diag": graph.block_diag,
         "tc_blocks": graph.tc_blocks,
         "exp_edges": graph.exp_edges,
@@ -222,6 +230,7 @@ def main(argv=None) -> dict:
         "final_loss": final_loss,
         "train_ms": train_time * 1e3 / epochs_run,
         "profile": prof or None,
+        "graph": graph,
     }
 
 

@@ -25,6 +25,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from tcgnn_tpu import graph as jax_graph
 from tcgnn_tpu.config import TileConfig as JaxTileConfig
 from tcgnn_tpu.graph import TiledGraph as JaxTiledGraph
 from tcgnn_tpu.models import layers as jax_layers
@@ -225,17 +226,30 @@ def test_hoist_l1_aggregate_is_none_for_agnn():
 
 
 def test_weighted_traffic_counts_in_the_budget(monkeypatch):
-    """Attention on an asymmetric graph budgets 4 weighted tile arrays:
-    a budget the structural tiles fit but the weighted ones do not raises,
-    naming the chunk route's ROADMAP item; a symmetric graph needs none."""
+    """Attention on an asymmetric graph budgets 4 weighted tile arrays: under
+    a budget the structural tiles fit but the weighted ones do not, both
+    packages keep the dense tiles for GCN traffic and take the chunk route
+    (no BD route) for attention, with the same ops; a symmetric graph needs
+    no weighted tiles."""
     rp, ci = edges(False)
-    cfg = TileConfig(blk_h=16, blk_w=16)
+    cfg, jcfg = TileConfig(blk_h=16, blk_w=16), JaxTileConfig(blk_h=16, blk_w=16)
     g = TiledGraph(rp, ci, N, cfg, device="cpu", block_diag=False)
     struct_bytes = (g.host_meta.num_blocks + g.host_meta_t.num_blocks) * 256
     monkeypatch.setattr(port_graph, "DENSE_TILE_BUDGET_BYTES", struct_bytes)
-    TiledGraph(rp, ci, N, cfg, device="cpu", block_diag=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        TiledGraph(rp, ci, N, cfg, device="cpu", weighted_traffic=True, block_diag=False)
+    monkeypatch.setattr(jax_graph, "DENSE_TILE_BUDGET_BYTES", struct_bytes)
+    assert TiledGraph(rp, ci, N, cfg, device="cpu", block_diag=False).dense_tiles
+    g = TiledGraph(rp, ci, N, cfg, device="cpu", weighted_traffic=True, block_diag=False)
+    jg = JaxTiledGraph(rp, ci, N, jcfg, weighted_traffic=True, block_diag=False)
+    assert not g.dense_tiles and not jg.dense_tiles
+    assert not g.block_diag and not jg.block_diag
+    x = features(N, 6, 21)
+    w = np.random.default_rng(22).standard_normal(g.num_edges).astype(np.float32)
+    np.testing.assert_allclose(g.spmm_weighted(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
+                               np.asarray(jg.spmm_weighted(jnp.asarray(x), jnp.asarray(w))),
+                               **F32)
+    np.testing.assert_allclose(g.sddmm(torch.from_numpy(x)).numpy(),
+                               np.asarray(jg.sddmm(jnp.asarray(x))), **F32)
     rs, cs = edges(True)
     monkeypatch.setattr(port_graph, "DENSE_TILE_BUDGET_BYTES", 1 << 30)
-    TiledGraph(rs, cs, N, cfg, device="cpu", weighted_traffic=True, block_diag=False)
+    assert TiledGraph(rs, cs, N, cfg, device="cpu", weighted_traffic=True,
+                      block_diag=False).dense_tiles

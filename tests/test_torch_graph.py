@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import tcgnn_tpu_torch.graph as port_graph
+from tcgnn_tpu import graph as jax_graph
 from tcgnn_tpu.config import TileConfig as JaxTileConfig
 from tcgnn_tpu.graph import TiledGraph as JaxTiledGraph
 from tcgnn_tpu_torch.config import TileConfig
@@ -98,8 +99,16 @@ def test_block_group_auto_resolves_to_one():
     assert g.config.block_group == 1
 
 
-def test_over_budget_graph_raises(monkeypatch):
+def test_over_budget_graph_takes_the_chunk_route(monkeypatch):
+    """Over the dense-tile budget both packages take the chunk route (no
+    dense tiles, no BD route) and give the same SpMM."""
     monkeypatch.setattr(port_graph, "DENSE_TILE_BUDGET_BYTES", 1024)
+    monkeypatch.setattr(jax_graph, "DENSE_TILE_BUDGET_BYTES", 1024)
     rp, ci = make_csr(directed=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TiledGraph(rp, ci, 240, TileConfig(blk_h=16, blk_w=8), device="cpu", block_diag=False)
+    g = TiledGraph(rp, ci, 240, TileConfig(blk_h=16, blk_w=8), device="cpu", block_diag=False)
+    jg = JaxTiledGraph(rp, ci, 240, JaxTileConfig(blk_h=16, blk_w=8), block_diag=False)
+    assert not g.dense_tiles and not jg.dense_tiles
+    assert not g.block_diag and not jg.block_diag and g.a_struct is None
+    x = np.random.default_rng(3).standard_normal((240, 6)).astype(np.float32)
+    np.testing.assert_allclose(g.spmm(torch.from_numpy(x)).numpy(),
+                               np.asarray(jg.spmm(jnp.asarray(x))), **F32)

@@ -1,4 +1,4 @@
-"""The CUDA kernels (K1 to K7) against their plain PyTorch versions, on the card.
+"""The CUDA kernels (K1 to K9) against their plain PyTorch versions, on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  This
 file imports neither JAX nor the JAX package, so it runs on a machine
@@ -13,7 +13,8 @@ differ only in summation order and an f32 sum's rounding error scales with
 the magnitudes summed; bf16 ``2e-2`` on the same scale, for the one
 rounding of the stored sums (K1, K5-K7) or of a score whose last f32 bit
 the summation order moved (K2, K3, K6, K7).  For K5-K7 the magnitude is the
-plain version's own output on absolute values (pack and features).
+plain version's own output on absolute values (pack and features).  K8 and
+K9 store f32 under bf16 too, so they take the f32 tolerance in both dtypes.
 """
 
 import dataclasses
@@ -41,8 +42,16 @@ from tcgnn_tpu_torch.ops import (
     spmm_sfused_bwd_torch,
     spmm_sfused_torch,
 )
+from tcgnn_tpu_torch.ops.chunk import (
+    sddmm_tc,
+    sddmm_tc_torch,
+    spmm_tc,
+    spmm_tc_torch,
+)
 from tcgnn_tpu_torch.ops.reference import sddmm_ref, sfused_bwd_ref, sfused_ref, spmm_ref
 from tcgnn_tpu_torch.ops.spmm import spmm_tc_dense, spmm_tc_dense_torch
+from tcgnn_tpu_torch.sgt.stream import segment_chunks
+from tcgnn_tpu_torch.sgt.translate import sparse_graph_translate
 
 pytestmark = pytest.mark.gpu
 GEOMETRIES = [(16, 8), (16, 16), (512, 128)]
@@ -426,3 +435,103 @@ def test_bd_autograd_on_card_matches_cpu(cuda, kind, model):
     for got, want in zip(results[1], results[0]):
         scale = float(want.abs().max())
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * max(scale, 1.0))
+
+
+# ---- K8 and K9: the chunk and streamed routes ---------------------------------
+
+CHUNK_GEOMETRIES = [(16, 8, 32), (32, 32, 32), (512, 128, 128)]
+
+
+def chunk_layouts(kind, geometry, dtype, dev):
+    """A graph's chunk layout, flat and cut into several window segments by
+    small budgets (one wrapper each takes both)."""
+    n, rp, ci = graph(kind)
+    bh, bw, ec = geometry
+    host = sparse_graph_translate(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw, compute_dtype=dtype,
+                                                        edge_chunk=ec), emit_chunks=True)
+    segs = segment_chunks(host, max_chunks=max(host.num_chunks // 3, 1),
+                          max_slab_rows=max(host.num_blocks * bw // 3, bw))
+    return n, rp, ci, {"flat": host.to_chunks(dev), "segments": segs.to(dev)}
+
+
+@pytest.mark.parametrize("kind", ["hub", "empty_and_partial_windows", "duplicates_over_127",
+                                  "directed"])
+@pytest.mark.parametrize("geometry", CHUNK_GEOMETRIES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [3, 16, 41, 70, 200])
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+def test_chunk_spmm_kernel_matches_plain(cuda, kind, geometry, dtype, d, weighted):
+    """K8 on the flat layout and on window segments: f32 output under bf16
+    too, so the f32 tolerance holds for both."""
+    n, rp, ci, layouts = chunk_layouts(kind, geometry, dtype, cuda)
+    x = randn((n, d), d, cuda)
+    w = randn((len(ci),), 1, cuda) if weighted else None
+    wa = None if w is None else w.to(dtype).double().abs()
+    mag = spmm_ref(x.to(dtype).double().abs(), *csr(rp, ci, cuda), wa)
+    for meta in layouts.values():
+        before = spmm_tc.launches
+        got = spmm_tc(x, meta, w)
+        torch.cuda.synchronize()
+        assert spmm_tc.launches == before + 1 and got.dtype == torch.float32
+        within(got, spmm_tc_torch(x, meta, w), mag, **F32)
+
+
+@pytest.mark.parametrize("kind", ["hub", "empty_and_partial_windows", "duplicates_over_127",
+                                  "directed"])
+@pytest.mark.parametrize("geometry", CHUNK_GEOMETRIES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [3, 5, 32, 70])
+@pytest.mark.parametrize("two", [False, True], ids=["one_matrix", "two_matrices"])
+def test_chunk_sddmm_kernel_matches_plain(cuda, kind, geometry, dtype, d, two):
+    n, rp, ci, layouts = chunk_layouts(kind, geometry, dtype, cuda)
+    xa, xb = randn((n, d), d, cuda), randn((n, d), d + 1, cuda) if two else None
+    a = xa.to(dtype).double()
+    b = a if xb is None else xb.to(dtype).double()
+    mag = sddmm_ref(a.abs(), *csr(rp, ci, cuda), b.abs())
+    for meta in layouts.values():
+        before = sddmm_tc.launches
+        got = sddmm_tc(xa, meta, xb)
+        torch.cuda.synchronize()
+        assert sddmm_tc.launches == before + 1 and got.shape == (len(ci),)
+        within(got, sddmm_tc_torch(xa, meta, xb), mag, **F32)
+
+
+@pytest.mark.parametrize("streamed", [False, True], ids=["chunk", "streamed"])
+@pytest.mark.parametrize("model", ["gcn", "agnn"])
+def test_chunk_autograd_on_card_matches_cpu(cuda, streamed, model):
+    """A GCN or AGNN layer on the chunk or streamed route, forward and every
+    gradient: K8 and K9 against the plain versions on the CPU."""
+    n, rp, ci = graph("directed")
+    x = torch.randn(n, 20, generator=torch.Generator().manual_seed(0)) * 0.3
+    w = torch.randn(20, 16, generator=torch.Generator().manual_seed(1)) * 0.25
+    att = torch.tensor([[0.6, -0.3]])
+    r = torch.randn(n, 16, generator=torch.Generator().manual_seed(2))
+    results = []
+    for dev in (torch.device("cpu"), cuda):
+        g = TiledGraph(rp, ci, n, TileConfig(16, 8, edge_chunk=32), device=dev,
+                       weighted_traffic=True, dense_tiles=False, streamed=streamed)
+        assert not g.dense_tiles and g.streamed == streamed
+        leaves = [t.to(dev, copy=True).requires_grad_(True) for t in (x, w, att)]
+        if model == "agnn":
+            out = agnn_conv(leaves[1], leaves[2], leaves[0], g)
+        else:
+            out = gcn_conv(leaves[1], leaves[0], g)
+            leaves = leaves[:2]
+        (out * r.to(dev)).sum().backward()
+        results.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for got, want in zip(results[1], results[0]):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * max(scale, 1.0))
+
+
+def test_chunk_kernels_reject_what_they_do_not_take(cuda):
+    n, rp, ci, layouts = chunk_layouts("directed", (16, 8, 32), torch.float32, cuda)
+    meta = layouts["flat"]
+    x = torch.zeros(n, 4, device=cuda)
+    with pytest.raises(ValueError, match="seg_r on cpu"):
+        spmm_tc(x, dataclasses.replace(meta, seg_r=meta.seg_r.cpu()))
+    with pytest.raises(ValueError, match="weights of shape"):
+        spmm_tc(x, meta, torch.zeros(3, device=cuda))
+    with pytest.raises(TypeError, match="no kernel for compute dtype"):
+        sddmm_tc(x, dataclasses.replace(meta, config=dataclasses.replace(
+            meta.config, compute_dtype=torch.float16)))
