@@ -5,9 +5,10 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits nonzero:
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
-  2. build K1-K9 (``tcgnn_tpu_torch/csrc/{spmm_dense,spmm_sfused,
-     sddmm_dense,spmm_bd,chunk}.cu``) with nvcc for sm_90a, one nvcc per
-     source, all at once, printing ``-Xptxas -v``;
+  2. build K1-K10 (``tcgnn_tpu_torch/csrc/{spmm_dense,spmm_sfused,
+     sddmm_dense,spmm_bd,chunk}.cu``; K10 is K1's kernel with a score
+     operand) with nvcc for sm_90a, one nvcc per source, all at once,
+     printing ``-Xptxas -v``;
   3. K1 against its plain PyTorch version on the card: pubmed tiling at
      512x128 and 16x8, d in {16, 500}, f32 and bf16; a graph with a
      duplicate count above 127 (float tiles); an asymmetric graph through
@@ -50,7 +51,7 @@ Phases, in order; any failure raises and exits nonzero:
      (K4, K5 over weighted packs, K1); reddit (``--dim 602 --classes 41``,
      the streamed route, TC_Blocks 265,565) GCN hoisted (K8) and AGNN hidden
      32, 2 layers (K8 and K9).  Each run must take the expected route and
-     launch its kernels and no others of K1-K9, and no plain version may
+     launch its kernels and no others of K1-K10, and no plain version may
      have run; the loss must be finite and fall, except in the 4-layer AGNN
      runs (pubmed overflows to nan in f32, as in the JAX package), which are
      only timed.  The reddit runs print the peak host RSS and device memory.
@@ -66,7 +67,22 @@ Phases, in order; any failure raises and exits nonzero:
      kernel) and the one PyTorch call that computes the same function, where
      there is one: ``torch.sparse.mm`` on a CSR tensor (K1, K5, K8),
      ``torch.sparse.sampled_addmm`` (K4, K9).  Yardsticks only: nothing on
-     the main path calls them.
+     the main path calls them;
+ 13. the distributed dense-tile route (``tcgnn_tpu_torch.parallel``), every
+     shard of the mesh on this one card: on pubmed balanced over a 4x2 mesh
+     (512x128), each shard's split stream: K10 (d in {32, 16, 8}: the
+     check's width and the main path's feature-shard widths), K4's tile
+     mode and K3 with its window-side overrides (d=32) against their plain
+     versions, f32 and bf16; then the path through the trainer, 20 timed
+     epochs each, ``--no_dropout``: pubmed GCN hidden 16 on ``--mesh 4x2``
+     (K1), AGNN hidden 32 on ``--mesh 4x2`` (K4 tiles and K10) and on
+     ``--mesh 8x1`` (K2/K3), each with the split stream in both directions,
+     a finite falling loss, its kernels and no others, no plain version, and
+     a first loss within ``rtol=1e-4`` of the single-device run's (the same
+     model: ``init_distributed_net`` zero-pads the single-device draws);
+     K10 timed at d=16 on the heaviest shard beside its bound (``csr_bound``
+     over the shard's edges, one f32 score read an edge) and
+     ``torch.sparse.mm`` over the shard's CSR with the scores as values.
 
 Every phase prints its elapsed seconds.  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -76,6 +92,7 @@ Nothing of JAX is imported.
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import dataclasses
 import json
 import math
@@ -94,6 +111,10 @@ from tcgnn_tpu_torch.data import coo_to_csr, powerlaw_graph, synthesize
 from tcgnn_tpu_torch.data.synthetic import component_union_graph
 from tcgnn_tpu_torch.ops import (
     _kernels,
+    sddmm_tc_tiles,
+    sddmm_tc_tiles_torch,
+    spmm_fused,
+    spmm_fused_torch,
     bd_scatter_weights,
     bd_sfused,
     bd_sfused_bwd,
@@ -118,6 +139,7 @@ from tcgnn_tpu_torch.ops import (
     spmm_tc_torch,
 )
 from tcgnn_tpu_torch.ops.reference import sddmm_ref, sfused_bwd_ref, sfused_ref, spmm_ref
+from tcgnn_tpu_torch.parallel import distributed_graph_from_dataset, make_mesh
 from tcgnn_tpu_torch.sgt.blockdiag import extract_block_diag
 from tcgnn_tpu_torch.sgt.stream import segment_chunks
 from tcgnn_tpu_torch.sgt.translate import sparse_graph_translate, transpose_csr
@@ -141,12 +163,14 @@ KERNELS = {
     "K2": ("spmm_sfused (K2)", "spmm_sfused", "tcgnn_tpu/ops/spmm.py:1335", (spmm_sfused,)),
     "K3": ("spmm_sfused_bwd (K3)", "spmm_sfused", "tcgnn_tpu/ops/spmm.py:1487",
            (spmm_sfused_bwd,)),
-    "K4": ("sddmm_dense (K4)", "sddmm_dense", "tcgnn_tpu/ops/sddmm.py:264", (sddmm_tc_dense,)),
+    "K4": ("sddmm_dense (K4)", "sddmm_dense", "tcgnn_tpu/ops/sddmm.py:264",
+           (sddmm_tc_dense, sddmm_tc_tiles)),
     "K5": ("spmm_bd (K5)", "spmm_bd", "tcgnn_tpu/ops/spmm.py:813", (spmm_block_diag,)),
     "K6": ("bd_sfused (K6)", "spmm_bd", "tcgnn_tpu/ops/spmm.py:928", (bd_sfused,)),
     "K7": ("bd_sfused_bwd (K7)", "spmm_bd", "tcgnn_tpu/ops/spmm.py:1094", (bd_sfused_bwd,)),
     "K8": ("spmm_chunk (K8)", "chunk", "tcgnn_tpu/ops/spmm.py:82", (spmm_tc,)),
     "K9": ("sddmm_chunk (K9)", "chunk", "tcgnn_tpu/ops/sddmm.py:44", (sddmm_tc,)),
+    "K10": ("spmm_fused (K10)", "spmm_dense", "tcgnn_tpu/ops/spmm.py:1229", (spmm_fused,)),
 }
 # The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): memory rate and
 # f32 rate outside the tensor cores (every kernel here multiplies in f32 on
@@ -301,7 +325,7 @@ def check_agnn_kernels(name, meta, tiles, csr, d, dev, errs):
     """K2 (value operand shared and separate), K3 and K4 on one tiling at
     width d, f32 and bf16, against the plain versions and, in f32, the f64
     CSR oracles (K4 in bf16 too: its products are exact in f32)."""
-    n = meta.num_nodes
+    n = meta.num_rows
     ptr, idx = csr.ptr, csr.idx
     xl, xr, xv = (randn((n, d), 30 + i, dev) * 0.3 for i in range(3))
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
@@ -778,7 +802,7 @@ def phase_train(data_dir, dev, card) -> tuple[list, dict, dict]:
     condensed, bd, streamed = (True, False, False), (True, False, True), (False, True, False)
     # label, arguments, kernels the run must launch, loss must fall, route
     # (dense_tiles, streamed, block_diag), TC blocks (None: not checked);
-    # every other kernel of K1-K9 must not launch
+    # every other kernel of K1-K10 must not launch
     runs = [
         ("gcn --no_hoist", [*pubmed, "--model", "gcn", "--no_hoist"], ("K1",), True, condensed,
          334),
@@ -1007,6 +1031,153 @@ def phase_bd_timing(dd, dev) -> tuple[dict, dict]:
     return times, records
 
 
+# ---- the distributed dense-tile route ----------------------------------------
+
+# One bf16 unit: K4's tile mode rounds each score once.
+BF16_TILE_TOL = dict(rtol=8e-3, atol=1e-4)
+# A mesh run's first loss (no dropout) against the single-device run's: the
+# same model, summed in another order.
+FIRST_LOSS_RTOL = 1e-4
+K10_ROUNDS = 3
+
+
+def mesh_graph(ds, mesh, dev):
+    """pubmed balanced over ``mesh`` on the card, as the trainer builds it
+    (on a copy: the balance permutes the dataset)."""
+    return distributed_graph_from_dataset(copy.deepcopy(ds), make_mesh(*mesh, dev),
+                                          TileConfig(block_group=1))
+
+
+def phase_mesh_kernels(ds, dev, card) -> tuple[dict, dict]:
+    """Phase 13, kernels: K10, K4's tile mode and K3 with its window-side
+    overrides on each split-stream shard of pubmed over 4x2, against their
+    plain versions (magnitude: the plain version on absolute values), f32
+    and bf16; then K10 timed.  Returns the f32 errors per kernel and K10's
+    record."""
+    errs = {"K10": {}, "K4": {}, "K3": {}}
+    g = mesh_graph(ds, (4, 2), dev)
+    sp = g._fwd.split
+    if sp is None or g.host_bwd.split is None:
+        raise AssertionError("pubmed 4x2: expected the split stream in both directions")
+    print(f"pubmed 4x2: {g.route}; split stream {sp.streams[0].meta.num_blocks} blocks a shard "
+          f"(unsplit {g._fwd.streams[0].meta.num_blocks}), guest_cap {sp.guest_cap}, "
+          f"pair_cap {sp.pair_cap}, halo rows {g.host_fwd.halo['halo_rows']}")
+    for i, st in enumerate(sp.streams):
+        a = st.tiles
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            m, dt = with_dtype(st.meta, dtype), str(dtype)[6:]
+            f32 = dtype == torch.float32
+            for d in (32, 16, 8):
+                tag = f"pubmed 4x2 shard {i} d={d} {dt}"
+                xw = randn((m.num_rows, d), 900 + d, dev) * 0.3
+                x = randn((m.num_src, d), 901 + d, dev) * 0.3
+                s = sddmm_tc_tiles(xw, m, x)
+                err = compare(f"K4 tile mode {tag} vs plain", s.float(),
+                              sddmm_tc_tiles_torch(xw, m, x).float(),
+                              sddmm_tc_tiles_torch(xw.abs(), m, x.abs(), torch.float32),
+                              F32_TOL if f32 else BF16_TILE_TOL)
+                if f32:
+                    errs["K4"][f"tiles {tag}"] = err
+                err = compare(f"K10 {tag} vs plain", spmm_fused(x, m, a, s),
+                              spmm_fused_torch(x, m, a, s),
+                              spmm_fused_torch(x.abs(), m, a, s.abs()), tol)
+                if f32:
+                    errs["K10"][tag] = err
+            d, tag = 32, f"pubmed 4x2 shard {i} d=32 {dt}"
+            x, dy = randn((m.num_src, d), 910, dev) * 0.3, randn((m.num_src, d), 911, dev) * 0.3
+            xw, dyw = randn((m.num_rows, d), 912, dev) * 0.3, randn((m.num_rows, d), 913, dev) * 0.3
+            got = spmm_sfused_bwd(x, dy, m, a, xw=xw, dyw=dyw)
+            want = spmm_sfused_bwd_torch(x, dy, m, a, xw, dyw)
+            mags = spmm_sfused_bwd_torch(x.abs(), dy.abs(), m, a, xw.abs(), dyw.abs())
+            err = max(compare(f"K3 with xw/dyw {tag} {what} vs plain", p, q, r, tol)
+                      for what, p, q, r in zip(("dx3", "u"), got, want, mags))
+            if f32:
+                errs["K3"][f"overrides {tag}"] = err
+
+    # K10 timed at the main path's feature-shard width (hidden 32 over 2
+    # feature shards) on the heaviest shard's split stream.
+    st = max(sp.streams, key=lambda t: t.meta.num_edges)
+    m, a, d = st.meta, st.tiles, 16
+    x = randn((m.num_src, d), 920, dev)
+    s = sddmm_tc_tiles(randn((m.num_rows, d), 921, dev), m, x)
+    # Three rounds of the pair, to tell the order of kernel and plain
+    # version apart from the spread of one round; the record is their median.
+    rounds = [timed_pair(lambda: spmm_fused(x, m, a, s), lambda: spmm_fused_torch(x, m, a, s))
+              for _ in range(K10_ROUNDS)]
+    kt = statistics.median(r[0] for r in rounds)
+    pt = statistics.median(r[1] for r in rounds)
+    pos = m.edge_pos.long()
+    a_csr = torch.sparse_coo_tensor(
+        torch.stack([m.edge_rows.long(), m.edge_cols.long()]), s.view(-1)[pos].float(),
+        (m.num_rows, m.num_src)).coalesce().to_sparse_csr()
+    compare("torch.sparse.mm yardstick vs K10's plain version", torch.sparse.mm(a_csr, x),
+            spmm_fused_torch(x, m, a, s), spmm_fused_torch(x.abs(), m, a, s.abs()), F32_TOL)
+    lib = median_ms(lambda: torch.sparse.mm(a_csr, x))
+    b = csr_bound(m.num_edges, m.num_rows, nbytes(x) + 4 * m.num_rows * d, 2 * m.num_edges * d,
+                  weighted=True)
+    print(f"  time K10 pubmed 4x2 heaviest shard ({m.num_edges} edges, {m.num_blocks} blocks) "
+          f"d={d}: kernel {kt:.4f} ms, plain {pt:.4f} ms, torch.sparse.mm {lib:.4f} ms, bound "
+          f"{b[0]:.4f} ms ({b[1]}) (median of {K10_ROUNDS} rounds of {TIMING_RUNS}, CUDA "
+          f"events; card: {card}; one card held all 8 shards); rounds (kernel, plain): "
+          + ", ".join(f"({k:.4f}, {p:.4f})" for k, p in rounds))
+    return errs, record(kt, pt, b, lib)
+
+
+def phase_mesh_train(dev, card) -> tuple[list, dict]:
+    """Phase 13, the path: the trainer on pubmed over 4x2 and 8x1 meshes.
+    Every count is set to 0 just before each mesh run and read just after;
+    the single-device run that its first loss is held to runs afterwards.
+    Returns the runs and each kernel's launches summed over them."""
+    pubmed = ["--dataset", "pubmed", "--dim", "500", "--classes", "3", "--no_dropout"]
+    agnn = ["--model", "agnn", "--hidden", "32", "--num_layers", "2"]
+    runs = [  # label, model arguments, mesh, kernels the run must launch
+        ("mesh 4x2 gcn", ["--model", "gcn", "--hidden", "16", "--num_layers", "2"], "4x2",
+         ("K1",)),
+        ("mesh 4x2 agnn", agnn, "4x2", ("K4", "K10")),
+        ("mesh 8x1 agnn", agnn, "8x1", ("K2", "K3")),
+    ]
+    results, launches = [], {k: 0 for k in KERNELS}
+    for label, model, mesh, expected in runs:
+        extra = [*pubmed, *model, "--mesh", mesh]
+        print(f"--- train.main {' '.join(extra)}")
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        r = train.main(["--device", "cuda", "--epochs", "20", *extra])
+        counts = {k: (sum(w.launches for w in ws), sum(w.plain_calls for w in ws))
+                  for k, (_, _, _, ws) in KERNELS.items()}
+        r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        r["seconds"] = time.perf_counter() - t0
+        print(f"  {r['route']}  first loss {r['first_loss']:.6f}  final loss "
+              f"{r['final_loss']:.6f}  "
+              + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}" for k, c in counts.items()))
+        if not (math.isfinite(r["final_loss"]) and r["final_loss"] < r["first_loss"]):
+            raise AssertionError(f"{label}: loss did not fall ({r['first_loss']} -> "
+                                 f"{r['final_loss']})")
+        if (any(counts[k][0] <= 0 for k in expected)
+                or any(c[0] for k, c in counts.items() if k not in expected)
+                or any(c[1] for c in counts.values())):
+            raise AssertionError(f"{label}: expected launches of {expected} and no other "
+                                 f"kernel, no plain calls; got {counts}")
+        if r["split"] != (True, True) or r["tc_blocks"] != 334:
+            raise AssertionError(f"{label}: split {r['split']}, {r['tc_blocks']} TC blocks; "
+                                 "expected the split stream both ways and 334")
+        for k, c in counts.items():
+            launches[k] += c[0]
+        del r["graph"]
+        single = train.main(["--device", "cuda", "--epochs", "1", *pubmed, *model])
+        rel = abs(r["first_loss"] - single["first_loss"]) / abs(single["first_loss"])
+        print(f"  first loss {r['first_loss']:.6f} vs one device {single['first_loss']:.6f}: "
+              f"relative difference {rel:.3e} (rtol {FIRST_LOSS_RTOL})")
+        if not rel <= FIRST_LOSS_RTOL:
+            raise AssertionError(f"{label}: first loss {r['first_loss']} vs one device "
+                                 f"{single['first_loss']}")
+        del single["graph"]
+        results.append((label, r))
+        torch.cuda.empty_cache()
+    return results, launches
+
+
 def build_kernels():
     """One nvcc per source, all started together; prints ``-Xptxas -v``."""
     t0 = time.perf_counter()
@@ -1014,7 +1185,7 @@ def build_kernels():
         list(pool.map(lambda name: _kernels.build(name, verbose=True), KERNEL_SOURCES))
     for name in KERNEL_SOURCES:
         _kernels.load(name)
-    print(f"K1-K9 build (nvcc, sm_90a, {len(KERNEL_SOURCES)} sources at once): "
+    print(f"K1-K10 build (nvcc, sm_90a, {len(KERNEL_SOURCES)} sources at once): "
           f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -1039,7 +1210,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    # ---- 2. build K1-K9 -------------------------------------------------------
+    # ---- 2. build K1-K10 ------------------------------------------------------
     t0 = phase_start("2. build")
     build_kernels()
     phase_end(t0)
@@ -1087,6 +1258,17 @@ def main():
     records.update(bd_records)
     torch.cuda.synchronize()
     phase_end(t0)
+
+    # ---- 13. the distributed dense-tile route ---------------------------------
+    t0 = phase_start("13. the distributed dense-tile route (every shard on this card)")
+    mesh_errs, records["K10"] = phase_mesh_kernels(ds, dev, card)
+    for k, kernel_errs in mesh_errs.items():
+        errs.setdefault(k, {}).update(kernel_errs)
+    mesh_runs, mesh_launches = phase_mesh_train(dev, card)
+    for k, c in mesh_launches.items():
+        launches[k] += c
+    phase_end(t0)
+
     for (k, geo, d), (kt, pt) in times.items():
         print(f"  time {KERNELS[k][0]} {geo} d={d}: kernel {kt:.4f} ms, plain {pt:.4f} ms "
               f"(median of {TIMING_RUNS}, CUDA events; card: {card})")
@@ -1099,6 +1281,12 @@ def main():
               f"Final loss {r['final_loss']:.6f}  peak host RSS {r['peak_rss'] / 2**30:.2f} GiB  "
               f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB  "
               f"run {r['seconds']:.1f} s  (card: {card})")
+    for name, r in mesh_runs:
+        print(f"main path [{name}]: {r['route']}  TC_Blocks {r['tc_blocks']}  "
+              f"Prep. (ms) {r['prep_ms']:.3f}  Train (ms) {r['train_ms']:.3f}  "
+              f"First loss {r['first_loss']:.6f}  Final loss {r['final_loss']:.6f}  "
+              f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB  "
+              f"run {r['seconds']:.1f} s  (card: {card}; one card held all shards)")
     kernels = []
     for k, (name, source, replaces, _) in KERNELS.items():
         kernels.append({

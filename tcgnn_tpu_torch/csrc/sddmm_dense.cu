@@ -21,6 +21,14 @@
 // not by row, so a hub row (pubmed: one of degree 17,058) spreads over the
 // card like any other row's edges.
 //
+// Tile mode (pos != nullptr): the distributed layer's fused AGNN on a split
+// feature axis multiplies score tiles [B, blk_h, blk_w] into the SpMM (K10),
+// as the TPU kernel's `out_dtype=compute_dtype` tiles (sddmm.py:291).  Each
+// edge's dot is then written at its tile position pos[e], rounded to the
+// compute type (or kept f32, as the TPU keeps tiles summed over several
+// d-tiles), into a tile array the caller zeroed: positions without an edge
+// stay 0, which the structural tile masks anyway.
+//
 // Layout: a group of L lanes (L = 4, 8, 16 or 32: the smallest of these
 // >= min(d, 32)) owns one edge; lane k of the group sums the columns k,
 // k + L, ... of the edge's two rows, and the group adds its partial sums
@@ -38,11 +46,15 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename FeatT, int L>
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// OutT: float for per-edge scores (out[e]), FeatT for tile mode (out[pos[e]]).
+template <typename FeatT, typename OutT, int L>
 __global__ void __launch_bounds__(kThreads)
 sddmm_edge_kernel(const FeatT* __restrict__ xa, const FeatT* __restrict__ xb,
                   const int* __restrict__ rows, const int* __restrict__ cols,
-                  float* __restrict__ out, int num_edges, int d) {
+                  const int* __restrict__ pos, OutT* __restrict__ out, int num_edges, int d) {
   const long long e = ((long long)blockIdx.x * kThreads + threadIdx.x) / L;
   const int k0 = threadIdx.x % L;
   float s = 0.f;
@@ -54,45 +66,59 @@ sddmm_edge_kernel(const FeatT* __restrict__ xa, const FeatT* __restrict__ xb,
   // Every lane of the warp takes part (an edge past the end adds zeros).
 #pragma unroll
   for (int off = L / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (e < num_edges && k0 == 0) out[e] = s;
+  if (e < num_edges && k0 == 0) store(out + (pos == nullptr ? e : pos[e]), s);
 }
 
-template <typename FeatT, int L>
-int launch(const void* xa, const void* xb, const void* rows, const void* cols, void* out,
-           int num_edges, int d, cudaStream_t stream) {
-  const long long threads = (long long)num_edges * L;
+struct Args {
+  const void *xa, *xb, *rows, *cols, *pos;
+  void* out;
+  int num_edges, d;
+};
+
+template <typename FeatT, typename OutT, int L>
+int launch(const Args& a, cudaStream_t stream) {
+  const long long threads = (long long)a.num_edges * L;
   const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
-  sddmm_edge_kernel<FeatT, L><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const FeatT*>(xa), static_cast<const FeatT*>(xb),
-      static_cast<const int*>(rows), static_cast<const int*>(cols), static_cast<float*>(out),
-      num_edges, d);
+  sddmm_edge_kernel<FeatT, OutT, L><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const FeatT*>(a.xa), static_cast<const FeatT*>(a.xb),
+      static_cast<const int*>(a.rows), static_cast<const int*>(a.cols),
+      static_cast<const int*>(a.pos), static_cast<OutT*>(a.out), a.num_edges, a.d);
   return (int)cudaGetLastError();
 }
 
+template <typename FeatT, typename OutT>
+int launch_lanes(const Args& a, cudaStream_t stream) {
+  if (a.d <= 4) return launch<FeatT, OutT, 4>(a, stream);
+  if (a.d <= 8) return launch<FeatT, OutT, 8>(a, stream);
+  if (a.d <= 16) return launch<FeatT, OutT, 16>(a, stream);
+  return launch<FeatT, OutT, 32>(a, stream);
+}
+
 template <typename FeatT>
-int launch_lanes(const void* xa, const void* xb, const void* rows, const void* cols, void* out,
-                 int num_edges, int d, cudaStream_t stream) {
-  if (d <= 4) return launch<FeatT, 4>(xa, xb, rows, cols, out, num_edges, d, stream);
-  if (d <= 8) return launch<FeatT, 8>(xa, xb, rows, cols, out, num_edges, d, stream);
-  if (d <= 16) return launch<FeatT, 16>(xa, xb, rows, cols, out, num_edges, d, stream);
-  return launch<FeatT, 32>(xa, xb, rows, cols, out, num_edges, d, stream);
+int launch_mode(const Args& a, bool tile_f32, cudaStream_t stream) {
+  return a.pos == nullptr || tile_f32 ? launch_lanes<FeatT, float>(a, stream)
+                                      : launch_lanes<FeatT, FeatT>(a, stream);
 }
 
 }  // namespace
 
-// out[e] = <xa[rows[e]], xb[cols[e]]> for e < num_edges, f32.
+// pos == nullptr: out[e] = <xa[rows[e]], xb[cols[e]]> for e < num_edges, f32.
+// pos != nullptr (tile mode): out[pos[e]] = the same dot, rounded to the
+// feature type (tile_f32 = 0) or f32 (tile_f32 = 1); out is a zeroed tile
+// array of that type.
 // feat_kind: 0 = float, 1 = bfloat16 (xa and xb).  num_edges >= 1, d >= 1.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int tcgnn_sddmm_dense(const void* xa, const void* xb, const void* rows,
-                                 const void* cols, void* out, int num_edges, int d,
-                                 int feat_kind, void* stream) {
+                                 const void* cols, const void* pos, void* out, int num_edges,
+                                 int d, int feat_kind, int tile_f32, void* stream) {
   if (num_edges < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  const Args a{xa, xb, rows, cols, pos, out, num_edges, d};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (feat_kind) {
     case 0:
-      return launch_lanes<float>(xa, xb, rows, cols, out, num_edges, d, s);
+      return launch_mode<float>(a, tile_f32 != 0, s);
     case 1:
-      return launch_lanes<__nv_bfloat16>(xa, xb, rows, cols, out, num_edges, d, s);
+      return launch_mode<__nv_bfloat16>(a, tile_f32 != 0, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

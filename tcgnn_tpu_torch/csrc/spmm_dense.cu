@@ -1,6 +1,7 @@
-// Dense-tile SpMM over SGT-condensed tiles, for Hopper (sm_90a).
+// Dense-tile SpMM over SGT-condensed tiles, for Hopper (sm_90a), plain
+// (K1) and score-weighted (K10).
 //
-// Replaces the TPU kernel `_spmm_grouped_kernel` (tcgnn_tpu/ops/spmm.py:249)
+// K1 replaces the TPU kernel `_spmm_grouped_kernel` (tcgnn_tpu/ops/spmm.py:249)
 // together with the XLA row gather the TPU had to run in front of it
 // (`jnp.take(x, col_ids)`, tcgnn_tpu/ops/spmm.py:348):
 //
@@ -8,6 +9,15 @@
 //
 // accumulated in f32 and stored once per output element in the feature type
 // (for windows split into runs, see below: one f32 sum per run).
+//
+// K10 (`tcgnn_spmm_fused`) replaces `_spmm_fused_kernel`
+// (tcgnn_tpu/ops/spmm.py:1229, launched by `_spmm_fused_padded`, :1255) and
+// its row gather (:1279).  It is the same kernel with a score tile S in the
+// feature type beside A: each entry is W = ct(ct(A) * ct(S)), as the TPU
+// kernel's `a.astype(ct) * s.astype(ct)`, and the output is f32 whatever the
+// feature type.  The distributed layer's fused AGNN runs it when the feature
+// axis is split (`parallel/graph.py`): a score needs the whole feature width,
+// so the scores come as tiles (K4's tile mode) summed over the feature shards.
 //
 // What bounds it: latency, and one window.  Each TC block gathers up to
 // blk_w rows of X picked by col_ids (pubmed at 512x128: 334 blocks x 128
@@ -77,12 +87,15 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-template <typename FeatT, typename TileT, int kColsPerLane>
+// kScored: multiply each tile entry by its score (K10); `scores` is unread
+// otherwise.  OutT: the feature type (K1) or float (K10).
+template <typename FeatT, typename TileT, typename OutT, bool kScored, int kColsPerLane>
 __global__ void __launch_bounds__(kThreads)
 spmm_dense_kernel(const FeatT* __restrict__ x, const TileT* __restrict__ tiles,
+                  const FeatT* __restrict__ scores,
                   const int* __restrict__ col_ids, const int* __restrict__ win_start,
                   const int* __restrict__ run_window, const int* __restrict__ run_block,
-                  FeatT* out, float* accum, int n, int d,
+                  OutT* out, float* accum, int n, int d,
                   int run_blocks, int blk_h, int blk_w, int slab, int slabs_per_window) {
   constexpr int kTileD = 32 * kColsPerLane;
   const int run = blockIdx.x / slabs_per_window;
@@ -111,10 +124,11 @@ spmm_dense_kernel(const FeatT* __restrict__ x, const TileT* __restrict__ tiles,
     for (int c = 0; c < kColsPerLane; ++c) acc[i][c] = 0.f;
 
   for (int b = b_begin; b < b_end; ++b) {
-    const TileT* tile = tiles + (size_t)b * blk_h * blk_w;
+    const size_t tile0 = (size_t)b * blk_h * blk_w;
 
-    // 1. The warp's tile rows into registers (lane holds columns q*32+lane),
-    //    marking the columns they use with this block's index.
+    // 1. The warp's tile rows (K10: rows of W) into registers (lane holds
+    //    columns q*32+lane), marking the columns they use with this block's
+    //    index.
     float a[kMaxRowsPerWarp][kMaxChunks];
 #pragma unroll
     for (int i = 0; i < kMaxRowsPerWarp; ++i) {
@@ -124,7 +138,10 @@ spmm_dense_kernel(const FeatT* __restrict__ x, const TileT* __restrict__ tiles,
 #pragma unroll
       for (int q = 0; q < kMaxChunks; ++q) {
         const int k = q * 32 + lane;
-        a[i][q] = row_ok && k < blk_w ? round_to<FeatT>(to_f32(tile[(size_t)r * blk_w + k])) : 0.f;
+        const size_t at = tile0 + (size_t)r * blk_w + k;
+        float w = row_ok && k < blk_w ? round_to<FeatT>(to_f32(tiles[at])) : 0.f;
+        if (kScored && w != 0.f) w = round_to<FeatT>(w * to_f32(scores[at]));
+        a[i][q] = w;
       }
     }
 #pragma unroll
@@ -189,7 +206,7 @@ spmm_dense_kernel(const FeatT* __restrict__ x, const TileT* __restrict__ tiles,
     }
   }
 
-  // 4. One store per output element in the feature type, or, for a run of
+  // 4. One store per output element in the output type, or, for a run of
   //    a split window, an f32 atomic add.
 #pragma unroll
   for (int i = 0; i < kMaxRowsPerWarp; ++i) {
@@ -225,12 +242,12 @@ convert_split_windows(const float* __restrict__ accum, const int* __restrict__ w
 }
 
 struct Args {
-  const void *x, *tiles, *col_ids, *win_start, *run_window, *run_block;
+  const void *x, *tiles, *scores, *col_ids, *win_start, *run_window, *run_block;
   void *out, *accum;
   int n, d, num_windows, num_runs, run_blocks, split, blk_h, blk_w;
 };
 
-template <typename FeatT, typename TileT, int kColsPerLane>
+template <typename FeatT, typename TileT, typename OutT, bool kScored, int kColsPerLane>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr int kTileD = 32 * kColsPerLane;
   const int slab = a.blk_h < kSlab ? a.blk_h : kSlab;
@@ -242,14 +259,15 @@ int launch(const Args& a, cudaStream_t stream) {
   }
   const dim3 grid((unsigned)a.num_runs * (unsigned)slabs_per_window,
                   (unsigned)((a.d + kTileD - 1) / kTileD));
-  spmm_dense_kernel<FeatT, TileT, kColsPerLane><<<grid, kThreads, 0, stream>>>(
+  spmm_dense_kernel<FeatT, TileT, OutT, kScored, kColsPerLane><<<grid, kThreads, 0, stream>>>(
       static_cast<const FeatT*>(a.x), static_cast<const TileT*>(a.tiles),
+      static_cast<const FeatT*>(a.scores),
       static_cast<const int*>(a.col_ids), static_cast<const int*>(a.win_start),
       static_cast<const int*>(a.run_window), static_cast<const int*>(a.run_block),
-      static_cast<FeatT*>(a.out), static_cast<float*>(a.accum), a.n, a.d, a.run_blocks,
+      static_cast<OutT*>(a.out), static_cast<float*>(a.accum), a.n, a.d, a.run_blocks,
       a.blk_h, a.blk_w, slab, slabs_per_window);
   const cudaError_t e = cudaGetLastError();
-  if constexpr (std::is_same<FeatT, __nv_bfloat16>::value) {
+  if constexpr (std::is_same<OutT, __nv_bfloat16>::value) {
     if (e == cudaSuccess && a.split) {
       convert_split_windows<<<dim3((unsigned)a.num_windows, 32), kThreads, 0, stream>>>(
           static_cast<const float*>(a.accum), static_cast<const int*>(a.win_start),
@@ -260,20 +278,21 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)e;
 }
 
-template <typename FeatT, typename TileT>
+template <typename FeatT, typename TileT, typename OutT, bool kScored>
 int launch_cols(const Args& a, cudaStream_t stream) {
-  return a.d <= 32 ? launch<FeatT, TileT, 1>(a, stream) : launch<FeatT, TileT, 2>(a, stream);
+  return a.d <= 32 ? launch<FeatT, TileT, OutT, kScored, 1>(a, stream)
+                   : launch<FeatT, TileT, OutT, kScored, 2>(a, stream);
 }
 
-template <typename FeatT>
+template <typename FeatT, typename OutT, bool kScored>
 int launch_tile(int tile_kind, const Args& a, cudaStream_t stream) {
   switch (tile_kind) {
     case 0:
-      return launch_cols<FeatT, int8_t>(a, stream);
+      return launch_cols<FeatT, int8_t, OutT, kScored>(a, stream);
     case 1:
-      return launch_cols<FeatT, float>(a, stream);
+      return launch_cols<FeatT, float, OutT, kScored>(a, stream);
     case 2:
-      return launch_cols<FeatT, __nv_bfloat16>(a, stream);
+      return launch_cols<FeatT, __nv_bfloat16, OutT, kScored>(a, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -299,14 +318,39 @@ extern "C" int tcgnn_spmm_dense(const void* x, const void* tiles, const void* co
     return (int)cudaErrorInvalidValue;
   if (feat_kind == 0) accum = out;
   if (split && accum == nullptr) return (int)cudaErrorInvalidValue;
-  const Args a{x, tiles, col_ids, win_start, run_window, run_block, out, accum,
+  const Args a{x, tiles, nullptr, col_ids, win_start, run_window, run_block, out, accum,
                n, d, num_windows, num_runs, run_blocks, split, blk_h, blk_w};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (feat_kind) {
     case 0:
-      return launch_tile<float>(tile_kind, a, s);
+      return launch_tile<float, float, false>(tile_kind, a, s);
     case 1:
-      return launch_tile<__nv_bfloat16>(tile_kind, a, s);
+      return launch_tile<__nv_bfloat16, __nv_bfloat16, false>(tile_kind, a, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K10: out = (A . S) @ x, f32 [n, d] (n = the windows' rows), x of any row
+// count (col_ids index it).  feat_kind: 0 = float, 1 = bfloat16 (x and the
+// score tiles).  tile_kind as above (the structural tiles).  Runs as above;
+// with split, the output is zeroed here and its runs add into it.
+// Returns the cudaError_t of the launches (0 = success).
+extern "C" int tcgnn_spmm_fused(const void* x, const void* tiles, const void* scores,
+                                const void* col_ids, const void* win_start,
+                                const void* run_window, const void* run_block, void* out, int n,
+                                int d, int num_runs, int run_blocks, int split, int blk_h,
+                                int blk_w, int feat_kind, int tile_kind, void* stream) {
+  if (blk_w < 1 || blk_w > kMaxBlkW || blk_h < 1 || run_blocks < 1 || d < 1)
+    return (int)cudaErrorInvalidValue;
+  const Args a{x, tiles, scores, col_ids, win_start, run_window, run_block, out, out,
+               n, d, 0, num_runs, run_blocks, split, blk_h, blk_w};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (feat_kind) {
+    case 0:
+      return launch_tile<float, float, true>(tile_kind, a, s);
+    case 1:
+      return launch_tile<__nv_bfloat16, float, true>(tile_kind, a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

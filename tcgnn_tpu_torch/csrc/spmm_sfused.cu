@@ -9,7 +9,10 @@
 //     pass giving two sums:
 //       dx3[i] = sum_j A[i, j] * (s_ij * dy[j] + (t_ij + w_ij) * x[j])
 //       u[i]   = sum_j A[i, j] * s_ij * x[j]
-//     with s_ij = <x[i], x[j]>, t_ij = <dy[i], x[j]>, w_ij = <x[i], dy[j]>.
+//     with s_ij = <xw[i], x[j]>, t_ij = <dyw[i], x[j]>, w_ij = <xw[i], dy[j]>:
+//     the window rows (i) come from xw and dyw, which are x and dy on one
+//     device and a shard's own and guest-window rows on the distributed
+//     split stream, while the gathers (j) read x and dy (its halo slabs).
 // Both outputs are f32.  The compute type is rounded where the TPU kernels
 // round: the score to the compute type before it multiplies the tile entry,
 // the product in the compute type (`a * s.astype(ct)`, spmm.py:1355,
@@ -274,6 +277,7 @@ sfused_kernel(const FeatT* __restrict__ xl, const FeatT* __restrict__ xr,
 template <typename FeatT, int kCols>
 __global__ void __launch_bounds__(kThreads)
 sfused_bwd_kernel(const FeatT* __restrict__ x, const FeatT* __restrict__ dy,
+                  const FeatT* __restrict__ xw, const FeatT* __restrict__ dyw,
                   const void* __restrict__ tiles, int tile_kind, const int* __restrict__ col_ids,
                   const int* __restrict__ win_start, const int* __restrict__ run_window,
                   const int* __restrict__ run_block, float* dx3, float* u, int n, int d,
@@ -294,8 +298,8 @@ sfused_bwd_kernel(const FeatT* __restrict__ x, const FeatT* __restrict__ dy,
 #pragma unroll
   for (int i = 0; i < kMaxRowsPerWarp; ++i) {
     grow[i] = warp_row(p, i, slab, blk_h, n);
-    load_row<FeatT, kCols>(x_r[i], x, grow[i], d);
-    load_row<FeatT, kCols>(dy_r[i], dy, grow[i], d);
+    load_row<FeatT, kCols>(x_r[i], xw, grow[i], d);
+    load_row<FeatT, kCols>(dy_r[i], dyw, grow[i], d);
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc_dx[i][c] = acc_u[i][c] = 0.f;
   }
@@ -356,7 +360,7 @@ sfused_bwd_kernel(const FeatT* __restrict__ x, const FeatT* __restrict__ dy,
 }
 
 struct Args {
-  const void *a, *b, *c, *tiles, *col_ids, *win_start, *run_window, *run_block;
+  const void *a, *b, *c, *aw, *bw, *tiles, *col_ids, *win_start, *run_window, *run_block;
   float *out0, *out1;
   int n, d, num_runs, run_blocks, split, blk_h, blk_w, tile_kind;
 };
@@ -413,10 +417,11 @@ int launch_bwd(const Args& a, cudaStream_t stream) {
   if (e != cudaSuccess) return (int)e;
   const Grid g = grid_of(a);
   kernel<<<g.grid, kThreads, smem, stream>>>(
-      static_cast<const FeatT*>(a.a), static_cast<const FeatT*>(a.b), a.tiles, a.tile_kind,
+      static_cast<const FeatT*>(a.a), static_cast<const FeatT*>(a.b),
+      static_cast<const FeatT*>(a.aw), static_cast<const FeatT*>(a.bw), a.tiles, a.tile_kind,
       static_cast<const int*>(a.col_ids), static_cast<const int*>(a.win_start),
-      static_cast<const int*>(a.run_window), static_cast<const int*>(a.run_block), a.out0, a.out1, a.n, a.d, a.run_blocks, a.blk_h,
-      a.blk_w, g.slab, g.slabs_per_window);
+      static_cast<const int*>(a.run_window), static_cast<const int*>(a.run_block), a.out0,
+      a.out1, a.n, a.d, a.run_blocks, a.blk_h, a.blk_w, g.slab, g.slabs_per_window);
   return (int)cudaGetLastError();
 }
 
@@ -469,21 +474,23 @@ extern "C" int tcgnn_spmm_sfused(const void* xl, const void* xr, const void* xv,
                                  int d, int num_runs, int run_blocks, int split, int blk_h,
                                  int blk_w, int feat_kind, int tile_kind, void* stream) {
   const bool share = xv == nullptr;
-  const Args a{xl, xr, share ? xr : xv, tiles, col_ids, win_start, run_window, run_block,
-               static_cast<float*>(out), nullptr, n, d, num_runs, run_blocks, split, blk_h,
-               blk_w, tile_kind};
+  const Args a{xl, xr, share ? xr : xv, nullptr, nullptr, tiles, col_ids, win_start,
+               run_window, run_block, static_cast<float*>(out), nullptr, n, d, num_runs,
+               run_blocks, split, blk_h, blk_w, tile_kind};
   return dispatch(feat_kind, false, share, a, stream);
 }
 
 // Backward: dx3 and u, both f32 [n, d], from x and dy (feature type as
-// above).  Same tiling arguments as the forward.
-extern "C" int tcgnn_spmm_sfused_bwd(const void* x, const void* dy, const void* tiles,
-                                     const void* col_ids, const void* win_start,
-                                     const void* run_window, const void* run_block, void* dx3,
-                                     void* u, int n, int d, int num_runs, int run_blocks,
-                                     int split, int blk_h, int blk_w, int feat_kind,
-                                     int tile_kind, void* stream) {
-  const Args a{x, dy, nullptr, tiles, col_ids, win_start, run_window, run_block,
+// above): the gathers read x and dy, the window rows xw and dyw (n rows;
+// nullptr: x and dy).  Same tiling arguments as the forward.
+extern "C" int tcgnn_spmm_sfused_bwd(const void* x, const void* dy, const void* xw,
+                                     const void* dyw, const void* tiles, const void* col_ids,
+                                     const void* win_start, const void* run_window,
+                                     const void* run_block, void* dx3, void* u, int n, int d,
+                                     int num_runs, int run_blocks, int split, int blk_h,
+                                     int blk_w, int feat_kind, int tile_kind, void* stream) {
+  const Args a{x, dy, nullptr, xw == nullptr ? x : xw, dyw == nullptr ? dy : dyw, tiles,
+               col_ids, win_start, run_window, run_block,
                static_cast<float*>(dx3), static_cast<float*>(u), n, d, num_runs, run_blocks,
                split, blk_h, blk_w, tile_kind};
   return dispatch(feat_kind, true, false, a, stream);

@@ -93,6 +93,7 @@ from tcgnn_tpu_torch.sgt.translate import (
     TorchSGTMeta,
     build_a_tiles_host,
     count_blocks,
+    is_symmetric,
     sparse_graph_translate,
     transpose_csr,
 )
@@ -260,11 +261,7 @@ class TiledGraph:
         # tile builds): everything before the uploads, timed as prep_host_s.
         t0 = time.perf_counter()
         t_ptr, t_idx, t_src = transpose_csr(row_pointers, column_index, num_nodes)
-        if not symmetric and len(t_ptr) == len(row_pointers):
-            symmetric = bool(
-                np.array_equal(np.asarray(t_ptr, np.int64), np.asarray(row_pointers, np.int64))
-                and np.array_equal(np.asarray(t_idx, np.int64), np.asarray(column_index, np.int64))
-            )
+        symmetric = symmetric or is_symmetric(row_pointers, column_index, t_ptr, t_idx)
         self.symmetric = symmetric
 
         def extract_bd():

@@ -61,8 +61,14 @@ class GNN(nn.Module):
         dropout_rate: float = 0.5,
         norm: Optional[torch.Tensor] = None,
         l1_agg: Optional[torch.Tensor] = None,
+        num_valid_classes: Optional[int] = None,
     ) -> torch.Tensor:
         """Log-probabilities ``[N, classes]`` in f32.
+
+        ``num_valid_classes`` sets the logit columns from it on to ``-1e30``
+        before the log-softmax: the distributed trainer pads the class width
+        to a multiple of the feature axis, and the padded classes must take
+        no probability.
 
         ``l1_agg`` is the hoisted layer-1 aggregate (``hoist_l1_aggregate``):
         with constant input features and dropout after layer 1, GCN's
@@ -82,6 +88,9 @@ class GNN(nn.Module):
         for i in range(1, last):
             h = torch.relu(self._conv(i, h, graph, norm))
         h = self._conv(last, h, graph, norm)
+        if num_valid_classes is not None and num_valid_classes < h.shape[1]:
+            col = torch.arange(h.shape[1], device=h.device)[None, :]
+            h = torch.where(col < num_valid_classes, h, -1e30)
         return torch.log_softmax(h.float(), dim=1)
 
     @torch.no_grad()

@@ -19,8 +19,15 @@ from tcgnn_tpu_torch.ops.chunk import (
     spmm_tc_streamed_torch,
     spmm_tc_torch,
 )
+from tcgnn_tpu_torch.ops.fused import spmm_fused, spmm_fused_torch
 from tcgnn_tpu_torch.ops.reference import sddmm_ref, sfused_bwd_ref, sfused_ref, spmm_ref
-from tcgnn_tpu_torch.ops.sddmm import EdgeList, sddmm_tc_dense, sddmm_tc_dense_torch
+from tcgnn_tpu_torch.ops.sddmm import (
+    EdgeList,
+    sddmm_tc_dense,
+    sddmm_tc_dense_torch,
+    sddmm_tc_tiles,
+    sddmm_tc_tiles_torch,
+)
 from tcgnn_tpu_torch.ops.sfused import (
     spmm_sfused,
     spmm_sfused_bwd,
@@ -37,4 +44,5 @@ __all__ = [
     "bd_sfused_bwd", "bd_sfused_bwd_torch", "spmm_ref", "sddmm_ref", "sfused_ref",
     "sfused_bwd_ref", "spmm_tc", "spmm_tc_torch", "spmm_tc_streamed", "spmm_tc_streamed_torch",
     "sddmm_tc", "sddmm_tc_torch", "sddmm_tc_streamed", "sddmm_tc_streamed_torch",
+    "sddmm_tc_tiles", "sddmm_tc_tiles_torch", "spmm_fused", "spmm_fused_torch",
 ]

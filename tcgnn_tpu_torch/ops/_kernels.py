@@ -72,11 +72,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # Every C function of each library, with its argument types: an undeclared
 # pointer argument would be cut to 32 bits.  Each returns a cudaError_t.
 SIGNATURES = {
-    "spmm_dense": {"tcgnn_spmm_dense": [_P] * 8 + [_I] * 10 + [_P]},
-    "sddmm_dense": {"tcgnn_sddmm_dense": [_P] * 5 + [_I] * 3 + [_P]},
+    "spmm_dense": {
+        "tcgnn_spmm_dense": [_P] * 8 + [_I] * 10 + [_P],
+        "tcgnn_spmm_fused": [_P] * 8 + [_I] * 9 + [_P],
+    },
+    "sddmm_dense": {"tcgnn_sddmm_dense": [_P] * 6 + [_I] * 4 + [_P]},
     "spmm_sfused": {
         "tcgnn_spmm_sfused": [_P] * 9 + [_I] * 9 + [_P],
-        "tcgnn_spmm_sfused_bwd": [_P] * 9 + [_I] * 9 + [_P],
+        "tcgnn_spmm_sfused_bwd": [_P] * 11 + [_I] * 9 + [_P],
     },
     "spmm_bd": {
         "tcgnn_spmm_bd": [_P] * 4 + [_I] * 6 + [_P],

@@ -12,6 +12,16 @@ for a CPU tensor only.  The plain version is the JAX algorithm: score tiles
 read out at ``meta.edge_pos``.  Counters: ``sddmm_tc_dense.launches`` and
 ``.plain_calls``.
 
+``sddmm_tc_tiles`` is the same kernel in its tile mode: each edge's score,
+in the compute dtype (or f32), written at its tile position in a zeroed
+``[B, blk_h, blk_w]`` array, the score tiles that the distributed layer's
+fused AGNN sums over the feature axis and feeds to K10 (``ops/fused.py``).
+Its counters are its own; chip_smoke counts both wrappers as K4.
+
+``xa`` has ``meta.num_rows`` rows and ``xb`` ``meta.num_src``: equal on one
+device; a shard of the distributed layer reads its window rows from its own
+(and guest) rows and its columns from its halo slab.
+
 The kernel reads only each edge's row and column, so ``meta`` may also be
 an ``EdgeList``: the block-diagonal route's SDDMM is K4 over every edge
 (the JAX package's ``bd_sddmm_edges`` and its residual dots, whose bin-chunk
@@ -44,7 +54,8 @@ class EdgeList:
     what K4 reads, for graphs without condensed tiles."""
 
     config: TileConfig
-    num_nodes: int
+    num_rows: int  # rows of xa
+    num_src: int  # rows of xb
     num_edges: int
     edge_rows: torch.Tensor  # [E] int32
     edge_cols: torch.Tensor  # [E] int32
@@ -56,7 +67,8 @@ class EdgeList:
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
-        return cls(config, int(num_nodes), len(column_index), dev(edge_rows), dev(column_index))
+        n = int(num_nodes)
+        return cls(config, n, n, len(column_index), dev(edge_rows), dev(column_index))
 
 
 def sddmm_tc_dense_torch(
@@ -69,42 +81,71 @@ def sddmm_tc_dense_torch(
     ct = cfg.compute_dtype
     a = xa.to(ct)
     b = a if xb is None else xb.to(ct)
-    n, d = a.shape
     if (isinstance(meta, EdgeList)
             or meta.num_blocks * cfg.blk_h * cfg.blk_w * 4 > SDDMM_EDGE_DOT_BYTES):
         return (a.index_select(0, meta.edge_rows).float()
                 * b.index_select(0, meta.edge_cols).float()).sum(1)
+    return _score_tiles(a, b, meta).view(-1).index_select(0, meta.edge_pos)
+
+
+def _score_tiles(a, b, meta):
+    """The JAX algorithm's score tiles ``a[window] @ b[col_ids]^T``,
+    ``[B, blk_h, blk_w]`` f32."""
+    cfg = meta.config
+    n, d = a.shape
     a_win = torch.nn.functional.pad(a, (0, 0, 0, meta.num_windows * cfg.blk_h - n))
     a_win = a_win.view(meta.num_windows, cfg.blk_h, d).index_select(0, meta.block_window)
     b_g = b.index_select(0, meta.col_ids).view(meta.num_blocks, cfg.blk_w, d)
-    scores = torch.bmm(a_win.float(), b_g.float().transpose(1, 2))  # [B, blk_h, blk_w]
-    return scores.view(-1).index_select(0, meta.edge_pos)
+    return torch.bmm(a_win.float(), b_g.float().transpose(1, 2))
 
 
-def _sddmm_cuda(xa, xb, meta):
+def _sddmm_cuda(op, xa, xb, meta, tiles, tile_dtype=None):
+    """K4: per-edge f32 scores, or (``tiles``) score tiles of
+    ``tile_dtype`` (the compute dtype or f32) holding each edge's score at
+    its tile position."""
     ct = meta.config.compute_dtype
     if ct not in FEAT_KIND:
-        raise TypeError(f"sddmm_tc_dense: no kernel for compute dtype {ct}")
+        raise TypeError(f"{op}: no kernel for compute dtype {ct}")
     _kernels.check_operands(
-        "sddmm_tc_dense", xa.device, edge_rows=meta.edge_rows, edge_cols=meta.edge_cols
+        op, xa.device, edge_rows=meta.edge_rows, edge_cols=meta.edge_cols,
+        edge_pos=meta.edge_pos if tiles else None,
     )
-    n, d = xa.shape
-    if xa.numel() >= 2**31:
-        raise ValueError("sddmm_tc_dense: xa has 2**31 elements or more")
+    d = xa.shape[1]
+    if xa.numel() >= 2**31 or (xb is not None and xb.numel() >= 2**31):
+        raise ValueError(f"{op}: an operand has 2**31 elements or more")
+    cfg = meta.config
+    if tiles:
+        out = torch.zeros((meta.num_blocks, cfg.blk_h, cfg.blk_w), dtype=tile_dtype,
+                          device=xa.device)
+    else:
+        out = torch.empty(meta.num_edges, dtype=torch.float32, device=xa.device)
     if meta.num_edges == 0 or d == 0:
-        return torch.zeros(meta.num_edges, dtype=torch.float32, device=xa.device)
+        return out.zero_()
     a = xa.to(ct).contiguous()
     b = a if xb is None else xb.to(ct).contiguous()
-    out = torch.empty(meta.num_edges, dtype=torch.float32, device=xa.device)
     lib = _kernels.load("sddmm_dense")
     with torch.cuda.device(xa.device):
         err = lib.tcgnn_sddmm_dense(
             a.data_ptr(), b.data_ptr(), meta.edge_rows.data_ptr(), meta.edge_cols.data_ptr(),
-            out.data_ptr(), meta.num_edges, d, FEAT_KIND[ct], _kernels.stream_of(xa),
+            meta.edge_pos.data_ptr() if tiles else None, out.data_ptr(), meta.num_edges, d,
+            FEAT_KIND[ct], int(tiles and tile_dtype == torch.float32), _kernels.stream_of(xa),
         )
     _kernels.check(lib, err, "sddmm_dense")
-    sddmm_tc_dense.launches += 1
     return out
+
+
+def _check_rows(op, xa, xb, meta):
+    """``xa`` has ``meta.num_rows`` rows; ``xb`` (``None``: ``xa``)
+    ``meta.num_src``, on xa's device, of xa's width."""
+    if xa.dim() != 2 or xa.shape[0] != meta.num_rows:
+        raise ValueError(f"{op}: xa of shape {tuple(xa.shape)}, expected [{meta.num_rows}, d]")
+    if xb is None:
+        if meta.num_src != meta.num_rows:
+            raise ValueError(f"{op}: xb is needed: gathers read {meta.num_src} rows")
+    elif (xb.dim() != 2 or xb.shape != (meta.num_src, xa.shape[1])
+          or xb.device != xa.device):
+        raise ValueError(f"{op}: xb {tuple(xb.shape)} on {xb.device}, expected "
+                         f"[{meta.num_src}, {xa.shape[1]}] on {xa.device}")
 
 
 @_kernels.counted
@@ -114,16 +155,49 @@ def sddmm_tc_dense(
     """Per-edge ``e = <xa[row_e], xb[col_e]>`` (CSR order), ``[E]`` f32;
     ``xb=None`` means ``xb = xa``.  A CUDA tensor runs the kernel (or
     raises); a CPU tensor runs the plain version."""
-    if xa.dim() != 2 or xa.shape[0] != meta.num_nodes:
-        raise ValueError(
-            f"sddmm_tc_dense: xa of shape {tuple(xa.shape)}, expected [{meta.num_nodes}, d]"
-        )
-    if xb is not None and (xb.shape != xa.shape or xb.device != xa.device):
-        raise ValueError(f"sddmm_tc_dense: xb {tuple(xb.shape)} on {xb.device}, "
-                         f"xa {tuple(xa.shape)} on {xa.device}")
+    _check_rows("sddmm_tc_dense", xa, xb, meta)
     if xa.device.type == "cuda":
-        return _sddmm_cuda(xa, xb, meta)
+        out = _sddmm_cuda("sddmm_tc_dense", xa, xb, meta, tiles=False)
+        sddmm_tc_dense.launches += 1
+        return out
     if xa.device.type != "cpu":
         raise ValueError(f"sddmm_tc_dense: no kernel for device {xa.device}")
     sddmm_tc_dense.plain_calls += 1
     return sddmm_tc_dense_torch(xa, meta, xb)
+
+
+def sddmm_tc_tiles_torch(xa: torch.Tensor, meta: TorchSGTMeta, xb: torch.Tensor,
+                         out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of K4's tile mode: the JAX algorithm's score
+    tiles, kept at the edges' positions (zero elsewhere), in ``out_dtype``
+    (default the compute dtype)."""
+    ct = meta.config.compute_dtype
+    scores = _score_tiles(xa.to(ct), xb.to(ct), meta).view(-1)
+    out = torch.zeros_like(scores)
+    out[meta.edge_pos] = scores[meta.edge_pos]
+    return out.view(meta.num_blocks, meta.config.blk_h, meta.config.blk_w).to(out_dtype or ct)
+
+
+@_kernels.counted
+def sddmm_tc_tiles(xa: torch.Tensor, meta: TorchSGTMeta, xb: torch.Tensor,
+                   out_dtype=None) -> torch.Tensor:
+    """K4's tile mode: score tiles ``[B, blk_h, blk_w]`` holding
+    ``<xa[row_e], xb[col_e]>`` at each edge's tile position
+    ``meta.edge_pos`` and zero elsewhere: the JAX
+    ``_sddmm_dense_padded(..., out_dtype=...)`` tiles, whose non-edge
+    entries the fused SpMM's structural tile masks.  ``out_dtype``: the
+    compute dtype (default) or f32.  A CUDA tensor runs the kernel (or
+    raises); a CPU tensor runs the plain version."""
+    _check_rows("sddmm_tc_tiles", xa, xb, meta)
+    out_dtype = out_dtype or meta.config.compute_dtype
+    if out_dtype not in (meta.config.compute_dtype, torch.float32):
+        raise TypeError(f"sddmm_tc_tiles: tiles in {out_dtype}, expected the compute dtype "
+                        "or float32")
+    if xa.device.type == "cuda":
+        out = _sddmm_cuda("sddmm_tc_tiles", xa, xb, meta, tiles=True, tile_dtype=out_dtype)
+        sddmm_tc_tiles.launches += 1
+        return out
+    if xa.device.type != "cpu":
+        raise ValueError(f"sddmm_tc_tiles: no kernel for device {xa.device}")
+    sddmm_tc_tiles.plain_calls += 1
+    return sddmm_tc_tiles_torch(xa, meta, xb, out_dtype)

@@ -6,9 +6,14 @@ Counterparts of ``tcgnn_tpu.ops.spmm.spmm_sfused`` and
 * ``spmm_sfused(xl, xr, xv, meta, a_tiles)`` —
   ``out = (A ⊙ (xl @ xr^T)) @ xv``, f32 ``[N, d]``; ``xv is xr`` shares
   the gathered rows;
-* ``spmm_sfused_bwd(x, dy, meta, a_tiles)`` — ``(dx3, u)``, both f32:
-  ``dx3 = (A⊙S) @ dy + (A⊙(T+U)) @ x`` and ``u = (A⊙S) @ x`` with
-  ``S = x x^T``, ``T = dy x^T``, ``U = x dy^T``.
+* ``spmm_sfused_bwd(x, dy, meta, a_tiles, xw=None, dyw=None)`` —
+  ``(dx3, u)``, both f32: ``dx3 = (A⊙S) @ dy + (A⊙(T+U)) @ x`` and
+  ``u = (A⊙S) @ x`` with ``S = xw x^T``, ``T = dyw x^T``, ``U = xw dy^T``
+  (window rows from ``xw``/``dyw``, which default to ``x``/``dy``).
+
+The window side (``xl``, ``xw``, ``dyw``) has ``meta.num_rows`` rows and
+the gathered side ``meta.num_src``: equal on one device, different for a
+shard of the distributed layer, whose gathers read its halo slab.
 
 The JAX contract, rounding included: operands cast to the compute dtype
 before the gather, scores and products summed in f32, the score rounded to
@@ -36,7 +41,8 @@ KERNEL_MAX_D = 128  # a lane holds up to 4 feature columns
 
 
 def _windows(x, meta):
-    """Each TC block's window rows of x: ``[B, blk_h, d]``, zero past N."""
+    """Each TC block's window rows of x: ``[B, blk_h, d]``, zero past
+    x's rows."""
     cfg = meta.config
     n, d = x.shape
     xw = torch.nn.functional.pad(x, (0, 0, 0, meta.num_windows * cfg.blk_h - n))
@@ -48,13 +54,14 @@ def _gathered(x, meta):
     return x.index_select(0, meta.col_ids).view(meta.num_blocks, meta.config.blk_w, -1).float()
 
 
-def _window_sum(part, meta, n):
-    """Per-block products ``[B, blk_h, d]`` summed per window: ``[N, d]`` f32."""
+def _window_sum(part, meta):
+    """Per-block products ``[B, blk_h, d]`` summed per window:
+    ``[num_rows, d]`` f32."""
     cfg = meta.config
     out = torch.zeros((meta.num_windows, cfg.blk_h, part.shape[-1]), dtype=torch.float32,
                       device=part.device)
     out.index_add_(0, meta.block_window, part)
-    return out.view(-1, part.shape[-1])[:n]
+    return out.view(-1, part.shape[-1])[:meta.num_rows]
 
 
 def spmm_sfused_torch(xl, xr, xv, meta: TorchSGTMeta, a_tiles) -> torch.Tensor:
@@ -65,13 +72,15 @@ def spmm_sfused_torch(xl, xr, xv, meta: TorchSGTMeta, a_tiles) -> torch.Tensor:
     xv_g = xr_g if xv is xr else _gathered(xv.to(ct), meta)
     s = torch.bmm(xl_w, xr_g.transpose(1, 2))  # [B, blk_h, blk_w] f32
     w = a_tiles.to(ct) * s.to(ct)
-    return _window_sum(torch.bmm(w.float(), xv_g), meta, xl.shape[0])
+    return _window_sum(torch.bmm(w.float(), xv_g), meta)
 
 
-def spmm_sfused_bwd_torch(x, dy, meta: TorchSGTMeta, a_tiles):
+def spmm_sfused_bwd_torch(x, dy, meta: TorchSGTMeta, a_tiles, xw=None, dyw=None):
     """Plain PyTorch version of K3."""
     ct = meta.config.compute_dtype
-    x_w, dy_w = _windows(x.to(ct), meta), _windows(dy.to(ct), meta)
+    xw = x if xw is None else xw
+    dyw = dy if dyw is None else dyw
+    x_w, dy_w = _windows(xw.to(ct), meta), _windows(dyw.to(ct), meta)
     x_g, dy_g = _gathered(x.to(ct), meta), _gathered(dy.to(ct), meta)
     s = torch.bmm(x_w, x_g.transpose(1, 2))
     t = torch.bmm(dy_w, x_g.transpose(1, 2))
@@ -79,9 +88,8 @@ def spmm_sfused_bwd_torch(x, dy, meta: TorchSGTMeta, a_tiles):
     a = a_tiles.to(ct)
     cs = (a * s.to(ct)).float()
     g = (a * (t + w2).to(ct)).float()
-    n = x.shape[0]
-    dx3 = _window_sum(torch.bmm(cs, dy_g) + torch.bmm(g, x_g), meta, n)
-    return dx3, _window_sum(torch.bmm(cs, x_g), meta, n)
+    dx3 = _window_sum(torch.bmm(cs, dy_g) + torch.bmm(g, x_g), meta)
+    return dx3, _window_sum(torch.bmm(cs, x_g), meta)
 
 
 def _check(op, x, meta, a_tiles):
@@ -93,10 +101,25 @@ def _check(op, x, meta, a_tiles):
 def _args(x, meta, a_tiles):
     """The C functions' int arguments and stream, after the pointers."""
     cfg = meta.config
-    n, d = x.shape
-    return (n, d, meta.run_window.shape[0], KERNEL_RUN_BLOCKS,
+    return (meta.num_rows, x.shape[1], meta.run_window.shape[0], KERNEL_RUN_BLOCKS,
             int(meta.max_window_blocks > KERNEL_RUN_BLOCKS), cfg.blk_h, cfg.blk_w,
             FEAT_KIND[cfg.compute_dtype], TILE_KIND[a_tiles.dtype], _kernels.stream_of(x))
+
+
+def _check_sides(op, meta, window, gathered):
+    """The window-side operands have ``meta.num_rows`` rows, the gathered
+    ones ``meta.num_src``; all 2-D, of one width and device."""
+    for name, ts, rows in (("window-side", window, meta.num_rows),
+                           ("gathered", gathered, meta.num_src)):
+        for t in ts:
+            if t.dim() != 2 or t.shape[0] != rows:
+                raise ValueError(f"{op}: {name} operand of shape {tuple(t.shape)}, expected "
+                                 f"[{rows}, d]")
+    ref = window[0]
+    for t in (*window, *gathered):
+        if t.shape[1] != ref.shape[1] or t.device != ref.device:
+            raise ValueError(f"{op}: operands {tuple(t.shape)} on {t.device} and "
+                             f"{tuple(ref.shape)} on {ref.device}")
 
 
 def _meta_ptrs(meta, a_tiles):
@@ -105,30 +128,22 @@ def _meta_ptrs(meta, a_tiles):
             meta.run_window.data_ptr(), meta.run_block.data_ptr())
 
 
-def _check_same(op, ref, *others):
-    for t in others:
-        if t.shape != ref.shape or t.device != ref.device:
-            raise ValueError(f"{op}: operands {tuple(t.shape)} on {t.device} and "
-                             f"{tuple(ref.shape)} on {ref.device}")
-
-
 @_kernels.counted
 def spmm_sfused(xl, xr, xv, meta: TorchSGTMeta, a_tiles) -> torch.Tensor:
-    """``(A ⊙ (xl @ xr^T)) @ xv``, ``[N, d]`` f32; pass ``xv is xr`` to
-    share the gathered rows.  A CUDA tensor runs K2 (or raises); a CPU
-    tensor runs the plain version."""
-    if xl.dim() != 2 or xl.shape[0] != meta.num_nodes:
-        raise ValueError(
-            f"spmm_sfused: xl of shape {tuple(xl.shape)}, expected [{meta.num_nodes}, d]")
-    _check_same("spmm_sfused", xl, xr, xv)
+    """``(A ⊙ (xl @ xr^T)) @ xv``, ``[meta.num_rows, d]`` f32; pass ``xv
+    is xr`` to share the gathered rows.  The window side ``xl`` has
+    ``meta.num_rows`` rows, the gathered ``xr`` and ``xv``
+    ``meta.num_src``.  A CUDA tensor runs K2 (or raises); a CPU tensor runs
+    the plain version."""
+    _check_sides("spmm_sfused", meta, (xl,), (xr, xv))
     if xl.device.type == "cpu":
         spmm_sfused.plain_calls += 1
         return spmm_sfused_torch(xl, xr, xv, meta, a_tiles)
     if xl.device.type != "cuda":
         raise ValueError(f"spmm_sfused: no kernel for device {xl.device}")
-    _check("spmm_sfused", xl, meta, a_tiles)
+    _check("spmm_sfused", xr, meta, a_tiles)
     ct = meta.config.compute_dtype
-    n, d = xl.shape
+    n, d = meta.num_rows, xl.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=xl.device)
     if n == 0 or d == 0:
         return out
@@ -147,32 +162,37 @@ def spmm_sfused(xl, xr, xv, meta: TorchSGTMeta, a_tiles) -> torch.Tensor:
 
 
 @_kernels.counted
-def spmm_sfused_bwd(x, dy, meta: TorchSGTMeta, a_tiles):
-    """The AGNN backward in one pass: ``(dx3, u)``, both ``[N, d]`` f32.
-    A CUDA tensor runs K3 (or raises); a CPU tensor runs the plain
+def spmm_sfused_bwd(x, dy, meta: TorchSGTMeta, a_tiles, xw=None, dyw=None):
+    """The AGNN backward in one pass: ``(dx3, u)``, both
+    ``[meta.num_rows, d]`` f32.  The gathers read ``x`` and ``dy``
+    (``meta.num_src`` rows); the window side reads ``xw`` and ``dyw``
+    (``meta.num_rows`` rows), which default to ``x`` and ``dy``: a split
+    stream's guest windows hold their owners' rows, so there the two sides
+    differ.  A CUDA tensor runs K3 (or raises); a CPU tensor runs the plain
     version."""
-    if x.dim() != 2 or x.shape[0] != meta.num_nodes:
-        raise ValueError(
-            f"spmm_sfused_bwd: x of shape {tuple(x.shape)}, expected [{meta.num_nodes}, d]")
-    _check_same("spmm_sfused_bwd", x, dy)
+    xw = x if xw is None else xw
+    dyw = dy if dyw is None else dyw
+    _check_sides("spmm_sfused_bwd", meta, (xw, dyw), (x, dy))
     if x.device.type == "cpu":
         spmm_sfused_bwd.plain_calls += 1
-        return spmm_sfused_bwd_torch(x, dy, meta, a_tiles)
+        return spmm_sfused_bwd_torch(x, dy, meta, a_tiles, xw, dyw)
     if x.device.type != "cuda":
         raise ValueError(f"spmm_sfused_bwd: no kernel for device {x.device}")
     _check("spmm_sfused_bwd", x, meta, a_tiles)
     ct = meta.config.compute_dtype
-    n, d = x.shape
+    n, d = meta.num_rows, x.shape[1]
     dx3 = torch.empty((n, d), dtype=torch.float32, device=x.device)
     u = torch.empty_like(dx3)
     if n == 0 or d == 0:
         return dx3, u
     xc, dyc = x.to(ct).contiguous(), dy.to(ct).contiguous()
+    xwc = xc if xw is x else xw.to(ct).contiguous()
+    dywc = dyc if dyw is dy else dyw.to(ct).contiguous()
     lib = _kernels.load("spmm_sfused")
     with torch.cuda.device(x.device):
         err = lib.tcgnn_spmm_sfused_bwd(
-            xc.data_ptr(), dyc.data_ptr(), *_meta_ptrs(meta, a_tiles), dx3.data_ptr(),
-            u.data_ptr(), *_args(x, meta, a_tiles),
+            xc.data_ptr(), dyc.data_ptr(), xwc.data_ptr(), dywc.data_ptr(),
+            *_meta_ptrs(meta, a_tiles), dx3.data_ptr(), u.data_ptr(), *_args(x, meta, a_tiles),
         )
     _kernels.check(lib, err, "spmm_sfused_bwd")
     spmm_sfused_bwd.launches += 1

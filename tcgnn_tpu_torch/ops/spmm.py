@@ -58,14 +58,14 @@ def spmm_tc_dense_torch(
     then a sum per window."""
     cfg = meta.config
     ct = cfg.compute_dtype
-    n, d = x.shape
+    d = x.shape[1]
     xg = x.to(ct).index_select(0, meta.col_ids).view(meta.num_blocks, cfg.blk_w, d)
     part = torch.bmm(a_tiles.to(ct).float(), xg.float())  # [B, blk_h, d]
     out = torch.zeros(
         (meta.num_windows, cfg.blk_h, d), dtype=torch.float32, device=x.device
     )
     out.index_add_(0, meta.block_window, part)
-    return out.view(-1, d)[:n].to(ct)
+    return out.view(-1, d)[:meta.num_rows].to(ct)
 
 
 def check_tiled_operands(op: str, x, meta, a_tiles) -> None:
@@ -95,7 +95,7 @@ def check_tiled_operands(op: str, x, meta, a_tiles) -> None:
 def _spmm_dense_cuda(x, meta, a_tiles):
     check_tiled_operands("spmm_tc_dense", x, meta, a_tiles)
     cfg = meta.config
-    n, d = x.shape
+    n, d = meta.num_rows, x.shape[1]
     x = x.to(cfg.compute_dtype).contiguous()
     out = torch.empty((n, d), dtype=cfg.compute_dtype, device=x.device)
     if n == 0 or d == 0:
@@ -127,13 +127,14 @@ def _spmm_dense_cuda(x, meta, a_tiles):
 def spmm_tc_dense(
     x: torch.Tensor, meta: TorchSGTMeta, a_tiles: torch.Tensor
 ) -> torch.Tensor:
-    """Tensor-core-style SpMM via dense A-tiles: ``out = A @ x``, [N, d] in
-    the compute dtype.  A CUDA tensor runs the kernel (or raises); a CPU
-    tensor runs the plain version."""
-    if x.dim() != 2 or x.shape[0] != meta.num_nodes:
+    """Tensor-core-style SpMM via dense A-tiles: ``out = A @ x``,
+    ``[meta.num_rows, d]`` in the compute dtype, from x of
+    ``meta.num_src`` rows.  A CUDA tensor runs the kernel (or raises); a
+    CPU tensor runs the plain version."""
+    if x.dim() != 2 or x.shape[0] != meta.num_src:
         raise ValueError(
             f"spmm_tc_dense: x of shape {tuple(x.shape)}, expected "
-            f"[{meta.num_nodes}, d]"
+            f"[{meta.num_src}, d]"
         )
     if x.device.type == "cuda":
         return _spmm_dense_cuda(x, meta, a_tiles)

@@ -11,7 +11,7 @@ epochs in it under ``--profile_dir``.  ``device_ms`` is the device time per
 call of one function (a kernel or its plain version).
 
 Run on the card from the repository root:
-    python -m tcgnn_tpu_torch.profiling [OUT_DIR [GROUP ...]]  # groups: bd (and K5-K7), reddit
+    python -m tcgnn_tpu_torch.profiling [OUT_DIR [GROUP ...]]  # groups: bd (and K5-K7), reddit, mesh
     python -m tcgnn_tpu_torch.train --dataset DD --dim 89 --classes 2 --profile_dir prof/
 """
 
@@ -134,6 +134,14 @@ CONFIGS = {
         ["--dataset", "reddit", "--dim", "602", "--classes", "41", "--model", "gcn"],
         ["--dataset", "reddit", "--dim", "602", "--classes", "41", "--model", "agnn",
          "--hidden", "32", "--num_layers", "2"],
+    ),
+    "mesh": (  # every shard of the mesh on this one card
+        ["--dataset", "pubmed", "--dim", "500", "--classes", "3", "--model", "gcn",
+         "--mesh", "4x2"],
+        ["--dataset", "pubmed", "--dim", "500", "--classes", "3", "--model", "agnn",
+         "--hidden", "32", "--num_layers", "2", "--mesh", "4x2"],
+        ["--dataset", "pubmed", "--dim", "500", "--classes", "3", "--model", "agnn",
+         "--hidden", "32", "--num_layers", "2", "--mesh", "8x1"],
     ),
 }
 

@@ -8,9 +8,11 @@ more neighbours per row window.
 
 Carried over: ``rcm_permutation`` (scipy's ``reverse_cuthill_mckee``, the
 JAX package's fallback without its native library), ``permute_csr``,
-``apply_permutation`` and ``reorder_dataset``.  The community ordering
-exists only as the JAX package's native C++ pass; here it raises, so the
-port never trains on another ordering than the JAX package would.
+``apply_permutation``, ``reorder_dataset``, and the distributed layer's
+window-granular shard balance (``shard_balance_permutation``,
+``balance_dataset``).  The community ordering exists only as the JAX
+package's native C++ pass; here it raises, so the port never trains on
+another ordering than the JAX package would.
 """
 
 from __future__ import annotations
@@ -96,3 +98,79 @@ def reorder_dataset(ds, method: str = "rcm"):
             "(sgt.cpp:sgt_community), not ported yet (ROADMAP.md, Queue 1 item 2)"
         )
     raise ValueError(f"unknown reorder method {method!r}")
+
+
+def shard_balance_permutation(
+    row_pointers, column_index, num_nodes: int, num_shards: int, config=None
+) -> np.ndarray:
+    """``perm[new] = old``: window-granular load balance over the mesh's
+    graph axis.
+
+    The partition gives each shard a contiguous range of equally many row
+    windows and pads every shard's block stream to the heaviest one, so each
+    shard walks the heaviest shard's block count.  This pass assigns whole
+    windows to shards by LPT (longest processing time first, equal window
+    counts per shard), then relabels nodes so each shard's windows are
+    contiguous.  Window contents are untouched: TC_Blocks and every
+    window's tiling stay the same.  A partial last window stays the last
+    slot, so every earlier window keeps ``blk_h`` rows.
+    """
+    from tcgnn_tpu_torch.config import DEFAULT_CONFIG
+    from tcgnn_tpu_torch.sgt.translate import _cdiv, _pad_blocks, sparse_graph_translate
+
+    cfg = DEFAULT_CONFIG if config is None else config
+    blk_h = cfg.blk_h
+    n = int(num_nodes)
+    g = int(num_shards)
+    w = max(_cdiv(n, blk_h), 1)
+    identity = np.arange(n, dtype=np.int64)
+    if g <= 1 or w <= g:
+        return identity
+
+    # Each window's padded block count: the load it adds to its shard.
+    per = sparse_graph_translate(row_pointers, column_index, n, cfg).block_partition
+    load = _pad_blocks(np.asarray(per, np.int64), cfg).astype(np.int64)
+
+    wd = _cdiv(w, g)
+    caps = np.full(g, wd, np.int64)
+    caps[-1] = w - (g - 1) * wd  # the partition pads the tail shard
+    if caps[-1] <= 0:  # tail shards own no real windows
+        caps = np.minimum(np.maximum(w - np.arange(g) * wd, 0), wd)
+    totals = np.zeros(g, np.float64)
+    assign: list[list[int]] = [[] for _ in range(g)]
+
+    partial = n % blk_h != 0
+    windows = np.arange(w - 1 if partial else w)
+    if partial:
+        s_last = int(np.max(np.nonzero(caps > 0)[0]))
+        assign[s_last].append(w - 1)
+        totals[s_last] += load[w - 1]
+        caps[s_last] -= 1
+
+    for w_id in windows[np.argsort(-load[windows], kind="stable")]:
+        open_ = caps > 0
+        s = int(np.flatnonzero(open_)[np.argmin(totals[open_])])
+        assign[s].append(int(w_id))
+        totals[s] += load[w_id]
+        caps[s] -= 1
+
+    slots: list[int] = []
+    for s in range(g):
+        ws = sorted(assign[s])  # ascending keeps band locality per shard
+        if partial and (w - 1) in ws:
+            ws = [v for v in ws if v != w - 1] + [w - 1]
+        slots.extend(ws)
+    return np.concatenate(
+        [np.arange(v * blk_h, min((v + 1) * blk_h, n), dtype=np.int64) for v in slots]
+    )
+
+
+def balance_dataset(ds, num_shards: int, config=None):
+    """Apply ``shard_balance_permutation`` to a ``GraphDataset`` in place;
+    returns the permutation, or None when it is the identity."""
+    perm = shard_balance_permutation(
+        ds.row_pointers, ds.column_index, ds.num_nodes, num_shards, config
+    )
+    if np.array_equal(perm, np.arange(ds.num_nodes, dtype=np.int64)):
+        return None
+    return apply_permutation(ds, perm)

@@ -68,10 +68,21 @@ class TorchSGTMeta:
     (where the weighted tiles and the tile-space SDDMM put it), and
     ``edge_rows[e]`` / ``edge_cols[e]`` its row and column, read back from
     that position, which the per-edge SDDMM kernel reads.
+
+    Two row counts: ``num_rows``, the rows of the output and of the
+    window-side operand (row ``w * blk_h + r`` is window w's row r), and
+    ``num_src``, the rows of the gathered operand (``col_ids`` index it).
+    On one device both are the node count N.  A shard of the distributed
+    layer (``shard_meta``) writes ``num_windows * blk_h`` rows (its own
+    windows, then its guest windows) and gathers from its extended halo
+    slab.  ``num_blocks`` is the tile array's block count; the windows'
+    blocks (``win_start``) may end before it, and blocks past
+    ``win_start[-1]`` are padding the kernels never visit.
     """
 
     config: TileConfig
-    num_nodes: int
+    num_rows: int
+    num_src: int
     num_edges: int
     num_windows: int
     num_blocks: int
@@ -202,41 +213,80 @@ class SGTMeta:
 
     def to(self, device) -> TorchSGTMeta:
         """Upload what the dense-tile ops read to ``device``."""
-        win_start = np.zeros(self.num_windows + 1, dtype=np.int64)
-        np.cumsum(self.block_partition, out=win_start[1:])
-        blk_h, blk_w = self.config.blk_h, self.config.blk_w
-        if win_start[-1] * blk_h * blk_w >= 2**31:
-            raise ValueError("dense-tile index space overflows int32")
-        runs = _cdiv(self.block_partition.astype(np.int64), KERNEL_RUN_BLOCKS)
-        run_window = np.repeat(np.arange(self.num_windows, dtype=np.int64), runs)
-        first_run = np.cumsum(runs) - runs
-        run_block = win_start[run_window] + KERNEL_RUN_BLOCKS * (
-            np.arange(len(run_window), dtype=np.int64) - first_run[run_window]
-        )
+        return _upload_meta(self.config, self.block_partition, self.block_window, self.col_ids,
+                            self.edge_pos, self.num_nodes, self.num_nodes, device)
 
-        edge_block, in_tile = np.divmod(self.edge_pos, blk_h * blk_w)
-        edge_rows = self.block_window[edge_block].astype(np.int64) * blk_h + in_tile // blk_w
-        edge_cols = self.col_ids[edge_block * blk_w + in_tile % blk_w]
 
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+def _upload_meta(config, block_partition, block_window, col_ids, edge_pos, num_rows, num_src,
+                 device) -> TorchSGTMeta:
+    """A ``TorchSGTMeta`` on ``device``: window w's blocks are the
+    ``block_partition[w]`` blocks from ``win_start[w]``; ``block_window``
+    and ``col_ids`` may run past them (padding blocks)."""
+    num_windows = len(block_partition)
+    win_start = np.zeros(num_windows + 1, dtype=np.int64)
+    np.cumsum(block_partition, out=win_start[1:])
+    blk_h, blk_w = config.blk_h, config.blk_w
+    num_blocks = len(block_window)
+    if num_blocks * blk_h * blk_w >= 2**31:
+        raise ValueError("dense-tile index space overflows int32")
+    runs = _cdiv(np.asarray(block_partition, np.int64), KERNEL_RUN_BLOCKS)
+    run_window = np.repeat(np.arange(num_windows, dtype=np.int64), runs)
+    first_run = np.cumsum(runs) - runs
+    run_block = win_start[run_window] + KERNEL_RUN_BLOCKS * (
+        np.arange(len(run_window), dtype=np.int64) - first_run[run_window]
+    )
 
-        return TorchSGTMeta(
-            config=self.config,
-            num_nodes=self.num_nodes,
-            num_edges=self.num_edges,
-            num_windows=self.num_windows,
-            num_blocks=self.num_blocks,
-            max_window_blocks=int(self.block_partition.max()),
-            col_ids=dev(self.col_ids),
-            block_window=dev(self.block_window),
-            win_start=dev(win_start),
-            run_window=dev(run_window),
-            run_block=dev(run_block),
-            edge_pos=dev(self.edge_pos),
-            edge_rows=dev(edge_rows),
-            edge_cols=dev(edge_cols),
-        )
+    edge_pos = np.asarray(edge_pos, np.int64)
+    edge_block, in_tile = np.divmod(edge_pos, blk_h * blk_w)
+    edge_rows = np.asarray(block_window)[edge_block].astype(np.int64) * blk_h + in_tile // blk_w
+    edge_cols = np.asarray(col_ids)[edge_block * blk_w + in_tile % blk_w]
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return TorchSGTMeta(
+        config=config,
+        num_rows=int(num_rows),
+        num_src=int(num_src),
+        num_edges=len(edge_pos),
+        num_windows=num_windows,
+        num_blocks=num_blocks,
+        max_window_blocks=int(np.max(block_partition)),
+        col_ids=dev(col_ids),
+        block_window=dev(block_window),
+        win_start=dev(win_start),
+        run_window=dev(run_window),
+        run_block=dev(run_block),
+        edge_pos=dev(edge_pos),
+        edge_rows=dev(edge_rows),
+        edge_cols=dev(edge_cols),
+    )
+
+
+def shard_meta(config: TileConfig, a_tiles, block_window, block_first, col_ids, edge_pos,
+               num_windows: int, num_src: int, device) -> TorchSGTMeta:
+    """One shard's block stream of the distributed layer as a
+    ``TorchSGTMeta``, from its slice of the stacked host arrays:
+    ``a_tiles [B, blk_h, blk_w]``, ``block_window`` and ``block_first``
+    ``[B]``, ``col_ids [B * blk_w]`` (indices into the gather source of
+    ``num_src`` rows) and ``edge_pos``, the tile positions of the shard's
+    real edges.  It writes ``num_windows * blk_h`` rows.
+
+    The stacking pads every shard to the largest block count with blocks
+    of zero tiles that revisit the last window without starting it; this
+    shard's windows end at its last block that holds an entry or starts a
+    window, so the kernels never visit the padding."""
+    a = np.asarray(a_tiles).reshape(len(block_window), -1)
+    live = np.flatnonzero(a.any(axis=1) | (np.asarray(block_first) == 1))
+    nb = int(live[-1]) + 1 if len(live) else 0
+    bw = np.asarray(block_window[:nb], np.int64)
+    if np.any(np.diff(bw) < 0):
+        raise ValueError("shard_meta: blocks out of window order")
+    counts = np.bincount(bw, minlength=num_windows)
+    if len(counts) != num_windows or counts.min(initial=1) < 1:
+        raise ValueError("shard_meta: every window needs at least one block")
+    return _upload_meta(config, counts, block_window, col_ids, edge_pos,
+                        num_windows * config.blk_h, num_src, device)
 
 
 def _window_pairs(row_pointers, column_index, num_nodes, num_cols, blk_h):
@@ -440,6 +490,15 @@ def count_blocks(
     )
     real = _cdiv(np.bincount(uniq_key // num_cols, minlength=num_windows), config.blk_w)
     return int(_pad_blocks(real, config).sum())
+
+
+def is_symmetric(row_pointers, column_index, t_ptr, t_idx) -> bool:
+    """A == A^T, given A's CSR and its transpose's (``transpose_csr``)."""
+    return bool(
+        len(t_ptr) == len(row_pointers)
+        and np.array_equal(np.asarray(t_ptr, np.int64), np.asarray(row_pointers, np.int64))
+        and np.array_equal(np.asarray(t_idx, np.int64), np.asarray(column_index, np.int64))
+    )
 
 
 def transpose_csr(row_pointers: np.ndarray, column_index: np.ndarray, num_nodes: int):

@@ -9,7 +9,16 @@ device; it is bracketed by ``torch.cuda.synchronize()``.
 The device is explicit (``--device``, default ``cuda``) and the trainer never
 moves to another one: without a card, ``--device cuda`` raises.
 
+``--mesh GxF`` trains over a ``('graph','feature')`` mesh of G x F shards
+(``tcgnn_tpu_torch.parallel``), all on the one ``--device``: the graph is
+balanced over the shards (``--no_balance`` keeps its order), partitioned,
+and trained with the same output lines and a ``Route:`` line naming the
+block streams; ``block_group`` is 1, as the mesh's split needs.
+
 Run:  python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --model gcn
+      python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --mesh 4x2
+      python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --model agnn \
+          --hidden 32 --mesh 8x1
       python -m tcgnn_tpu_torch.train --dataset DD --dim 89 --classes 2 --model agnn --hidden 32
       python -m tcgnn_tpu_torch.train --dataset DD --dim 89 --classes 2 --reorder rcm
       python -m tcgnn_tpu_torch.train --dataset reddit --dim 602 --classes 41 --model gcn
@@ -82,7 +91,10 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="trace the timed epochs with torch.profiler into this directory "
                    "and print the device's busy time, idle share and largest items")
     p.add_argument("--mesh", type=str, default=None, metavar="GxF",
-                   help="distributed training (not ported yet)")
+                   help="train over a ('graph','feature') mesh of G x F shards, e.g. --mesh 4x2; "
+                   "every shard lives on --device")
+    p.add_argument("--no_balance", action="store_true",
+                   help="(--mesh only) disable the window-granular LPT shard balance")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -135,13 +147,83 @@ def make_train_step(
     return step
 
 
+def timed_epochs(step, args, device, sync) -> tuple:
+    """Warm-up epochs, then ``--epochs`` timed ones (profiled with
+    ``--profile_dir``): ``(first_loss, final_loss, train_s, profile)``."""
+    first_loss = loss = step()
+    for _ in range(WARMUP_EPOCHS - 1):
+        loss = step()
+    sync()
+    epochs_run = max(args.epochs, 1)
+    with profiling.trace(args.profile_dir, device, epochs_run) as prof:
+        start_train = time.perf_counter()
+        for _ in range(args.epochs):
+            loss = step()
+        sync()
+        train_time = time.perf_counter() - start_train
+    final_loss = float(loss)
+    print("Final loss:\t{:.6f}".format(final_loss))
+    print("Train (ms):\t{:6.3f}".format(train_time * 1e3 / epochs_run))
+    return float(first_loss), final_loss, train_time * 1e3 / epochs_run, prof or None
+
+
+def train_distributed(args, ds, cfg, device, sync) -> dict:
+    """Full-batch training over a ``('graph','feature')`` mesh (``--mesh
+    GxF``), every shard on ``device``."""
+    from tcgnn_tpu_torch.parallel import (
+        distributed_graph_from_dataset,
+        init_distributed_net,
+        make_distributed_train_step,
+        make_mesh,
+    )
+
+    ng, nf = (int(v) for v in args.mesh.lower().split("x"))
+    mesh = make_mesh(ng, nf, device)
+    start = time.perf_counter()
+    graph = distributed_graph_from_dataset(ds, mesh, cfg, balance=not args.no_balance)
+    sync()
+    prep = time.perf_counter() - start
+    print("TC_Blocks:\t{}\nExp_Edges:\t{}".format(graph.tc_blocks, graph.exp_edges))
+    print("Prep. (ms):\t{:.3f}".format(prep * 1e3))
+    print("Route:\t" + graph.route)
+
+    x = graph.shard_features(ds.x)
+    y = graph.shard_nodes(ds.y.astype(np.int64))
+    net, _, _ = init_distributed_net(
+        torch.Generator().manual_seed(args.seed), args.model, ds.num_features, args.hidden,
+        ds.num_classes, args.num_layers, graph, n_heads=args.n_heads,
+    )
+    optimizer = torch.optim.Adam(net.parameters(), lr=args.lr)
+    norm = (graph.shard_nodes((1.0 / ds.norm_degrees()).astype(np.float32))
+            if args.gcn_norm else None)
+    step = make_distributed_train_step(
+        graph, net, x, y, optimizer, 0.0 if args.no_dropout else args.dropout,
+        num_valid_classes=ds.num_classes, norm=norm, hoist=not args.no_hoist,
+        generator=torch.Generator(device=device).manual_seed(args.seed + 1),
+    )
+    first_loss, final_loss, train_ms, prof = timed_epochs(step, args, device, sync)
+
+    if args.eval:
+        with torch.no_grad():
+            pred = net(x, graph, norm=norm, num_valid_classes=ds.num_classes).argmax(dim=1)
+        for split, m_host in (("train", ds.train_mask), ("test", ds.test_mask)):
+            if m_host.any():
+                m = graph.shard_nodes(m_host).bool()
+                acc = float((pred[m] == y[m]).float().mean())
+                print("Acc {}:\t{:.4f}".format(split, acc))
+    return {
+        "dense_tiles": graph.dense_tiles, "streamed": graph.streamed,
+        "block_diag": graph.block_diag, "mesh": (ng, nf), "route": graph.route,
+        "split": (graph.host_fwd.split is not None, graph.host_bwd.split is not None),
+        "tc_blocks": graph.tc_blocks, "exp_edges": graph.exp_edges, "prep_ms": prep * 1e3,
+        "first_loss": first_loss, "final_loss": final_loss, "train_ms": train_ms,
+        "profile": prof, "graph": graph,
+    }
+
+
 def main(argv=None) -> dict:
     args = build_argparser().parse_args(argv)
     print(args)
-    if args.mesh:
-        raise NotImplementedError(
-            "distributed training is not ported yet (ROADMAP.md, Queue 1 item 8)"
-        )
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch finds no CUDA device")
@@ -155,6 +237,10 @@ def main(argv=None) -> dict:
 
     ds = load_dataset(args)
     cfg = make_config(args)
+    if args.mesh:
+        if args.reorder != "none":
+            reorder.reorder_dataset(ds, args.reorder)
+        return train_distributed(args, ds, cfg, device, sync)
     if args.reorder != "none":
         start = time.perf_counter()
         reorder.reorder_dataset(ds, args.reorder)
@@ -193,21 +279,7 @@ def main(argv=None) -> dict:
     )
 
     # ---- warm-up epochs, then timed epochs ----------------------------------
-    first_loss = loss = step()
-    for _ in range(WARMUP_EPOCHS - 1):
-        loss = step()
-    sync()
-    epochs_run = max(args.epochs, 1)
-    with profiling.trace(args.profile_dir, device, epochs_run) as prof:
-        start_train = time.perf_counter()
-        for _ in range(args.epochs):
-            loss = step()
-        sync()
-        train_time = time.perf_counter() - start_train
-    final_loss = float(loss)
-
-    print("Final loss:\t{:.6f}".format(final_loss))
-    print("Train (ms):\t{:6.3f}".format(train_time * 1e3 / epochs_run))
+    first_loss, final_loss, train_ms, prof = timed_epochs(step, args, device, sync)
 
     if args.eval:
         with torch.no_grad():
@@ -226,10 +298,10 @@ def main(argv=None) -> dict:
         "exp_edges": graph.exp_edges,
         "prep_ms": prep * 1e3,
         "prep_host_ms": graph.prep_host_s * 1e3,
-        "first_loss": float(first_loss),
+        "first_loss": first_loss,
         "final_loss": final_loss,
-        "train_ms": train_time * 1e3 / epochs_run,
-        "profile": prof or None,
+        "train_ms": train_ms,
+        "profile": prof,
         "graph": graph,
     }
 

@@ -1,4 +1,4 @@
-"""The CUDA kernels (K1 to K9) against their plain PyTorch versions, on the card.
+"""The CUDA kernels (K1 to K10) against their plain PyTorch versions, on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  This
 file imports neither JAX nor the JAX package, so it runs on a machine
@@ -15,6 +15,11 @@ rounding of the stored sums (K1, K5-K7) or of a score whose last f32 bit
 the summation order moved (K2, K3, K6, K7).  For K5-K7 the magnitude is the
 plain version's own output on absolute values (pack and features).  K8 and
 K9 store f32 under bf16 too, so they take the f32 tolerance in both dtypes.
+K10 and K3 on a distributed shard's stream (padding blocks, a gather source
+longer than the windows, window-side operands apart) take K2/K3's
+tolerances with the plain version on absolute values as the magnitude; K4's
+tile mode stores each score rounded once, so f32 tiles take the f32
+tolerance and bf16 tiles one bf16 unit (``rtol=8e-3``).
 """
 
 import dataclasses
@@ -51,7 +56,10 @@ from tcgnn_tpu_torch.ops.chunk import (
 from tcgnn_tpu_torch.ops.reference import sddmm_ref, sfused_bwd_ref, sfused_ref, spmm_ref
 from tcgnn_tpu_torch.ops.spmm import spmm_tc_dense, spmm_tc_dense_torch
 from tcgnn_tpu_torch.sgt.stream import segment_chunks
-from tcgnn_tpu_torch.sgt.translate import sparse_graph_translate
+from tcgnn_tpu_torch.ops.fused import spmm_fused, spmm_fused_torch
+from tcgnn_tpu_torch.ops.sddmm import sddmm_tc_tiles, sddmm_tc_tiles_torch
+from tcgnn_tpu_torch.parallel import DistributedTiledGraph, make_mesh
+from tcgnn_tpu_torch.sgt.translate import shard_meta, sparse_graph_translate
 
 pytestmark = pytest.mark.gpu
 GEOMETRIES = [(16, 8), (16, 16), (512, 128)]
@@ -535,3 +543,106 @@ def test_chunk_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="no kernel for compute dtype"):
         sddmm_tc(x, dataclasses.replace(meta, config=dataclasses.replace(
             meta.config, compute_dtype=torch.float16)))
+
+
+# ---- the distributed dense-tile route: K10, K3's overrides, K4's tile mode ----
+
+def shard_stream(kind, geometry, dtype, dev, pad_blocks=3, extra_src=5):
+    """A graph's tiling as a distributed shard sees it: trailing padding
+    blocks (zero tiles on the last window) and a gather source of
+    ``extra_src`` rows past the windows'."""
+    n, rp, ci = graph(kind)
+    bh, bw = geometry
+    cfg = TileConfig(blk_h=bh, blk_w=bw, compute_dtype=dtype)
+    host = sparse_graph_translate(rp, ci, n, cfg, build_tiles=True)
+    w = host.num_windows
+    tiles = np.concatenate([host.a_tiles, np.zeros((pad_blocks, bh, bw), host.a_tiles.dtype)])
+    meta = shard_meta(
+        cfg, tiles, np.concatenate([host.block_window, np.full(pad_blocks, w - 1, np.int32)]),
+        np.concatenate([host.block_first_in_window, np.zeros(pad_blocks, np.int32)]),
+        np.concatenate([host.col_ids, np.zeros(pad_blocks * bw, np.int32)]), host.edge_pos, w,
+        w * bh + extra_src, dev)
+    a = torch.from_numpy(tiles).to(dev)
+    return meta, a if a.dtype == torch.int8 else a.to(dtype)
+
+
+@pytest.mark.parametrize("kind", ["hub", "empty_and_partial_windows", "duplicates_over_127"])
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [3, 32, 70])
+def test_fused_kernel_matches_plain(cuda, kind, geometry, dtype, d):
+    meta, a = shard_stream(kind, geometry, dtype, cuda)
+    x = randn((meta.num_src, d), 8, cuda)
+    s = randn(tuple(a.shape), 9, cuda).to(dtype)  # scores off the edges are masked by A
+    before = spmm_fused.launches
+    got = spmm_fused(x, meta, a, s)
+    torch.cuda.synchronize()
+    assert spmm_fused.launches == before + 1 and got.dtype == torch.float32
+    assert got.shape == (meta.num_rows, d)
+    mag = spmm_fused_torch(x.abs(), meta, a, s.abs())
+    within(got, spmm_fused_torch(x, meta, a, s), mag, **tol(dtype))
+
+
+@pytest.mark.parametrize("kind", ["hub", "duplicates_over_127"])
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [3, 32, 70])
+def test_sfused_bwd_window_overrides_match_plain(cuda, kind, geometry, dtype, d):
+    meta, a = shard_stream(kind, geometry, dtype, cuda)
+    x, dy = randn((meta.num_src, d), 10, cuda, 0.3), randn((meta.num_src, d), 11, cuda, 0.3)
+    xw, dyw = randn((meta.num_rows, d), 12, cuda, 0.3), randn((meta.num_rows, d), 13, cuda, 0.3)
+    before = spmm_sfused_bwd.launches
+    dx3, u = spmm_sfused_bwd(x, dy, meta, a, xw=xw, dyw=dyw)
+    torch.cuda.synchronize()
+    assert spmm_sfused_bwd.launches == before + 1
+    want = spmm_sfused_bwd_torch(x, dy, meta, a, xw, dyw)
+    mags = spmm_sfused_bwd_torch(x.abs(), dy.abs(), meta, a.abs(), xw.abs(), dyw.abs())
+    for got, w, mag in zip((dx3, u), want, mags):
+        within(got, w, mag, **tol(dtype))
+
+
+@pytest.mark.parametrize("kind", ["hub", "duplicates_over_127", "directed"])
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,f32_tiles", [(5, False), (32, False), (136, True)])
+def test_sddmm_tile_mode_matches_plain(cuda, kind, geometry, dtype, d, f32_tiles):
+    meta, _ = shard_stream(kind, geometry, dtype, cuda)
+    xa, xb = randn((meta.num_rows, d), 14, cuda), randn((meta.num_src, d), 15, cuda)
+    out_dtype = torch.float32 if f32_tiles else dtype
+    before = sddmm_tc_tiles.launches
+    got = sddmm_tc_tiles(xa, meta, xb, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert sddmm_tc_tiles.launches == before + 1 and got.dtype == out_dtype
+    want = sddmm_tc_tiles_torch(xa, meta, xb, out_dtype)
+    mag = sddmm_tc_tiles_torch(xa.abs(), meta, xb.abs(), torch.float32)
+    t = F32 if out_dtype == torch.float32 else dict(rtol=8e-3, atol=1e-4)
+    within(got.float(), want.float(), mag, **t)
+
+
+@pytest.mark.parametrize("mesh", [(4, 2), (8, 1)])
+def test_distributed_route_on_card_matches_cpu(cuda, mesh):
+    """spmm and agnn_aggregate on a mesh, forward and every gradient: the
+    card's kernels (K1, and K4 tiles + K10 at 4x2, K2/K3 at 8x1) against the
+    plain versions on the CPU, on a graph whose split stream engages."""
+    n, rp, ci = graph("hub")
+    src = np.repeat(np.arange(n), np.diff(rp))
+    rp, ci = coo_to_csr(np.concatenate([src, ci]), np.concatenate([ci, src]), n)
+    keep = np.ones(len(ci), bool)
+    rows = np.repeat(np.arange(n), np.diff(rp))
+    keep[1:] = (rows[1:] != rows[:-1]) | (ci[1:] != ci[:-1])
+    rp, ci = coo_to_csr(rows[keep], ci[keep], n)
+    x = torch.randn(n, 24, generator=torch.Generator().manual_seed(0)) * 0.3
+    att = torch.tensor([[0.6, -0.3]])
+    r = torch.randn(n, 24, generator=torch.Generator().manual_seed(2))
+    results = []
+    for dev in (torch.device("cpu"), cuda):
+        g = DistributedTiledGraph(rp, ci, n, make_mesh(*mesh, dev), TileConfig(16, 8))
+        assert g.host_fwd.split is not None and g.agnn_aggregate is not None
+        xs = g.shard_features(x)[:, :24].contiguous().requires_grad_(True)
+        a = att.to(dev, copy=True).requires_grad_(True)
+        out = g.spmm(xs)[:n] + g.agnn_aggregate(xs, a)[:n]
+        (out * r.to(dev)).sum().backward()
+        results.append([out.detach().cpu(), xs.grad[:n].cpu(), a.grad.cpu()])
+    for got, want in zip(results[1], results[0]):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * max(scale, 1.0))

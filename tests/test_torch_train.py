@@ -183,9 +183,9 @@ def test_cli_never_falls_back_to_cpu():
 
 def test_port_imports_no_jax():
     """In a fresh process (this one has JAX loaded by conftest), importing
-    the port and running its CLI (GCN and AGNN, on the condensed route and
-    on the block-diagonal route after ``--reorder rcm``) loads neither JAX
-    nor the JAX package."""
+    the port and running its CLI (GCN and AGNN, on the condensed route, on
+    the block-diagonal route after ``--reorder rcm``, and on a 4x2 mesh)
+    loads neither JAX nor the JAX package."""
     code = (
         "import sys\n"
         "import tcgnn_tpu_torch\n"
@@ -196,6 +196,10 @@ def test_port_imports_no_jax():
         "        r = train.main([*extra, '--dim', '6', '--classes', '3', '--epochs', '2',"
         " '--blk_h', '16', '--blk_w', '8', '--device', 'cpu', '--model', model])\n"
         "        assert r['block_diag'] == (extra[1] == 'PROTEINS_full'), r\n"
+        "    r = train.main(['--dataset', 'rand_2000_8000', '--dim', '6', '--classes', '3',"
+        " '--epochs', '2', '--blk_h', '16', '--blk_w', '8', '--device', 'cpu', '--model', model,"
+        " '--mesh', '4x2'])\n"
+        "    assert 'parallel' in repr(type(r['graph'])), r\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tcgnn_tpu'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n"
