@@ -3,6 +3,10 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
+``python3 chip_smoke.py --ab DIR`` runs none of the phases below: it builds
+another commit's ``spmm_bd.cu`` and ``spmm_dense.cu`` from DIR beside the
+tree's and times K5, K1 and K10 of the two in turns (``ab_main``).
+
 Phases, in order; any failure raises and exits nonzero:
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
   2. build K1-K10 (``tcgnn_tpu_torch/csrc/{spmm_dense,spmm_sfused,
@@ -40,7 +44,7 @@ Phases, in order; any failure raises and exits nonzero:
  10. autograd on the streamed route (``dense_tiles=False, streamed=True``):
      ``spmm``, ``spmm_weighted`` and ``sddmm`` on the asymmetric graph,
      against f64 oracle autograd;
- 11. the main path through ``tcgnn_tpu_torch.train.main``, 20 timed epochs
+ 11. the main path through ``tcgnn_tpu_torch.train.main``, 21 timed epochs
      each unless named: pubmed (``--dim 500 --classes 3``) GCN with and without
      ``--no_hoist``, GIN (K1), AGNN hidden 32 with 2 and 4 layers (K2/K3),
      AGNN 2 layers on the asymmetric graph (K4 and weighted K1); DD
@@ -60,7 +64,10 @@ Phases, in order; any failure raises and exits nonzero:
      against their plain versions at the main path's shapes, each timed
      beside its bound;
  12. every kernel and its plain version timed with CUDA events (K1-K4, K8
-     and K9 at the pubmed shapes, K5-K7 at DD's), each beside its bound
+     and K9 at the pubmed shapes, K5-K7 at DD's): the median of 25 event
+     pairs around one call each (the wrapper's host work included), and the
+     kernel's device time, one event pair around 25 back-to-back calls over
+     25 (``device_ms``); each beside its bound
      (``csr_bound``: the function's own operands, a CSR adjacency's indices
      and pointers and the dense inputs and outputs, over 3.35 TB/s, or its
      f32 operations over 67 TFLOP/s, whichever is larger; the same for every
@@ -73,14 +80,15 @@ Phases, in order; any failure raises and exits nonzero:
      (512x128), each shard's split stream: K10 (d in {32, 16, 8}: the
      check's width and the main path's feature-shard widths), K4's tile
      mode and K3 with its window-side overrides (d=32) against their plain
-     versions, f32 and bf16; then the path through the trainer, 20 timed
+     versions, f32 and bf16; then the path through the trainer, 21 timed
      epochs each, ``--no_dropout``: pubmed GCN hidden 16 on ``--mesh 4x2``
      (K1), AGNN hidden 32 on ``--mesh 4x2`` (K4 tiles and K10) and on
      ``--mesh 8x1`` (K2/K3), each with the split stream in both directions,
      a finite falling loss, its kernels and no others, no plain version, and
      a first loss within ``rtol=1e-4`` of the single-device run's (the same
      model: ``init_distributed_net`` zero-pads the single-device draws);
-     K10 timed at d=16 on the heaviest shard beside its bound (``csr_bound``
+     K10 timed at d=16 on the heaviest shard (event and device time, in
+     three rounds) beside its bound (``csr_bound``
      over the shard's edges, one f32 score read an edge) and
      ``torch.sparse.mm`` over the shard's CSR with the scores as values.
 
@@ -93,6 +101,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import copy
+import ctypes
 import dataclasses
 import json
 import math
@@ -100,6 +109,7 @@ import os
 import resource
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -156,6 +166,11 @@ BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 GEOMETRIES = {"512x128": (512, 128), "16x8": (16, 8)}
 CHUNK_GEOMETRIES = {"512x128": (512, 128, 128), "16x8": (16, 8, 32)}
 TIMING_RUNS = 25
+# Timed epochs of a main-path run: with the trainer's 9 warm-up epochs, 30
+# Adam updates, where the falling-loss check reads the final loss (dropout
+# makes the huge early AGNN losses swing from one update to the next:
+# pubmed's 2-layer AGNN reads above its first loss after 29).
+TRAIN_EPOCHS = 21
 KERNEL_SOURCES = ("spmm_dense", "spmm_sfused", "sddmm_dense", "spmm_bd", "chunk")
 # name, source, TPU kernel it replaces, wrappers that launch it
 KERNELS = {
@@ -838,7 +853,7 @@ def phase_train(data_dir, dev, card) -> tuple[list, dict, dict]:
     for label, extra, expected, must_fall, route, tc_blocks in runs:
         print(f"--- train.main {' '.join(extra)}")
         t0 = time.perf_counter()
-        args = ["--device", "cuda", "--epochs", "20", *extra]
+        args = ["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), *extra]
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         r = train.main(args)
@@ -891,11 +906,29 @@ def median_ms(fn, runs=TIMING_RUNS) -> float:
     return statistics.median(times)
 
 
-def timed_pair(kernel, plain) -> tuple[float, float]:
-    """Median ms of kernel and plain version, in turns: plain, kernel,
-    kernel, plain."""
-    p1, k1, k2, p2 = median_ms(plain), median_ms(kernel), median_ms(kernel), median_ms(plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def device_ms(fn, runs=TIMING_RUNS) -> float:
+    """Device ms of one call: one event pair around ``runs`` back-to-back
+    calls, over ``runs``.  The host work of a call overlaps the device's
+    queue, so this is the kernel's own time wherever the kernel takes
+    longer than the wrapper's host work (``median_ms`` counts both)."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def timed_pair(kernel, plain) -> tuple[float, float, float]:
+    """Median event ms of kernel and plain version, in turns: plain,
+    kernel, kernel, plain; and between the two kernel runs, the kernel's
+    device ms (``device_ms``)."""
+    p1, k1 = median_ms(plain), median_ms(kernel)
+    dev = device_ms(kernel)
+    k2, p2 = median_ms(kernel), median_ms(plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2, dev
 
 
 def nbytes(*tensors) -> int:
@@ -927,8 +960,9 @@ def csr_tensor(ptr, idx, n, dev) -> torch.Tensor:
     return torch.sparse_csr_tensor(ptr, idx, vals, size=(n, n)).to(dev)
 
 
-def record(kt, pt, b, lib_ms) -> dict:
-    return {"ms": kt, "plain_ms": pt, "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms}
+def record(kt, pt, dev, b, lib_ms) -> dict:
+    return {"ms": kt, "device_ms": dev, "plain_ms": pt, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": lib_ms}
 
 
 def phase_timing(ds, dev) -> tuple[dict, dict]:
@@ -1106,6 +1140,7 @@ def phase_mesh_kernels(ds, dev, card) -> tuple[dict, dict]:
               for _ in range(K10_ROUNDS)]
     kt = statistics.median(r[0] for r in rounds)
     pt = statistics.median(r[1] for r in rounds)
+    dev = statistics.median(r[2] for r in rounds)
     pos = m.edge_pos.long()
     a_csr = torch.sparse_coo_tensor(
         torch.stack([m.edge_rows.long(), m.edge_cols.long()]), s.view(-1)[pos].float(),
@@ -1116,11 +1151,12 @@ def phase_mesh_kernels(ds, dev, card) -> tuple[dict, dict]:
     b = csr_bound(m.num_edges, m.num_rows, nbytes(x) + 4 * m.num_rows * d, 2 * m.num_edges * d,
                   weighted=True)
     print(f"  time K10 pubmed 4x2 heaviest shard ({m.num_edges} edges, {m.num_blocks} blocks) "
-          f"d={d}: kernel {kt:.4f} ms, plain {pt:.4f} ms, torch.sparse.mm {lib:.4f} ms, bound "
-          f"{b[0]:.4f} ms ({b[1]}) (median of {K10_ROUNDS} rounds of {TIMING_RUNS}, CUDA "
-          f"events; card: {card}; one card held all 8 shards); rounds (kernel, plain): "
-          + ", ".join(f"({k:.4f}, {p:.4f})" for k, p in rounds))
-    return errs, record(kt, pt, b, lib)
+          f"d={d}: kernel {kt:.4f} ms (device {dev:.4f}), plain {pt:.4f} ms, torch.sparse.mm "
+          f"{lib:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) (median of {K10_ROUNDS} rounds of "
+          f"{TIMING_RUNS}, CUDA events; card: {card}; one card held all 8 shards); rounds "
+          "(kernel, plain, device): "
+          + ", ".join(f"({k:.4f}, {p:.4f}, {v:.4f})" for k, p, v in rounds))
+    return errs, record(kt, pt, dev, b, lib)
 
 
 def phase_mesh_train(dev, card) -> tuple[list, dict]:
@@ -1143,7 +1179,7 @@ def phase_mesh_train(dev, card) -> tuple[list, dict]:
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        r = train.main(["--device", "cuda", "--epochs", "20", *extra])
+        r = train.main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), *extra])
         counts = {k: (sum(w.launches for w in ws), sum(w.plain_calls for w in ws))
                   for k, (_, _, _, ws) in KERNELS.items()}
         r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -1269,9 +1305,10 @@ def main():
         launches[k] += c
     phase_end(t0)
 
-    for (k, geo, d), (kt, pt) in times.items():
-        print(f"  time {KERNELS[k][0]} {geo} d={d}: kernel {kt:.4f} ms, plain {pt:.4f} ms "
-              f"(median of {TIMING_RUNS}, CUDA events; card: {card})")
+    for (k, geo, d), (kt, pt, dev) in times.items():
+        print(f"  time {KERNELS[k][0]} {geo} d={d}: kernel {kt:.4f} ms (device {dev:.4f} ms), "
+              f"plain {pt:.4f} ms (median of {TIMING_RUNS} event pairs a call; device: one "
+              f"pair around {TIMING_RUNS} calls; card: {card})")
 
     for name, r in runs:
         print(f"main path [{name}]: dense_tiles {r['dense_tiles']}  streamed {r['streamed']}  "
@@ -1298,7 +1335,8 @@ def main():
             "max_abs_err": max(errs[k].values()),
             **records[k],
         })
-        print(f"  {name}: {records[k]['ms']:.4f} ms, plain {records[k]['plain_ms']:.4f}, bound "
+        print(f"  {name}: {records[k]['ms']:.4f} ms (device {records[k]['device_ms']:.4f}), "
+              f"plain {records[k]['plain_ms']:.4f}, bound "
               f"{records[k]['bound_ms']:.4f} ({records[k]['bound_by']}), library "
               f"{records[k]['library_ms']} (card: {card})")
     print(card)
@@ -1310,5 +1348,143 @@ def main():
     }}))
 
 
+# ---- parent against tree: K5, K1 and K10 (``--ab``, not a phase) ------------
+
+AB_ROUNDS = 3
+AB_FUNCTIONS = {"spmm_bd": ("tcgnn_spmm_bd",),
+                "spmm_dense": ("tcgnn_spmm_dense", "tcgnn_spmm_fused")}
+
+
+def build_other(name, src_dir) -> ctypes.CDLL:
+    """``<src_dir>/<name>.cu`` (another commit's source, with the tree's C
+    interface) built beside the tree's libraries, ``-Xptxas -v`` printed."""
+    out = _kernels.BUILD_DIR / f"lib{name}_other.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v",
+                           "-o", str(out), os.path.join(src_dir, f"{name}.cu")],
+                          capture_output=True, text=True)
+    print(f"--- {src_dir}/{name}.cu ptxas:\n{proc.stdout}{proc.stderr}", flush=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {src_dir}/{name}.cu")
+    lib = ctypes.CDLL(str(out))
+    for fn, argtypes in _kernels.SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.tcgnn_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tcgnn_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def use_libraries(libs) -> None:
+    """Point the wrappers' launches at ``libs`` (name -> library)."""
+    for name, fns in AB_FUNCTIONS.items():
+        _kernels._loaded[name] = libs[name]
+        for fn in fns:
+            _kernels._functions[(name, fn)] = getattr(libs[name], fn)
+
+
+def ab_cases(dev) -> list:
+    """(kernel, shape, kernel call, plain call, library call, magnitude): K5
+    on DD at d in {2, 16, 89}, K1 on pubmed at 512x128 d in {16, 500} and
+    16x8 d=16, K10 on the heaviest pubmed 4x2 shard at d in {8, 16, 32}."""
+    cases = []
+    dd = synthesize("DD", 89, 2)
+    g = TiledGraph(dd.row_pointers, dd.column_index, dd.num_nodes, TileConfig(), device=dev)
+    p, offs, cfg, n = g.bd.pack, g.bd_offsets, TileConfig(), dd.num_nodes
+    cov = covered_csr(dd.row_pointers, dd.column_index,
+                      extract_block_diag(dd.row_pointers, dd.column_index, n), dev)
+    cov_csr = csr_tensor(cov.ptr.cpu(), cov.idx.cpu(), n, dev)
+    print(f"DD: N={n} pack {tuple(p.shape)} {p.dtype} offsets {offs}, covered edges "
+          f"{cov.idx.numel()}", flush=True)
+    for d in (2, 16, 89):
+        x = randn((n, d), 400 + d, dev)
+        cases.append(("K5", f"DD d={d}", lambda x=x: spmm_block_diag(x, p, offsets=offs, cfg=cfg),
+                      lambda x=x: spmm_block_diag_torch(x, p, offsets=offs, cfg=cfg),
+                      lambda x=x: torch.sparse.mm(cov_csr, x), cov.magnitude(x)))
+    pm = synthesize("pubmed", seed=0)
+    a_csr = csr_tensor(pm.row_pointers, pm.column_index, pm.num_nodes, dev)
+    pcsr = Csr(pm.row_pointers, pm.column_index, dev)
+    for geo, d in (("512x128", 16), ("512x128", 500), ("16x8", 16)):
+        bh, bw = GEOMETRIES[geo]
+        tg = TiledGraph(pm.row_pointers, pm.column_index, pm.num_nodes,
+                        TileConfig(blk_h=bh, blk_w=bw), device=dev)
+        x = randn((pm.num_nodes, d), 100 + d, dev)
+        cases.append(("K1", f"pubmed {geo} d={d}",
+                      lambda x=x, m=tg.meta, a=tg.a_struct: spmm_tc_dense(x, m, a),
+                      lambda x=x, m=tg.meta, a=tg.a_struct: spmm_tc_dense_torch(x, m, a),
+                      lambda x=x: torch.sparse.mm(a_csr, x), pcsr.magnitude(x)))
+    st = max(mesh_graph(pm, (4, 2), dev)._fwd.split.streams, key=lambda t: t.meta.num_edges)
+    m, a = st.meta, st.tiles
+    print(f"K10 shard: {m.num_edges} edges, {m.num_blocks} blocks, {m.num_windows} windows",
+          flush=True)
+    for d in (8, 16, 32):
+        x = randn((m.num_src, d), 920, dev)
+        s = sddmm_tc_tiles(randn((m.num_rows, d), 921, dev), m, x)
+        s_csr = torch.sparse_coo_tensor(
+            torch.stack([m.edge_rows.long(), m.edge_cols.long()]),
+            s.view(-1)[m.edge_pos.long()].float(), (m.num_rows, m.num_src)
+        ).coalesce().to_sparse_csr()
+        cases.append(("K10", f"pubmed 4x2 heaviest shard d={d}",
+                      lambda x=x, s=s: spmm_fused(x, m, a, s),
+                      lambda x=x, s=s: spmm_fused_torch(x, m, a, s),
+                      lambda x=x, s_csr=s_csr: torch.sparse.mm(s_csr, x),
+                      spmm_fused_torch(x.abs(), m, a, s.abs())))
+    return cases
+
+
+def ab_main(other_dir) -> None:
+    """K5, K1 and K10 of another commit (``other_dir``: its
+    ``csrc/spmm_bd.cu`` and ``csrc/spmm_dense.cu``) against the tree's, in
+    one process, through the tree's wrappers (the same host work; only the
+    C function differs): each held to the plain version, then AB_ROUNDS
+    rounds of other, tree, tree, other, each the event time (``median_ms``)
+    and the device time (``device_ms``), and the library call in the same
+    round.  Prints each round, then all of them as one JSON line."""
+    card = card_line()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    print("--- the tree's ptxas:", flush=True)
+    libs = {"tree": {}, "other": {}}
+    for name in AB_FUNCTIONS:
+        _kernels.build(name, verbose=True)
+        libs["tree"][name] = _kernels.load(name)
+        libs["other"][name] = build_other(name, other_dir)
+    results = []
+    for kernel, shape, fn, plain, lib, mag in ab_cases(dev):
+        want = plain()
+        for which in ("other", "tree"):
+            use_libraries(libs[which])
+            compare(f"{kernel} {shape} {which} vs plain", fn(), want, mag, F32_TOL)
+        rounds = []
+        for _ in range(AB_ROUNDS):
+            use_libraries(libs["other"])
+            ev_o1, dv_o1 = median_ms(fn), device_ms(fn)
+            use_libraries(libs["tree"])
+            ev_t1, dv_t1 = median_ms(fn), device_ms(fn)
+            dv_t2, ev_t2 = device_ms(fn), median_ms(fn)
+            use_libraries(libs["other"])
+            dv_o2, ev_o2 = device_ms(fn), median_ms(fn)
+            rounds.append({
+                "other_event_ms": (ev_o1 + ev_o2) / 2, "other_device_ms": (dv_o1 + dv_o2) / 2,
+                "tree_event_ms": (ev_t1 + ev_t2) / 2, "tree_device_ms": (dv_t1 + dv_t2) / 2,
+                "library_event_ms": median_ms(lib), "library_device_ms": device_ms(lib)})
+        use_libraries(libs["tree"])
+        faster = all(r["tree_device_ms"] < r["other_device_ms"] for r in rounds)
+        results.append({"kernel": kernel, "shape": shape, "rounds": rounds,
+                        "tree_faster_in_every_round": faster})
+        print(f"{kernel} {shape}: tree faster (device) in every round: {faster}", flush=True)
+        for i, r in enumerate(rounds):
+            print(f"    round {i}: " + ", ".join(f"{k} {v:.4f}" for k, v in r.items()), flush=True)
+    print(json.dumps({"card": card, "torch": torch.__version__, "other": other_dir,
+                      "results": results}))
+    print(card)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
+        ab_main(sys.argv[2])
+    elif len(sys.argv) == 1:
+        main()
+    else:
+        raise SystemExit("usage: python3 chip_smoke.py [--ab OTHER_CSRC_DIR]")

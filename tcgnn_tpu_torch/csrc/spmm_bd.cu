@@ -27,25 +27,40 @@
 // nonzero (2,624 bins x 128 x 896, 301 MB as int8), so a dense product on
 // Hopper would be 99% wasted work, and the halo stack of x (896 rows of up
 // to 128 columns, for x and for dy in K7) does not fit a thread block's
-// shared memory.  So these kernels are sparse in the pack: a warp reads a
-// pack row into registers (lane l holds entries q*32 + l), finds its
-// nonzeros by warp ballot, and for each one reads the neighbour's row of x
-// from global memory (lane l holds columns l, l + 32, ...; the rows of
-// nearby bins are hot in L2), as the score-fused kernels over SGT tiles do
-// (csrc/spmm_sfused.cu).  K6 and K7 form each score as a warp dot with
-// shuffles, only at the nonzeros.
+// shared memory.  So these kernels are sparse in the pack.
 //
-// What bounds them: K5 reads the whole pack whatever it holds (301 MB on
-// DD, at least 0.09 ms at 3.35 TB/s), and each nonzero costs a dependent
-// row read from L2.  One thread block of 8 warps owns 32 consecutive rows,
-// 4 a warp; K5 also splits d into tiles of up to 128 columns (grid.y), so
-// any width runs; K6 and K7 need all of d for the score, so d <= 128, as the
-// score-fused kernels over SGT tiles.  Index arithmetic is 64-bit (YeastH's
-// pack has 2.01e9 entries).
+// K5.  What bounds it: the pack, read whole whatever it holds (301 MB on
+// DD: 0.090 ms at 3.35 TB/s), and then the latency of the gathers, one row
+// of x per nonzero (x is 21 MB at d=16, hot in the 50 MB L2).  The design
+// (csrc/sparse_row.cuh): a warp owns 4 consecutive rows; it reads a row's
+// pack in 16-byte units (a 896-byte int8 row in two loads a lane) with
+// streaming loads, the next row's units in flight while the current row is
+// gathered; it skips zero 32-bit words with integer compares, compacts the
+// nonzeros into a list in shared memory (an exclusive scan of the lanes'
+// counts keeps a fixed order), and gathers the listed rows of x with every
+// lane busy: groups of d/4 lanes (at least one) each fetch one listed row,
+// 4 columns a lane in one 16-byte (f32) or 8-byte (bf16) load, several in
+// flight before the first multiply-add.  d is tiled by 128 columns
+// (grid.y), so any width runs.  The vector paths need alignment: a pack row
+// of K*bn entries that is not a multiple of 16 bytes is read an entry a
+// lane, and x rows whose width is not a multiple of 4 are read a column at
+// a time, inside the same kernel.
+//
+// K6 and K7 keep the design of the first port: a warp reads a pack row into
+// registers an entry a lane (lane l holds entries q*32 + l), finds its
+// nonzeros by warp ballot, and for each one reads the neighbour's row of x
+// from global memory (lane l holds columns l, l + 32, ...), forming each
+// score as a warp dot with shuffles, only at the nonzeros.  They need all
+// of d for the score, so d <= 128, as the score-fused kernels over SGT
+// tiles.  One thread block of 8 warps owns 32 consecutive rows, 4 a warp,
+// in all three kernels.  Index arithmetic is 64-bit (YeastH's pack has
+// 2.01e9 entries).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sparse_row.cuh"
 
 namespace {
 
@@ -160,39 +175,85 @@ __device__ __forceinline__ long long warp_row0() {
   return (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5) * kRowsPerWarp;
 }
 
-// K5.  grid: (row slabs of kRowsPerBlock, column tiles of 32 * kCols).
-template <typename FeatT, int kCols>
+// K5.  grid: (row slabs of kRowsPerBlock, d-tiles of 128 columns).  A warp
+// walks its kRowsPerWarp rows, each row's pack units in flight while the
+// previous row is gathered.  flags: kVecPack (the vector path over 16-byte
+// units of the pack), kVecX (x and out rows 16-byte aligned, d % 4 == 0).
+constexpr int kVecPack = 1, kVecX = 2;
+
+// Row `row` of the pack as 16-byte units: u[i] is unit lane + 32 i, zero
+// past the row.
+template <typename PackT, int kU>
+__device__ __forceinline__ void load_pack_units(uint4 (&u)[kU], const PackT* pack, long long row,
+                                                int stripe) {
+  constexpr int E = 16 / sizeof(PackT);
+  const int lane = threadIdx.x & 31;
+  const uint4* units = reinterpret_cast<const uint4*>(pack + row * stripe);
+  const int nunits = stripe / E;
+#pragma unroll
+  for (int i = 0; i < kU; ++i) {
+    const int idx = lane + 32 * i;
+    u[i] = idx < nunits ? __ldg(units + idx) : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+template <typename FeatT, typename PackT>
 __global__ void __launch_bounds__(kThreads)
-spmm_bd_kernel(const FeatT* __restrict__ x, const void* __restrict__ pack, int pack_kind,
-               Offsets offs, FeatT* __restrict__ out, int n, int d, int k, int bn) {
+spmm_bd_kernel(const FeatT* __restrict__ x, const PackT* __restrict__ pack, Offsets offs,
+               FeatT* __restrict__ out, int n, int d, int k, int bn, int flags) {
+  namespace sr = sparse_row;
+  constexpr int E = 16 / sizeof(PackT);  // pack entries of a 16-byte unit
+  constexpr int kU = sr::kRowElems / E / 32;
+  __shared__ int s_idx[kWarps][sr::kList];
+  __shared__ int s_offs[kMaxK];
+  if (threadIdx.x < kMaxK) s_offs[threadIdx.x] = offs.v[threadIdx.x];
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int stripe = k * bn;
-  const int col0 = blockIdx.y * 32 * kCols;
+  const bool vec_pack = flags & kVecPack, vec_x = flags & kVecX;
+  const int d0 = blockIdx.y * sr::kTileD;
+  const int g = sr::group_lanes(min(d - d0, sr::kTileD));
+  const int c0 = d0 + (lane % g) * sr::kVec;
   const long long row0 = warp_row0();
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const long long row = row0 + i;
-    if (row >= n) break;
-    float a[kMaxChunks];
-    load_pack_row<FeatT>(a, pack, pack_kind, row, stripe);
+  const long long row_end = min(row0 + kRowsPerWarp, (long long)n);
+  uint4 next[kU];
+  if (vec_pack && row0 < row_end) load_pack_units<PackT>(next, pack, row0, stripe);
+  for (long long row = row0; row < row_end; ++row) {
     const long long b = row / bn;
-    float acc[kCols];
+    const PackT* prow = pack + row * stripe;
+    // Entry j of the row: column (b + offsets[j / bn]) * bn + j % bn (a stray
+    // entry outside the graph, zero in any pack the graph builds, reads as 0).
+    auto entry = [&](int j, int& col, float& val) {
+      const int kk = j / bn;
+      const long long c = (b + s_offs[kk]) * bn + (j - kk * bn);
+      const bool in = c >= 0 && c < n;
+      col = in ? (int)c : 0;
+      val = in ? sr::round_to<FeatT>(sr::to_f32(prow[j])) : 0.f;
+    };
+    unsigned mask = 0;
+    float acc[sr::kVec];
+    if (vec_pack) {
+      // Bit i * E + e of the lane is entry (lane + 32 i) * E + e of the row.
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
-#pragma unroll
-    for (int q = 0; q < kMaxChunks; ++q) {
-      unsigned nz = __ballot_sync(0xffffffffu, a[q] != 0.f);
-      while (nz) {
-        const int jl = __ffs(nz) - 1;
-        nz &= nz - 1;
-        const float aj = __shfl_sync(0xffffffffu, a[q], jl);
-        const long long col = pack_col(offs, b, q * 32 + jl, bn, n);
-        if (col < 0) continue;
-        float v[kCols];
-        load_row<FeatT, kCols>(v, x, col, d, col0);
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[c] = fmaf(aj, v[c], acc[c]);
+      for (int i = 0; i < kU; ++i) {
+        const uint4 u = next[i];
+        if (u.x | u.y | u.z | u.w) mask |= sr::unit_mask<PackT, FeatT>(u) << (i * E);
       }
+      if (row + 1 < row_end) load_pack_units<PackT>(next, pack, row + 1, stripe);
+      sr::reduce_row(acc, mask, s_idx[warp],
+                     [&](int bit) { return (lane + 32 * (bit / E)) * E + bit % E; }, entry,
+                     x, d, c0, g, vec_x);
+    } else {
+      // Bit q of the lane is entry lane + 32 q of the row.
+#pragma unroll 8
+      for (int q = 0; q < 32; ++q) {
+        const int j = lane + 32 * q;
+        if (j < stripe && sr::round_to<FeatT>(sr::to_f32(prow[j])) != 0.f) mask |= 1u << q;
+      }
+      sr::reduce_row(acc, mask, s_idx[warp], [&](int bit) { return lane + 32 * bit; }, entry,
+                     x, d, c0, g, vec_x);
     }
-    store_row<FeatT, kCols>(out, acc, row, d, col0);
+    if (lane < g) sr::store4(out + row * d, c0, d, acc, vec_x);
   }
 }
 
@@ -308,12 +369,8 @@ int launch(Op op, const Args& a, cudaStream_t s) {
   const FeatT* fb = static_cast<const FeatT*>(a.b);
   FeatT* o0 = static_cast<FeatT*>(a.out0);
   switch (op) {
-    case Op::kSpmm: {
-      const dim3 grid(row_blocks(a.n), (unsigned)((a.d + 32 * kCols - 1) / (32 * kCols)));
-      spmm_bd_kernel<FeatT, kCols>
-          <<<grid, kThreads, 0, s>>>(fa, a.pack, a.pack_kind, a.offs, o0, a.n, a.d, a.k, a.bn);
-      break;
-    }
+    case Op::kSpmm:
+      break;  // launch_spmm
     case Op::kSfused:
       bd_sfused_kernel<FeatT, kCols, false><<<row_blocks(a.n), kThreads, 0, s>>>(
           fa, fb, static_cast<const FeatT*>(a.c), a.pack, a.pack_kind, a.offs, o0, a.n, a.d,
@@ -332,9 +389,34 @@ int launch(Op op, const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// Columns a lane holds: K5 tiles d by 128, so d > 96 takes 4.
+template <typename FeatT, typename PackT>
+int launch_spmm(const Args& a, cudaStream_t s) {
+  constexpr int E = 16 / sizeof(PackT);
+  int flags = 0;
+  if ((a.k * a.bn) % E == 0 && sparse_row::aligned16(a.pack)) flags |= kVecPack;
+  if (a.d % 4 == 0 && sparse_row::aligned16(a.a) && sparse_row::aligned16(a.out0)) flags |= kVecX;
+  const dim3 grid(row_blocks(a.n), (unsigned)((a.d + sparse_row::kTileD - 1) / sparse_row::kTileD));
+  spmm_bd_kernel<FeatT, PackT><<<grid, kThreads, 0, s>>>(
+      static_cast<const FeatT*>(a.a), static_cast<const PackT*>(a.pack), a.offs,
+      static_cast<FeatT*>(a.out0), a.n, a.d, a.k, a.bn, flags);
+  return (int)cudaGetLastError();
+}
+
+// Columns a lane holds in K6/K7 (d <= 128).
 template <typename FeatT>
 int launch_cols(Op op, const Args& a, cudaStream_t s) {
+  if (op == Op::kSpmm) {
+    switch (a.pack_kind) {
+      case 0:
+        return launch_spmm<FeatT, int8_t>(a, s);
+      case 1:
+        return launch_spmm<FeatT, float>(a, s);
+      case 2:
+        return launch_spmm<FeatT, __nv_bfloat16>(a, s);
+      default:
+        return launch_spmm<FeatT, int16_t>(a, s);
+    }
+  }
   if (a.d <= 32) return launch<FeatT, 1>(op, a, s);
   if (a.d <= 64) return launch<FeatT, 2>(op, a, s);
   if (a.d <= 96) return launch<FeatT, 3>(op, a, s);

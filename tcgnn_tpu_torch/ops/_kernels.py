@@ -3,8 +3,11 @@
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes``.  The build runs at
 first use, never at import, into ``tcgnn_tpu_torch/_build/`` (listed in
-``.gitignore``); the library's name carries a hash of its source, so an
-edited source is rebuilt and a current one is reused.
+``.gitignore``); the library's name carries a hash of its source and of the
+headers beside it (``csrc/*.cuh``), so an edited source is rebuilt and a
+current one is reused.  ``call`` launches a C function with the least host
+work a call can take: the function looked up once, no device switch when
+the tensors lie on the current device.
 """
 
 from __future__ import annotations
@@ -48,7 +51,10 @@ def build(name: str, verbose: bool = False) -> Path:
     (registers, shared memory, spills per kernel).
     """
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists() and not verbose:
         return lib
@@ -106,6 +112,26 @@ def load(name: str, verbose: bool = False) -> ctypes.CDLL:
     lib.tcgnn_cuda_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib
     return lib
+
+
+_functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+def call(name: str, fn: str, device: torch.device, *args) -> None:
+    """Launch C function ``fn`` of library ``name`` with ``args`` on
+    ``device`` (a CUDA device), and raise if the launch failed.  The
+    function is looked up once; the device is made current only where it is
+    not already."""
+    f = _functions.get((name, fn))
+    if f is None:
+        f = _functions[(name, fn)] = getattr(load(name), fn)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = f(*args)
+    else:
+        with torch.cuda.device(device):
+            err = f(*args)
+    if err != 0:
+        check(_loaded[name], err, name)
 
 
 def check_operands(op: str, device, tiles=None, **index) -> None:

@@ -29,7 +29,9 @@ Each wrapper launches its hand-written CUDA kernel (``csrc/spmm_bd.cu``)
 for a CUDA tensor, and runs its plain PyTorch version (``*_torch``: the JAX
 halo-stack formulation, ``torch.bmm`` on the stacked ``[Bp, K*bn, d]``
 operand) for a CPU tensor only.  Counters: ``launches`` and
-``plain_calls`` on each wrapper.
+``plain_calls`` on each wrapper.  A launch does little host work: the C
+function looked up once (``_kernels.call``), an offset set's C array made
+once, x cast or copied only when it is not contiguous in the compute dtype.
 
 What the port does differently, changing no value: K5 takes any offset set
 (JAX keeps an XLA einsum for offsets past its 3-panel halo, a Pallas
@@ -40,6 +42,7 @@ pick a DMA layout (JAX's ``xl is xr`` only chooses which panels to fetch).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -53,7 +56,7 @@ from tcgnn_tpu_torch.sgt.blockdiag import packed_index
 BD_BIN_GROUP = 8
 PACK_KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2, torch.int16: 3}
 KERNEL_MAX_K = 8         # the kernels hold the offsets in a fixed array
-KERNEL_MAX_STRIPE = 1024  # K * bn: a warp holds a pack row in 32 registers a lane
+KERNEL_MAX_STRIPE = 1024  # K * bn: 32 entries a lane (K5's mask, K6/K7's registers)
 KERNEL_MAX_D = 128       # K6/K7: a lane holds up to 4 feature columns of a row
 
 
@@ -154,7 +157,8 @@ def _check(op, x, pack, offsets, cfg, max_d=None):
                          f"K * bn <= {KERNEL_MAX_STRIPE}, got K={k}, bn={bn}")
     if max_d is not None and x.shape[1] > max_d:
         raise ValueError(f"{op}: the kernel takes d <= {max_d}, got {x.shape[1]}")
-    _kernels.check_operands(op, x.device, pack)
+    if pack.device != x.device or not pack.is_contiguous():
+        _kernels.check_operands(op, x.device, pack)
 
 
 def _check_shapes(op, x, pack, offsets, *others):
@@ -173,9 +177,15 @@ def _check_shapes(op, x, pack, offsets, *others):
                              f"{tuple(x.shape)} on {x.device}")
 
 
-def _offsets_arg(offsets):
-    """The offsets as a C int array, kept alive by the caller for the call."""
+@functools.lru_cache(maxsize=64)
+def _offsets_array(offsets: tuple):
+    """An offset set as a C int array, made once a set (kept alive here)."""
     return (ctypes.c_int * len(offsets))(*offsets)
+
+
+def _offsets_arg(offsets) -> int:
+    """The address of the offsets' C int array, for a launch."""
+    return ctypes.addressof(_offsets_array(tuple(offsets)))
 
 
 def _tail(x, pack, offsets, cfg):
@@ -189,7 +199,9 @@ def _tail(x, pack, offsets, cfg):
 def spmm_block_diag(x, pack, *, offsets, cfg: TileConfig) -> torch.Tensor:
     """Block-diagonal SpMM ``out = A_bd @ x`` over the covered offsets,
     ``[N, d]`` in the compute dtype (the caller adds the residual).  A CUDA
-    tensor runs K5 (or raises); a CPU tensor runs the plain version."""
+    tensor runs K5 (or raises); a CPU tensor runs the plain version.  K5
+    streams the pack in 16-byte units and gathers only the rows of x its
+    nonzeros name (``csrc/spmm_bd.cu``)."""
     _check_shapes("spmm_block_diag", x, pack, offsets)
     if x.device.type == "cpu":
         spmm_block_diag.plain_calls += 1
@@ -202,13 +214,9 @@ def spmm_block_diag(x, pack, *, offsets, cfg: TileConfig) -> torch.Tensor:
     out = torch.empty((n, d), dtype=ct, device=x.device)
     if n == 0 or d == 0:
         return out
-    xc = x.to(ct).contiguous()
-    offs = _offsets_arg(offsets)
-    lib = _kernels.load("spmm_bd")
-    with torch.cuda.device(x.device):
-        err = lib.tcgnn_spmm_bd(xc.data_ptr(), pack.data_ptr(), ctypes.addressof(offs),
-                                out.data_ptr(), *_tail(x, pack, offsets, cfg))
-    _kernels.check(lib, err, "spmm_bd")
+    xc = x if x.dtype == ct and x.is_contiguous() else x.to(ct).contiguous()
+    _kernels.call("spmm_bd", "tcgnn_spmm_bd", x.device, xc.data_ptr(), pack.data_ptr(),
+                  _offsets_arg(offsets), out.data_ptr(), *_tail(x, pack, offsets, cfg))
     spmm_block_diag.launches += 1
     return out
 
@@ -234,13 +242,9 @@ def bd_sfused(xl, xr, xv, pack, *, offsets, cfg: TileConfig) -> torch.Tensor:
     l_ = xl.to(ct).contiguous()
     r = l_ if xr is xl else xr.to(ct).contiguous()
     v = None if xv is xr else (l_ if xv is xl else xv.to(ct).contiguous())
-    offs = _offsets_arg(offsets)
-    lib = _kernels.load("spmm_bd")
-    with torch.cuda.device(xl.device):
-        err = lib.tcgnn_bd_sfused(l_.data_ptr(), r.data_ptr(), None if v is None else v.data_ptr(),
-                                  pack.data_ptr(), ctypes.addressof(offs), out.data_ptr(),
-                                  *_tail(xl, pack, offsets, cfg))
-    _kernels.check(lib, err, "bd_sfused")
+    _kernels.call("spmm_bd", "tcgnn_bd_sfused", xl.device, l_.data_ptr(), r.data_ptr(),
+                  None if v is None else v.data_ptr(), pack.data_ptr(), _offsets_arg(offsets),
+                  out.data_ptr(), *_tail(xl, pack, offsets, cfg))
     bd_sfused.launches += 1
     return out
 
@@ -264,12 +268,8 @@ def bd_sfused_bwd(x, dy, pack, *, offsets, cfg: TileConfig):
     if n == 0 or d == 0:
         return dx3, u
     xc, dyc = x.to(ct).contiguous(), dy.to(ct).contiguous()
-    offs = _offsets_arg(offsets)
-    lib = _kernels.load("spmm_bd")
-    with torch.cuda.device(x.device):
-        err = lib.tcgnn_bd_sfused_bwd(xc.data_ptr(), dyc.data_ptr(), pack.data_ptr(),
-                                      ctypes.addressof(offs), dx3.data_ptr(), u.data_ptr(),
-                                      *_tail(x, pack, offsets, cfg))
-    _kernels.check(lib, err, "bd_sfused_bwd")
+    _kernels.call("spmm_bd", "tcgnn_bd_sfused_bwd", x.device, xc.data_ptr(), dyc.data_ptr(),
+                  pack.data_ptr(), _offsets_arg(offsets), dx3.data_ptr(), u.data_ptr(),
+                  *_tail(x, pack, offsets, cfg))
     bd_sfused_bwd.launches += 1
     return dx3, u

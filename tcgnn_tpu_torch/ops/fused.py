@@ -17,10 +17,12 @@ tiles from K4's tile mode, summed over the feature shards, and K10
 multiplies them in.
 
 ``spmm_fused`` launches the hand-written CUDA kernel (``tcgnn_spmm_fused``
-in ``csrc/spmm_dense.cu``: K1's kernel with a score operand) for a CUDA
-tensor and runs the plain PyTorch version ``spmm_fused_torch``
-(``index_select``, ``bmm``, ``index_add_``) for a CPU tensor only.
-Counters: ``spmm_fused.launches`` and ``.plain_calls``.
+in ``csrc/spmm_dense.cu``: K1's kernel with a score operand, read only at
+the nonzero tile entries) for a CUDA tensor and runs the plain PyTorch
+version ``spmm_fused_torch`` (``index_select``, ``bmm``, ``index_add_``) for
+a CPU tensor only.  Counters: ``spmm_fused.launches`` and
+``.plain_calls``.  Its host work is K1's: the metadata checked once, the C
+function looked up once.
 """
 
 from __future__ import annotations
@@ -71,16 +73,14 @@ def spmm_fused(x: torch.Tensor, meta: TorchSGTMeta, a_tiles: torch.Tensor,
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
     if n == 0 or d == 0:
         return out
-    xc = x.to(ct).contiguous()
-    lib = _kernels.load("spmm_dense")
-    with torch.cuda.device(x.device):
-        err = lib.tcgnn_spmm_fused(
-            xc.data_ptr(), a_tiles.data_ptr(), s_tiles.data_ptr(), meta.col_ids.data_ptr(),
-            meta.win_start.data_ptr(), meta.run_window.data_ptr(), meta.run_block.data_ptr(),
-            out.data_ptr(), n, d, meta.run_window.shape[0], KERNEL_RUN_BLOCKS,
-            int(meta.max_window_blocks > KERNEL_RUN_BLOCKS), cfg.blk_h, cfg.blk_w,
-            FEAT_KIND[ct], TILE_KIND[a_tiles.dtype], _kernels.stream_of(x),
-        )
-    _kernels.check(lib, err, "spmm_fused")
+    xc = x if x.dtype == ct and x.is_contiguous() else x.to(ct).contiguous()
+    _kernels.call(
+        "spmm_dense", "tcgnn_spmm_fused", x.device,
+        xc.data_ptr(), a_tiles.data_ptr(), s_tiles.data_ptr(), meta.col_ids.data_ptr(),
+        meta.win_start.data_ptr(), meta.run_window.data_ptr(), meta.run_block.data_ptr(),
+        out.data_ptr(), n, d, meta.run_window.shape[0], KERNEL_RUN_BLOCKS,
+        int(meta.max_window_blocks > KERNEL_RUN_BLOCKS), cfg.blk_h, cfg.blk_w,
+        FEAT_KIND[ct], TILE_KIND[a_tiles.dtype], _kernels.stream_of(x),
+    )
     spmm_fused.launches += 1
     return out

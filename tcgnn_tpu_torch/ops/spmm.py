@@ -8,12 +8,20 @@ to the compute dtype before the gather, products accumulate in f32, and the
 output is stored once in the compute dtype.
 
 ``spmm_tc_dense`` launches the hand-written CUDA kernel
-(``csrc/spmm_dense.cu``) for a CUDA tensor, and runs the plain PyTorch
-version ``spmm_tc_dense_torch`` for a CPU tensor only.  Its two counters,
+(``csrc/spmm_dense.cu``: a warp a tile row over a run of at most
+``KERNEL_RUN_BLOCKS`` TC blocks, its nonzeros listed, then only their rows
+of x gathered) for a CUDA tensor, and runs the plain PyTorch version
+``spmm_tc_dense_torch`` for a CPU tensor only.  Its two counters,
 ``spmm_tc_dense.launches`` and ``spmm_tc_dense.plain_calls``, record which
-path ran.  ``build_a_tiles`` scatters per-edge weights into f32 tiles for
-the weighted SpMM (AGNN's attention); the kernel rounds them to the compute
-dtype as it reads them, as the JAX kernel does.
+path ran.  The wrapper's host work is kept small, since the kernel takes
+about as long: the metadata's index arrays are checked once, when the
+``TorchSGTMeta`` is made (``kernel_device``), the C function is looked up
+once (``_kernels.call``), and x is cast or copied only when it is not
+already contiguous in the compute dtype.
+
+``build_a_tiles`` scatters per-edge weights into f32 tiles for the weighted
+SpMM (AGNN's attention); the kernel rounds them to the compute dtype as it
+reads them, as the JAX kernel does.
 """
 
 from __future__ import annotations
@@ -26,7 +34,9 @@ from tcgnn_tpu_torch.sgt.translate import KERNEL_RUN_BLOCKS, TorchSGTMeta
 
 FEAT_KIND = {torch.float32: 0, torch.bfloat16: 1}
 TILE_KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
-KERNEL_MAX_BLK_W = 128  # a warp holds a tile row in 4 registers a lane
+# K1/K10: a row of a run of 8 blocks in a lane's 32-entry mask; K2/K3: a tile
+# row in 4 registers a lane.
+KERNEL_MAX_BLK_W = 128
 
 
 def build_a_tiles(
@@ -69,9 +79,11 @@ def spmm_tc_dense_torch(
 
 
 def check_tiled_operands(op: str, x, meta, a_tiles) -> None:
-    """What a kernel over the condensed tiles (K1, K2, K3) takes: the
-    compute dtype and the tiles it has a kernel for, blk_w <= 128, and
-    the tiles and window metadata on x's device, contiguous."""
+    """What a kernel over the condensed tiles (K1, K2, K3, K10) takes: the
+    compute dtype and the tiles it has a kernel for, blk_w <= 128, and the
+    tiles and window metadata on x's device, contiguous.  The metadata's
+    arrays were checked when it was made (``meta.kernel_device``); only
+    where that check failed are they looked at again, to name the fault."""
     cfg = meta.config
     if cfg.compute_dtype not in FEAT_KIND:
         raise TypeError(f"{op}: no kernel for compute dtype {cfg.compute_dtype}")
@@ -79,15 +91,15 @@ def check_tiled_operands(op: str, x, meta, a_tiles) -> None:
         raise ValueError(f"{op}: the kernel takes blk_w <= {KERNEL_MAX_BLK_W}")
     if a_tiles.dtype not in TILE_KIND:
         raise TypeError(f"{op}: no kernel for tile dtype {a_tiles.dtype}")
-    if tuple(a_tiles.shape) != (meta.num_blocks, cfg.blk_h, cfg.blk_w):
+    if a_tiles.shape != (meta.num_blocks, cfg.blk_h, cfg.blk_w):
         raise ValueError(
             f"{op}: tiles of shape {tuple(a_tiles.shape)}, expected "
             f"{(meta.num_blocks, cfg.blk_h, cfg.blk_w)}"
         )
-    _kernels.check_operands(
-        op, x.device, a_tiles, col_ids=meta.col_ids, win_start=meta.win_start,
-        run_window=meta.run_window, run_block=meta.run_block,
-    )
+    if (meta.kernel_device != x.device or a_tiles.device != x.device
+            or not a_tiles.is_contiguous()):
+        _kernels.check_operands(
+            op, x.device, a_tiles, **{k: getattr(meta, k) for k in meta.KERNEL_INDEX})
     if x.numel() >= 2**31:
         raise ValueError(f"{op}: x has 2**31 elements or more")
 
@@ -95,30 +107,29 @@ def check_tiled_operands(op: str, x, meta, a_tiles) -> None:
 def _spmm_dense_cuda(x, meta, a_tiles):
     check_tiled_operands("spmm_tc_dense", x, meta, a_tiles)
     cfg = meta.config
+    ct = cfg.compute_dtype
     n, d = meta.num_rows, x.shape[1]
-    x = x.to(cfg.compute_dtype).contiguous()
-    out = torch.empty((n, d), dtype=cfg.compute_dtype, device=x.device)
+    if x.dtype != ct or not x.is_contiguous():
+        x = x.to(ct).contiguous()
+    out = torch.empty((n, d), dtype=ct, device=x.device)
     if n == 0 or d == 0:
         return out
-    lib = _kernels.load("spmm_dense")
     # Windows of more than KERNEL_RUN_BLOCKS TC blocks are split over thread
     # blocks that sum in f32: into `out` for f32, into this buffer for bf16.
     split = meta.max_window_blocks > KERNEL_RUN_BLOCKS
     accum = None
-    if split and cfg.compute_dtype != torch.float32:
+    if split and ct != torch.float32:
         accum = torch.empty((n, d), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.tcgnn_spmm_dense(
-            x.data_ptr(), a_tiles.data_ptr(), meta.col_ids.data_ptr(),
-            meta.win_start.data_ptr(), meta.run_window.data_ptr(),
-            meta.run_block.data_ptr(), out.data_ptr(),
-            None if accum is None else accum.data_ptr(),
-            n, d, meta.num_windows, meta.run_window.shape[0], KERNEL_RUN_BLOCKS,
-            int(split), cfg.blk_h, cfg.blk_w,
-            FEAT_KIND[cfg.compute_dtype], TILE_KIND[a_tiles.dtype],
-            _kernels.stream_of(x),
-        )
-    _kernels.check(lib, err, "spmm_dense")
+    _kernels.call(
+        "spmm_dense", "tcgnn_spmm_dense", x.device,
+        x.data_ptr(), a_tiles.data_ptr(), meta.col_ids.data_ptr(),
+        meta.win_start.data_ptr(), meta.run_window.data_ptr(),
+        meta.run_block.data_ptr(), out.data_ptr(),
+        None if accum is None else accum.data_ptr(),
+        n, d, meta.num_windows, meta.run_window.shape[0], KERNEL_RUN_BLOCKS,
+        int(split), cfg.blk_h, cfg.blk_w, FEAT_KIND[ct], TILE_KIND[a_tiles.dtype],
+        _kernels.stream_of(x),
+    )
     spmm_tc_dense.launches += 1
     return out
 

@@ -95,6 +95,19 @@ class TorchSGTMeta:
     edge_pos: torch.Tensor  # [E] int32
     edge_rows: torch.Tensor  # [E] int32
     edge_cols: torch.Tensor  # [E] int32
+    # The device of the window arrays the tile kernels read (col_ids,
+    # win_start, run_window, run_block) when all four lie there, int32 and
+    # contiguous, else None: checked once here, not on every launch.
+    kernel_device: Optional[torch.device] = dataclasses.field(
+        init=False, default=None, repr=False, compare=False)
+
+    KERNEL_INDEX = ("col_ids", "win_start", "run_window", "run_block")
+
+    def __post_init__(self):
+        arrays = [getattr(self, name) for name in self.KERNEL_INDEX]
+        dev = arrays[0].device
+        ok = all(a.device == dev and a.dtype == torch.int32 and a.is_contiguous() for a in arrays)
+        object.__setattr__(self, "kernel_device", dev if ok else None)
 
 
 @dataclasses.dataclass(frozen=True)

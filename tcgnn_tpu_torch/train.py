@@ -2,7 +2,8 @@
 
 Single device: SGT preprocessing timed as ``Prep. (ms)`` with the
 ``TC_Blocks`` / ``Exp_Edges`` statistics, then full-batch training with Adam
-(lr 0.01) and NLL over all nodes: 10 warm-up epochs, then ``--epochs`` timed
+(lr 0.01) and NLL over all nodes: 9 warm-up epochs, as the JAX CLI runs
+(``tcgnn_tpu/train.py`` ``step.many(..., 9)``), then ``--epochs`` timed
 epochs reported as ``Train (ms)``.  The timed loop reads no value from the
 device; it is bracketed by ``torch.cuda.synchronize()``.
 
@@ -42,7 +43,9 @@ from tcgnn_tpu_torch import profiling
 from tcgnn_tpu_torch.models import nets
 from tcgnn_tpu_torch.sgt import reorder
 
-WARMUP_EPOCHS = 10
+# Warm-up steps before the timed epochs, the first one's loss included: the
+# JAX CLI's 9, on one device and on the mesh.
+WARMUP_EPOCHS = 9
 
 
 def build_argparser() -> argparse.ArgumentParser:

@@ -101,23 +101,35 @@ def within(got, want, mag, rtol, atol):
     assert bool(torch.all(err <= atol + rtol * mag)), float(err.max())
 
 
+# The widths K1 and K10 branch on: unaligned rows (d % 4), one lane group
+# of 4 columns to a whole warp (d <= 128), and several 128-column tiles.
+DENSE_WIDTHS = [1, 5, 16, 17, 32, 70, 500]
+# Tiles as the graph builds them (int8, or f32 past a count of 127), or
+# cast to f32 or bf16 (the vector path's three unit widths).
+TILE_CASTS = {"built": None, "f32": torch.float32, "bf16": torch.bfloat16}
+
+
 @pytest.mark.parametrize("kind", ["hub", "empty_and_partial_windows", "duplicates_over_127"])
 @pytest.mark.parametrize("geometry", GEOMETRIES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [5, 32, 70])
-def test_kernel_matches_plain(cuda, kind, geometry, dtype, d):
+@pytest.mark.parametrize("d", DENSE_WIDTHS)
+@pytest.mark.parametrize("tiles", list(TILE_CASTS))
+def test_kernel_matches_plain(cuda, kind, geometry, dtype, d, tiles):
+    """K1 (bf16 output of the hub's split windows included: their f32 sums
+    converted once)."""
     n, rp, ci = graph(kind)
     bh, bw = geometry
     g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw, compute_dtype=dtype), device=cuda,
                    block_diag=False)
+    a = g.a_struct if TILE_CASTS[tiles] is None else g.a_struct.to(TILE_CASTS[tiles])
     x = torch.randn(n, d, generator=torch.Generator().manual_seed(d)).to(cuda)
     before = spmm_tc_dense.launches
-    got = spmm_tc_dense(x, g.meta, g.a_struct)
+    got = spmm_tc_dense(x, g.meta, a)
     torch.cuda.synchronize()
     assert spmm_tc_dense.launches == before + 1 and got.dtype == dtype
     mag = spmm_ref(x.double().abs(), torch.from_numpy(rp).to(cuda), torch.from_numpy(ci).to(cuda))
     tol = dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
-    within(got, spmm_tc_dense_torch(x, g.meta, g.a_struct), mag, **tol)
+    within(got, spmm_tc_dense_torch(x, g.meta, a), mag, **tol)
 
 
 @pytest.mark.parametrize("geometry", GEOMETRIES)
@@ -294,16 +306,17 @@ def test_agnn_autograd_on_card_matches_cpu(cuda, kind, geometry):
 # ---- K5, K6, K7: the block-diagonal kernels ----------------------------------
 
 BD_OFFSETS = {"diag": (0,), "tri": (-1, 0, 1), "hepta": (-3, -2, -1, 0, 1, 2, 3),
-              "upper": (0, 1, 2), "octa": (-4, -3, -2, -1, 0, 1, 2, 3)}
+              "upper": (0, 1, 2), "octa": (-4, -3, -2, -1, 0, 1, 2, 3),
+              "gaps": (-5, -1, 0, 3)}
 
 
-def bd_pack(n, offsets, kind, dev, seed=0):
-    """A random pack [Bp, 128, K*128] of about 5 entries a row (DD's
+def bd_pack(n, offsets, kind, dev, seed=0, bn=128):
+    """A random pack [Bp, bn, K*bn] of about 5 entries a row (DD's
     density): int8 counts 1-3; int16, with one entry in 500 a count of
     128-300; or float / bfloat16 normal weights."""
     g = torch.Generator().manual_seed(seed)
-    bp = -(-(-(-n // 128)) // 8) * 8
-    shape = (bp, 128, len(offsets) * 128)
+    bp = -(-(-(-n // bn)) // 8) * 8
+    shape = (bp, bn, len(offsets) * bn)
     mask = torch.rand(shape, generator=g) < 5 / shape[2]
     if kind in ("int8", "int16"):
         counts = torch.randint(1, 4, shape, generator=g)
@@ -324,10 +337,13 @@ def bd_cfg(dtype):
 @pytest.mark.parametrize("offsets", list(BD_OFFSETS))
 @pytest.mark.parametrize("kind", ["int8", "int16", "float", "bfloat16"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d", [(1000, 3), (1100, 16), (1100, 89), (1000, 200)])
-def test_bd_spmm_kernel_matches_plain(cuda, offsets, kind, dtype, n, d):
+# n is never a multiple of bn; bn=20 makes the int8, int16 and bf16 pack
+# rows not 16-byte aligned (K5's path that reads an entry a lane).
+@pytest.mark.parametrize("n,d,bn", [(1000, 3, 128), (1100, 16, 128), (1100, 17, 128),
+                                    (1100, 89, 128), (1000, 200, 128), (1000, 16, 20)])
+def test_bd_spmm_kernel_matches_plain(cuda, offsets, kind, dtype, n, d, bn):
     offs = BD_OFFSETS[offsets]
-    pack = bd_pack(n, offs, kind, cuda)
+    pack = bd_pack(n, offs, kind, cuda, bn=bn)
     x = randn((n, d), 20, cuda)
     cfg = bd_cfg(dtype)
     before = spmm_block_diag.launches
@@ -569,9 +585,11 @@ def shard_stream(kind, geometry, dtype, dev, pad_blocks=3, extra_src=5):
 @pytest.mark.parametrize("kind", ["hub", "empty_and_partial_windows", "duplicates_over_127"])
 @pytest.mark.parametrize("geometry", GEOMETRIES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [3, 32, 70])
-def test_fused_kernel_matches_plain(cuda, kind, geometry, dtype, d):
+@pytest.mark.parametrize("d", DENSE_WIDTHS)
+@pytest.mark.parametrize("tiles", list(TILE_CASTS))
+def test_fused_kernel_matches_plain(cuda, kind, geometry, dtype, d, tiles):
     meta, a = shard_stream(kind, geometry, dtype, cuda)
+    a = a if TILE_CASTS[tiles] is None else a.to(TILE_CASTS[tiles])
     x = randn((meta.num_src, d), 8, cuda)
     s = randn(tuple(a.shape), 9, cuda).to(dtype)  # scores off the edges are masked by A
     before = spmm_fused.launches

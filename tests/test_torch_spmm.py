@@ -8,6 +8,8 @@ dozen terms.  The CUDA kernel itself runs only on a card
 (``tests/test_torch_kernels.py``).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +22,12 @@ from tcgnn_tpu.sgt import translate as jax_sgt
 from tcgnn_tpu_torch.config import TileConfig
 from tcgnn_tpu_torch.data import coo_to_csr, powerlaw_graph
 from tcgnn_tpu_torch.ops import reference as port_ref
-from tcgnn_tpu_torch.ops.spmm import reset_counts, spmm_tc_dense, spmm_tc_dense_torch
+from tcgnn_tpu_torch.ops.spmm import (
+    check_tiled_operands,
+    reset_counts,
+    spmm_tc_dense,
+    spmm_tc_dense_torch,
+)
 from tcgnn_tpu_torch.sgt import translate as port_sgt
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -137,3 +144,22 @@ def test_wrapper_rejects_other_devices_and_shapes():
     with pytest.raises(ValueError, match="expected"):
         spmm_tc_dense(torch.zeros(n + 1, 4), meta, tiles)
     assert (spmm_tc_dense.plain_calls, spmm_tc_dense.launches) == (0, 0)
+
+
+@pytest.mark.parametrize("fault", ["none", "int64", "strided", "other_device"])
+def test_meta_checks_its_kernel_arrays_once(fault):
+    """``TorchSGTMeta.kernel_device`` is set where the meta is made (and on
+    ``dataclasses.replace``): the device of the four arrays the tile kernels
+    read when all are int32 and contiguous there, else None, so that the
+    wrappers look at them again only to name a fault."""
+    n, rp, ci = graph("powerlaw")
+    _, meta, tiles = port_meta(n, rp, ci, 16, 8)
+    assert meta.kernel_device == torch.device("cpu")
+    bad = {"none": meta.win_start, "int64": meta.win_start.long(),
+           "strided": torch.stack([meta.win_start, meta.win_start], 1)[:, 0],
+           "other_device": meta.win_start.to("meta")}[fault]
+    m = dataclasses.replace(meta, win_start=bad)
+    assert m.kernel_device == (torch.device("cpu") if fault == "none" else None)
+    if fault == "int64":
+        with pytest.raises(TypeError, match="win_start must be int32"):
+            check_tiled_operands("spmm_tc_dense", torch.zeros(n, 4), m, tiles)

@@ -144,6 +144,27 @@ def test_cli_prints_contract(capsys):
     assert np.isfinite(r["final_loss"]) and r["tc_blocks"] > 0
 
 
+@pytest.mark.parametrize("extra", [
+    ["--dataset", "rand_200_1000", "--blk_h", "16", "--blk_w", "16"],
+    # a graph the mesh keeps on its dense-tile route (rand_100_400 is BD)
+    ["--dataset", "rand_2000_8000", "--blk_h", "16", "--blk_w", "8", "--mesh", "2x1"],
+], ids=["one_device", "mesh"])
+def test_cli_takes_jax_warmup_steps(monkeypatch, extra):
+    """``--epochs 3`` makes 9 + 3 Adam updates, as the JAX CLI does
+    (``step.many(..., 9)`` on one device, ``range(1, 10)`` on the mesh)."""
+    steps = []
+    adam_step = torch.optim.Adam.step
+
+    def counting_step(self, *args, **kwargs):
+        steps.append(1)
+        return adam_step(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.optim.Adam, "step", counting_step)
+    r = port_train.main([*extra, "--dim", "6", "--classes", "3", "--epochs", "3",
+                         "--device", "cpu"])
+    assert len(steps) == 12 and np.isfinite(r["final_loss"])
+
+
 @pytest.mark.parametrize("flag", [["--mesh", "2x1"]])
 def test_cli_unported_paths_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
