@@ -4,8 +4,9 @@
 Run from the repository root:  python3 chip_smoke.py
 
 ``python3 chip_smoke.py --ab DIR`` runs none of the phases below: it builds
-another commit's ``spmm_bd.cu`` and ``spmm_dense.cu`` from DIR beside the
-tree's and times K5, K1 and K10 of the two in turns (``ab_main``).
+another commit's ``spmm_bd.cu``, ``spmm_dense.cu`` and ``chunk.cu``, those
+of them DIR holds, beside the tree's and times the kernels of the two in
+turns (K5; K1 and K10; K8 and K9 on pubmed and reddit) (``ab_main``).
 
 Phases, in order; any failure raises and exits nonzero:
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
@@ -59,10 +60,12 @@ Phases, in order; any failure raises and exits nonzero:
      have run; the loss must be finite and fall, except in the 4-layer AGNN
      runs (pubmed overflows to nan in f32, as in the JAX package), which are
      only timed.  The reddit runs print the peak host RSS and device memory.
-     After the reddit GCN run, on its graph: the segment layout, and K8 (d=16,
-     602, and 32 and 41 weighted) and K9 (d=32 and 41, one matrix and two)
-     against their plain versions at the main path's shapes, each timed
-     beside its bound;
+     After the reddit GCN run, on its graph: the segment layout, its mean
+     row run and the row index's bytes, and K8 (d=16, 602, and 32 and 41
+     weighted) and K9 (d=32 and 41, one matrix and two) against their plain
+     versions at the main path's shapes, each timed (event and device)
+     beside its bound and ``torch.sparse.mm`` or
+     ``torch.sparse.sampled_addmm`` over the row index;
  12. every kernel and its plain version timed with CUDA events (K1-K4, K8
      and K9 at the pubmed shapes, K5-K7 at DD's): the median of 25 event
      pairs around one call each (the wrapper's host work included), and the
@@ -74,7 +77,8 @@ Phases, in order; any failure raises and exits nonzero:
      kernel) and the one PyTorch call that computes the same function, where
      there is one: ``torch.sparse.mm`` on a CSR tensor (K1, K5, K8),
      ``torch.sparse.sampled_addmm`` (K4, K9).  Yardsticks only: nothing on
-     the main path calls them;
+     the main path calls them.  The kernels line takes K8 and K9 from phase
+     11's reddit timing (d=16 and d=32), the shapes of their main path;
  13. the distributed dense-tile route (``tcgnn_tpu_torch.parallel``), every
      shard of the mesh on this one card: on pubmed balanced over a 4x2 mesh
      (512x128), each shard's split stream: K10 (d in {32, 16, 8}: the
@@ -739,57 +743,115 @@ def phase_chunk_autograd(dev) -> None:
         check_weighted_autograd(f"streamed {geo}", g, csr, dev)
 
 
+def row_runs(m) -> int:
+    """Runs of a chunk's consecutive real slots that share an output row,
+    over the layout (a chunk is one TC block's edges, in CSR order)."""
+    runs, per = 0, 1 << 15
+    for s, nc in enumerate(m.seg_chunks.tolist()):
+        for c0 in range(0, nc, per):
+            r = m.seg_r[s, c0:min(nc, c0 + per)]
+            first = r < m.config.blk_h
+            first[:, 1:] &= r[:, 1:] != r[:, :-1]
+            runs += int(first.sum())
+    return runs
+
+
+def index_csr(m, dev, w=None) -> torch.Tensor:
+    """The layout's row index as a float CSR tensor (ones, or ``w``), for the
+    library yardsticks."""
+    vals = torch.ones(m.num_edges, device=dev) if w is None else w
+    return torch.sparse_csr_tensor(m.row_ptr, m.row_src.long(), vals,
+                                   size=(m.num_nodes, m.num_nodes))
+
+
 def check_reddit_kernels(g, dev, card) -> dict:
     """Phase 11, after the reddit GCN run, on that run's graph: K8 and K9 on
-    the streamed route's segments (each direction) at the main path's
-    shapes, against their plain versions (the tolerance's magnitude is the
-    plain version over absolute values: an f64 oracle would need [E, d]).
-    K8: d=16 (GCN's layer 2), d=602 (the hoisted layer-1 aggregate), d=32
-    and 41 weighted (AGNN's hidden and class widths); K9 at d=32 and 41 with
-    one matrix and two.  Prints the segment layout, and each shape's kernel
-    time beside its bound.  Returns, per kernel, the max abs error of each
-    case."""
-    errs = {"K8": {}, "K9": {}}
+    the streamed route's layout (each direction) at the main path's shapes,
+    against their plain versions (the tolerance's magnitude is the plain
+    version over absolute values: an f64 oracle would need [E, d]).  K8:
+    d=16 (GCN's layer 2), d=602 (the hoisted layer-1 aggregate), d=32 and 41
+    weighted (AGNN's hidden and class widths); K9 at d=32 and 41 with one
+    matrix and two.  Prints the segment layout, its mean row run (what the
+    slot order kept of CSR order) and the row index's bytes, and each
+    shape's kernel time (event and device) beside its bound and the library
+    call's (``torch.sparse.mm``, ``torch.sparse.sampled_addmm`` over the
+    row index) and the plain version's (the one call the check makes).
+    Returns, per kernel, the max abs error of each case, and the records of
+    K8 at d=16 and K9 at d=32 (one matrix) on A for the kernels line."""
+    errs, records = {"K8": {}, "K9": {}}, {}
     n, e = g.num_nodes, g.num_edges
     layouts = {"A": g.chunks} if g.chunks_t is g.chunks else {"A": g.chunks, "A^T": g.chunks_t}
     w = randn((e,), 140, dev)
+
+    def plain_once(fn):
+        """The plain version's result and event ms of its one call."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def timed(tag, fn, lib, b, pt) -> dict:
+        """Kernel and (``lib`` not None) library, event and device ms,
+        printed beside the plain version's ``pt``; the kernel's record."""
+        kt, kd = median_ms(fn, runs=5), device_ms(fn, runs=5)
+        lt = None if lib is None else median_ms(lib, runs=5)
+        ls = "" if lib is None else f", library {lt:.4f} ms (device {device_ms(lib, runs=5):.4f})"
+        print(f"  time {tag}: kernel {kt:.4f} ms (device {kd:.4f}){ls}, plain {pt:.4f} ms (one "
+              f"call), bound {b[0]:.4f} ms ({b[1]}) (median of 5, CUDA events; device: one pair "
+              f"around 5 calls; card: {card})")
+        return record(kt, pt, kd, b, lt)
+
     for name, m in layouts.items():
         stacked = nbytes(m.seg_col_ids, m.seg_r, m.seg_c, m.seg_edge_id, m.seg_block,
                          m.seg_window, m.seg_chunks)
+        runs = row_runs(m)
         print(f"reddit {name}: {m.num_segments} segments of {m.wseg} windows, C_max "
               f"{m.max_chunks}, {m.num_real_chunks} real chunks; chunk metadata "
-              f"{stacked / 1e6:.1f} MB stacked")
+              f"{stacked / 1e6:.1f} MB stacked; {runs} row runs in the chunks, "
+              f"{m.num_edges / runs:.4f} slots a run; row index (row_ptr, row_src) "
+              f"{nbytes(m.row_ptr, m.row_src) / 1e6:.1f} MB")
         if name == "A":
             # What the flat layout (to_chunks) would upload: the real
             # chunks' slots, block and window ids, the TC blocks' col_ids.
             flat = (4 * m.num_real_chunks * (3 * m.config.edge_chunk + 2)
                     + 4 * g.tc_blocks * m.config.blk_w)
             print(f"  the flat layout's: {flat / 1e6:.1f} MB")
+        a_csr, a_w = index_csr(m, dev), index_csr(m, dev, w)
         for d, wd in ((16, None), (602, None), (32, w), (41, w)):
             x = randn((n, d), 141 + d, dev)
             tag = f"K8 reddit {name} d={d}{'' if wd is None else ' weighted'}"
             mag = spmm_tc_torch(x.abs(), m, None if wd is None else wd.abs())
-            errs["K8"][tag] = compare(f"{tag} vs plain", spmm_tc(x, m, wd),
-                                      spmm_tc_torch(x, m, wd), mag, F32_TOL)
-            del mag
-            ms = median_ms(lambda: spmm_tc(x, m, wd), runs=5)
-            b = csr_bound(e, n, 2 * nbytes(x), 2 * e * d, weighted=wd is not None)
-            print(f"  time {tag}: {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) "
-                  f"(median of 5, CUDA events; card: {card})")
+            want, pt = plain_once(lambda: spmm_tc_torch(x, m, wd))
+            errs["K8"][tag] = compare(f"{tag} vs plain", spmm_tc(x, m, wd), want, mag, F32_TOL)
+            del mag, want
+            csr_a = a_csr if wd is None else a_w
+            rec = timed(tag, lambda: spmm_tc(x, m, wd), lambda: torch.sparse.mm(csr_a, x),
+                        csr_bound(e, n, 2 * nbytes(x), 2 * e * d, weighted=wd is not None), pt)
+            if name == "A" and d == 16:
+                records["K8"] = rec
         for d in (32, 41):
             xa, xb = randn((n, d), 150 + d, dev), randn((n, d), 151 + d, dev)
             for two in (False, True):
                 tag = f"K9 reddit {name} d={d} {'two matrices' if two else 'one matrix'}"
                 other = xb if two else None
                 mag = sddmm_tc_torch(xa.abs(), m, None if other is None else other.abs())
-                errs["K9"][tag] = compare(f"{tag} vs plain", sddmm_tc(xa, m, other),
-                                          sddmm_tc_torch(xa, m, other), mag, F32_TOL)
-                del mag
-                ms = median_ms(lambda: sddmm_tc(xa, m, other), runs=5)
-                b = csr_bound(e, n, nbytes(xa) * (2 if two else 1) + 4 * e, 2 * e * d)
-                print(f"  time {tag}: {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) "
-                      f"(median of 5, CUDA events; card: {card})")
-    return errs
+                want, pt = plain_once(lambda: sddmm_tc_torch(xa, m, other))
+                errs["K9"][tag] = compare(f"{tag} vs plain", sddmm_tc(xa, m, other), want, mag,
+                                          F32_TOL)
+                del mag, want
+                # The library call once a width: two matrices cost it the same.
+                xat = xa.t().contiguous()
+                rec = timed(tag, lambda: sddmm_tc(xa, m, other),
+                            None if two else lambda: torch.sparse.sampled_addmm(a_csr, xa, xat,
+                                                                                beta=0.0),
+                            csr_bound(e, n, nbytes(xa) * (2 if two else 1) + 4 * e, 2 * e * d),
+                            pt)
+                if name == "A" and d == 32 and not two:
+                    records["K9"] = rec
+        del a_csr, a_w
+    return errs, records
 
 
 def write_dataset(directory, name, graph) -> str:
@@ -802,12 +864,12 @@ def write_dataset(directory, name, graph) -> str:
     return name
 
 
-def phase_train(data_dir, dev, card) -> tuple[list, dict, dict]:
+def phase_train(data_dir, dev, card) -> tuple[list, dict, dict, dict]:
     """Phase 11: the main path, through the trainer's entry point.  Every
     count is set to 0 just before each run and read just after it; returns
-    the runs, each kernel's launches summed over them, and the errors of
-    ``check_reddit_kernels``, run on the reddit GCN run's graph once its
-    counts are read."""
+    the runs, each kernel's launches summed over them, and the errors and
+    records of ``check_reddit_kernels``, run on the reddit GCN run's graph
+    once its counts are read."""
     asym = write_dataset(data_dir, "asymmetric", asymmetric_graph)
     banded = write_dataset(data_dir, "banded", banded_graph)
     pubmed = ["--dataset", "pubmed", "--dim", "500", "--classes", "3"]
@@ -849,7 +911,7 @@ def phase_train(data_dir, dev, card) -> tuple[list, dict, dict]:
         ("reddit agnn 2 layers", [*reddit, *agnn, "--num_layers", "2"], ("K8", "K9"), True,
          streamed, 265_565),
     ]
-    results, launches, reddit_errs = [], {k: 0 for k in KERNELS}, {}
+    results, launches, reddit_errs, reddit_records = [], {k: 0 for k in KERNELS}, {}, {}
     for label, extra, expected, must_fall, route, tc_blocks in runs:
         print(f"--- train.main {' '.join(extra)}")
         t0 = time.perf_counter()
@@ -884,12 +946,12 @@ def phase_train(data_dir, dev, card) -> tuple[list, dict, dict]:
         graph = r.pop("graph")
         if label == "reddit gcn":
             t1 = time.perf_counter()
-            reddit_errs = check_reddit_kernels(graph, dev, card)
+            reddit_errs, reddit_records = check_reddit_kernels(graph, dev, card)
             print(f"  reddit kernel checks done in {time.perf_counter() - t1:.1f} s")
         del graph
         results.append((label, r))
         torch.cuda.empty_cache()
-    return results, launches, reddit_errs
+    return results, launches, reddit_errs, reddit_records
 
 
 def median_ms(fn, runs=TIMING_RUNS) -> float:
@@ -970,8 +1032,9 @@ def phase_timing(ds, dev) -> tuple[dict, dict]:
     (f32): K1 at d=16 and 500 (GCN's layer-2 and hoisted layer-1
     aggregates), K2-K4 at d=32 and 3 (AGNN's hidden and class widths), K8 on
     the flat chunk layout at d=16 and 500, K9 at d=32 and 3.  Returns the
-    times, and for the reported shape of each kernel (512x128, d=16 for the
-    SpMMs, 32 for the others) its record with bound and library time."""
+    times, and for the reported shape of K1-K4 (512x128, d=16 for K1, 32 for
+    the others) its record with bound and library time (K8's and K9's come
+    from reddit, ``check_reddit_kernels``)."""
     times, records = {}, {}
     n, e = ds.num_nodes, ds.num_edges
     a_csr = csr_tensor(ds.row_pointers, ds.column_index, n, dev)
@@ -1013,18 +1076,9 @@ def phase_timing(ds, dev) -> tuple[dict, dict]:
         for d in (16, 500):
             x = randn((ds.num_nodes, d), 700 + d, dev)
             times[("K8", geo, d)] = timed_pair(lambda: spmm_tc(x, m), lambda: spmm_tc_torch(x, m))
-            if geo == "512x128" and d == 16:
-                records["K8"] = record(*times[("K8", geo, d)],
-                                       csr_bound(e, n, 2 * nbytes(x), 2 * e * d),
-                                       median_ms(lambda: torch.sparse.mm(a_csr, x)))
         for d in (32, 3):
             x = randn((ds.num_nodes, d), 800 + d, dev)
             times[("K9", geo, d)] = timed_pair(lambda: sddmm_tc(x, m), lambda: sddmm_tc_torch(x, m))
-            if geo == "512x128" and d == 32:
-                xt = x.t().contiguous()
-                records["K9"] = record(
-                    *times[("K9", geo, d)], csr_bound(e, n, nbytes(x) + 4 * e, 2 * e * d),
-                    median_ms(lambda: torch.sparse.sampled_addmm(a_csr, x, xt, beta=0.0)))
     return times, records
 
 
@@ -1281,7 +1335,7 @@ def main():
     # ---- 11. the main path --------------------------------------------------
     t0 = phase_start("11. the main path")
     with tempfile.TemporaryDirectory() as data_dir:
-        runs, launches, reddit_errs = phase_train(data_dir, dev, card)
+        runs, launches, reddit_errs, reddit_records = phase_train(data_dir, dev, card)
     for k, kernel_errs in reddit_errs.items():
         errs[k].update(kernel_errs)
     phase_end(t0)
@@ -1292,6 +1346,7 @@ def main():
     bd_times, bd_records = phase_bd_timing(dd, dev)
     times.update(bd_times)
     records.update(bd_records)
+    records.update(reddit_records)  # K8 and K9 at the main path's shapes
     torch.cuda.synchronize()
     phase_end(t0)
 
@@ -1348,16 +1403,27 @@ def main():
     }}))
 
 
-# ---- parent against tree: K5, K1 and K10 (``--ab``, not a phase) ------------
+# ---- parent against tree (``--ab``, not a phase) -------------------------------
 
 AB_ROUNDS = 3
+AB_SOURCES = ("spmm_bd", "spmm_dense", "chunk")
+# The C functions swapped behind the tree's wrappers, where the other side
+# has the tree's interface.
 AB_FUNCTIONS = {"spmm_bd": ("tcgnn_spmm_bd",),
                 "spmm_dense": ("tcgnn_spmm_dense", "tcgnn_spmm_fused")}
+# chunk.cu's interface before the row index (the chunk-slot walk), which
+# the other side of a chunk A/B is called through: x (xa, xb), w,
+# the seven chunk arrays, out; n, d (K9: d), the layout's seven sizes,
+# feat_kind; the stream.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SLOT_WALK_SIGNATURES = {"tcgnn_spmm_chunk": [_P] * 10 + [_I] * 10 + [_P],
+                        "tcgnn_sddmm_chunk": [_P] * 10 + [_I] * 9 + [_P]}
 
 
-def build_other(name, src_dir) -> ctypes.CDLL:
-    """``<src_dir>/<name>.cu`` (another commit's source, with the tree's C
-    interface) built beside the tree's libraries, ``-Xptxas -v`` printed."""
+def build_other(name, src_dir, signatures) -> ctypes.CDLL:
+    """``<src_dir>/<name>.cu`` (another commit's source) built beside the
+    tree's libraries, ``-Xptxas -v`` printed, its C functions declared with
+    ``signatures``."""
     out = _kernels.BUILD_DIR / f"lib{name}_other.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v",
@@ -1367,7 +1433,7 @@ def build_other(name, src_dir) -> ctypes.CDLL:
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {src_dir}/{name}.cu")
     lib = ctypes.CDLL(str(out))
-    for fn, argtypes in _kernels.SIGNATURES[name].items():
+    for fn, argtypes in signatures.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     lib.tcgnn_cuda_error_string.argtypes = [ctypes.c_int]
@@ -1376,99 +1442,198 @@ def build_other(name, src_dir) -> ctypes.CDLL:
 
 
 def use_libraries(libs) -> None:
-    """Point the wrappers' launches at ``libs`` (name -> library)."""
-    for name, fns in AB_FUNCTIONS.items():
-        _kernels._loaded[name] = libs[name]
-        for fn in fns:
-            _kernels._functions[(name, fn)] = getattr(libs[name], fn)
+    """Point the wrappers' launches at ``libs`` (name -> library) for the
+    sources of AB_FUNCTIONS."""
+    for name, lib in libs.items():
+        if name in AB_FUNCTIONS:
+            _kernels._loaded[name] = lib
+            for fn in AB_FUNCTIONS[name]:
+                _kernels._functions[(name, fn)] = getattr(lib, fn)
 
 
-def ab_cases(dev) -> list:
-    """(kernel, shape, kernel call, plain call, library call, magnitude): K5
-    on DD at d in {2, 16, 89}, K1 on pubmed at 512x128 d in {16, 500} and
-    16x8 d=16, K10 on the heaviest pubmed 4x2 shard at d in {8, 16, 32}."""
+def slot_walk_args(m):
+    """A chunk layout's pointers and sizes in the slot-walk interface."""
+    return ((m.seg_col_ids.data_ptr(), m.seg_r.data_ptr(), m.seg_c.data_ptr(),
+             m.seg_edge_id.data_ptr(), m.seg_block.data_ptr(), m.seg_window.data_ptr(),
+             m.seg_chunks.data_ptr()),
+            (m.num_segments, m.max_chunks, m.config.edge_chunk, m.wseg, m.config.blk_h,
+             m.config.blk_w, m.seg_col_ids.shape[1]))
+
+
+def slot_walk_spmm(lib, x, m, w=None):
+    """K8 of the slot-walk interface (f32): as the wrapper called it."""
+    ptrs, sizes = slot_walk_args(m)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    err = lib.tcgnn_spmm_chunk(x.data_ptr(), None if w is None else w.data_ptr(), *ptrs,
+                               out.data_ptr(), x.shape[0], x.shape[1], *sizes, 0,
+                               _kernels.stream_of(x))
+    _kernels.check(lib, err, "slot-walk spmm_chunk")
+    return out
+
+
+def slot_walk_sddmm(lib, x, m):
+    """K9 of the slot-walk interface (f32, one matrix)."""
+    ptrs, sizes = slot_walk_args(m)
+    out = torch.empty(m.num_edges, dtype=torch.float32, device=x.device)
+    err = lib.tcgnn_sddmm_chunk(x.data_ptr(), x.data_ptr(), *ptrs, out.data_ptr(), x.shape[1],
+                                *sizes, 0, _kernels.stream_of(x))
+    _kernels.check(lib, err, "slot-walk sddmm_chunk")
+    return out
+
+
+def chunk_ab_cases(dev, other_lib) -> list:
+    """K8 and K9 cases: pubmed's flat layout at 512x128 (K8 d=16 and 500, K9
+    d=32 and 3) and reddit's streamed layout, built once (K8 d=16, d=32 and
+    41 weighted; K9 d=32 and 41, one matrix), with ``torch.sparse.mm`` and
+    ``torch.sparse.sampled_addmm`` over the row index as the library."""
     cases = []
-    dd = synthesize("DD", 89, 2)
-    g = TiledGraph(dd.row_pointers, dd.column_index, dd.num_nodes, TileConfig(), device=dev)
-    p, offs, cfg, n = g.bd.pack, g.bd_offsets, TileConfig(), dd.num_nodes
-    cov = covered_csr(dd.row_pointers, dd.column_index,
-                      extract_block_diag(dd.row_pointers, dd.column_index, n), dev)
-    cov_csr = csr_tensor(cov.ptr.cpu(), cov.idx.cpu(), n, dev)
-    print(f"DD: N={n} pack {tuple(p.shape)} {p.dtype} offsets {offs}, covered edges "
-          f"{cov.idx.numel()}", flush=True)
-    for d in (2, 16, 89):
-        x = randn((n, d), 400 + d, dev)
-        cases.append(("K5", f"DD d={d}", lambda x=x: spmm_block_diag(x, p, offsets=offs, cfg=cfg),
-                      lambda x=x: spmm_block_diag_torch(x, p, offsets=offs, cfg=cfg),
-                      lambda x=x: torch.sparse.mm(cov_csr, x), cov.magnitude(x)))
     pm = synthesize("pubmed", seed=0)
-    a_csr = csr_tensor(pm.row_pointers, pm.column_index, pm.num_nodes, dev)
-    pcsr = Csr(pm.row_pointers, pm.column_index, dev)
-    for geo, d in (("512x128", 16), ("512x128", 500), ("16x8", 16)):
-        bh, bw = GEOMETRIES[geo]
-        tg = TiledGraph(pm.row_pointers, pm.column_index, pm.num_nodes,
-                        TileConfig(blk_h=bh, blk_w=bw), device=dev)
-        x = randn((pm.num_nodes, d), 100 + d, dev)
-        cases.append(("K1", f"pubmed {geo} d={d}",
-                      lambda x=x, m=tg.meta, a=tg.a_struct: spmm_tc_dense(x, m, a),
-                      lambda x=x, m=tg.meta, a=tg.a_struct: spmm_tc_dense_torch(x, m, a),
-                      lambda x=x: torch.sparse.mm(a_csr, x), pcsr.magnitude(x)))
-    st = max(mesh_graph(pm, (4, 2), dev)._fwd.split.streams, key=lambda t: t.meta.num_edges)
-    m, a = st.meta, st.tiles
-    print(f"K10 shard: {m.num_edges} edges, {m.num_blocks} blocks, {m.num_windows} windows",
+    graphs = [("pubmed", pm, TiledGraph(pm.row_pointers, pm.column_index, pm.num_nodes,
+                                        TileConfig(), device=dev, dense_tiles=False),
+               ((16, False), (500, False)), (32, 3))]
+    t0 = time.perf_counter()
+    rd = synthesize("reddit", 602, 41)
+    g = TiledGraph(rd.row_pointers, rd.column_index, rd.num_nodes, TileConfig(), device=dev)
+    print(f"reddit: {rd.num_edges} edges, streamed {g.streamed}, TC_Blocks {g.tc_blocks}, "
+          f"{g.chunks.num_segments} segments; built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for d in (8, 16, 32):
-        x = randn((m.num_src, d), 920, dev)
-        s = sddmm_tc_tiles(randn((m.num_rows, d), 921, dev), m, x)
-        s_csr = torch.sparse_coo_tensor(
-            torch.stack([m.edge_rows.long(), m.edge_cols.long()]),
-            s.view(-1)[m.edge_pos.long()].float(), (m.num_rows, m.num_src)
-        ).coalesce().to_sparse_csr()
-        cases.append(("K10", f"pubmed 4x2 heaviest shard d={d}",
-                      lambda x=x, s=s: spmm_fused(x, m, a, s),
-                      lambda x=x, s=s: spmm_fused_torch(x, m, a, s),
-                      lambda x=x, s_csr=s_csr: torch.sparse.mm(s_csr, x),
-                      spmm_fused_torch(x.abs(), m, a, s.abs())))
+    del rd
+    graphs.append(("reddit", None, g, ((16, False), (32, True), (41, True)), (32, 41)))
+    for name, _, tg, spmm_shapes, sddmm_widths in graphs:
+        m, n, e = tg.chunks, tg.num_nodes, tg.num_edges
+        w = randn((e,), 140, dev)
+        a_csr, a_w = index_csr(m, dev), index_csr(m, dev, w)
+        # Every lambda binds its operands: the loops rebind the names.
+        for d, weighted in spmm_shapes:
+            x, wd = randn((n, d), 141 + d, dev), (w if weighted else None)
+            csr_a = a_w if weighted else a_csr
+            cases.append((
+                "K8", f"{name} d={d}{' weighted' if weighted else ''}",
+                {"other": lambda x=x, m=m, wd=wd: slot_walk_spmm(other_lib, x, m, wd),
+                 "tree": lambda x=x, m=m, wd=wd: spmm_tc(x, m, wd)},
+                lambda x=x, m=m, wd=wd: spmm_tc_torch(x, m, wd),
+                lambda x=x, csr_a=csr_a: torch.sparse.mm(csr_a, x),
+                lambda x=x, m=m, wd=wd: spmm_tc_torch(x.abs(), m,
+                                                      None if wd is None else wd.abs())))
+        for d in sddmm_widths:
+            x = randn((n, d), 150 + d, dev)
+            xt = x.t().contiguous()
+            cases.append((
+                "K9", f"{name} d={d} one matrix",
+                {"other": lambda x=x, m=m: slot_walk_sddmm(other_lib, x, m),
+                 "tree": lambda x=x, m=m: sddmm_tc(x, m)},
+                lambda x=x, m=m: sddmm_tc_torch(x, m),
+                lambda x=x, xt=xt, a_csr=a_csr: torch.sparse.sampled_addmm(a_csr, x, xt,
+                                                                           beta=0.0),
+                lambda x=x, m=m: sddmm_tc_torch(x.abs(), m)))
+    return cases
+
+
+def ab_cases(dev, sources, other) -> list:
+    """(kernel, shape, {"other": call, "tree": call}, plain call, library
+    call, magnitude call) for each source in ``sources``: K5 on DD at d in
+    {2, 16, 89}, K1 on pubmed at 512x128 d in {16, 500} and 16x8 d=16, K10 on
+    the heaviest pubmed 4x2 shard at d in {8, 16, 32}, K8 and K9 as
+    ``chunk_ab_cases``.  K1, K5 and K10 call the tree's wrapper on either
+    side (the libraries behind it are swapped)."""
+    cases = []
+    if "spmm_bd" in sources:
+        dd = synthesize("DD", 89, 2)
+        g = TiledGraph(dd.row_pointers, dd.column_index, dd.num_nodes, TileConfig(), device=dev)
+        p, offs, cfg, n = g.bd.pack, g.bd_offsets, TileConfig(), dd.num_nodes
+        cov = covered_csr(dd.row_pointers, dd.column_index,
+                          extract_block_diag(dd.row_pointers, dd.column_index, n), dev)
+        cov_csr = csr_tensor(cov.ptr.cpu(), cov.idx.cpu(), n, dev)
+        print(f"DD: N={n} pack {tuple(p.shape)} {p.dtype} offsets {offs}, covered edges "
+              f"{cov.idx.numel()}", flush=True)
+        for d in (2, 16, 89):
+            x = randn((n, d), 400 + d, dev)
+            fn = lambda x=x: spmm_block_diag(x, p, offsets=offs, cfg=cfg)  # noqa: E731
+            cases.append(("K5", f"DD d={d}", {"other": fn, "tree": fn},
+                          lambda x=x: spmm_block_diag_torch(x, p, offsets=offs, cfg=cfg),
+                          lambda x=x: torch.sparse.mm(cov_csr, x),
+                          lambda x=x: cov.magnitude(x)))
+    if "spmm_dense" in sources:
+        pm = synthesize("pubmed", seed=0)
+        a_csr = csr_tensor(pm.row_pointers, pm.column_index, pm.num_nodes, dev)
+        pcsr = Csr(pm.row_pointers, pm.column_index, dev)
+        for geo, d in (("512x128", 16), ("512x128", 500), ("16x8", 16)):
+            bh, bw = GEOMETRIES[geo]
+            tg = TiledGraph(pm.row_pointers, pm.column_index, pm.num_nodes,
+                            TileConfig(blk_h=bh, blk_w=bw), device=dev)
+            x = randn((pm.num_nodes, d), 100 + d, dev)
+            fn = lambda x=x, m=tg.meta, a=tg.a_struct: spmm_tc_dense(x, m, a)  # noqa: E731
+            cases.append(("K1", f"pubmed {geo} d={d}", {"other": fn, "tree": fn},
+                          lambda x=x, m=tg.meta, a=tg.a_struct: spmm_tc_dense_torch(x, m, a),
+                          lambda x=x: torch.sparse.mm(a_csr, x),
+                          lambda x=x: pcsr.magnitude(x)))
+        st = max(mesh_graph(pm, (4, 2), dev)._fwd.split.streams, key=lambda t: t.meta.num_edges)
+        m, a = st.meta, st.tiles
+        print(f"K10 shard: {m.num_edges} edges, {m.num_blocks} blocks, {m.num_windows} windows",
+              flush=True)
+        for d in (8, 16, 32):
+            x = randn((m.num_src, d), 920, dev)
+            s = sddmm_tc_tiles(randn((m.num_rows, d), 921, dev), m, x)
+            s_csr = torch.sparse_coo_tensor(
+                torch.stack([m.edge_rows.long(), m.edge_cols.long()]),
+                s.view(-1)[m.edge_pos.long()].float(), (m.num_rows, m.num_src)
+            ).coalesce().to_sparse_csr()
+            fn = lambda x=x, s=s: spmm_fused(x, m, a, s)  # noqa: E731
+            cases.append(("K10", f"pubmed 4x2 heaviest shard d={d}", {"other": fn, "tree": fn},
+                          lambda x=x, s=s: spmm_fused_torch(x, m, a, s),
+                          lambda x=x, s_csr=s_csr: torch.sparse.mm(s_csr, x),
+                          lambda x=x, s=s: spmm_fused_torch(x.abs(), m, a, s.abs())))
+    if "chunk" in sources:
+        cases += chunk_ab_cases(dev, other["chunk"])
     return cases
 
 
 def ab_main(other_dir) -> None:
-    """K5, K1 and K10 of another commit (``other_dir``: its
-    ``csrc/spmm_bd.cu`` and ``csrc/spmm_dense.cu``) against the tree's, in
-    one process, through the tree's wrappers (the same host work; only the
-    C function differs): each held to the plain version, then AB_ROUNDS
-    rounds of other, tree, tree, other, each the event time (``median_ms``)
-    and the device time (``device_ms``), and the library call in the same
-    round.  Prints each round, then all of them as one JSON line."""
+    """The kernels of another commit's sources in ``other_dir`` (those of
+    ``spmm_bd.cu``, ``spmm_dense.cu`` and ``chunk.cu`` it holds) against
+    the tree's, in one process: each side held to the plain version, then
+    AB_ROUNDS rounds of other, tree, tree, other, each the event time
+    (``median_ms``) and the device time (``device_ms``), and the library
+    call in the same round.  K1, K5 and K10 run through the tree's wrappers
+    on either side (the same host work; only the C function differs); K8
+    and K9 of the other side through the slot-walk interface on the chunk
+    arrays, with the host work its wrapper did.  Prints each round, then
+    all of them as one JSON line."""
     card = card_line()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    sources = [s for s in AB_SOURCES if os.path.exists(os.path.join(other_dir, f"{s}.cu"))]
+    if not sources:
+        raise SystemExit(f"--ab: {other_dir} holds none of {[s + '.cu' for s in AB_SOURCES]}")
     print("--- the tree's ptxas:", flush=True)
     libs = {"tree": {}, "other": {}}
-    for name in AB_FUNCTIONS:
+    for name in sources:
         _kernels.build(name, verbose=True)
         libs["tree"][name] = _kernels.load(name)
-        libs["other"][name] = build_other(name, other_dir)
+        libs["other"][name] = build_other(
+            name, other_dir, SLOT_WALK_SIGNATURES if name == "chunk" else _kernels.SIGNATURES[name])
     results = []
-    for kernel, shape, fn, plain, lib, mag in ab_cases(dev):
-        want = plain()
+    for kernel, shape, fns, plain, lib, mag in ab_cases(dev, sources, libs["other"]):
+        want, m = plain(), mag()
         for which in ("other", "tree"):
             use_libraries(libs[which])
-            compare(f"{kernel} {shape} {which} vs plain", fn(), want, mag, F32_TOL)
+            compare(f"{kernel} {shape} {which} vs plain", fns[which](), want, m, F32_TOL)
+        del want, m
         rounds = []
         for _ in range(AB_ROUNDS):
             use_libraries(libs["other"])
-            ev_o1, dv_o1 = median_ms(fn), device_ms(fn)
+            ev_o1, dv_o1 = median_ms(fns["other"]), device_ms(fns["other"])
             use_libraries(libs["tree"])
-            ev_t1, dv_t1 = median_ms(fn), device_ms(fn)
-            dv_t2, ev_t2 = device_ms(fn), median_ms(fn)
+            ev_t1, dv_t1 = median_ms(fns["tree"]), device_ms(fns["tree"])
+            dv_t2, ev_t2 = device_ms(fns["tree"]), median_ms(fns["tree"])
             use_libraries(libs["other"])
-            dv_o2, ev_o2 = device_ms(fn), median_ms(fn)
+            dv_o2, ev_o2 = device_ms(fns["other"]), median_ms(fns["other"])
             rounds.append({
                 "other_event_ms": (ev_o1 + ev_o2) / 2, "other_device_ms": (dv_o1 + dv_o2) / 2,
                 "tree_event_ms": (ev_t1 + ev_t2) / 2, "tree_device_ms": (dv_t1 + dv_t2) / 2,
-                "library_event_ms": median_ms(lib), "library_device_ms": device_ms(lib)})
+                "library_event_ms": median_ms(lib, runs=5),
+                "library_device_ms": device_ms(lib, runs=5)})
         use_libraries(libs["tree"])
         faster = all(r["tree_device_ms"] < r["other_device_ms"] for r in rounds)
         results.append({"kernel": kernel, "shape": shape, "rounds": rounds,

@@ -47,16 +47,20 @@ segments, the streamed route (``streamed``).  Every op is K8 (``spmm``,
 ``w[t_edge_src]``) or K9 (``sddmm``, and ``dw``); ``agnn_aggregate`` is
 ``None``, so AGNN takes the per-edge ops, as in JAX.  The ops return f32
 whatever the compute dtype, as the JAX chunk kernels store it.  Only the
-chunk or segment metadata is uploaded: no tiles, no per-edge arrays but
-``t_edge_src``; the host layout is dropped once uploaded (``host_meta`` is
-None), keeping ``tc_blocks`` and ``exp_edges``.  Where the port differs from the JAX chunk routes, changing
-no value:
+chunk or segment metadata is uploaded, with the CSR row index derived from
+it on the device (``TorchChunkMeta.row_ptr``, ``row_src``): no tiles, no
+per-edge arrays but ``t_edge_src``; the host layout is dropped once uploaded
+(``host_meta`` is None), keeping ``tc_blocks`` and ``exp_edges``.  Where the
+port differs from the JAX chunk routes, changing no value:
 
+* the kernels walk the row index, the edges in CSR order, not the chunk
+  slots (on reddit a chunk keeps a row's edges together for 2.44 slots on
+  average); the chunk arrays stay on the device for the plain versions;
 * the kernels gather rows of x themselves: no condensed slab ``x[col_ids]``
   (the TPU's DMA layout) is formed;
-* the segments are a grid axis of one launch, not a scan of S launches;
-* K9 writes each score to its edge (CSR order): no scores in chunk order,
-  no ``edge_perm`` gather (``edge_perm`` stays on the host).
+* every segment is served by one launch, not a scan of S launches;
+* K9 writes the scores in CSR order: no scores in chunk order, no
+  ``edge_perm`` gather (``edge_perm`` stays on the host).
 
 ``block_group`` 0 (auto) resolves to 1 here; the JAX CLI's auto resolves to
 2 on block-dense graphs (reddit) when its native pass is present.  That

@@ -93,8 +93,8 @@ SIGNATURES = {
         "tcgnn_bd_sfused_bwd": [_P] * 6 + [_I] * 6 + [_P],
     },
     "chunk": {
-        "tcgnn_spmm_chunk": [_P] * 10 + [_I] * 10 + [_P],
-        "tcgnn_sddmm_chunk": [_P] * 10 + [_I] * 9 + [_P],
+        "tcgnn_spmm_chunk": [_P] * 5 + [_I] * 4 + [_P],
+        "tcgnn_sddmm_chunk": [_P] * 5 + [_I] * 4 + [_P],
     },
 }
 

@@ -1,24 +1,27 @@
-"""Chunk-layout SpMM and SDDMM (K8 and K9 of the port): the chunk route and
+"""Chunk-route SpMM and SDDMM (K8 and K9 of the port): the chunk route and
 the streamed route.
 
 Counterparts of ``tcgnn_tpu.ops.spmm.spmm_tc`` / ``spmm_tc_streamed`` and
 ``tcgnn_tpu.ops.sddmm.sddmm_tc`` / ``sddmm_tc_streamed``, with the JAX
 signatures less ``interpret`` and ``d_tile``.  Every one of them reads a
 ``TorchChunkMeta``: ``SGTMeta.to_chunks`` gives the flat chunk layout as one
-segment, ``StreamedMeta.to`` the streamed route's segments, and one kernel
-serves both (``csrc/chunk.cu``), through one wrapper each: ``spmm_tc`` and
-``sddmm_tc`` take either layout, and the ``*_streamed`` names are aliases.
+segment, ``StreamedMeta.to`` the streamed route's segments.  One wrapper
+each, ``spmm_tc`` and ``sddmm_tc``, takes either layout (the ``*_streamed``
+names are aliases): the kernels (``csrc/chunk.cu``) read the CSR row index
+derived from the layout at upload (``row_ptr``, ``row_src``) and walk the
+edges in row order, one launch for any number of segments; the plain
+versions read the chunk slots.
 
 * SpMM: ``out = (A ⊙ w) @ x`` (``w`` per CSR edge, or none), ``[N, d]``
   **f32** whatever the compute dtype, as the JAX chunk kernels store it: x
   and w are rounded to the compute dtype and the products summed in f32.
 * SDDMM: per-edge ``e = <xa[row_e], xb[col_e]>``, ``[E]`` f32 in CSR order,
-  of compute-dtype operands.  The kernel writes each score to its edge
+  of compute-dtype operands.  The kernel writes the scores in CSR order
   directly, so the layout's ``edge_perm`` is not needed on the device.
 
 A CUDA tensor runs the kernel (or raises); a CPU tensor runs the plain
 version (``*_torch``: ``index_add_`` over the slots, and per-slot dots, in
-slabs of at most ``PLAIN_SLAB_EDGES`` slots so that no ``[E, d]`` array is
+slabs of at most ``SLAB_SLOTS`` slots so that no ``[E, d]`` array is
 formed).  Each of the two wrappers counts its ``launches`` and
 ``plain_calls``.
 """
@@ -31,26 +34,9 @@ from tcgnn_tpu_torch.ops import _kernels
 from tcgnn_tpu_torch.ops.spmm import FEAT_KIND
 from tcgnn_tpu_torch.sgt.translate import TorchChunkMeta
 
-PLAIN_SLAB_EDGES = 1 << 22
 
-
-def _slot_slabs(meta: TorchChunkMeta):
-    """Each slab of real slots: their output rows, source rows and edge ids
-    (int64), at most ``PLAIN_SLAB_EDGES`` slots a slab."""
-    cfg = meta.config
-    blk_h, blk_w = cfg.blk_h, cfg.blk_w
-    per = max(1, PLAIN_SLAB_EDGES // cfg.edge_chunk)
-    for s, nc in enumerate(meta.seg_chunks.tolist()):
-        col_ids = meta.seg_col_ids[s].long()
-        for c0 in range(0, nc, per):
-            c1 = min(c0 + per, nc)
-            r = meta.seg_r[s, c0:c1].long()
-            real = r < blk_h
-            win = meta.seg_window[s, c0:c1, None].long().expand_as(r)[real]
-            blk = meta.seg_block[s, c0:c1, None].long().expand_as(r)[real]
-            rows = (s * meta.wseg + win) * blk_h + r[real]
-            src = col_ids[blk * blk_w + meta.seg_c[s, c0:c1].long()[real]]
-            yield rows, src, meta.seg_edge_id[s, c0:c1].long()[real]
+# The plain versions walk the layout's slots.
+_slot_slabs = TorchChunkMeta.slot_slabs
 
 
 def spmm_tc_torch(
@@ -94,42 +80,34 @@ def _check_chunk_operands(op: str, x: torch.Tensor, meta: TorchChunkMeta) -> Non
     _kernels.check_operands(
         op, x.device, seg_col_ids=meta.seg_col_ids, seg_r=meta.seg_r, seg_c=meta.seg_c,
         seg_edge_id=meta.seg_edge_id, seg_block=meta.seg_block, seg_window=meta.seg_window,
-        seg_chunks=meta.seg_chunks,
+        seg_chunks=meta.seg_chunks, row_src=meta.row_src,
     )
-    if x.numel() >= 2**31 or meta.seg_col_ids.shape[1] >= 2**31:
-        raise ValueError(f"{op}: x or a segment's col_ids has 2**31 elements or more")
-
-
-def _layout_args(meta: TorchChunkMeta):
-    """The kernels' layout arguments, after the pointers."""
-    return (meta.num_segments, meta.max_chunks, meta.config.edge_chunk, meta.wseg,
-            meta.config.blk_h, meta.config.blk_w, meta.seg_col_ids.shape[1])
-
-
-def _layout_ptrs(meta: TorchChunkMeta):
-    return (meta.seg_col_ids.data_ptr(), meta.seg_r.data_ptr(), meta.seg_c.data_ptr(),
-            meta.seg_edge_id.data_ptr(), meta.seg_block.data_ptr(),
-            meta.seg_window.data_ptr(), meta.seg_chunks.data_ptr())
+    rp = meta.row_ptr
+    if rp.device != x.device or rp.dtype != torch.int64 or not rp.is_contiguous():
+        raise ValueError(f"{op}: row_ptr must be contiguous int64 on {x.device}, "
+                         f"got {rp.dtype} on {rp.device}")
+    if x.numel() >= 2**31:
+        raise ValueError(f"{op}: x has 2**31 elements or more")
 
 
 def _spmm_cuda(x, meta, edge_weights):
     _check_chunk_operands("spmm_tc", x, meta)
     ct = meta.config.compute_dtype
     n, d = x.shape
+    # Zeroed: rows cut between the kernel's warps are added with atomics.
     out = torch.zeros((n, d), dtype=torch.float32, device=x.device)
     if n == 0 or d == 0 or meta.num_edges == 0:
         return out
-    x = x.to(ct).contiguous()
+    if x.dtype != ct or not x.is_contiguous():
+        x = x.to(ct).contiguous()
     w = None if edge_weights is None else edge_weights.float().contiguous()
     if w is not None and w.device != x.device:
         raise ValueError(f"spmm_tc: edge_weights on {w.device}, features on {x.device}")
-    lib = _kernels.load("chunk")
-    with torch.cuda.device(x.device):
-        err = lib.tcgnn_spmm_chunk(
-            x.data_ptr(), None if w is None else w.data_ptr(), *_layout_ptrs(meta),
-            out.data_ptr(), n, d, *_layout_args(meta), FEAT_KIND[ct], _kernels.stream_of(x),
-        )
-    _kernels.check(lib, err, "spmm_chunk")
+    _kernels.call(
+        "chunk", "tcgnn_spmm_chunk", x.device, x.data_ptr(),
+        None if w is None else w.data_ptr(), meta.row_ptr.data_ptr(), meta.row_src.data_ptr(),
+        out.data_ptr(), n, d, meta.num_edges, FEAT_KIND[ct], _kernels.stream_of(x),
+    )
     spmm_tc.launches += 1
     return out
 
@@ -137,19 +115,18 @@ def _spmm_cuda(x, meta, edge_weights):
 def _sddmm_cuda(xa, xb, meta):
     _check_chunk_operands("sddmm_tc", xa, meta)
     ct = meta.config.compute_dtype
-    d = xa.shape[1]
+    n, d = xa.shape
     if meta.num_edges == 0 or d == 0:
         return torch.zeros(meta.num_edges, dtype=torch.float32, device=xa.device)
-    a = xa.to(ct).contiguous()
-    b = a if xb is None else xb.to(ct).contiguous()
+    a = xa if xa.dtype == ct and xa.is_contiguous() else xa.to(ct).contiguous()
+    b = a if xb is None else (xb if xb.dtype == ct and xb.is_contiguous()
+                              else xb.to(ct).contiguous())
     out = torch.empty(meta.num_edges, dtype=torch.float32, device=xa.device)
-    lib = _kernels.load("chunk")
-    with torch.cuda.device(xa.device):
-        err = lib.tcgnn_sddmm_chunk(
-            a.data_ptr(), b.data_ptr(), *_layout_ptrs(meta), out.data_ptr(), d,
-            *_layout_args(meta), FEAT_KIND[ct], _kernels.stream_of(xa),
-        )
-    _kernels.check(lib, err, "sddmm_chunk")
+    _kernels.call(
+        "chunk", "tcgnn_sddmm_chunk", xa.device, a.data_ptr(), b.data_ptr(),
+        meta.row_ptr.data_ptr(), meta.row_src.data_ptr(), out.data_ptr(), n, d, meta.num_edges,
+        FEAT_KIND[ct], _kernels.stream_of(xa),
+    )
     sddmm_tc.launches += 1
     return out
 

@@ -12,9 +12,10 @@ The two per-segment ceilings are a TPU's: the chunk kernels there prefetch
 their per-chunk scalars into SMEM (``MAX_PREFETCH_CHUNKS``) and gather a
 segment's condensed slab ``x[col_ids]`` into HBM (``MAX_SLAB_ROWS``).  They
 are kept at the JAX values so that both packages stream the same graphs
-(reddit) and report the same ``streamed``.  On the card the segments are a
-grid axis of one kernel launch (``ops/chunk.py``), not a loop of S launches,
-and no slab is formed: the kernels gather rows of x themselves.
+(reddit) and report the same ``streamed``.  On the card the kernels read the
+CSR row index derived from the segments when they are uploaded
+(``TorchChunkMeta.row_ptr``, ``row_src``), one launch for all of them, and no
+slab is formed: the kernels gather rows of x themselves.
 """
 
 from __future__ import annotations

@@ -12,9 +12,10 @@ column ``rank_w(c)``, i.e. TC block ``rank // blk_w``, in-block column
 each TC block's edges, in CSR order, padded to a multiple of
 ``config.edge_chunk`` slots (``chunk_r`` / ``chunk_c`` / ``chunk_edge_id``
 per slot, the owning block and window per chunk, and ``edge_perm``, each
-edge's slot).  ``SGTMeta.to_chunks(device)`` uploads what the chunk kernels
-(K8, K9) read, as a stack of one segment (``TorchChunkMeta``; the streamed
-route's segments, ``sgt/stream.py``, are the same layout with more).
+edge's slot).  ``SGTMeta.to_chunks(device)`` uploads the layout as a stack
+of one segment (``TorchChunkMeta``; the streamed route's segments,
+``sgt/stream.py``, are the same layout with more), with the CSR row index
+derived from it that the chunk kernels (K8, K9) read.
 
 The JAX package's native C++ pass is not carried over: the NumPy pass gives
 the same arrays.
@@ -110,12 +111,18 @@ class TorchSGTMeta:
         object.__setattr__(self, "kernel_device", dev if ok else None)
 
 
+# Slots a slab of ``TorchChunkMeta.slot_slabs`` holds at most: the index
+# build and the plain versions form no array of all of reddit's 131 M slots.
+SLAB_SLOTS = 1 << 22
+
+
 @dataclasses.dataclass(frozen=True)
 class TorchChunkMeta:
-    """Device-side chunk layout that the chunk kernels (K8, K9) and their
-    plain versions read: S window segments of ``wseg`` windows each, every
-    segment padded to ``max_chunks`` chunks of EC = ``config.edge_chunk``
-    slots.  The chunk route's flat layout is one segment (``wseg`` = W).
+    """Device-side chunk layout that the plain versions of the chunk kernels
+    (K8, K9) read, and the CSR row index the kernels read: S window segments
+    of ``wseg`` windows each, every segment padded to ``max_chunks`` chunks
+    of EC = ``config.edge_chunk`` slots.  The chunk route's flat layout is
+    one segment (``wseg`` = W).
 
     Chunk ``i`` of segment ``s`` belongs to TC block ``seg_block[s, i]`` and
     window ``seg_window[s, i]``, both segment-relative; slot ``k`` holds the
@@ -124,6 +131,11 @@ class TorchChunkMeta:
     source row is ``seg_col_ids[s, seg_block[s, i] * blk_w + seg_c[s, i, k]]``.
     A padding slot has row ``blk_h`` and edge ``num_edges``; chunks from
     ``seg_chunks[s]`` on are padding chunks, all of padding slots.
+
+    ``row_ptr`` and ``row_src`` are the same edges in CSR order, derived from
+    the slots by ``upload``: row ``r``'s edges are ``[row_ptr[r],
+    row_ptr[r + 1])`` and edge ``e``'s source row is ``row_src[e]``, the CSR
+    the layout was built from, bit for bit.
     """
 
     config: TileConfig
@@ -141,16 +153,19 @@ class TorchChunkMeta:
     seg_block: torch.Tensor  # [S, C_max] int32
     seg_window: torch.Tensor  # [S, C_max] int32
     seg_chunks: torch.Tensor  # [S] int32
+    row_ptr: Optional[torch.Tensor] = None  # [N + 1] int64
+    row_src: Optional[torch.Tensor] = None  # [E] int32
 
     @classmethod
     def upload(cls, config, num_nodes, num_edges, num_windows, wseg, seg_col_ids, seg_r, seg_c,
                seg_edge_id, seg_block, seg_window, seg_chunks, device) -> "TorchChunkMeta":
-        """From host arrays of the stacked layout."""
+        """From host arrays of the stacked layout; the row index is derived
+        on ``device``."""
 
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
-        return cls(
+        meta = cls(
             config=config, num_nodes=int(num_nodes), num_edges=int(num_edges),
             num_windows=int(num_windows), wseg=int(wseg), num_segments=int(seg_r.shape[0]),
             max_chunks=int(seg_r.shape[1]), num_real_chunks=int(np.sum(seg_chunks)),
@@ -158,6 +173,43 @@ class TorchChunkMeta:
             seg_edge_id=dev(seg_edge_id), seg_block=dev(seg_block),
             seg_window=dev(seg_window), seg_chunks=dev(seg_chunks),
         )
+        return dataclasses.replace(meta, **meta.row_index())
+
+    def slot_slabs(self):
+        """Each slab of real slots, segment by segment: their output rows,
+        source rows and edge ids (int64), at most ``SLAB_SLOTS`` slots a
+        slab."""
+        cfg = self.config
+        blk_h, blk_w = cfg.blk_h, cfg.blk_w
+        per = max(1, SLAB_SLOTS // cfg.edge_chunk)
+        for s, nc in enumerate(self.seg_chunks.tolist()):
+            col_ids = self.seg_col_ids[s].long()
+            for c0 in range(0, nc, per):
+                c1 = min(c0 + per, nc)
+                r = self.seg_r[s, c0:c1].long()
+                real = r < blk_h
+                win = self.seg_window[s, c0:c1, None].long().expand_as(r)[real]
+                blk = self.seg_block[s, c0:c1, None].long().expand_as(r)[real]
+                rows = (s * self.wseg + win) * blk_h + r[real]
+                src = col_ids[blk * blk_w + self.seg_c[s, c0:c1].long()[real]]
+                yield rows, src, self.seg_edge_id[s, c0:c1].long()[real]
+
+    def row_index(self) -> dict:
+        """``row_ptr`` and ``row_src`` from the slots, on their device: the
+        real slots counted by output row, and each edge's source row
+        scattered to its edge id, a slab at a time."""
+        dev = self.seg_r.device
+        counts = torch.zeros(self.num_nodes, dtype=torch.int64, device=dev)
+        row_src = torch.empty(self.num_edges, dtype=torch.int32, device=dev)
+        for rows, src, eid in self.slot_slabs():
+            counts += torch.bincount(rows, minlength=self.num_nodes)
+            row_src[eid] = src.to(torch.int32)
+        row_ptr = torch.zeros(self.num_nodes + 1, dtype=torch.int64, device=dev)
+        row_ptr[1:] = torch.cumsum(counts, 0)
+        if int(row_ptr[-1]) != self.num_edges:
+            raise ValueError(f"chunk layout holds {int(row_ptr[-1])} edges, "
+                             f"expected {self.num_edges}")
+        return {"row_ptr": row_ptr, "row_src": row_src}
 
 
 @dataclasses.dataclass

@@ -241,11 +241,68 @@ def test_graph_ops_and_grads_match_jax(kind, dtype, streamed):
     close(wt.grad, want[1][1], tol)
 
 
+def assert_row_index(meta, rp, ci):
+    """``meta``'s row index is the CSR (rp, ci), bit for bit."""
+    assert meta.row_ptr.dtype == torch.int64 and meta.row_src.dtype == torch.int32
+    assert meta.row_ptr.device == meta.seg_r.device == meta.row_src.device
+    np.testing.assert_array_equal(meta.row_ptr.numpy(), np.asarray(rp, np.int64))
+    np.testing.assert_array_equal(meta.row_src.numpy(), np.asarray(ci, np.int32))
+
+
+# (blk_h, blk_w, edge_chunk) of the row-index tests: the reference GPU
+# geometry and the default.
+INDEX_GEOMETRIES = {"16x8": (16, 8, 32), "512x128": (512, 128, 128)}
+
+
+@pytest.mark.parametrize("kind", ["duplicates", "empty_windows", "asymmetric"])
+@pytest.mark.parametrize("geometry", list(INDEX_GEOMETRIES))
+@pytest.mark.parametrize("layout", ["flat", "streamed"])
+@pytest.mark.parametrize("direction", ["forward", "transpose"])
+def test_row_index_is_the_csr(kind, geometry, layout, direction):
+    """``row_ptr``/``row_src``, derived from the uploaded slots, equal the
+    CSR the layout was built from: the graph's, or its transpose's."""
+    n, rp, ci = edges(kind)
+    if direction == "transpose":
+        rp, ci, _ = port_sgt.transpose_csr(rp, ci, n)
+    bh, bw, ec = INDEX_GEOMETRIES[geometry]
+    host = port_sgt.sparse_graph_translate(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw,
+                                                                 edge_chunk=ec),
+                                           emit_chunks=True)
+    if layout == "flat":
+        meta = host.to_chunks("cpu")
+    else:
+        segs = port_stream.segment_chunks(host, num_segments=3)
+        assert segs.num_segments == min(3, host.num_windows)
+        meta = segs.to("cpu")
+    assert_row_index(meta, rp, ci)
+
+
+@pytest.mark.parametrize("layout", ["flat", "streamed"])
+def test_row_index_is_built_a_slab_at_a_time(monkeypatch, layout):
+    """Slabs of 3 chunks (against 2**22 slots): the index comes out the same
+    from many slabs in each segment."""
+    n, rp, ci = edges("dense_block")
+    cfg, _ = configs("16x8")
+    host = port_sgt.sparse_graph_translate(rp, ci, n, cfg, emit_chunks=True)
+    monkeypatch.setattr(port_sgt, "SLAB_SLOTS", 3 * cfg.edge_chunk)
+    meta = (host.to_chunks("cpu") if layout == "flat"
+            else port_stream.segment_chunks(host, num_segments=4).to("cpu"))
+    assert host.num_chunks > 4 * 3
+    assert_row_index(meta, rp, ci)
+
+
 def test_chunk_route_uploads_only_the_chunks():
     n, g, jg = chunk_graphs("asymmetric")
     assert g.meta is None and g.a_struct is None and g.bd is None
     assert g.host_meta is None and g.host_meta_t is None
     assert g.chunks is not g.chunks_t and g.chunks.num_segments == 1
+    # The kernels' row index: the graph's CSR forward, its transpose's
+    # backward (whose edge order t_edge_src follows).
+    _, rp, ci = edges("asymmetric")
+    t_ptr, t_idx, t_src = port_sgt.transpose_csr(rp, ci, n)
+    assert_row_index(g.chunks, rp, ci)
+    assert_row_index(g.chunks_t, t_ptr, t_idx)
+    np.testing.assert_array_equal(g.t_edge_src.numpy(), t_src)
     assert (g.tc_blocks, g.exp_edges) == (jg.tc_blocks, jg.exp_edges) and g.tc_blocks > 0
     x = torch.from_numpy(features(n, 8, 1)).requires_grad_(True)
     reset_counts()

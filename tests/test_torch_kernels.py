@@ -23,6 +23,7 @@ tolerance and bf16 tiles one bf16 unit (``rtol=8e-3``).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -464,34 +465,59 @@ def test_bd_autograd_on_card_matches_cpu(cuda, kind, model):
 # ---- K8 and K9: the chunk and streamed routes ---------------------------------
 
 CHUNK_GEOMETRIES = [(16, 8, 32), (32, 32, 32), (512, 128, 128)]
+CHUNK_KINDS = ["hub", "empty_and_partial_windows", "duplicates_over_127", "directed",
+               "empty_rows"]
 
 
-def chunk_layouts(kind, geometry, dtype, dev):
-    """A graph's chunk layout, flat and cut into several window segments by
-    small budgets (one wrapper each takes both)."""
-    n, rp, ci = graph(kind)
+def chunk_graph(kind):
+    """``graph(kind)``, and two graphs for the kernels' edge ranges
+    (``edges_per_warp`` in ``csrc/chunk.cu``: a few dozen edges a warp on
+    small graphs, 512 from 4.3 M edges): two edges in every eighth row, so a
+    warp's range spans more than 32 rows (row ends are read 32 at a time);
+    and 4.5 M edges with node 0's 6,000 in a row that spans 12 ranges of 512
+    (cut rows are added with atomics)."""
+    rng = np.random.default_rng(17)
+    if kind == "empty_rows":
+        n = 3000
+        src = np.repeat(np.arange(0, n, 8), 2)
+        dst = rng.integers(0, n, len(src))
+    elif kind == "long_hub":
+        n = 100_000
+        src, dst = rng.integers(0, n, (2, 4_500_000))
+        src = np.concatenate([src, np.zeros(6000, np.int64)])
+        dst = np.concatenate([dst, rng.integers(1, n, 6000)])
+    else:
+        return graph(kind)
+    return (n, *coo_to_csr(src, dst, n))
+
+
+@functools.lru_cache(maxsize=4)
+def _chunk_layouts(kind, geometry, dev):
+    n, rp, ci = chunk_graph(kind)
     bh, bw, ec = geometry
-    host = sparse_graph_translate(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw, compute_dtype=dtype,
-                                                        edge_chunk=ec), emit_chunks=True)
+    host = sparse_graph_translate(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw, edge_chunk=ec),
+                                  emit_chunks=True)
     segs = segment_chunks(host, max_chunks=max(host.num_chunks // 3, 1),
                           max_slab_rows=max(host.num_blocks * bw // 3, bw))
     return n, rp, ci, {"flat": host.to_chunks(dev), "segments": segs.to(dev)}
 
 
-@pytest.mark.parametrize("kind", ["hub", "empty_and_partial_windows", "duplicates_over_127",
-                                  "directed"])
-@pytest.mark.parametrize("geometry", CHUNK_GEOMETRIES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [3, 16, 41, 70, 200])
-@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
-def test_chunk_spmm_kernel_matches_plain(cuda, kind, geometry, dtype, d, weighted):
+def chunk_layouts(kind, geometry, dtype, dev):
+    """A graph's chunk layout, flat and cut into several window segments by
+    small budgets (one wrapper each takes both), in compute dtype ``dtype``."""
+    n, rp, ci, layouts = _chunk_layouts(kind, geometry, dev)
+    return n, rp, ci, {name: dataclasses.replace(m, config=dataclasses.replace(
+        m.config, compute_dtype=dtype)) for name, m in layouts.items()}
+
+
+def check_chunk_spmm(kind, geometry, dtype, d, weighted, dev):
     """K8 on the flat layout and on window segments: f32 output under bf16
     too, so the f32 tolerance holds for both."""
-    n, rp, ci, layouts = chunk_layouts(kind, geometry, dtype, cuda)
-    x = randn((n, d), d, cuda)
-    w = randn((len(ci),), 1, cuda) if weighted else None
+    n, rp, ci, layouts = chunk_layouts(kind, geometry, dtype, dev)
+    x = randn((n, d), d, dev)
+    w = randn((len(ci),), 1, dev) if weighted else None
     wa = None if w is None else w.to(dtype).double().abs()
-    mag = spmm_ref(x.to(dtype).double().abs(), *csr(rp, ci, cuda), wa)
+    mag = spmm_ref(x.to(dtype).double().abs(), *csr(rp, ci, dev), wa)
     for meta in layouts.values():
         before = spmm_tc.launches
         got = spmm_tc(x, meta, w)
@@ -500,24 +526,53 @@ def test_chunk_spmm_kernel_matches_plain(cuda, kind, geometry, dtype, d, weighte
         within(got, spmm_tc_torch(x, meta, w), mag, **F32)
 
 
-@pytest.mark.parametrize("kind", ["hub", "empty_and_partial_windows", "duplicates_over_127",
-                                  "directed"])
-@pytest.mark.parametrize("geometry", CHUNK_GEOMETRIES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [3, 5, 32, 70])
-@pytest.mark.parametrize("two", [False, True], ids=["one_matrix", "two_matrices"])
-def test_chunk_sddmm_kernel_matches_plain(cuda, kind, geometry, dtype, d, two):
-    n, rp, ci, layouts = chunk_layouts(kind, geometry, dtype, cuda)
-    xa, xb = randn((n, d), d, cuda), randn((n, d), d + 1, cuda) if two else None
+def check_chunk_sddmm(kind, geometry, dtype, d, two, dev):
+    n, rp, ci, layouts = chunk_layouts(kind, geometry, dtype, dev)
+    xa, xb = randn((n, d), d, dev), randn((n, d), d + 1, dev) if two else None
     a = xa.to(dtype).double()
     b = a if xb is None else xb.to(dtype).double()
-    mag = sddmm_ref(a.abs(), *csr(rp, ci, cuda), b.abs())
+    mag = sddmm_ref(a.abs(), *csr(rp, ci, dev), b.abs())
     for meta in layouts.values():
         before = sddmm_tc.launches
         got = sddmm_tc(xa, meta, xb)
         torch.cuda.synchronize()
         assert sddmm_tc.launches == before + 1 and got.shape == (len(ci),)
         within(got, sddmm_tc_torch(xa, meta, xb), mag, **F32)
+
+
+# The widths the kernels branch on: lane groups of 4 to 32 lanes (d <= 128,
+# aligned or not), K8's 128-column d-tiles and K9's passes of 512 columns
+# (reddit's 602).
+@pytest.mark.parametrize("kind", CHUNK_KINDS)
+@pytest.mark.parametrize("geometry", CHUNK_GEOMETRIES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [3, 16, 41, 70, 130, 200, 602])
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+def test_chunk_spmm_kernel_matches_plain(cuda, kind, geometry, dtype, d, weighted):
+    check_chunk_spmm(kind, geometry, dtype, d, weighted, cuda)
+
+
+@pytest.mark.parametrize("kind", CHUNK_KINDS)
+@pytest.mark.parametrize("geometry", CHUNK_GEOMETRIES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [3, 5, 16, 32, 41, 70, 130, 602])
+@pytest.mark.parametrize("two", [False, True], ids=["one_matrix", "two_matrices"])
+def test_chunk_sddmm_kernel_matches_plain(cuda, kind, geometry, dtype, d, two):
+    check_chunk_sddmm(kind, geometry, dtype, d, two, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [3, 16, 41, 130])
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+def test_chunk_spmm_kernel_on_a_long_hub(cuda, dtype, d, weighted):
+    check_chunk_spmm("long_hub", (512, 128, 128), dtype, d, weighted, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [3, 16, 41, 130])
+@pytest.mark.parametrize("two", [False, True], ids=["one_matrix", "two_matrices"])
+def test_chunk_sddmm_kernel_on_a_long_hub(cuda, dtype, d, two):
+    check_chunk_sddmm("long_hub", (512, 128, 128), dtype, d, two, cuda)
 
 
 @pytest.mark.parametrize("streamed", [False, True], ids=["chunk", "streamed"])
@@ -559,6 +614,12 @@ def test_chunk_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="no kernel for compute dtype"):
         sddmm_tc(x, dataclasses.replace(meta, config=dataclasses.replace(
             meta.config, compute_dtype=torch.float16)))
+    with pytest.raises(ValueError, match="row_ptr must be contiguous int64"):
+        spmm_tc(x, dataclasses.replace(meta, row_ptr=meta.row_ptr.cpu()))
+    with pytest.raises(ValueError, match="row_ptr must be contiguous int64"):
+        sddmm_tc(x, dataclasses.replace(meta, row_ptr=meta.row_ptr.int()))
+    with pytest.raises(TypeError, match="row_src must be int32"):
+        spmm_tc(x, dataclasses.replace(meta, row_src=meta.row_src.long()))
 
 
 # ---- the distributed dense-tile route: K10, K3's overrides, K4's tile mode ----
