@@ -6,7 +6,8 @@ Run from the repository root:  python3 chip_smoke.py
 ``python3 chip_smoke.py --ab DIR`` runs none of the phases below: it builds
 another commit's ``spmm_bd.cu``, ``spmm_dense.cu`` and ``chunk.cu``, those
 of them DIR holds, beside the tree's and times the kernels of the two in
-turns (K5; K1 and K10; K8 and K9 on pubmed and reddit) (``ab_main``).
+turns (K5, K6 and K7 on DD; K1 and K10; K8 and K9 on pubmed and reddit)
+(``ab_main``).
 
 Phases, in order; any failure raises and exits nonzero:
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
@@ -22,18 +23,19 @@ Phases, in order; any failure raises and exits nonzero:
      plain version and CSR oracle, on the asymmetric graph;
   5. K2, K3 and K4 against their plain versions and f64 CSR oracles:
      pubmed at 512x128 and 16x8, d in {32, 3} (AGNN's hidden and class
-     widths), f32 and bf16, K2's value operand shared and separate; K4 on
-     the asymmetric graph too;
+     widths) and 200 (K2/K3's wide path), f32 and bf16, K2's value operand
+     shared and separate; K4 on the asymmetric graph too;
   6. autograd of the AGNN ops, forward and backward, against f64 oracles:
      ``agnn_aggregate`` (K2/K3, gradient of the attention weights included)
      on pubmed, and the weighted SpMM and SDDMM (K1/K4) on the asymmetric
      graph;
   7. K5, K6 and K7 against their plain versions and the f64 oracles of the
      covered edges: DD's pack (301 MB) with K5 at d in {2, 16, 89} and over
-     a weighted pack, K6 (every operand-sharing case) and K7 at d in
-     {32, 2}, f32 and bf16; K5 over Yeast's pack (659 MB, fully covered) at
-     d=2, over an int16 pack (a union graph with a duplicate count above
-     127) and over a banded graph's transpose pack;
+     a weighted pack, K6 (every operand-sharing case) and K7 over the
+     pack's row index at d in {32, 2}, and at 200 (the wide path; K6 with
+     one operand and with three), f32 and bf16; K5 over Yeast's pack (659
+     MB, fully covered) at d=2, over an int16 pack (a union graph with a
+     duplicate count above 127) and over a banded graph's transpose pack;
   8. autograd on the block-diagonal route against f64 oracles: ``spmm``,
      ``agnn_aggregate`` (attention gradient included), ``spmm_weighted``
      and ``sddmm`` on DD and on the asymmetric banded graph;
@@ -152,7 +154,9 @@ from tcgnn_tpu_torch.ops import (
     spmm_tc_dense_torch,
     spmm_tc_torch,
 )
+from tcgnn_tpu_torch.ops.blockdiag import PACK_KIND, _offsets_arg, bd_row_index
 from tcgnn_tpu_torch.ops.reference import sddmm_ref, sfused_bwd_ref, sfused_ref, spmm_ref
+from tcgnn_tpu_torch.ops.spmm import FEAT_KIND
 from tcgnn_tpu_torch.parallel import distributed_graph_from_dataset, make_mesh
 from tcgnn_tpu_torch.sgt.blockdiag import extract_block_diag
 from tcgnn_tpu_torch.sgt.stream import segment_chunks
@@ -387,7 +391,7 @@ def check_sddmm(tag, xa, xb, meta, csr, ab, errs):
 
 
 def phase_agnn_kernels(ds, dev) -> dict:
-    """Phase 5.  Returns, per kernel, the f32 max abs error of each case
+    """Phase 5 (d=200: K2/K3's wide path).  Returns, per kernel, the f32 max abs error of each case
     against the plain version."""
     errs = {"K2": {}, "K3": {}, "K4": {}}
     csr = Csr(ds.row_pointers, ds.column_index, dev)
@@ -395,7 +399,7 @@ def phase_agnn_kernels(ds, dev) -> dict:
         host = sparse_graph_translate(ds.row_pointers, ds.column_index, ds.num_nodes,
                                       TileConfig(blk_h=bh, blk_w=bw), build_tiles=True)
         meta, tiles = host.to(dev), torch.from_numpy(host.a_tiles).to(dev)
-        for d in (32, 3):
+        for d in (32, 3, 200):
             check_agnn_kernels(f"pubmed {geo}", meta, tiles, csr, d, dev, errs)
     n, rp, ci = asymmetric_graph()
     csr = Csr(rp, ci, dev)
@@ -523,20 +527,22 @@ def check_bd_spmm(name, x, pack, offsets, csr, errs, w=None, pack_bf16=None):
             spmm_block_diag_torch(x, pb, offsets=offsets, cfg=bf16), mag, BF16_TOL)
 
 
-def check_bd_agnn_kernels(name, pack, offsets, csr, d, dev, errs):
-    """K6 (every operand-sharing case) and K7 at width d, f32 and bf16,
-    against the plain versions and, in f32, the f64 oracles of the covered
+def check_bd_agnn_kernels(name, pack, offsets, index, csr, d, dev, errs, sharing=None):
+    """K6 over the pack's row index ``index`` (the operand-sharing cases
+    ``sharing``, all by default) and K7 at width d, f32 and bf16, against
+    the plain versions and, in f32, the f64 oracles of the covered
     edges."""
     n = csr.ptr.shape[0] - 1
     ptr, idx = csr.ptr, csr.idx
     xl, xr, xv = (randn((n, d), 60 + i, dev) * 0.3 for i in range(3))
     cases = {"all one": (xl, xl, xl), "xl is xr": (xl, xl, xv), "xl is xv": (xl, xr, xl),
              "xv is xr": (xl, xr, xr), "separate": (xl, xr, xv)}
+    cases = {k: v for k, v in cases.items() if sharing is None or k in sharing}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         cfg, tag = TileConfig(compute_dtype=dtype), f"{name} d={d} {str(dtype)[6:]}"
         ab = {id(t): t.to(dtype).double() for t in (xl, xr, xv)}  # compute-dtype operands
         for case, ops in cases.items():
-            got = bd_sfused(*ops, pack, offsets=offsets, cfg=cfg)
+            got = bd_sfused(*ops, pack, offsets=offsets, cfg=cfg, index=index)
             o64 = [ab[id(t)] for t in ops]
             mag = sfused_ref(*(t.abs() for t in o64), ptr, idx)
             err = compare(f"K6 {tag} {case} vs plain", got,
@@ -545,7 +551,7 @@ def check_bd_agnn_kernels(name, pack, offsets, csr, d, dev, errs):
                 errs["K6"][f"{tag} {case}"] = err
                 compare(f"K6 {tag} {case} vs CSR oracle (f64)", got, sfused_ref(*o64, ptr, idx),
                         mag, tol)
-        dx3, u = bd_sfused_bwd(xl, xr, pack, offsets=offsets, cfg=cfg)
+        dx3, u = bd_sfused_bwd(xl, xr, pack, offsets=offsets, cfg=cfg, index=index)
         p_dx3, p_u = bd_sfused_bwd_torch(xl, xr, pack, offsets=offsets, cfg=cfg)
         x64, dy64 = ab[id(xl)], ab[id(xr)]
         mag_dx3, mag_u = sfused_bwd_ref(x64.abs(), dy64.abs(), ptr, idx)
@@ -589,9 +595,19 @@ def phase_bd_kernels(dd, dev) -> dict:
     check_bd_spmm("DD weighted d=16", randn((n, 16), 73, dev), weighted[torch.float32], m.offsets,
                   cov, errs["K5"], w=w, pack_bf16=weighted[torch.bfloat16])
     del weighted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = bd_row_index(pack, m.offsets, n)
+    torch.cuda.synchronize()
+    print(f"DD row index: {index.nnz} nonzeros, "
+          f"{nbytes(index.row_ptr, index.cols, index.vals) / 2**20:.1f} MiB, built in "
+          f"{time.perf_counter() - t0:.3f} s")
     for d in (32, 2):
-        check_bd_agnn_kernels("DD", pack, m.offsets, cov, d, dev, errs)
-    del pack
+        check_bd_agnn_kernels("DD", pack, m.offsets, index, cov, d, dev, errs)
+    # The wide path (d > 128), two of the sharing cases.
+    check_bd_agnn_kernels("DD", pack, m.offsets, index, cov, 200, dev, errs,
+                          sharing=("all one", "separate"))
+    del pack, index
 
     # Yeast's fully covered pack (659 MB), at the width of its GCN epoch.
     yeast = synthesize("Yeast", 74, 2)
@@ -1090,6 +1106,7 @@ def phase_bd_timing(dd, dev) -> tuple[dict, dict]:
     times, records = {}, {}
     g = TiledGraph(dd.row_pointers, dd.column_index, dd.num_nodes, TileConfig(), device=dev)
     p, offs, cfg, n = g.bd.pack, g.bd_offsets, TileConfig(), dd.num_nodes
+    index = g.bd.row_index
     cov = covered_csr(dd.row_pointers, dd.column_index,
                       extract_block_diag(dd.row_pointers, dd.column_index, n), dev)
     nnz = cov.idx.numel()  # the covered edges: the work K5-K7 do
@@ -1106,10 +1123,10 @@ def phase_bd_timing(dd, dev) -> tuple[dict, dict]:
     for d in (32, 2):
         x, dy = randn((n, d), 500 + d, dev) * 0.3, randn((n, d), 600, dev)
         times[("K6", "DD", d)] = timed_pair(
-            lambda: bd_sfused(x, x, x, p, offsets=offs, cfg=cfg),
+            lambda: bd_sfused(x, x, x, p, offsets=offs, cfg=cfg, index=index),
             lambda: bd_sfused_torch(x, x, x, p, offsets=offs, cfg=cfg))
         times[("K7", "DD", d)] = timed_pair(
-            lambda: bd_sfused_bwd(x, dy, p, offsets=offs, cfg=cfg),
+            lambda: bd_sfused_bwd(x, dy, p, offsets=offs, cfg=cfg, index=index),
             lambda: bd_sfused_bwd_torch(x, dy, p, offsets=offs, cfg=cfg))
         if d == 32:
             records["K6"] = record(*times[("K6", "DD", d)],
@@ -1418,6 +1435,14 @@ AB_FUNCTIONS = {"spmm_bd": ("tcgnn_spmm_bd",),
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SLOT_WALK_SIGNATURES = {"tcgnn_spmm_chunk": [_P] * 10 + [_I] * 10 + [_P],
                         "tcgnn_sddmm_chunk": [_P] * 10 + [_I] * 9 + [_P]}
+# spmm_bd.cu's interface before the row index (K6 and K7 walking the pack),
+# which the other side of a K6/K7 A/B is called through: K5's as the tree's;
+# K6 xl, xr, xv, pack, offsets, out and K7 x, dy, pack, offsets, dx3, u;
+# then n, d, k, bn, feat_kind, pack_kind; the stream.
+PACK_WALK_SIGNATURES = {"tcgnn_spmm_bd": _kernels.SIGNATURES["spmm_bd"]["tcgnn_spmm_bd"],
+                        "tcgnn_bd_sfused": [_P] * 6 + [_I] * 6 + [_P],
+                        "tcgnn_bd_sfused_bwd": [_P] * 6 + [_I] * 6 + [_P]}
+OTHER_SIGNATURES = {"chunk": SLOT_WALK_SIGNATURES, "spmm_bd": PACK_WALK_SIGNATURES}
 
 
 def build_other(name, src_dir, signatures) -> ctypes.CDLL:
@@ -1442,11 +1467,10 @@ def build_other(name, src_dir, signatures) -> ctypes.CDLL:
 
 
 def use_libraries(libs) -> None:
-    """Point the wrappers' launches at ``libs`` (name -> library) for the
-    sources of AB_FUNCTIONS."""
+    """Point the wrappers' launches of the functions of AB_FUNCTIONS at
+    ``libs`` (name -> library)."""
     for name, lib in libs.items():
         if name in AB_FUNCTIONS:
-            _kernels._loaded[name] = lib
             for fn in AB_FUNCTIONS[name]:
                 _kernels._functions[(name, fn)] = getattr(lib, fn)
 
@@ -1479,6 +1503,70 @@ def slot_walk_sddmm(lib, x, m):
                                 *sizes, 0, _kernels.stream_of(x))
     _kernels.check(lib, err, "slot-walk sddmm_chunk")
     return out
+
+
+def pack_walk_args(x, pack, offs, cfg):
+    """K6/K7's int arguments and stream in the pack-walk interface."""
+    return (x.shape[0], x.shape[1], len(offs), pack.shape[1], FEAT_KIND[cfg.compute_dtype],
+            PACK_KIND[pack.dtype], _kernels.stream_of(x))
+
+
+def pack_walk_sfused(lib, x, pack, offs, cfg):
+    """K6 of the pack-walk interface, all three operands x: as its wrapper
+    called it (x in the compute dtype, xv shared)."""
+    xc = x.to(cfg.compute_dtype).contiguous()
+    out = torch.empty_like(xc)
+    err = lib.tcgnn_bd_sfused(xc.data_ptr(), xc.data_ptr(), None, pack.data_ptr(),
+                              _offsets_arg(offs), out.data_ptr(),
+                              *pack_walk_args(x, pack, offs, cfg))
+    _kernels.check(lib, err, "pack-walk bd_sfused")
+    return out
+
+
+def pack_walk_sfused_bwd(lib, x, dy, pack, offs, cfg):
+    """K7 of the pack-walk interface: (dx3, u)."""
+    ct = cfg.compute_dtype
+    xc, dyc = x.to(ct).contiguous(), dy.to(ct).contiguous()
+    dx3, u = torch.empty_like(xc), torch.empty_like(xc)
+    err = lib.tcgnn_bd_sfused_bwd(xc.data_ptr(), dyc.data_ptr(), pack.data_ptr(),
+                                  _offsets_arg(offs), dx3.data_ptr(), u.data_ptr(),
+                                  *pack_walk_args(x, pack, offs, cfg))
+    _kernels.check(lib, err, "pack-walk bd_sfused_bwd")
+    return dx3, u
+
+
+def bd_agnn_ab_cases(g, cov, dev, other_lib) -> list:
+    """K6 (one operand, as AGNN calls it) and K7 on DD at d=32 and 2 in f32
+    (AGNN's hidden and class widths) and d=32 in bf16: the tree's wrappers
+    over the row index against the other side's pack walk.  No library
+    call computes a score-fused SpMM.  K7's (dx3, u) are timed as they
+    come and compared side by side."""
+    cases = []
+    p, offs, n, index = g.bd.pack, g.bd_offsets, g.num_nodes, g.bd.row_index
+    for d, dtype in ((32, torch.float32), (2, torch.float32), (32, torch.bfloat16)):
+        cfg, tol = TileConfig(compute_dtype=dtype), (F32_TOL if dtype == torch.float32
+                                                      else BF16_TOL)
+        x, dy = randn((n, d), 500 + d, dev) * 0.3, randn((n, d), 600, dev)
+        shape = f"DD d={d} {str(dtype)[6:]}"
+        xa, dya = x.to(dtype).double().abs(), dy.to(dtype).double().abs()
+        cases.append((
+            "K6", shape,
+            {"other": lambda x=x, cfg=cfg: pack_walk_sfused(other_lib, x, p, offs, cfg),
+             "tree": lambda x=x, cfg=cfg: bd_sfused(x, x, x, p, offsets=offs, cfg=cfg,
+                                                    index=index)},
+            lambda x=x, cfg=cfg: bd_sfused_torch(x, x, x, p, offsets=offs, cfg=cfg),
+            None,
+            lambda xa=xa: sfused_ref(xa, xa, xa, cov.ptr, cov.idx), tol))
+        cases.append((
+            "K7", shape,
+            {"other": lambda x=x, dy=dy, cfg=cfg: pack_walk_sfused_bwd(other_lib, x, dy, p, offs,
+                                                                      cfg),
+             "tree": lambda x=x, dy=dy, cfg=cfg: bd_sfused_bwd(x, dy, p, offsets=offs, cfg=cfg,
+                                                               index=index)},
+            lambda x=x, dy=dy, cfg=cfg: bd_sfused_bwd_torch(x, dy, p, offsets=offs, cfg=cfg),
+            None,
+            lambda xa=xa, dya=dya: sfused_bwd_ref(xa, dya, cov.ptr, cov.idx), tol))
+    return cases
 
 
 def chunk_ab_cases(dev, other_lib) -> list:
@@ -1531,8 +1619,9 @@ def chunk_ab_cases(dev, other_lib) -> list:
 
 def ab_cases(dev, sources, other) -> list:
     """(kernel, shape, {"other": call, "tree": call}, plain call, library
-    call, magnitude call) for each source in ``sources``: K5 on DD at d in
-    {2, 16, 89}, K1 on pubmed at 512x128 d in {16, 500} and 16x8 d=16, K10 on
+    call or None, magnitude call[, tolerance]) for each source in
+    ``sources``: K5 on DD at d in {2, 16, 89} and K6/K7 as
+    ``bd_agnn_ab_cases``, K1 on pubmed at 512x128 d in {16, 500} and 16x8 d=16, K10 on
     the heaviest pubmed 4x2 shard at d in {8, 16, 32}, K8 and K9 as
     ``chunk_ab_cases``.  K1, K5 and K10 call the tree's wrapper on either
     side (the libraries behind it are swapped)."""
@@ -1553,6 +1642,7 @@ def ab_cases(dev, sources, other) -> list:
                           lambda x=x: spmm_block_diag_torch(x, p, offsets=offs, cfg=cfg),
                           lambda x=x: torch.sparse.mm(cov_csr, x),
                           lambda x=x: cov.magnitude(x)))
+        cases += bd_agnn_ab_cases(g, cov, dev, other["spmm_bd"])
     if "spmm_dense" in sources:
         pm = synthesize("pubmed", seed=0)
         a_csr = csr_tensor(pm.row_pointers, pm.column_index, pm.num_nodes, dev)
@@ -1594,11 +1684,12 @@ def ab_main(other_dir) -> None:
     the tree's, in one process: each side held to the plain version, then
     AB_ROUNDS rounds of other, tree, tree, other, each the event time
     (``median_ms``) and the device time (``device_ms``), and the library
-    call in the same round.  K1, K5 and K10 run through the tree's wrappers
-    on either side (the same host work; only the C function differs); K8
-    and K9 of the other side through the slot-walk interface on the chunk
-    arrays, with the host work its wrapper did.  Prints each round, then
-    all of them as one JSON line."""
+    call, where there is one, in the same round.  K1, K5 and K10 run
+    through the tree's wrappers on either side (the same host work; only
+    the C function differs); K8 and K9 of the other side through the
+    slot-walk interface on the chunk arrays, K6 and K7 through the
+    pack-walk interface on the pack, each with the host work its wrapper
+    did.  Prints each round, then all of them as one JSON line."""
     card = card_line()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1612,13 +1703,21 @@ def ab_main(other_dir) -> None:
         _kernels.build(name, verbose=True)
         libs["tree"][name] = _kernels.load(name)
         libs["other"][name] = build_other(
-            name, other_dir, SLOT_WALK_SIGNATURES if name == "chunk" else _kernels.SIGNATURES[name])
+            name, other_dir, OTHER_SIGNATURES.get(name, _kernels.SIGNATURES[name]))
+        # The tree's wrappers find every C function of the tree here; only
+        # those of AB_FUNCTIONS are swapped.
+        for fn in _kernels.SIGNATURES[name]:
+            _kernels._functions[(name, fn)] = getattr(libs["tree"][name], fn)
     results = []
-    for kernel, shape, fns, plain, lib, mag in ab_cases(dev, sources, libs["other"]):
-        want, m = plain(), mag()
+    def joined(out):  # several outputs (K7's dx3, u) side by side
+        return torch.cat(out, 1) if isinstance(out, tuple) else out
+
+    for kernel, shape, fns, plain, lib, mag, *tol in ab_cases(dev, sources, libs["other"]):
+        want, m = joined(plain()), joined(mag())
         for which in ("other", "tree"):
             use_libraries(libs[which])
-            compare(f"{kernel} {shape} {which} vs plain", fns[which](), want, m, F32_TOL)
+            compare(f"{kernel} {shape} {which} vs plain", joined(fns[which]()), want, m,
+                    tol[0] if tol else F32_TOL)
         del want, m
         rounds = []
         for _ in range(AB_ROUNDS):
@@ -1632,15 +1731,16 @@ def ab_main(other_dir) -> None:
             rounds.append({
                 "other_event_ms": (ev_o1 + ev_o2) / 2, "other_device_ms": (dv_o1 + dv_o2) / 2,
                 "tree_event_ms": (ev_t1 + ev_t2) / 2, "tree_device_ms": (dv_t1 + dv_t2) / 2,
-                "library_event_ms": median_ms(lib, runs=5),
-                "library_device_ms": device_ms(lib, runs=5)})
+                "library_event_ms": None if lib is None else median_ms(lib, runs=5),
+                "library_device_ms": None if lib is None else device_ms(lib, runs=5)})
         use_libraries(libs["tree"])
         faster = all(r["tree_device_ms"] < r["other_device_ms"] for r in rounds)
         results.append({"kernel": kernel, "shape": shape, "rounds": rounds,
                         "tree_faster_in_every_round": faster})
         print(f"{kernel} {shape}: tree faster (device) in every round: {faster}", flush=True)
         for i, r in enumerate(rounds):
-            print(f"    round {i}: " + ", ".join(f"{k} {v:.4f}" for k, v in r.items()), flush=True)
+            print(f"    round {i}: " + ", ".join(f"{k} {v:.4f}" for k, v in r.items()
+                                                if v is not None), flush=True)
     print(json.dumps({"card": card, "torch": torch.__version__, "other": other_dir,
                       "results": results}))
     print(card)

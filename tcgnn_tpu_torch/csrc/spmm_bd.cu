@@ -46,129 +46,61 @@
 // lane, and x rows whose width is not a multiple of 4 are read a column at
 // a time, inside the same kernel.
 //
-// K6 and K7 keep the design of the first port: a warp reads a pack row into
-// registers an entry a lane (lane l holds entries q*32 + l), finds its
-// nonzeros by warp ballot, and for each one reads the neighbour's row of x
-// from global memory (lane l holds columns l, l + 32, ...), forming each
-// score as a warp dot with shuffles, only at the nonzeros.  They need all
-// of d for the score, so d <= 128, as the score-fused kernels over SGT
-// tiles.  One thread block of 8 warps owns 32 consecutive rows, 4 a warp,
-// in all three kernels.  Index arithmetic is 64-bit (YeastH's pack has
-// 2.01e9 entries).
+// K6 and K7 walk a per-row index of the pack, not the pack: row_ptr over
+// the node rows, and for each nonzero its node column (int32) and its value
+// in the pack's type, derived on the device from the pack at upload
+// (ops/blockdiag.py `bd_row_index`), in the pack's order, which is a row's
+// ascending node column.  On DD it is 11 MB where the pack is 301 MB, so
+// what bounds them is no longer the pack but the gathers: about 5 neighbour
+// rows a node row (x is 43 MB at f32 d=32, mostly in the 50 MB L2), each a
+// dependent load after its column.  The design keeps several gathers in
+// flight and every lane busy: a lane group of g lanes owns one node row,
+// each lane holding 4 consecutive columns (g the least power of two with
+// 4 g >= d, so g = 8 at d=32 and g = 1 at d=2, where one lane holds a whole
+// row and a warp takes 32 rows); the group reads the columns and values of
+// kBatch of its row's nonzeros, then all their neighbour rows (xr, and xv
+// when it is not xr, in K6; x and dy in K7) before the first multiply, and
+// reduces each dot over its g lanes in log2(g) shuffles, the batch's dots
+// (K7: three a nonzero) interleaved.  Each row's sums stay in one group in
+// a fixed order: no atomics, the same sums from run to run.  The warp runs
+// as many batches as its longest row needs (the other groups idle through
+// them), so a dense row (up to 1,024 entries) costs its warp, not the
+// launch.  Rows whose width is not a multiple of 4, or not 16-byte
+// aligned, are read a column at a time inside the same kernel.  Past d =
+// 128 (off the main path) the output is tiled by 128 columns (grid.y) and
+// each tile's group, a whole warp, forms the full score over all of d.
+//
+// What they do not use.  Tensor cores: the TPU kernels' dense bn x K*bn
+// tile products would be 99.45% zeros on DD; in true f32 (no TF32, the
+// port's contract) K7's six products are about 116 GFLOP a call, 1.7 ms
+// at 67 TFLOP/s.  Staging a bin's halo rows in shared memory: K7's x and
+// dy halo is 896 rows x 32 x 4 B x 2 = 229 KB at f32 d=32, over the 227 KB
+// a block may hold, and a row touches about 5 of the 896, so the L2 serves
+// the gathers better.  One thread block of 8 warps; index arithmetic is
+// 64-bit (YeastH's pack has 2.01e9 entries).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 #include "sparse_row.cuh"
 
 namespace {
 
+namespace sr = sparse_row;
+
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 4;
+constexpr int kRowsPerWarp = 4;  // K5
 constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
 constexpr int kMaxK = 8;
-constexpr int kMaxStripe = 1024;              // K * bn
-constexpr int kMaxChunks = kMaxStripe / 32;   // pack-row registers per lane
-constexpr int kMaxD = 128;                    // K6/K7: 4 columns a lane
+constexpr int kMaxStripe = 1024;  // K * bn
 
 struct Offsets {
   int v[kMaxK];
 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// A value rounded to the compute type (a no-op for f32).
-template <typename T>
-__device__ __forceinline__ float round_to(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float pack_f32(int8_t v) { return static_cast<float>(v); }
-__device__ __forceinline__ float pack_f32(int16_t v) { return static_cast<float>(v); }
-__device__ __forceinline__ float pack_f32(float v) { return v; }
-__device__ __forceinline__ float pack_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename FeatT, typename PackT>
-__device__ __forceinline__ void load_pack_row_as(float (&a)[kMaxChunks], const PackT* row_ptr,
-                                                 int stripe) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int q = 0; q < kMaxChunks; ++q) {
-    const int j = q * 32 + lane;
-    a[q] = j < stripe ? round_to<FeatT>(pack_f32(row_ptr[j])) : 0.f;
-  }
-}
-
-// Pack row `row` into registers, in the compute type: a[q] is entry
-// q * 32 + lane, zero past the stripe.  pack_kind: 0 = int8, 1 = float,
-// 2 = bfloat16, 3 = int16 (one branch on one value for the whole launch,
-// instead of a kernel per pack type).
-template <typename FeatT>
-__device__ __forceinline__ void load_pack_row(float (&a)[kMaxChunks], const void* pack,
-                                              int pack_kind, long long row, int stripe) {
-  const long long base = row * stripe;
-  switch (pack_kind) {
-    case 0:
-      load_pack_row_as<FeatT>(a, static_cast<const int8_t*>(pack) + base, stripe);
-      break;
-    case 1:
-      load_pack_row_as<FeatT>(a, static_cast<const float*>(pack) + base, stripe);
-      break;
-    case 2:
-      load_pack_row_as<FeatT>(a, static_cast<const __nv_bfloat16*>(pack) + base, stripe);
-      break;
-    default:
-      load_pack_row_as<FeatT>(a, static_cast<const int16_t*>(pack) + base, stripe);
-  }
-}
-
-// Columns [col0, col0 + 32 * kCols) of row `r` of `src` into registers (lane
-// holds col0 + lane + 32 c), zero past d.
-template <typename FeatT, int kCols>
-__device__ __forceinline__ void load_row(float (&dst)[kCols], const FeatT* src, long long r,
-                                         int d, int col0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int f = col0 + lane + 32 * c;
-    dst[c] = f < d ? to_f32(src[r * d + f]) : 0.f;
-  }
-}
-
-template <typename FeatT, int kCols>
-__device__ __forceinline__ void store_row(FeatT* out, const float (&acc)[kCols], long long r,
-                                          int d, int col0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int f = col0 + lane + 32 * c;
-    if (f < d) store(out + r * d + f, acc[c]);
-  }
-}
-
-// The column of pack entry j of a row of bin b, or -1 outside the graph
-// (entries there are zero in any pack the graph builds; the check keeps a
-// stray one from reading out of bounds).
-__device__ __forceinline__ long long pack_col(const Offsets& offs, long long b, int j, int bn,
-                                              int n) {
-  const int k = j / bn;
-  const long long col = (b + offs.v[k]) * bn + (j - k * bn);
-  return col >= 0 && col < n ? col : -1;
-}
 
 // The warp's rows: row0 + i for i < kRowsPerWarp, while below n.
 __device__ __forceinline__ long long warp_row0() {
@@ -257,183 +189,347 @@ spmm_bd_kernel(const FeatT* __restrict__ x, const PackT* __restrict__ pack, Offs
   }
 }
 
-// K6.  kShare: xv is xr, whose row is then read once.
-template <typename FeatT, int kCols, bool kShare>
+// ---- K6 and K7: lane groups over the per-row index --------------------------
+
+// Nonzeros a group has in flight, their neighbour rows all loaded before the
+// first multiply.  K7 holds two rows a nonzero (x and dy).  Larger batches
+// were slower on DD at d=32 (K6 8, K7 4 and up): the registers they hold
+// cost more warps a multiprocessor than the loads they add in flight gain.
+constexpr int kBatchK6 = 4;
+constexpr int kBatchK7 = 2;
+
+// Index value p in the compute type.  val_kind as pack_kind: 0 = int8,
+// 1 = float, 2 = bfloat16, 3 = int16 (one branch on one value for the whole
+// launch, instead of a kernel per pack type).
+template <typename FeatT>
+__device__ __forceinline__ float index_value(const void* __restrict__ vals, int val_kind,
+                                             long long p) {
+  float v;
+  switch (val_kind) {
+    case 0:
+      v = sr::to_f32(static_cast<const int8_t*>(vals)[p]);
+      break;
+    case 1:
+      v = static_cast<const float*>(vals)[p];
+      break;
+    case 2:
+      v = sr::to_f32(static_cast<const __nv_bfloat16*>(vals)[p]);
+      break;
+    default:
+      v = sr::to_f32(static_cast<const int16_t*>(vals)[p]);
+  }
+  return sr::round_to<FeatT>(v);
+}
+
+// The lane's group: g lanes (a power of two) own node row `row` (its own
+// row, or -1 past n), whose nonzeros are [beg, end) of the index; the lane
+// holds the 4 columns from `cl` of each 128-column tile, `c0` of the
+// block's tile (grid.y).
+struct Group {
+  int row, cl, c0;
+  long long beg, end;
+};
+
+__device__ __forceinline__ Group group_of(const long long* __restrict__ row_ptr, int n, int g) {
+  const int lane = threadIdx.x & 31;
+  const long long row = ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * (32 / g) + lane / g;
+  Group q;
+  q.row = row < n ? (int)row : -1;
+  q.cl = (lane % g) * sr::kVec;
+  q.c0 = blockIdx.y * sr::kTileD + q.cl;
+  q.beg = q.row >= 0 ? row_ptr[q.row] : 0;
+  q.end = q.row >= 0 ? row_ptr[q.row + 1] : 0;
+  return q;
+}
+
+// Columns [c0, c0 + 4) of row r of x; zeros for r < 0.
+template <typename FeatT>
+__device__ __forceinline__ void load_row4(float (&v)[sr::kVec], const FeatT* __restrict__ x,
+                                          int r, int c0, int d, bool vec) {
+  if (r >= 0) {
+    sr::load4(v, x + (long long)r * d, c0, d, vec);
+  } else {
+#pragma unroll
+    for (int c = 0; c < sr::kVec; ++c) v[c] = 0.f;
+  }
+}
+
+__device__ __forceinline__ float dot4(const float (&a)[sr::kVec], const float (&b)[sr::kVec]) {
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < sr::kVec; ++c) s = fmaf(a[c], b[c], s);
+  return s;
+}
+
+// Each s[i] summed over the group's g lanes by xor butterflies (every lane
+// of the group ends with the same bits), the kN sums' shuffles interleaved.
+template <int kN>
+__device__ __forceinline__ void group_sum(float (&s)[kN], int g) {
+  for (int off = 1; off < g; off <<= 1)
+#pragma unroll
+    for (int i = 0; i < kN; ++i) s[i] += __shfl_xor_sync(sr::kFull, s[i], off);
+}
+
+// The columns and values of the kB nonzeros from index position p0 on (-1
+// and 0 past the row).
+template <typename FeatT, int kB>
+__device__ __forceinline__ void load_batch(int (&col)[kB], float (&a)[kB], const Group& q,
+                                           long long p0, const int* __restrict__ cols,
+                                           const void* __restrict__ vals, int val_kind) {
+#pragma unroll
+  for (int i = 0; i < kB; ++i) {
+    const long long p = p0 + i;
+    const bool in = p < q.end;
+    col[i] = in ? cols[p] : -1;
+    a[i] = in ? index_value<FeatT>(vals, val_kind, p) : 0.f;
+  }
+}
+
+// Batches the warp runs: as many as its longest row needs.
+__device__ __forceinline__ int warp_most(const Group& q) {
+  return (int)__reduce_max_sync(sr::kFull, (unsigned)(q.end - q.beg));
+}
+
+// K6.  grid: (row blocks of 8 * 32 / g rows, d-tiles of 128 columns; one
+// unless kWide).  kShare: xv is xr, whose rows are then read once (the
+// narrow kernel only).  vec: d % 4 == 0 and every row 16-byte aligned.
+template <typename FeatT, bool kShare, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 bd_sfused_kernel(const FeatT* __restrict__ xl, const FeatT* __restrict__ xr,
-                 const FeatT* __restrict__ xv, const void* __restrict__ pack, int pack_kind,
-                 Offsets offs, FeatT* __restrict__ out, int n, int d, int k, int bn) {
-  const int stripe = k * bn;
-  const long long row0 = warp_row0();
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const long long row = row0 + i;
-    if (row >= n) break;
-    float a[kMaxChunks];
-    load_pack_row<FeatT>(a, pack, pack_kind, row, stripe);
-    float xl_r[kCols], acc[kCols];
-    load_row<FeatT, kCols>(xl_r, xl, row, d, 0);
+                 const FeatT* __restrict__ xv, const long long* __restrict__ row_ptr,
+                 const int* __restrict__ cols, const void* __restrict__ vals, int val_kind,
+                 FeatT* __restrict__ out, int n, int d, int g, bool vec) {
+  constexpr int kB = kBatchK6;
+  const Group q = group_of(row_ptr, n, g);
+  const int most = warp_most(q);
+  float own[sr::kVec], acc[sr::kVec];
+  if (!kWide) load_row4(own, xl, q.row, q.c0, d, vec);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
-    const long long b = row / bn;
+  for (int c = 0; c < sr::kVec; ++c) acc[c] = 0.f;
+  for (int e = 0; e < most; e += kB) {
+    int col[kB];
+    float a[kB], s[kB], vr[kB][sr::kVec], vv[kB][sr::kVec];
+    load_batch<FeatT, kB>(col, a, q, q.beg + e, cols, vals, val_kind);
+    if constexpr (!kWide) {
 #pragma unroll
-    for (int q = 0; q < kMaxChunks; ++q) {
-      unsigned nz = __ballot_sync(0xffffffffu, a[q] != 0.f);
-      while (nz) {
-        const int jl = __ffs(nz) - 1;
-        nz &= nz - 1;
-        const float aj = __shfl_sync(0xffffffffu, a[q], jl);
-        const long long col = pack_col(offs, b, q * 32 + jl, bn, n);
-        if (col < 0) continue;
-        float vr[kCols], vv[kCols];
-        load_row<FeatT, kCols>(vr, xr, col, d, 0);
-        if (!kShare) load_row<FeatT, kCols>(vv, xv, col, d, 0);
-        float part = 0.f;
+      for (int i = 0; i < kB; ++i) load_row4(vr[i], xr, col[i], q.c0, d, vec);
+      if (!kShare) {
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) part = fmaf(xl_r[c], vr[c], part);
-        const float w = round_to<FeatT>(aj * round_to<FeatT>(warp_sum(part)));
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[c] = fmaf(w, kShare ? vr[c] : vv[c], acc[c]);
+        for (int i = 0; i < kB; ++i) load_row4(vv[i], xv, col[i], q.c0, d, vec);
       }
+#pragma unroll
+      for (int i = 0; i < kB; ++i) s[i] = dot4(own, vr[i]);
+    } else {
+      // The score over all of d, a 128-column tile at a time; then this
+      // block's tile of xv.
+#pragma unroll
+      for (int i = 0; i < kB; ++i) s[i] = 0.f;
+      for (int t = q.cl; t < d; t += sr::kTileD) {
+        load_row4(own, xl, q.row, t, d, vec);
+#pragma unroll
+        for (int i = 0; i < kB; ++i) load_row4(vr[i], xr, col[i], t, d, vec);
+#pragma unroll
+        for (int i = 0; i < kB; ++i) s[i] += dot4(own, vr[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < kB; ++i) load_row4(vv[i], xv, col[i], q.c0, d, vec);
     }
-    store_row<FeatT, kCols>(out, acc, row, d, 0);
+    group_sum<kB>(s, g);
+#pragma unroll
+    for (int i = 0; i < kB; ++i) {
+      if (col[i] < 0) continue;
+      const float w = sr::round_to<FeatT>(a[i] * sr::round_to<FeatT>(s[i]));
+#pragma unroll
+      for (int c = 0; c < sr::kVec; ++c)
+        acc[c] = fmaf(w, (kShare && !kWide) ? vr[i][c] : vv[i][c], acc[c]);
+    }
   }
+  if (q.row >= 0) sr::store4(out + (long long)q.row * d, q.c0, d, acc, vec);
 }
 
-// K7.
-template <typename FeatT, int kCols>
+// K7.  grid and vec as K6's.  Per nonzero: s = <x[i], x[c]>,
+// t = <dy[i], x[c]>, w = <x[i], dy[c]>, the three sums' shuffles
+// interleaved; then cs = a s and h = a (t + w) in the compute type,
+// dx3[i] += cs dy[c] + h x[c] and u[i] += cs x[c].
+template <typename FeatT, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 bd_sfused_bwd_kernel(const FeatT* __restrict__ x, const FeatT* __restrict__ dy,
-                     const void* __restrict__ pack, int pack_kind, Offsets offs,
-                     FeatT* __restrict__ dx3, FeatT* __restrict__ u, int n, int d, int k, int bn) {
-  const int stripe = k * bn;
-  const long long row0 = warp_row0();
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const long long row = row0 + i;
-    if (row >= n) break;
-    float a[kMaxChunks];
-    load_pack_row<FeatT>(a, pack, pack_kind, row, stripe);
-    float x_r[kCols], dy_r[kCols], acc_dx[kCols], acc_u[kCols];
-    load_row<FeatT, kCols>(x_r, x, row, d, 0);
-    load_row<FeatT, kCols>(dy_r, dy, row, d, 0);
+                     const long long* __restrict__ row_ptr, const int* __restrict__ cols,
+                     const void* __restrict__ vals, int val_kind, FeatT* __restrict__ dx3,
+                     FeatT* __restrict__ u, int n, int d, int g, bool vec) {
+  constexpr int kB = kBatchK7;
+  const Group q = group_of(row_ptr, n, g);
+  const int most = warp_most(q);
+  float x_r[sr::kVec], dy_r[sr::kVec], acc_dx[sr::kVec], acc_u[sr::kVec];
+  if (!kWide) {
+    load_row4(x_r, x, q.row, q.c0, d, vec);
+    load_row4(dy_r, dy, q.row, q.c0, d, vec);
+  }
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc_dx[c] = acc_u[c] = 0.f;
-    const long long b = row / bn;
+  for (int c = 0; c < sr::kVec; ++c) acc_dx[c] = acc_u[c] = 0.f;
+  for (int e = 0; e < most; e += kB) {
+    int col[kB];
+    // s[i], s[kB + i], s[2 kB + i]: nonzero i's s, t and w.
+    float a[kB], s[3 * kB], xv[kB][sr::kVec], dv[kB][sr::kVec];
+    load_batch<FeatT, kB>(col, a, q, q.beg + e, cols, vals, val_kind);
 #pragma unroll
-    for (int q = 0; q < kMaxChunks; ++q) {
-      unsigned nz = __ballot_sync(0xffffffffu, a[q] != 0.f);
-      while (nz) {
-        const int jl = __ffs(nz) - 1;
-        nz &= nz - 1;
-        const float aj = __shfl_sync(0xffffffffu, a[q], jl);
-        const long long col = pack_col(offs, b, q * 32 + jl, bn, n);
-        if (col < 0) continue;
-        float xv[kCols], dv[kCols];
-        load_row<FeatT, kCols>(xv, x, col, d, 0);
-        load_row<FeatT, kCols>(dv, dy, col, d, 0);
-        float ps = 0.f, pt = 0.f, pw = 0.f;
+    for (int i = 0; i < 3 * kB; ++i) s[i] = 0.f;
+    // The neighbours' columns from t, and their three partial dots.
+    auto dots = [&](int t) {
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          ps = fmaf(x_r[c], xv[c], ps);
-          pt = fmaf(dy_r[c], xv[c], pt);
-          pw = fmaf(x_r[c], dv[c], pw);
-        }
-        const float s = warp_sum(ps), t = warp_sum(pt), w = warp_sum(pw);
-        const float cs = round_to<FeatT>(aj * round_to<FeatT>(s));
-        const float g = round_to<FeatT>(aj * round_to<FeatT>(t + w));
+      for (int i = 0; i < kB; ++i) load_row4(xv[i], x, col[i], t, d, vec);
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          acc_dx[c] = fmaf(cs, dv[c], fmaf(g, xv[c], acc_dx[c]));
-          acc_u[c] = fmaf(cs, xv[c], acc_u[c]);
-        }
+      for (int i = 0; i < kB; ++i) load_row4(dv[i], dy, col[i], t, d, vec);
+#pragma unroll
+      for (int i = 0; i < kB; ++i) {
+        s[i] += dot4(x_r, xv[i]);
+        s[kB + i] += dot4(dy_r, xv[i]);
+        s[2 * kB + i] += dot4(x_r, dv[i]);
+      }
+    };
+    if constexpr (!kWide) {
+      dots(q.c0);
+    } else {
+      // The sums over all of d, a 128-column tile at a time; then this
+      // block's tile of x and dy.
+      for (int t = q.cl; t < d; t += sr::kTileD) {
+        load_row4(x_r, x, q.row, t, d, vec);
+        load_row4(dy_r, dy, q.row, t, d, vec);
+        dots(t);
+      }
+#pragma unroll
+      for (int i = 0; i < kB; ++i) load_row4(xv[i], x, col[i], q.c0, d, vec);
+#pragma unroll
+      for (int i = 0; i < kB; ++i) load_row4(dv[i], dy, col[i], q.c0, d, vec);
+    }
+    group_sum<3 * kB>(s, g);
+#pragma unroll
+    for (int i = 0; i < kB; ++i) {
+      if (col[i] < 0) continue;
+      const float cs = sr::round_to<FeatT>(a[i] * sr::round_to<FeatT>(s[i]));
+      const float h = sr::round_to<FeatT>(a[i] * sr::round_to<FeatT>(s[kB + i] + s[2 * kB + i]));
+#pragma unroll
+      for (int c = 0; c < sr::kVec; ++c) {
+        acc_dx[c] = fmaf(cs, dv[i][c], fmaf(h, xv[i][c], acc_dx[c]));
+        acc_u[c] = fmaf(cs, xv[i][c], acc_u[c]);
       }
     }
-    store_row<FeatT, kCols>(dx3, acc_dx, row, d, 0);
-    store_row<FeatT, kCols>(u, acc_u, row, d, 0);
+  }
+  if (q.row >= 0) {
+    sr::store4(dx3 + (long long)q.row * d, q.c0, d, acc_dx, vec);
+    sr::store4(u + (long long)q.row * d, q.c0, d, acc_u, vec);
   }
 }
 
-struct Args {
-  const void *a, *b, *c, *pack;
-  void *out0, *out1;
+// ---- launches ----------------------------------------------------------------
+
+unsigned row_blocks(int n) { return (unsigned)((n + kRowsPerBlock - 1) / kRowsPerBlock); }
+
+struct PackArgs {
+  const void *x, *pack;
+  void* out;
   Offsets offs;
   int n, d, k, bn, pack_kind;
 };
 
-enum class Op { kSpmm, kSfused, kSfusedShare, kSfusedBwd };
-
-unsigned row_blocks(int n) { return (unsigned)((n + kRowsPerBlock - 1) / kRowsPerBlock); }
-
-template <typename FeatT, int kCols>
-int launch(Op op, const Args& a, cudaStream_t s) {
-  const FeatT* fa = static_cast<const FeatT*>(a.a);
-  const FeatT* fb = static_cast<const FeatT*>(a.b);
-  FeatT* o0 = static_cast<FeatT*>(a.out0);
-  switch (op) {
-    case Op::kSpmm:
-      break;  // launch_spmm
-    case Op::kSfused:
-      bd_sfused_kernel<FeatT, kCols, false><<<row_blocks(a.n), kThreads, 0, s>>>(
-          fa, fb, static_cast<const FeatT*>(a.c), a.pack, a.pack_kind, a.offs, o0, a.n, a.d,
-          a.k, a.bn);
-      break;
-    case Op::kSfusedShare:
-      bd_sfused_kernel<FeatT, kCols, true><<<row_blocks(a.n), kThreads, 0, s>>>(
-          fa, fb, fb, a.pack, a.pack_kind, a.offs, o0, a.n, a.d, a.k, a.bn);
-      break;
-    case Op::kSfusedBwd:
-      bd_sfused_bwd_kernel<FeatT, kCols><<<row_blocks(a.n), kThreads, 0, s>>>(
-          fa, fb, a.pack, a.pack_kind, a.offs, o0, static_cast<FeatT*>(a.out1), a.n, a.d, a.k,
-          a.bn);
-      break;
-  }
-  return (int)cudaGetLastError();
-}
-
 template <typename FeatT, typename PackT>
-int launch_spmm(const Args& a, cudaStream_t s) {
+int launch_spmm(const PackArgs& a, cudaStream_t s) {
   constexpr int E = 16 / sizeof(PackT);
   int flags = 0;
   if ((a.k * a.bn) % E == 0 && sparse_row::aligned16(a.pack)) flags |= kVecPack;
-  if (a.d % 4 == 0 && sparse_row::aligned16(a.a) && sparse_row::aligned16(a.out0)) flags |= kVecX;
+  if (a.d % 4 == 0 && sparse_row::aligned16(a.x) && sparse_row::aligned16(a.out)) flags |= kVecX;
   const dim3 grid(row_blocks(a.n), (unsigned)((a.d + sparse_row::kTileD - 1) / sparse_row::kTileD));
   spmm_bd_kernel<FeatT, PackT><<<grid, kThreads, 0, s>>>(
-      static_cast<const FeatT*>(a.a), static_cast<const PackT*>(a.pack), a.offs,
-      static_cast<FeatT*>(a.out0), a.n, a.d, a.k, a.bn, flags);
+      static_cast<const FeatT*>(a.x), static_cast<const PackT*>(a.pack), a.offs,
+      static_cast<FeatT*>(a.out), a.n, a.d, a.k, a.bn, flags);
   return (int)cudaGetLastError();
 }
 
-// Columns a lane holds in K6/K7 (d <= 128).
-template <typename FeatT>
-int launch_cols(Op op, const Args& a, cudaStream_t s) {
-  if (op == Op::kSpmm) {
-    switch (a.pack_kind) {
-      case 0:
-        return launch_spmm<FeatT, int8_t>(a, s);
-      case 1:
-        return launch_spmm<FeatT, float>(a, s);
-      case 2:
-        return launch_spmm<FeatT, __nv_bfloat16>(a, s);
-      default:
-        return launch_spmm<FeatT, int16_t>(a, s);
-    }
-  }
-  if (a.d <= 32) return launch<FeatT, 1>(op, a, s);
-  if (a.d <= 64) return launch<FeatT, 2>(op, a, s);
-  if (a.d <= 96) return launch<FeatT, 3>(op, a, s);
-  return launch<FeatT, 4>(op, a, s);
-}
-
-int dispatch(Op op, int feat_kind, Args a, const int* offsets, void* stream) {
+int spmm_dispatch(int feat_kind, PackArgs a, const int* offsets, void* stream) {
   if (a.n < 1 || a.d < 1 || a.k < 1 || a.k > kMaxK || a.bn < 1 || a.k * a.bn > kMaxStripe ||
-      a.pack_kind < 0 || a.pack_kind > 3 || (op != Op::kSpmm && a.d > kMaxD))
+      a.pack_kind < 0 || a.pack_kind > 3 || feat_kind < 0 || feat_kind > 1)
     return (int)cudaErrorInvalidValue;
   for (int i = 0; i < kMaxK; ++i) a.offs.v[i] = i < a.k ? offsets[i] : 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool bf16 = feat_kind == 1;
+  switch (a.pack_kind) {
+    case 0:
+      return bf16 ? launch_spmm<__nv_bfloat16, int8_t>(a, s) : launch_spmm<float, int8_t>(a, s);
+    case 1:
+      return bf16 ? launch_spmm<__nv_bfloat16, float>(a, s) : launch_spmm<float, float>(a, s);
+    case 2:
+      return bf16 ? launch_spmm<__nv_bfloat16, __nv_bfloat16>(a, s)
+                  : launch_spmm<float, __nv_bfloat16>(a, s);
+    default:
+      return bf16 ? launch_spmm<__nv_bfloat16, int16_t>(a, s) : launch_spmm<float, int16_t>(a, s);
+  }
+}
+
+// K6 and K7: xl/x, xr/dy and xv (nullptr: xr) in the compute type; the
+// index; out0 (K6 out, K7 dx3) and out1 (K7 u).
+struct IndexArgs {
+  const void *a, *b, *c, *row_ptr, *cols, *vals;
+  void *out0, *out1;
+  int n, d, val_kind;
+};
+
+// The launch shape of K6/K7: g lanes a row and the d-tiles, and whether the
+// rows take 16-byte (f32) or 8-byte (bf16) loads.
+struct Shape {
+  dim3 grid;
+  int g;
+  bool wide, vec;
+};
+
+Shape shape_of(const IndexArgs& a) {
+  Shape sh;
+  sh.wide = a.d > sr::kTileD;
+  sh.g = sh.wide ? 32 : 1;
+  while (!sh.wide && sh.g * sr::kVec < a.d) sh.g <<= 1;
+  const int rows = kWarps * (32 / sh.g);
+  sh.grid = dim3((unsigned)((a.n + rows - 1) / rows),
+                 sh.wide ? (unsigned)((a.d + sr::kTileD - 1) / sr::kTileD) : 1u);
+  sh.vec = a.d % sr::kVec == 0;
+  for (const void* p : {a.a, a.b, a.c, (const void*)a.out0, (const void*)a.out1})
+    if (p != nullptr && !sr::aligned16(p)) sh.vec = false;
+  return sh;
+}
+
+template <typename FeatT>
+int launch_index(bool bwd, const IndexArgs& a, cudaStream_t s) {
+  const Shape sh = shape_of(a);
+  const FeatT* fa = static_cast<const FeatT*>(a.a);
+  const FeatT* fb = static_cast<const FeatT*>(a.b);
+  const FeatT* fc = static_cast<const FeatT*>(a.c);
+  const long long* rp = static_cast<const long long*>(a.row_ptr);
+  const int* cols = static_cast<const int*>(a.cols);
+  FeatT* o0 = static_cast<FeatT*>(a.out0);
+  if (bwd) {
+    const auto kernel = sh.wide ? bd_sfused_bwd_kernel<FeatT, true>
+                                : bd_sfused_bwd_kernel<FeatT, false>;
+    kernel<<<sh.grid, kThreads, 0, s>>>(fa, fb, rp, cols, a.vals, a.val_kind, o0,
+                                        static_cast<FeatT*>(a.out1), a.n, a.d, sh.g, sh.vec);
+  } else if (sh.wide) {
+    bd_sfused_kernel<FeatT, false, true><<<sh.grid, kThreads, 0, s>>>(
+        fa, fb, fc == nullptr ? fb : fc, rp, cols, a.vals, a.val_kind, o0, a.n, a.d, sh.g,
+        sh.vec);
+  } else {
+    const auto kernel = fc == nullptr ? bd_sfused_kernel<FeatT, true, false>
+                                      : bd_sfused_kernel<FeatT, false, false>;
+    kernel<<<sh.grid, kThreads, 0, s>>>(fa, fb, fc, rp, cols, a.vals, a.val_kind, o0, a.n, a.d,
+                                        sh.g, sh.vec);
+  }
+  return (int)cudaGetLastError();
+}
+
+int index_dispatch(bool bwd, int feat_kind, const IndexArgs& a, void* stream) {
+  if (a.n < 1 || a.d < 1 || a.val_kind < 0 || a.val_kind > 3) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (feat_kind) {
     case 0:
-      return launch_cols<float>(op, a, s);
+      return launch_index<float>(bwd, a, s);
     case 1:
-      return launch_cols<__nv_bfloat16>(op, a, s);
+      return launch_index<__nv_bfloat16>(bwd, a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -441,35 +537,39 @@ int dispatch(Op op, int feat_kind, Args a, const int* offsets, void* stream) {
 
 }  // namespace
 
-// Common arguments.  pack: [Bp, bn, k*bn] with Bp * bn >= n; pack_kind:
-// 0 = int8, 1 = float, 2 = bfloat16, 3 = int16.  offsets: k host ints,
-// 1 <= k <= 8, k * bn <= 1024.  feat_kind: 0 = float, 1 = bfloat16, the type
-// of the features and of the outputs.  Each returns the cudaError_t of the
-// launch (0 = success).
-
-// K5: out = P @ x over the packed diagonals, [n, d], any d >= 1.
+// K5: out = P @ x over the packed diagonals, [n, d], any d >= 1.  pack:
+// [Bp, bn, k*bn] with Bp * bn >= n; pack_kind: 0 = int8, 1 = float,
+// 2 = bfloat16, 3 = int16.  offsets: k host ints, 1 <= k <= 8,
+// k * bn <= 1024.  feat_kind: 0 = float, 1 = bfloat16, the type of the
+// features and of the output.  Each function here returns the cudaError_t
+// of the launch (0 = success).
 extern "C" int tcgnn_spmm_bd(const void* x, const void* pack, const int* offsets, void* out,
                              int n, int d, int k, int bn, int feat_kind, int pack_kind,
                              void* stream) {
-  const Args a{x, nullptr, nullptr, pack, out, nullptr, {}, n, d, k, bn, pack_kind};
-  return dispatch(Op::kSpmm, feat_kind, a, offsets, stream);
+  const PackArgs a{x, pack, out, {}, n, d, k, bn, pack_kind};
+  return spmm_dispatch(feat_kind, a, offsets, stream);
 }
 
-// K6: out = (P . (xl @ xr^T)) @ xv, [n, d], d <= 128; xv == nullptr shares xr.
-extern "C" int tcgnn_bd_sfused(const void* xl, const void* xr, const void* xv, const void* pack,
-                               const int* offsets, void* out, int n, int d, int k, int bn,
-                               int feat_kind, int pack_kind, void* stream) {
-  const Args a{xl, xr, xv, pack, out, nullptr, {}, n, d, k, bn, pack_kind};
-  return dispatch(xv == nullptr ? Op::kSfusedShare : Op::kSfused, feat_kind, a, offsets,
-                  stream);
+// K6 and K7 read the pack's per-row index: row_ptr [n + 1] int64; cols and
+// vals [row_ptr[n]]: each nonzero's node column (int32, inside the graph)
+// and its value, of val_kind (as pack_kind).  feat_kind as K5's.  Any
+// d >= 1.
+
+// K6: out = (P . (xl @ xr^T)) @ xv, [n, d]; xv == nullptr shares xr.
+extern "C" int tcgnn_bd_sfused(const void* xl, const void* xr, const void* xv,
+                               const void* row_ptr, const void* cols, const void* vals,
+                               void* out, int n, int d, int feat_kind, int val_kind,
+                               void* stream) {
+  const IndexArgs a{xl, xr, xv, row_ptr, cols, vals, out, nullptr, n, d, val_kind};
+  return index_dispatch(false, feat_kind, a, stream);
 }
 
-// K7: dx3 and u, both [n, d], from x and dy, d <= 128.
-extern "C" int tcgnn_bd_sfused_bwd(const void* x, const void* dy, const void* pack,
-                                   const int* offsets, void* dx3, void* u, int n, int d, int k,
-                                   int bn, int feat_kind, int pack_kind, void* stream) {
-  const Args a{x, dy, nullptr, pack, dx3, u, {}, n, d, k, bn, pack_kind};
-  return dispatch(Op::kSfusedBwd, feat_kind, a, offsets, stream);
+// K7: dx3 and u, both [n, d], from x and dy.
+extern "C" int tcgnn_bd_sfused_bwd(const void* x, const void* dy, const void* row_ptr,
+                                   const void* cols, const void* vals, void* dx3, void* u,
+                                   int n, int d, int feat_kind, int val_kind, void* stream) {
+  const IndexArgs a{x, dy, nullptr, row_ptr, cols, vals, dx3, u, n, d, val_kind};
+  return index_dispatch(true, feat_kind, a, stream);
 }
 
 extern "C" const char* tcgnn_cuda_error_string(int err) {

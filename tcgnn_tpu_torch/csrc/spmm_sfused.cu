@@ -34,9 +34,14 @@
 // run.  A window of more than run_blocks blocks (the pubmed hub's window:
 // 134 TC blocks at 512x128, 2,133 at 16x8) is split into runs, one thread
 // block each, whose f32 sums meet in the output through atomics (zeroed
-// first); a window of one run stores its sums.  There is no d-tiling, as on
-// the TPU: the score needs all of d at once, so d is at most 128 (a lane
-// holds up to 4 columns).  blk_w is at most 128.
+// first); a window of one run stores its sums.  There is no d-tiling up to
+// d = 128, as on the TPU: the score needs all of d at once (a lane holds up
+// to 4 columns).  Past 128 (off the main path, which runs d = 32 and the
+// class count) a simple wide path takes any d: grid.y tiles the output by
+// 128 columns, and each tile's thread block forms every score over all of
+// d itself, reading the rows from global memory (no shared-memory gather),
+// summed in f32 before the one rounding, as the TPU kernel sums its padded
+// d.  blk_w is at most 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,7 +56,7 @@ constexpr int kMaxRowsPerWarp = kSlab / kWarps;  // 4
 constexpr int kMaxBlkW = 128;
 constexpr int kMaxChunks = kMaxBlkW / 32;          // tile-row registers per lane
 constexpr int kMaxGatherRows = kMaxBlkW / kWarps;  // gathered rows per warp
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 128;  // the narrow kernels' widest d: 4 columns a lane
 constexpr size_t kStaticSmemLimit = 48 * 1024;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -359,6 +364,109 @@ sfused_bwd_kernel(const FeatT* __restrict__ x, const FeatT* __restrict__ dy,
     }
 }
 
+// d > 128: the forward (kBwd false: out from xl, xr, xv) or the backward
+// (kBwd true: dx3 and u from x, dy and the window rows xw, dyw), for the
+// 128-column tile blockIdx.y of the output.  The warp walks its tile rows'
+// nonzeros as the narrow kernels do, and per nonzero forms the score(s)
+// over all of d from global memory (lane holds columns lane, lane + 32, ...
+// of a row), then adds the tile's columns (d0 + lane + 32 c) of the
+// weighted rows.
+template <typename FeatT, bool kBwd>
+__global__ void __launch_bounds__(kThreads)
+sfused_wide_kernel(const FeatT* __restrict__ a_, const FeatT* __restrict__ b_,
+                   const FeatT* __restrict__ c_, const FeatT* __restrict__ aw,
+                   const FeatT* __restrict__ bw, const void* __restrict__ tiles, int tile_kind,
+                   const int* __restrict__ col_ids, const int* __restrict__ win_start,
+                   const int* __restrict__ run_window, const int* __restrict__ run_block,
+                   float* out0, float* out1, int n, int d, int run_blocks, int blk_h, int blk_w,
+                   int slab, int slabs_per_window) {
+  constexpr int kCols = 4;
+  __shared__ int used_by[kMaxBlkW];  // load_tile_rows marks columns; not read here
+  const Place p = place(win_start, run_window, run_block, run_blocks, slab, slabs_per_window);
+  const int lane = threadIdx.x & 31;
+  const int d0 = blockIdx.y * 32 * kCols;
+  long long grow[kMaxRowsPerWarp];
+  float acc0[kMaxRowsPerWarp][kCols], acc1[kMaxRowsPerWarp][kCols];
+#pragma unroll
+  for (int i = 0; i < kMaxRowsPerWarp; ++i) {
+    grow[i] = warp_row(p, i, slab, blk_h, n);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc0[i][c] = acc1[i][c] = 0.f;
+  }
+
+  for (int b = p.b_begin; b < p.b_end; ++b) {
+    float a[kMaxRowsPerWarp][kMaxChunks];
+    load_tile_rows<FeatT>(a, tiles, tile_kind, p, b, slab, blk_h, blk_w, used_by);
+    const int* cols = col_ids + (size_t)b * blk_w;
+#pragma unroll
+    for (int i = 0; i < kMaxRowsPerWarp; ++i) {
+      if (i >= p.rows_per_warp || grow[i] < 0) continue;
+      const long long ri = grow[i] * d;
+#pragma unroll
+      for (int q = 0; q < kMaxChunks; ++q) {
+        unsigned nz = __ballot_sync(0xffffffffu, a[i][q] != 0.f);
+        while (nz) {
+          const int j = __ffs(nz) - 1;
+          nz &= nz - 1;
+          const float aj = __shfl_sync(0xffffffffu, a[i][q], j);
+          const long long rk = (long long)cols[q * 32 + j] * d;
+          if (!kBwd) {
+            // out[r] += round(a * round(<xl[r], xr[k]>)) * xv[k]
+            float part = 0.f;
+            for (int f = lane; f < d; f += 32)
+              part = fmaf(to_f32(a_[ri + f]), to_f32(b_[rk + f]), part);
+            const float w = round_to<FeatT>(aj * round_to<FeatT>(warp_sum(part)));
+#pragma unroll
+            for (int c = 0; c < kCols; ++c) {
+              const int f = d0 + lane + 32 * c;
+              if (f < d) acc0[i][c] = fmaf(w, to_f32(c_[rk + f]), acc0[i][c]);
+            }
+          } else {
+            // s = <xw[r], x[k]>, t = <dyw[r], x[k]>, w = <xw[r], dy[k]>
+            float ps = 0.f, pt = 0.f, pw = 0.f;
+            for (int f = lane; f < d; f += 32) {
+              const float xr = to_f32(aw[ri + f]), dr = to_f32(bw[ri + f]);
+              const float xk = to_f32(a_[rk + f]), dk = to_f32(b_[rk + f]);
+              ps = fmaf(xr, xk, ps);
+              pt = fmaf(dr, xk, pt);
+              pw = fmaf(xr, dk, pw);
+            }
+            const float sv = warp_sum(ps), tv = warp_sum(pt), wv = warp_sum(pw);
+            const float cs = round_to<FeatT>(aj * round_to<FeatT>(sv));
+            const float g = round_to<FeatT>(aj * round_to<FeatT>(tv + wv));
+#pragma unroll
+            for (int c = 0; c < kCols; ++c) {
+              const int f = d0 + lane + 32 * c;
+              if (f >= d) continue;
+              const float xk = to_f32(a_[rk + f]), dk = to_f32(b_[rk + f]);
+              acc0[i][c] = fmaf(cs, dk, fmaf(g, xk, acc0[i][c]));
+              acc1[i][c] = fmaf(cs, xk, acc1[i][c]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kMaxRowsPerWarp; ++i) {
+    if (grow[i] < 0) continue;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int f = d0 + lane + 32 * c;
+      if (f >= d) continue;
+      const long long o = grow[i] * d + f;
+      if (p.split) {
+        atomicAdd(out0 + o, acc0[i][c]);
+        if (kBwd) atomicAdd(out1 + o, acc1[i][c]);
+      } else {
+        out0[o] = acc0[i][c];
+        if (kBwd) out1[o] = acc1[i][c];
+      }
+    }
+  }
+}
+
 struct Args {
   const void *a, *b, *c, *aw, *bw, *tiles, *col_ids, *win_start, *run_window, *run_block;
   float *out0, *out1;
@@ -425,9 +533,27 @@ int launch_bwd(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename FeatT>
+int launch_wide(bool bwd, const Args& a, cudaStream_t stream) {
+  const auto kernel = bwd ? sfused_wide_kernel<FeatT, true> : sfused_wide_kernel<FeatT, false>;
+  const cudaError_t e = prepare(kernel, a, 0, stream);
+  if (e != cudaSuccess) return (int)e;
+  Grid g = grid_of(a);
+  g.grid.y = (unsigned)((a.d + 32 * 4 - 1) / (32 * 4));
+  kernel<<<g.grid, kThreads, 0, stream>>>(
+      static_cast<const FeatT*>(a.a), static_cast<const FeatT*>(a.b),
+      static_cast<const FeatT*>(a.c), static_cast<const FeatT*>(a.aw),
+      static_cast<const FeatT*>(a.bw), a.tiles, a.tile_kind, static_cast<const int*>(a.col_ids),
+      static_cast<const int*>(a.win_start), static_cast<const int*>(a.run_window),
+      static_cast<const int*>(a.run_block), a.out0, a.out1, a.n, a.d, a.run_blocks, a.blk_h,
+      a.blk_w, g.slab, g.slabs_per_window);
+  return (int)cudaGetLastError();
+}
+
 // The forward (bwd = false, share = whether xv is xr) or the backward.
 template <typename FeatT>
 int launch_cols(bool bwd, bool share, const Args& a, cudaStream_t stream) {
+  if (a.d > kMaxD) return launch_wide<FeatT>(bwd, a, stream);
   if (bwd) {
     if (a.d <= 32) return launch_bwd<FeatT, 1>(a, stream);
     if (a.d <= 64) return launch_bwd<FeatT, 2>(a, stream);
@@ -445,7 +571,7 @@ int launch_cols(bool bwd, bool share, const Args& a, cudaStream_t stream) {
 
 int dispatch(int feat_kind, bool bwd, bool share, const Args& a, void* stream) {
   if (a.blk_w < 1 || a.blk_w > kMaxBlkW || a.blk_h < 1 || a.run_blocks < 1 || a.d < 1 ||
-      a.d > kMaxD || a.tile_kind < 0 || a.tile_kind > 2)
+      a.tile_kind < 0 || a.tile_kind > 2)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (feat_kind) {
@@ -466,7 +592,7 @@ int dispatch(int feat_kind, bool bwd, bool share, const Args& a, void* stream) {
 // run_window / run_block: num_runs runs of at most run_blocks TC blocks,
 // covering every window's blocks in order.  split: some window has more
 // than run_blocks blocks; the output is then zeroed here and its runs add
-// into it.  1 <= d <= 128, 1 <= blk_w <= 128.
+// into it.  Any d >= 1, 1 <= blk_w <= 128.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int tcgnn_spmm_sfused(const void* xl, const void* xr, const void* xv,
                                  const void* tiles, const void* col_ids, const void* win_start,

@@ -21,7 +21,8 @@ backwards, on directed graphs too:
 * ``agnn_aggregate(x, att_w)`` — ``mean(att_w) * (A ⊙ x x^T) @ x``, AGNN's
   head-averaged aggregation on symmetric graphs (``None`` otherwise, as in
   the JAX package).  Condensed: K2 forward, K3 backward.  BD: K6 forward
-  and K7 backward, plus K2/K3 over the residual.
+  and K7 backward over the pack's per-row index (``BDPack.row_index``,
+  derived on the device at upload), plus K2/K3 over the residual.
 
 What the port does differently from the JAX BD route, changing no value:
 
@@ -80,6 +81,8 @@ import torch
 from tcgnn_tpu_torch.config import DEFAULT_CONFIG, TileConfig
 from tcgnn_tpu_torch.ops.blockdiag import (
     BD_BIN_GROUP,
+    BDRowIndex,
+    bd_row_index,
     bd_scatter_weights,
     bd_sfused,
     bd_sfused_bwd,
@@ -211,6 +214,7 @@ class BDPack:
     cov_pack: Optional[torch.Tensor]     # [E_cov] int64 pack positions; None unless addressable
     cov_ids: torch.Tensor                # [E_cov] int64 covered edges
     res_ids: Optional[torch.Tensor]      # [E_res] int64 residual edges
+    row_index: Optional[BDRowIndex] = None  # the pack's per-row index (K6/K7)
 
 
 def _pack_elems(m: BDMeta) -> int:
@@ -373,22 +377,22 @@ class TiledGraph:
         # CSR order, taken to the transpose's order.
         self.t_edge_src = torch.from_numpy(t_src.astype(np.int64)).to(self.device)
 
-        self.bd = self.bd_t = None
-        if self.block_diag:
-            self.bd = self._bd_dev(bdm, res_host)
-            self.bd_t = self.bd if symmetric else self._bd_dev(bdm_t, res_host_t)
-        self._sddmm_meta = self.meta if needs_condensed else EdgeList.from_rows(
-            edge_rows, column_index, self.num_nodes, config, self.device)
-
         # Score-fused AGNN on symmetric graphs.  BD takes K6/K7 where the
         # JAX kernel's 3-panel halo covers the offsets and the residual is
         # symmetric (a sign-symmetric offset set, A being symmetric); a
         # fully covered BD graph outside that gate has no condensed tiles
-        # and takes the per-edge route, as in JAX.
+        # and takes the per-edge route, as in JAX.  K6/K7 read only the
+        # forward direction (A is symmetric), through its row index.
         self._agnn_bd = self.block_diag and symmetric and (
             max(abs(o) for o in self.bd_offsets) <= BD_BIN_GROUP
             and (self.bd_full_coverage or set(self.bd_offsets) == {-o for o in self.bd_offsets})
         )
+        self.bd = self.bd_t = None
+        if self.block_diag:
+            self.bd = self._bd_dev(bdm, res_host, row_index=self._agnn_bd)
+            self.bd_t = self.bd if symmetric else self._bd_dev(bdm_t, res_host_t)
+        self._sddmm_meta = self.meta if needs_condensed else EdgeList.from_rows(
+            edge_rows, column_index, self.num_nodes, config, self.device)
         fused = symmetric and (self._agnn_bd or self.meta is not None)
         self.agnn_aggregate = self._agnn_aggregate if fused else None
 
@@ -431,8 +435,9 @@ class TiledGraph:
             tiles = tiles.to(self.config.compute_dtype)
         return tiles.to(self.device)
 
-    def _bd_dev(self, m: BDMeta, res_host) -> BDPack:
-        """One direction's BD arrays on the device."""
+    def _bd_dev(self, m: BDMeta, res_host, row_index: bool = False) -> BDPack:
+        """One direction's BD arrays on the device; with ``row_index``, the
+        pack's per-row index too."""
         dev = self.device
 
         def ids(a):
@@ -448,6 +453,7 @@ class TiledGraph:
             cov_pack=ids(m.packed_cov_idx()) if _bd_addressable(m) else None,
             cov_ids=ids(m.cov_edge_ids),
             res_ids=ids(m.res_edge_ids),
+            row_index=bd_row_index(pack, m.offsets, self.num_nodes) if row_index else None,
         )
 
     def spmm(self, x: torch.Tensor) -> torch.Tensor:
@@ -530,7 +536,8 @@ class TiledGraph:
         """``(A ⊙ x x^T) @ x``."""
         if self._agnn_bd:
             bd = self.bd
-            out = bd_sfused(x, x, x, bd.pack, offsets=bd.offsets, cfg=self.config)
+            out = bd_sfused(x, x, x, bd.pack, offsets=bd.offsets, cfg=self.config,
+                            index=bd.row_index)
             if bd.res_meta is not None:
                 out = out + spmm_sfused(x, x, x, bd.res_meta, bd.res_a)
             return out
@@ -540,7 +547,8 @@ class TiledGraph:
         """``(dx3, u)`` of the one-pass AGNN backward."""
         if self._agnn_bd:
             bd = self.bd
-            dx3, u = bd_sfused_bwd(x, dy, bd.pack, offsets=bd.offsets, cfg=self.config)
+            dx3, u = bd_sfused_bwd(x, dy, bd.pack, offsets=bd.offsets, cfg=self.config,
+                                   index=bd.row_index)
             if bd.res_meta is not None:
                 dx3_r, u_r = spmm_sfused_bwd(x, dy, bd.res_meta, bd.res_a)
                 dx3, u = dx3 + dx3_r, u + u_r

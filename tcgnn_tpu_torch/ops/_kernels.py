@@ -89,8 +89,8 @@ SIGNATURES = {
     },
     "spmm_bd": {
         "tcgnn_spmm_bd": [_P] * 4 + [_I] * 6 + [_P],
-        "tcgnn_bd_sfused": [_P] * 6 + [_I] * 6 + [_P],
-        "tcgnn_bd_sfused_bwd": [_P] * 6 + [_I] * 6 + [_P],
+        "tcgnn_bd_sfused": [_P] * 7 + [_I] * 4 + [_P],
+        "tcgnn_bd_sfused_bwd": [_P] * 7 + [_I] * 4 + [_P],
     },
     "chunk": {
         "tcgnn_spmm_chunk": [_P] * 5 + [_I] * 4 + [_P],

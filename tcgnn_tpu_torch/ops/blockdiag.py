@@ -17,7 +17,11 @@ Counterparts in ``tcgnn_tpu.ops.spmm``:
   ``out_bin[b] = sum_k (C_k[b] ⊙ (xl_bin[b] @ xr_bin[b+k]^T)) @ xv_bin[b+k]``;
 * ``bd_sfused_bwd`` (K7, ``_bd_sfused_bwd_kernel``), one pass:
   ``dx3 = (C⊙S) @ dy + (C⊙(T+U)) @ x`` and ``u = (C⊙S) @ x`` with
-  ``S = x x^T``, ``T = dy x^T``, ``U = x dy^T`` on the packed diagonals.
+  ``S = x x^T``, ``T = dy x^T``, ``U = x dy^T`` on the packed diagonals;
+* ``bd_row_index``: the pack's per-row index (``BDRowIndex``), which K6 and
+  K7 walk on the card in place of the pack: ``row_ptr`` over the node rows
+  and each nonzero's node column and value, in the pack's order, derived
+  on the device from the pack itself.
 
 The JAX contract, rounding included: pack and features cast to the compute
 dtype, every product summed in f32, the score rounded to the compute dtype
@@ -28,7 +32,9 @@ dtype**.  Bins past the graph read zeros.
 Each wrapper launches its hand-written CUDA kernel (``csrc/spmm_bd.cu``)
 for a CUDA tensor, and runs its plain PyTorch version (``*_torch``: the JAX
 halo-stack formulation, ``torch.bmm`` on the stacked ``[Bp, K*bn, d]``
-operand) for a CPU tensor only.  Counters: ``launches`` and
+operand) for a CPU tensor only.  K5 reads the pack; K6 and K7 read its
+per-row index, which ``bd_sfused``/``bd_sfused_bwd`` take as ``index``
+(required for a CUDA tensor; the plain versions read the pack).  Counters: ``launches`` and
 ``plain_calls`` on each wrapper.  A launch does little host work: the C
 function looked up once (``_kernels.call``), an offset set's C array made
 once, x cast or copied only when it is not contiguous in the compute dtype.
@@ -36,13 +42,17 @@ once, x cast or copied only when it is not contiguous in the compute dtype.
 What the port does differently, changing no value: K5 takes any offset set
 (JAX keeps an XLA einsum for offsets past its 3-panel halo, a Pallas
 limit); K6's wrapper takes three tensors and needs no operand identity to
-pick a DMA layout (JAX's ``xl is xr`` only chooses which panels to fetch).
+pick a DMA layout (JAX's ``xl is xr`` only chooses which panels to fetch);
+K6 and K7 walk the index, not the pack.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -56,8 +66,10 @@ from tcgnn_tpu_torch.sgt.blockdiag import packed_index
 BD_BIN_GROUP = 8
 PACK_KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2, torch.int16: 3}
 KERNEL_MAX_K = 8         # the kernels hold the offsets in a fixed array
-KERNEL_MAX_STRIPE = 1024  # K * bn: 32 entries a lane (K5's mask, K6/K7's registers)
-KERNEL_MAX_D = 128       # K6/K7: a lane holds up to 4 feature columns of a row
+KERNEL_MAX_STRIPE = 1024  # K * bn: 32 entries a lane (K5's mask)
+# Flat pack entries ``bd_row_index`` scans at once: under one ``nonzero``
+# call's limit (YeastH's pack has 2.01e9 entries).
+INDEX_SLAB = 1 << 28
 
 
 def padded_bins(num_bins: int) -> int:
@@ -81,6 +93,87 @@ def bd_scatter_weights(w_cov: torch.Tensor, cov_pack_idx: torch.Tensor, *, bp: i
     flat = torch.zeros(bp * bn * k * bn, dtype=dtype, device=w_cov.device)
     flat.index_add_(0, cov_pack_idx, w_cov.to(dtype))
     return flat.view(bp, bn, k * bn)
+
+
+@dataclasses.dataclass(frozen=True)
+class BDRowIndex:
+    """A pack's nonzeros by node row, which K6 and K7 walk: row ``i``'s are
+    ``[row_ptr[i], row_ptr[i + 1])``, each with its node column ``cols``
+    and its value ``vals`` (the pack's dtype), in the pack's order (offset,
+    then column: ascending node column)."""
+
+    row_ptr: torch.Tensor  # [n + 1] int64
+    cols: torch.Tensor     # [nnz] int32
+    vals: torch.Tensor     # [nnz] the pack's dtype
+    # What a launch checks, worked out once here: the device a kernel can
+    # read the arrays on (all three there, contiguous, int64 row pointers,
+    # int32 columns, a value a column), else None.
+    kernel_device: Optional[torch.device] = dataclasses.field(
+        init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        arrays = (self.row_ptr, self.cols, self.vals)
+        dev = self.row_ptr.device
+        ok = (all(t.device == dev and t.is_contiguous() for t in arrays)
+              and self.row_ptr.dtype == torch.int64 and self.cols.dtype == torch.int32
+              and self.cols.numel() == self.vals.numel())
+        object.__setattr__(self, "kernel_device", dev if ok else None)
+
+    @property
+    def num_rows(self) -> int:
+        return self.row_ptr.numel() - 1
+
+    @property
+    def nnz(self) -> int:
+        return self.cols.numel()
+
+
+def bd_row_index(pack: torch.Tensor, offsets, n: int) -> BDRowIndex:
+    """The per-row index of ``pack`` over ``n`` node rows, on the pack's
+    device: the flat pack's nonzero positions in order, ``INDEX_SLAB``
+    entries at a time, each taken to its node row ``p // (K*bn)`` and column
+    ``(b + offsets[j // bn]) * bn + j % bn`` (``b`` the row's bin, ``j``
+    its place in the row).  Entries outside the graph (padding rows, or a
+    column past either end) are dropped, as the kernels drop them."""
+    bn, stripe = pack.shape[1], pack.shape[2]
+    offs = torch.tensor(offsets, dtype=torch.int64, device=pack.device)
+    flat = pack.reshape(-1)
+    rows, cols, vals = [], [], []
+    for s0 in range(0, n * stripe, INDEX_SLAB):
+        p = torch.nonzero(flat[s0:min(s0 + INDEX_SLAB, n * stripe)]).squeeze(1) + s0
+        r, j = p // stripe, p % stripe
+        c = (r // bn + offs[j // bn]) * bn + j % bn
+        keep = (c >= 0) & (c < n)
+        rows.append(r[keep])
+        cols.append(c[keep].to(torch.int32))
+        vals.append(flat[p[keep]])
+    row = torch.cat(rows) if rows else torch.zeros(0, dtype=torch.int64, device=pack.device)
+    row_ptr = torch.zeros(n + 1, dtype=torch.int64, device=pack.device)
+    row_ptr[1:] = torch.cumsum(torch.bincount(row, minlength=n), 0)
+    cols = torch.cat(cols) if cols else torch.zeros(0, dtype=torch.int32, device=pack.device)
+    vals = torch.cat(vals) if vals else torch.zeros(0, dtype=pack.dtype, device=pack.device)
+    return BDRowIndex(row_ptr=row_ptr, cols=cols, vals=vals)
+
+
+def check_row_index(op: str, index, x: torch.Tensor, pack: torch.Tensor) -> None:
+    """Raise unless ``index`` is a ``BDRowIndex`` that fits x and the pack:
+    a row for each of x's rows, no more nonzeros than the pack's rows can
+    hold, the pack's value dtype, and arrays a kernel can read on x's
+    device."""
+    if index is None:
+        raise ValueError(f"{op}: the kernel walks the pack's row index: pass index="
+                         f"bd_row_index(pack, offsets, n)")
+    n = x.shape[0]
+    if index.num_rows != n:
+        raise ValueError(f"{op}: row index of {index.num_rows} rows for {n} nodes")
+    if index.nnz > n * pack.shape[2]:
+        raise ValueError(f"{op}: row index nonzero count {index.nnz} does not fit {n} pack rows "
+                         f"of {pack.shape[2]}")
+    if index.vals.dtype != pack.dtype:
+        raise TypeError(f"{op}: row index values {index.vals.dtype}, pack {pack.dtype}")
+    if index.kernel_device != x.device:
+        raise ValueError(f"{op}: row index arrays on {index.row_ptr.device} must be contiguous "
+                         f"int64 row_ptr, int32 cols and a value a column, on {x.device}")
 
 
 # ---- plain versions ---------------------------------------------------------
@@ -142,11 +235,10 @@ def bd_sfused_bwd_torch(x, dy, pack, *, offsets, cfg: TileConfig):
 
 # ---- kernel wrappers --------------------------------------------------------
 
-def _check(op, x, pack, offsets, cfg, max_d=None):
+def _check(op, x, pack, offsets, cfg):
     """What K5-K7 take: the compute dtype and pack dtype they have a kernel
     for, at most ``KERNEL_MAX_K`` offsets and a stripe of at most
-    ``KERNEL_MAX_STRIPE``, d <= ``max_d``, and the pack on x's device,
-    contiguous."""
+    ``KERNEL_MAX_STRIPE``, and the pack on x's device, contiguous."""
     if cfg.compute_dtype not in FEAT_KIND:
         raise TypeError(f"{op}: no kernel for compute dtype {cfg.compute_dtype}")
     if pack.dtype not in PACK_KIND:
@@ -155,8 +247,6 @@ def _check(op, x, pack, offsets, cfg, max_d=None):
     if not 1 <= k <= KERNEL_MAX_K or k * bn > KERNEL_MAX_STRIPE:
         raise ValueError(f"{op}: the kernel takes 1 to {KERNEL_MAX_K} offsets and "
                          f"K * bn <= {KERNEL_MAX_STRIPE}, got K={k}, bn={bn}")
-    if max_d is not None and x.shape[1] > max_d:
-        raise ValueError(f"{op}: the kernel takes d <= {max_d}, got {x.shape[1]}")
     if pack.device != x.device or not pack.is_contiguous():
         _kernels.check_operands(op, x.device, pack)
 
@@ -221,19 +311,30 @@ def spmm_block_diag(x, pack, *, offsets, cfg: TileConfig) -> torch.Tensor:
     return out
 
 
+def _index_tail(x, index, cfg):
+    """K6/K7's index pointers, int arguments and stream."""
+    n, d = x.shape
+    return (index.row_ptr.data_ptr(), index.cols.data_ptr(), index.vals.data_ptr(), n, d,
+            FEAT_KIND[cfg.compute_dtype], PACK_KIND[index.vals.dtype], _kernels.stream_of(x))
+
+
 @_kernels.counted
-def bd_sfused(xl, xr, xv, pack, *, offsets, cfg: TileConfig) -> torch.Tensor:
+def bd_sfused(xl, xr, xv, pack, *, offsets, cfg: TileConfig, index=None) -> torch.Tensor:
     """Score-fused BD SpMM ``(C ⊙ (xl @ xr^T)) @ xv`` on the packed
-    diagonals, ``[N, d]`` in the compute dtype; ``xv is xr`` reads the
-    shared rows once.  A CUDA tensor runs K6 (or raises); a CPU tensor runs
-    the plain version."""
+    diagonals, ``[N, d]`` in the compute dtype, any d; ``xv is xr`` reads
+    the shared rows once.  A CUDA tensor runs K6 over ``index`` (the pack's
+    ``bd_row_index``; raises without one); a CPU tensor runs the plain
+    version over the pack."""
     _check_shapes("bd_sfused", xl, pack, offsets, xr, xv)
     if xl.device.type == "cpu":
+        if index is not None:
+            check_row_index("bd_sfused", index, xl, pack)
         bd_sfused.plain_calls += 1
         return bd_sfused_torch(xl, xr, xv, pack, offsets=offsets, cfg=cfg)
     if xl.device.type != "cuda":
         raise ValueError(f"bd_sfused: no kernel for device {xl.device}")
-    _check("bd_sfused", xl, pack, offsets, cfg, KERNEL_MAX_D)
+    _check("bd_sfused", xl, pack, offsets, cfg)
+    check_row_index("bd_sfused", index, xl, pack)
     ct = cfg.compute_dtype
     n, d = xl.shape
     out = torch.empty((n, d), dtype=ct, device=xl.device)
@@ -242,25 +343,28 @@ def bd_sfused(xl, xr, xv, pack, *, offsets, cfg: TileConfig) -> torch.Tensor:
     l_ = xl.to(ct).contiguous()
     r = l_ if xr is xl else xr.to(ct).contiguous()
     v = None if xv is xr else (l_ if xv is xl else xv.to(ct).contiguous())
+    tail = _index_tail(xl, index, cfg)
     _kernels.call("spmm_bd", "tcgnn_bd_sfused", xl.device, l_.data_ptr(), r.data_ptr(),
-                  None if v is None else v.data_ptr(), pack.data_ptr(), _offsets_arg(offsets),
-                  out.data_ptr(), *_tail(xl, pack, offsets, cfg))
+                  None if v is None else v.data_ptr(), *tail[:3], out.data_ptr(), *tail[3:])
     bd_sfused.launches += 1
     return out
 
 
 @_kernels.counted
-def bd_sfused_bwd(x, dy, pack, *, offsets, cfg: TileConfig):
+def bd_sfused_bwd(x, dy, pack, *, offsets, cfg: TileConfig, index=None):
     """The BD AGNN backward in one pass: ``(dx3, u)``, both ``[N, d]`` in
-    the compute dtype.  A CUDA tensor runs K7 (or raises); a CPU tensor runs
-    the plain version."""
+    the compute dtype, any d.  A CUDA tensor runs K7 over ``index`` (raises
+    without one); a CPU tensor runs the plain version over the pack."""
     _check_shapes("bd_sfused_bwd", x, pack, offsets, dy)
     if x.device.type == "cpu":
+        if index is not None:
+            check_row_index("bd_sfused_bwd", index, x, pack)
         bd_sfused_bwd.plain_calls += 1
         return bd_sfused_bwd_torch(x, dy, pack, offsets=offsets, cfg=cfg)
     if x.device.type != "cuda":
         raise ValueError(f"bd_sfused_bwd: no kernel for device {x.device}")
-    _check("bd_sfused_bwd", x, pack, offsets, cfg, KERNEL_MAX_D)
+    _check("bd_sfused_bwd", x, pack, offsets, cfg)
+    check_row_index("bd_sfused_bwd", index, x, pack)
     ct = cfg.compute_dtype
     n, d = x.shape
     dx3 = torch.empty((n, d), dtype=ct, device=x.device)
@@ -268,8 +372,8 @@ def bd_sfused_bwd(x, dy, pack, *, offsets, cfg: TileConfig):
     if n == 0 or d == 0:
         return dx3, u
     xc, dyc = x.to(ct).contiguous(), dy.to(ct).contiguous()
+    tail = _index_tail(x, index, cfg)
     _kernels.call("spmm_bd", "tcgnn_bd_sfused_bwd", x.device, xc.data_ptr(), dyc.data_ptr(),
-                  pack.data_ptr(), _offsets_arg(offsets), dx3.data_ptr(), u.data_ptr(),
-                  *_tail(x, pack, offsets, cfg))
+                  *tail[:3], dx3.data_ptr(), u.data_ptr(), *tail[3:])
     bd_sfused_bwd.launches += 1
     return dx3, u

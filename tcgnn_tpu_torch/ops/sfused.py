@@ -25,8 +25,10 @@ Each wrapper launches its hand-written CUDA kernel
 (``csrc/spmm_sfused.cu``) for a CUDA tensor, and runs its plain PyTorch
 version (``*_torch``: the JAX algorithm as batched tile products and a
 per-window ``index_add_``) for a CPU tensor only.  Counters: ``launches``
-and ``plain_calls`` on each wrapper.  The kernels take d <= 128, as the
-JAX kernel does no d-tiling either.
+and ``plain_calls`` on each wrapper.  The kernels take any d, as the JAX
+kernels pad d to lanes: up to 128 one thread block forms each score from
+all of d, past it each 128-column tile of the output gets its own (grid.y)
+and forms the full scores again.
 """
 
 from __future__ import annotations
@@ -36,8 +38,6 @@ import torch
 from tcgnn_tpu_torch.ops import _kernels
 from tcgnn_tpu_torch.ops.spmm import FEAT_KIND, TILE_KIND, check_tiled_operands
 from tcgnn_tpu_torch.sgt.translate import KERNEL_RUN_BLOCKS, TorchSGTMeta
-
-KERNEL_MAX_D = 128  # a lane holds up to 4 feature columns
 
 
 def _windows(x, meta):
@@ -92,12 +92,6 @@ def spmm_sfused_bwd_torch(x, dy, meta: TorchSGTMeta, a_tiles, xw=None, dyw=None)
     return dx3, _window_sum(torch.bmm(cs, x_g), meta)
 
 
-def _check(op, x, meta, a_tiles):
-    check_tiled_operands(op, x, meta, a_tiles)
-    if x.shape[1] > KERNEL_MAX_D:
-        raise ValueError(f"{op}: the kernel takes d <= {KERNEL_MAX_D}, got {x.shape[1]}")
-
-
 def _args(x, meta, a_tiles):
     """The C functions' int arguments and stream, after the pointers."""
     cfg = meta.config
@@ -141,7 +135,7 @@ def spmm_sfused(xl, xr, xv, meta: TorchSGTMeta, a_tiles) -> torch.Tensor:
         return spmm_sfused_torch(xl, xr, xv, meta, a_tiles)
     if xl.device.type != "cuda":
         raise ValueError(f"spmm_sfused: no kernel for device {xl.device}")
-    _check("spmm_sfused", xr, meta, a_tiles)
+    check_tiled_operands("spmm_sfused", xr, meta, a_tiles)
     ct = meta.config.compute_dtype
     n, d = meta.num_rows, xl.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=xl.device)
@@ -178,7 +172,7 @@ def spmm_sfused_bwd(x, dy, meta: TorchSGTMeta, a_tiles, xw=None, dyw=None):
         return spmm_sfused_bwd_torch(x, dy, meta, a_tiles, xw, dyw)
     if x.device.type != "cuda":
         raise ValueError(f"spmm_sfused_bwd: no kernel for device {x.device}")
-    _check("spmm_sfused_bwd", x, meta, a_tiles)
+    check_tiled_operands("spmm_sfused_bwd", x, meta, a_tiles)
     ct = meta.config.compute_dtype
     n, d = meta.num_rows, x.shape[1]
     dx3 = torch.empty((n, d), dtype=torch.float32, device=x.device)

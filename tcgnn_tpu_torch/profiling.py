@@ -176,6 +176,7 @@ def main(out_dir: str = "prof_traces", *groups: str) -> None:
     dev = torch.device("cuda")
     g = TiledGraph(ds.row_pointers, ds.column_index, ds.num_nodes, TileConfig(), device=dev)
     p, offs, cfg, n = g.bd.pack, g.bd_offsets, TileConfig(), ds.num_nodes
+    index = g.bd.row_index
     gen = torch.Generator(device=dev).manual_seed(0)
     for d in (2, 16, 89):
         x = torch.randn(n, d, device=dev, generator=gen)
@@ -186,10 +187,10 @@ def main(out_dir: str = "prof_traces", *groups: str) -> None:
         x = torch.randn(n, d, device=dev, generator=gen) * 0.3
         dy = torch.randn(n, d, device=dev, generator=gen)
         print("device K6 DD d={}: kernel {:.4f} ms, plain {:.4f} ms".format(
-            d, device_ms(lambda: bd_sfused(x, x, x, p, offsets=offs, cfg=cfg)),
+            d, device_ms(lambda: bd_sfused(x, x, x, p, offsets=offs, cfg=cfg, index=index)),
             device_ms(lambda: bd_sfused_torch(x, x, x, p, offsets=offs, cfg=cfg))))
         print("device K7 DD d={}: kernel {:.4f} ms, plain {:.4f} ms".format(
-            d, device_ms(lambda: bd_sfused_bwd(x, dy, p, offsets=offs, cfg=cfg)),
+            d, device_ms(lambda: bd_sfused_bwd(x, dy, p, offsets=offs, cfg=cfg, index=index)),
             device_ms(lambda: bd_sfused_bwd_torch(x, dy, p, offsets=offs, cfg=cfg))))
 
 

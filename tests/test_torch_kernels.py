@@ -48,6 +48,7 @@ from tcgnn_tpu_torch.ops import (
     spmm_sfused_bwd_torch,
     spmm_sfused_torch,
 )
+from tcgnn_tpu_torch.ops.blockdiag import bd_row_index
 from tcgnn_tpu_torch.ops.chunk import (
     sddmm_tc,
     sddmm_tc_torch,
@@ -180,10 +181,15 @@ def csr(rp, ci, dev):
     return torch.from_numpy(rp).to(dev), torch.from_numpy(ci).to(dev)
 
 
+# K2/K3's widths: one lane group of up to 4 columns a lane (d <= 128), and
+# past it the wide path's 128-column tiles of the output.
+SFUSED_WIDTHS = [3, 32, 70, 129, 200, 500]
+
+
 @pytest.mark.parametrize("kind", ["hub", "empty_and_partial_windows", "duplicates_over_127"])
 @pytest.mark.parametrize("geometry", GEOMETRIES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [3, 32, 70])
+@pytest.mark.parametrize("d", SFUSED_WIDTHS)
 @pytest.mark.parametrize("share", [True, False])
 def test_sfused_kernel_matches_plain(cuda, kind, geometry, dtype, d, share):
     n, rp, ci = graph(kind)
@@ -206,7 +212,7 @@ def test_sfused_kernel_matches_plain(cuda, kind, geometry, dtype, d, share):
 @pytest.mark.parametrize("kind", ["hub", "empty_and_partial_windows", "duplicates_over_127"])
 @pytest.mark.parametrize("geometry", GEOMETRIES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [3, 32, 70])
+@pytest.mark.parametrize("d", SFUSED_WIDTHS)
 def test_sfused_bwd_kernel_matches_plain(cuda, kind, geometry, dtype, d):
     n, rp, ci = graph(kind)
     bh, bw = geometry
@@ -264,14 +270,21 @@ def test_weighted_tiles_round_to_bf16_in_k1(cuda):
     assert float(spmm_tc_dense_torch(x, g.meta, tiles)[0, 0]) == 101.0
 
 
-def test_sfused_rejects_wide_features(cuda):
+@pytest.mark.parametrize("d", [129, 200, 500])
+def test_sfused_rejects_wide_features(cuda, d):
+    """K2 and K3 once refused d > 128; they now take any d, as the JAX
+    kernels do (the wide path), and agree with the plain versions there."""
     n, rp, ci = graph("directed")
     g = TiledGraph(rp, ci, n, TileConfig(blk_h=16, blk_w=8), device=cuda, block_diag=False)
-    x = torch.zeros(n, 130, device=cuda)
-    with pytest.raises(ValueError, match="d <= 128"):
-        spmm_sfused(x, x, x, g.meta, g.a_struct)
-    with pytest.raises(ValueError, match="d <= 128"):
-        spmm_sfused_bwd(x, x, g.meta, g.a_struct)
+    x, y = randn((n, d), 6, cuda, 0.3), randn((n, d), 7, cuda, 0.3)
+    got = spmm_sfused(x, y, y, g.meta, g.a_struct)
+    mag = spmm_sfused_torch(x.abs(), y.abs(), y.abs(), g.meta, g.a_struct)
+    within(got, spmm_sfused_torch(x, y, y, g.meta, g.a_struct), mag, **F32)
+    dx3, u = spmm_sfused_bwd(x, y, g.meta, g.a_struct)
+    mag_dx3, mag_u = spmm_sfused_bwd_torch(x.abs(), y.abs(), g.meta, g.a_struct)
+    want_dx3, want_u = spmm_sfused_bwd_torch(x, y, g.meta, g.a_struct)
+    within(dx3, want_dx3, mag_dx3, **F32)
+    within(u, want_u, mag_u, **F32)
 
 
 @pytest.mark.parametrize("kind", ["symmetric", "directed"])
@@ -311,10 +324,12 @@ BD_OFFSETS = {"diag": (0,), "tri": (-1, 0, 1), "hepta": (-3, -2, -1, 0, 1, 2, 3)
               "gaps": (-5, -1, 0, 3)}
 
 
-def bd_pack(n, offsets, kind, dev, seed=0, bn=128):
+def bd_pack(n, offsets, kind, dev, seed=0, bn=128, extreme_rows=False):
     """A random pack [Bp, bn, K*bn] of about 5 entries a row (DD's
     density): int8 counts 1-3; int16, with one entry in 500 a count of
-    128-300; or float / bfloat16 normal weights."""
+    128-300; or float / bfloat16 normal weights.  ``extreme_rows``: row 5
+    empty and the first row of the middle bin full across its stripe
+    (1,024 entries for 8 offsets of 128)."""
     g = torch.Generator().manual_seed(seed)
     bp = -(-(-(-n // bn)) // 8) * 8
     shape = (bp, bn, len(offsets) * bn)
@@ -328,6 +343,10 @@ def bd_pack(n, offsets, kind, dev, seed=0, bn=128):
     else:
         pack = (mask * torch.randn(shape, generator=g)).to(
             torch.float32 if kind == "float" else torch.bfloat16)
+    if extreme_rows:
+        rows = pack.view(-1, shape[2])
+        rows[5] = 0
+        rows[(-(-n // bn) // 2) * bn] = 1
     return pack.to(dev)
 
 
@@ -360,19 +379,25 @@ BD_SHARING = {"all_one": "xxx", "l_is_r": "xxv", "l_is_v": "xrx", "v_is_r": "lxx
               "separate": "lrv"}
 
 
+# K6/K7's widths: lane groups of 1 to 32 lanes (d <= 128; d % 4 != 0 reads
+# a column at a time), and past 128 the wide path's output tiles.
+BD_SFUSED_WIDTHS = [1, 2, 3, 4, 31, 32, 33, 64, 128, 129, 200]
+
+
 @pytest.mark.parametrize("offsets", list(BD_OFFSETS))
 @pytest.mark.parametrize("kind", ["int8", "int16"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [2, 32, 70])
+@pytest.mark.parametrize("d", BD_SFUSED_WIDTHS)
 @pytest.mark.parametrize("sharing", list(BD_SHARING))
 def test_bd_sfused_kernel_matches_plain(cuda, offsets, kind, dtype, d, sharing):
     n, offs = 1100, BD_OFFSETS[offsets]
-    pack = bd_pack(n, offs, kind, cuda, seed=1)
+    pack = bd_pack(n, offs, kind, cuda, seed=1, extreme_rows=True)
+    index = bd_row_index(pack, offs, n)
     ops = {k: randn((n, d), 21 + i, cuda, 0.3) for i, k in enumerate("xlrv")}
     args = [ops[k] for k in BD_SHARING[sharing]]
     cfg = bd_cfg(dtype)
     before = bd_sfused.launches
-    got = bd_sfused(*args, pack, offsets=offs, cfg=cfg)
+    got = bd_sfused(*args, pack, offsets=offs, cfg=cfg, index=index)
     torch.cuda.synchronize()
     assert bd_sfused.launches == before + 1 and got.dtype == dtype and got.shape == (n, d)
     mag = bd_sfused_torch(*(a.abs() for a in args), pack.float().abs(), offsets=offs,
@@ -383,14 +408,15 @@ def test_bd_sfused_kernel_matches_plain(cuda, offsets, kind, dtype, d, sharing):
 @pytest.mark.parametrize("offsets", list(BD_OFFSETS))
 @pytest.mark.parametrize("kind", ["int8", "int16"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d", [(1000, 2), (1100, 32), (1100, 70)])
+@pytest.mark.parametrize("n,d", [(1000 + 100 * (i % 2), d) for i, d in enumerate(BD_SFUSED_WIDTHS)])
 def test_bd_sfused_bwd_kernel_matches_plain(cuda, offsets, kind, dtype, n, d):
     offs = BD_OFFSETS[offsets]
-    pack = bd_pack(n, offs, kind, cuda, seed=2)
+    pack = bd_pack(n, offs, kind, cuda, seed=2, extreme_rows=True)
+    index = bd_row_index(pack, offs, n)
     x, dy = randn((n, d), 30, cuda, 0.3), randn((n, d), 31, cuda, 0.3)
     cfg = bd_cfg(dtype)
     before = bd_sfused_bwd.launches
-    dx3, u = bd_sfused_bwd(x, dy, pack, offsets=offs, cfg=cfg)
+    dx3, u = bd_sfused_bwd(x, dy, pack, offsets=offs, cfg=cfg, index=index)
     torch.cuda.synchronize()
     assert bd_sfused_bwd.launches == before + 1 and dx3.dtype == u.dtype == dtype
     mag_dx3, mag_u = bd_sfused_bwd_torch(x.abs(), dy.abs(), pack.float().abs(), offsets=offs,
@@ -400,20 +426,33 @@ def test_bd_sfused_bwd_kernel_matches_plain(cuda, offsets, kind, dtype, n, d):
     within(u, want_u, mag_u, **tol(dtype))
 
 
-def test_bd_kernels_reject_what_they_do_not_take(cuda):
+@pytest.mark.parametrize("wide_d", [129, 200, 500])
+def test_bd_kernels_reject_what_they_do_not_take(cuda, wide_d):
+    """K6 and K7 once refused d > 128; they now take any d and agree with
+    the plain versions there.  They still refuse a call without the pack's
+    row index; K5 refuses more than 8 offsets and a pack off the card."""
     offs = BD_OFFSETS["tri"]
     pack = bd_pack(300, offs, "int8", cuda)
-    x = torch.zeros(300, 130, device=cuda)
-    with pytest.raises(ValueError, match="d <= 128"):
-        bd_sfused(x, x, x, pack, offsets=offs, cfg=bd_cfg(torch.float32))
-    with pytest.raises(ValueError, match="d <= 128"):
-        bd_sfused_bwd(x, x, pack, offsets=offs, cfg=bd_cfg(torch.float32))
+    index = bd_row_index(pack, offs, 300)
+    x, y = randn((300, wide_d), 32, cuda, 0.3), randn((300, wide_d), 33, cuda, 0.3)
+    cfg = bd_cfg(torch.float32)
+    got = bd_sfused(x, y, y, pack, offsets=offs, cfg=cfg, index=index)
+    mag = bd_sfused_torch(x.abs(), y.abs(), y.abs(), pack.float(), offsets=offs, cfg=cfg)
+    within(got, bd_sfused_torch(x, y, y, pack, offsets=offs, cfg=cfg), mag, **F32)
+    dx3, u = bd_sfused_bwd(x, y, pack, offsets=offs, cfg=cfg, index=index)
+    mag_dx3, mag_u = bd_sfused_bwd_torch(x.abs(), y.abs(), pack.float(), offsets=offs, cfg=cfg)
+    want_dx3, want_u = bd_sfused_bwd_torch(x, y, pack, offsets=offs, cfg=cfg)
+    within(dx3, want_dx3, mag_dx3, **F32)
+    within(u, want_u, mag_u, **F32)
+    with pytest.raises(ValueError, match="row index"):
+        bd_sfused(x, x, x, pack, offsets=offs, cfg=cfg)
+    with pytest.raises(ValueError, match="row index"):
+        bd_sfused_bwd(x, x, pack, offsets=offs, cfg=cfg)
     nine = tuple(range(-4, 5))
     with pytest.raises(ValueError, match="offsets"):
-        spmm_block_diag(x, bd_pack(300, nine, "int8", cuda), offsets=nine,
-                        cfg=bd_cfg(torch.float32))
+        spmm_block_diag(x, bd_pack(300, nine, "int8", cuda), offsets=nine, cfg=cfg)
     with pytest.raises(ValueError, match="on cpu"):
-        spmm_block_diag(x, pack.cpu(), offsets=offs, cfg=bd_cfg(torch.float32))
+        spmm_block_diag(x, pack.cpu(), offsets=offs, cfg=cfg)
 
 
 def bd_graph(kind):
