@@ -4,10 +4,10 @@
 Run from the repository root:  python3 chip_smoke.py
 
 ``python3 chip_smoke.py --ab DIR`` runs none of the phases below: it builds
-another commit's ``spmm_bd.cu``, ``spmm_dense.cu`` and ``chunk.cu``, those
-of them DIR holds, beside the tree's and times the kernels of the two in
-turns (K5, K6 and K7 on DD; K1 and K10; K8 and K9 on pubmed and reddit)
-(``ab_main``).
+another commit's ``spmm_bd.cu``, ``spmm_dense.cu``, ``chunk.cu`` and
+``spmm_sfused.cu``, those of them DIR holds, beside the tree's and times
+the kernels of the two in turns (K5, K6 and K7 on DD; K1 and K10; K8 and K9
+on pubmed and reddit; K2 and K3 on pubmed and DD's residual) (``ab_main``).
 
 Phases, in order; any failure raises and exits nonzero:
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
@@ -21,10 +21,11 @@ Phases, in order; any failure raises and exits nonzero:
      its transpose tiling, and through weighted tiles;
   4. autograd: ``TiledGraph.spmm`` forward and backward, kernel against
      plain version and CSR oracle, on the asymmetric graph;
-  5. K2, K3 and K4 against their plain versions and f64 CSR oracles:
-     pubmed at 512x128 and 16x8, d in {32, 3} (AGNN's hidden and class
-     widths) and 200 (K2/K3's wide path), f32 and bf16, K2's value operand
-     shared and separate; K4 on the asymmetric graph too;
+  5. K2 and K3 over the tiles' row index (``sgt_row_index``, its nonzeros,
+     bytes and build time printed), and K4, against their plain versions
+     and f64 CSR oracles: pubmed at 512x128 and 16x8, d in {32, 3} (AGNN's
+     hidden and class widths) and 200 (K2/K3's wide path), f32 and bf16,
+     K2's value operand shared and separate; K4 on the asymmetric graph too;
   6. autograd of the AGNN ops, forward and backward, against f64 oracles:
      ``agnn_aggregate`` (K2/K3, gradient of the attention weights included)
      on pubmed, and the weighted SpMM and SDDMM (K1/K4) on the asymmetric
@@ -36,6 +37,10 @@ Phases, in order; any failure raises and exits nonzero:
      one operand and with three), f32 and bf16; K5 over Yeast's pack (659
      MB, fully covered) at d=2, over an int16 pack (a union graph with a
      duplicate count above 127) and over a banded graph's transpose pack;
+     DD's residual (what DD's AGNN sends through K2/K3): its row index, K2
+     and K3 at d in {32, 2, 200}, f32 and bf16, against the plain versions
+     and the residual's f64 oracles, then timed at d=32 (event and device)
+     beside the plain version and the bound;
   8. autograd on the block-diagonal route against f64 oracles: ``spmm``,
      ``agnn_aggregate`` (attention gradient included), ``spmm_weighted``
      and ``sddmm`` on DD and on the asymmetric banded graph;
@@ -69,7 +74,8 @@ Phases, in order; any failure raises and exits nonzero:
      beside its bound and ``torch.sparse.mm`` or
      ``torch.sparse.sampled_addmm`` over the row index;
  12. every kernel and its plain version timed with CUDA events (K1-K4, K8
-     and K9 at the pubmed shapes, K5-K7 at DD's): the median of 25 event
+     and K9 at the pubmed shapes, K2/K3 over the row index the graph builds,
+     K5-K7 at DD's): the median of 25 event
      pairs around one call each (the wrapper's host work included), and the
      kernel's device time, one event pair around 25 back-to-back calls over
      25 (``device_ms``); each beside its bound
@@ -82,10 +88,12 @@ Phases, in order; any failure raises and exits nonzero:
      the main path calls them.  The kernels line takes K8 and K9 from phase
      11's reddit timing (d=16 and d=32), the shapes of their main path;
  13. the distributed dense-tile route (``tcgnn_tpu_torch.parallel``), every
-     shard of the mesh on this one card: on pubmed balanced over a 4x2 mesh
+     shard of the mesh on this one card: on pubmed balanced over an 8x1
+     mesh, each split stream's row index (built at upload) and K2/K3 over it
+     with the window side apart (d in {32, 3, 200}); over a 4x2 mesh
      (512x128), each shard's split stream: K10 (d in {32, 16, 8}: the
      check's width and the main path's feature-shard widths), K4's tile
-     mode and K3 with its window-side overrides (d=32) against their plain
+     mode and K2/K3 with the window side apart (d=32) against their plain
      versions, f32 and bf16; then the path through the trainer, 21 timed
      epochs each, ``--no_dropout``: pubmed GCN hidden 16 on ``--mesh 4x2``
      (K1), AGNN hidden 32 on ``--mesh 4x2`` (K4 tiles and K10) and on
@@ -156,11 +164,17 @@ from tcgnn_tpu_torch.ops import (
 )
 from tcgnn_tpu_torch.ops.blockdiag import PACK_KIND, _offsets_arg, bd_row_index
 from tcgnn_tpu_torch.ops.reference import sddmm_ref, sfused_bwd_ref, sfused_ref, spmm_ref
-from tcgnn_tpu_torch.ops.spmm import FEAT_KIND
+from tcgnn_tpu_torch.ops.sfused import sgt_row_index
+from tcgnn_tpu_torch.ops.spmm import FEAT_KIND, TILE_KIND
 from tcgnn_tpu_torch.parallel import distributed_graph_from_dataset, make_mesh
+from tcgnn_tpu_torch.profiling import device_ms as kernel_ms
 from tcgnn_tpu_torch.sgt.blockdiag import extract_block_diag
 from tcgnn_tpu_torch.sgt.stream import segment_chunks
-from tcgnn_tpu_torch.sgt.translate import sparse_graph_translate, transpose_csr
+from tcgnn_tpu_torch.sgt.translate import (
+    KERNEL_RUN_BLOCKS,
+    sparse_graph_translate,
+    transpose_csr,
+)
 
 # Summation order is the only difference between a kernel and its
 # references, so rtol applies to the sum of the magnitudes of the summed
@@ -344,10 +358,11 @@ def phase_transpose_and_autograd(dev) -> dict:
     return errs
 
 
-def check_agnn_kernels(name, meta, tiles, csr, d, dev, errs):
-    """K2 (value operand shared and separate), K3 and K4 on one tiling at
-    width d, f32 and bf16, against the plain versions and, in f32, the f64
-    CSR oracles (K4 in bf16 too: its products are exact in f32)."""
+def check_agnn_kernels(name, meta, tiles, index, csr, d, dev, errs, sddmm=True):
+    """K2 (value operand shared and separate) and K3 over the tiles' row
+    index ``index``, and K4 (``sddmm``), on one tiling at width d, f32 and
+    bf16, against the plain versions and, in f32, the f64 CSR oracles (K4
+    in bf16 too: its products are exact in f32)."""
     n = meta.num_rows
     ptr, idx = csr.ptr, csr.idx
     xl, xr, xv = (randn((n, d), 30 + i, dev) * 0.3 for i in range(3))
@@ -356,7 +371,7 @@ def check_agnn_kernels(name, meta, tiles, csr, d, dev, errs):
         ab = [t.to(dtype).double() for t in (xl, xr, xv)]  # the compute-dtype operands
         for share in (True, False):
             v = xr if share else xv
-            got = spmm_sfused(xl, xr, v, m, tiles)
+            got = spmm_sfused(xl, xr, v, m, tiles, index=index)
             mag = sfused_ref(ab[0].abs(), ab[1].abs(), (ab[1] if share else ab[2]).abs(), ptr, idx)
             what = "shared" if share else "separate"
             err = compare(f"K2 {tag} xv {what} vs plain", got,
@@ -365,7 +380,7 @@ def check_agnn_kernels(name, meta, tiles, csr, d, dev, errs):
                 errs["K2"][f"{tag} {what}"] = err
                 compare(f"K2 {tag} xv {what} vs CSR oracle (f64)", got,
                         sfused_ref(ab[0], ab[1], ab[1] if share else ab[2], ptr, idx), mag, tol)
-        dx3, u = spmm_sfused_bwd(xl, xr, m, tiles)
+        dx3, u = spmm_sfused_bwd(xl, xr, m, tiles, index=index)
         p_dx3, p_u = spmm_sfused_bwd_torch(xl, xr, m, tiles)
         mag_dx3, mag_u = sfused_bwd_ref(ab[0].abs(), ab[1].abs(), ptr, idx)
         err = max(compare(f"K3 {tag} dx3 vs plain", dx3, p_dx3, mag_dx3, tol),
@@ -375,7 +390,8 @@ def check_agnn_kernels(name, meta, tiles, csr, d, dev, errs):
             o_dx3, o_u = sfused_bwd_ref(ab[0], ab[1], ptr, idx)
             compare(f"K3 {tag} dx3 vs CSR oracle (f64)", dx3, o_dx3, mag_dx3, tol)
             compare(f"K3 {tag} u vs CSR oracle (f64)", u, o_u, mag_u, tol)
-        check_sddmm(tag, xl, xr, m, csr, ab, errs)
+        if sddmm:
+            check_sddmm(tag, xl, xr, m, csr, ab, errs)
 
 
 def check_sddmm(tag, xa, xb, meta, csr, ab, errs):
@@ -390,6 +406,18 @@ def check_sddmm(tag, xa, xb, meta, csr, ab, errs):
         errs["K4"][tag] = err
 
 
+def timed_index(name, meta, tiles):
+    """``sgt_row_index`` of the tiles, its build time and bytes printed."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = sgt_row_index(meta, tiles)
+    torch.cuda.synchronize()
+    print(f"{name} row index: {index.nnz} nonzeros over {index.num_rows} rows, "
+          f"{index.nbytes / 2**20:.3f} MiB (tiles {nbytes(tiles) / 2**20:.1f} MiB), built in "
+          f"{time.perf_counter() - t0:.4f} s")
+    return index
+
+
 def phase_agnn_kernels(ds, dev) -> dict:
     """Phase 5 (d=200: K2/K3's wide path).  Returns, per kernel, the f32 max abs error of each case
     against the plain version."""
@@ -399,8 +427,9 @@ def phase_agnn_kernels(ds, dev) -> dict:
         host = sparse_graph_translate(ds.row_pointers, ds.column_index, ds.num_nodes,
                                       TileConfig(blk_h=bh, blk_w=bw), build_tiles=True)
         meta, tiles = host.to(dev), torch.from_numpy(host.a_tiles).to(dev)
+        index = timed_index(f"pubmed {geo}", meta, tiles)
         for d in (32, 3, 200):
-            check_agnn_kernels(f"pubmed {geo}", meta, tiles, csr, d, dev, errs)
+            check_agnn_kernels(f"pubmed {geo}", meta, tiles, index, csr, d, dev, errs)
     n, rp, ci = asymmetric_graph()
     csr = Csr(rp, ci, dev)
     for bh, bw in GEOMETRIES.values():
@@ -576,10 +605,45 @@ def bd_pack(name, ds, dev):
     return m, pack, covered_csr(ds.row_pointers, ds.column_index, m, dev)
 
 
-def phase_bd_kernels(dd, dev) -> dict:
-    """Phase 7: K5, K6 and K7 against their plain versions and f64 oracles.
-    Returns, per kernel, the f32 max abs error of each case against the
-    plain version."""
+def check_residual_kernels(dd, m, dev, card, errs) -> None:
+    """Phase 7, DD's residual (the edges the diagonals leave, which DD's
+    AGNN sends through K2/K3): its tiles' row index, K2 and K3 over it at
+    d in {32, 2} (AGNN's hidden and class widths) and 200 against their
+    plain versions and the f64 oracles of the residual, f32 and bf16; then
+    K2 and K3 at d=32, f32, timed (event and device) beside the plain
+    version and the bound of the residual's edges."""
+    n = dd.num_nodes
+    host = sparse_graph_translate(m.res_ptr, m.res_idx, n, TileConfig(), build_tiles=True)
+    meta, tiles = host.to(dev), torch.from_numpy(host.a_tiles).to(dev)
+    print(f"DD residual: {len(m.res_idx)} edges, {host.num_real_blocks} TC blocks over "
+          f"{host.num_windows} windows, tiles {nbytes(tiles) / 2**20:.1f} MiB")
+    index = timed_index("DD residual", meta, tiles)
+    res = Csr(m.res_ptr, m.res_idx, dev)
+    errs.setdefault("K2", {})
+    errs.setdefault("K3", {})
+    for d in (32, 2, 200):
+        check_agnn_kernels("DD residual", meta, tiles, index, res, d, dev, errs, sddmm=False)
+    e, d = len(m.res_idx), 32
+    x, dy = randn((n, d), 500 + d, dev) * 0.3, randn((n, d), 600, dev)
+    for k, kernel, plain, b in (
+            ("K2", lambda: spmm_sfused(x, x, x, meta, tiles, index=index),
+             lambda: spmm_sfused_torch(x, x, x, meta, tiles),
+             csr_bound(e, n, 2 * nbytes(x), 4 * e * d)),
+            ("K3", lambda: spmm_sfused_bwd(x, dy, meta, tiles, index=index),
+             lambda: spmm_sfused_bwd_torch(x, dy, meta, tiles),
+             csr_bound(e, n, 4 * nbytes(x), 12 * e * d))):
+        kt, pt, dv = timed_pair(kernel, plain)
+        print(f"  time {KERNELS[k][0]} DD residual d={d} f32: kernel {kt:.4f} ms (device "
+              f"{dv:.4f}), plain {pt:.4f} ms, bound {b[0]:.5f} ms ({b[1]}) (median of "
+              f"{TIMING_RUNS} event pairs a call; device: one pair around {TIMING_RUNS} calls; "
+              f"card: {card})")
+
+
+def phase_bd_kernels(dd, dev, card) -> dict:
+    """Phase 7: K5, K6 and K7 against their plain versions and f64 oracles,
+    and K2/K3 over DD's residual (``check_residual_kernels``).  Returns, per
+    kernel, the f32 max abs error of each case against the plain
+    version."""
     errs = {"K5": {}, "K6": {}, "K7": {}}
     n = dd.num_nodes
     m, pack, cov = bd_pack("DD", dd, dev)
@@ -608,6 +672,7 @@ def phase_bd_kernels(dd, dev) -> dict:
     check_bd_agnn_kernels("DD", pack, m.offsets, index, cov, 200, dev, errs,
                           sharing=("all one", "separate"))
     del pack, index
+    check_residual_kernels(dd, m, dev, card, errs)
 
     # Yeast's fully covered pack (659 MB), at the width of its GCN epoch.
     yeast = synthesize("Yeast", 74, 2)
@@ -1068,9 +1133,10 @@ def phase_timing(ds, dev) -> tuple[dict, dict]:
                                        median_ms(lambda: torch.sparse.mm(a_csr, x)))
         for d in (32, 3):
             x, dy = randn((ds.num_nodes, d), 200 + d, dev) * 0.3, randn((ds.num_nodes, d), 300, dev)
-            times[("K2", geo, d)] = timed_pair(lambda: spmm_sfused(x, x, x, m, a),
+            idx = g.sfused_index
+            times[("K2", geo, d)] = timed_pair(lambda: spmm_sfused(x, x, x, m, a, index=idx),
                                                lambda: spmm_sfused_torch(x, x, x, m, a))
-            times[("K3", geo, d)] = timed_pair(lambda: spmm_sfused_bwd(x, dy, m, a),
+            times[("K3", geo, d)] = timed_pair(lambda: spmm_sfused_bwd(x, dy, m, a, index=idx),
                                                lambda: spmm_sfused_bwd_torch(x, dy, m, a))
             times[("K4", geo, d)] = timed_pair(lambda: sddmm_tc_dense(x, m, x),
                                                lambda: sddmm_tc_dense_torch(x, m, x))
@@ -1153,13 +1219,54 @@ def mesh_graph(ds, mesh, dev):
                                           TileConfig(block_group=1))
 
 
+def check_stream_sfused(name, m, a, index, d, dev, tol, errs) -> None:
+    """K2 and K3 over a shard stream's row index at width d, the window side
+    (``xl``; ``xw``, ``dyw``) apart from the gathered side, against their
+    plain versions (magnitude: the plain version on absolute values)."""
+    dt = str(m.config.compute_dtype)[6:]
+    tag = f"{name} d={d} {dt}"
+    x, dy = randn((m.num_src, d), 910, dev) * 0.3, randn((m.num_src, d), 911, dev) * 0.3
+    xw, dyw = randn((m.num_rows, d), 912, dev) * 0.3, randn((m.num_rows, d), 913, dev) * 0.3
+    err = compare(f"K2 with xl apart {tag} vs plain", spmm_sfused(xw, x, x, m, a, index=index),
+                  spmm_sfused_torch(xw, x, x, m, a),
+                  spmm_sfused_torch(xw.abs(), x.abs(), x.abs(), m, a), tol)
+    if dt == "float32":
+        errs["K2"][f"stream {tag}"] = err
+    got = spmm_sfused_bwd(x, dy, m, a, xw=xw, dyw=dyw, index=index)
+    want = spmm_sfused_bwd_torch(x, dy, m, a, xw, dyw)
+    mags = spmm_sfused_bwd_torch(x.abs(), dy.abs(), m, a, xw.abs(), dyw.abs())
+    err = max(compare(f"K3 with xw/dyw {tag} {what} vs plain", p, q, r, tol)
+              for what, p, q, r in zip(("dx3", "u"), got, want, mags))
+    if dt == "float32":
+        errs["K3"][f"overrides {tag}"] = err
+
+
+def check_8x1_streams(ds, dev, errs) -> None:
+    """Phase 13, the 8x1 mesh the trainer's ``--mesh 8x1`` AGNN runs: each
+    split stream's row index (built at upload; rebuilt here to time it), and
+    K2/K3 over it at d in {32, 3} (AGNN's hidden and class widths) and 200,
+    f32 and bf16."""
+    g = mesh_graph(ds, (8, 1), dev)
+    streams, _ = g._agnn_streams()
+    if not g.agnn_split or any(st.index is None for st in streams):
+        raise AssertionError("pubmed 8x1: expected the split stream, each with its row index")
+    for i, st in enumerate(streams):
+        timed_index(f"pubmed 8x1 shard {i} ({st.meta.num_rows} window rows, "
+                    f"{st.meta.num_src} gathered)", st.meta, st.tiles)
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            for d in (32, 3, 200):
+                check_stream_sfused(f"pubmed 8x1 shard {i}", with_dtype(st.meta, dtype), st.tiles,
+                                    st.index, d, dev, tol, errs)
+
+
 def phase_mesh_kernels(ds, dev, card) -> tuple[dict, dict]:
     """Phase 13, kernels: K10, K4's tile mode and K3 with its window-side
     overrides on each split-stream shard of pubmed over 4x2, against their
     plain versions (magnitude: the plain version on absolute values), f32
     and bf16; then K10 timed.  Returns the f32 errors per kernel and K10's
     record."""
-    errs = {"K10": {}, "K4": {}, "K3": {}}
+    errs = {"K10": {}, "K4": {}, "K3": {}, "K2": {}}
+    check_8x1_streams(ds, dev, errs)
     g = mesh_graph(ds, (4, 2), dev)
     sp = g._fwd.split
     if sp is None or g.host_bwd.split is None:
@@ -1169,6 +1276,7 @@ def phase_mesh_kernels(ds, dev, card) -> tuple[dict, dict]:
           f"pair_cap {sp.pair_cap}, halo rows {g.host_fwd.halo['halo_rows']}")
     for i, st in enumerate(sp.streams):
         a = st.tiles
+        index = sgt_row_index(st.meta, a)
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             m, dt = with_dtype(st.meta, dtype), str(dtype)[6:]
             f32 = dtype == torch.float32
@@ -1188,16 +1296,7 @@ def phase_mesh_kernels(ds, dev, card) -> tuple[dict, dict]:
                               spmm_fused_torch(x.abs(), m, a, s.abs()), tol)
                 if f32:
                     errs["K10"][tag] = err
-            d, tag = 32, f"pubmed 4x2 shard {i} d=32 {dt}"
-            x, dy = randn((m.num_src, d), 910, dev) * 0.3, randn((m.num_src, d), 911, dev) * 0.3
-            xw, dyw = randn((m.num_rows, d), 912, dev) * 0.3, randn((m.num_rows, d), 913, dev) * 0.3
-            got = spmm_sfused_bwd(x, dy, m, a, xw=xw, dyw=dyw)
-            want = spmm_sfused_bwd_torch(x, dy, m, a, xw, dyw)
-            mags = spmm_sfused_bwd_torch(x.abs(), dy.abs(), m, a, xw.abs(), dyw.abs())
-            err = max(compare(f"K3 with xw/dyw {tag} {what} vs plain", p, q, r, tol)
-                      for what, p, q, r in zip(("dx3", "u"), got, want, mags))
-            if f32:
-                errs["K3"][f"overrides {tag}"] = err
+            check_stream_sfused(f"pubmed 4x2 shard {i}", m, a, index, 32, dev, tol, errs)
 
     # K10 timed at the main path's feature-shard width (hidden 32 over 2
     # feature shards) on the heaviest shard's split stream.
@@ -1337,7 +1436,8 @@ def main():
     t0 = phase_start("7-8. K5-K7 and the BD route")
     dd = synthesize("DD", 89, 2)
     print(f"DD: N={dd.num_nodes} E={dd.num_edges} d={dd.num_features}")
-    errs.update(phase_bd_kernels(dd, dev))
+    for k, kernel_errs in phase_bd_kernels(dd, dev, card).items():
+        errs.setdefault(k, {}).update(kernel_errs)
     phase_bd_autograd(dd, dev)
     torch.cuda.synchronize()
     phase_end(t0)
@@ -1423,7 +1523,7 @@ def main():
 # ---- parent against tree (``--ab``, not a phase) -------------------------------
 
 AB_ROUNDS = 3
-AB_SOURCES = ("spmm_bd", "spmm_dense", "chunk")
+AB_SOURCES = ("spmm_bd", "spmm_dense", "chunk", "spmm_sfused")
 # The C functions swapped behind the tree's wrappers, where the other side
 # has the tree's interface.
 AB_FUNCTIONS = {"spmm_bd": ("tcgnn_spmm_bd",),
@@ -1442,7 +1542,15 @@ SLOT_WALK_SIGNATURES = {"tcgnn_spmm_chunk": [_P] * 10 + [_I] * 10 + [_P],
 PACK_WALK_SIGNATURES = {"tcgnn_spmm_bd": _kernels.SIGNATURES["spmm_bd"]["tcgnn_spmm_bd"],
                         "tcgnn_bd_sfused": [_P] * 6 + [_I] * 6 + [_P],
                         "tcgnn_bd_sfused_bwd": [_P] * 6 + [_I] * 6 + [_P]}
-OTHER_SIGNATURES = {"chunk": SLOT_WALK_SIGNATURES, "spmm_bd": PACK_WALK_SIGNATURES}
+# spmm_sfused.cu's interface before the row index (K2 and K3 walking the
+# tiles), which the other side of a K2/K3 A/B is called through: K2 xl, xr,
+# xv or K3 x, dy, xw, dyw; the tiles, col_ids, win_start, run_window,
+# run_block; out (K3 dx3, u); then n, d, num_runs, run_blocks, split, blk_h,
+# blk_w, feat_kind, tile_kind; the stream.
+TILE_WALK_SIGNATURES = {"tcgnn_spmm_sfused": [_P] * 9 + [_I] * 9 + [_P],
+                        "tcgnn_spmm_sfused_bwd": [_P] * 11 + [_I] * 9 + [_P]}
+OTHER_SIGNATURES = {"chunk": SLOT_WALK_SIGNATURES, "spmm_bd": PACK_WALK_SIGNATURES,
+                    "spmm_sfused": TILE_WALK_SIGNATURES}
 
 
 def build_other(name, src_dir, signatures) -> ctypes.CDLL:
@@ -1535,6 +1643,79 @@ def pack_walk_sfused_bwd(lib, x, dy, pack, offs, cfg):
     return dx3, u
 
 
+def tile_walk_args(x, meta, a):
+    """The tiles' and window metadata's pointers, then the int arguments and
+    stream, in the tile-walk interface."""
+    cfg = meta.config
+    return ((a.data_ptr(), meta.col_ids.data_ptr(), meta.win_start.data_ptr(),
+             meta.run_window.data_ptr(), meta.run_block.data_ptr()),
+            (meta.num_rows, x.shape[1], meta.run_window.shape[0], KERNEL_RUN_BLOCKS,
+             int(meta.max_window_blocks > KERNEL_RUN_BLOCKS), cfg.blk_h, cfg.blk_w,
+             FEAT_KIND[cfg.compute_dtype], TILE_KIND[a.dtype], _kernels.stream_of(x)))
+
+
+def tile_walk_sfused(lib, x, meta, a):
+    """K2 of the tile-walk interface, all three operands x: as its wrapper
+    called it (x in the compute dtype, xv shared)."""
+    xc = x.to(meta.config.compute_dtype).contiguous()
+    out = torch.empty((meta.num_rows, x.shape[1]), dtype=torch.float32, device=x.device)
+    ptrs, ints = tile_walk_args(x, meta, a)
+    err = lib.tcgnn_spmm_sfused(xc.data_ptr(), xc.data_ptr(), None, *ptrs, out.data_ptr(), *ints)
+    _kernels.check(lib, err, "tile-walk spmm_sfused")
+    return out
+
+
+def tile_walk_sfused_bwd(lib, x, dy, meta, a):
+    """K3 of the tile-walk interface: (dx3, u)."""
+    ct = meta.config.compute_dtype
+    xc, dyc = x.to(ct).contiguous(), dy.to(ct).contiguous()
+    dx3 = torch.empty((meta.num_rows, x.shape[1]), dtype=torch.float32, device=x.device)
+    u = torch.empty_like(dx3)
+    ptrs, ints = tile_walk_args(x, meta, a)
+    err = lib.tcgnn_spmm_sfused_bwd(xc.data_ptr(), dyc.data_ptr(), xc.data_ptr(), dyc.data_ptr(),
+                                    *ptrs, dx3.data_ptr(), u.data_ptr(), *ints)
+    _kernels.check(lib, err, "tile-walk spmm_sfused_bwd")
+    return dx3, u
+
+
+def sfused_ab_cases(dev, other_lib) -> list:
+    """K2 (one operand, as AGNN calls it) and K3: pubmed at 512x128, d=32 in
+    f32 and bf16 and d=3 in f32, and DD's residual at d=32 in f32; the
+    tree's wrappers over the row index against the other side's tile walk.
+    No library call computes a score-fused SpMM."""
+    cases = []
+    pm = synthesize("pubmed", seed=0)
+    tg = TiledGraph(pm.row_pointers, pm.column_index, pm.num_nodes, TileConfig(), device=dev)
+    dd = synthesize("DD", 89, 2)
+    bg = TiledGraph(dd.row_pointers, dd.column_index, dd.num_nodes, TileConfig(), device=dev)
+    print(f"DD residual: {bg.bd.res_index.nnz} nonzeros, {bg.bd.res_meta.num_blocks} blocks",
+          flush=True)
+    shapes = [("pubmed", tg.meta, tg.a_struct, tg.sfused_index, 32, torch.float32),
+              ("pubmed", tg.meta, tg.a_struct, tg.sfused_index, 32, torch.bfloat16),
+              ("pubmed", tg.meta, tg.a_struct, tg.sfused_index, 3, torch.float32),
+              ("DD residual", bg.bd.res_meta, bg.bd.res_a, bg.bd.res_index, 32, torch.float32)]
+    for name, meta, a, idx, d, dtype in shapes:
+        m, tol = with_dtype(meta, dtype), F32_TOL if dtype == torch.float32 else BF16_TOL
+        n = m.num_rows
+        x, dy = randn((n, d), 200 + d, dev) * 0.3, randn((n, d), 300, dev)
+        shape = f"{name} d={d} {str(dtype)[6:]}"
+        # Every lambda binds its operands: the loop rebinds the names.
+        cases.append((
+            "K2", shape,
+            {"other": lambda x=x, m=m, a=a: tile_walk_sfused(other_lib, x, m, a),
+             "tree": lambda x=x, m=m, a=a, idx=idx: spmm_sfused(x, x, x, m, a, index=idx)},
+            lambda x=x, m=m, a=a: spmm_sfused_torch(x, x, x, m, a), None,
+            lambda x=x, m=m, a=a: spmm_sfused_torch(x.abs(), x.abs(), x.abs(), m, a), tol))
+        cases.append((
+            "K3", shape,
+            {"other": lambda x=x, dy=dy, m=m, a=a: tile_walk_sfused_bwd(other_lib, x, dy, m, a),
+             "tree": lambda x=x, dy=dy, m=m, a=a, idx=idx: spmm_sfused_bwd(x, dy, m, a,
+                                                                         index=idx)},
+            lambda x=x, dy=dy, m=m, a=a: spmm_sfused_bwd_torch(x, dy, m, a), None,
+            lambda x=x, dy=dy, m=m, a=a: spmm_sfused_bwd_torch(x.abs(), dy.abs(), m, a), tol))
+    return cases
+
+
 def bd_agnn_ab_cases(g, cov, dev, other_lib) -> list:
     """K6 (one operand, as AGNN calls it) and K7 on DD at d=32 and 2 in f32
     (AGNN's hidden and class widths) and d=32 in bf16: the tree's wrappers
@@ -1623,8 +1804,9 @@ def ab_cases(dev, sources, other) -> list:
     ``sources``: K5 on DD at d in {2, 16, 89} and K6/K7 as
     ``bd_agnn_ab_cases``, K1 on pubmed at 512x128 d in {16, 500} and 16x8 d=16, K10 on
     the heaviest pubmed 4x2 shard at d in {8, 16, 32}, K8 and K9 as
-    ``chunk_ab_cases``.  K1, K5 and K10 call the tree's wrapper on either
-    side (the libraries behind it are swapped)."""
+    ``chunk_ab_cases``, K2 and K3 as ``sfused_ab_cases``.  K1, K5 and K10
+    call the tree's wrapper on either side (the libraries behind it are
+    swapped)."""
     cases = []
     if "spmm_bd" in sources:
         dd = synthesize("DD", 89, 2)
@@ -1675,21 +1857,28 @@ def ab_cases(dev, sources, other) -> list:
                           lambda x=x, s=s: spmm_fused_torch(x.abs(), m, a, s.abs())))
     if "chunk" in sources:
         cases += chunk_ab_cases(dev, other["chunk"])
+    if "spmm_sfused" in sources:
+        cases += sfused_ab_cases(dev, other["spmm_sfused"])
     return cases
 
 
 def ab_main(other_dir) -> None:
     """The kernels of another commit's sources in ``other_dir`` (those of
-    ``spmm_bd.cu``, ``spmm_dense.cu`` and ``chunk.cu`` it holds) against
+    ``spmm_bd.cu``, ``spmm_dense.cu``, ``chunk.cu`` and ``spmm_sfused.cu``
+    it holds) against
     the tree's, in one process: each side held to the plain version, then
     AB_ROUNDS rounds of other, tree, tree, other, each the event time
     (``median_ms``) and the device time (``device_ms``), and the library
-    call, where there is one, in the same round.  K1, K5 and K10 run
+    call, where there is one, in the same round; and each side's kernel
+    time (``kernel_ms``: the sum of its device operations under
+    torch.profiler, which a call whose host work outlasts its kernels does
+    not hide, as it hides them from the device time).  K1, K5 and K10 run
     through the tree's wrappers on either side (the same host work; only
     the C function differs); K8 and K9 of the other side through the
     slot-walk interface on the chunk arrays, K6 and K7 through the
-    pack-walk interface on the pack, each with the host work its wrapper
-    did.  Prints each round, then all of them as one JSON line."""
+    pack-walk interface on the pack, K2 and K3 through the tile-walk
+    interface on the tiles, each with the host work its wrapper did.
+    Prints each round, then all of them as one JSON line."""
     card = card_line()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1726,11 +1915,15 @@ def ab_main(other_dir) -> None:
             use_libraries(libs["tree"])
             ev_t1, dv_t1 = median_ms(fns["tree"]), device_ms(fns["tree"])
             dv_t2, ev_t2 = device_ms(fns["tree"]), median_ms(fns["tree"])
+            kn_t = kernel_ms(fns["tree"])
             use_libraries(libs["other"])
             dv_o2, ev_o2 = device_ms(fns["other"]), median_ms(fns["other"])
+            kn_o = kernel_ms(fns["other"])
             rounds.append({
                 "other_event_ms": (ev_o1 + ev_o2) / 2, "other_device_ms": (dv_o1 + dv_o2) / 2,
+                "other_kernel_ms": kn_o,
                 "tree_event_ms": (ev_t1 + ev_t2) / 2, "tree_device_ms": (dv_t1 + dv_t2) / 2,
+                "tree_kernel_ms": kn_t,
                 "library_event_ms": None if lib is None else median_ms(lib, runs=5),
                 "library_device_ms": None if lib is None else device_ms(lib, runs=5)})
         use_libraries(libs["tree"])

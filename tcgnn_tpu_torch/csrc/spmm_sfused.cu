@@ -1,5 +1,5 @@
-// Score-fused SpMM (AGNN aggregation) and its one-pass backward over
-// SGT-condensed tiles, for Hopper (sm_90a).
+// Score-fused SpMM (AGNN aggregation) and its one-pass backward over the
+// per-row index of SGT-condensed tiles, for Hopper (sm_90a).
 //
 // Replaces two TPU kernels together with the XLA row gathers in front of
 // them:
@@ -19,607 +19,487 @@
 // :1515), and t + w summed in f32 before its one cast (spmm.py:1519).
 //
 // The TPU kernels form the whole blk_h x blk_w score tile of each TC block
-// in VMEM.  A pubmed tile at 512x128 is about 1% full, so here the score is
-// computed only at the nonzero tile entries: per entry a warp forms the dot
-// products over d (lane c holds columns c, c + 32, ...) and adds them across
-// the warp with shuffles, then adds the weighted row to its sums.
+// in VMEM.  The tiles are 0.37% full on pubmed at 512x128 (81,120 nonzeros
+// in 334 blocks), so these kernels read neither the tiles nor the score
+// tiles but the tiles' per-row index, derived from them on the device at
+// upload (ops/sfused.py `sgt_row_index`): for each nonzero, in row order,
+// its window row (int32), its gathered row (int32) and its tile value (the
+// tiles' type: int8 counts, or f32 / bf16).
 //
-// What bounds it: latency, as in the dense-tile SpMM (csrc/spmm_dense.cu),
-// whose thread-block design this file keeps: one thread block of 8 warps per
-// (slab of up to 32 rows of a window, run of up to run_blocks TC blocks of
-// the window); per TC block the warps load their tile rows into registers,
-// mark the columns their rows use, gather only those rows of the column-side
-// operands into shared memory, and walk the nonzeros found by warp ballot.
-// The window's own rows (xl, or x and dy) stay in registers for the whole
-// run.  A window of more than run_blocks blocks (the pubmed hub's window:
-// 134 TC blocks at 512x128, 2,133 at 16x8) is split into runs, one thread
-// block each, whose f32 sums meet in the output through atomics (zeroed
-// first); a window of one run stores its sums.  There is no d-tiling up to
-// d = 128, as on the TPU: the score needs all of d at once (a lane holds up
-// to 4 columns).  Past 128 (off the main path, which runs d = 32 and the
-// class count) a simple wide path takes any d: grid.y tiles the output by
-// 128 columns, and each tile's thread block forms every score over all of
-// d itself, reading the rows from global memory (no shared-memory gather),
-// summed in f32 before the one rounding, as the TPU kernel sums its padded
-// d.  blk_w is at most 128.
+// What bounds them: latency, not bytes or flops (both under 3.5 us on
+// pubmed at d=32).  Each nonzero is a chain: its index entry, then the rows
+// it gathers (xr and xv; x and dy), mostly from L2, then a dot product
+// reduced across lanes.  The tile walk this file held before (a thread
+// block per run of 8 TC blocks of a window and 32 of its rows, a warp a
+// row) walked a row's nonzeros one after another, each behind a 5-shuffle
+// warp reduction, so pubmed's hub row (degree 17,058, all in one slab of
+// one window) cost one warp about 1,000 dependent steps in each of its
+// window's 17 runs: that set the pace, 0.21 ms (K2) and 0.27 ms (K3) a call
+// at any width.  On DD's block-diagonal residual (20,966 nonzeros over
+// 334,925 rows) it read 45.6 MB of tiles and two barriers a tile for about
+// one nonzero a 32-row slab.  The design here:
+//   * equal nonzero ranges (as K8/K9, csrc/chunk.cu): lane group i takes the
+//     index's nonzeros [i * P, (i + 1) * P), P a power of two from 8 (from
+//     the nonzero count: enough groups to give every multiprocessor about
+//     16 warps), so the hub spreads over a thousand groups and a graph of
+//     mostly empty rows costs its nonzeros, not its rows.  Each nonzero
+//     carries its row, so no group searches row_ptr;
+//   * lane groups (as K6/K7, csrc/spmm_bd.cu): g lanes (the least power of
+//     two with 4 g >= d, so g = 8 at d=32 and g = 1 at d <= 4) hold 4
+//     columns a lane; a group reads a batch of its nonzeros' rows, columns
+//     and values, then all their window rows and gathered rows, before the
+//     first multiply, and reduces each dot in log2(g) shuffles, the batch's
+//     dots (three a nonzero in K3) interleaved.  The window row is read
+//     again for each nonzero (an L1 hit when the row repeats): that costs
+//     registers, not a branch on every row change;
+//   * every group of a warp runs the same number of batches (P / batch), so
+//     the shuffles take the whole warp; the warp's last range may be short,
+//     its missing nonzeros read as none;
+//   * a row's sum stays in registers until the range leaves the row, then
+//     is stored once; a row cut by a range boundary (only a range's first
+//     and last row can be) is added with f32 atomics, summed across the
+//     warp's groups first where they all end in one row (the hub: its
+//     atomics queued at one L2 line: 0.011 of K2's 0.021 ms on pubmed at
+//     d=32 without it, PERF.md section 6).  The outputs are
+//     zeroed first (cudaMemsetAsync), since rows without nonzeros are never
+//     visited.  Rows wholly inside a range repeat bit for bit from run to
+//     run; a row cut into three parts or more may not (its atomics land in
+//     any order).
+// Past d = 128 (off the main path, which runs d = 32 and the class count)
+// the output is tiled by 128 columns (grid.y) and each tile's group, a
+// whole warp, forms the full scores over all of d.  Rows whose width is not
+// a multiple of 4, or not 16-byte aligned, are read a column at a time
+// inside the same kernel.  Tensor cores stay out, as in csrc/spmm_bd.cu:
+// the tiles are 0.37% full, and the port's f32 is true f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
+#include "sparse_row.cuh"
+
 namespace {
+
+namespace sr = sparse_row;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kSlab = 32;                        // rows of a window per thread block
-constexpr int kMaxRowsPerWarp = kSlab / kWarps;  // 4
-constexpr int kMaxBlkW = 128;
-constexpr int kMaxChunks = kMaxBlkW / 32;          // tile-row registers per lane
-constexpr int kMaxGatherRows = kMaxBlkW / kWarps;  // gathered rows per warp
-constexpr int kMaxD = 128;  // the narrow kernels' widest d: 4 columns a lane
-constexpr size_t kStaticSmemLimit = 48 * 1024;
+// Nonzeros a group has in flight, their rows all loaded before the first
+// multiply: K6/K7's batches (csrc/spmm_bd.cu), whose registers hold as many
+// window rows again here.
+constexpr int kBatchFwd = 4;
+constexpr int kBatchBwd = 2;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
-
-// A value rounded to the compute type (a no-op for f32).
-template <typename T>
-__device__ __forceinline__ float round_to(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// What every thread block works out first: its run, window and rows.
-struct Place {
-  int win, b_begin, b_end, row0, rows_per_warp;
-  bool split;
-};
-
-__device__ __forceinline__ Place place(const int* win_start, const int* run_window,
-                                       const int* run_block, int run_blocks, int slab,
-                                       int slabs_per_window) {
-  Place p;
-  const int run = blockIdx.x / slabs_per_window;
-  p.win = run_window[run];
-  const int w_begin = win_start[p.win], w_end = win_start[p.win + 1];
-  p.b_begin = run_block[run];
-  p.b_end = min(p.b_begin + run_blocks, w_end);
-  p.split = w_end - w_begin > run_blocks;
-  p.row0 = (blockIdx.x % slabs_per_window) * slab;
-  p.rows_per_warp = (slab + kWarps - 1) / kWarps;
+// Nonzeros a lane group takes: enough groups for about 16 warps on each of
+// the 132 multiprocessors, in 8 to 256 nonzeros (a power of two, so a
+// multiple of either batch).  Measured on pubmed and DD's residual (PERF.md
+// section 6): ranges of 32 and 64 were slower, and 8 beat 16 on DD's
+// residual, whose 20,966 nonzeros fill few multiprocessors.
+int range_len(long long nnz, int groups_per_warp) {
+  const long long target = nnz / (132LL * 16 * groups_per_warp);
+  int p = 8;
+  while (p < 256 && p < target) p <<= 1;
   return p;
 }
 
-// Global row of the warp's i-th row, or -1 where it has none (past the
-// slab, the window or n).
-__device__ __forceinline__ long long warp_row(const Place& p, int i, int slab, int blk_h, int n) {
-  const int lr = (threadIdx.x >> 5) * p.rows_per_warp + i;
-  const int r = p.row0 + lr;
-  const long long grow = (long long)p.win * blk_h + r;
-  return i < p.rows_per_warp && lr < slab && r < blk_h && grow < n ? grow : -1;
-}
-
-// A tile entry as a float.  tile_kind: 0 = int8, 1 = float, 2 = bfloat16
-// (a branch on one value for the whole launch, instead of a kernel per
-// tile type).
-__device__ __forceinline__ float tile_value(const void* tiles, int tile_kind, size_t i) {
-  switch (tile_kind) {
-    case 0:
-      return to_f32(static_cast<const int8_t*>(tiles)[i]);
-    case 1:
-      return static_cast<const float*>(tiles)[i];
-    default:
-      return to_f32(static_cast<const __nv_bfloat16*>(tiles)[i]);
-  }
-}
-
-// 1. The warp's tile rows of TC block b into registers (lane holds columns
-//    q*32+lane), in the compute type, marking the columns they use.
+// Index value p in the compute type.  val_kind: 0 = int8, 1 = float,
+// 2 = bfloat16 (one branch on one value for the whole launch, instead of a
+// kernel per tile type).
 template <typename FeatT>
-__device__ __forceinline__ void load_tile_rows(float (&a)[kMaxRowsPerWarp][kMaxChunks],
-                                               const void* tiles, int tile_kind, const Place& p,
-                                               int b, int slab, int blk_h, int blk_w,
-                                               int* used_by) {
-  const size_t tile = (size_t)b * blk_h * blk_w;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < kMaxRowsPerWarp; ++i) {
-    const int lr = warp * p.rows_per_warp + i;
-    const int r = p.row0 + lr;
-    const bool row_ok = i < p.rows_per_warp && lr < slab && r < blk_h;
-#pragma unroll
-    for (int q = 0; q < kMaxChunks; ++q) {
-      const int k = q * 32 + lane;
-      a[i][q] = row_ok && k < blk_w
-                    ? round_to<FeatT>(tile_value(tiles, tile_kind, tile + (size_t)r * blk_w + k))
-                    : 0.f;
-    }
+__device__ __forceinline__ float index_value(const void* __restrict__ vals, int val_kind,
+                                             long long p) {
+  float v;
+  switch (val_kind) {
+    case 0:
+      v = sr::to_f32(static_cast<const int8_t*>(vals)[p]);
+      break;
+    case 1:
+      v = static_cast<const float*>(vals)[p];
+      break;
+    default:
+      v = sr::to_f32(static_cast<const __nv_bfloat16*>(vals)[p]);
   }
-#pragma unroll
-  for (int i = 0; i < kMaxRowsPerWarp; ++i)
-#pragma unroll
-    for (int q = 0; q < kMaxChunks; ++q)
-      if (a[i][q] != 0.f) used_by[q * 32 + lane] = b;
+  return sr::round_to<FeatT>(v);
 }
 
-// 2. The used rows of `src` (all of d, zero past it) into shared memory,
-//    row k at dst + k * kD.  A warp issues its loads before its stores.
-template <typename FeatT, int kCols>
-__device__ __forceinline__ void gather(float* dst, const FeatT* src, const int* cols,
-                                       const int* used_by, int b, int blk_w, int d) {
-  constexpr int kD = 32 * kCols;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int row[kMaxGatherRows];
-#pragma unroll
-  for (int j = 0; j < kMaxGatherRows; ++j) {
-    const int k = warp + j * kWarps;
-    row[j] = k < blk_w && used_by[k] == b ? cols[k] : -1;
-  }
-  float v[kMaxGatherRows][kCols];
-#pragma unroll
-  for (int j = 0; j < kMaxGatherRows; ++j)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = lane + 32 * c;
-      v[j][c] = row[j] >= 0 && col < d ? to_f32(src[(size_t)row[j] * d + col]) : 0.f;
-    }
-#pragma unroll
-  for (int j = 0; j < kMaxGatherRows; ++j)
-    if (row[j] >= 0) {
-      const int k = warp + j * kWarps;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) dst[k * kD + lane + 32 * c] = v[j][c];
-    }
+// Whether the warp's groups all lie past the index (the whole warp returns).
+__device__ __forceinline__ bool warp_done(long long nnz, int per, int g) {
+  const long long grp0 = ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * (32 / g);
+  return grp0 * per >= nnz;
 }
 
-// A window row of `src` into registers (zeros where there is none).
-template <typename FeatT, int kCols>
-__device__ __forceinline__ void load_row(float (&dst)[kCols], const FeatT* src, long long grow,
-                                         int d) {
+// The lane's group: its nonzeros [e0, e1) of the index (empty past nnz);
+// the rows of its first and last nonzero (-1: none) and whether each has
+// nonzeros outside the range (is cut); the lane's 4 columns from `cl` of
+// each 128-column tile, `c0` of the block's tile (grid.y).
+struct Range {
+  long long e0, e1;
+  int first, last;
+  bool first_cut, last_cut;
+  int cl, c0;
+};
+
+__device__ __forceinline__ Range range_of(const int* __restrict__ rows, long long nnz, int per,
+                                          int g) {
   const int lane = threadIdx.x & 31;
+  const long long grp =
+      ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * (32 / g) + lane / g;
+  Range q;
+  q.e0 = min(grp * per, nnz);
+  q.e1 = min(q.e0 + per, nnz);
+  const bool any = q.e0 < q.e1;
+  q.first = any ? __ldg(rows + q.e0) : -1;
+  q.last = any ? __ldg(rows + q.e1 - 1) : -1;
+  q.first_cut = any && q.e0 > 0 && __ldg(rows + q.e0 - 1) == q.first;
+  q.last_cut = any && q.e1 < nnz && __ldg(rows + q.e1) == q.last;
+  q.cl = (lane % g) * sr::kVec;
+  q.c0 = blockIdx.y * sr::kTileD + q.cl;
+  return q;
+}
+
+// The rows, gathered rows and values of the kB nonzeros from index position
+// p0 on (-1, -1 and 0 past the range).
+template <typename FeatT, int kB>
+__device__ __forceinline__ void load_batch(int (&r)[kB], int (&col)[kB], float (&a)[kB],
+                                           const Range& q, long long p0,
+                                           const int* __restrict__ rows,
+                                           const int* __restrict__ cols,
+                                           const void* __restrict__ vals, int val_kind) {
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int col = lane + 32 * c;
-    dst[c] = grow >= 0 && col < d ? to_f32(src[grow * d + col]) : 0.f;
+  for (int i = 0; i < kB; ++i) {
+    const long long p = p0 + i;
+    const bool in = p < q.e1;
+    r[i] = in ? __ldg(rows + p) : -1;
+    col[i] = in ? __ldg(cols + p) : -1;
+    a[i] = in ? index_value<FeatT>(vals, val_kind, p) : 0.f;
   }
 }
 
-// 4. One store per output element, or, for a run of a split window, an f32
-//    atomic add.
-template <int kCols>
-__device__ __forceinline__ void store_row(float* out, const float (&acc)[kCols], long long grow,
-                                          int d, bool split) {
-  const int lane = threadIdx.x & 31;
+// Columns [c0, c0 + 4) of row r of x; zeros for r < 0.
+template <typename FeatT>
+__device__ __forceinline__ void load_row4(float (&v)[sr::kVec], const FeatT* __restrict__ x,
+                                          int r, int c0, int d, bool vec) {
+  if (r >= 0) {
+    sr::load4(v, x + (long long)r * d, c0, d, vec);
+  } else {
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int col = lane + 32 * c;
-    if (col >= d) continue;
-    if (split)
-      atomicAdd(out + grow * d + col, acc[c]);
-    else
-      out[grow * d + col] = acc[c];
+    for (int c = 0; c < sr::kVec; ++c) v[c] = 0.f;
   }
 }
 
-template <typename FeatT, int kCols, bool kShare>
+__device__ __forceinline__ float dot4(const float (&a)[sr::kVec], const float (&b)[sr::kVec]) {
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < sr::kVec; ++c) s = fmaf(a[c], b[c], s);
+  return s;
+}
+
+// Each s[i] summed over the group's g lanes by xor butterflies (every lane
+// of the group ends with the same bits), the kN sums' shuffles interleaved.
+template <int kN>
+__device__ __forceinline__ void group_sum(float (&s)[kN], int g) {
+  for (int off = 1; off < g; off <<= 1)
+#pragma unroll
+    for (int i = 0; i < kN; ++i) s[i] += __shfl_xor_sync(sr::kFull, s[i], off);
+}
+
+// Row `row`'s sums for the lane's columns into out: stored, or added with
+// atomics where the row is cut by the range's ends.
+__device__ __forceinline__ void flush(float* out, int row, const Range& q, int d,
+                                      const float (&acc)[sr::kVec], bool vec) {
+  float* dst = out + (long long)row * d;
+  if ((row == q.first && q.first_cut) || (row == q.last && q.last_cut))
+    sr::atomic_add4(dst, q.c0, d, acc);
+  else
+    sr::store4(dst, q.c0, d, acc, vec);
+}
+
+// The sums a group holds at the end of its range, for row `cur`, into out.
+// Where every group of the warp ends in the same row (a row, such as
+// pubmed's hub, that spans the warp's ranges), the groups' sums are added
+// across the warp first and its first group adds them with one atomic a
+// column, not one a group: same-row atomics from many ranges queue at one
+// L2 line.  Called by the whole warp.
+template <int kN>
+__device__ __forceinline__ void flush_last(float* const (&out)[kN], int cur, const Range& q,
+                                           int d, float (&acc)[kN][sr::kVec], int g, bool vec) {
+  const int cur0 = __shfl_sync(sr::kFull, cur, 0);
+  if (g < 32 && __all_sync(sr::kFull, cur == cur0) && cur0 >= 0) {
+    for (int off = g; off < 32; off <<= 1)
+#pragma unroll
+      for (int o = 0; o < kN; ++o)
+#pragma unroll
+        for (int c = 0; c < sr::kVec; ++c) acc[o][c] += __shfl_xor_sync(sr::kFull, acc[o][c], off);
+    if ((int)(threadIdx.x & 31) < g)
+#pragma unroll
+      for (int o = 0; o < kN; ++o) sr::atomic_add4(out[o] + (long long)cur0 * d, q.c0, d, acc[o]);
+  } else if (cur >= 0) {
+#pragma unroll
+    for (int o = 0; o < kN; ++o) flush(out[o], cur, q, d, acc[o], vec);
+  }
+}
+
+__device__ __forceinline__ void zero4(float (&acc)[sr::kVec]) {
+#pragma unroll
+  for (int c = 0; c < sr::kVec; ++c) acc[c] = 0.f;
+}
+
+// K2.  grid: (blocks of 8 warps of 32 / g ranges, d-tiles of 128 columns;
+// one unless kWide).  kShare: xv is xr, whose rows are then read once (the
+// narrow kernel only).  vec: d % 4 == 0 and every row 16-byte aligned.
+template <typename FeatT, bool kShare, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 sfused_kernel(const FeatT* __restrict__ xl, const FeatT* __restrict__ xr,
-              const FeatT* __restrict__ xv, const void* __restrict__ tiles, int tile_kind,
-              const int* __restrict__ col_ids, const int* __restrict__ win_start,
-              const int* __restrict__ run_window, const int* __restrict__ run_block,
-              float* out, int n, int d, int run_blocks, int blk_h, int blk_w, int slab,
-              int slabs_per_window) {
-  constexpr int kD = 32 * kCols;
-  extern __shared__ float smem[];
-  float* xr_s = smem;                                // [blk_w][kD] gathered xr rows
-  float* xv_s = kShare ? smem : smem + blk_w * kD;  // gathered xv rows
-  __shared__ int used_by[kMaxBlkW];  // last TC block whose slab rows use column k
-
-  const Place p = place(win_start, run_window, run_block, run_blocks, slab, slabs_per_window);
-  const int lane = threadIdx.x & 31;
-  for (int k = threadIdx.x; k < kMaxBlkW; k += kThreads) used_by[k] = -1;
-
-  long long grow[kMaxRowsPerWarp];
-  float xl_r[kMaxRowsPerWarp][kCols], acc[kMaxRowsPerWarp][kCols];
+              const FeatT* __restrict__ xv, const int* __restrict__ rows,
+              const int* __restrict__ cols, const void* __restrict__ vals, int val_kind,
+              float* __restrict__ out, long long nnz, int d, int per, int g, bool vec) {
+  constexpr int kB = kBatchFwd;
+  if (warp_done(nnz, per, g)) return;
+  const Range q = range_of(rows, nnz, per, g);
+  float acc[1][sr::kVec];
+  zero4(acc[0]);
+  int cur = -1;
+  for (int t = 0; t < per; t += kB) {
+    int r[kB], col[kB];
+    float a[kB], s[kB], own[kB][sr::kVec], vr[kB][sr::kVec], vv[kB][sr::kVec];
+    load_batch<FeatT, kB>(r, col, a, q, q.e0 + t, rows, cols, vals, val_kind);
+    if constexpr (!kWide) {
 #pragma unroll
-  for (int i = 0; i < kMaxRowsPerWarp; ++i) {
-    grow[i] = warp_row(p, i, slab, blk_h, n);
-    load_row<FeatT, kCols>(xl_r[i], xl, grow[i], d);
+      for (int i = 0; i < kB; ++i) load_row4(own[i], xl, r[i], q.c0, d, vec);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  }
-  __syncthreads();
-
-  for (int b = p.b_begin; b < p.b_end; ++b) {
-    float a[kMaxRowsPerWarp][kMaxChunks];
-    load_tile_rows<FeatT>(a, tiles, tile_kind, p, b, slab, blk_h, blk_w, used_by);
-    __syncthreads();
-    const int* cols = col_ids + (size_t)b * blk_w;
-    gather<FeatT, kCols>(xr_s, xr, cols, used_by, b, blk_w, d);
-    if (!kShare) gather<FeatT, kCols>(xv_s, xv, cols, used_by, b, blk_w, d);
-    __syncthreads();
-
-    // 3. Per nonzero (r, k): s = <xl[r], xr[k]>, w = a * s in the compute
-    //    type, acc[r] += w * xv[k].  (The next block's gather writes shared
-    //    memory only after its barrier, which every thread reaches after
-    //    finishing this step.)
+      for (int i = 0; i < kB; ++i) load_row4(vr[i], xr, col[i], q.c0, d, vec);
+      if (!kShare) {
 #pragma unroll
-    for (int i = 0; i < kMaxRowsPerWarp; ++i) {
-      if (i >= p.rows_per_warp) continue;
-#pragma unroll
-      for (int q = 0; q < kMaxChunks; ++q) {
-        unsigned nz = __ballot_sync(0xffffffffu, a[i][q] != 0.f);
-        while (nz) {
-          const int j = __ffs(nz) - 1;
-          nz &= nz - 1;
-          const float aj = __shfl_sync(0xffffffffu, a[i][q], j);
-          const float* xrk = xr_s + (q * 32 + j) * kD;
-          const float* xvk = xv_s + (q * 32 + j) * kD;
-          float part = 0.f;
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) part = fmaf(xl_r[i][c], xrk[lane + 32 * c], part);
-          const float w = round_to<FeatT>(aj * round_to<FeatT>(warp_sum(part)));
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(w, xvk[lane + 32 * c], acc[i][c]);
-        }
+        for (int i = 0; i < kB; ++i) load_row4(vv[i], xv, col[i], q.c0, d, vec);
       }
+#pragma unroll
+      for (int i = 0; i < kB; ++i) s[i] = dot4(own[i], vr[i]);
+    } else {
+      // The score over all of d, a 128-column tile at a time; then this
+      // block's tile of xv.
+#pragma unroll
+      for (int i = 0; i < kB; ++i) s[i] = 0.f;
+      for (int c = q.cl; c < d; c += sr::kTileD) {
+#pragma unroll
+        for (int i = 0; i < kB; ++i) load_row4(own[i], xl, r[i], c, d, vec);
+#pragma unroll
+        for (int i = 0; i < kB; ++i) load_row4(vr[i], xr, col[i], c, d, vec);
+#pragma unroll
+        for (int i = 0; i < kB; ++i) s[i] += dot4(own[i], vr[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < kB; ++i) load_row4(vv[i], xv, col[i], q.c0, d, vec);
+    }
+    group_sum<kB>(s, g);
+#pragma unroll
+    for (int i = 0; i < kB; ++i) {
+      if (r[i] < 0) continue;
+      if (r[i] != cur) {
+        if (cur >= 0) flush(out, cur, q, d, acc[0], vec);
+        cur = r[i];
+        zero4(acc[0]);
+      }
+      const float w = sr::round_to<FeatT>(a[i] * sr::round_to<FeatT>(s[i]));
+#pragma unroll
+      for (int c = 0; c < sr::kVec; ++c)
+        acc[0][c] = fmaf(w, (kShare && !kWide) ? vr[i][c] : vv[i][c], acc[0][c]);
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < kMaxRowsPerWarp; ++i)
-    if (grow[i] >= 0) store_row<kCols>(out, acc[i], grow[i], d, p.split);
+  float* const outs[1] = {out};
+  flush_last<1>(outs, cur, q, d, acc, g, vec);
 }
 
-template <typename FeatT, int kCols>
+// K3.  grid and vec as K2's.  Per nonzero (row i, gathered row c):
+// s = <xw[i], x[c]>, t = <dyw[i], x[c]>, w = <xw[i], dy[c]>, the three sums'
+// shuffles interleaved; then cs = a s and h = a (t + w) in the compute type,
+// dx3[i] += cs dy[c] + h x[c] and u[i] += cs x[c].
+template <typename FeatT, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 sfused_bwd_kernel(const FeatT* __restrict__ x, const FeatT* __restrict__ dy,
                   const FeatT* __restrict__ xw, const FeatT* __restrict__ dyw,
-                  const void* __restrict__ tiles, int tile_kind, const int* __restrict__ col_ids,
-                  const int* __restrict__ win_start, const int* __restrict__ run_window,
-                  const int* __restrict__ run_block, float* dx3, float* u, int n, int d,
-                  int run_blocks, int blk_h, int blk_w, int slab, int slabs_per_window) {
-  constexpr int kD = 32 * kCols;
-  extern __shared__ float smem[];
-  float* x_s = smem;                // [blk_w][kD] gathered x rows
-  float* dy_s = smem + blk_w * kD;  // gathered dy rows
-  __shared__ int used_by[kMaxBlkW];
-
-  const Place p = place(win_start, run_window, run_block, run_blocks, slab, slabs_per_window);
-  const int lane = threadIdx.x & 31;
-  for (int k = threadIdx.x; k < kMaxBlkW; k += kThreads) used_by[k] = -1;
-
-  long long grow[kMaxRowsPerWarp];
-  float x_r[kMaxRowsPerWarp][kCols], dy_r[kMaxRowsPerWarp][kCols];
-  float acc_dx[kMaxRowsPerWarp][kCols], acc_u[kMaxRowsPerWarp][kCols];
+                  const int* __restrict__ rows, const int* __restrict__ cols,
+                  const void* __restrict__ vals, int val_kind, float* __restrict__ dx3,
+                  float* __restrict__ u, long long nnz, int d, int per, int g, bool vec) {
+  constexpr int kB = kBatchBwd;
+  if (warp_done(nnz, per, g)) return;
+  const Range q = range_of(rows, nnz, per, g);
+  float acc[2][sr::kVec];  // dx3's and u's
+  zero4(acc[0]);
+  zero4(acc[1]);
+  int cur = -1;
+  for (int t = 0; t < per; t += kB) {
+    int r[kB], col[kB];
+    // s[i], s[kB + i], s[2 kB + i]: nonzero i's s, t and w.
+    float a[kB], s[3 * kB], xo[kB][sr::kVec], dyo[kB][sr::kVec], xv[kB][sr::kVec],
+        dv[kB][sr::kVec];
+    load_batch<FeatT, kB>(r, col, a, q, q.e0 + t, rows, cols, vals, val_kind);
 #pragma unroll
-  for (int i = 0; i < kMaxRowsPerWarp; ++i) {
-    grow[i] = warp_row(p, i, slab, blk_h, n);
-    load_row<FeatT, kCols>(x_r[i], xw, grow[i], d);
-    load_row<FeatT, kCols>(dy_r[i], dyw, grow[i], d);
+    for (int i = 0; i < 3 * kB; ++i) s[i] = 0.f;
+    // The window and gathered rows' columns from c, and their three partial
+    // dots.
+    auto dots = [&](int c) {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc_dx[i][c] = acc_u[i][c] = 0.f;
-  }
-  __syncthreads();
-
-  for (int b = p.b_begin; b < p.b_end; ++b) {
-    float a[kMaxRowsPerWarp][kMaxChunks];
-    load_tile_rows<FeatT>(a, tiles, tile_kind, p, b, slab, blk_h, blk_w, used_by);
-    __syncthreads();
-    const int* cols = col_ids + (size_t)b * blk_w;
-    gather<FeatT, kCols>(x_s, x, cols, used_by, b, blk_w, d);
-    gather<FeatT, kCols>(dy_s, dy, cols, used_by, b, blk_w, d);
-    __syncthreads();
-
-    // 3. Per nonzero (r, k): the three scores, then
-    //    cs = a * s and g = a * (t + w) in the compute type,
-    //    dx3[r] += cs * dy[k] + g * x[k],  u[r] += cs * x[k].
+      for (int i = 0; i < kB; ++i) load_row4(xo[i], xw, r[i], c, d, vec);
 #pragma unroll
-    for (int i = 0; i < kMaxRowsPerWarp; ++i) {
-      if (i >= p.rows_per_warp) continue;
+      for (int i = 0; i < kB; ++i) load_row4(dyo[i], dyw, r[i], c, d, vec);
 #pragma unroll
-      for (int q = 0; q < kMaxChunks; ++q) {
-        unsigned nz = __ballot_sync(0xffffffffu, a[i][q] != 0.f);
-        while (nz) {
-          const int j = __ffs(nz) - 1;
-          nz &= nz - 1;
-          const float aj = __shfl_sync(0xffffffffu, a[i][q], j);
-          const float* xk = x_s + (q * 32 + j) * kD;
-          const float* dyk = dy_s + (q * 32 + j) * kD;
-          float ps = 0.f, pt = 0.f, pw = 0.f;
+      for (int i = 0; i < kB; ++i) load_row4(xv[i], x, col[i], c, d, vec);
 #pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            const float xv = xk[lane + 32 * c], dv = dyk[lane + 32 * c];
-            ps = fmaf(x_r[i][c], xv, ps);
-            pt = fmaf(dy_r[i][c], xv, pt);
-            pw = fmaf(x_r[i][c], dv, pw);
-          }
-          const float s = warp_sum(ps), t = warp_sum(pt), w = warp_sum(pw);
-          const float cs = round_to<FeatT>(aj * round_to<FeatT>(s));
-          const float g = round_to<FeatT>(aj * round_to<FeatT>(t + w));
+      for (int i = 0; i < kB; ++i) load_row4(dv[i], dy, col[i], c, d, vec);
 #pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            const float xv = xk[lane + 32 * c], dv = dyk[lane + 32 * c];
-            acc_dx[i][c] = fmaf(cs, dv, fmaf(g, xv, acc_dx[i][c]));
-            acc_u[i][c] = fmaf(cs, xv, acc_u[i][c]);
-          }
+      for (int i = 0; i < kB; ++i) {
+        s[i] += dot4(xo[i], xv[i]);
+        s[kB + i] += dot4(dyo[i], xv[i]);
+        s[2 * kB + i] += dot4(xo[i], dv[i]);
+      }
+    };
+    if constexpr (!kWide) {
+      dots(q.c0);
+    } else {
+      // The sums over all of d, a 128-column tile at a time; then this
+      // block's tile of x and dy.
+      for (int c = q.cl; c < d; c += sr::kTileD) dots(c);
+#pragma unroll
+      for (int i = 0; i < kB; ++i) load_row4(xv[i], x, col[i], q.c0, d, vec);
+#pragma unroll
+      for (int i = 0; i < kB; ++i) load_row4(dv[i], dy, col[i], q.c0, d, vec);
+    }
+    group_sum<3 * kB>(s, g);
+#pragma unroll
+    for (int i = 0; i < kB; ++i) {
+      if (r[i] < 0) continue;
+      if (r[i] != cur) {
+        if (cur >= 0) {
+          flush(dx3, cur, q, d, acc[0], vec);
+          flush(u, cur, q, d, acc[1], vec);
         }
+        cur = r[i];
+        zero4(acc[0]);
+        zero4(acc[1]);
+      }
+      const float cs = sr::round_to<FeatT>(a[i] * sr::round_to<FeatT>(s[i]));
+      const float h = sr::round_to<FeatT>(a[i] * sr::round_to<FeatT>(s[kB + i] + s[2 * kB + i]));
+#pragma unroll
+      for (int c = 0; c < sr::kVec; ++c) {
+        acc[0][c] = fmaf(cs, dv[i][c], fmaf(h, xv[i][c], acc[0][c]));
+        acc[1][c] = fmaf(cs, xv[i][c], acc[1][c]);
       }
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < kMaxRowsPerWarp; ++i)
-    if (grow[i] >= 0) {
-      store_row<kCols>(dx3, acc_dx[i], grow[i], d, p.split);
-      store_row<kCols>(u, acc_u[i], grow[i], d, p.split);
-    }
+  float* const outs[2] = {dx3, u};
+  flush_last<2>(outs, cur, q, d, acc, g, vec);
 }
 
-// d > 128: the forward (kBwd false: out from xl, xr, xv) or the backward
-// (kBwd true: dx3 and u from x, dy and the window rows xw, dyw), for the
-// 128-column tile blockIdx.y of the output.  The warp walks its tile rows'
-// nonzeros as the narrow kernels do, and per nonzero forms the score(s)
-// over all of d from global memory (lane holds columns lane, lane + 32, ...
-// of a row), then adds the tile's columns (d0 + lane + 32 c) of the
-// weighted rows.
-template <typename FeatT, bool kBwd>
-__global__ void __launch_bounds__(kThreads)
-sfused_wide_kernel(const FeatT* __restrict__ a_, const FeatT* __restrict__ b_,
-                   const FeatT* __restrict__ c_, const FeatT* __restrict__ aw,
-                   const FeatT* __restrict__ bw, const void* __restrict__ tiles, int tile_kind,
-                   const int* __restrict__ col_ids, const int* __restrict__ win_start,
-                   const int* __restrict__ run_window, const int* __restrict__ run_block,
-                   float* out0, float* out1, int n, int d, int run_blocks, int blk_h, int blk_w,
-                   int slab, int slabs_per_window) {
-  constexpr int kCols = 4;
-  __shared__ int used_by[kMaxBlkW];  // load_tile_rows marks columns; not read here
-  const Place p = place(win_start, run_window, run_block, run_blocks, slab, slabs_per_window);
-  const int lane = threadIdx.x & 31;
-  const int d0 = blockIdx.y * 32 * kCols;
-  long long grow[kMaxRowsPerWarp];
-  float acc0[kMaxRowsPerWarp][kCols], acc1[kMaxRowsPerWarp][kCols];
-#pragma unroll
-  for (int i = 0; i < kMaxRowsPerWarp; ++i) {
-    grow[i] = warp_row(p, i, slab, blk_h, n);
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc0[i][c] = acc1[i][c] = 0.f;
-  }
+// ---- launches ----------------------------------------------------------------
 
-  for (int b = p.b_begin; b < p.b_end; ++b) {
-    float a[kMaxRowsPerWarp][kMaxChunks];
-    load_tile_rows<FeatT>(a, tiles, tile_kind, p, b, slab, blk_h, blk_w, used_by);
-    const int* cols = col_ids + (size_t)b * blk_w;
-#pragma unroll
-    for (int i = 0; i < kMaxRowsPerWarp; ++i) {
-      if (i >= p.rows_per_warp || grow[i] < 0) continue;
-      const long long ri = grow[i] * d;
-#pragma unroll
-      for (int q = 0; q < kMaxChunks; ++q) {
-        unsigned nz = __ballot_sync(0xffffffffu, a[i][q] != 0.f);
-        while (nz) {
-          const int j = __ffs(nz) - 1;
-          nz &= nz - 1;
-          const float aj = __shfl_sync(0xffffffffu, a[i][q], j);
-          const long long rk = (long long)cols[q * 32 + j] * d;
-          if (!kBwd) {
-            // out[r] += round(a * round(<xl[r], xr[k]>)) * xv[k]
-            float part = 0.f;
-            for (int f = lane; f < d; f += 32)
-              part = fmaf(to_f32(a_[ri + f]), to_f32(b_[rk + f]), part);
-            const float w = round_to<FeatT>(aj * round_to<FeatT>(warp_sum(part)));
-#pragma unroll
-            for (int c = 0; c < kCols; ++c) {
-              const int f = d0 + lane + 32 * c;
-              if (f < d) acc0[i][c] = fmaf(w, to_f32(c_[rk + f]), acc0[i][c]);
-            }
-          } else {
-            // s = <xw[r], x[k]>, t = <dyw[r], x[k]>, w = <xw[r], dy[k]>
-            float ps = 0.f, pt = 0.f, pw = 0.f;
-            for (int f = lane; f < d; f += 32) {
-              const float xr = to_f32(aw[ri + f]), dr = to_f32(bw[ri + f]);
-              const float xk = to_f32(a_[rk + f]), dk = to_f32(b_[rk + f]);
-              ps = fmaf(xr, xk, ps);
-              pt = fmaf(dr, xk, pt);
-              pw = fmaf(xr, dk, pw);
-            }
-            const float sv = warp_sum(ps), tv = warp_sum(pt), wv = warp_sum(pw);
-            const float cs = round_to<FeatT>(aj * round_to<FeatT>(sv));
-            const float g = round_to<FeatT>(aj * round_to<FeatT>(tv + wv));
-#pragma unroll
-            for (int c = 0; c < kCols; ++c) {
-              const int f = d0 + lane + 32 * c;
-              if (f >= d) continue;
-              const float xk = to_f32(a_[rk + f]), dk = to_f32(b_[rk + f]);
-              acc0[i][c] = fmaf(cs, dk, fmaf(g, xk, acc0[i][c]));
-              acc1[i][c] = fmaf(cs, xk, acc1[i][c]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kMaxRowsPerWarp; ++i) {
-    if (grow[i] < 0) continue;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int f = d0 + lane + 32 * c;
-      if (f >= d) continue;
-      const long long o = grow[i] * d + f;
-      if (p.split) {
-        atomicAdd(out0 + o, acc0[i][c]);
-        if (kBwd) atomicAdd(out1 + o, acc1[i][c]);
-      } else {
-        out0[o] = acc0[i][c];
-        if (kBwd) out1[o] = acc1[i][c];
-      }
-    }
-  }
-}
-
+// K2: a = xl, b = xr, c = xv (nullptr: xr); K3: a = x, b = dy, aw = xw,
+// bw = dyw.  out0 is K2's out or K3's dx3, out1 K3's u.
 struct Args {
-  const void *a, *b, *c, *aw, *bw, *tiles, *col_ids, *win_start, *run_window, *run_block;
+  const void *a, *b, *c, *aw, *bw, *rows, *cols, *vals;
   float *out0, *out1;
-  int n, d, num_runs, run_blocks, split, blk_h, blk_w, tile_kind;
+  int n, d;
+  long long nnz;
+  int val_kind;
 };
 
-struct Grid {
-  int slab, slabs_per_window;
+// The launch shape: g lanes a group, the nonzeros a group takes, the grid,
+// and whether the rows take 16-byte (f32) or 8-byte (bf16) loads.
+struct Shape {
   dim3 grid;
+  int g, per;
+  bool wide, vec;
 };
 
-Grid grid_of(const Args& a) {
-  Grid g;
-  g.slab = a.blk_h < kSlab ? a.blk_h : kSlab;
-  g.slabs_per_window = (a.blk_h + g.slab - 1) / g.slab;
-  g.grid = dim3((unsigned)a.num_runs * (unsigned)g.slabs_per_window);
-  return g;
-}
-
-// Zero the outputs that split windows add into, and allow the kernel its
-// dynamic shared memory.
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, const Args& a, size_t smem, cudaStream_t stream) {
-  if (a.split) {
-    const size_t bytes = (size_t)a.n * a.d * sizeof(float);
-    cudaError_t e = cudaMemsetAsync(a.out0, 0, bytes, stream);
-    if (e == cudaSuccess && a.out1 != nullptr) e = cudaMemsetAsync(a.out1, 0, bytes, stream);
-    if (e != cudaSuccess) return e;
-  }
-  if (smem > kStaticSmemLimit)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  return cudaSuccess;
-}
-
-template <typename FeatT, int kCols, bool kShare>
-int launch_fwd(const Args& a, cudaStream_t stream) {
-  const auto kernel = sfused_kernel<FeatT, kCols, kShare>;
-  const size_t smem = (kShare ? 1 : 2) * (size_t)a.blk_w * 32 * kCols * sizeof(float);
-  const cudaError_t e = prepare(kernel, a, smem, stream);
-  if (e != cudaSuccess) return (int)e;
-  const Grid g = grid_of(a);
-  kernel<<<g.grid, kThreads, smem, stream>>>(
-      static_cast<const FeatT*>(a.a), static_cast<const FeatT*>(a.b),
-      static_cast<const FeatT*>(a.c), a.tiles, a.tile_kind, static_cast<const int*>(a.col_ids),
-      static_cast<const int*>(a.win_start), static_cast<const int*>(a.run_window),
-      static_cast<const int*>(a.run_block), a.out0, a.n, a.d, a.run_blocks, a.blk_h, a.blk_w,
-      g.slab, g.slabs_per_window);
-  return (int)cudaGetLastError();
-}
-
-template <typename FeatT, int kCols>
-int launch_bwd(const Args& a, cudaStream_t stream) {
-  const auto kernel = sfused_bwd_kernel<FeatT, kCols>;
-  const size_t smem = 2 * (size_t)a.blk_w * 32 * kCols * sizeof(float);
-  const cudaError_t e = prepare(kernel, a, smem, stream);
-  if (e != cudaSuccess) return (int)e;
-  const Grid g = grid_of(a);
-  kernel<<<g.grid, kThreads, smem, stream>>>(
-      static_cast<const FeatT*>(a.a), static_cast<const FeatT*>(a.b),
-      static_cast<const FeatT*>(a.aw), static_cast<const FeatT*>(a.bw), a.tiles, a.tile_kind,
-      static_cast<const int*>(a.col_ids), static_cast<const int*>(a.win_start),
-      static_cast<const int*>(a.run_window), static_cast<const int*>(a.run_block), a.out0,
-      a.out1, a.n, a.d, a.run_blocks, a.blk_h, a.blk_w, g.slab, g.slabs_per_window);
-  return (int)cudaGetLastError();
+Shape shape_of(const Args& a) {
+  Shape sh;
+  sh.wide = a.d > sr::kTileD;
+  sh.g = sh.wide ? 32 : 1;
+  while (!sh.wide && sh.g * sr::kVec < a.d) sh.g <<= 1;
+  const int groups_per_warp = 32 / sh.g;
+  sh.per = range_len(a.nnz, groups_per_warp);
+  const long long groups = (a.nnz + sh.per - 1) / sh.per;
+  const long long warps = (groups + groups_per_warp - 1) / groups_per_warp;
+  sh.grid = dim3((unsigned)((warps + kWarps - 1) / kWarps),
+                 sh.wide ? (unsigned)((a.d + sr::kTileD - 1) / sr::kTileD) : 1u);
+  sh.vec = a.d % sr::kVec == 0;
+  for (const void* p : {a.a, a.b, a.c, a.aw, a.bw, (const void*)a.out0, (const void*)a.out1})
+    if (p != nullptr && !sr::aligned16(p)) sh.vec = false;
+  return sh;
 }
 
 template <typename FeatT>
-int launch_wide(bool bwd, const Args& a, cudaStream_t stream) {
-  const auto kernel = bwd ? sfused_wide_kernel<FeatT, true> : sfused_wide_kernel<FeatT, false>;
-  const cudaError_t e = prepare(kernel, a, 0, stream);
-  if (e != cudaSuccess) return (int)e;
-  Grid g = grid_of(a);
-  g.grid.y = (unsigned)((a.d + 32 * 4 - 1) / (32 * 4));
-  kernel<<<g.grid, kThreads, 0, stream>>>(
-      static_cast<const FeatT*>(a.a), static_cast<const FeatT*>(a.b),
-      static_cast<const FeatT*>(a.c), static_cast<const FeatT*>(a.aw),
-      static_cast<const FeatT*>(a.bw), a.tiles, a.tile_kind, static_cast<const int*>(a.col_ids),
-      static_cast<const int*>(a.win_start), static_cast<const int*>(a.run_window),
-      static_cast<const int*>(a.run_block), a.out0, a.out1, a.n, a.d, a.run_blocks, a.blk_h,
-      a.blk_w, g.slab, g.slabs_per_window);
-  return (int)cudaGetLastError();
-}
-
-// The forward (bwd = false, share = whether xv is xr) or the backward.
-template <typename FeatT>
-int launch_cols(bool bwd, bool share, const Args& a, cudaStream_t stream) {
-  if (a.d > kMaxD) return launch_wide<FeatT>(bwd, a, stream);
+int launch(bool bwd, const Args& a, cudaStream_t s) {
+  const Shape sh = shape_of(a);
+  const FeatT* fa = static_cast<const FeatT*>(a.a);
+  const FeatT* fb = static_cast<const FeatT*>(a.b);
+  const FeatT* fc = static_cast<const FeatT*>(a.c);
+  const int* rows = static_cast<const int*>(a.rows);
+  const int* cols = static_cast<const int*>(a.cols);
   if (bwd) {
-    if (a.d <= 32) return launch_bwd<FeatT, 1>(a, stream);
-    if (a.d <= 64) return launch_bwd<FeatT, 2>(a, stream);
-    return launch_bwd<FeatT, 4>(a, stream);
+    const auto kernel = sh.wide ? sfused_bwd_kernel<FeatT, true> : sfused_bwd_kernel<FeatT, false>;
+    kernel<<<sh.grid, kThreads, 0, s>>>(fa, fb, static_cast<const FeatT*>(a.aw),
+                                        static_cast<const FeatT*>(a.bw), rows, cols, a.vals,
+                                        a.val_kind, a.out0, a.out1, a.nnz, a.d, sh.per, sh.g,
+                                        sh.vec);
+  } else if (sh.wide) {
+    sfused_kernel<FeatT, false, true><<<sh.grid, kThreads, 0, s>>>(
+        fa, fb, fc == nullptr ? fb : fc, rows, cols, a.vals, a.val_kind, a.out0, a.nnz, a.d,
+        sh.per, sh.g, sh.vec);
+  } else {
+    const auto kernel = fc == nullptr ? sfused_kernel<FeatT, true, false>
+                                      : sfused_kernel<FeatT, false, false>;
+    kernel<<<sh.grid, kThreads, 0, s>>>(fa, fb, fc, rows, cols, a.vals, a.val_kind, a.out0,
+                                        a.nnz, a.d, sh.per, sh.g, sh.vec);
   }
-  if (share) {
-    if (a.d <= 32) return launch_fwd<FeatT, 1, true>(a, stream);
-    if (a.d <= 64) return launch_fwd<FeatT, 2, true>(a, stream);
-    return launch_fwd<FeatT, 4, true>(a, stream);
-  }
-  if (a.d <= 32) return launch_fwd<FeatT, 1, false>(a, stream);
-  if (a.d <= 64) return launch_fwd<FeatT, 2, false>(a, stream);
-  return launch_fwd<FeatT, 4, false>(a, stream);
+  return (int)cudaGetLastError();
 }
 
-int dispatch(int feat_kind, bool bwd, bool share, const Args& a, void* stream) {
-  if (a.blk_w < 1 || a.blk_w > kMaxBlkW || a.blk_h < 1 || a.run_blocks < 1 || a.d < 1 ||
-      a.tile_kind < 0 || a.tile_kind > 2)
+// Zero the outputs (rows without nonzeros are never visited; cut rows add
+// into them), then launch.
+int dispatch(bool bwd, int feat_kind, const Args& a, void* stream) {
+  if (a.n < 1 || a.d < 1 || a.nnz < 0 || a.val_kind < 0 || a.val_kind > 2 || feat_kind < 0 ||
+      feat_kind > 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (feat_kind) {
-    case 0:
-      return launch_cols<float>(bwd, share, a, s);
-    case 1:
-      return launch_cols<__nv_bfloat16>(bwd, share, a, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+  const size_t bytes = (size_t)a.n * a.d * sizeof(float);
+  for (float* out : {a.out0, a.out1}) {
+    if (out == nullptr) continue;
+    const cudaError_t e = cudaMemsetAsync(out, 0, bytes, s);
+    if (e != cudaSuccess) return (int)e;
   }
+  if (a.nnz == 0) return (int)cudaSuccess;
+  return feat_kind == 0 ? launch<float>(bwd, a, s) : launch<__nv_bfloat16>(bwd, a, s);
 }
 
 }  // namespace
 
-// Forward: out = (A . (xl @ xr^T)) @ xv, f32 [n, d]; xv == nullptr shares xr.
-// feat_kind: 0 = float, 1 = bfloat16 (xl, xr, xv).
-// tile_kind: 0 = int8, 1 = float, 2 = bfloat16.
-// run_window / run_block: num_runs runs of at most run_blocks TC blocks,
-// covering every window's blocks in order.  split: some window has more
-// than run_blocks blocks; the output is then zeroed here and its runs add
-// into it.  Any d >= 1, 1 <= blk_w <= 128.
-// Returns the cudaError_t of the launch (0 = success).
-extern "C" int tcgnn_spmm_sfused(const void* xl, const void* xr, const void* xv,
-                                 const void* tiles, const void* col_ids, const void* win_start,
-                                 const void* run_window, const void* run_block, void* out, int n,
-                                 int d, int num_runs, int run_blocks, int split, int blk_h,
-                                 int blk_w, int feat_kind, int tile_kind, void* stream) {
-  const bool share = xv == nullptr;
-  const Args a{xl, xr, share ? xr : xv, nullptr, nullptr, tiles, col_ids, win_start,
-               run_window, run_block, static_cast<float*>(out), nullptr, n, d, num_runs,
-               run_blocks, split, blk_h, blk_w, tile_kind};
-  return dispatch(feat_kind, false, share, a, stream);
+// K2 and K3 read the tiles' per-row index: rows, cols and vals [nnz], each
+// nonzero's window row (< n) and gathered row (int32), in row order, and its
+// tile value of val_kind (0 = int8, 1 = float, 2 = bfloat16).  feat_kind:
+// 0 = float, 1 = bfloat16, the type of the features.  Outputs are f32
+// [n, d], zeroed here first.  Any d >= 1.  Each function returns the
+// cudaError_t of the launch (0 = success).
+
+// K2: out = (A . (xl @ xr^T)) @ xv; xv == nullptr shares xr.
+extern "C" int tcgnn_spmm_sfused(const void* xl, const void* xr, const void* xv, const void* rows,
+                                 const void* cols, const void* vals, void* out, int n, int d,
+                                 int nnz, int feat_kind, int val_kind, void* stream) {
+  const Args a{xl, xr, xv, nullptr, nullptr, rows, cols, vals, static_cast<float*>(out), nullptr,
+               n, d, nnz, val_kind};
+  return dispatch(false, feat_kind, a, stream);
 }
 
-// Backward: dx3 and u, both f32 [n, d], from x and dy (feature type as
-// above): the gathers read x and dy, the window rows xw and dyw (n rows;
-// nullptr: x and dy).  Same tiling arguments as the forward.
+// K3: dx3 and u from x and dy (the gathers) and xw and dyw (the window rows;
+// nullptr: x and dy).
 extern "C" int tcgnn_spmm_sfused_bwd(const void* x, const void* dy, const void* xw,
-                                     const void* dyw, const void* tiles, const void* col_ids,
-                                     const void* win_start, const void* run_window,
-                                     const void* run_block, void* dx3, void* u, int n, int d,
-                                     int num_runs, int run_blocks, int split, int blk_h,
-                                     int blk_w, int feat_kind, int tile_kind, void* stream) {
-  const Args a{x, dy, nullptr, xw == nullptr ? x : xw, dyw == nullptr ? dy : dyw, tiles,
-               col_ids, win_start, run_window, run_block,
-               static_cast<float*>(dx3), static_cast<float*>(u), n, d, num_runs, run_blocks,
-               split, blk_h, blk_w, tile_kind};
-  return dispatch(feat_kind, true, false, a, stream);
+                                     const void* dyw, const void* rows, const void* cols,
+                                     const void* vals, void* dx3, void* u, int n, int d, int nnz,
+                                     int feat_kind, int val_kind, void* stream) {
+  const Args a{x, dy, nullptr, xw == nullptr ? x : xw, dyw == nullptr ? dy : dyw, rows, cols,
+               vals, static_cast<float*>(dx3), static_cast<float*>(u), n, d, nnz, val_kind};
+  return dispatch(true, feat_kind, a, stream);
 }
 
 extern "C" const char* tcgnn_cuda_error_string(int err) {

@@ -81,7 +81,6 @@ import torch
 from tcgnn_tpu_torch.config import DEFAULT_CONFIG, TileConfig
 from tcgnn_tpu_torch.ops.blockdiag import (
     BD_BIN_GROUP,
-    BDRowIndex,
     bd_row_index,
     bd_scatter_weights,
     bd_sfused,
@@ -91,8 +90,9 @@ from tcgnn_tpu_torch.ops.blockdiag import (
     spmm_block_diag,
 )
 from tcgnn_tpu_torch.ops.chunk import sddmm_tc, spmm_tc
+from tcgnn_tpu_torch.ops.row_index import RowIndex
 from tcgnn_tpu_torch.ops.sddmm import EdgeList, sddmm_tc_dense
-from tcgnn_tpu_torch.ops.sfused import spmm_sfused, spmm_sfused_bwd
+from tcgnn_tpu_torch.ops.sfused import sgt_row_index, spmm_sfused, spmm_sfused_bwd
 from tcgnn_tpu_torch.ops.spmm import build_a_tiles, spmm_tc_dense
 from tcgnn_tpu_torch.sgt.blockdiag import BDMeta, extract_block_diag
 from tcgnn_tpu_torch.sgt.stream import needs_streaming, segment_chunks
@@ -214,7 +214,8 @@ class BDPack:
     cov_pack: Optional[torch.Tensor]     # [E_cov] int64 pack positions; None unless addressable
     cov_ids: torch.Tensor                # [E_cov] int64 covered edges
     res_ids: Optional[torch.Tensor]      # [E_res] int64 residual edges
-    row_index: Optional[BDRowIndex] = None  # the pack's per-row index (K6/K7)
+    row_index: Optional[RowIndex] = None  # the pack's per-row index (K6/K7)
+    res_index: Optional[RowIndex] = None  # the residual tiles' per-row index (K2/K3)
 
 
 def _pack_elems(m: BDMeta) -> int:
@@ -395,6 +396,9 @@ class TiledGraph:
             edge_rows, column_index, self.num_nodes, config, self.device)
         fused = symmetric and (self._agnn_bd or self.meta is not None)
         self.agnn_aggregate = self._agnn_aggregate if fused else None
+        # K2/K3 walk the tiles' per-row index, built here where they run.
+        self.sfused_index = (sgt_row_index(self.meta, self.a_struct)
+                             if fused and not self._agnn_bd else None)
 
     def _init_chunk_route(self, row_pointers, column_index, t_ptr, t_idx, t_src, streamed, t0):
         """The chunk route: the chunk layouts of both directions (or their
@@ -405,7 +409,7 @@ class TiledGraph:
         self.bd = self.bd_t = self.bd_offsets = self.bd_offsets_t = None
         self.bd_full_coverage = self.bd_addressable = self._agnn_bd = False
         self.meta = self.meta_t = self.a_struct = self.a_struct_t = None
-        self.agnn_aggregate = None
+        self.agnn_aggregate = self.sfused_index = None
         host = sparse_graph_translate(row_pointers, column_index, n, cfg, emit_chunks=True)
         host_t = host if self.symmetric else sparse_graph_translate(
             t_ptr, t_idx, n, cfg, emit_chunks=True)
@@ -437,7 +441,7 @@ class TiledGraph:
 
     def _bd_dev(self, m: BDMeta, res_host, row_index: bool = False) -> BDPack:
         """One direction's BD arrays on the device; with ``row_index``, the
-        pack's per-row index too."""
+        pack's per-row index (K6/K7) and the residual tiles' (K2/K3) too."""
         dev = self.device
 
         def ids(a):
@@ -445,15 +449,19 @@ class TiledGraph:
 
         pack = build_bd_pack(ids(m.tile_idx), torch.from_numpy(m.tile_cnt).to(dev),
                              k=len(m.offsets), nbins=m.num_bins, bn=m.bin_rows)
+        res_meta = None if res_host is None else res_host.to(dev)
+        res_a = None if res_host is None else self._upload_tiles(res_host)
         return BDPack(
             offsets=m.offsets,
             pack=pack,
-            res_meta=None if res_host is None else res_host.to(dev),
-            res_a=None if res_host is None else self._upload_tiles(res_host),
+            res_meta=res_meta,
+            res_a=res_a,
             cov_pack=ids(m.packed_cov_idx()) if _bd_addressable(m) else None,
             cov_ids=ids(m.cov_edge_ids),
             res_ids=ids(m.res_edge_ids),
             row_index=bd_row_index(pack, m.offsets, self.num_nodes) if row_index else None,
+            res_index=(sgt_row_index(res_meta, res_a)
+                       if row_index and res_host is not None else None),
         )
 
     def spmm(self, x: torch.Tensor) -> torch.Tensor:
@@ -539,9 +547,9 @@ class TiledGraph:
             out = bd_sfused(x, x, x, bd.pack, offsets=bd.offsets, cfg=self.config,
                             index=bd.row_index)
             if bd.res_meta is not None:
-                out = out + spmm_sfused(x, x, x, bd.res_meta, bd.res_a)
+                out = out + spmm_sfused(x, x, x, bd.res_meta, bd.res_a, index=bd.res_index)
             return out
-        return spmm_sfused(x, x, x, self.meta, self.a_struct)
+        return spmm_sfused(x, x, x, self.meta, self.a_struct, index=self.sfused_index)
 
     def _agnn_b(self, x, dy):
         """``(dx3, u)`` of the one-pass AGNN backward."""
@@ -550,10 +558,10 @@ class TiledGraph:
             dx3, u = bd_sfused_bwd(x, dy, bd.pack, offsets=bd.offsets, cfg=self.config,
                                    index=bd.row_index)
             if bd.res_meta is not None:
-                dx3_r, u_r = spmm_sfused_bwd(x, dy, bd.res_meta, bd.res_a)
+                dx3_r, u_r = spmm_sfused_bwd(x, dy, bd.res_meta, bd.res_a, index=bd.res_index)
                 dx3, u = dx3 + dx3_r, u + u_r
             return dx3, u
-        return spmm_sfused_bwd(x, dy, self.meta, self.a_struct)
+        return spmm_sfused_bwd(x, dy, self.meta, self.a_struct, index=self.sfused_index)
 
 
 def tiled_graph_from_dataset(ds, config: TileConfig = DEFAULT_CONFIG, **kw) -> TiledGraph:

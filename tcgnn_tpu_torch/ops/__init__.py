@@ -29,6 +29,7 @@ from tcgnn_tpu_torch.ops.sddmm import (
     sddmm_tc_tiles_torch,
 )
 from tcgnn_tpu_torch.ops.sfused import (
+    sgt_row_index,
     spmm_sfused,
     spmm_sfused_bwd,
     spmm_sfused_bwd_torch,
@@ -44,5 +45,5 @@ __all__ = [
     "bd_sfused_bwd", "bd_sfused_bwd_torch", "spmm_ref", "sddmm_ref", "sfused_ref",
     "sfused_bwd_ref", "spmm_tc", "spmm_tc_torch", "spmm_tc_streamed", "spmm_tc_streamed_torch",
     "sddmm_tc", "sddmm_tc_torch", "sddmm_tc_streamed", "sddmm_tc_streamed_torch",
-    "sddmm_tc_tiles", "sddmm_tc_tiles_torch", "spmm_fused", "spmm_fused_torch",
+    "sddmm_tc_tiles", "sddmm_tc_tiles_torch", "spmm_fused", "spmm_fused_torch", "sgt_row_index",
 ]

@@ -84,8 +84,8 @@ SIGNATURES = {
     },
     "sddmm_dense": {"tcgnn_sddmm_dense": [_P] * 6 + [_I] * 4 + [_P]},
     "spmm_sfused": {
-        "tcgnn_spmm_sfused": [_P] * 9 + [_I] * 9 + [_P],
-        "tcgnn_spmm_sfused_bwd": [_P] * 11 + [_I] * 9 + [_P],
+        "tcgnn_spmm_sfused": [_P] * 7 + [_I] * 5 + [_P],
+        "tcgnn_spmm_sfused_bwd": [_P] * 9 + [_I] * 5 + [_P],
     },
     "spmm_bd": {
         "tcgnn_spmm_bd": [_P] * 4 + [_I] * 6 + [_P],

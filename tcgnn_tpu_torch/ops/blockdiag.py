@@ -18,10 +18,10 @@ Counterparts in ``tcgnn_tpu.ops.spmm``:
 * ``bd_sfused_bwd`` (K7, ``_bd_sfused_bwd_kernel``), one pass:
   ``dx3 = (C⊙S) @ dy + (C⊙(T+U)) @ x`` and ``u = (C⊙S) @ x`` with
   ``S = x x^T``, ``T = dy x^T``, ``U = x dy^T`` on the packed diagonals;
-* ``bd_row_index``: the pack's per-row index (``BDRowIndex``), which K6 and
-  K7 walk on the card in place of the pack: ``row_ptr`` over the node rows
-  and each nonzero's node column and value, in the pack's order, derived
-  on the device from the pack itself.
+* ``bd_row_index``: the pack's per-row index (``ops/row_index.py``'s
+  ``RowIndex``), which K6 and K7 walk on the card in place of the pack:
+  ``row_ptr`` over the node rows and each nonzero's node column and value,
+  in the pack's order, derived on the device from the pack itself.
 
 The JAX contract, rounding included: pack and features cast to the compute
 dtype, every product summed in f32, the score rounded to the compute dtype
@@ -49,16 +49,15 @@ K6 and K7 walk the index, not the pack.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
-
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from tcgnn_tpu_torch.config import TileConfig
 from tcgnn_tpu_torch.ops import _kernels
+from tcgnn_tpu_torch.ops import row_index
+from tcgnn_tpu_torch.ops.row_index import INDEX_SLAB, RowIndex, from_rows
 from tcgnn_tpu_torch.ops.spmm import FEAT_KIND
 from tcgnn_tpu_torch.sgt.blockdiag import packed_index
 
@@ -67,9 +66,6 @@ BD_BIN_GROUP = 8
 PACK_KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2, torch.int16: 3}
 KERNEL_MAX_K = 8         # the kernels hold the offsets in a fixed array
 KERNEL_MAX_STRIPE = 1024  # K * bn: 32 entries a lane (K5's mask)
-# Flat pack entries ``bd_row_index`` scans at once: under one ``nonzero``
-# call's limit (YeastH's pack has 2.01e9 entries).
-INDEX_SLAB = 1 << 28
 
 
 def padded_bins(num_bins: int) -> int:
@@ -95,40 +91,7 @@ def bd_scatter_weights(w_cov: torch.Tensor, cov_pack_idx: torch.Tensor, *, bp: i
     return flat.view(bp, bn, k * bn)
 
 
-@dataclasses.dataclass(frozen=True)
-class BDRowIndex:
-    """A pack's nonzeros by node row, which K6 and K7 walk: row ``i``'s are
-    ``[row_ptr[i], row_ptr[i + 1])``, each with its node column ``cols``
-    and its value ``vals`` (the pack's dtype), in the pack's order (offset,
-    then column: ascending node column)."""
-
-    row_ptr: torch.Tensor  # [n + 1] int64
-    cols: torch.Tensor     # [nnz] int32
-    vals: torch.Tensor     # [nnz] the pack's dtype
-    # What a launch checks, worked out once here: the device a kernel can
-    # read the arrays on (all three there, contiguous, int64 row pointers,
-    # int32 columns, a value a column), else None.
-    kernel_device: Optional[torch.device] = dataclasses.field(
-        init=False, repr=False, compare=False)
-
-    def __post_init__(self):
-        arrays = (self.row_ptr, self.cols, self.vals)
-        dev = self.row_ptr.device
-        ok = (all(t.device == dev and t.is_contiguous() for t in arrays)
-              and self.row_ptr.dtype == torch.int64 and self.cols.dtype == torch.int32
-              and self.cols.numel() == self.vals.numel())
-        object.__setattr__(self, "kernel_device", dev if ok else None)
-
-    @property
-    def num_rows(self) -> int:
-        return self.row_ptr.numel() - 1
-
-    @property
-    def nnz(self) -> int:
-        return self.cols.numel()
-
-
-def bd_row_index(pack: torch.Tensor, offsets, n: int) -> BDRowIndex:
+def bd_row_index(pack: torch.Tensor, offsets, n: int) -> RowIndex:
     """The per-row index of ``pack`` over ``n`` node rows, on the pack's
     device: the flat pack's nonzero positions in order, ``INDEX_SLAB``
     entries at a time, each taken to its node row ``p // (K*bn)`` and column
@@ -147,33 +110,21 @@ def bd_row_index(pack: torch.Tensor, offsets, n: int) -> BDRowIndex:
         rows.append(r[keep])
         cols.append(c[keep].to(torch.int32))
         vals.append(flat[p[keep]])
-    row = torch.cat(rows) if rows else torch.zeros(0, dtype=torch.int64, device=pack.device)
-    row_ptr = torch.zeros(n + 1, dtype=torch.int64, device=pack.device)
-    row_ptr[1:] = torch.cumsum(torch.bincount(row, minlength=n), 0)
-    cols = torch.cat(cols) if cols else torch.zeros(0, dtype=torch.int32, device=pack.device)
-    vals = torch.cat(vals) if vals else torch.zeros(0, dtype=pack.dtype, device=pack.device)
-    return BDRowIndex(row_ptr=row_ptr, cols=cols, vals=vals)
+    dev = pack.device
+    return from_rows(torch.cat(rows) if rows else torch.zeros(0, dtype=torch.int64, device=dev),
+                     torch.cat(cols) if cols else torch.zeros(0, dtype=torch.int32, device=dev),
+                     torch.cat(vals) if vals else torch.zeros(0, dtype=pack.dtype, device=dev),
+                     n, with_rows=False)
 
 
 def check_row_index(op: str, index, x: torch.Tensor, pack: torch.Tensor) -> None:
-    """Raise unless ``index`` is a ``BDRowIndex`` that fits x and the pack:
+    """Raise unless ``index`` is a ``RowIndex`` that fits x and the pack:
     a row for each of x's rows, no more nonzeros than the pack's rows can
     hold, the pack's value dtype, and arrays a kernel can read on x's
     device."""
-    if index is None:
-        raise ValueError(f"{op}: the kernel walks the pack's row index: pass index="
-                         f"bd_row_index(pack, offsets, n)")
     n = x.shape[0]
-    if index.num_rows != n:
-        raise ValueError(f"{op}: row index of {index.num_rows} rows for {n} nodes")
-    if index.nnz > n * pack.shape[2]:
-        raise ValueError(f"{op}: row index nonzero count {index.nnz} does not fit {n} pack rows "
-                         f"of {pack.shape[2]}")
-    if index.vals.dtype != pack.dtype:
-        raise TypeError(f"{op}: row index values {index.vals.dtype}, pack {pack.dtype}")
-    if index.kernel_device != x.device:
-        raise ValueError(f"{op}: row index arrays on {index.row_ptr.device} must be contiguous "
-                         f"int64 row_ptr, int32 cols and a value a column, on {x.device}")
+    row_index.check_row_index(op, index, n, n * pack.shape[2], pack.dtype, x.device,
+                              "bd_row_index(pack, offsets, n)")
 
 
 # ---- plain versions ---------------------------------------------------------

@@ -34,8 +34,7 @@ from tcgnn_tpu_torch.sgt.translate import KERNEL_RUN_BLOCKS, TorchSGTMeta
 
 FEAT_KIND = {torch.float32: 0, torch.bfloat16: 1}
 TILE_KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
-# K1/K10: a row of a run of 8 blocks in a lane's 32-entry mask; K2/K3: a tile
-# row in 4 registers a lane.
+# K1/K10: a row of a run of 8 blocks in a lane's 32-entry mask.
 KERNEL_MAX_BLK_W = 128
 
 
@@ -79,7 +78,7 @@ def spmm_tc_dense_torch(
 
 
 def check_tiled_operands(op: str, x, meta, a_tiles) -> None:
-    """What a kernel over the condensed tiles (K1, K2, K3, K10) takes: the
+    """What a kernel over the condensed tiles (K1, K10) takes: the
     compute dtype and the tiles it has a kernel for, blk_w <= 128, and the
     tiles and window metadata on x's device, contiguous.  The metadata's
     arrays were checked when it was made (``meta.kernel_device``); only

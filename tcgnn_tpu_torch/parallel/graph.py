@@ -59,7 +59,8 @@ import torch
 from tcgnn_tpu_torch.config import DEFAULT_CONFIG, TileConfig
 from tcgnn_tpu_torch.ops.fused import spmm_fused
 from tcgnn_tpu_torch.ops.sddmm import sddmm_tc_dense, sddmm_tc_tiles
-from tcgnn_tpu_torch.ops.sfused import spmm_sfused, spmm_sfused_bwd
+from tcgnn_tpu_torch.ops.row_index import RowIndex
+from tcgnn_tpu_torch.ops.sfused import sgt_row_index, spmm_sfused, spmm_sfused_bwd
 from tcgnn_tpu_torch.ops.spmm import build_a_tiles, spmm_tc_dense
 from tcgnn_tpu_torch.parallel import collectives as C
 from tcgnn_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -143,10 +144,16 @@ def _shards_need_streaming(row_pointers, column_index, num_nodes, num_shards, co
 
 @dataclasses.dataclass
 class _Stream:
-    """One shard's block stream on the device: its metadata and tiles."""
+    """One shard's block stream on the device: its metadata and tiles, and
+    where K2/K3 run over it, the tiles' per-row index."""
 
     meta: TorchSGTMeta
     tiles: torch.Tensor  # [B, blk_h, blk_w] structural
+    index: Optional[RowIndex] = None
+
+    @classmethod
+    def make(cls, meta, tiles, with_index: bool) -> "_Stream":
+        return cls(meta, tiles, sgt_row_index(meta, tiles) if with_index else None)
 
 
 @dataclasses.dataclass
@@ -254,9 +261,12 @@ class DistributedTiledGraph:
         self.padded_nodes = fwd.padded_nodes
         self.padded_edges = fwd.padded_edges
         self.edge_capacity = fwd.edge_capacity
-        self._fwd = self._upload(fwd, with_fwd_slot=False)
+        # The fused AGNN rides the forward split stream where there is one;
+        # on a mesh of one feature shard it is K2/K3, over the stream's row
+        # index.
+        self._fwd = self._upload(fwd, with_fwd_slot=False,
+                                 sfused=self.symmetric and self.pf == 1)
         self._bwd = self._upload(bwd, with_fwd_slot=True)
-        # The fused AGNN rides the forward split stream where there is one.
         self.agnn_split = self.symmetric and fwd.split is not None
         self.agnn_aggregate = self._agnn_aggregate if self.symmetric else None
 
@@ -324,8 +334,10 @@ class DistributedTiledGraph:
         return np.concatenate([v[s, : int(es[s + 1] - es[s])] for s in range(self.pg)])
 
     # ---- device metadata ---------------------------------------------------
-    def _upload(self, m: ShardedSGTMeta, with_fwd_slot: bool) -> _Direction:
-        """One direction's streams, halo tables and split on the device."""
+    def _upload(self, m: ShardedSGTMeta, with_fwd_slot: bool, sfused: bool = False) -> _Direction:
+        """One direction's streams, halo tables and split on the device;
+        ``sfused``: with the row index of the streams K2/K3 run over (the
+        split streams where there are, else the plain ones)."""
         dev, cfg, pg = self.device, self.config, self.pg
         halo = m.halo
         num_src = m.rows_per_shard + halo["halo_rows"]
@@ -340,9 +352,10 @@ class DistributedTiledGraph:
 
         a_dev = tiles(m.a_tiles)
         streams = [
-            _Stream(shard_meta(cfg, m.a_tiles[g], m.block_window[g], m.block_first_in_window[g],
-                               halo["col_ids_ext"][g], m.edge_pos[g][: counts[g]],
-                               m.windows_per_shard, num_src, dev), a_dev[g])
+            _Stream.make(shard_meta(cfg, m.a_tiles[g], m.block_window[g],
+                                    m.block_first_in_window[g], halo["col_ids_ext"][g],
+                                    m.edge_pos[g][: counts[g]], m.windows_per_shard, num_src,
+                                    dev), a_dev[g], sfused and m.split is None)
             for g in range(pg)
         ]
         sp = None
@@ -357,10 +370,11 @@ class DistributedTiledGraph:
             sp = _Split(
                 guest_cap=gcap, pair_cap=qcap,
                 streams=[
-                    _Stream(shard_meta(cfg, s["a_tiles"][g], s["block_window"][g],
-                                       s["block_first"][g], s["col_ids_ext"][g],
-                                       s["edge_pos"][g][: es[g]],
-                                       m.windows_per_shard + gcap, num_src, dev), sa_dev[g])
+                    _Stream.make(shard_meta(cfg, s["a_tiles"][g], s["block_window"][g],
+                                            s["block_first"][g], s["col_ids_ext"][g],
+                                            s["edge_pos"][g][: es[g]],
+                                            m.windows_per_shard + gcap, num_src, dev),
+                                 sa_dev[g], sfused)
                     for g in range(pg)
                 ],
                 w_src=[ids(s["w_src"][g][: es[g]]) for g in range(pg)],
@@ -558,7 +572,8 @@ class DistributedTiledGraph:
             x_win = grid
         if self.pf == 1:
             y = self._map(lambda g, xl, xe: spmm_sfused(xl, xe, xe, streams[g].meta,
-                                                        streams[g].tiles), x_win, x_ext)
+                                                        streams[g].tiles,
+                                                        index=streams[g].index), x_win, x_ext)
         else:
             y = self._fused(x_ext, self._score_tiles(x_win, x_ext, streams), streams)
         return self._guest_return(y, dn.split) if self.agnn_split else y
@@ -578,7 +593,8 @@ class DistributedTiledGraph:
             x_win, dy_win = grid, dgrid
         if self.pf == 1:
             both = self._map(lambda g, xe, de, xw, dw: spmm_sfused_bwd(
-                xe, de, streams[g].meta, streams[g].tiles, xw=xw, dyw=dw),
+                xe, de, streams[g].meta, streams[g].tiles, xw=xw, dyw=dw,
+                index=streams[g].index),
                 x_ext, dy_ext, x_win, dy_win)
             y123 = self._map(lambda g, p: p[0], both)
             u = self._map(lambda g, p: p[1], both)

@@ -11,7 +11,8 @@ epochs in it under ``--profile_dir``.  ``device_ms`` is the device time per
 call of one function (a kernel or its plain version).
 
 Run on the card from the repository root:
-    python -m tcgnn_tpu_torch.profiling [OUT_DIR [GROUP ...]]  # groups: bd (and K5-K7), reddit, mesh
+    python -m tcgnn_tpu_torch.profiling [OUT_DIR [GROUP ...]]
+    # groups: pubmed, bd (and K5-K7), reddit, mesh
     python -m tcgnn_tpu_torch.train --dataset DD --dim 89 --classes 2 --profile_dir prof/
 """
 
@@ -121,14 +122,23 @@ def device_ms(fn, calls: int = 25) -> float:
     return sum(e.time_range.end - e.time_range.start for e in _device_events(prof)) / calls / 1e3
 
 
-# Configurations of ``main``, by group: the BD route's epochs and reddit's
-# (the streamed route).  Each runs with the profiler off and then on.
+# Configurations of ``main``, by group: pubmed's (the condensed route), the
+# BD route's, reddit's (the streamed route) and the one-card mesh's.  Each
+# runs with the profiler off and then on.
 CONFIGS = {
     "bd": (
         ["--dataset", "DD", "--dim", "89", "--classes", "2", "--model", "gcn"],
         ["--dataset", "DD", "--dim", "89", "--classes", "2", "--model", "gcn", "--no_hoist"],
         ["--dataset", "DD", "--dim", "89", "--classes", "2", "--model", "agnn", "--hidden", "32"],
         ["--dataset", "Yeast", "--dim", "74", "--classes", "2", "--model", "gcn"],
+    ),
+    "pubmed": (  # K1, and K2/K3 (AGNN); host-bound epochs
+        ["--dataset", "pubmed", "--dim", "500", "--classes", "3", "--model", "gcn",
+         "--no_hoist"],
+        ["--dataset", "pubmed", "--dim", "500", "--classes", "3", "--model", "agnn",
+         "--hidden", "32", "--num_layers", "2"],
+        ["--dataset", "pubmed", "--dim", "500", "--classes", "3", "--model", "agnn",
+         "--hidden", "32", "--num_layers", "4"],
     ),
     "reddit": (
         ["--dataset", "reddit", "--dim", "602", "--classes", "41", "--model", "gcn"],
@@ -148,15 +158,30 @@ CONFIGS = {
 
 def main(out_dir: str = "prof_traces", *groups: str) -> None:
     """The epochs of the given groups of ``CONFIGS`` (all by default), each
-    run with the profiler off and then on (traces under ``out_dir``), and
-    with the ``bd`` group K5-K7 against their plain versions at DD's
-    shapes."""
+    run with the profiler off and then on (traces under ``out_dir``); with
+    the ``pubmed`` group K2/K3 against their plain versions at pubmed's
+    shapes, with the ``bd`` group K5-K7 at DD's and K2/K3 on its
+    residual."""
     from tcgnn_tpu_torch import TileConfig, TiledGraph, train  # train imports this module
     from tcgnn_tpu_torch.data import synthesize
     from tcgnn_tpu_torch.ops import (
         bd_sfused, bd_sfused_bwd, bd_sfused_bwd_torch, bd_sfused_torch, spmm_block_diag,
-        spmm_block_diag_torch,
+        spmm_block_diag_torch, spmm_sfused, spmm_sfused_bwd, spmm_sfused_bwd_torch,
+        spmm_sfused_torch,
     )
+
+    def sfused_lines(name, meta, tiles, index, gen):
+        """K2 and K3 over ``index`` and their plain versions, device time at
+        d=32 and 3 (AGNN's hidden and pubmed's class width)."""
+        for d in (32, 3):
+            x = torch.randn(meta.num_rows, d, device=dev, generator=gen) * 0.3
+            dy = torch.randn(meta.num_rows, d, device=dev, generator=gen)
+            print("device K2 {} d={}: kernel {:.4f} ms, plain {:.4f} ms".format(
+                name, d, device_ms(lambda: spmm_sfused(x, x, x, meta, tiles, index=index)),
+                device_ms(lambda: spmm_sfused_torch(x, x, x, meta, tiles))))
+            print("device K3 {} d={}: kernel {:.4f} ms, plain {:.4f} ms".format(
+                name, d, device_ms(lambda: spmm_sfused_bwd(x, dy, meta, tiles, index=index)),
+                device_ms(lambda: spmm_sfused_bwd_torch(x, dy, meta, tiles))))
 
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
@@ -169,11 +194,16 @@ def main(out_dir: str = "prof_traces", *groups: str) -> None:
                 print("---", " ".join(argv + extra))
                 train.main([*argv, "--epochs", "50", *extra])
                 torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    if "pubmed" in groups:
+        ds = synthesize("pubmed", seed=0)
+        g = TiledGraph(ds.row_pointers, ds.column_index, ds.num_nodes, TileConfig(), device=dev)
+        sfused_lines("pubmed", g.meta, g.a_struct, g.sfused_index,
+                     torch.Generator(device=dev).manual_seed(0))
     if "bd" not in groups:
         return
 
     ds = synthesize("DD", 89, 2)
-    dev = torch.device("cuda")
     g = TiledGraph(ds.row_pointers, ds.column_index, ds.num_nodes, TileConfig(), device=dev)
     p, offs, cfg, n = g.bd.pack, g.bd_offsets, TileConfig(), ds.num_nodes
     index = g.bd.row_index
@@ -192,6 +222,7 @@ def main(out_dir: str = "prof_traces", *groups: str) -> None:
         print("device K7 DD d={}: kernel {:.4f} ms, plain {:.4f} ms".format(
             d, device_ms(lambda: bd_sfused_bwd(x, dy, p, offsets=offs, cfg=cfg, index=index)),
             device_ms(lambda: bd_sfused_bwd_torch(x, dy, p, offsets=offs, cfg=cfg))))
+    sfused_lines("DD residual", g.bd.res_meta, g.bd.res_a, g.bd.res_index, gen)
 
 
 if __name__ == "__main__":

@@ -12,8 +12,11 @@ CSR oracle on ``|x|`` for K2-K4), since the kernel and the plain version
 differ only in summation order and an f32 sum's rounding error scales with
 the magnitudes summed; bf16 ``2e-2`` on the same scale, for the one
 rounding of the stored sums (K1, K5-K7) or of a score whose last f32 bit
-the summation order moved (K2, K3, K6, K7).  For K5-K7 the magnitude is the
-plain version's own output on absolute values (pack and features).  K8 and
+the summation order moved (K2, K3, K6, K7).  For K5-K7, and K2/K3 against
+their plain versions, the magnitude is the plain version's own output on
+absolute values (pack or tiles, and features).  K2/K3 add a row cut between
+two ranges of nonzeros with atomics: another summation order, the same
+tolerances.  K8 and
 K9 store f32 under bf16 too, so they take the f32 tolerance in both dtypes.
 K10 and K3 on a distributed shard's stream (padding blocks, a gather source
 longer than the windows, window-side operands apart) take K2/K3's
@@ -49,6 +52,7 @@ from tcgnn_tpu_torch.ops import (
     spmm_sfused_torch,
 )
 from tcgnn_tpu_torch.ops.blockdiag import bd_row_index
+from tcgnn_tpu_torch.ops.sfused import sgt_row_index
 from tcgnn_tpu_torch.ops.chunk import (
     sddmm_tc,
     sddmm_tc_torch,
@@ -181,56 +185,105 @@ def csr(rp, ci, dev):
     return torch.from_numpy(rp).to(dev), torch.from_numpy(ci).to(dev)
 
 
-# K2/K3's widths: one lane group of up to 4 columns a lane (d <= 128), and
-# past it the wide path's 128-column tiles of the output.
-SFUSED_WIDTHS = [3, 32, 70, 129, 200, 500]
+# K2/K3's widths: lane groups of 1 to 32 lanes of 4 columns (d <= 128),
+# rows not a multiple of 4 wide, and past 128 the wide path's 128-column
+# tiles of the output (one to four).
+SFUSED_WIDTHS = [1, 2, 3, 4, 31, 32, 33, 64, 70, 128, 129, 200, 500]
+# Graphs of K2/K3: a hub of 600 leaves and one of 5,000 (longer than many
+# of the kernels' ranges of nonzeros), empty rows, counts above 127.
+SFUSED_KINDS = ["hub", "long_hub", "empty_and_partial_windows", "duplicates_over_127"]
 
 
-@pytest.mark.parametrize("kind", ["hub", "empty_and_partial_windows", "duplicates_over_127"])
+def sfused_graph(kind):
+    if kind != "long_hub":
+        return graph(kind)
+    n = 5001
+    src, dst = powerlaw_graph(n, 9000, seed=4)
+    leaves = np.arange(1, n)
+    src, dst = np.concatenate([src, np.zeros(n - 1, int), leaves]), np.concatenate(
+        [dst, leaves, np.zeros(n - 1, int)])
+    return (n, *coo_to_csr(src, dst, n))
+
+
+@functools.lru_cache(maxsize=8)
+def sfused_case(kind, geometry, dtype, tiles, dev):
+    """A graph's condensed tiling on the card, its tiles (as built, or cast)
+    and their row index."""
+    n, rp, ci = sfused_graph(kind)
+    bh, bw = geometry
+    g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw, compute_dtype=dtype), device=dev,
+                   block_diag=False)
+    a = g.a_struct if TILE_CASTS[tiles] is None else g.a_struct.to(TILE_CASTS[tiles])
+    # The graph builds the index where AGNN takes K2/K3 (a symmetric graph).
+    index = g.sfused_index if a is g.a_struct and g.symmetric else sgt_row_index(g.meta, a)
+    return n, rp, ci, g, a, index
+
+
+@pytest.mark.parametrize("kind", SFUSED_KINDS)
 @pytest.mark.parametrize("geometry", GEOMETRIES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", SFUSED_WIDTHS)
 @pytest.mark.parametrize("share", [True, False])
-def test_sfused_kernel_matches_plain(cuda, kind, geometry, dtype, d, share):
-    n, rp, ci = graph(kind)
-    bh, bw = geometry
-    g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw, compute_dtype=dtype), device=cuda,
-                   block_diag=False)
+@pytest.mark.parametrize("tiles", list(TILE_CASTS))
+def test_sfused_kernel_matches_plain(cuda, kind, geometry, dtype, d, share, tiles):
+    """K2 over the tiles' row index against the plain version over the
+    tiles and, in f32, the f64 oracle."""
+    n, rp, ci, g, a, index = sfused_case(kind, geometry, dtype, tiles, cuda)
     xl, xr = randn((n, d), 1, cuda, 0.3), randn((n, d), 2, cuda, 0.3)
     xv = xr if share else randn((n, d), 3, cuda, 0.3)
     before = spmm_sfused.launches
-    got = spmm_sfused(xl, xr, xv, g.meta, g.a_struct)
+    got = spmm_sfused(xl, xr, xv, g.meta, a, index=index)
     torch.cuda.synchronize()
     assert spmm_sfused.launches == before + 1 and got.dtype == torch.float32
-    mag = sfused_ref(xl.double().abs(), xr.double().abs(), xv.double().abs(), *csr(rp, ci, cuda))
-    within(got, spmm_sfused_torch(xl, xr, xv, g.meta, g.a_struct), mag, **tol(dtype))
-    if dtype == torch.float32:
+    mag = spmm_sfused_torch(xl.abs(), xr.abs(), xv.abs(), g.meta, a.abs())
+    within(got, spmm_sfused_torch(xl, xr, xv, g.meta, a), mag, **tol(dtype))
+    if dtype == torch.float32 and TILE_CASTS[tiles] is None:
+        mag = sfused_ref(xl.double().abs(), xr.double().abs(), xv.double().abs(),
+                         *csr(rp, ci, cuda))
         want = sfused_ref(xl.double(), xr.double(), xv.double(), *csr(rp, ci, cuda))
         within(got, want, mag, **F32)
 
 
-@pytest.mark.parametrize("kind", ["hub", "empty_and_partial_windows", "duplicates_over_127"])
+@pytest.mark.parametrize("kind", SFUSED_KINDS)
 @pytest.mark.parametrize("geometry", GEOMETRIES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", SFUSED_WIDTHS)
-def test_sfused_bwd_kernel_matches_plain(cuda, kind, geometry, dtype, d):
-    n, rp, ci = graph(kind)
-    bh, bw = geometry
-    g = TiledGraph(rp, ci, n, TileConfig(blk_h=bh, blk_w=bw, compute_dtype=dtype), device=cuda,
-                   block_diag=False)
+@pytest.mark.parametrize("tiles", list(TILE_CASTS))
+def test_sfused_bwd_kernel_matches_plain(cuda, kind, geometry, dtype, d, tiles):
+    """K3 over the tiles' row index against the plain version over the
+    tiles and, in f32, the f64 oracles."""
+    n, rp, ci, g, a, index = sfused_case(kind, geometry, dtype, tiles, cuda)
     x, dy = randn((n, d), 4, cuda, 0.3), randn((n, d), 5, cuda, 0.3)
     before = spmm_sfused_bwd.launches
-    dx3, u = spmm_sfused_bwd(x, dy, g.meta, g.a_struct)
+    dx3, u = spmm_sfused_bwd(x, dy, g.meta, a, index=index)
     torch.cuda.synchronize()
     assert spmm_sfused_bwd.launches == before + 1
-    mag_dx3, mag_u = sfused_bwd_ref(x.double().abs(), dy.double().abs(), *csr(rp, ci, cuda))
-    want_dx3, want_u = spmm_sfused_bwd_torch(x, dy, g.meta, g.a_struct)
+    mag_dx3, mag_u = spmm_sfused_bwd_torch(x.abs(), dy.abs(), g.meta, a.abs())
+    want_dx3, want_u = spmm_sfused_bwd_torch(x, dy, g.meta, a)
     within(dx3, want_dx3, mag_dx3, **tol(dtype))
     within(u, want_u, mag_u, **tol(dtype))
-    if dtype == torch.float32:
+    if dtype == torch.float32 and TILE_CASTS[tiles] is None:
+        mag_dx3, mag_u = sfused_bwd_ref(x.double().abs(), dy.double().abs(), *csr(rp, ci, cuda))
         o_dx3, o_u = sfused_bwd_ref(x.double(), dy.double(), *csr(rp, ci, cuda))
         within(dx3, o_dx3, mag_dx3, **F32)
         within(u, o_u, mag_u, **F32)
+
+
+def test_sfused_kernels_require_the_index(cuda):
+    """On the card K2 and K3 walk the row index and nothing else: a missing
+    index, or one on another device, raises."""
+    n, rp, ci = graph("directed")
+    g = TiledGraph(rp, ci, n, TileConfig(blk_h=16, blk_w=8), device=cuda, block_diag=False)
+    x = randn((n, 8), 6, cuda)
+    index = sgt_row_index(g.meta, g.a_struct)
+    cpu_index = sgt_row_index(g.meta, g.a_struct.cpu())
+    for idx, match in ((None, "row index"), (cpu_index, "row index arrays on cpu")):
+        with pytest.raises(ValueError, match=match):
+            spmm_sfused(x, x, x, g.meta, g.a_struct, index=idx)
+        with pytest.raises(ValueError, match=match):
+            spmm_sfused_bwd(x, x, g.meta, g.a_struct, index=idx)
+    spmm_sfused(x, x, x, g.meta, g.a_struct, index=index)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("kind", ["hub", "duplicates_over_127", "directed"])
@@ -277,10 +330,11 @@ def test_sfused_rejects_wide_features(cuda, d):
     n, rp, ci = graph("directed")
     g = TiledGraph(rp, ci, n, TileConfig(blk_h=16, blk_w=8), device=cuda, block_diag=False)
     x, y = randn((n, d), 6, cuda, 0.3), randn((n, d), 7, cuda, 0.3)
-    got = spmm_sfused(x, y, y, g.meta, g.a_struct)
+    index = sgt_row_index(g.meta, g.a_struct)
+    got = spmm_sfused(x, y, y, g.meta, g.a_struct, index=index)
     mag = spmm_sfused_torch(x.abs(), y.abs(), y.abs(), g.meta, g.a_struct)
     within(got, spmm_sfused_torch(x, y, y, g.meta, g.a_struct), mag, **F32)
-    dx3, u = spmm_sfused_bwd(x, y, g.meta, g.a_struct)
+    dx3, u = spmm_sfused_bwd(x, y, g.meta, g.a_struct, index=index)
     mag_dx3, mag_u = spmm_sfused_bwd_torch(x.abs(), y.abs(), g.meta, g.a_struct)
     want_dx3, want_u = spmm_sfused_bwd_torch(x, y, g.meta, g.a_struct)
     within(dx3, want_dx3, mag_dx3, **F32)
@@ -704,13 +758,19 @@ def test_fused_kernel_matches_plain(cuda, kind, geometry, dtype, d, tiles):
 @pytest.mark.parametrize("kind", ["hub", "duplicates_over_127"])
 @pytest.mark.parametrize("geometry", GEOMETRIES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [3, 32, 70])
+@pytest.mark.parametrize("d", [1, 3, 32, 70, 129])
 def test_sfused_bwd_window_overrides_match_plain(cuda, kind, geometry, dtype, d):
+    """K3 over a shard stream's row index (padding blocks, a gather source
+    longer than the windows), window-side operands apart; and K2 there."""
     meta, a = shard_stream(kind, geometry, dtype, cuda)
+    index = sgt_row_index(meta, a)
     x, dy = randn((meta.num_src, d), 10, cuda, 0.3), randn((meta.num_src, d), 11, cuda, 0.3)
     xw, dyw = randn((meta.num_rows, d), 12, cuda, 0.3), randn((meta.num_rows, d), 13, cuda, 0.3)
+    got = spmm_sfused(xw, x, dy, meta, a, index=index)
+    within(got, spmm_sfused_torch(xw, x, dy, meta, a),
+           spmm_sfused_torch(xw.abs(), x.abs(), dy.abs(), meta, a.abs()), **tol(dtype))
     before = spmm_sfused_bwd.launches
-    dx3, u = spmm_sfused_bwd(x, dy, meta, a, xw=xw, dyw=dyw)
+    dx3, u = spmm_sfused_bwd(x, dy, meta, a, xw=xw, dyw=dyw, index=index)
     torch.cuda.synchronize()
     assert spmm_sfused_bwd.launches == before + 1
     want = spmm_sfused_bwd_torch(x, dy, meta, a, xw, dyw)
