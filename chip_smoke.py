@@ -4,10 +4,13 @@
 Run from the repository root:  python3 chip_smoke.py
 
 ``python3 chip_smoke.py --ab DIR`` runs none of the phases below: it builds
-another commit's ``spmm_bd.cu``, ``spmm_dense.cu``, ``chunk.cu`` and
-``spmm_sfused.cu``, those of them DIR holds, beside the tree's and times
-the kernels of the two in turns (K5, K6 and K7 on DD; K1 and K10; K8 and K9
-on pubmed and reddit; K2 and K3 on pubmed and DD's residual) (``ab_main``).
+another commit's ``spmm_bd.cu``, ``spmm_dense.cu``, ``chunk.cu``,
+``spmm_sfused.cu`` and ``sddmm_dense.cu``, those of them DIR holds (with
+the ``sparse_row.cuh`` they include), beside the tree's and times the
+kernels of the two in turns through the tree's wrappers (K5, K6 and K7 on
+DD; K1 and K10; K8 and K9 on pubmed and reddit; K2 and K3 on pubmed and
+DD's residual; K4 on pubmed, the asymmetric and the banded graphs and in
+its tile mode on a 4x2 shard) (``ab_main``).
 
 Phases, in order; any failure raises and exits nonzero:
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
@@ -75,7 +78,9 @@ Phases, in order; any failure raises and exits nonzero:
      ``torch.sparse.sampled_addmm`` over the row index;
  12. every kernel and its plain version timed with CUDA events (K1-K4, K8
      and K9 at the pubmed shapes, K2/K3 over the row index the graph builds,
-     K5-K7 at DD's): the median of 25 event
+     K4 also over the banded graph's 1.22 M edges at d=32 and 22, first
+     held against its plain version and the f64 oracle, with its kernel
+     time under torch.profiler, K5-K7 at DD's): the median of 25 event
      pairs around one call each (the wrapper's host work included), and the
      kernel's device time, one event pair around 25 back-to-back calls over
      25 (``device_ms``); each beside its bound
@@ -101,7 +106,9 @@ Phases, in order; any failure raises and exits nonzero:
      a finite falling loss, its kernels and no others, no plain version, and
      a first loss within ``rtol=1e-4`` of the single-device run's (the same
      model: ``init_distributed_net`` zero-pads the single-device draws);
-     K10 timed at d=16 on the heaviest shard (event and device time, in
+     K4's tile mode timed at d=16 on the heaviest shard (event and device
+     time, its kernel time and the tiles' zeroing apart under
+     torch.profiler); K10 timed there (event and device time, in
      three rounds) beside its bound (``csr_bound``
      over the shard's edges, one f32 score read an edge) and
      ``torch.sparse.mm`` over the shard's CSR with the scores as values.
@@ -132,8 +139,10 @@ import torch
 
 from tcgnn_tpu_torch import TileConfig, TiledGraph, train
 from tcgnn_tpu_torch.data import coo_to_csr, powerlaw_graph, synthesize
+from tcgnn_tpu_torch.data.edge_graphs import asymmetric_graph, banded_graph, write_npz
 from tcgnn_tpu_torch.data.synthetic import component_union_graph
 from tcgnn_tpu_torch.ops import (
+    EdgeList,
     _kernels,
     sddmm_tc_tiles,
     sddmm_tc_tiles_torch,
@@ -162,19 +171,14 @@ from tcgnn_tpu_torch.ops import (
     spmm_tc_dense_torch,
     spmm_tc_torch,
 )
-from tcgnn_tpu_torch.ops.blockdiag import PACK_KIND, _offsets_arg, bd_row_index
+from tcgnn_tpu_torch.ops.blockdiag import bd_row_index
 from tcgnn_tpu_torch.ops.reference import sddmm_ref, sfused_bwd_ref, sfused_ref, spmm_ref
 from tcgnn_tpu_torch.ops.sfused import sgt_row_index
-from tcgnn_tpu_torch.ops.spmm import FEAT_KIND, TILE_KIND
 from tcgnn_tpu_torch.parallel import distributed_graph_from_dataset, make_mesh
 from tcgnn_tpu_torch.profiling import device_ms as kernel_ms
 from tcgnn_tpu_torch.sgt.blockdiag import extract_block_diag
 from tcgnn_tpu_torch.sgt.stream import segment_chunks
-from tcgnn_tpu_torch.sgt.translate import (
-    KERNEL_RUN_BLOCKS,
-    sparse_graph_translate,
-    transpose_csr,
-)
+from tcgnn_tpu_torch.sgt.translate import sparse_graph_translate, transpose_csr
 
 # Summation order is the only difference between a kernel and its
 # references, so rtol applies to the sum of the magnitudes of the summed
@@ -315,14 +319,6 @@ def phase_compare(ds, dev) -> dict:
         check_case(f"dup>127 {bh}x{bw}", randn((n, 64), 5, dev), g.meta, g.a_struct,
                    Csr(rp, ci, dev), errs)
     return errs
-
-
-def asymmetric_graph():
-    n = 5000
-    src, dst = powerlaw_graph(n, 40000, seed=11)
-    keep = (src < dst) | ((src + dst) % 3 == 0)  # drop one direction of most pairs
-    rp, ci = coo_to_csr(src[keep], dst[keep], n)
-    return n, rp, ci
 
 
 def phase_transpose_and_autograd(dev) -> dict:
@@ -515,19 +511,6 @@ def phase_agnn_autograd(ds, dev) -> None:
 
 
 # ---- the block-diagonal route ------------------------------------------------
-
-def banded_graph():
-    """A directed banded graph: 200,000 nodes, 1.2 M edges within +-100 of
-    the diagonal and 2% random long-range edges.  The BD route with a
-    residual, asymmetric: weighted packs and K4 under AGNN."""
-    n = 200_000
-    rng = np.random.default_rng(21)
-    src = rng.integers(0, n, 1_200_000)
-    dst = np.clip(src + rng.integers(-100, 101, len(src)), 0, n - 1)
-    far = rng.integers(0, n, (2, 24_000))
-    rp, ci = coo_to_csr(np.concatenate([src, far[0]]), np.concatenate([dst, far[1]]), n)
-    return n, rp, ci
-
 
 def covered_csr(rp, ci, m, dev) -> Csr:
     """The CSR of a BD decomposition's covered edges (what its pack holds)."""
@@ -935,24 +918,14 @@ def check_reddit_kernels(g, dev, card) -> dict:
     return errs, records
 
 
-def write_dataset(directory, name, graph) -> str:
-    """A graph as the trainer's ``.npz`` format, with random labels of 4
-    classes."""
-    n, rp, ci = graph()
-    rows = np.repeat(np.arange(n), np.diff(rp))
-    y = np.random.default_rng(12).integers(0, 4, n).astype(np.int32)
-    np.savez(os.path.join(directory, f"{name}.npz"), src_li=rows, dst_li=ci, num_nodes=n, y=y)
-    return name
-
-
 def phase_train(data_dir, dev, card) -> tuple[list, dict, dict, dict]:
     """Phase 11: the main path, through the trainer's entry point.  Every
     count is set to 0 just before each run and read just after it; returns
     the runs, each kernel's launches summed over them, and the errors and
     records of ``check_reddit_kernels``, run on the reddit GCN run's graph
     once its counts are read."""
-    asym = write_dataset(data_dir, "asymmetric", asymmetric_graph)
-    banded = write_dataset(data_dir, "banded", banded_graph)
+    asym = write_npz(data_dir, "asymmetric", asymmetric_graph)
+    banded = write_npz(data_dir, "banded", banded_graph)
     pubmed = ["--dataset", "pubmed", "--dim", "500", "--classes", "3"]
     dd = ["--dataset", "DD", "--dim", "89", "--classes", "2"]
     reddit = ["--dataset", "reddit", "--dim", "602", "--classes", "41"]
@@ -1150,6 +1123,7 @@ def phase_timing(ds, dev) -> tuple[dict, dict]:
                     *times[("K4", geo, d)],
                     csr_bound(e, n, nbytes(x) + 4 * e, 2 * e * d),
                     median_ms(lambda: torch.sparse.sampled_addmm(a_csr, x, xt, beta=0.0)))
+                records["K4"]["kernel_ms"] = kernel_ms(lambda: sddmm_tc_dense(x, m, x))
     for geo, (bh, bw, ec) in CHUNK_GEOMETRIES.items():
         host = sparse_graph_translate(ds.row_pointers, ds.column_index, ds.num_nodes,
                                       TileConfig(blk_h=bh, blk_w=bw, edge_chunk=ec),
@@ -1162,6 +1136,36 @@ def phase_timing(ds, dev) -> tuple[dict, dict]:
             x = randn((ds.num_nodes, d), 800 + d, dev)
             times[("K9", geo, d)] = timed_pair(lambda: sddmm_tc(x, m), lambda: sddmm_tc_torch(x, m))
     return times, records
+
+
+def phase_edge_timing(dev, card, errs) -> dict:
+    """Phase 12, K4 over the banded graph's 1.22 M edges (an ``EdgeList``
+    in CSR order, the edges its AGNN scores) at d=32 and 22 (AGNN's hidden
+    and class widths there; 16-byte and scalar loads), f32: held against
+    its plain version and the f64 oracle (the error into ``errs["K4"]``),
+    then event and device time, and the kernel's own time under the
+    profiler, beside its bound (``csr_bound``: the edges' columns and row
+    pointers, x once and an f32 score an edge) and
+    ``torch.sparse.sampled_addmm``.  Returns the times."""
+    times = {}
+    n, rp, ci = banded_graph()
+    e = len(ci)
+    meta = EdgeList.from_rows(np.repeat(np.arange(n), np.diff(rp)), ci, n, TileConfig(), dev)
+    a_csr, csr = csr_tensor(rp, ci, n, dev), Csr(rp, ci, dev)
+    for d in (32, 22):
+        x = randn((n, d), 170 + d, dev) * 0.3
+        check_sddmm(f"banded EdgeList d={d} f32", x, x, meta, csr, [x.double()] * 2, errs)
+        xt = x.t().contiguous()
+        kt, pt, dv = times[("K4", "banded", d)] = timed_pair(
+            lambda: sddmm_tc_dense(x, meta), lambda: sddmm_tc_dense_torch(x, meta))
+        kn = kernel_ms(lambda: sddmm_tc_dense(x, meta))
+        lib = median_ms(lambda: torch.sparse.sampled_addmm(a_csr, x, xt, beta=0.0))
+        b = csr_bound(e, n, nbytes(x) + 4 * e, 2 * e * d)
+        print(f"  time K4 banded graph ({e} edges, EdgeList) d={d}: event {kt:.4f} ms, device "
+              f"{dv:.4f} ms, kernel {kn:.4f} ms (device operations under torch.profiler), "
+              f"plain {pt:.4f} ms, sampled_addmm {lib:.4f} ms, bound {b[0]:.5f} ms ({b[1]}) "
+              f"(card: {card})")
+    return times
 
 
 def phase_bd_timing(dd, dev) -> tuple[dict, dict]:
@@ -1299,11 +1303,19 @@ def phase_mesh_kernels(ds, dev, card) -> tuple[dict, dict]:
             check_stream_sfused(f"pubmed 4x2 shard {i}", m, a, index, 32, dev, tol, errs)
 
     # K10 timed at the main path's feature-shard width (hidden 32 over 2
-    # feature shards) on the heaviest shard's split stream.
+    # feature shards) on the heaviest shard's split stream, and K4's tile
+    # mode that makes its scores.
     st = max(sp.streams, key=lambda t: t.meta.num_edges)
     m, a, d = st.meta, st.tiles, 16
-    x = randn((m.num_src, d), 920, dev)
-    s = sddmm_tc_tiles(randn((m.num_rows, d), 921, dev), m, x)
+    x, xw = randn((m.num_src, d), 920, dev), randn((m.num_rows, d), 921, dev)
+    s = sddmm_tc_tiles(xw, m, x)
+    kt, pt, dv = timed_pair(lambda: sddmm_tc_tiles(xw, m, x),
+                            lambda: sddmm_tc_tiles_torch(xw, m, x))
+    kn, kn_all = (kernel_ms(lambda: sddmm_tc_tiles(xw, m, x), fills=f) for f in (False, True))
+    print(f"  time K4 tile mode pubmed 4x2 heaviest shard ({m.num_edges} edges, "
+          f"{m.num_blocks} f32 tiles) d={d}: event {kt:.4f} ms, device {dv:.4f} ms, kernel "
+          f"{kn:.4f} ms and the tiles' zeroing {kn_all - kn:.4f} ms (device operations under "
+          f"torch.profiler), plain {pt:.4f} ms (card: {card})")
     # Three rounds of the pair, to tell the order of kernel and plain
     # version apart from the spread of one round; the record is their median.
     rounds = [timed_pair(lambda: spmm_fused(x, m, a, s), lambda: spmm_fused_torch(x, m, a, s))
@@ -1460,6 +1472,7 @@ def main():
     # ---- 12. timing ---------------------------------------------------------
     t0 = phase_start("12. timing")
     times, records = phase_timing(ds, dev)
+    times.update(phase_edge_timing(dev, card, errs))
     bd_times, bd_records = phase_bd_timing(dd, dev)
     times.update(bd_times)
     records.update(bd_records)
@@ -1523,40 +1536,34 @@ def main():
 # ---- parent against tree (``--ab``, not a phase) -------------------------------
 
 AB_ROUNDS = 3
-AB_SOURCES = ("spmm_bd", "spmm_dense", "chunk", "spmm_sfused")
-# The C functions swapped behind the tree's wrappers, where the other side
-# has the tree's interface.
-AB_FUNCTIONS = {"spmm_bd": ("tcgnn_spmm_bd",),
-                "spmm_dense": ("tcgnn_spmm_dense", "tcgnn_spmm_fused")}
-# chunk.cu's interface before the row index (the chunk-slot walk), which
-# the other side of a chunk A/B is called through: x (xa, xb), w,
-# the seven chunk arrays, out; n, d (K9: d), the layout's seven sizes,
-# feat_kind; the stream.
-_P, _I = ctypes.c_void_p, ctypes.c_int
-SLOT_WALK_SIGNATURES = {"tcgnn_spmm_chunk": [_P] * 10 + [_I] * 10 + [_P],
-                        "tcgnn_sddmm_chunk": [_P] * 10 + [_I] * 9 + [_P]}
-# spmm_bd.cu's interface before the row index (K6 and K7 walking the pack),
-# which the other side of a K6/K7 A/B is called through: K5's as the tree's;
-# K6 xl, xr, xv, pack, offsets, out and K7 x, dy, pack, offsets, dx3, u;
-# then n, d, k, bn, feat_kind, pack_kind; the stream.
-PACK_WALK_SIGNATURES = {"tcgnn_spmm_bd": _kernels.SIGNATURES["spmm_bd"]["tcgnn_spmm_bd"],
-                        "tcgnn_bd_sfused": [_P] * 6 + [_I] * 6 + [_P],
-                        "tcgnn_bd_sfused_bwd": [_P] * 6 + [_I] * 6 + [_P]}
-# spmm_sfused.cu's interface before the row index (K2 and K3 walking the
-# tiles), which the other side of a K2/K3 A/B is called through: K2 xl, xr,
-# xv or K3 x, dy, xw, dyw; the tiles, col_ids, win_start, run_window,
-# run_block; out (K3 dx3, u); then n, d, num_runs, run_blocks, split, blk_h,
-# blk_w, feat_kind, tile_kind; the stream.
-TILE_WALK_SIGNATURES = {"tcgnn_spmm_sfused": [_P] * 9 + [_I] * 9 + [_P],
-                        "tcgnn_spmm_sfused_bwd": [_P] * 11 + [_I] * 9 + [_P]}
-OTHER_SIGNATURES = {"chunk": SLOT_WALK_SIGNATURES, "spmm_bd": PACK_WALK_SIGNATURES,
-                    "spmm_sfused": TILE_WALK_SIGNATURES}
+AB_SOURCES = ("spmm_bd", "spmm_dense", "chunk", "spmm_sfused", "sddmm_dense")
 
 
-def build_other(name, src_dir, signatures) -> ctypes.CDLL:
-    """``<src_dir>/<name>.cu`` (another commit's source) built beside the
-    tree's libraries, ``-Xptxas -v`` printed, its C functions declared with
-    ``signatures``."""
+@dataclasses.dataclass
+class AbCase:
+    """One shape of one kernel in the A/B: ``fn`` calls the tree's wrapper,
+    behind which either side's C functions run; ``plain`` and
+    ``magnitude`` hold both to the plain version; ``library`` is the one
+    PyTorch call of the same function, or None; ``fills_apart``: the
+    wrapper zeroes the output the same way on both sides (K4's tiles), so
+    the kernel-time verdict leaves memsets and fills out.  Elsewhere the
+    zeroing is part of the design (K2/K3's and K8's atomics add into it)
+    and stays in."""
+
+    kernel: str
+    shape: str
+    fn: object
+    plain: object
+    library: object
+    magnitude: object
+    tol: dict = dataclasses.field(default_factory=lambda: F32_TOL)
+    fills_apart: bool = False
+
+
+def build_other(name, src_dir) -> ctypes.CDLL:
+    """``<src_dir>/<name>.cu`` (another commit's source, with the tree's C
+    interface) built beside the tree's libraries, ``-Xptxas -v`` printed,
+    its C functions declared as the tree's."""
     out = _kernels.BUILD_DIR / f"lib{name}_other.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v",
@@ -1566,7 +1573,7 @@ def build_other(name, src_dir, signatures) -> ctypes.CDLL:
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {src_dir}/{name}.cu")
     lib = ctypes.CDLL(str(out))
-    for fn, argtypes in signatures.items():
+    for fn, argtypes in _kernels.SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     lib.tcgnn_cuda_error_string.argtypes = [ctypes.c_int]
@@ -1575,114 +1582,17 @@ def build_other(name, src_dir, signatures) -> ctypes.CDLL:
 
 
 def use_libraries(libs) -> None:
-    """Point the wrappers' launches of the functions of AB_FUNCTIONS at
-    ``libs`` (name -> library)."""
+    """Point the wrappers' launches of every C function of each source in
+    ``libs`` (name -> library) at that library."""
     for name, lib in libs.items():
-        if name in AB_FUNCTIONS:
-            for fn in AB_FUNCTIONS[name]:
-                _kernels._functions[(name, fn)] = getattr(lib, fn)
+        for fn in _kernels.SIGNATURES[name]:
+            _kernels._functions[(name, fn)] = getattr(lib, fn)
 
 
-def slot_walk_args(m):
-    """A chunk layout's pointers and sizes in the slot-walk interface."""
-    return ((m.seg_col_ids.data_ptr(), m.seg_r.data_ptr(), m.seg_c.data_ptr(),
-             m.seg_edge_id.data_ptr(), m.seg_block.data_ptr(), m.seg_window.data_ptr(),
-             m.seg_chunks.data_ptr()),
-            (m.num_segments, m.max_chunks, m.config.edge_chunk, m.wseg, m.config.blk_h,
-             m.config.blk_w, m.seg_col_ids.shape[1]))
-
-
-def slot_walk_spmm(lib, x, m, w=None):
-    """K8 of the slot-walk interface (f32): as the wrapper called it."""
-    ptrs, sizes = slot_walk_args(m)
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    err = lib.tcgnn_spmm_chunk(x.data_ptr(), None if w is None else w.data_ptr(), *ptrs,
-                               out.data_ptr(), x.shape[0], x.shape[1], *sizes, 0,
-                               _kernels.stream_of(x))
-    _kernels.check(lib, err, "slot-walk spmm_chunk")
-    return out
-
-
-def slot_walk_sddmm(lib, x, m):
-    """K9 of the slot-walk interface (f32, one matrix)."""
-    ptrs, sizes = slot_walk_args(m)
-    out = torch.empty(m.num_edges, dtype=torch.float32, device=x.device)
-    err = lib.tcgnn_sddmm_chunk(x.data_ptr(), x.data_ptr(), *ptrs, out.data_ptr(), x.shape[1],
-                                *sizes, 0, _kernels.stream_of(x))
-    _kernels.check(lib, err, "slot-walk sddmm_chunk")
-    return out
-
-
-def pack_walk_args(x, pack, offs, cfg):
-    """K6/K7's int arguments and stream in the pack-walk interface."""
-    return (x.shape[0], x.shape[1], len(offs), pack.shape[1], FEAT_KIND[cfg.compute_dtype],
-            PACK_KIND[pack.dtype], _kernels.stream_of(x))
-
-
-def pack_walk_sfused(lib, x, pack, offs, cfg):
-    """K6 of the pack-walk interface, all three operands x: as its wrapper
-    called it (x in the compute dtype, xv shared)."""
-    xc = x.to(cfg.compute_dtype).contiguous()
-    out = torch.empty_like(xc)
-    err = lib.tcgnn_bd_sfused(xc.data_ptr(), xc.data_ptr(), None, pack.data_ptr(),
-                              _offsets_arg(offs), out.data_ptr(),
-                              *pack_walk_args(x, pack, offs, cfg))
-    _kernels.check(lib, err, "pack-walk bd_sfused")
-    return out
-
-
-def pack_walk_sfused_bwd(lib, x, dy, pack, offs, cfg):
-    """K7 of the pack-walk interface: (dx3, u)."""
-    ct = cfg.compute_dtype
-    xc, dyc = x.to(ct).contiguous(), dy.to(ct).contiguous()
-    dx3, u = torch.empty_like(xc), torch.empty_like(xc)
-    err = lib.tcgnn_bd_sfused_bwd(xc.data_ptr(), dyc.data_ptr(), pack.data_ptr(),
-                                  _offsets_arg(offs), dx3.data_ptr(), u.data_ptr(),
-                                  *pack_walk_args(x, pack, offs, cfg))
-    _kernels.check(lib, err, "pack-walk bd_sfused_bwd")
-    return dx3, u
-
-
-def tile_walk_args(x, meta, a):
-    """The tiles' and window metadata's pointers, then the int arguments and
-    stream, in the tile-walk interface."""
-    cfg = meta.config
-    return ((a.data_ptr(), meta.col_ids.data_ptr(), meta.win_start.data_ptr(),
-             meta.run_window.data_ptr(), meta.run_block.data_ptr()),
-            (meta.num_rows, x.shape[1], meta.run_window.shape[0], KERNEL_RUN_BLOCKS,
-             int(meta.max_window_blocks > KERNEL_RUN_BLOCKS), cfg.blk_h, cfg.blk_w,
-             FEAT_KIND[cfg.compute_dtype], TILE_KIND[a.dtype], _kernels.stream_of(x)))
-
-
-def tile_walk_sfused(lib, x, meta, a):
-    """K2 of the tile-walk interface, all three operands x: as its wrapper
-    called it (x in the compute dtype, xv shared)."""
-    xc = x.to(meta.config.compute_dtype).contiguous()
-    out = torch.empty((meta.num_rows, x.shape[1]), dtype=torch.float32, device=x.device)
-    ptrs, ints = tile_walk_args(x, meta, a)
-    err = lib.tcgnn_spmm_sfused(xc.data_ptr(), xc.data_ptr(), None, *ptrs, out.data_ptr(), *ints)
-    _kernels.check(lib, err, "tile-walk spmm_sfused")
-    return out
-
-
-def tile_walk_sfused_bwd(lib, x, dy, meta, a):
-    """K3 of the tile-walk interface: (dx3, u)."""
-    ct = meta.config.compute_dtype
-    xc, dyc = x.to(ct).contiguous(), dy.to(ct).contiguous()
-    dx3 = torch.empty((meta.num_rows, x.shape[1]), dtype=torch.float32, device=x.device)
-    u = torch.empty_like(dx3)
-    ptrs, ints = tile_walk_args(x, meta, a)
-    err = lib.tcgnn_spmm_sfused_bwd(xc.data_ptr(), dyc.data_ptr(), xc.data_ptr(), dyc.data_ptr(),
-                                    *ptrs, dx3.data_ptr(), u.data_ptr(), *ints)
-    _kernels.check(lib, err, "tile-walk spmm_sfused_bwd")
-    return dx3, u
-
-
-def sfused_ab_cases(dev, other_lib) -> list:
-    """K2 (one operand, as AGNN calls it) and K3: pubmed at 512x128, d=32 in
-    f32 and bf16 and d=3 in f32, and DD's residual at d=32 in f32; the
-    tree's wrappers over the row index against the other side's tile walk.
-    No library call computes a score-fused SpMM."""
+def sfused_ab_cases(dev) -> list:
+    """K2 (one operand, as AGNN calls it) and K3 over the row index:
+    pubmed at 512x128, d=32 in f32 and bf16 and d=3 in f32, and DD's
+    residual at d=32 in f32.  No library call computes a score-fused SpMM."""
     cases = []
     pm = synthesize("pubmed", seed=0)
     tg = TiledGraph(pm.row_pointers, pm.column_index, pm.num_nodes, TileConfig(), device=dev)
@@ -1700,65 +1610,54 @@ def sfused_ab_cases(dev, other_lib) -> list:
         x, dy = randn((n, d), 200 + d, dev) * 0.3, randn((n, d), 300, dev)
         shape = f"{name} d={d} {str(dtype)[6:]}"
         # Every lambda binds its operands: the loop rebinds the names.
-        cases.append((
-            "K2", shape,
-            {"other": lambda x=x, m=m, a=a: tile_walk_sfused(other_lib, x, m, a),
-             "tree": lambda x=x, m=m, a=a, idx=idx: spmm_sfused(x, x, x, m, a, index=idx)},
+        cases.append(AbCase(
+            "K2", shape, lambda x=x, m=m, a=a, idx=idx: spmm_sfused(x, x, x, m, a, index=idx),
             lambda x=x, m=m, a=a: spmm_sfused_torch(x, x, x, m, a), None,
             lambda x=x, m=m, a=a: spmm_sfused_torch(x.abs(), x.abs(), x.abs(), m, a), tol))
-        cases.append((
+        cases.append(AbCase(
             "K3", shape,
-            {"other": lambda x=x, dy=dy, m=m, a=a: tile_walk_sfused_bwd(other_lib, x, dy, m, a),
-             "tree": lambda x=x, dy=dy, m=m, a=a, idx=idx: spmm_sfused_bwd(x, dy, m, a,
-                                                                         index=idx)},
+            lambda x=x, dy=dy, m=m, a=a, idx=idx: spmm_sfused_bwd(x, dy, m, a, index=idx),
             lambda x=x, dy=dy, m=m, a=a: spmm_sfused_bwd_torch(x, dy, m, a), None,
             lambda x=x, dy=dy, m=m, a=a: spmm_sfused_bwd_torch(x.abs(), dy.abs(), m, a), tol))
     return cases
 
 
-def bd_agnn_ab_cases(g, cov, dev, other_lib) -> list:
-    """K6 (one operand, as AGNN calls it) and K7 on DD at d=32 and 2 in f32
-    (AGNN's hidden and class widths) and d=32 in bf16: the tree's wrappers
-    over the row index against the other side's pack walk.  No library
-    call computes a score-fused SpMM.  K7's (dx3, u) are timed as they
-    come and compared side by side."""
+def bd_agnn_ab_cases(g, cov) -> list:
+    """K6 (one operand, as AGNN calls it) and K7 over the pack's row index
+    on DD at d=32 and 2 in f32 (AGNN's hidden and class widths) and d=32 in
+    bf16.  No library call computes a score-fused SpMM.  K7's (dx3, u) are
+    timed as they come and compared side by side."""
     cases = []
-    p, offs, n, index = g.bd.pack, g.bd_offsets, g.num_nodes, g.bd.row_index
+    p, offs, n, index, dev = g.bd.pack, g.bd_offsets, g.num_nodes, g.bd.row_index, g.device
     for d, dtype in ((32, torch.float32), (2, torch.float32), (32, torch.bfloat16)):
         cfg, tol = TileConfig(compute_dtype=dtype), (F32_TOL if dtype == torch.float32
                                                       else BF16_TOL)
         x, dy = randn((n, d), 500 + d, dev) * 0.3, randn((n, d), 600, dev)
         shape = f"DD d={d} {str(dtype)[6:]}"
         xa, dya = x.to(dtype).double().abs(), dy.to(dtype).double().abs()
-        cases.append((
+        cases.append(AbCase(
             "K6", shape,
-            {"other": lambda x=x, cfg=cfg: pack_walk_sfused(other_lib, x, p, offs, cfg),
-             "tree": lambda x=x, cfg=cfg: bd_sfused(x, x, x, p, offsets=offs, cfg=cfg,
-                                                    index=index)},
-            lambda x=x, cfg=cfg: bd_sfused_torch(x, x, x, p, offsets=offs, cfg=cfg),
-            None,
+            lambda x=x, cfg=cfg: bd_sfused(x, x, x, p, offsets=offs, cfg=cfg, index=index),
+            lambda x=x, cfg=cfg: bd_sfused_torch(x, x, x, p, offsets=offs, cfg=cfg), None,
             lambda xa=xa: sfused_ref(xa, xa, xa, cov.ptr, cov.idx), tol))
-        cases.append((
+        cases.append(AbCase(
             "K7", shape,
-            {"other": lambda x=x, dy=dy, cfg=cfg: pack_walk_sfused_bwd(other_lib, x, dy, p, offs,
-                                                                      cfg),
-             "tree": lambda x=x, dy=dy, cfg=cfg: bd_sfused_bwd(x, dy, p, offsets=offs, cfg=cfg,
-                                                               index=index)},
+            lambda x=x, dy=dy, cfg=cfg: bd_sfused_bwd(x, dy, p, offsets=offs, cfg=cfg,
+                                                      index=index),
             lambda x=x, dy=dy, cfg=cfg: bd_sfused_bwd_torch(x, dy, p, offsets=offs, cfg=cfg),
-            None,
-            lambda xa=xa, dya=dya: sfused_bwd_ref(xa, dya, cov.ptr, cov.idx), tol))
+            None, lambda xa=xa, dya=dya: sfused_bwd_ref(xa, dya, cov.ptr, cov.idx), tol))
     return cases
 
 
-def chunk_ab_cases(dev, other_lib) -> list:
+def chunk_ab_cases(dev) -> list:
     """K8 and K9 cases: pubmed's flat layout at 512x128 (K8 d=16 and 500, K9
     d=32 and 3) and reddit's streamed layout, built once (K8 d=16, d=32 and
     41 weighted; K9 d=32 and 41, one matrix), with ``torch.sparse.mm`` and
     ``torch.sparse.sampled_addmm`` over the row index as the library."""
     cases = []
     pm = synthesize("pubmed", seed=0)
-    graphs = [("pubmed", pm, TiledGraph(pm.row_pointers, pm.column_index, pm.num_nodes,
-                                        TileConfig(), device=dev, dense_tiles=False),
+    graphs = [("pubmed", TiledGraph(pm.row_pointers, pm.column_index, pm.num_nodes,
+                                    TileConfig(), device=dev, dense_tiles=False),
                ((16, False), (500, False)), (32, 3))]
     t0 = time.perf_counter()
     rd = synthesize("reddit", 602, 41)
@@ -1767,8 +1666,8 @@ def chunk_ab_cases(dev, other_lib) -> list:
           f"{g.chunks.num_segments} segments; built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     del rd
-    graphs.append(("reddit", None, g, ((16, False), (32, True), (41, True)), (32, 41)))
-    for name, _, tg, spmm_shapes, sddmm_widths in graphs:
+    graphs.append(("reddit", g, ((16, False), (32, True), (41, True)), (32, 41)))
+    for name, tg, spmm_shapes, sddmm_widths in graphs:
         m, n, e = tg.chunks, tg.num_nodes, tg.num_edges
         w = randn((e,), 140, dev)
         a_csr, a_w = index_csr(m, dev), index_csr(m, dev, w)
@@ -1776,10 +1675,9 @@ def chunk_ab_cases(dev, other_lib) -> list:
         for d, weighted in spmm_shapes:
             x, wd = randn((n, d), 141 + d, dev), (w if weighted else None)
             csr_a = a_w if weighted else a_csr
-            cases.append((
+            cases.append(AbCase(
                 "K8", f"{name} d={d}{' weighted' if weighted else ''}",
-                {"other": lambda x=x, m=m, wd=wd: slot_walk_spmm(other_lib, x, m, wd),
-                 "tree": lambda x=x, m=m, wd=wd: spmm_tc(x, m, wd)},
+                lambda x=x, m=m, wd=wd: spmm_tc(x, m, wd),
                 lambda x=x, m=m, wd=wd: spmm_tc_torch(x, m, wd),
                 lambda x=x, csr_a=csr_a: torch.sparse.mm(csr_a, x),
                 lambda x=x, m=m, wd=wd: spmm_tc_torch(x.abs(), m,
@@ -1787,10 +1685,8 @@ def chunk_ab_cases(dev, other_lib) -> list:
         for d in sddmm_widths:
             x = randn((n, d), 150 + d, dev)
             xt = x.t().contiguous()
-            cases.append((
-                "K9", f"{name} d={d} one matrix",
-                {"other": lambda x=x, m=m: slot_walk_sddmm(other_lib, x, m),
-                 "tree": lambda x=x, m=m: sddmm_tc(x, m)},
+            cases.append(AbCase(
+                "K9", f"{name} d={d} one matrix", lambda x=x, m=m: sddmm_tc(x, m),
                 lambda x=x, m=m: sddmm_tc_torch(x, m),
                 lambda x=x, xt=xt, a_csr=a_csr: torch.sparse.sampled_addmm(a_csr, x, xt,
                                                                            beta=0.0),
@@ -1798,15 +1694,76 @@ def chunk_ab_cases(dev, other_lib) -> list:
     return cases
 
 
-def ab_cases(dev, sources, other) -> list:
-    """(kernel, shape, {"other": call, "tree": call}, plain call, library
-    call or None, magnitude call[, tolerance]) for each source in
-    ``sources``: K5 on DD at d in {2, 16, 89} and K6/K7 as
-    ``bd_agnn_ab_cases``, K1 on pubmed at 512x128 d in {16, 500} and 16x8 d=16, K10 on
-    the heaviest pubmed 4x2 shard at d in {8, 16, 32}, K8 and K9 as
-    ``chunk_ab_cases``, K2 and K3 as ``sfused_ab_cases``.  K1, K5 and K10
-    call the tree's wrapper on either side (the libraries behind it are
-    swapped)."""
+def sddmm_ab_cases(dev) -> list:
+    """K4, per-edge with one operand as AGNN calls it: pubmed at 512x128,
+    d=32 in f32 and bf16 and d=3 (AGNN's hidden and class widths); the
+    asymmetric graph at d=32; the banded graph's 1.22 M edges as an
+    ``EdgeList`` at d=32 and 22 (AGNN's hidden and class widths there); with
+    ``torch.sparse.sampled_addmm`` beside the f32 ones.  On pubmed and the
+    Then K4's tile mode
+    on the heaviest pubmed 4x2 shard's split stream (out of row order) at
+    d=16 and 32, f32 and bf16 tiles, zeroed by the wrapper
+    (``fills_apart``: the verdict leaves the zeroing out).  The features are in the compute dtype
+    already, as AGNN hands them over, so no cast is timed."""
+    cases = []
+    pm = synthesize("pubmed", seed=0)
+    an, arp, aci = asymmetric_graph()
+    bn, brp, bci = banded_graph()
+    banded = EdgeList.from_rows(np.repeat(np.arange(bn), np.diff(brp)), bci, bn, TileConfig(),
+                                dev)
+    print(f"banded graph: {bn} nodes, {banded.num_edges} edges", flush=True)
+    graphs = {
+        "pubmed 512x128": (TiledGraph(pm.row_pointers, pm.column_index, pm.num_nodes,
+                                      TileConfig(), device=dev).meta,
+                           pm.row_pointers, pm.column_index),
+        "asymmetric": (TiledGraph(arp, aci, an, TileConfig(), device=dev).meta, arp, aci),
+        "banded": (banded, brp, bci),
+    }
+    shapes = [("pubmed 512x128", 32, torch.float32), ("pubmed 512x128", 32, torch.bfloat16),
+              ("pubmed 512x128", 3, torch.float32), ("asymmetric", 32, torch.float32),
+              ("banded", 32, torch.float32), ("banded", 22, torch.float32)]
+    for name, d, dtype in shapes:
+        meta, rp, ci = graphs[name]
+        m = dataclasses.replace(meta, config=dataclasses.replace(meta.config,
+                                                                 compute_dtype=dtype))
+        n = m.num_rows
+        # In the compute dtype, as AGNN's projection hands it over: the
+        # kernel time holds no cast.
+        x = (randn((n, d), 160 + d, dev) * 0.3).to(dtype)
+        xa = x.double().abs()
+        csr = Csr(rp, ci, dev)
+        lib = None
+        if dtype == torch.float32:
+            a_csr, xt = csr_tensor(rp, ci, n, dev), x.t().contiguous()
+            lib = lambda x=x, xt=xt, a_csr=a_csr: torch.sparse.sampled_addmm(  # noqa: E731
+                a_csr, x, xt, beta=0.0)
+        cases.append(AbCase(
+            "K4", f"{name} d={d} {str(dtype)[6:]}", lambda x=x, m=m: sddmm_tc_dense(x, m),
+            lambda x=x, m=m: sddmm_tc_dense_torch(x, m), lib,
+            lambda xa=xa, csr=csr: sddmm_ref(xa, csr.ptr, csr.idx, xa)))
+    st = max(mesh_graph(pm, (4, 2), dev)._fwd.split.streams, key=lambda t: t.meta.num_edges)
+    print(f"K4 tile-mode shard: {st.meta.num_edges} edges, {st.meta.num_blocks} blocks",
+          flush=True)
+    for d in (16, 32):
+        for dtype in (torch.float32, torch.bfloat16):
+            m = with_dtype(st.meta, dtype)
+            xw = (randn((m.num_rows, d), 921, dev) * 0.3).to(dtype)
+            x = (randn((m.num_src, d), 920, dev) * 0.3).to(dtype)
+            cases.append(AbCase(
+                "K4 tiles", f"pubmed 4x2 heaviest shard d={d} {str(dtype)[6:]} tiles",
+                lambda xw=xw, x=x, m=m: sddmm_tc_tiles(xw, m, x),
+                lambda xw=xw, x=x, m=m: sddmm_tc_tiles_torch(xw, m, x), None,
+                lambda xw=xw, x=x, m=m: sddmm_tc_tiles_torch(xw.abs(), m, x.abs(), torch.float32),
+                F32_TOL if dtype == torch.float32 else BF16_TILE_TOL, fills_apart=True))
+    return cases
+
+
+def ab_cases(dev, sources) -> list:
+    """The ``AbCase``s of each source in ``sources``: K5 on DD at d in {2,
+    16, 89} and K6/K7 as ``bd_agnn_ab_cases``, K1 on pubmed at 512x128 d in
+    {16, 500} and 16x8 d=16, K10 on the heaviest pubmed 4x2 shard at d in
+    {8, 16, 32}, K8 and K9 as ``chunk_ab_cases``, K2 and K3 as
+    ``sfused_ab_cases``, K4 as ``sddmm_ab_cases``."""
     cases = []
     if "spmm_bd" in sources:
         dd = synthesize("DD", 89, 2)
@@ -1819,12 +1776,11 @@ def ab_cases(dev, sources, other) -> list:
               f"{cov.idx.numel()}", flush=True)
         for d in (2, 16, 89):
             x = randn((n, d), 400 + d, dev)
-            fn = lambda x=x: spmm_block_diag(x, p, offsets=offs, cfg=cfg)  # noqa: E731
-            cases.append(("K5", f"DD d={d}", {"other": fn, "tree": fn},
-                          lambda x=x: spmm_block_diag_torch(x, p, offsets=offs, cfg=cfg),
-                          lambda x=x: torch.sparse.mm(cov_csr, x),
-                          lambda x=x: cov.magnitude(x)))
-        cases += bd_agnn_ab_cases(g, cov, dev, other["spmm_bd"])
+            cases.append(AbCase(
+                "K5", f"DD d={d}", lambda x=x: spmm_block_diag(x, p, offsets=offs, cfg=cfg),
+                lambda x=x: spmm_block_diag_torch(x, p, offsets=offs, cfg=cfg),
+                lambda x=x: torch.sparse.mm(cov_csr, x), lambda x=x: cov.magnitude(x)))
+        cases += bd_agnn_ab_cases(g, cov)
     if "spmm_dense" in sources:
         pm = synthesize("pubmed", seed=0)
         a_csr = csr_tensor(pm.row_pointers, pm.column_index, pm.num_nodes, dev)
@@ -1834,11 +1790,11 @@ def ab_cases(dev, sources, other) -> list:
             tg = TiledGraph(pm.row_pointers, pm.column_index, pm.num_nodes,
                             TileConfig(blk_h=bh, blk_w=bw), device=dev)
             x = randn((pm.num_nodes, d), 100 + d, dev)
-            fn = lambda x=x, m=tg.meta, a=tg.a_struct: spmm_tc_dense(x, m, a)  # noqa: E731
-            cases.append(("K1", f"pubmed {geo} d={d}", {"other": fn, "tree": fn},
-                          lambda x=x, m=tg.meta, a=tg.a_struct: spmm_tc_dense_torch(x, m, a),
-                          lambda x=x: torch.sparse.mm(a_csr, x),
-                          lambda x=x: pcsr.magnitude(x)))
+            cases.append(AbCase(
+                "K1", f"pubmed {geo} d={d}",
+                lambda x=x, m=tg.meta, a=tg.a_struct: spmm_tc_dense(x, m, a),
+                lambda x=x, m=tg.meta, a=tg.a_struct: spmm_tc_dense_torch(x, m, a),
+                lambda x=x: torch.sparse.mm(a_csr, x), lambda x=x: pcsr.magnitude(x)))
         st = max(mesh_graph(pm, (4, 2), dev)._fwd.split.streams, key=lambda t: t.meta.num_edges)
         m, a = st.meta, st.tiles
         print(f"K10 shard: {m.num_edges} edges, {m.num_blocks} blocks, {m.num_windows} windows",
@@ -1850,35 +1806,34 @@ def ab_cases(dev, sources, other) -> list:
                 torch.stack([m.edge_rows.long(), m.edge_cols.long()]),
                 s.view(-1)[m.edge_pos.long()].float(), (m.num_rows, m.num_src)
             ).coalesce().to_sparse_csr()
-            fn = lambda x=x, s=s: spmm_fused(x, m, a, s)  # noqa: E731
-            cases.append(("K10", f"pubmed 4x2 heaviest shard d={d}", {"other": fn, "tree": fn},
-                          lambda x=x, s=s: spmm_fused_torch(x, m, a, s),
-                          lambda x=x, s_csr=s_csr: torch.sparse.mm(s_csr, x),
-                          lambda x=x, s=s: spmm_fused_torch(x.abs(), m, a, s.abs())))
+            cases.append(AbCase(
+                "K10", f"pubmed 4x2 heaviest shard d={d}", lambda x=x, s=s: spmm_fused(x, m, a, s),
+                lambda x=x, s=s: spmm_fused_torch(x, m, a, s),
+                lambda x=x, s_csr=s_csr: torch.sparse.mm(s_csr, x),
+                lambda x=x, s=s: spmm_fused_torch(x.abs(), m, a, s.abs())))
     if "chunk" in sources:
-        cases += chunk_ab_cases(dev, other["chunk"])
+        cases += chunk_ab_cases(dev)
     if "spmm_sfused" in sources:
-        cases += sfused_ab_cases(dev, other["spmm_sfused"])
+        cases += sfused_ab_cases(dev)
+    if "sddmm_dense" in sources:
+        cases += sddmm_ab_cases(dev)
     return cases
 
 
 def ab_main(other_dir) -> None:
     """The kernels of another commit's sources in ``other_dir`` (those of
-    ``spmm_bd.cu``, ``spmm_dense.cu``, ``chunk.cu`` and ``spmm_sfused.cu``
-    it holds) against
-    the tree's, in one process: each side held to the plain version, then
-    AB_ROUNDS rounds of other, tree, tree, other, each the event time
-    (``median_ms``) and the device time (``device_ms``), and the library
-    call, where there is one, in the same round; and each side's kernel
-    time (``kernel_ms``: the sum of its device operations under
-    torch.profiler, which a call whose host work outlasts its kernels does
-    not hide, as it hides them from the device time).  K1, K5 and K10 run
-    through the tree's wrappers on either side (the same host work; only
-    the C function differs); K8 and K9 of the other side through the
-    slot-walk interface on the chunk arrays, K6 and K7 through the
-    pack-walk interface on the pack, K2 and K3 through the tile-walk
-    interface on the tiles, each with the host work its wrapper did.
-    Prints each round, then all of them as one JSON line."""
+    ``AB_SOURCES`` it holds, each with the tree's C interface, and the
+    ``sparse_row.cuh`` they include) against the tree's, in one process,
+    through the tree's wrappers (the same host work; only the C functions
+    behind them differ): each side held to the plain version, then
+    AB_ROUNDS rounds of other, tree, then the same in reverse, each the event time (``median_ms``) and the device
+    time (``device_ms``), and the library call, where there is one, in the
+    same round; and each side's kernel time (``kernel_ms``: the sum of its
+    device operations under torch.profiler, which a call whose host work
+    outlasts its kernels does not hide, as it hides them from the device
+    time), and for a case with ``fills_apart`` also without the memsets
+    and fills that zero its output (``kernel_only``, which its verdict
+    reads).  Prints each round, then all of them as one JSON line."""
     card = card_line()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1891,46 +1846,46 @@ def ab_main(other_dir) -> None:
     for name in sources:
         _kernels.build(name, verbose=True)
         libs["tree"][name] = _kernels.load(name)
-        libs["other"][name] = build_other(
-            name, other_dir, OTHER_SIGNATURES.get(name, _kernels.SIGNATURES[name]))
-        # The tree's wrappers find every C function of the tree here; only
-        # those of AB_FUNCTIONS are swapped.
-        for fn in _kernels.SIGNATURES[name]:
-            _kernels._functions[(name, fn)] = getattr(libs["tree"][name], fn)
+        libs["other"][name] = build_other(name, other_dir)
     results = []
+
     def joined(out):  # several outputs (K7's dx3, u) side by side
         return torch.cat(out, 1) if isinstance(out, tuple) else out
 
-    for kernel, shape, fns, plain, lib, mag, *tol in ab_cases(dev, sources, libs["other"]):
-        want, m = joined(plain()), joined(mag())
+    for case in ab_cases(dev, sources):
+        want, m = joined(case.plain()), joined(case.magnitude())
         for which in ("other", "tree"):
             use_libraries(libs[which])
-            compare(f"{kernel} {shape} {which} vs plain", joined(fns[which]()), want, m,
-                    tol[0] if tol else F32_TOL)
+            compare(f"{case.kernel} {case.shape} {which} vs plain", joined(case.fn()).float(),
+                    want.float(), m, case.tol)
         del want, m
         rounds = []
         for _ in range(AB_ROUNDS):
-            use_libraries(libs["other"])
-            ev_o1, dv_o1 = median_ms(fns["other"]), device_ms(fns["other"])
-            use_libraries(libs["tree"])
-            ev_t1, dv_t1 = median_ms(fns["tree"]), device_ms(fns["tree"])
-            dv_t2, ev_t2 = device_ms(fns["tree"]), median_ms(fns["tree"])
-            kn_t = kernel_ms(fns["tree"])
-            use_libraries(libs["other"])
-            dv_o2, ev_o2 = device_ms(fns["other"]), median_ms(fns["other"])
-            kn_o = kernel_ms(fns["other"])
-            rounds.append({
-                "other_event_ms": (ev_o1 + ev_o2) / 2, "other_device_ms": (dv_o1 + dv_o2) / 2,
-                "other_kernel_ms": kn_o,
-                "tree_event_ms": (ev_t1 + ev_t2) / 2, "tree_device_ms": (dv_t1 + dv_t2) / 2,
-                "tree_kernel_ms": kn_t,
-                "library_event_ms": None if lib is None else median_ms(lib, runs=5),
-                "library_device_ms": None if lib is None else device_ms(lib, runs=5)})
+            r = {}
+            for which in ("other", "tree", "tree", "other"):
+                use_libraries(libs[which])
+                ev, dv = median_ms(case.fn), device_ms(case.fn)
+                r[f"{which}_event_ms"] = r.get(f"{which}_event_ms", 0.0) + ev / 2
+                r[f"{which}_device_ms"] = r.get(f"{which}_device_ms", 0.0) + dv / 2
+            for which in ("other", "tree"):
+                use_libraries(libs[which])
+                r[f"{which}_kernel_ms"] = kernel_ms(case.fn)
+                if case.fills_apart:
+                    r[f"{which}_kernel_only_ms"] = kernel_ms(case.fn, fills=False)
+            r["library_event_ms"] = None if case.library is None else median_ms(case.library,
+                                                                                 runs=5)
+            r["library_device_ms"] = None if case.library is None else device_ms(case.library,
+                                                                                  runs=5)
+            rounds.append(r)
         use_libraries(libs["tree"])
         faster = all(r["tree_device_ms"] < r["other_device_ms"] for r in rounds)
-        results.append({"kernel": kernel, "shape": shape, "rounds": rounds,
-                        "tree_faster_in_every_round": faster})
-        print(f"{kernel} {shape}: tree faster (device) in every round: {faster}", flush=True)
+        k = "kernel_only_ms" if case.fills_apart else "kernel_ms"
+        faster_kernel = all(r[f"tree_{k}"] < r[f"other_{k}"] for r in rounds)
+        results.append({"kernel": case.kernel, "shape": case.shape, "rounds": rounds,
+                        "tree_faster_in_every_round": faster,
+                        "tree_kernel_faster_in_every_round": faster_kernel})
+        print(f"{case.kernel} {case.shape}: tree faster in every round: device {faster}, "
+              f"kernel {faster_kernel}", flush=True)
         for i, r in enumerate(rounds):
             print(f"    round {i}: " + ", ".join(f"{k} {v:.4f}" for k, v in r.items()
                                                 if v is not None), flush=True)

@@ -75,15 +75,6 @@ using sparse_row::kVec;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 
-// Edges a warp takes: enough warps to fill the card twice over, in 32 to
-// 1,024 edges (small graphs get many short ranges, reddit 1,024).
-__host__ int edges_per_warp(long long num_edges) {
-  const long long target = num_edges / (132LL * 64 * 2);
-  int p = 32;
-  while (p < 1024 && p < target) p <<= 1;
-  return p;
-}
-
 // The row that holds edge e: the r < n with row_ptr[r] <= e < row_ptr[r + 1]
 // (row_ptr[n] > e), found by the whole warp: each step probes 32 evenly
 // spaced rows, one a lane, and keeps the span between the last probe at or
@@ -194,29 +185,11 @@ spmm_csr_kernel(const FeatT* __restrict__ x, const float* __restrict__ w,
                });
 }
 
-// The dots of four edges, each held in parts by the g >= 4 lanes of a
-// group, summed by recursive halving: a lane of the group's upper half keeps
-// edges 2 and 3 and adds its partner's parts of them, the lower half edges
-// 0 and 1; then the upper quarter of each half keeps the second, the lower
-// the first; the remaining levels sum it over the quarter.  log2(g) + 1
-// shuffles for the four (4 log2(g) one at a time).  Returns the lane's sum
-// and sets i to its edge.
-__device__ __forceinline__ float reduce4(const float (&s)[4], int g, int gl, int& i) {
-  const int h = g >> 1, q = g >> 2;
-  const bool hi = (gl & h) != 0, hq = (gl & q) != 0;
-  const float k0 = (hi ? s[2] : s[0]) + __shfl_xor_sync(kFull, hi ? s[0] : s[2], h);
-  const float k1 = (hi ? s[3] : s[1]) + __shfl_xor_sync(kFull, hi ? s[1] : s[3], h);
-  float v = (hq ? k1 : k0) + __shfl_xor_sync(kFull, hq ? k0 : k1, q);
-  for (int off = q >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  i = (hi ? 2 : 0) + (hq ? 1 : 0);
-  return v;
-}
-
 // K9: one warp an edge range; vec: xa and xb rows 16-byte aligned (d % 4 ==
 // 0).  A lane holds the columns cb + t * kTileD + 4 gl + (0..3) (t < T) of
 // xa[row], cb stepping by T * kTileD; its group (g >= 4 lanes, 32 where
 // T > 1) takes four edges at a time, p = base + i * ngrp + grp, sums their
-// dots by `reduce4`, and the first lane of each quarter of the group stores
+// dots by `sparse_row::reduce4`, and the first lane of each quarter of the group stores
 // one, so the warp stores 4 ngrp consecutive scores together (added to the
 // previous pass's past cb = 0).
 template <typename FeatT, int T>
@@ -261,7 +234,7 @@ sddmm_csr_kernel(const FeatT* __restrict__ xa, const FeatT* __restrict__ xb,
                          for (int c = 0; c < kVec; ++c) s[i] = fmaf(a[t][c], b[c], s[i]);
                        }
                      int i;
-                     const float v = reduce4(s, g, gl, i);
+                     const float v = sparse_row::reduce4(s, g, gl, i);
                      const long long p = base + i * ngrp + grp;
                      if (stores && p < end) out[p] = cb == 0 ? v : out[p] + v;
                    }
@@ -291,7 +264,7 @@ void spmm_launch_in(const FeatT* x, const float* w, const long long* row_ptr, co
 template <typename FeatT>
 int spmm_launch(const void* x, const float* w, const long long* row_ptr, const int* row_src,
                 float* out, int n, int d, long long num_edges, cudaStream_t s) {
-  const int per = edges_per_warp(num_edges);
+  const int per = sparse_row::edges_per_warp(num_edges);
   const dim3 grid(range_blocks(num_edges, per), (unsigned)((d + kTileD - 1) / kTileD));
   const bool vec = d % kVec == 0 && sparse_row::aligned16(x) && sparse_row::aligned16(out);
   const FeatT* xf = static_cast<const FeatT*>(x);
@@ -305,7 +278,7 @@ int spmm_launch(const void* x, const float* w, const long long* row_ptr, const i
 template <typename FeatT>
 int sddmm_launch(const void* xa, const void* xb, const long long* row_ptr, const int* row_src,
                  float* out, int n, int d, long long num_edges, cudaStream_t s) {
-  const int per = edges_per_warp(num_edges);
+  const int per = sparse_row::edges_per_warp(num_edges);
   const unsigned grid = range_blocks(num_edges, per);
   const bool vec = d % kVec == 0 && sparse_row::aligned16(xa) && sparse_row::aligned16(xb);
   const FeatT* a = static_cast<const FeatT*>(xa);

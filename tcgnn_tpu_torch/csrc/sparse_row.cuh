@@ -1,6 +1,8 @@
 // One warp reduces one sparse row: the pieces the dense-tile SpMM (K1 and
 // K10, csrc/spmm_dense.cu) and the block-diagonal SpMM (K5,
-// csrc/spmm_bd.cu) share.
+// csrc/spmm_bd.cu) share.  The edge-range kernels (K8 and K9,
+// csrc/chunk.cu; K4, csrc/sddmm_dense.cu) take their lane groups, loads,
+// range size and four-dot reduction from here too.
 //
 // A row holds at most kRowElems entries (a K5 pack row of K*bn <= 1024, or
 // a K1 tile row over a run of at most 8 TC blocks of blk_w <= 128), almost
@@ -220,6 +222,34 @@ __device__ __forceinline__ int reduce_row(float (&acc)[kVec], unsigned mask, int
 #pragma unroll
     for (int c = 0; c < kVec; ++c) acc[c] += __shfl_xor_sync(kFull, acc[c], off);
   return total;
+}
+
+// Edges a warp takes in the edge-range kernels (K8, K9 and K4): enough
+// warps to fill the card twice over, in `least` (a power of two) to 1,024
+// edges (small graphs get many short ranges, reddit 1,024).
+__host__ inline int edges_per_warp(long long num_edges, int least = 32) {
+  const long long target = num_edges / (132LL * 64 * 2);
+  int p = least;
+  while (p < 1024 && p < target) p <<= 1;
+  return p;
+}
+
+// The dots of four edges, each held in parts by the g >= 4 lanes of a
+// group (K9 and K4), summed by recursive halving: a lane of the group's
+// upper half keeps edges 2 and 3 and adds its partner's parts of them, the
+// lower half edges 0 and 1; then the upper quarter of each half keeps the
+// second, the lower the first; the remaining levels sum it over the quarter.
+// log2(g) + 1 shuffles for the four (4 log2(g) one at a time).  Returns the
+// lane's sum and sets i to its edge.
+__device__ __forceinline__ float reduce4(const float (&s)[4], int g, int gl, int& i) {
+  const int h = g >> 1, q = g >> 2;
+  const bool hi = (gl & h) != 0, hq = (gl & q) != 0;
+  const float k0 = (hi ? s[2] : s[0]) + __shfl_xor_sync(kFull, hi ? s[0] : s[2], h);
+  const float k1 = (hi ? s[3] : s[1]) + __shfl_xor_sync(kFull, hi ? s[1] : s[3], h);
+  float v = (hq ? k1 : k0) + __shfl_xor_sync(kFull, hq ? k0 : k1, q);
+  for (int off = q >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  i = (hi ? 2 : 0) + (hq ? 1 : 0);
+  return v;
 }
 
 // 16-byte aligned, for the vector paths.

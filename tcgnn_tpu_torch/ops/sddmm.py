@@ -5,9 +5,10 @@ Counterpart of ``tcgnn_tpu.ops.sddmm.sddmm_tc_dense``: per-edge scores
 to the compute dtype.
 
 ``sddmm_tc_dense`` launches the hand-written CUDA kernel
-(``csrc/sddmm_dense.cu``, one dot per edge, edges spread by index) for a
-CUDA tensor, and runs the plain PyTorch version ``sddmm_tc_dense_torch``
-for a CPU tensor only.  The plain version is the JAX algorithm: score tiles
+(``csrc/sddmm_dense.cu``: equal ranges of edges a warp, lane groups of
+four columns a lane, four edges' dots in flight a group) for a CUDA
+tensor, and runs the plain PyTorch version ``sddmm_tc_dense_torch`` for a
+CPU tensor only.  The plain version is the JAX algorithm: score tiles
 ``xa[window] @ xb[col_ids]^T`` as a batched product, then each edge's entry
 read out at ``meta.edge_pos``.  Counters: ``sddmm_tc_dense.launches`` and
 ``.plain_calls``.
@@ -22,16 +23,19 @@ Its counters are its own; chip_smoke counts both wrappers as K4.
 device; a shard of the distributed layer reads its window rows from its own
 (and guest) rows and its columns from its halo slab.
 
-The kernel reads only each edge's row and column, so ``meta`` may also be
-an ``EdgeList``: the block-diagonal route's SDDMM is K4 over every edge
-(the JAX package's ``bd_sddmm_edges`` and its residual dots, whose bin-chunk
-slabs are a TPU gather-locality device).  Its plain version is the per-edge
-dot.
+The kernel reads only each edge's row and column, in any order (a split
+stream of the distributed layer holds its edges out of row order), so
+``meta`` may also be an ``EdgeList``: the block-diagonal route's SDDMM is
+K4 over every edge (the JAX package's ``bd_sddmm_edges`` and its residual
+dots, whose bin-chunk slabs are a TPU gather-locality device).  Its plain
+version is the per-edge dot.  What a launch checks of the edge arrays is
+worked out once a metadata object (``edge_device``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,7 +43,7 @@ import torch
 from tcgnn_tpu_torch.config import TileConfig
 from tcgnn_tpu_torch.ops import _kernels
 from tcgnn_tpu_torch.ops.spmm import FEAT_KIND
-from tcgnn_tpu_torch.sgt.translate import TorchSGTMeta
+from tcgnn_tpu_torch.sgt.translate import TorchSGTMeta, index_device
 
 # Above this many f32 score-tile bytes the plain version computes each
 # edge's dot directly instead of forming the tiles (the value is the same).
@@ -59,6 +63,15 @@ class EdgeList:
     num_edges: int
     edge_rows: torch.Tensor  # [E] int32
     edge_cols: torch.Tensor  # [E] int32
+    # What a launch checks, worked out once here (``index_device``).
+    edge_device: Optional[torch.device] = dataclasses.field(
+        init=False, default=None, repr=False, compare=False)
+
+    EDGE_INDEX = ("edge_rows", "edge_cols")
+
+    def __post_init__(self):
+        object.__setattr__(self, "edge_device", index_device(
+            [getattr(self, name) for name in self.EDGE_INDEX]))
 
     @classmethod
     def from_rows(cls, edge_rows, column_index, num_nodes, config, device) -> "EdgeList":
@@ -99,6 +112,18 @@ def _score_tiles(a, b, meta):
     return torch.bmm(a_win.float(), b_g.float().transpose(1, 2))
 
 
+def check_edge_operands(op: str, meta, device: torch.device, tiles: bool) -> None:
+    """What K4 reads of ``meta``: its edge arrays (``edge_rows``,
+    ``edge_cols`` and, for ``tiles``, ``edge_pos``) int32 and contiguous on
+    ``device``.  Worked out once where the metadata was made
+    (``meta.edge_device``); only where that check failed are the arrays
+    looked at again, to name the fault."""
+    if meta.edge_device != device:
+        _kernels.check_operands(
+            op, device, edge_rows=meta.edge_rows, edge_cols=meta.edge_cols,
+            edge_pos=meta.edge_pos if tiles else None)
+
+
 def _sddmm_cuda(op, xa, xb, meta, tiles, tile_dtype=None):
     """K4: per-edge f32 scores, or (``tiles``) score tiles of
     ``tile_dtype`` (the compute dtype or f32) holding each edge's score at
@@ -106,10 +131,7 @@ def _sddmm_cuda(op, xa, xb, meta, tiles, tile_dtype=None):
     ct = meta.config.compute_dtype
     if ct not in FEAT_KIND:
         raise TypeError(f"{op}: no kernel for compute dtype {ct}")
-    _kernels.check_operands(
-        op, xa.device, edge_rows=meta.edge_rows, edge_cols=meta.edge_cols,
-        edge_pos=meta.edge_pos if tiles else None,
-    )
+    check_edge_operands(op, meta, xa.device, tiles)
     d = xa.shape[1]
     if xa.numel() >= 2**31 or (xb is not None and xb.numel() >= 2**31):
         raise ValueError(f"{op}: an operand has 2**31 elements or more")
@@ -121,16 +143,18 @@ def _sddmm_cuda(op, xa, xb, meta, tiles, tile_dtype=None):
         out = torch.empty(meta.num_edges, dtype=torch.float32, device=xa.device)
     if meta.num_edges == 0 or d == 0:
         return out.zero_()
-    a = xa.to(ct).contiguous()
-    b = a if xb is None else xb.to(ct).contiguous()
-    lib = _kernels.load("sddmm_dense")
-    with torch.cuda.device(xa.device):
-        err = lib.tcgnn_sddmm_dense(
-            a.data_ptr(), b.data_ptr(), meta.edge_rows.data_ptr(), meta.edge_cols.data_ptr(),
-            meta.edge_pos.data_ptr() if tiles else None, out.data_ptr(), meta.num_edges, d,
-            FEAT_KIND[ct], int(tiles and tile_dtype == torch.float32), _kernels.stream_of(xa),
-        )
-    _kernels.check(lib, err, "sddmm_dense")
+    if xa.dtype != ct or not xa.is_contiguous():
+        xa = xa.to(ct).contiguous()
+    if xb is None:
+        xb = xa
+    elif xb.dtype != ct or not xb.is_contiguous():
+        xb = xb.to(ct).contiguous()
+    _kernels.call(
+        "sddmm_dense", "tcgnn_sddmm_dense", xa.device,
+        xa.data_ptr(), xb.data_ptr(), meta.edge_rows.data_ptr(), meta.edge_cols.data_ptr(),
+        meta.edge_pos.data_ptr() if tiles else None, out.data_ptr(), meta.num_edges, d,
+        FEAT_KIND[ct], int(tiles and tile_dtype == torch.float32), _kernels.stream_of(xa),
+    )
     return out
 
 

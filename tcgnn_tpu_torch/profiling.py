@@ -12,7 +12,7 @@ call of one function (a kernel or its plain version).
 
 Run on the card from the repository root:
     python -m tcgnn_tpu_torch.profiling [OUT_DIR [GROUP ...]]
-    # groups: pubmed, bd (and K5-K7), reddit, mesh
+    # groups: pubmed, bd (and K5-K7), edges (and K4), reddit, mesh
     python -m tcgnn_tpu_torch.train --dataset DD --dim 89 --classes 2 --profile_dir prof/
 """
 
@@ -109,9 +109,18 @@ def trace(log_dir: str | None, device: torch.device, epochs: int):
     print_summary(summary)
 
 
-def device_ms(fn, calls: int = 25) -> float:
+def is_fill(event) -> bool:
+    """A device operation that sets memory (a memset, or PyTorch's fill
+    kernel behind ``torch.zeros``), such as the zeroing of K4's score tiles."""
+    key = event.key.lower()
+    return "memset" in key or "fillfunctor" in key
+
+
+def device_ms(fn, calls: int = 25, fills: bool = True) -> float:
     """Device time per call of ``fn`` (the sum of its device operations),
-    after 3 warm-up calls."""
+    after 3 warm-up calls; ``fills=False`` leaves out the operations that
+    set memory (``is_fill``), so a kernel's own time stands apart from the
+    zeroing of its output."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -119,12 +128,17 @@ def device_ms(fn, calls: int = 25) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.end - e.time_range.start for e in _device_events(prof)) / calls / 1e3
+    return sum(e.time_range.end - e.time_range.start for e in _device_events(prof)
+               if fills or not is_fill(e)) / calls / 1e3
 
 
+# Where the ``edges`` group's graphs are written, under ``main``'s out_dir.
+EDGE_DATA = "<out_dir>/data"
 # Configurations of ``main``, by group: pubmed's (the condensed route), the
-# BD route's, reddit's (the streamed route) and the one-card mesh's.  Each
-# runs with the profiler off and then on.
+# BD route's, reddit's (the streamed route), the per-edge AGNN route's (the
+# two directed graphs of ``data/edge_graphs.py``, as chip_smoke.py trains
+# them) and the one-card mesh's.  Each runs with the profiler off and then
+# on.
 CONFIGS = {
     "bd": (
         ["--dataset", "DD", "--dim", "89", "--classes", "2", "--model", "gcn"],
@@ -139,6 +153,12 @@ CONFIGS = {
          "--hidden", "32", "--num_layers", "2"],
         ["--dataset", "pubmed", "--dim", "500", "--classes", "3", "--model", "agnn",
          "--hidden", "32", "--num_layers", "4"],
+    ),
+    "edges": (  # K4 and weighted K1 (asymmetric), K4, weighted K5 and K1 (banded)
+        ["--data_dir", EDGE_DATA, "--dataset", "asymmetric", "--dim", "64", "--model", "agnn",
+         "--hidden", "32", "--num_layers", "2"],
+        ["--data_dir", EDGE_DATA, "--dataset", "banded", "--dim", "64", "--model", "agnn",
+         "--hidden", "32", "--num_layers", "2"],
     ),
     "reddit": (
         ["--dataset", "reddit", "--dim", "602", "--classes", "41", "--model", "gcn"],
@@ -161,13 +181,14 @@ def main(out_dir: str = "prof_traces", *groups: str) -> None:
     run with the profiler off and then on (traces under ``out_dir``); with
     the ``pubmed`` group K2/K3 against their plain versions at pubmed's
     shapes, with the ``bd`` group K5-K7 at DD's and K2/K3 on its
-    residual."""
+    residual, with the ``edges`` group K4 on its two graphs (their
+    datasets written to ``out_dir/data`` first)."""
     from tcgnn_tpu_torch import TileConfig, TiledGraph, train  # train imports this module
-    from tcgnn_tpu_torch.data import synthesize
+    from tcgnn_tpu_torch.data import edge_graphs, synthesize
     from tcgnn_tpu_torch.ops import (
-        bd_sfused, bd_sfused_bwd, bd_sfused_bwd_torch, bd_sfused_torch, spmm_block_diag,
-        spmm_block_diag_torch, spmm_sfused, spmm_sfused_bwd, spmm_sfused_bwd_torch,
-        spmm_sfused_torch,
+        bd_sfused, bd_sfused_bwd, bd_sfused_bwd_torch, bd_sfused_torch, sddmm_tc_dense,
+        sddmm_tc_dense_torch, spmm_block_diag, spmm_block_diag_torch, spmm_sfused,
+        spmm_sfused_bwd, spmm_sfused_bwd_torch, spmm_sfused_torch,
     )
 
     def sfused_lines(name, meta, tiles, index, gen):
@@ -188,13 +209,31 @@ def main(out_dir: str = "prof_traces", *groups: str) -> None:
     groups = groups or tuple(CONFIGS)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    data_dir = os.path.join(out_dir, "data")
+    if "edges" in groups:
+        os.makedirs(data_dir, exist_ok=True)
+        graphs = {"asymmetric": edge_graphs.asymmetric_graph, "banded": edge_graphs.banded_graph}
+        for name, graph in graphs.items():
+            edge_graphs.write_npz(data_dir, name, graph)
     for group in groups:
         for i, argv in enumerate(CONFIGS[group]):
+            argv = [data_dir if a == EDGE_DATA else a for a in argv]
             for extra in ([], ["--profile_dir", os.path.join(out_dir, f"{group}{i}")]):
                 print("---", " ".join(argv + extra))
                 train.main([*argv, "--epochs", "50", *extra])
                 torch.cuda.empty_cache()
     dev = torch.device("cuda")
+    if "edges" in groups:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for name, graph in graphs.items():
+            n, rp, ci = graph()
+            g = TiledGraph(rp, ci, n, TileConfig(), device=dev)
+            meta = g._sddmm_meta
+            for d in (32, 22):  # AGNN's hidden and class widths (the trainer's 22)
+                x = torch.randn(n, d, device=dev, generator=gen) * 0.3
+                print("device K4 {} d={} ({} edges): kernel {:.4f} ms, plain {:.4f} ms".format(
+                    name, d, meta.num_edges, device_ms(lambda: sddmm_tc_dense(x, meta)),
+                    device_ms(lambda: sddmm_tc_dense_torch(x, meta))))
     if "pubmed" in groups:
         ds = synthesize("pubmed", seed=0)
         g = TiledGraph(ds.row_pointers, ds.column_index, ds.num_nodes, TileConfig(), device=dev)

@@ -101,14 +101,27 @@ class TorchSGTMeta:
     # contiguous, else None: checked once here, not on every launch.
     kernel_device: Optional[torch.device] = dataclasses.field(
         init=False, default=None, repr=False, compare=False)
+    # The same for the per-edge arrays K4 reads (edge_rows, edge_cols and, in
+    # its tile mode, edge_pos).
+    edge_device: Optional[torch.device] = dataclasses.field(
+        init=False, default=None, repr=False, compare=False)
 
     KERNEL_INDEX = ("col_ids", "win_start", "run_window", "run_block")
+    EDGE_INDEX = ("edge_rows", "edge_cols", "edge_pos")
 
     def __post_init__(self):
-        arrays = [getattr(self, name) for name in self.KERNEL_INDEX]
-        dev = arrays[0].device
-        ok = all(a.device == dev and a.dtype == torch.int32 and a.is_contiguous() for a in arrays)
-        object.__setattr__(self, "kernel_device", dev if ok else None)
+        object.__setattr__(self, "kernel_device", index_device(
+            [getattr(self, name) for name in self.KERNEL_INDEX]))
+        object.__setattr__(self, "edge_device", index_device(
+            [getattr(self, name) for name in self.EDGE_INDEX]))
+
+
+def index_device(arrays) -> Optional[torch.device]:
+    """The device of ``arrays`` where all lie there, int32 and contiguous,
+    as a kernel reads them through raw pointers; else None."""
+    dev = arrays[0].device
+    ok = all(a.device == dev and a.dtype == torch.int32 and a.is_contiguous() for a in arrays)
+    return dev if ok else None
 
 
 # Slots a slab of ``TorchChunkMeta.slot_slabs`` holds at most: the index

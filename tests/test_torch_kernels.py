@@ -37,6 +37,7 @@ from tcgnn_tpu_torch.data import coo_to_csr, powerlaw_graph
 from tcgnn_tpu_torch.data.synthetic import component_union_graph
 from tcgnn_tpu_torch.models import agnn_conv, gcn_conv
 from tcgnn_tpu_torch.ops import (
+    EdgeList,
     bd_sfused,
     bd_sfused_bwd,
     bd_sfused_bwd_torch,
@@ -305,6 +306,106 @@ def test_sddmm_kernel_matches_plain(cuda, kind, geometry, dtype, d):
     within(got, sddmm_tc_dense_torch(xa, g.meta, xb), mag, **F32)
     xa64, xb64 = xa.to(dtype).double(), xb.to(dtype).double()
     within(got, sddmm_ref(xa64, *csr(rp, ci, cuda), xb64), mag, **F32)
+
+
+# K4's widths: lane groups of 4 to 32 lanes (4 of them idle but one or
+# three at d <= 3), the scalar loads (d % 4 != 0), and past 128 columns the
+# loop over 128-column tiles (129, 200, 602).
+K4_WIDTHS = [1, 2, 3, 5, 7, 16, 32, 33, 129, 200, 602]
+
+
+def k4_meta(kind, layout, dtype, dev):
+    """K4's metadata: the condensed tiling (512x128), an ``EdgeList`` of the
+    same CSR edges, or a shard stream (16x8) whose gather source is longer
+    than its windows (``num_src != num_rows``)."""
+    n, rp, ci = sfused_graph(kind)
+    cfg = TileConfig(compute_dtype=dtype)
+    if layout == "edge_list":
+        return EdgeList.from_rows(np.repeat(np.arange(n), np.diff(rp)), ci, n, cfg, dev)
+    if layout == "shard":
+        return shard_stream(kind, (16, 8), dtype, dev)[0]
+    return sparse_graph_translate(rp, ci, n, cfg).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["long_hub", "empty_and_partial_windows"])
+@pytest.mark.parametrize("layout", ["tiles", "edge_list", "shard"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", K4_WIDTHS)
+def test_sddmm_kernel_at_every_width(cuda, kind, layout, dtype, d):
+    """K4's per-edge scores: a hub row of 5,000 edges (longer than a warp's
+    range of edges), empty rows, ``xb`` of another row count; against the
+    plain version and the f64 dots of the compute-dtype operands."""
+    meta = k4_meta(kind, layout, dtype, cuda)
+    xa, xb = randn((meta.num_rows, d), 16, cuda), randn((meta.num_src, d), 17, cuda)
+    before = sddmm_tc_dense.launches
+    got = sddmm_tc_dense(xa, meta, xb)
+    torch.cuda.synchronize()
+    assert sddmm_tc_dense.launches == before + 1 and got.shape == (meta.num_edges,)
+    rows, cols = meta.edge_rows.long(), meta.edge_cols.long()
+    a64, b64 = xa.to(dtype).double(), xb.to(dtype).double()
+    mag = (a64.abs()[rows] * b64.abs()[cols]).sum(1)
+    within(got, sddmm_tc_dense_torch(xa, meta, xb), mag, **F32)
+    within(got, (a64[rows] * b64[cols]).sum(1), mag, **F32)
+
+
+def mega_graph(n=400, seed=11):
+    """A symmetric sparse graph with one dense row window at the front: the
+    split stream engages on a 4x2 mesh, and some shards' split streams hold
+    their edges out of row order."""
+    rng = np.random.default_rng(seed)
+    deg = rng.poisson(4, n).clip(0, n - 1)
+    deg[:16] = 160
+    cols = [np.unique(rng.integers(0, n, d)) for d in deg]
+    rows = np.repeat(np.arange(n), [len(c) for c in cols])
+    cols = np.concatenate(cols)
+    return (n, *coo_to_csr(np.concatenate([rows, cols]), np.concatenate([cols, rows]), n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 5, 16, 32, 33, 129, 200])
+@pytest.mark.parametrize("f32_tiles", [False, True])
+def test_sddmm_on_split_streams_out_of_row_order(cuda, dtype, d, f32_tiles):
+    """K4 over the 4x2 mesh's split streams whose edges are out of row
+    order: per-edge scores, and score tiles in the compute dtype or f32
+    (each score stored once)."""
+    n, rp, ci = mega_graph()
+    dg = DistributedTiledGraph(rp, ci, n, make_mesh(4, 2, cuda),
+                               TileConfig(blk_h=16, blk_w=16, edge_chunk=16,
+                                          compute_dtype=dtype))
+    streams = [st.meta for st in dg._fwd.split.streams
+               if bool((st.meta.edge_rows[1:] < st.meta.edge_rows[:-1]).any())]
+    assert streams
+    out_dtype = torch.float32 if f32_tiles else dtype
+    for k, meta in enumerate(streams):
+        xa, xb = randn((meta.num_rows, d), 18 + k, cuda), randn((meta.num_src, d), 28 + k, cuda)
+        got = sddmm_tc_dense(xa, meta, xb)
+        rows, cols = meta.edge_rows.long(), meta.edge_cols.long()
+        mag = (xa.to(dtype).double().abs()[rows] * xb.to(dtype).double().abs()[cols]).sum(1)
+        within(got, sddmm_tc_dense_torch(xa, meta, xb), mag, **F32)
+        tiles = sddmm_tc_tiles(xa, meta, xb, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert tiles.dtype == out_dtype
+        want = sddmm_tc_tiles_torch(xa, meta, xb, out_dtype)
+        mag = sddmm_tc_tiles_torch(xa.abs(), meta, xb.abs(), torch.float32)
+        t = F32 if out_dtype == torch.float32 else dict(rtol=8e-3, atol=1e-4)
+        within(tiles.float(), want.float(), mag, **t)
+
+
+def test_sddmm_rejects_what_it_does_not_take(cuda):
+    """The edge arrays are checked once a metadata object
+    (``edge_device``); a launch over arrays the kernel cannot read raises."""
+    meta = k4_meta("empty_and_partial_windows", "tiles", torch.float32, cuda)
+    x = randn((meta.num_rows, 8), 19, cuda)
+    assert meta.edge_device == x.device
+    for field, fault, err in (("edge_rows", lambda t: t.long(), TypeError),
+                              ("edge_cols", lambda t: t.cpu(), ValueError),
+                              ("edge_pos", lambda t: torch.stack([t, t], 1)[:, 0], ValueError)):
+        bad = dataclasses.replace(meta, **{field: fault(getattr(meta, field))})
+        assert bad.edge_device is None
+        with pytest.raises(err, match=field):
+            sddmm_tc_tiles(x, bad, x)
+    sddmm_tc_dense(x, dataclasses.replace(meta, edge_pos=meta.edge_pos.long()), x)
+    torch.cuda.synchronize()
 
 
 def test_weighted_tiles_round_to_bf16_in_k1(cuda):
@@ -721,7 +822,7 @@ def shard_stream(kind, geometry, dtype, dev, pad_blocks=3, extra_src=5):
     """A graph's tiling as a distributed shard sees it: trailing padding
     blocks (zero tiles on the last window) and a gather source of
     ``extra_src`` rows past the windows'."""
-    n, rp, ci = graph(kind)
+    n, rp, ci = sfused_graph(kind)
     bh, bw = geometry
     cfg = TileConfig(blk_h=bh, blk_w=bw, compute_dtype=dtype)
     host = sparse_graph_translate(rp, ci, n, cfg, build_tiles=True)
