@@ -16,8 +16,9 @@ Phases, in order; any failure raises and exits nonzero:
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
   2. build K1-K10 (``tcgnn_tpu_torch/csrc/{spmm_dense,spmm_sfused,
      sddmm_dense,spmm_bd,chunk}.cu``; K10 is K1's kernel with a score
-     operand) with nvcc for sm_90a, one nvcc per source, all at once,
-     printing ``-Xptxas -v``;
+     operand) with nvcc for sm_90a, one nvcc per source, and the native SGT
+     host pass (``tcgnn_tpu_torch/sgt/native/sgt.cpp``) with g++, all at
+     once, printing ``-Xptxas -v``, the g++ flags and the build seconds;
   3. K1 against its plain PyTorch version on the card: pubmed tiling at
      512x128 and 16x8, d in {16, 500}, f32 and bf16; a graph with a
      duplicate count above 127 (float tiles); an asymmetric graph through
@@ -69,13 +70,17 @@ Phases, in order; any failure raises and exits nonzero:
      launch its kernels and no others of K1-K10, and no plain version may
      have run; the loss must be finite and fall, except in the 4-layer AGNN
      runs (pubmed overflows to nan in f32, as in the JAX package), which are
-     only timed.  The reddit runs print the peak host RSS and device memory.
-     After the reddit GCN run, on its graph: the segment layout, its mean
-     row run and the row index's bytes, and K8 (d=16, 602, and 32 and 41
-     weighted) and K9 (d=32 and 41, one matrix and two) against their plain
-     versions at the main path's shapes, each timed (event and device)
-     beside its bound and ``torch.sparse.mm`` or
-     ``torch.sparse.sampled_addmm`` over the row index;
+     only timed.  Every run must print ``SGT pass:\tnative`` (the native
+     host pass tiled its graph).  The reddit runs print the peak host RSS
+     and device memory.  After the reddit GCN run, on its graph: the segment
+     layout, its mean row run and the row index's bytes, and K8 (d=16, 602,
+     and 32 and 41 weighted) and K9 (d=32 and 41, one matrix and two)
+     against their plain versions at the main path's shapes, each timed
+     (event and device) beside its bound and ``torch.sparse.mm`` or
+     ``torch.sparse.sampled_addmm`` over the row index; then the NumPy host
+     pass over the same arrays, its ``Prep host (ms)`` stage by stage
+     (transpose, symmetry check, block counts, SGT and chunk layout,
+     segments) beside the native run's, the two graphs' row indexes equal;
  12. every kernel and its plain version timed with CUDA events (K1-K4, K8
      and K9 at the pubmed shapes, K2/K3 over the row index the graph builds,
      K4 also over the banded graph's 1.22 M edges at d=32 and 22, first
@@ -111,7 +116,23 @@ Phases, in order; any failure raises and exits nonzero:
      torch.profiler); K10 timed there (event and device time, in
      three rounds) beside its bound (``csr_bound``
      over the shard's edges, one f32 score read an edge) and
-     ``torch.sparse.mm`` over the shard's CSR with the scores as values.
+     ``torch.sparse.mm`` over the shard's CSR with the scores as values;
+ 14. ``--single_kernel`` (``train.profile_sag``: chained SpMM rounds, then
+     SDDMM rounds, device time a round) through the trainer on pubmed at
+     512x128 (K1, K4), DD (K5, K1, K4) and pubmed on ``--mesh 4x2`` (K1,
+     K4), and over phase 11's reddit GCN graph (K8, K9,
+     ``REDDIT_SAG_ROUNDS`` rounds): each run must return the JAX CLI's
+     keys, launch its kernels and no others, and no plain version; it
+     prints its SAG and SDDMM lines, edges/s and ``mfu_pct``;
+ 15. checkpoints: pubmed GCN with ``--checkpoint_dir`` every 2 epochs for
+     6 epochs, then ``--resume --epochs 8``, its final loss within
+     ``rtol=1e-5`` of an uninterrupted 8-epoch run's (whether bit-equal is
+     printed); ``--save_params`` then ``--load_params`` on one device and
+     on ``--mesh 4x2`` restoring every parameter exactly (a learning-rate-0
+     run saves them back bit for bit).
+
+The kernels line's launches are summed over every run of phases 11, 13, 14
+and 15, each read with the counts set to 0 just before it.
 
 Every phase prints its elapsed seconds.  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -121,9 +142,11 @@ Nothing of JAX is imported.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import ctypes
 import dataclasses
+import io
 import json
 import math
 import os
@@ -176,6 +199,7 @@ from tcgnn_tpu_torch.ops.reference import sddmm_ref, sfused_bwd_ref, sfused_ref,
 from tcgnn_tpu_torch.ops.sfused import sgt_row_index
 from tcgnn_tpu_torch.parallel import distributed_graph_from_dataset, make_mesh
 from tcgnn_tpu_torch.profiling import device_ms as kernel_ms
+from tcgnn_tpu_torch.sgt import native
 from tcgnn_tpu_torch.sgt.blockdiag import extract_block_diag
 from tcgnn_tpu_torch.sgt.stream import segment_chunks
 from tcgnn_tpu_torch.sgt.translate import sparse_graph_translate, transpose_csr
@@ -918,12 +942,46 @@ def check_reddit_kernels(g, dev, card) -> dict:
     return errs, records
 
 
-def phase_train(data_dir, dev, card) -> tuple[list, dict, dict, dict]:
+def host_pass_stages(ds, graph, dev, card) -> dict:
+    """Phase 11, after the reddit GCN run: the NumPy host pass over the same
+    arrays (a ``TiledGraph(..., host_pass="numpy")``), its ``Prep host
+    (ms)`` stage by stage beside the native run's; the two graphs must
+    upload the same chunk layouts' row indexes.  Returns both passes'
+    stage milliseconds."""
+    t0 = time.perf_counter()
+    g = TiledGraph(ds.row_pointers, ds.column_index, ds.num_nodes, graph.config, device=dev,
+                   host_pass="numpy")
+    run_s = time.perf_counter() - t0
+    if (g.host_pass, g.streamed, g.tc_blocks) != ("numpy", graph.streamed, graph.tc_blocks):
+        raise AssertionError(f"NumPy pass: {g.host_pass} streamed {g.streamed} TC blocks "
+                             f"{g.tc_blocks}, the native one {graph.streamed} {graph.tc_blocks}")
+    for a, b in ((g.chunks, graph.chunks), (g.chunks_t, graph.chunks_t)):
+        if not (torch.equal(a.row_ptr, b.row_ptr) and torch.equal(a.row_src, b.row_src)):
+            raise AssertionError("the NumPy and native passes uploaded other row indexes")
+    passes = {"native": graph, "numpy": g}
+    stages = {name: {k: v * 1e3 for k, v in p.prep_stages.items()} for name, p in passes.items()}
+    for name, p in passes.items():
+        stages[name]["other"] = p.prep_host_s * 1e3 - sum(stages[name].values())
+        stages[name]["Prep host"] = p.prep_host_s * 1e3
+    print(f"reddit Prep host (ms) by stage, native pass (the GCN run) and NumPy pass (the same "
+          f"arrays, this call; its graph built in {run_s:.1f} s, the same row indexes) "
+          f"(card host: {card}):")
+    for k in stages["numpy"]:
+        nat, num = stages["native"].get(k, 0.0), stages["numpy"][k]
+        print(f"  {k:12s} native {nat:12.3f}  numpy {num:12.3f}  "
+              f"({num / nat if nat > 0 else float('nan'):.2f}x)")
+    del g
+    torch.cuda.empty_cache()
+    return stages
+
+
+def phase_train(data_dir, dev, card) -> tuple:
     """Phase 11: the main path, through the trainer's entry point.  Every
     count is set to 0 just before each run and read just after it; returns
-    the runs, each kernel's launches summed over them, and the errors and
-    records of ``check_reddit_kernels``, run on the reddit GCN run's graph
-    once its counts are read."""
+    the runs, each kernel's launches summed over them, the errors and
+    records of ``check_reddit_kernels`` and the stages of
+    ``host_pass_stages``, run on the reddit GCN run's graph once its counts
+    are read, and that graph with its features (phase 14 times them)."""
     asym = write_npz(data_dir, "asymmetric", asymmetric_graph)
     banded = write_npz(data_dir, "banded", banded_graph)
     pubmed = ["--dataset", "pubmed", "--dim", "500", "--classes", "3"]
@@ -965,16 +1023,16 @@ def phase_train(data_dir, dev, card) -> tuple[list, dict, dict, dict]:
         ("reddit agnn 2 layers", [*reddit, *agnn, "--num_layers", "2"], ("K8", "K9"), True,
          streamed, 265_565),
     ]
-    results, launches, reddit_errs, reddit_records = [], {k: 0 for k in KERNELS}, {}, {}
+    results, launches = [], {k: 0 for k in KERNELS}
+    reddit_errs, reddit_records, stages, reddit_graph = {}, {}, {}, None
     for label, extra, expected, must_fall, route, tc_blocks in runs:
         print(f"--- train.main {' '.join(extra)}")
         t0 = time.perf_counter()
         args = ["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), *extra]
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        r = train.main(args)
-        counts = {k: (sum(w.launches for w in ws), sum(w.plain_calls for w in ws))
-                  for k, (_, _, _, ws) in KERNELS.items()}
+        r = run_main(args)
+        counts = launch_counts()
         r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         r["peak_rss"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
         r["seconds"] = time.perf_counter() - t0
@@ -985,11 +1043,7 @@ def phase_train(data_dir, dev, card) -> tuple[list, dict, dict, dict]:
                               and r["final_loss"] < r["first_loss"]):
             raise AssertionError(f"{label}: loss did not fall "
                                  f"({r['first_loss']} -> {r['final_loss']})")
-        if (any(counts[k][0] <= 0 for k in expected)
-                or any(c[0] for k, c in counts.items() if k not in expected)
-                or any(c[1] for c in counts.values())):
-            raise AssertionError(f"{label}: expected launches of {expected} and no other "
-                                 f"kernel, no plain calls; got {counts}")
+        check_launches(label, counts, expected)
         if (r["dense_tiles"], r["streamed"], r["block_diag"]) != route:
             raise AssertionError(f"{label}: route {(r['dense_tiles'], r['streamed'], r['block_diag'])}"
                                  f", expected {route}")
@@ -997,15 +1051,17 @@ def phase_train(data_dir, dev, card) -> tuple[list, dict, dict, dict]:
             raise AssertionError(f"{label}: {r['tc_blocks']} TC blocks, expected {tc_blocks}")
         for k, c in counts.items():
             launches[k] += c[0]
-        graph = r.pop("graph")
+        graph, ds = r.pop("graph"), r.pop("dataset")
         if label == "reddit gcn":
             t1 = time.perf_counter()
             reddit_errs, reddit_records = check_reddit_kernels(graph, dev, card)
             print(f"  reddit kernel checks done in {time.perf_counter() - t1:.1f} s")
-        del graph
+            stages = host_pass_stages(ds, graph, dev, card)
+            reddit_graph = (graph, torch.from_numpy(ds.x).to(dev))
+        del graph, ds
         results.append((label, r))
         torch.cuda.empty_cache()
-    return results, launches, reddit_errs, reddit_records
+    return results, launches, reddit_errs, reddit_records, stages, reddit_graph
 
 
 def median_ms(fn, runs=TIMING_RUNS) -> float:
@@ -1361,9 +1417,8 @@ def phase_mesh_train(dev, card) -> tuple[list, dict]:
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        r = train.main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), *extra])
-        counts = {k: (sum(w.launches for w in ws), sum(w.plain_calls for w in ws))
-                  for k, (_, _, _, ws) in KERNELS.items()}
+        r = run_main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), *extra])
+        counts = launch_counts()
         r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         r["seconds"] = time.perf_counter() - t0
         print(f"  {r['route']}  first loss {r['first_loss']:.6f}  final loss "
@@ -1372,39 +1427,207 @@ def phase_mesh_train(dev, card) -> tuple[list, dict]:
         if not (math.isfinite(r["final_loss"]) and r["final_loss"] < r["first_loss"]):
             raise AssertionError(f"{label}: loss did not fall ({r['first_loss']} -> "
                                  f"{r['final_loss']})")
-        if (any(counts[k][0] <= 0 for k in expected)
-                or any(c[0] for k, c in counts.items() if k not in expected)
-                or any(c[1] for c in counts.values())):
-            raise AssertionError(f"{label}: expected launches of {expected} and no other "
-                                 f"kernel, no plain calls; got {counts}")
+        check_launches(label, counts, expected)
         if r["split"] != (True, True) or r["tc_blocks"] != 334:
             raise AssertionError(f"{label}: split {r['split']}, {r['tc_blocks']} TC blocks; "
                                  "expected the split stream both ways and 334")
         for k, c in counts.items():
             launches[k] += c[0]
         del r["graph"]
-        single = train.main(["--device", "cuda", "--epochs", "1", *pubmed, *model])
+        single = run_main(["--device", "cuda", "--epochs", "1", *pubmed, *model])
         rel = abs(r["first_loss"] - single["first_loss"]) / abs(single["first_loss"])
         print(f"  first loss {r['first_loss']:.6f} vs one device {single['first_loss']:.6f}: "
               f"relative difference {rel:.3e} (rtol {FIRST_LOSS_RTOL})")
         if not rel <= FIRST_LOSS_RTOL:
             raise AssertionError(f"{label}: first loss {r['first_loss']} vs one device "
                                  f"{single['first_loss']}")
-        del single["graph"]
+        del single["graph"], single["dataset"]
         results.append((label, r))
         torch.cuda.empty_cache()
     return results, launches
 
 
-def build_kernels():
-    """One nvcc per source, all started together; prints ``-Xptxas -v``."""
+# The keys ``train.main([..., "--single_kernel"])`` returns: the JAX CLI's.
+SAG_KEYS = {"ms", "edges_per_s", "useful_tflops", "tile_tflops", "mfu_pct",
+            "dispatch_chained_ms", "sddmm_ms", "sddmm_edges_per_s"}
+# Rounds of reddit's single-kernel chain (phase 14), the trainer's default:
+# at reddit's input width (d=602; K8 about 43 ms a call on an H100 at 700 W)
+# its 200 SpMM rounds, 50 dispatch-chained ones and 100 SDDMM rounds take
+# about 25 s.
+REDDIT_SAG_ROUNDS = 200
+# A resumed run's final loss against an uninterrupted run's: K1 adds the
+# parts of a split window's rows (pubmed's hub window) with f32 atomics in
+# no fixed order, as K2/K3 and K8 add rows cut between ranges, so the last
+# bits vary from run to run and only a tolerance is promised on the card.
+RESUME_RTOL = 1e-5
+
+
+def phase_single_kernel(reddit, dev) -> tuple[list, dict]:
+    """Phase 14: the trainer's ``--single_kernel`` (``train.profile_sag``):
+    pubmed at 512x128 (K1, K4), DD (K5, K1 for the residual, K4), pubmed on
+    ``--mesh 4x2`` (K1, K4), and reddit: ``profile_sag`` over phase 11's
+    reddit GCN graph and features (K8, K9), ``REDDIT_SAG_ROUNDS`` rounds.
+    Every count is set to 0 just before each run and read just after: each
+    run must launch its kernels and no others, and no plain version.
+    Returns each run's stats and the launches summed over them."""
+    pubmed = ["--dataset", "pubmed", "--dim", "500", "--classes", "3"]
+    runs = [
+        ("pubmed 512x128", pubmed, ("K1", "K4")),
+        ("DD", ["--dataset", "DD", "--dim", "89", "--classes", "2"], ("K5", "K1", "K4")),
+        ("pubmed --mesh 4x2", [*pubmed, "--mesh", "4x2"], ("K1", "K4")),
+    ]
+    results, launches = [], {k: 0 for k in KERNELS}
+
+    def read(label, expected, stats, t0):
+        counts = launch_counts()
+        check_launches(label, counts, expected)
+        for k, c in counts.items():
+            launches[k] += c[0]
+        print(f"  {label}: SAG {stats['ms']:.4f} ms a round, {stats['edges_per_s']:.4e} edges/s, "
+              f"mfu_pct {stats['mfu_pct']:.4f}, dispatch-chained {stats['dispatch_chained_ms']:.4f}"
+              f" ms, SDDMM {stats['sddmm_ms']:.4f} ms ({stats['sddmm_edges_per_s']:.4e} edges/s);"
+              f" run {time.perf_counter() - t0:.1f} s; "
+              + "  ".join(f"{k} launches {c[0]}" for k, c in counts.items() if c[0]))
+        results.append((label, stats))
+
+    for label, extra, expected in runs:
+        print(f"--- train.main {' '.join(extra)} --single_kernel")
+        t0 = time.perf_counter()
+        reset_counts()
+        r = run_main(["--device", "cuda", *extra, "--single_kernel"])
+        if set(r) != SAG_KEYS:
+            raise AssertionError(f"{label}: --single_kernel returned {sorted(r)}")
+        read(label, expected, r, t0)
+    graph, x = reddit
+    print(f"--- train.profile_sag(the reddit GCN run's graph and features, "
+          f"num_rounds={REDDIT_SAG_ROUNDS})")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    reset_counts()
+    sec, stats = train.profile_sag(graph, x, num_rounds=REDDIT_SAG_ROUNDS)
+    read("reddit", ("K8", "K9"), {"ms": sec * 1e3, **stats}, t0)
+    return results, launches
+
+
+def phase_checkpoints(dev) -> dict:
+    """Phase 15: pubmed GCN with ``--checkpoint_dir`` (every 2 epochs) for
+    6 epochs, then ``--resume --epochs 8``, its final loss held to an
+    uninterrupted 8-epoch run's (``RESUME_RTOL``; whether the two are
+    bit-equal is printed); ``--save_params`` then ``--load_params`` on one
+    device and on ``--mesh 4x2``: a run that loads them with learning rate 0
+    must save them back bit for bit.  Every run must launch K1 and no other
+    kernel, and no plain version; returns the launches."""
+    gcn = ["--device", "cuda", "--dataset", "pubmed", "--dim", "500", "--classes", "3",
+           "--model", "gcn"]
+    launches = {k: 0 for k in KERNELS}
+
+    def run(label, args) -> dict:
+        print(f"--- train.main {' '.join(args)}")
+        reset_counts()
+        r = run_main(args)
+        counts = launch_counts()
+        check_launches(label, counts, ("K1",))
+        for k, c in counts.items():
+            launches[k] += c[0]
+        r.pop("graph", None), r.pop("dataset", None)
+        torch.cuda.empty_cache()
+        return r
+
+    with tempfile.TemporaryDirectory() as d:
+        ck = [*gcn, "--checkpoint_dir", os.path.join(d, "ck"), "--checkpoint_every", "2"]
+        run("checkpointed, 6 epochs", [*ck, "--epochs", "6"])
+        resumed = run("resumed to 8 epochs", [*ck, "--epochs", "8", "--resume"])
+        whole = run("uninterrupted, 8 epochs", [*gcn, "--epochs", "8"])
+        a, b = resumed["final_loss"], whole["final_loss"]
+        rel = abs(a - b) / abs(b)
+        print(f"resume: resumed at epoch {resumed['resumed_at']}, final loss {a:.9g} against the "
+              f"uninterrupted run's {b:.9g}: relative difference {rel:.3e} (rtol {RESUME_RTOL}), "
+              f"bit-equal {a == b}")
+        if resumed["resumed_at"] != 6 or not rel <= RESUME_RTOL:
+            raise AssertionError("the resumed run does not continue the checkpointed one")
+        for tag, extra in (("one device", []), ("--mesh 4x2", ["--mesh", "4x2", "--no_dropout"])):
+            saved, again = os.path.join(d, "saved.pt"), os.path.join(d, "again.pt")
+            run(f"{tag} --save_params", [*gcn, *extra, "--epochs", "2", "--save_params", saved])
+            run(f"{tag} --load_params", [*gcn, *extra, "--epochs", "1", "--lr", "0",
+                                         "--load_params", saved, "--save_params", again])
+            pa = torch.load(saved, weights_only=True)["params"]
+            pb = torch.load(again, weights_only=True)["params"]
+            same = pa.keys() == pb.keys() and all(torch.equal(pa[k], pb[k]) for k in pa)
+            print(f"{tag}: --load_params then learning rate 0 saved back "
+                  f"{len(pa)} parameters {'bit for bit' if same else 'CHANGED'}")
+            if not same:
+                raise AssertionError(f"{tag}: --load_params did not restore every parameter")
+    return launches
+
+
+def build_kernels():
+    """One nvcc per source and the native SGT pass's g++, all started
+    together; prints ``-Xptxas -v``, the g++ flags and each build's
+    seconds.  A failed build raises."""
+    t0 = time.perf_counter()
+
+    def build_native() -> tuple[float, bool]:
+        t = time.perf_counter()
+        found = native.library_path(native.BUILD_DIR).exists()
+        native.build(native.BUILD_DIR)
+        return time.perf_counter() - t, found
+
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
+        native_build = pool.submit(build_native)
         list(pool.map(lambda name: _kernels.build(name, verbose=True), KERNEL_SOURCES))
+        native_s, found = native_build.result()
     for name in KERNEL_SOURCES:
         _kernels.load(name)
     print(f"K1-K10 build (nvcc, sm_90a, {len(KERNEL_SOURCES)} sources at once): "
           f"{time.perf_counter() - t0:.2f} s")
+    if not native.available():
+        raise RuntimeError(f"the native SGT pass did not load: {native.error()}")
+    print(f"native SGT pass: {native.CXX} {' '.join(native.FLAGS)} {native.SRC.name} -> "
+          f"{native.library_path(native.BUILD_DIR).name}: "
+          f"{'found built, ' if found else ''}{native_s:.2f} s")
+
+
+class Tee(io.TextIOBase):
+    """Writes to every stream it holds."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def run_main(args) -> dict:
+    """``train.main(args)`` with its output printed as it comes; raises
+    unless it printed ``SGT pass:\tnative`` (every trainer run tiles its
+    graph with the native host pass)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(Tee(sys.stdout, buf)):
+        r = train.main(args)
+    if "SGT pass:\tnative\n" not in buf.getvalue():
+        raise AssertionError(f"train.main {' '.join(args)}: no 'SGT pass:\tnative' line")
+    return r
+
+
+def launch_counts() -> dict:
+    """Each kernel's (launches, plain calls) since ``reset_counts``."""
+    return {k: (sum(w.launches for w in ws), sum(w.plain_calls for w in ws))
+            for k, (_, _, _, ws) in KERNELS.items()}
+
+
+def check_launches(label, counts, expected) -> None:
+    """Raise unless the kernels ``expected`` launched, no other kernel of
+    K1-K10 did and no plain version ran."""
+    if (any(counts[k][0] <= 0 for k in expected)
+            or any(c[0] for k, c in counts.items() if k not in expected)
+            or any(c[1] for c in counts.values())):
+        raise AssertionError(f"{label}: expected launches of {expected} and no other "
+                             f"kernel, no plain calls; got {counts}")
 
 
 def phase_start(name) -> float:
@@ -1464,7 +1687,8 @@ def main():
     # ---- 11. the main path --------------------------------------------------
     t0 = phase_start("11. the main path")
     with tempfile.TemporaryDirectory() as data_dir:
-        runs, launches, reddit_errs, reddit_records = phase_train(data_dir, dev, card)
+        runs, launches, reddit_errs, reddit_records, prep_stages, reddit = phase_train(
+            data_dir, dev, card)
     for k, kernel_errs in reddit_errs.items():
         errs[k].update(kernel_errs)
     phase_end(t0)
@@ -1490,6 +1714,21 @@ def main():
         launches[k] += c
     phase_end(t0)
 
+    # ---- 14. --single_kernel ----------------------------------------------------
+    t0 = phase_start("14. --single_kernel on each route")
+    sag_runs, sag_launches = phase_single_kernel(reddit, dev)
+    del reddit
+    torch.cuda.empty_cache()
+    for k, c in sag_launches.items():
+        launches[k] += c
+    phase_end(t0)
+
+    # ---- 15. checkpoints ------------------------------------------------------
+    t0 = phase_start("15. checkpoints, --resume, --save_params / --load_params")
+    for k, c in phase_checkpoints(dev).items():
+        launches[k] += c
+    phase_end(t0)
+
     for (k, geo, d), (kt, pt, dev) in times.items():
         print(f"  time {KERNELS[k][0]} {geo} d={d}: kernel {kt:.4f} ms (device {dev:.4f} ms), "
               f"plain {pt:.4f} ms (median of {TIMING_RUNS} event pairs a call; device: one "
@@ -1498,7 +1737,8 @@ def main():
     for name, r in runs:
         print(f"main path [{name}]: dense_tiles {r['dense_tiles']}  streamed {r['streamed']}  "
               f"block_diag {r['block_diag']}  TC_Blocks {r['tc_blocks']}  "
-              f"Prep. (ms) {r['prep_ms']:.3f}  Prep host (ms) {r['prep_host_ms']:.3f}  "
+              f"Prep. (ms) {r['prep_ms']:.3f}  Prep host (ms) {r['prep_host_ms']:.3f} "
+              f"(SGT pass {r['host_pass']})  "
               f"Train (ms) {r['train_ms']:.3f}  First loss {r['first_loss']:.6f}  "
               f"Final loss {r['final_loss']:.6f}  peak host RSS {r['peak_rss'] / 2**30:.2f} GiB  "
               f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB  "
@@ -1509,6 +1749,12 @@ def main():
               f"First loss {r['first_loss']:.6f}  Final loss {r['final_loss']:.6f}  "
               f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB  "
               f"run {r['seconds']:.1f} s  (card: {card}; one card held all shards)")
+    print("reddit Prep host (ms) by stage: " + json.dumps(
+        {p: {k: round(v, 3) for k, v in st.items()} for p, st in prep_stages.items()})
+          + f" (card host: {card})")
+    for name, stats in sag_runs:
+        print(f"--single_kernel [{name}]: " + "  ".join(
+            f"{k} {v:.6g}" for k, v in stats.items()) + f"  (card: {card})")
     kernels = []
     for k, (name, source, replaces, _) in KERNELS.items():
         kernels.append({

@@ -64,13 +64,20 @@ port differs from the JAX chunk routes, changing no value:
   ``edge_perm`` gather (``edge_perm`` stays on the host).
 
 ``block_group`` 0 (auto) resolves to 1 here; the JAX CLI's auto resolves to
-2 on block-dense graphs (reddit) when its native pass is present.  That
-changes only padding blocks, hence padding chunks: TC_Blocks and every op
-value stay the same.
+2 on block-dense graphs (reddit) when its native pass is present.  The
+port keeps 1 on purpose: its kernels walk a window's blocks themselves, so
+grouping buys them nothing, and the value changes only padding blocks,
+hence padding chunks: TC_Blocks, Exp_Edges and every op value stay the same.
+
+The host passes run natively (``sgt/native``) where its library loads, as
+the JAX package's do, else in NumPy; both give the same arrays bit for bit.
+``host_pass`` names the one that ran, and ``prep_stages`` their seconds by
+stage (``prep_host_s`` is their total).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -94,6 +101,7 @@ from tcgnn_tpu_torch.ops.row_index import RowIndex
 from tcgnn_tpu_torch.ops.sddmm import EdgeList, sddmm_tc_dense
 from tcgnn_tpu_torch.ops.sfused import sgt_row_index, spmm_sfused, spmm_sfused_bwd
 from tcgnn_tpu_torch.ops.spmm import build_a_tiles, spmm_tc_dense
+from tcgnn_tpu_torch.sgt import native
 from tcgnn_tpu_torch.sgt.blockdiag import BDMeta, extract_block_diag
 from tcgnn_tpu_torch.sgt.stream import needs_streaming, segment_chunks
 from tcgnn_tpu_torch.sgt.translate import (
@@ -218,6 +226,22 @@ class BDPack:
     res_index: Optional[RowIndex] = None  # the residual tiles' per-row index (K2/K3)
 
 
+class StageClock:
+    """Seconds of the host passes by stage, each stage's calls summed
+    (both directions, the residual's tiling with the graph's)."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def __call__(self, stage: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.seconds[stage] = self.seconds.get(stage, 0.0) + time.perf_counter() - t0
+
+
 def _pack_elems(m: BDMeta) -> int:
     return padded_bins(m.num_bins) * m.bin_rows * len(m.offsets) * m.bin_rows
 
@@ -239,7 +263,10 @@ class TiledGraph:
     streams a chunk-route graph past the TPU's one-shot limits; ``True``
     forces it (raises with dense tiles).  ``block_diag`` (dense tiles only):
     ``None`` takes the BD route where the JAX package takes it; ``False``
-    keeps the condensed route; ``True`` raises below the BD coverage gate."""
+    keeps the condensed route; ``True`` raises below the BD coverage gate.
+    ``host_pass``: ``"auto"``, ``"native"`` or ``"numpy"``, the host passes'
+    ``impl``; ``"auto"`` is the trainer's, the others let a caller time one
+    pass against the other on the same graph."""
 
     def __init__(
         self,
@@ -253,6 +280,7 @@ class TiledGraph:
         block_diag: Optional[bool] = None,
         dense_tiles: Optional[bool] = None,
         streamed: Optional[bool] = None,
+        host_pass: str = "auto",
     ):
         row_pointers = np.asarray(row_pointers)
         column_index = np.asarray(column_index)
@@ -267,23 +295,33 @@ class TiledGraph:
         self.config = config
 
         # ---- host passes (transpose, symmetry, routing, BD extraction, SGT,
-        # tile builds): everything before the uploads, timed as prep_host_s.
+        # tile builds): everything before the uploads, timed as prep_host_s,
+        # by stage as prep_stages.
         t0 = time.perf_counter()
-        t_ptr, t_idx, t_src = transpose_csr(row_pointers, column_index, num_nodes)
-        symmetric = symmetric or is_symmetric(row_pointers, column_index, t_ptr, t_idx)
+        self.host_pass = native.pass_name(host_pass)
+        impl = "native" if self.host_pass == "native" else "numpy"
+        clock = StageClock()
+        self.prep_stages = clock.seconds
+        with clock("transpose"):
+            t_ptr, t_idx, t_src = transpose_csr(row_pointers, column_index, num_nodes, impl)
+        with clock("symmetry"):
+            symmetric = symmetric or is_symmetric(row_pointers, column_index, t_ptr, t_idx)
         self.symmetric = symmetric
 
         def extract_bd():
             """Both directions' BD decompositions, or None below the gate."""
-            bdm = extract_block_diag(row_pointers, column_index, num_nodes)
-            if bdm is None:
-                return None
-            bdm_t = bdm if symmetric else extract_block_diag(t_ptr, t_idx, num_nodes)
+            with clock("bd_probe"):
+                bdm = extract_block_diag(row_pointers, column_index, num_nodes, impl=impl)
+                if bdm is None:
+                    return None
+                bdm_t = bdm if symmetric else extract_block_diag(t_ptr, t_idx, num_nodes,
+                                                                 impl=impl)
             return None if bdm_t is None else (bdm, bdm_t)
 
         tile_elems = config.blk_h * config.blk_w
-        nb_f = count_blocks(row_pointers, column_index, num_nodes, config)
-        nb_t = nb_f if symmetric else count_blocks(t_ptr, t_idx, num_nodes, config)
+        with clock("block_counts"):
+            nb_f = count_blocks(row_pointers, column_index, num_nodes, config, impl)
+            nb_t = nb_f if symmetric else count_blocks(t_ptr, t_idx, num_nodes, config, impl)
         fits_int32 = max(nb_f, nb_t) * tile_elems < 2**31
         dense_bytes = (nb_f if symmetric else nb_f + nb_t) * tile_elems
         bd_pair, bd_probed = None, False
@@ -315,7 +353,8 @@ class TiledGraph:
         self.dense_tiles = dense_tiles
 
         if not dense_tiles:
-            self._init_chunk_route(row_pointers, column_index, t_ptr, t_idx, t_src, streamed, t0)
+            self._init_chunk_route(row_pointers, column_index, t_ptr, t_idx, t_src, streamed, t0,
+                                   clock, impl)
             return
 
         self.streamed = False
@@ -338,26 +377,27 @@ class TiledGraph:
         needs_condensed = not (
             self.block_diag and self.bd_full_coverage and self.bd_addressable
         )
-        self.host_meta = sparse_graph_translate(
-            row_pointers, column_index, num_nodes, config, build_tiles=needs_condensed
-        )
-        self.host_meta_t = (
-            self.host_meta
-            if symmetric
-            else sparse_graph_translate(t_ptr, t_idx, num_nodes, config,
-                                        build_tiles=needs_condensed)
-        )
-        self.tc_blocks, self.exp_edges = self.host_meta.num_real_blocks, self.host_meta.exp_edges
         def residual_sgt(m):
             """The SGT tiling of a BD decomposition's residual, if any."""
             if m.res_ptr is None:
                 return None
             return sparse_graph_translate(m.res_ptr, m.res_idx, self.num_nodes, config,
-                                          build_tiles=True)
+                                          build_tiles=True, impl=impl)
 
-        if self.block_diag:
-            res_host = residual_sgt(bdm)
-            res_host_t = res_host if symmetric else residual_sgt(bdm_t)
+        with clock("sgt"):
+            self.host_meta = sparse_graph_translate(
+                row_pointers, column_index, num_nodes, config, build_tiles=needs_condensed,
+                impl=impl)
+            self.host_meta_t = (
+                self.host_meta
+                if symmetric
+                else sparse_graph_translate(t_ptr, t_idx, num_nodes, config,
+                                            build_tiles=needs_condensed, impl=impl)
+            )
+            if self.block_diag:
+                res_host = residual_sgt(bdm)
+                res_host_t = res_host if symmetric else residual_sgt(bdm_t)
+        self.tc_blocks, self.exp_edges = self.host_meta.num_real_blocks, self.host_meta.exp_edges
         # K4 reads each edge's row and column: from the condensed meta where
         # it is uploaded, else from an edge list.
         edge_rows = None if needs_condensed else np.repeat(
@@ -400,26 +440,31 @@ class TiledGraph:
         self.sfused_index = (sgt_row_index(self.meta, self.a_struct)
                              if fused and not self._agnn_bd else None)
 
-    def _init_chunk_route(self, row_pointers, column_index, t_ptr, t_idx, t_src, streamed, t0):
+    def _init_chunk_route(self, row_pointers, column_index, t_ptr, t_idx, t_src, streamed, t0,
+                          clock, impl):
         """The chunk route: the chunk layouts of both directions (or their
         window segments), uploaded; no tiles.  ``t0`` starts the host-pass
-        clock (``prep_host_s``)."""
+        clock (``prep_host_s``), ``clock`` times its stages, ``impl`` is the
+        host pass."""
         cfg, n = self.config, self.num_nodes
         self.block_diag = False
         self.bd = self.bd_t = self.bd_offsets = self.bd_offsets_t = None
         self.bd_full_coverage = self.bd_addressable = self._agnn_bd = False
         self.meta = self.meta_t = self.a_struct = self.a_struct_t = None
         self.agnn_aggregate = self.sfused_index = None
-        host = sparse_graph_translate(row_pointers, column_index, n, cfg, emit_chunks=True)
-        host_t = host if self.symmetric else sparse_graph_translate(
-            t_ptr, t_idx, n, cfg, emit_chunks=True)
+        with clock("sgt"):
+            host = sparse_graph_translate(row_pointers, column_index, n, cfg, emit_chunks=True,
+                                          impl=impl)
+            host_t = host if self.symmetric else sparse_graph_translate(
+                t_ptr, t_idx, n, cfg, emit_chunks=True, impl=impl)
         self.tc_blocks, self.exp_edges = host.num_real_blocks, host.exp_edges
         if streamed is None:
             streamed = needs_streaming(host) or needs_streaming(host_t)
         self.streamed = streamed
         if streamed:
-            host = segment_chunks(host)
-            host_t = host if self.symmetric else segment_chunks(host_t)
+            with clock("segments"):
+                host = segment_chunks(host)
+                host_t = host if self.symmetric else segment_chunks(host_t)
         self.prep_host_s = time.perf_counter() - t0
 
         # The host arrays (several GB on reddit) go once uploaded.

@@ -65,6 +65,7 @@ from tcgnn_tpu_torch.ops.spmm import build_a_tiles, spmm_tc_dense
 from tcgnn_tpu_torch.parallel import collectives as C
 from tcgnn_tpu_torch.parallel.mesh import Mesh, make_mesh
 from tcgnn_tpu_torch.parallel.partition import ShardedSGTMeta, partition_graph
+from tcgnn_tpu_torch.sgt import native
 from tcgnn_tpu_torch.sgt.translate import (
     TorchSGTMeta,
     count_blocks,
@@ -223,6 +224,9 @@ class DistributedTiledGraph:
         self.num_nodes = int(num_nodes)
         self.num_edges = int(len(column_index))
         self.block_diag = self.streamed = False
+        # The partition's host passes (transpose, SGT, BD probe) take
+        # impl="auto": the native pass where its library loads.
+        self.host_pass = native.pass_name("auto")
 
         # ---- route gates: every route but the dense-tile one raises ------
         if dense_tiles is False:

@@ -8,7 +8,9 @@ so overlapping work counts once), the idle share of the device window (the
 first device operation's start to the last one's end), the device
 operations, and the largest device items.  The trainer wraps its timed
 epochs in it under ``--profile_dir``.  ``device_ms`` is the device time per
-call of one function (a kernel or its plain version).
+call of one function (a kernel or its plain version).  ``op_stats`` and
+``kernel_report`` turn a time a round of ``--single_kernel`` into edges/s
+and TFLOP/s, with the keys of ``tcgnn_tpu.utils.profiling``.
 
 Run on the card from the repository root:
     python -m tcgnn_tpu_torch.profiling [OUT_DIR [GROUP ...]]
@@ -28,6 +30,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 TOP_ITEMS = 8
+
+# The card's nominal dense BF16 tensor-core peak: NVIDIA H100 80GB HBM3 (the
+# SXM5 part) at its 700 W power limit, NVIDIA's data sheet figure (989.4
+# TFLOP/s without sparsity), not a measurement.  ``mfu_pct`` is quoted
+# against it, as the JAX package quotes its chip's nominal peak.
+PEAK_BF16_TFLOPS = 989.4
 
 
 def union_us(intervals) -> float:
@@ -107,6 +115,29 @@ def trace(log_dir: str | None, device: torch.device, epochs: int):
     print(f"# profiler trace written to {path}")
     summary.update(summarize(prof, max(epochs, 1)))
     print_summary(summary)
+
+
+def op_stats(num_edges: int, feature_dim: int, seconds: float) -> dict:
+    """Throughput of one aggregation pass over the whole graph: edges/s and
+    the useful TFLOP/s, 2 operations (a multiply and an add) an edge and
+    feature."""
+    edges_per_s = num_edges / seconds if seconds > 0 else float("inf")
+    tflops = 2.0 * num_edges * feature_dim / seconds / 1e12 if seconds > 0 else 0.0
+    return {"edges_per_s": edges_per_s, "useful_tflops": tflops}
+
+
+def kernel_report(num_edges: int, exp_edges: int, feature_dim: int, seconds: float,
+                  peak_tflops: float = PEAK_BF16_TFLOPS) -> dict:
+    """``op_stats`` plus the tile work: ``tile_tflops`` = 2 * Exp_Edges * d
+    / t (Exp_Edges = TC_Blocks * blk_h * blk_w, the dense tile work a
+    tensor-core kernel would issue) and ``mfu_pct`` against ``peak_tflops``.
+    ``d`` is the true width: the JAX package rounds it up to its lane width,
+    a TPU layout rule."""
+    stats = op_stats(num_edges, feature_dim, seconds)
+    tile_tflops = 2.0 * exp_edges * feature_dim / seconds / 1e12 if seconds > 0 else 0.0
+    stats["tile_tflops"] = tile_tflops
+    stats["mfu_pct"] = 100.0 * tile_tflops / peak_tflops
+    return stats
 
 
 def is_fill(event) -> bool:

@@ -1,8 +1,10 @@
 """Block-diagonal (BD) decomposition of a CSR adjacency (PyTorch port).
 
-Counterpart of ``tcgnn_tpu.sgt.blockdiag``: its NumPy path, carried over
-(the port has no native pass), with the same output field by field
-(``tests/test_torch_blockdiag.py`` holds the two packages to it).
+Counterpart of ``tcgnn_tpu.sgt.blockdiag``: its native path (the offset
+histogram and the fill of ``sgt/native``) and its NumPy path, carried over
+with the same output field by field (``tests/test_torch_blockdiag.py``
+holds the two packages to it, ``tests/test_torch_native_sgt.py`` the two
+paths to each other).
 
 With 128-row bins, an edge ``(i, j)`` lies on the block diagonal at offset
 ``j // 128 - i // 128``.  On graphs that are unions of small components
@@ -25,6 +27,8 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+from tcgnn_tpu_torch.sgt import native
 
 # A diagonal offset is kept, for an explicitly supplied candidate set, only
 # when it carries at least this share of the edges.
@@ -81,11 +85,16 @@ class BDMeta:
     # into the [K, B, bin, bin] tiles (the weighted ops' scatter targets).
     cov_edge_ids: np.ndarray
     cov_flat_idx: np.ndarray
+    # packed_cov_idx() as the native fill emits it (None on the NumPy path,
+    # or where the packed index passes int32).
+    cov_pack_idx: Optional[np.ndarray] = None
 
     def packed_cov_idx(self) -> np.ndarray:
         """``cov_flat_idx`` re-addressed into the packed ``[Bp, bin, K*bin]``
         layout (``packed_index``), so per-edge weights scatter straight into
         the pack; independent of the bin padding."""
+        if self.cov_pack_idx is not None:
+            return self.cov_pack_idx
         return packed_index(self.cov_flat_idx, self.num_bins, len(self.offsets), self.bin_rows)
 
     def dense_tiles(self) -> np.ndarray:
@@ -123,6 +132,7 @@ def extract_block_diag(
     candidate_offsets=None,
     min_offset_share: float = MIN_OFFSET_SHARE,
     min_coverage: float = MIN_COVERAGE,
+    impl: str = "auto",
 ) -> Optional[BDMeta]:
     """Decompose A into dense diagonal-block tiles plus a residual CSR.
 
@@ -132,7 +142,8 @@ def extract_block_diag(
     least ``max(64, PAYOFF_EDGES_PER_BIN * B)`` edges each.
 
     Returns None when the kept offsets cover less than ``min_coverage`` of
-    the edges or the tiles would pass ``BD_TILE_BUDGET_BYTES``.
+    the edges or the tiles would pass ``BD_TILE_BUDGET_BYTES``.  ``impl``
+    picks the host pass (``native.use``).
     """
     ptr = np.ascontiguousarray(row_pointers, dtype=np.int64)
     cols_i32 = np.ascontiguousarray(column_index, dtype=np.int32)
@@ -142,8 +153,12 @@ def extract_block_diag(
     if e == 0:
         return None
 
-    rows, cols, off = bd_edge_offsets(ptr, cols_i32, bin_rows)
-    vals, cnts = np.unique(off, return_counts=True)
+    use_native = native.use(impl)
+    if use_native:
+        vals, cnts = native.bd_hist(ptr, cols_i32, bin_rows, nbins)
+    else:
+        rows, cols, off = bd_edge_offsets(ptr, cols_i32, bin_rows)
+        vals, cnts = np.unique(off, return_counts=True)
     cnt_of = dict(zip(vals.tolist(), cnts.tolist()))
 
     if candidate_offsets is None:
@@ -170,11 +185,39 @@ def extract_block_diag(
     if not offsets:
         return None
     offsets = tuple(sorted(offsets))
-    coverage = sum(counts[k] for k in offsets) / e
+    num_cov = sum(counts[k] for k in offsets)
+    coverage = num_cov / e
     if coverage < min_coverage:
         return None
     if len(offsets) * nbins * bin_rows * bin_rows > BD_TILE_BUDGET_BYTES:
         return None
+
+    if use_native:
+        # One counting and one writing pass: the covered and residual
+        # streams in CSR order, and the sorted unique tile indices from a
+        # dedup within each offset's segment (the flat layout is k-major).
+        (cov_flat, cov_eid, cov_pack, uniq, cnt_i32, res_counts, res_idx,
+         res_eid) = native.bd_fill(ptr, cols_i32, bin_rows, nbins, offsets,
+                                   [counts[k] for k in offsets], e - num_cov)
+        dtype = np.int8 if (len(cnt_i32) == 0 or cnt_i32.max() <= 127) else np.int16
+        if coverage < 1.0:
+            res = (np.cumsum(res_counts, dtype=np.int64).astype(np.int32), res_idx, res_eid)
+        else:
+            res = (None, None, None)
+        return BDMeta(
+            bin_rows=bin_rows,
+            num_bins=nbins,
+            offsets=offsets,
+            tile_idx=uniq,
+            tile_cnt=cnt_i32.astype(dtype),
+            coverage=coverage,
+            res_ptr=res[0],
+            res_idx=res[1],
+            res_edge_ids=res[2],
+            cov_edge_ids=cov_eid,
+            cov_flat_idx=cov_flat,
+            cov_pack_idx=cov_pack,
+        )
 
     covered = np.isin(off, offsets)
     coverage = float(covered.mean())

@@ -6,18 +6,22 @@ Reverse Cuthill-McKee narrows the adjacency's band, so banded graphs reach
 the block-diagonal route (``sgt/blockdiag.py``) and power-law graphs share
 more neighbours per row window.
 
-Carried over: ``rcm_permutation`` (scipy's ``reverse_cuthill_mckee``, the
-JAX package's fallback without its native library), ``permute_csr``,
+Carried over: ``rcm_permutation`` (the native BFS of ``sgt/native`` under
+``impl="auto"`` where its library loads, as the JAX package runs it, and
+scipy's ``reverse_cuthill_mckee`` under ``impl="numpy"``; the two give
+different orders), ``community_permutation`` (the native Rabbit-style
+pass; where its library is missing the port raises with the build's error,
+where the JAX package quietly takes RCM instead), ``permute_csr``,
 ``apply_permutation``, ``reorder_dataset``, and the distributed layer's
 window-granular shard balance (``shard_balance_permutation``,
-``balance_dataset``).  The community ordering exists only as the JAX
-package's native C++ pass; here it raises, so the port never trains on
-another ordering than the JAX package would.
+``balance_dataset``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from tcgnn_tpu_torch.sgt import native
 
 REORDER_METHODS = ("none", "rcm", "community")
 
@@ -33,12 +37,26 @@ def _symmetrized(row_pointers, column_index, num_nodes: int):
     return (a + a.T).tocsr()
 
 
-def rcm_permutation(row_pointers, column_index, num_nodes: int) -> np.ndarray:
-    """``perm[new_id] = old_id`` by reverse Cuthill-McKee on ``A + A^T``."""
+def rcm_permutation(row_pointers, column_index, num_nodes: int,
+                    impl: str = "auto") -> np.ndarray:
+    """``perm[new_id] = old_id`` by reverse Cuthill-McKee on ``A + A^T``:
+    the native BFS (``"auto"`` where the library loads, ``"native"``), or
+    scipy's (``"numpy"``)."""
+    s = _symmetrized(row_pointers, column_index, num_nodes)
+    if native.use(impl):
+        return native.rcm(s.indptr.astype(np.int64), s.indices.astype(np.int32))
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 
-    s = _symmetrized(row_pointers, column_index, num_nodes)
     return np.asarray(reverse_cuthill_mckee(s, symmetric_mode=True), dtype=np.int64)
+
+
+def community_permutation(row_pointers, column_index, num_nodes: int) -> np.ndarray:
+    """``perm[new_id] = old_id`` by Rabbit-style community aggregation on
+    ``A + A^T`` (single-pass modularity-gain merging, ids by a DFS of the
+    dendrogram: ``sgt.cpp:sgt_community``).  Native only: raises where the
+    library is missing."""
+    s = _symmetrized(row_pointers, column_index, num_nodes)
+    return native.community(s.indptr.astype(np.int64), s.indices.astype(np.int32))
 
 
 def permute_csr(row_pointers, column_index, perm: np.ndarray):
@@ -93,10 +111,8 @@ def reorder_dataset(ds, method: str = "rcm"):
         return apply_permutation(ds, rcm_permutation(ds.row_pointers, ds.column_index,
                                                      ds.num_nodes))
     if method == "community":
-        raise NotImplementedError(
-            "--reorder community is the JAX package's native C++ pass "
-            "(sgt.cpp:sgt_community), not ported yet (ROADMAP.md, Queue 1 item 2)"
-        )
+        return apply_permutation(ds, community_permutation(ds.row_pointers, ds.column_index,
+                                                           ds.num_nodes))
     raise ValueError(f"unknown reorder method {method!r}")
 
 
@@ -116,7 +132,7 @@ def shard_balance_permutation(
     slot, so every earlier window keeps ``blk_h`` rows.
     """
     from tcgnn_tpu_torch.config import DEFAULT_CONFIG
-    from tcgnn_tpu_torch.sgt.translate import _cdiv, _pad_blocks, sparse_graph_translate
+    from tcgnn_tpu_torch.sgt.translate import _cdiv, _pad_blocks, window_blocks
 
     cfg = DEFAULT_CONFIG if config is None else config
     blk_h = cfg.blk_h
@@ -128,7 +144,7 @@ def shard_balance_permutation(
         return identity
 
     # Each window's padded block count: the load it adds to its shard.
-    per = sparse_graph_translate(row_pointers, column_index, n, cfg).block_partition
+    per = window_blocks(row_pointers, column_index, n, cfg)
     load = _pad_blocks(np.asarray(per, np.int64), cfg).astype(np.int64)
 
     wd = _cdiv(w, g)

@@ -17,8 +17,11 @@ of one segment (``TorchChunkMeta``; the streamed route's segments,
 ``sgt/stream.py``, are the same layout with more), with the CSR row index
 derived from it that the chunk kernels (K8, K9) read.
 
-The JAX package's native C++ pass is not carried over: the NumPy pass gives
-the same arrays.
+``impl`` picks the host pass, with the JAX package's meaning: ``"native"``
+(the C++/OpenMP pass of ``sgt/native``; raises where its library is
+missing), ``"numpy"`` (the vectorized NumPy pass), or ``"auto"`` (native
+where the library loads).  Both give the same arrays, bit for bit
+(``tests/test_torch_native_sgt.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from tcgnn_tpu_torch.config import DEFAULT_CONFIG, TileConfig
+from tcgnn_tpu_torch.sgt import native
 
 
 def _cdiv(a, b):
@@ -393,6 +397,7 @@ def sparse_graph_translate(
     num_cols: Optional[int] = None,
     build_tiles: bool = False,
     emit_chunks: bool = False,
+    impl: str = "auto",
 ) -> SGTMeta:
     """Run the SGT tiling pass over a CSR adjacency.
 
@@ -405,6 +410,8 @@ def sparse_graph_translate(
       build_tiles: also build the structural dense tiles (``meta.a_tiles``).
       emit_chunks: also lay out the uniform edge chunks of the chunk route
         (the ``chunk_*`` fields and ``edge_perm``).
+      impl: ``"auto"``, ``"native"`` or ``"numpy"``: the host pass
+        (``native.use``).
     """
     blk_h, blk_w = config.blk_h, config.blk_w
     row_pointers = np.asarray(row_pointers, dtype=np.int64)
@@ -415,54 +422,73 @@ def sparse_graph_translate(
     num_windows = max(_cdiv(num_nodes, blk_h), 1)
     num_cols = _num_cols(column_index, num_nodes, num_cols)
     tile = blk_h * blk_w
+    use_native = native.use(impl)
 
-    # ---- condensed-column ranking: a pair's rank within its window is its
-    # condensed column.
-    edge_row, uniq_key, edge_pair = _window_pairs(
-        row_pointers, column_index, num_nodes, num_cols, blk_h
-    )
-    pair_window = (uniq_key // num_cols).astype(np.int64)
-    pair_col = (uniq_key % num_cols).astype(np.int64)
-    uniques_per_window = np.bincount(pair_window, minlength=num_windows)
-    window_pair_start = np.zeros(num_windows + 1, dtype=np.int64)
-    np.cumsum(uniques_per_window, out=window_pair_start[1:])
-    pair_rank = (
-        np.arange(len(uniq_key), dtype=np.int64) - window_pair_start[pair_window]
-    )
-
-    # ---- block partition -------------------------------------------------
-    real_blocks_per_window = _cdiv(uniques_per_window, blk_w)
-    num_real_blocks = int(real_blocks_per_window.sum())
-    blocks_per_window = _pad_blocks(real_blocks_per_window, config)
-    block_start = np.zeros(num_windows + 1, dtype=np.int64)
-    np.cumsum(blocks_per_window, out=block_start[1:])
-    num_blocks = int(block_start[-1])
-
-    # ---- per-block condensed-column gather table -------------------------
-    pair_block = block_start[pair_window] + pair_rank // blk_w
-    col_ids = np.zeros(num_blocks * blk_w, dtype=np.int32)
-    col_ids[pair_block * blk_w + pair_rank % blk_w] = pair_col
-
-    # ---- edge -> (block, row, col) ---------------------------------------
-    edge_rank = pair_rank[edge_pair]
-    edge_block = pair_block[edge_pair]
-    edge_c = (edge_rank % blk_w).astype(np.int32)
-    edge_r = (edge_row % blk_h).astype(np.int32)
-    edge_pos = (
-        edge_block * np.int64(tile)
-        + edge_r.astype(np.int64) * blk_w
-        + edge_c.astype(np.int64)
-    )
-    a_tiles = None
-    if build_tiles:
-        # Counts per slot; scattered from the O(E) unique positions so no
-        # tile-sized int64 intermediate is made.
-        pos, cnt = np.unique(edge_pos, return_counts=True)
-        a_tiles = np.zeros(
-            num_blocks * tile, np.int8 if cnt.max(initial=0) <= 127 else np.float32
+    if use_native:
+        # Per window: sort, dedup and rank the neighbour ids, fused with the
+        # tile build (OpenMP over windows).
+        col32 = np.ascontiguousarray(column_index, dtype=np.int32)
+        real_blocks_per_window = _per_window(
+            native.count_blocks(row_pointers, col32, blk_h, blk_w), num_windows)
+        num_real_blocks = int(real_blocks_per_window.sum())
+        blocks_per_window = _pad_blocks(real_blocks_per_window, config)
+        block_start = np.zeros(num_windows + 1, dtype=np.int64)
+        np.cumsum(blocks_per_window, out=block_start[1:])
+        num_blocks = int(block_start[-1])
+        col_ids, edge_pos, a_tiles, overflow = native.fill(
+            row_pointers, col32, block_start, blk_h, blk_w, build_tiles)
+        if build_tiles:
+            if overflow:  # a slot holds more than 127 edges
+                a_tiles = np.bincount(edge_pos, minlength=num_blocks * tile).astype(np.float32)
+            a_tiles = a_tiles.reshape(num_blocks, blk_h, blk_w)
+    else:
+        # ---- condensed-column ranking: a pair's rank within its window is
+        # its condensed column.
+        edge_row, uniq_key, edge_pair = _window_pairs(
+            row_pointers, column_index, num_nodes, num_cols, blk_h
         )
-        a_tiles[pos] = cnt
-        a_tiles = a_tiles.reshape(num_blocks, blk_h, blk_w)
+        pair_window = (uniq_key // num_cols).astype(np.int64)
+        pair_col = (uniq_key % num_cols).astype(np.int64)
+        uniques_per_window = np.bincount(pair_window, minlength=num_windows)
+        window_pair_start = np.zeros(num_windows + 1, dtype=np.int64)
+        np.cumsum(uniques_per_window, out=window_pair_start[1:])
+        pair_rank = (
+            np.arange(len(uniq_key), dtype=np.int64) - window_pair_start[pair_window]
+        )
+
+        # ---- block partition ---------------------------------------------
+        real_blocks_per_window = _cdiv(uniques_per_window, blk_w)
+        num_real_blocks = int(real_blocks_per_window.sum())
+        blocks_per_window = _pad_blocks(real_blocks_per_window, config)
+        block_start = np.zeros(num_windows + 1, dtype=np.int64)
+        np.cumsum(blocks_per_window, out=block_start[1:])
+        num_blocks = int(block_start[-1])
+
+        # ---- per-block condensed-column gather table ---------------------
+        pair_block = block_start[pair_window] + pair_rank // blk_w
+        col_ids = np.zeros(num_blocks * blk_w, dtype=np.int32)
+        col_ids[pair_block * blk_w + pair_rank % blk_w] = pair_col
+
+        # ---- edge -> (block, row, col) -----------------------------------
+        edge_rank = pair_rank[edge_pair]
+        edge_block = pair_block[edge_pair]
+        edge_c = (edge_rank % blk_w).astype(np.int32)
+        edge_r = (edge_row % blk_h).astype(np.int32)
+        edge_pos = (
+            edge_block * np.int64(tile)
+            + edge_r.astype(np.int64) * blk_w
+            + edge_c.astype(np.int64)
+        )
+        a_tiles = None
+        if build_tiles:
+            # Counts per slot; scattered from the O(E) unique positions so no
+            # tile-sized int64 intermediate is made.
+            pos, cnt = np.unique(edge_pos, return_counts=True)
+            a_tiles = np.zeros(
+                num_blocks * tile, np.int8 if cnt.max(initial=0) <= 127 else np.float32
+            )
+            a_tiles[pos] = cnt
+            a_tiles = a_tiles.reshape(num_blocks, blk_h, blk_w)
 
     window_of_block = np.repeat(
         np.arange(num_windows, dtype=np.int32), blocks_per_window
@@ -483,43 +509,59 @@ def sparse_graph_translate(
         a_tiles=a_tiles,
     )
     if emit_chunks:
-        _chunk_layout(meta, block_start)
+        _chunk_layout(meta, block_start, use_native)
     return meta
 
 
-def _chunk_layout(meta: SGTMeta, block_start: np.ndarray) -> None:
-    """Fill ``meta``'s uniform chunk layout (the JAX NumPy path).  Edges
-    sorted by owning block, CSR order kept within a block; each block's run
-    padded to a multiple of EC; a window's blocks stay adjacent."""
+def _per_window(real_blocks_per_window: np.ndarray, num_windows: int) -> np.ndarray:
+    """The native count, one entry a window: windows past the last row
+    (empty trailing windows) hold no blocks."""
+    if len(real_blocks_per_window) < num_windows:
+        return np.pad(real_blocks_per_window, (0, num_windows - len(real_blocks_per_window)))
+    return real_blocks_per_window
+
+
+def _chunk_layout(meta: SGTMeta, block_start: np.ndarray, use_native: bool) -> None:
+    """Fill ``meta``'s uniform chunk layout.  Edges sorted by owning block,
+    CSR order kept within a block; each block's run padded to a multiple of
+    EC; a window's blocks stay adjacent.  The native pass lays the slots out
+    in one O(E) scan over ``edge_pos``; the NumPy pass sorts."""
     config = meta.config
     blk_w, ec, tile = config.blk_w, config.edge_chunk, config.blk_h * config.blk_w
     num_blocks, num_edges = meta.num_blocks, meta.num_edges
-    edge_block = meta.edge_pos // tile
-    rem = meta.edge_pos % tile
-    edge_r = (rem // blk_w).astype(np.int32)
-    edge_c = (rem % blk_w).astype(np.int32)
-    order = np.argsort(edge_block, kind="stable")
-    edges_per_block = np.bincount(edge_block, minlength=num_blocks)
-    chunks_per_block = np.maximum(_cdiv(edges_per_block, ec), 1)
-    block_chunk_start = np.zeros(num_blocks + 1, dtype=np.int64)
-    np.cumsum(chunks_per_block, out=block_chunk_start[1:])
-    num_chunks = int(block_chunk_start[-1])
+    if use_native:
+        (meta.chunk_r, meta.chunk_c, meta.chunk_edge_id, meta.edge_perm, chunks_per_block,
+         block_chunk_start) = native.chunk_layout(meta.edge_pos, num_blocks, config.blk_h,
+                                                  blk_w, ec, config.row_sentinel)
+        num_chunks = int(block_chunk_start[-1])
+    else:
+        edge_block = meta.edge_pos // tile
+        rem = meta.edge_pos % tile
+        edge_r = (rem // blk_w).astype(np.int32)
+        edge_c = (rem % blk_w).astype(np.int32)
+        order = np.argsort(edge_block, kind="stable")
+        edges_per_block = np.bincount(edge_block, minlength=num_blocks)
+        chunks_per_block = np.maximum(_cdiv(edges_per_block, ec), 1)
+        block_chunk_start = np.zeros(num_blocks + 1, dtype=np.int64)
+        np.cumsum(chunks_per_block, out=block_chunk_start[1:])
+        num_chunks = int(block_chunk_start[-1])
 
-    # Slot of each (sorted) edge within its block.
-    block_edge_start = np.zeros(num_blocks + 1, dtype=np.int64)
-    np.cumsum(edges_per_block, out=block_edge_start[1:])
-    sorted_block = edge_block[order]
-    slot_in_block = np.arange(num_edges, dtype=np.int64) - block_edge_start[sorted_block]
-    flat_slot = (block_chunk_start[sorted_block] + slot_in_block // ec) * ec + slot_in_block % ec
+        # Slot of each (sorted) edge within its block.
+        block_edge_start = np.zeros(num_blocks + 1, dtype=np.int64)
+        np.cumsum(edges_per_block, out=block_edge_start[1:])
+        sorted_block = edge_block[order]
+        slot_in_block = np.arange(num_edges, dtype=np.int64) - block_edge_start[sorted_block]
+        flat_slot = ((block_chunk_start[sorted_block] + slot_in_block // ec) * ec
+                     + slot_in_block % ec)
 
-    meta.chunk_r = np.full((num_chunks, ec), config.row_sentinel, dtype=np.int32)
-    meta.chunk_c = np.zeros((num_chunks, ec), dtype=np.int32)
-    meta.chunk_edge_id = np.full((num_chunks, ec), num_edges, dtype=np.int32)
-    meta.chunk_r.reshape(-1)[flat_slot] = edge_r[order]
-    meta.chunk_c.reshape(-1)[flat_slot] = edge_c[order]
-    meta.chunk_edge_id.reshape(-1)[flat_slot] = order.astype(np.int32)
-    meta.edge_perm = np.empty(num_edges, dtype=np.int32)
-    meta.edge_perm[order] = flat_slot.astype(np.int32)
+        meta.chunk_r = np.full((num_chunks, ec), config.row_sentinel, dtype=np.int32)
+        meta.chunk_c = np.zeros((num_chunks, ec), dtype=np.int32)
+        meta.chunk_edge_id = np.full((num_chunks, ec), num_edges, dtype=np.int32)
+        meta.chunk_r.reshape(-1)[flat_slot] = edge_r[order]
+        meta.chunk_c.reshape(-1)[flat_slot] = edge_c[order]
+        meta.chunk_edge_id.reshape(-1)[flat_slot] = order.astype(np.int32)
+        meta.edge_perm = np.empty(num_edges, dtype=np.int32)
+        meta.edge_perm[order] = flat_slot.astype(np.int32)
 
     # Per-chunk scalars.
     meta.chunk_block = np.repeat(np.arange(num_blocks, dtype=np.int32), chunks_per_block)
@@ -551,22 +593,38 @@ def build_a_tiles_host(meta: SGTMeta, weights: Optional[np.ndarray] = None) -> n
     return flat.reshape(meta.num_blocks, cfg.blk_h, cfg.blk_w)
 
 
-def count_blocks(
+def window_blocks(
     row_pointers: np.ndarray,
     column_index: np.ndarray,
     num_nodes: int,
     config: TileConfig = DEFAULT_CONFIG,
-) -> int:
-    """Total block count (padding blocks included) without the full pass:
-    sizes the dense tiles before they are built."""
+    impl: str = "auto",
+) -> np.ndarray:
+    """Real TC blocks of each window (0 for an empty one), without the full
+    pass."""
     num_windows = max(_cdiv(num_nodes, config.blk_h), 1)
+    if native.use(impl):
+        return _per_window(native.count_blocks(row_pointers, column_index, config.blk_h,
+                                               config.blk_w), num_windows)
     row_pointers = np.asarray(row_pointers, dtype=np.int64)
     column_index = np.asarray(column_index, dtype=np.int64)
     num_cols = _num_cols(column_index, num_nodes, None)
     _, uniq_key, _ = _window_pairs(
         row_pointers, column_index, num_nodes, num_cols, config.blk_h
     )
-    real = _cdiv(np.bincount(uniq_key // num_cols, minlength=num_windows), config.blk_w)
+    return _cdiv(np.bincount(uniq_key // num_cols, minlength=num_windows), config.blk_w)
+
+
+def count_blocks(
+    row_pointers: np.ndarray,
+    column_index: np.ndarray,
+    num_nodes: int,
+    config: TileConfig = DEFAULT_CONFIG,
+    impl: str = "auto",
+) -> int:
+    """Total block count (padding blocks included) without the full pass:
+    sizes the dense tiles before they are built."""
+    real = window_blocks(row_pointers, column_index, num_nodes, config, impl)
     return int(_pad_blocks(real, config).sum())
 
 
@@ -579,13 +637,19 @@ def is_symmetric(row_pointers, column_index, t_ptr, t_idx) -> bool:
     )
 
 
-def transpose_csr(row_pointers: np.ndarray, column_index: np.ndarray, num_nodes: int):
+def transpose_csr(row_pointers: np.ndarray, column_index: np.ndarray, num_nodes: int,
+                  impl: str = "auto"):
     """CSR of the transposed adjacency, for the backward on directed graphs.
 
     Returns:
-      (t_row_pointers, t_column_index, t_edge_src): transpose CSR plus, per
-      transpose edge k, the id of the corresponding forward edge.
+      (t_row_pointers, t_column_index, t_edge_src): transpose CSR (int32
+      pointers) plus, per transpose edge k, the id of the corresponding
+      forward edge.  The native pass is a counting sort; the NumPy pass a
+      stable argsort.
     """
+    if native.use(impl):
+        t_ptr, t_cols, t_src = native.transpose(row_pointers, column_index, num_nodes)
+        return t_ptr.astype(np.int32), t_cols, t_src
     degrees = np.diff(np.asarray(row_pointers, dtype=np.int64))
     src = np.repeat(np.arange(num_nodes, dtype=np.int64), degrees)
     dst = np.asarray(column_index, dtype=np.int64)

@@ -8,7 +8,17 @@ epochs reported as ``Train (ms)``.  The timed loop reads no value from the
 device; it is bracketed by ``torch.cuda.synchronize()``.
 
 The device is explicit (``--device``, default ``cuda``) and the trainer never
-moves to another one: without a card, ``--device cuda`` raises.
+moves to another one: without a card, ``--device cuda`` raises.  It prints
+which host pass tiled the graph (``SGT pass:``, native or numpy, with the
+native build's first error line where ``auto`` could not load it) and the
+host prep's stages (``Prep stages (ms):``).
+
+``--single_kernel`` trains nothing: it times chained rounds of the graph's
+SpMM and SDDMM (``profile_sag``, the reference's single-kernel mode) on any
+route, the mesh's included.  ``--save_params`` / ``--load_params`` write and
+read the parameters (one device and the mesh); ``--checkpoint_dir`` /
+``--checkpoint_every`` / ``--resume`` checkpoint the training state and
+resume from the newest snapshot (one device, as in the JAX CLI).
 
 ``--mesh GxF`` trains over a ``('graph','feature')`` mesh of G x F shards
 (``tcgnn_tpu_torch.parallel``), all on the one ``--device``: the graph is
@@ -23,6 +33,9 @@ Run:  python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --m
       python -m tcgnn_tpu_torch.train --dataset DD --dim 89 --classes 2 --model agnn --hidden 32
       python -m tcgnn_tpu_torch.train --dataset DD --dim 89 --classes 2 --reorder rcm
       python -m tcgnn_tpu_torch.train --dataset reddit --dim 602 --classes 41 --model gcn
+      python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --single_kernel
+      python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --epochs 200 \
+          --checkpoint_dir ckpt/ --checkpoint_every 50 [--resume]
 """
 
 from __future__ import annotations
@@ -42,10 +55,14 @@ from tcgnn_tpu_torch.graph import TiledGraph
 from tcgnn_tpu_torch import profiling
 from tcgnn_tpu_torch.models import nets
 from tcgnn_tpu_torch.sgt import reorder
+from tcgnn_tpu_torch.utils import checkpoint as ckpt
 
 # Warm-up steps before the timed epochs, the first one's loss included: the
 # JAX CLI's 9, on one device and on the mesh.
 WARMUP_EPOCHS = 9
+# SpMM rounds of --single_kernel's chain: the reference's 200
+# (main_tcgnn.py:65-70), as in the JAX CLI.
+SAG_ROUNDS = 200
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -61,6 +78,8 @@ def build_argparser() -> argparse.ArgumentParser:
         "--n_heads", type=int, default=1,
         help="AGNN attention heads (head-averaged)",
     )
+    p.add_argument("--single_kernel", action="store_true",
+                   help="time chained rounds of the graph's SpMM and SDDMM; trains nothing")
     p.add_argument("--data_dir", type=str, default="tcgnn-ae-graphs/")
     p.add_argument("--blk_h", type=int, default=512)
     p.add_argument("--blk_w", type=int, default=128)
@@ -68,7 +87,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="edge slots per chunk of the chunk and streamed routes")
     p.add_argument(
         "--block_group", type=int, default=0,
-        help="SGT block-count padding granule (0 = auto, which is 1 here)",
+        help="SGT block-count padding granule (0 = auto, which is 1 here: the kernels walk "
+        "a window's blocks themselves; the JAX CLI's auto takes 2 on block-dense graphs, "
+        "which changes only padding blocks)",
     )
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--lr", type=float, default=0.01)
@@ -78,7 +99,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument(
         "--reorder", default="none", choices=list(reorder.REORDER_METHODS),
         help="node reordering before tiling: rcm narrows the band so banded "
-        "graphs reach the block-diagonal route (community: not ported yet)",
+        "graphs reach the block-diagonal route; community (Rabbit-style) needs the "
+        "native SGT pass",
     )
     p.add_argument("--gcn_norm", action="store_true",
                    help="symmetric D^-1/2 A D^-1/2 normalization")
@@ -90,6 +112,18 @@ def build_argparser() -> argparse.ArgumentParser:
         "instead of hoisting it out of the training loop (exact either way)",
     )
     p.add_argument("--eval", action="store_true", help="report train/test accuracy")
+    p.add_argument("--save_params", type=str, default=None,
+                   help="write the trained parameters to this file (.pt)")
+    p.add_argument("--load_params", type=str, default=None,
+                   help="start from the parameters in this file")
+    p.add_argument("--checkpoint_dir", type=str, default=None,
+                   help="directory for training-state checkpoints (parameters, optimizer, "
+                   "epoch, dropout generator; atomic writes); one device only, as in the "
+                   "JAX CLI: not taken with --mesh")
+    p.add_argument("--checkpoint_every", type=int, default=50,
+                   help="checkpoint period in epochs (with --checkpoint_dir)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the newest checkpoint in --checkpoint_dir at its epoch")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="trace the timed epochs with torch.profiler into this directory "
                    "and print the device's busy time, idle share and largest items")
@@ -150,24 +184,125 @@ def make_train_step(
     return step
 
 
-def timed_epochs(step, args, device, sync) -> tuple:
-    """Warm-up epochs, then ``--epochs`` timed ones (profiled with
-    ``--profile_dir``): ``(first_loss, final_loss, train_s, profile)``."""
-    first_loss = loss = step()
-    for _ in range(WARMUP_EPOCHS - 1):
-        loss = step()
-    sync()
-    epochs_run = max(args.epochs, 1)
-    with profiling.trace(args.profile_dir, device, epochs_run) as prof:
-        start_train = time.perf_counter()
-        for _ in range(args.epochs):
+def timed_epochs(step, args, device, sync, checkpoint=None, resumed_at=None) -> tuple:
+    """Warm-up epochs, then the timed ones up to ``--epochs`` (profiled with
+    ``--profile_dir``): ``(first_loss, final_loss, train_ms, profile)``, or
+    None where a resumed run has no epoch left.
+
+    A run resumed at epoch ``resumed_at`` takes no warm-up step: the
+    restored state must take no update the first run did not count.  With
+    ``checkpoint`` (a function of the epoch that writes the training state)
+    the timed epochs run in pieces that end on multiples of
+    ``--checkpoint_every``; a synchronize closes each piece before its
+    write, and the writes are left out of ``Train (ms)``.  The final state
+    is always written."""
+    start_epoch = resumed_at or 0
+    first_loss = loss = None
+    if resumed_at is None:
+        first_loss = loss = step()
+        for _ in range(WARMUP_EPOCHS - 1):
             loss = step()
+    sync()
+    every = args.checkpoint_every
+    epochs_run = max(args.epochs - start_epoch, 1)
+    with profiling.trace(args.profile_dir, device, epochs_run) as prof:
+        start_train, ckpt_s, epoch = time.perf_counter(), 0.0, start_epoch
+        while epoch < args.epochs:
+            piece = args.epochs - epoch
+            if checkpoint is not None:
+                piece = min(piece, every - epoch % every)
+            for _ in range(piece):
+                loss = step()
+                if first_loss is None:
+                    first_loss = loss
+            epoch += piece
+            if checkpoint is not None and epoch % every == 0:
+                sync()
+                t0 = time.perf_counter()
+                checkpoint(epoch)
+                ckpt_s += time.perf_counter() - t0
         sync()
-        train_time = time.perf_counter() - start_train
+        train_time = time.perf_counter() - start_train - ckpt_s
+    if epoch == start_epoch and resumed_at is not None:
+        print(f"# checkpoint epoch {resumed_at} >= --epochs; no-op")
+        return None
+    if checkpoint is not None and args.epochs % every != 0:
+        checkpoint(args.epochs)
     final_loss = float(loss)
     print("Final loss:\t{:.6f}".format(final_loss))
     print("Train (ms):\t{:6.3f}".format(train_time * 1e3 / epochs_run))
     return float(first_loss), final_loss, train_time * 1e3 / epochs_run, prof or None
+
+
+def profile_sag(graph, x: torch.Tensor, num_rounds: int = SAG_ROUNDS) -> tuple:
+    """The reference's single-kernel mode (``gnn_conv.py:179-189``): chained
+    rounds of the graph's SpMM, each taking the previous output, then of its
+    SDDMM, no gradient.  Returns ``(seconds a round, stats)``, the stats
+    with the JAX ``profile_sag``'s keys.
+
+    "SAG profiling avg" is the device time a round (``profiling.device_ms``
+    over ``num_rounds`` chained rounds) on the card, the host clock on the
+    CPU; "SAG dispatch-chained avg" the host clock over ``min(num_rounds,
+    50)`` chained calls with one synchronize at the end.  The SDDMM runs
+    ``max(num_rounds // 2, 4)`` rounds, each nudging its input by its first
+    score so that every round depends on the last.  Values overflow over
+    unnormalized rounds, as in the JAX package; only the time is read.  The
+    JAX package's chain differencing and lane padding are TPU workarounds
+    and are left out: ``d`` is the true width."""
+    x = x.to(graph.config.compute_dtype)
+    on_card = x.device.type == "cuda"
+    carry = {"x": x}
+
+    def spmm_round():
+        carry["x"] = graph.spmm(carry["x"]).to(x.dtype)
+
+    def sddmm_round():
+        c = carry["x"]
+        carry["x"] = c + (1e-30 * graph.sddmm(c)[0]).to(c.dtype)
+
+    def per_round(fn, rounds: int) -> float:
+        """Seconds a round of ``rounds`` chained rounds."""
+        carry["x"] = x
+        if on_card:
+            return profiling.device_ms(fn, calls=rounds) / 1e3
+        start = time.perf_counter()
+        for _ in range(rounds):
+            fn()
+        return (time.perf_counter() - start) / rounds
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(x.device)
+
+    with torch.no_grad():
+        kernel_s = per_round(spmm_round, num_rounds)
+        carry["x"] = x
+        spmm_round()  # settle
+        sync()
+        chain_rounds = min(num_rounds, 50)
+        carry["x"] = x
+        start = time.perf_counter()
+        for _ in range(chain_rounds):
+            spmm_round()
+        sync()
+        pipelined = (time.perf_counter() - start) / chain_rounds
+        sddmm_s = per_round(sddmm_round, max(num_rounds // 2, 4))
+
+    d = x.shape[1]
+    print("=> SAG profiling avg (ms): {:.3f}".format(kernel_s * 1e3))
+    print("=> SAG dispatch-chained avg (ms): {:.3f}".format(pipelined * 1e3))
+    stats = profiling.kernel_report(graph.num_edges, graph.exp_edges, d, kernel_s)
+    stats["dispatch_chained_ms"] = pipelined * 1e3
+    print("=> SAG edges/s: {:.3e}  useful TFLOP/s: {:.3f}  tile TFLOP/s: {:.2f}  MFU: {:.1f}% "
+          "(bf16 peak {:.0f})".format(stats["edges_per_s"], stats["useful_tflops"],
+                                      stats["tile_tflops"], stats["mfu_pct"],
+                                      profiling.PEAK_BF16_TFLOPS))
+    stats["sddmm_ms"] = sddmm_s * 1e3
+    stats["sddmm_edges_per_s"] = graph.num_edges / sddmm_s if sddmm_s > 0 else float("inf")
+    print("=> SDDMM avg (ms): {:.3f}  edges/s: {:.3e}".format(stats["sddmm_ms"],
+                                                             stats["sddmm_edges_per_s"]))
+    print()
+    return kernel_s, stats
 
 
 def train_distributed(args, ds, cfg, device, sync) -> dict:
@@ -180,6 +315,8 @@ def train_distributed(args, ds, cfg, device, sync) -> dict:
         make_mesh,
     )
 
+    if args.checkpoint_dir:
+        raise ValueError("--checkpoint_dir is not taken with --mesh (as in the JAX CLI)")
     ng, nf = (int(v) for v in args.mesh.lower().split("x"))
     mesh = make_mesh(ng, nf, device)
     start = time.perf_counter()
@@ -188,14 +325,19 @@ def train_distributed(args, ds, cfg, device, sync) -> dict:
     prep = time.perf_counter() - start
     print("TC_Blocks:\t{}\nExp_Edges:\t{}".format(graph.tc_blocks, graph.exp_edges))
     print("Prep. (ms):\t{:.3f}".format(prep * 1e3))
+    print("SGT pass:\t" + graph.host_pass)
     print("Route:\t" + graph.route)
 
     x = graph.shard_features(ds.x)
+    if args.single_kernel:
+        sec, stats = profile_sag(graph, x, SAG_ROUNDS)
+        return {"ms": sec * 1e3, **stats}
     y = graph.shard_nodes(ds.y.astype(np.int64))
     net, _, _ = init_distributed_net(
         torch.Generator().manual_seed(args.seed), args.model, ds.num_features, args.hidden,
         ds.num_classes, args.num_layers, graph, n_heads=args.n_heads,
     )
+    load_params(args, net)
     optimizer = torch.optim.Adam(net.parameters(), lr=args.lr)
     norm = (graph.shard_nodes((1.0 / ds.norm_degrees()).astype(np.float32))
             if args.gcn_norm else None)
@@ -214,14 +356,27 @@ def train_distributed(args, ds, cfg, device, sync) -> dict:
                 m = graph.shard_nodes(m_host).bool()
                 acc = float((pred[m] == y[m]).float().mean())
                 print("Acc {}:\t{:.4f}".format(split, acc))
+    save_params(args, net)
     return {
         "dense_tiles": graph.dense_tiles, "streamed": graph.streamed,
         "block_diag": graph.block_diag, "mesh": (ng, nf), "route": graph.route,
         "split": (graph.host_fwd.split is not None, graph.host_bwd.split is not None),
         "tc_blocks": graph.tc_blocks, "exp_edges": graph.exp_edges, "prep_ms": prep * 1e3,
-        "first_loss": first_loss, "final_loss": final_loss, "train_ms": train_ms,
-        "profile": prof, "graph": graph,
+        "host_pass": graph.host_pass, "first_loss": first_loss, "final_loss": final_loss,
+        "train_ms": train_ms, "profile": prof, "graph": graph,
     }
+
+
+def load_params(args, net) -> None:
+    if args.load_params:
+        ckpt.restore(args.load_params, net)
+        print(f"# restored params from {args.load_params}")
+
+
+def save_params(args, net) -> None:
+    if args.save_params:
+        path = ckpt.save(args.save_params, net, step=args.epochs)
+        print(f"# saved params to {path}")
 
 
 def main(argv=None) -> dict:
@@ -230,6 +385,8 @@ def main(argv=None) -> dict:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch finds no CUDA device")
+    if args.resume and not args.checkpoint_dir:
+        raise ValueError("--resume needs --checkpoint_dir")
     # f32 means f32: no TF32 in the dense products.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -260,10 +417,16 @@ def main(argv=None) -> dict:
     print("TC_Blocks:\t{}\nExp_Edges:\t{}".format(graph.tc_blocks, graph.exp_edges))
     print("Prep. (ms):\t{:.3f}".format(prep * 1e3))
     print("Prep host (ms):\t{:.3f}".format(graph.prep_host_s * 1e3))
+    print("SGT pass:\t" + graph.host_pass)
+    print("Prep stages (ms):\t" + "  ".join(
+        "{} {:.3f}".format(k, v * 1e3) for k, v in graph.prep_stages.items()))
     print("Route:\tdense_tiles={} streamed={} block_diag={}".format(
         graph.dense_tiles, graph.streamed, graph.block_diag))
 
     x = torch.from_numpy(ds.x).to(device)
+    if args.single_kernel:
+        sec, stats = profile_sag(graph, x, SAG_ROUNDS)
+        return {"ms": sec * 1e3, **stats}
     y = torch.from_numpy(ds.y.astype(np.int64)).to(device)
 
     # ---- model + optimizer -------------------------------------------------
@@ -271,18 +434,31 @@ def main(argv=None) -> dict:
         torch.Generator().manual_seed(args.seed), args.model, ds.num_features,
         args.hidden, ds.num_classes, args.num_layers, device=device, n_heads=args.n_heads,
     )
+    load_params(args, net)
     optimizer = torch.optim.Adam(net.parameters(), lr=args.lr)
     dropout = 0.0 if args.no_dropout else args.dropout
     norm = (
         torch.from_numpy(1.0 / ds.norm_degrees()).to(device) if args.gcn_norm else None
     )
+    generator = torch.Generator(device=device).manual_seed(args.seed + 1)
     step = make_train_step(
         graph, net, x, y, optimizer, dropout, norm=norm, hoist=not args.no_hoist,
-        generator=torch.Generator(device=device).manual_seed(args.seed + 1),
+        generator=generator,
     )
 
-    # ---- warm-up epochs, then timed epochs ----------------------------------
-    first_loss, final_loss, train_ms, prof = timed_epochs(step, args, device, sync)
+    # ---- warm-up epochs, then timed epochs (with checkpoints) --------------
+    checkpoint, resumed_at = None, None
+    if args.checkpoint_dir:
+        def checkpoint(epoch):
+            ckpt.save_state(args.checkpoint_dir, net, optimizer, epoch, generator=generator)
+
+        if args.resume:
+            state = ckpt.restore_state(args.checkpoint_dir, net, optimizer, generator)
+            if state is not None:
+                resumed_at = state[0]
+                print(f"# resumed at epoch {resumed_at}")
+    timed = timed_epochs(step, args, device, sync, checkpoint, resumed_at)
+    first_loss, final_loss, train_ms, prof = timed if timed else (None, None, 0.0, None)
 
     if args.eval:
         with torch.no_grad():
@@ -292,6 +468,8 @@ def main(argv=None) -> dict:
                 m = torch.from_numpy(mask).to(device)
                 acc = float((pred[m] == y[m]).float().mean())
                 print("Acc {}:\t{:.4f}".format(split, acc))
+    if timed:
+        save_params(args, net)
 
     return {
         "dense_tiles": graph.dense_tiles,
@@ -301,11 +479,15 @@ def main(argv=None) -> dict:
         "exp_edges": graph.exp_edges,
         "prep_ms": prep * 1e3,
         "prep_host_ms": graph.prep_host_s * 1e3,
+        "prep_stages_ms": {k: v * 1e3 for k, v in graph.prep_stages.items()},
+        "host_pass": graph.host_pass,
+        "resumed_at": resumed_at,
         "first_loss": first_loss,
         "final_loss": final_loss,
         "train_ms": train_ms,
         "profile": prof,
         "graph": graph,
+        "dataset": ds,
     }
 
 

@@ -1,12 +1,13 @@
 """The port's node reordering (``tcgnn_tpu_torch.sgt.reorder``) against the JAX package.
 
 ``permute_csr`` and ``apply_permutation`` must give the JAX arrays bit for
-bit.  ``rcm_permutation`` must equal the JAX one where the JAX package
-takes its scipy path (its native library switched off here); the port has
-no native library.  ``--reorder community`` exists only as the JAX native
-pass and must raise in the port.  The trainer prints ``Reorder (ms)``, and
-RCM brings a shuffled banded graph onto the block-diagonal route in both
-packages.
+bit.  ``rcm_permutation`` must equal the JAX one on both paths: the scipy
+path (``impl="numpy"``, the JAX native library switched off) and the
+native BFS (the default, as the JAX package runs where its library builds;
+the two orders differ).  ``--reorder community`` needs the native pass and
+raises without it (the JAX package would quietly take RCM).  The trainer
+prints ``Reorder (ms)``, and RCM brings a shuffled banded graph onto the
+block-diagonal route in both packages.
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ from tcgnn_tpu_torch import train as port_train
 from tcgnn_tpu_torch.config import TileConfig
 from tcgnn_tpu_torch.data import coo_to_csr, powerlaw_graph, synthesize
 from tcgnn_tpu_torch.graph import TiledGraph
+from tcgnn_tpu_torch.sgt import native as port_native
 from tcgnn_tpu_torch.sgt import reorder as port_reorder
 
 
@@ -50,10 +52,28 @@ def jax_scipy_path(monkeypatch):
     monkeypatch.setattr(jax_native, "available", lambda: False)
 
 
-@pytest.mark.parametrize("kind", ["band", "powerlaw", "directed"])
-def test_rcm_permutation_matches_jax(jax_scipy_path, kind):
+def require_jax_native(monkeypatch):
+    """The JAX package's native library, loaded once more if its first load
+    lost the test workers' build race; skip if it still does not load."""
+    if jax_native.load() is None:
+        monkeypatch.setattr(jax_native, "_tried", False)
+        if jax_native.load() is None:
+            pytest.skip("the JAX package's native library did not load")
+
+
+KINDS = ["band", "powerlaw", "directed"]
+
+
+# The scipy cases keep their ids; the native ones are "<kind>-native".
+@pytest.mark.parametrize("kind,impl", [pytest.param(k, "numpy", id=k) for k in KINDS]
+                         + [pytest.param(k, "auto", id=f"{k}-native") for k in KINDS])
+def test_rcm_permutation_matches_jax(monkeypatch, kind, impl):
+    if impl == "numpy":
+        monkeypatch.setattr(jax_native, "available", lambda: False)
+    else:
+        require_jax_native(monkeypatch)
     n, rp, ci = graph(kind)
-    got = port_reorder.rcm_permutation(rp, ci, n)
+    got = port_reorder.rcm_permutation(rp, ci, n, impl=impl)
     np.testing.assert_array_equal(got, jax_reorder.rcm_permutation(rp, ci, n))
     assert got.dtype == np.int64 and np.array_equal(np.sort(got), np.arange(n))
 
@@ -72,7 +92,9 @@ def test_permute_csr_is_bit_identical(kind, perm):
 
 
 @pytest.mark.parametrize("name", ["DD", "rand_300_1500"])
-def test_reorder_dataset_is_bit_identical(jax_scipy_path, name):
+def test_reorder_dataset_is_bit_identical(monkeypatch, name):
+    """Both packages' default paths: the native RCM."""
+    require_jax_native(monkeypatch)
     ds = synthesize(name, 8, 3, seed=2)
     jds = jax_synthetic.synthesize(name, 8, 3, seed=2)
     if name == "DD":  # a DD-shaped slice keeps the test fast
@@ -97,27 +119,54 @@ def trim(ds, n):
     return ds
 
 
-def test_rcm_brings_a_banded_graph_onto_the_bd_route(jax_scipy_path):
+def rcm_onto_the_bd_route(impl):
     n, rp, ci = shuffled_band()
     cfg, jcfg = TileConfig(128, 128), JaxTileConfig(128, 128)
     assert not TiledGraph(rp, ci, n, cfg, device="cpu").block_diag
     assert not JaxTiledGraph(rp, ci, n, jcfg).block_diag
-    p = port_reorder.rcm_permutation(rp, ci, n)
+    p = port_reorder.rcm_permutation(rp, ci, n, impl=impl)
     new_rp, new_ci, _ = port_reorder.permute_csr(rp, ci, p)
     g = TiledGraph(new_rp, new_ci, n, cfg, device="cpu")
     jg = JaxTiledGraph(new_rp, new_ci, n, jcfg)
     assert g.block_diag and jg.block_diag and g.bd_offsets == jg._bd_offsets
 
 
-def test_community_raises():
+def test_rcm_brings_a_banded_graph_onto_the_bd_route(jax_scipy_path):
+    rcm_onto_the_bd_route("numpy")
+
+
+def test_native_rcm_brings_a_banded_graph_onto_the_bd_route(monkeypatch):
+    require_jax_native(monkeypatch)
+    rcm_onto_the_bd_route("auto")
+
+
+def test_community_raises(monkeypatch):
+    """Without the native library, ``--reorder community`` raises with the
+    build's error; an unknown method raises ``ValueError``."""
     ds = synthesize("rand_100_400", 4, 2)
-    with pytest.raises(NotImplementedError, match="native"):
-        port_reorder.reorder_dataset(ds, "community")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        port_train.main(["--dataset", "rand_100_400", "--device", "cpu", "--reorder",
-                         "community"])
     with pytest.raises(ValueError, match="unknown"):
         port_reorder.reorder_dataset(ds, "rabbit")
+    monkeypatch.setattr(port_native, "_lib", None)
+    monkeypatch.setattr(port_native, "_error", "g++: error: no such compiler")
+    with pytest.raises(RuntimeError, match=r"native SGT pass is unavailable: g\+\+: error"):
+        port_reorder.reorder_dataset(ds, "community")
+    with pytest.raises(RuntimeError, match="native SGT pass is unavailable"):
+        port_train.main(["--dataset", "rand_100_400", "--device", "cpu", "--reorder",
+                         "community"])
+
+
+def test_cli_trains_after_community_reorder(monkeypatch, capsys):
+    require_jax_native(monkeypatch)
+    r = port_train.main(["--dataset", "rand_300_1500", "--dim", "4", "--classes", "2",
+                         "--epochs", "1", "--hidden", "4", "--blk_h", "16", "--blk_w", "8",
+                         "--device", "cpu", "--reorder", "community"])
+    assert "Reorder (ms):" in capsys.readouterr().out and np.isfinite(r["final_loss"])
+    ds = synthesize("rand_300_1500", 4, 2)
+    jds = jax_synthetic.synthesize("rand_300_1500", 4, 2)
+    np.testing.assert_array_equal(port_reorder.reorder_dataset(ds, "community"),
+                                  jax_reorder.reorder_dataset(jds, "community"))
+    for f in ("row_pointers", "column_index", "x", "y"):
+        np.testing.assert_array_equal(getattr(ds, f), getattr(jds, f), err_msg=f)
 
 
 def test_cli_prints_reorder_time(capsys):

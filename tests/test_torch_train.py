@@ -202,34 +202,50 @@ def test_cli_never_falls_back_to_cpu():
         port_train.main(["--dataset", "rand_100_400", "--device", "cuda"])
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     """In a fresh process (this one has JAX loaded by conftest), importing
     the port and running its CLI (GCN and AGNN, on the condensed route, on
-    the block-diagonal route after ``--reorder rcm``, and on a 4x2 mesh)
-    loads neither JAX nor the JAX package."""
+    the block-diagonal route after ``--reorder rcm`` and ``--reorder
+    community``, and on a 4x2 mesh; ``--single_kernel`` on one device and on
+    the mesh; a checkpointed run resumed, and ``--save_params`` /
+    ``--load_params``) loads neither JAX nor the JAX package."""
     code = (
         "import sys\n"
         "import tcgnn_tpu_torch\n"
         "from tcgnn_tpu_torch import train\n"
+        "small = ['--dim', '6', '--classes', '3', '--blk_h', '16', '--blk_w', '8',"
+        " '--device', 'cpu']\n"
         "for model in ('gcn', 'agnn'):\n"
         "    for extra in (['--dataset', 'rand_2000_8000'],"
-        " ['--dataset', 'PROTEINS_full', '--reorder', 'rcm']):\n"
-        "        r = train.main([*extra, '--dim', '6', '--classes', '3', '--epochs', '2',"
-        " '--blk_h', '16', '--blk_w', '8', '--device', 'cpu', '--model', model])\n"
+        " ['--dataset', 'PROTEINS_full', '--reorder', 'rcm'],"
+        " ['--dataset', 'PROTEINS_full', '--reorder', 'community']):\n"
+        "        r = train.main([*extra, *small, '--epochs', '2', '--model', model])\n"
         "        assert r['block_diag'] == (extra[1] == 'PROTEINS_full'), r\n"
-        "    r = train.main(['--dataset', 'rand_2000_8000', '--dim', '6', '--classes', '3',"
-        " '--epochs', '2', '--blk_h', '16', '--blk_w', '8', '--device', 'cpu', '--model', model,"
-        " '--mesh', '4x2'])\n"
+        "        assert r['host_pass'] == 'native', r\n"
+        "    r = train.main(['--dataset', 'rand_2000_8000', *small, '--epochs', '2',"
+        " '--model', model, '--mesh', '4x2'])\n"
         "    assert 'parallel' in repr(type(r['graph'])), r\n"
+        "train.SAG_ROUNDS = 4\n"
+        "for mesh in ([], ['--mesh', '4x2']):\n"
+        "    r = train.main(['--dataset', 'rand_2000_8000', *small, '--single_kernel', *mesh])\n"
+        "    assert 'sddmm_ms' in r, r\n"
+        "ck = ['--dataset', 'rand_600_3000', *small, '--checkpoint_dir', sys.argv[1] + '/ck',"
+        " '--checkpoint_every', '2']\n"
+        "train.main([*ck, '--epochs', '4', '--save_params', sys.argv[1] + '/p'])\n"
+        "r = train.main([*ck, '--epochs', '6', '--resume', '--load_params',"
+        " sys.argv[1] + '/p.pt'])\n"
+        "assert r['resumed_at'] == 4, r\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tcgnn_tpu'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                          text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "NO_JAX_OK" in proc.stdout and "Train (ms):" in proc.stdout
-    assert "Reorder (ms):" in proc.stdout
+    assert "Reorder (ms):" in proc.stdout and "SGT pass:\tnative" in proc.stdout
+    assert "=> SAG profiling avg (ms):" in proc.stdout
+    assert "# resumed at epoch 4" in proc.stdout
 
 
 def test_profile_union_counts_overlap_once():
