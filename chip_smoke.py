@@ -129,10 +129,21 @@ Phases, in order; any failure raises and exits nonzero:
      ``rtol=1e-5`` of an uninterrupted 8-epoch run's (whether bit-equal is
      printed); ``--save_params`` then ``--load_params`` on one device and
      on ``--mesh 4x2`` restoring every parameter exactly (a learning-rate-0
-     run saves them back bit for bit).
+     run saves them back bit for bit);
+ 16. the AE harness (``tcgnn_tpu_torch.bench``) through its entry points:
+     ``sweep`` GCN (no hoist and hoisted, 20 epochs) against both torch
+     incumbents (10 epochs each) on cora, pubmed, PROTEINS_full, DD and
+     amazon0601, AGNN (2 layers, hidden 32) on pubmed and DD, GIN on cora,
+     ``--single_kernel`` on cora and DD, ``epoch_ledger`` on pubmed and DD
+     and ``accuracy_parity`` (GCN, AGNN) on the golden fixture: every CSV row
+     there, finite and positive, each graph on its route, parity passing,
+     K1-K7 launched and no plain version run; then, on each of the five
+     sweep graphs, both incumbents' ``spmm``, ``spmm_weighted`` and
+     ``sddmm`` outputs and gradients against ``TiledGraph``'s at d=16.
 
-The kernels line's launches are summed over every run of phases 11, 13, 14
-and 15, each read with the counts set to 0 just before it.
+The kernels line's launches are summed over every run of phases 11, 13, 14,
+15 and 16, each read with the counts set to 0 just before it.  Every bound
+is ``tcgnn_tpu_torch.bench.roofline_bound``'s ``csr_bound``.
 
 Every phase prints its elapsed seconds.  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -141,9 +152,11 @@ Nothing of JAX is imported.
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import contextlib
 import copy
+import csv
 import ctypes
 import dataclasses
 import io
@@ -161,6 +174,9 @@ import numpy as np
 import torch
 
 from tcgnn_tpu_torch import TileConfig, TiledGraph, train
+from tcgnn_tpu_torch.bench import accuracy_parity, epoch_ledger, sweep
+from tcgnn_tpu_torch.bench.baseline import IMPLS as INCUMBENTS
+from tcgnn_tpu_torch.bench.roofline_bound import csr_bound
 from tcgnn_tpu_torch.data import coo_to_csr, powerlaw_graph, synthesize
 from tcgnn_tpu_torch.data.edge_graphs import asymmetric_graph, banded_graph, write_npz
 from tcgnn_tpu_torch.data.synthetic import component_union_graph
@@ -237,11 +253,6 @@ KERNELS = {
     "K9": ("sddmm_chunk (K9)", "chunk", "tcgnn_tpu/ops/sddmm.py:44", (sddmm_tc,)),
     "K10": ("spmm_fused (K10)", "spmm_dense", "tcgnn_tpu/ops/spmm.py:1229", (spmm_fused,)),
 }
-# The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): memory rate and
-# f32 rate outside the tensor cores (every kernel here multiplies in f32 on
-# the CUDA cores).
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
 
 
 def card_line() -> str:
@@ -1107,23 +1118,6 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(n_bytes, flops) -> tuple[float, str]:
-    """The least time the card could take (ms): each input read once and
-    each output written once at the memory rate, or the f32 operations at
-    the f32 rate, whichever is larger, and which one it is."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def csr_bound(nnz, n, dense_bytes, flops, weighted=False) -> tuple[float, str]:
-    """``bound`` for a function over a CSR adjacency of ``nnz`` edges on
-    ``n`` rows: what it must read of the graph is the int32 column indices,
-    the n+1 int32 row pointers and, weighted, an f32 weight an edge; the
-    dense operands read once and outputs written once are ``dense_bytes``.
-    The same for every kernel, whatever layout it reads."""
-    return bound(4 * nnz + 4 * (n + 1) + (4 * nnz if weighted else 0) + dense_bytes, flops)
-
-
 def csr_tensor(ptr, idx, n, dev) -> torch.Tensor:
     """A float CSR adjacency (ones) on the card, for the library yardsticks."""
     ptr = torch.as_tensor(np.asarray(ptr), dtype=torch.int64)
@@ -1559,6 +1553,143 @@ def phase_checkpoints(dev) -> dict:
     return launches
 
 
+# ---- the AE harness (``tcgnn_tpu_torch.bench``) -----------------------------
+
+# The GCN sweep's graphs: two condensed (cora, pubmed), two block-diagonal
+# (PROTEINS_full, DD) and the largest amazon graph of the reference's table.
+AE_GCN_GRAPHS = ("cora", "pubmed", "PROTEINS_full", "DD", "amazon0601")
+AE_EPOCHS, AE_BASELINE_EPOCHS = 20, 10
+# Routes (dense_tiles, streamed, block_diag) of the sweep's graphs.
+AE_ROUTES = {"cora": (True, False, False), "pubmed": (True, False, False),
+             "PROTEINS_full": (True, False, True), "DD": (True, False, True),
+             "amazon0601": (True, False, False)}
+
+
+@contextlib.contextmanager
+def in_dir(path):
+    """Run the body with ``path`` (created) as the working directory."""
+    old = os.getcwd()
+    os.makedirs(path, exist_ok=True)
+    os.chdir(path)
+    try:
+        yield path
+    finally:
+        os.chdir(old)
+
+
+def check_csv(path, names, columns) -> None:
+    """Raise unless ``path`` has a row for each of ``names`` whose
+    ``columns`` are finite and positive."""
+    with open(path) as f:
+        rows = {r["dataset"]: r for r in csv.DictReader(f)}
+    for name in names:
+        if name not in rows:
+            raise AssertionError(f"{os.path.basename(path)}: no row for {name}")
+        for c in columns:
+            v = float(rows[name][c])
+            if not (math.isfinite(v) and v > 0):
+                raise AssertionError(f"{os.path.basename(path)} {name}: {c} = {v}")
+    print(f"  {os.path.basename(path)}: rows of {', '.join(names)} finite and positive")
+
+
+def check_sweep_routes(label, rows, expected) -> None:
+    for name, base, ours, ours_h, route in rows:
+        if name in expected and route != expected[name]:
+            raise AssertionError(f"{label} {name}: route {route}, expected {expected[name]}")
+
+
+def phase_ae_harness(out_dir) -> dict:
+    """Phase 16: the bench harness through its entry points, on the card.
+    ``sweep`` GCN (no-hoist and hoisted, both incumbents) over
+    ``AE_GCN_GRAPHS``, AGNN (2 layers, hidden 32) on pubmed and DD, GIN on
+    cora, ``--single_kernel`` on cora and DD, ``epoch_ledger`` on pubmed and
+    DD and ``accuracy_parity`` (GCN, AGNN) on the golden fixture.  The counts
+    are set to 0 before the first and read after the last: K1-K7 must have
+    launched, and no plain version run.  Every CSV row must be there, finite
+    and positive, each graph on its route, and parity must pass.  Returns the
+    launches."""
+    fig = ("torch_baseline", "tcgnn_torch", "speedup", "tcgnn_torch_hoisted",
+           "speedup_hoisted")
+    sk_cols = ("SAG avg (ms)", "edges_per_s", "useful_TFLOPs", "tile_TFLOPs", "MFU (%)",
+               "SDDMM avg (ms)", "sddmm_edges_per_s")
+    ledger_cols = ("epoch_ms", "agg_ms", "dense_rest_ms", "stage_sum_ms")
+    common = ["--epochs", str(AE_EPOCHS), "--baseline_epochs", str(AE_BASELINE_EPOCHS),
+              "--dtype", "float32", "--device", "cuda"]
+    reset_counts()
+    t0 = time.perf_counter()
+    for impl in INCUMBENTS:
+        with in_dir(os.path.join(out_dir, f"gcn_{impl}")) as d:
+            rows = sweep.main(["--model", "gcn", "--datasets", *AE_GCN_GRAPHS,
+                               "--baseline_impl", impl, *common])
+            check_sweep_routes(f"gcn {impl}", rows, AE_ROUTES)
+            check_csv(os.path.join(d, "1_bench_gcn.csv"), AE_GCN_GRAPHS, ("Avg.Epoch (ms)",))
+            check_csv(os.path.join(d, "Fig_6a_torch_gcn.csv"), AE_GCN_GRAPHS, fig)
+    print(f"  GCN sweeps: {time.perf_counter() - t0:.1f} s")
+    with in_dir(os.path.join(out_dir, "agnn")) as d:
+        rows = sweep.main(["--model", "agnn", "--num_layers", "2", "--hidden", "32",
+                           "--datasets", "pubmed", "DD", *common])
+        check_sweep_routes("agnn", rows, AE_ROUTES)
+        check_csv(os.path.join(d, "Fig_6a_torch_agnn.csv"), ("pubmed", "DD"), fig)
+    with in_dir(os.path.join(out_dir, "gin")) as d:
+        sweep.main(["--model", "gin", "--datasets", "cora", *common])
+        check_csv(os.path.join(d, "Fig_6a_torch_gin.csv"), ("cora",), fig)
+    with in_dir(os.path.join(out_dir, "single_kernel")) as d:
+        sweep.main(["--single_kernel", "--datasets", "cora", "DD", "--device", "cuda"])
+        check_csv(os.path.join(d, "2_tcgnn_single_kernel.csv"), ("cora", "DD"), sk_cols)
+    with in_dir(os.path.join(out_dir, "ledger")) as d:
+        epoch_ledger.main(["--datasets", "pubmed", "DD", "--epochs", str(AE_EPOCHS),
+                           "--device", "cuda"])
+        check_csv(os.path.join(d, "epoch_ledger.csv"), ("pubmed", "DD"), ledger_cols)
+    failures = accuracy_parity.main(["--models", "gcn", "agnn", "--device", "cuda"])
+    if failures:
+        raise AssertionError(f"accuracy parity: {failures} failure(s)")
+    counts = launch_counts()
+    print("  AE harness: " + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}"
+                                       for k, c in counts.items()))
+    if (any(counts[k][0] <= 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"))
+            or any(c[1] for c in counts.values())):
+        raise AssertionError(f"AE harness: K1-K7 must launch and no plain version run: "
+                             f"{counts}")
+    return {k: c[0] for k, c in counts.items()}
+
+
+def op_grads(graph, op, x, w, r):
+    """Output and gradients (x, and w for the weighted SpMM) of ``op`` with
+    cotangent ``r``."""
+    x = x.detach().clone().requires_grad_(True)
+    w = w.detach().clone().requires_grad_(True)
+    out = graph.spmm_weighted(x, w) if op == "spmm_weighted" else getattr(graph, op)(x)
+    out.backward(r)
+    return [out.detach(), x.grad] + ([w.grad] if op == "spmm_weighted" else [])
+
+
+def phase_incumbent_grads(dev) -> None:
+    """Phase 16, after its counts are read: on each of ``AE_GCN_GRAPHS``,
+    both incumbents' ``spmm``, ``spmm_weighted`` and ``sddmm`` outputs and
+    gradients against the port's ``TiledGraph`` at d=16, within the smoke's
+    f32 tolerance of the magnitude (the same op over absolute values)."""
+    dims = {n: (d, c) for n, d, c in sweep.AE_TABLE}
+    for name in AE_GCN_GRAPHS:
+        ds = train.load_dataset(argparse.Namespace(dataset=name, data_dir="tcgnn-ae-graphs/",
+                                                   dim=dims[name][0], classes=dims[name][1],
+                                                   seed=0))
+        args = (ds.row_pointers, ds.column_index, ds.num_nodes)
+        tg = TiledGraph(*args, device=dev)
+        incumbents = {k: cls(*args, device=dev) for k, cls in INCUMBENTS.items()}
+        n, e = ds.num_nodes, ds.num_edges
+        x, w = randn((n, 16), 1, dev), randn((e,), 2, dev)
+        for op in ("spmm", "spmm_weighted", "sddmm"):
+            r = randn((e,) if op == "sddmm" else (n, 16), 3, dev)
+            want = op_grads(tg, op, x, w, r)
+            mag = op_grads(incumbents["gather"], op, x.abs(), w.abs(), r.abs())
+            for impl, g in incumbents.items():
+                got = op_grads(g, op, x, w, r)
+                for part, a, b, m in zip(("out", "dx", "dw"), got, want, mag):
+                    compare(f"{name} {impl} {op} {part} against TiledGraph", a, b, m, F32_TOL)
+        del tg, incumbents
+        torch.cuda.empty_cache()
+
+
 def build_kernels():
     """One nvcc per source and the native SGT pass's g++, all started
     together; prints ``-Xptxas -v``, the g++ flags and each build's
@@ -1727,6 +1858,14 @@ def main():
     t0 = phase_start("15. checkpoints, --resume, --save_params / --load_params")
     for k, c in phase_checkpoints(dev).items():
         launches[k] += c
+    phase_end(t0)
+
+    # ---- 16. the AE harness ---------------------------------------------------
+    t0 = phase_start("16. the AE harness: sweep, incumbents, ledger, parity")
+    with tempfile.TemporaryDirectory() as out_dir:
+        for k, c in phase_ae_harness(out_dir).items():
+            launches[k] += c
+    phase_incumbent_grads(dev)
     phase_end(t0)
 
     for (k, geo, d), (kt, pt, dev) in times.items():

@@ -88,17 +88,30 @@ def gin_conv(weights: torch.Tensor, x: torch.Tensor, graph: TiledGraph) -> torch
     return _amp_dot(graph.spmm(x.to(ct)), weights, ct)
 
 
+def _uniform(generator: torch.Generator, shape, out_dim: int) -> torch.Tensor:
+    """Uniform on ``±1/sqrt(out_dim)``, drawn from ``generator``."""
+    stdv = 1.0 / math.sqrt(out_dim)
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return u * (2 * stdv) - stdv
+
+
+def init_linear(generator: torch.Generator, in_dim: int, out_dim: int,
+                init: str = "reference") -> torch.Tensor:
+    """A GCN or GIN layer's ``[in, out]`` weights (the JAX ``init_linear``):
+    ``reference`` is plain randn, as the reference's layers leave them;
+    ``uniform`` is uniform on ``±1/sqrt(out_dim)``, the reference's unused
+    ``reset_parameters`` (accuracy parity trains from it)."""
+    if init == "uniform":
+        return _uniform(generator, (in_dim, out_dim), out_dim)
+    return torch.randn((in_dim, out_dim), generator=generator, device=generator.device)
+
+
 def init_agnn(generator: torch.Generator, in_dim: int, out_dim: int, n_heads: int = 1):
     """AGNN parameters, uniform on ``±1/sqrt(out_dim)`` (the JAX
     ``init_agnn``): ``weights [in, out]`` and ``attention_w [1, n_heads]``,
     drawn from ``generator`` in that order."""
-    stdv = 1.0 / math.sqrt(out_dim)
-
-    def uniform(shape):
-        u = torch.rand(shape, generator=generator, device=generator.device)
-        return u * (2 * stdv) - stdv
-
-    return {"weights": uniform((in_dim, out_dim)), "attention_w": uniform((1, n_heads))}
+    return {"weights": _uniform(generator, (in_dim, out_dim), out_dim),
+            "attention_w": _uniform(generator, (1, n_heads), out_dim)}
 
 
 def agnn_conv(

@@ -25,6 +25,7 @@ from tcgnn_tpu_torch.graph import TiledGraph
 from tcgnn_tpu_torch.models import layers as L
 
 MODEL_KINDS = ("gcn", "gin", "agnn")
+INITS = ("reference", "uniform")
 
 
 class GNN(nn.Module):
@@ -119,10 +120,15 @@ def init_net(
     num_layers: int,
     device=None,
     n_heads: int = 1,
+    init: str = "reference",
 ) -> GNN:
     """A GNN drawn from ``generator`` on its own device, then moved to
-    ``device``: plain randn weights for GCN and GIN (the reference init),
-    ``init_agnn``'s uniform weights for AGNN, layer by layer."""
+    ``device``, layer by layer: for GCN and GIN plain randn weights
+    (``init="reference"``, the reference init) or ``init_linear``'s uniform
+    ones (``init="uniform"``); for AGNN always ``init_agnn``'s uniform
+    weights."""
+    if init not in INITS:
+        raise ValueError(f"init must be one of {INITS}, got {init!r}")
     dims = [in_dim] + [hidden] * max(num_layers - 1, 0)
     dims = dims[:num_layers] + [classes]
     net = GNN(kind, dims, device=device, n_heads=n_heads)
@@ -133,8 +139,7 @@ def init_net(
                 weights.copy_(p["weights"])
                 net.attention_w[i].copy_(p["attention_w"])
             else:
-                weights.copy_(torch.randn(weights.shape, generator=generator,
-                                          device=generator.device))
+                weights.copy_(L.init_linear(generator, *weights.shape, init))
     return net
 
 

@@ -208,7 +208,9 @@ def test_port_imports_no_jax(tmp_path):
     the block-diagonal route after ``--reorder rcm`` and ``--reorder
     community``, and on a 4x2 mesh; ``--single_kernel`` on one device and on
     the mesh; a checkpointed run resumed, and ``--save_params`` /
-    ``--load_params``) loads neither JAX nor the JAX package."""
+    ``--load_params``), importing every module of its bench harness and
+    running one sweep row (the trainer twice and the baseline) loads neither
+    JAX nor the JAX package."""
     code = (
         "import sys\n"
         "import tcgnn_tpu_torch\n"
@@ -235,6 +237,15 @@ def test_port_imports_no_jax(tmp_path):
         "r = train.main([*ck, '--epochs', '6', '--resume', '--load_params',"
         " sys.argv[1] + '/p.pt'])\n"
         "assert r['resumed_at'] == 4, r\n"
+        "import importlib, os\n"
+        "for m in ('datasets', 'log2csv', 'proc_prof', 'tc_block_count', 'baseline', 'sweep',"
+        " 'epoch_ledger', 'roofline_bound', 'accuracy_parity'):\n"
+        "    importlib.import_module('tcgnn_tpu_torch.bench.' + m)\n"
+        "from tcgnn_tpu_torch.bench import sweep\n"
+        "sweep.AE_TABLE = [('rand_600_3000', 6, 3)]\n"
+        "os.chdir(sys.argv[1])\n"
+        "(row,) = sweep.main(['--epochs', '2', '--baseline_epochs', '2', '--device', 'cpu'])\n"
+        "assert all(v > 0 for v in row[1:4]), row\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tcgnn_tpu'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n"
