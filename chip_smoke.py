@@ -139,10 +139,24 @@ Phases, in order; any failure raises and exits nonzero:
      there, finite and positive, each graph on its route, parity passing,
      K1-K7 launched and no plain version run; then, on each of the five
      sweep graphs, both incumbents' ``spmm``, ``spmm_weighted`` and
-     ``sddmm`` outputs and gradients against ``TiledGraph``'s at d=16.
+     ``sddmm`` outputs and gradients against ``TiledGraph``'s at d=16;
+ 17. the distributed block-diagonal route, every shard on this one card: on
+     Yeast (``--dim 74 --classes 2``, fully covered), a
+     ``DistributedTiledGraph`` over 4x1 and over 2x2 takes the route, and
+     its ``spmm``, ``spmm_weighted``, ``sddmm`` and ``agnn_aggregate``,
+     forward and every gradient, hold against the single-device
+     ``TiledGraph``'s on the card (f32, d=32, ``rtol=atol=1e-4`` forward,
+     ``1e-3`` gradients, elementwise), launching K5 (4x1: K6/K7; 2x2: K4)
+     and no plain version; then the trainer, ``TRAIN_EPOCHS`` timed
+     epochs each, ``--no_dropout``: GCN 2 layers hidden 16 on ``--mesh
+     4x1`` and ``2x2`` (K5), AGNN 2 layers hidden 32 on ``--mesh 4x1``
+     (K6/K7) and ``2x2`` (K4 cell scores and K5), each on the route with no
+     split, a falling loss, its kernels and no others, no plain version, a
+     first loss within ``FIRST_LOSS_RTOL`` of one device's, and its ``Train
+     (ms)``, ``Prep. (ms)`` and ``torch.cuda.max_memory_allocated()``.
 
 The kernels line's launches are summed over every run of phases 11, 13, 14,
-15 and 16, each read with the counts set to 0 just before it.  Every bound
+15, 16 and 17, each read with the counts set to 0 just before it.  Every bound
 is ``tcgnn_tpu_torch.bench.roofline_bound``'s ``csr_bound``.
 
 Every phase prints its elapsed seconds.  The line before the last is
@@ -213,7 +227,11 @@ from tcgnn_tpu_torch.ops import (
 from tcgnn_tpu_torch.ops.blockdiag import bd_row_index
 from tcgnn_tpu_torch.ops.reference import sddmm_ref, sfused_bwd_ref, sfused_ref, spmm_ref
 from tcgnn_tpu_torch.ops.sfused import sgt_row_index
-from tcgnn_tpu_torch.parallel import distributed_graph_from_dataset, make_mesh
+from tcgnn_tpu_torch.parallel import (
+    DistributedTiledGraph,
+    distributed_graph_from_dataset,
+    make_mesh,
+)
 from tcgnn_tpu_torch.profiling import device_ms as kernel_ms
 from tcgnn_tpu_torch.sgt import native
 from tcgnn_tpu_torch.sgt.blockdiag import extract_block_diag
@@ -1690,6 +1708,167 @@ def phase_incumbent_grads(dev) -> None:
         torch.cuda.empty_cache()
 
 
+# ---- the distributed block-diagonal route -------------------------------------
+
+# The mesh's BD ops against one device's on the card, f32, elementwise
+# (``atol + rtol * |one device|``): the same kernels over the same pack rows;
+# at 2x2 the AGNN's scores are two feature shards' partial dots summed, at
+# 4x1 and 2x2 the SDDMM's too.  The CPU parity tests' tolerances.
+BD_MESH_FWD = dict(rtol=1e-4, atol=1e-4)
+BD_MESH_GRAD = dict(rtol=1e-3, atol=1e-3)
+BD_MESH_D = 32  # AGNN's hidden width
+# Kernels each mesh's op check launches: K4 is the SDDMM on both.
+BD_MESHES = {"4x1": ("K4", "K5", "K6", "K7"), "2x2": ("K4", "K5")}
+YEAST = ["--dataset", "Yeast", "--dim", "74", "--classes", "2"]
+
+
+def bd_mesh_op(g, op, x, w, att, r, mesh) -> dict:
+    """``op``'s output and gradients (x; w for the weighted SpMM, the
+    attention weights for the AGNN aggregate) with cotangent ``r``, in one
+    device's layout: on a mesh graph the inputs are padded to its node and
+    edge layouts and the results taken back."""
+    n, dev = x.shape[0], x.device
+    if mesh:
+        def nodes(t):
+            return torch.nn.functional.pad(t, (0, 0, 0, g.padded_nodes - n))
+
+        def back(t):
+            if t.dim() == 1:
+                return torch.from_numpy(g.gather_edge_vector(t)).to(dev)
+            return t[:n]
+
+        edges = g.edge_weights_to_sharded
+    else:
+        nodes = edges = back = torch.clone
+    xl, wl, al = nodes(x).requires_grad_(True), edges(w).requires_grad_(True), att.clone()
+    al.requires_grad_(True)
+    if op == "spmm_weighted":
+        out = g.spmm_weighted(xl, wl)
+    elif op == "agnn_aggregate":
+        out = g.agnn_aggregate(xl, al)
+    else:
+        out = getattr(g, op)(xl)
+    out.backward(edges(r) if op == "sddmm" else nodes(r))
+    parts = {"out": back(out.detach()), "dx": back(xl.grad)}
+    if op == "spmm_weighted":
+        parts["dw"] = back(wl.grad)
+    if op == "agnn_aggregate":
+        parts["datt"] = al.grad
+    return parts
+
+
+def phase_bd_mesh_ops(dev) -> None:
+    """Phase 17, ops: on Yeast, ``DistributedTiledGraph`` over 4x1 and 2x2
+    meshes on the card, each on the block-diagonal route, its ``spmm``,
+    ``spmm_weighted``, ``sddmm`` and ``agnn_aggregate``, forward and every
+    gradient, against the single-device ``TiledGraph``'s same ops on the
+    card (f32, seeded inputs at d=32).  The mesh ops must launch K5 (4x1:
+    K6/K7; 2x2: K4) and run no plain version."""
+    ds = synthesize("Yeast", 74, 2)
+    args = (ds.row_pointers, ds.column_index, ds.num_nodes)
+    n, e, d = ds.num_nodes, ds.num_edges, BD_MESH_D
+    x, w = randn((n, d), 170, dev) * 0.3, randn((e,), 171, dev)
+    att = randn((1, 2), 172, dev)
+    ops = ("spmm", "spmm_weighted", "sddmm", "agnn_aggregate")
+    cot = {op: randn((e,) if op == "sddmm" else (n, d), 173, dev) for op in ops}
+    t0 = time.perf_counter()
+    one = TiledGraph(*args, device=dev)
+    if not (one.block_diag and one.bd_full_coverage and one.agnn_aggregate is not None):
+        raise AssertionError("Yeast: one device must take the fully covered BD route")
+    want = {op: bd_mesh_op(one, op, x, w, att, cot[op], False) for op in ops}
+    print(f"Yeast one device: offsets {one.bd_offsets}, ops in {time.perf_counter() - t0:.1f} s")
+    del one
+    torch.cuda.empty_cache()
+    for mesh, expected in BD_MESHES.items():
+        t0 = time.perf_counter()
+        g = DistributedTiledGraph(*args, mesh=make_mesh(*map(int, mesh.split("x")), dev))
+        if not g.block_diag or g.agnn_aggregate is None:
+            raise AssertionError(f"Yeast {mesh}: expected the BD route with the fused AGNN")
+        prep = time.perf_counter() - t0
+        pack_mb = sum(sh.pack.numel() * sh.pack.element_size() for sh in g._fwd.shards) / 2**20
+        reset_counts()
+        got = {op: bd_mesh_op(g, op, x, w, att, cot[op], True) for op in ops}
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"Yeast {mesh}: {g.route}; {pack_mb:.1f} MiB of ext packs, rows_per_shard "
+              f"{g.rows_per_shard}, built in {prep:.1f} s; "
+              + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}" for k, c in counts.items()
+                          if c[0] or c[1]))
+        check_launches(f"Yeast {mesh} ops", counts, expected)
+        for op in ops:
+            for part, a in got[op].items():
+                b = want[op][part]
+                compare(f"Yeast {mesh} {op} {part} vs one device", a, b, b.abs(),
+                        BD_MESH_FWD if part == "out" else BD_MESH_GRAD)
+        del g, got
+        torch.cuda.empty_cache()
+
+
+def phase_bd_mesh_train(dev) -> tuple[list, dict]:
+    """Phase 17, the path: the trainer on Yeast over 4x1 and 2x2 meshes,
+    ``TRAIN_EPOCHS`` timed epochs each, ``--no_dropout``: GCN 2 layers
+    hidden 16 (K5), AGNN 2 layers hidden 32 (4x1: K6/K7; 2x2: K4 cell
+    scores and K5).  Each on the BD route with no split, a falling loss,
+    its kernels and no others, no plain version, and a first loss within
+    ``FIRST_LOSS_RTOL`` of one device's.  Every count is set to 0 just
+    before each mesh run and read just after; the single-device runs (one
+    epoch a model) come after.  Returns the runs and each kernel's launches
+    summed over them."""
+    gcn = ["--model", "gcn", "--hidden", "16", "--num_layers", "2"]
+    agnn = ["--model", "agnn", "--hidden", "32", "--num_layers", "2"]
+    runs = [  # label, model, mesh, kernels the run must launch
+        ("Yeast gcn --mesh 4x1", gcn, "4x1", ("K5",)),
+        ("Yeast gcn --mesh 2x2", gcn, "2x2", ("K5",)),
+        ("Yeast agnn --mesh 4x1", agnn, "4x1", ("K6", "K7")),
+        ("Yeast agnn --mesh 2x2", agnn, "2x2", ("K4", "K5")),
+    ]
+    results, launches, single = [], {k: 0 for k in KERNELS}, {}
+    for label, model, mesh, expected in runs:
+        extra = [*YEAST, "--no_dropout", *model, "--mesh", mesh]
+        print(f"--- train.main {' '.join(extra)}")
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        r = run_main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), *extra])
+        counts = launch_counts()
+        r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        r["seconds"] = time.perf_counter() - t0
+        del r["graph"]
+        print(f"  {r['route']}  first loss {r['first_loss']:.6f}  final loss "
+              f"{r['final_loss']:.6f}  Train (ms) {r['train_ms']:.3f}  Prep. (ms) "
+              f"{r['prep_ms']:.3f}  max_memory_allocated "
+              f"{r['max_memory_allocated'] / 2**30:.2f} GiB  "
+              + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}" for k, c in counts.items()
+                          if c[0] or c[1]))
+        if not (r["block_diag"] and "block_diag=True" in r["route"]
+                and r["split"] == (False, False)):
+            raise AssertionError(f"{label}: expected the BD route, no split: {r['route']}, "
+                                 f"split {r['split']}")
+        if not (math.isfinite(r["final_loss"]) and r["final_loss"] < r["first_loss"]):
+            raise AssertionError(f"{label}: loss did not fall ({r['first_loss']} -> "
+                                 f"{r['final_loss']})")
+        check_launches(label, counts, expected)
+        for k, c in counts.items():
+            launches[k] += c[0]
+        results.append((label, r))
+        torch.cuda.empty_cache()
+    for label, r in results:
+        model = label.split()[1]
+        if model not in single:
+            s = run_main(["--device", "cuda", "--epochs", "1", *YEAST, "--no_dropout",
+                          *(gcn if model == "gcn" else agnn)])
+            single[model] = s["first_loss"]
+            del s
+            torch.cuda.empty_cache()
+        rel = abs(r["first_loss"] - single[model]) / abs(single[model])
+        print(f"  {label}: first loss {r['first_loss']:.6f} vs one device {single[model]:.6f}: "
+              f"relative difference {rel:.3e} (rtol {FIRST_LOSS_RTOL})")
+        if not rel <= FIRST_LOSS_RTOL:
+            raise AssertionError(f"{label}: first loss {r['first_loss']} vs one device "
+                                 f"{single[model]}")
+    return results, launches
+
+
 def build_kernels():
     """One nvcc per source and the native SGT pass's g++, all started
     together; prints ``-Xptxas -v``, the g++ flags and each build's
@@ -1868,6 +2047,14 @@ def main():
     phase_incumbent_grads(dev)
     phase_end(t0)
 
+    # ---- 17. the distributed block-diagonal route ------------------------------
+    t0 = phase_start("17. the distributed block-diagonal route (every shard on this card)")
+    phase_bd_mesh_ops(dev)
+    bd_mesh_runs, bd_mesh_launches = phase_bd_mesh_train(dev)
+    for k, c in bd_mesh_launches.items():
+        launches[k] += c
+    phase_end(t0)
+
     for (k, geo, d), (kt, pt, dev) in times.items():
         print(f"  time {KERNELS[k][0]} {geo} d={d}: kernel {kt:.4f} ms (device {dev:.4f} ms), "
               f"plain {pt:.4f} ms (median of {TIMING_RUNS} event pairs a call; device: one "
@@ -1882,7 +2069,7 @@ def main():
               f"Final loss {r['final_loss']:.6f}  peak host RSS {r['peak_rss'] / 2**30:.2f} GiB  "
               f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB  "
               f"run {r['seconds']:.1f} s  (card: {card})")
-    for name, r in mesh_runs:
+    for name, r in mesh_runs + bd_mesh_runs:
         print(f"main path [{name}]: {r['route']}  TC_Blocks {r['tc_blocks']}  "
               f"Prep. (ms) {r['prep_ms']:.3f}  Train (ms) {r['train_ms']:.3f}  "
               f"First loss {r['first_loss']:.6f}  Final loss {r['final_loss']:.6f}  "

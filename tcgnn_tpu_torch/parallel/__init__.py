@@ -1,6 +1,7 @@
 """The distributed layer of the port: the ``('graph', 'feature')`` mesh,
-the row-window partition with its halo and block-stream split, and the
-dense-tile route's ops and training step, every shard on one device."""
+the row-window partition with its halo and block-stream split, the
+block-diagonal route's shard packs and rim, and the dense-tile and
+block-diagonal routes' ops and training step, every shard on one device."""
 
 from tcgnn_tpu_torch.parallel.graph import (
     DistributedTiledGraph,

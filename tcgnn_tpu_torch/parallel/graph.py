@@ -1,6 +1,6 @@
 """DistributedTiledGraph: the SGT-tiled graph over a ``('graph',
-'feature')`` shard grid (PyTorch port of the dense-tile route of
-``tcgnn_tpu.parallel.graph``).
+'feature')`` shard grid (PyTorch port of the dense-tile and block-diagonal
+routes of ``tcgnn_tpu.parallel.graph``).
 
 Every shard of the grid lives on the mesh's one device (``parallel/mesh.py``);
 the shards run in turn, and the collectives between them are copies on that
@@ -32,6 +32,20 @@ What a shard does, as in JAX:
   score tiles (K4's tile mode), rounds them to the compute dtype, sums them
   in f32 over ``feature`` and rounds the sum; K10 multiplies them in.
 
+The block-diagonal route (``parallel/blockdiag.py``), where the JAX gate
+``probe_block_diag`` takes a graph (fully covered by its diagonals in both
+directions, bins aligned with the shards, the rim within one neighbour
+shard): the light partition (layout only, no condensed tile), each shard's
+pack over an extended slab with an empty rim, and its features as the rim
+stack ``x_ext``, built by two ``ppermute`` shifts.  ``spmm`` is K5 over the
+count pack (transpose pack backward); ``spmm_weighted`` K5 over a weighted
+pack (``bd_scatter_weights``; the transpose reads the all-gathered forward
+weights); ``sddmm`` K4 an edge, summed over ``feature``; the fused AGNN K6
+forward and K7 backward over the ext pack's row index at ``pf == 1``, and
+at ``pf > 1`` one score a pack cell (K4's partial dots summed over
+``feature`` in f32 and rounded once, the JAX order), multiplied by the
+cell's count and scattered into a weighted pack for K5.
+
 The port differs from the JAX route on purpose, changing no value:
 
 * the halo-overlap split (local and remote block classes, run against the
@@ -40,12 +54,18 @@ The port differs from the JAX route on purpose, changing no value:
   no-overlap branch, which JAX runs itself when a partition has no overlap
   classes: one pass over the shard's whole block stream against its halo
   slab.  The partition builds no classes (``parallel/partition.py``);
+* the block-diagonal route contracts each shard's ext pack against its rim
+  stack with K5-K7, where JAX contracts the shard's pack against a stack of
+  rim and bins with XLA einsums; at ``pf > 1`` the AGNN backward's
+  transpose term is K5 over ``C ⊙ U`` (``U_ij = <x_i, dy_j>``), the same
+  value on a symmetric pack, where JAX spills rim bins back to the
+  neighbours;
 * every shard lives on one card, so no time this route gives is a
   multi-card figure.
 
 Routes not ported yet raise ``NotImplementedError`` naming their ROADMAP
-entry and never fall back to another route: the block-diagonal route (item
-8a), the streamed route and the chunk fallback (item 8b).
+entry and never fall back to another route: the streamed route and the
+chunk fallback (item 8b).
 """
 
 from __future__ import annotations
@@ -57,12 +77,19 @@ import numpy as np
 import torch
 
 from tcgnn_tpu_torch.config import DEFAULT_CONFIG, TileConfig
+from tcgnn_tpu_torch.ops.blockdiag import (
+    bd_scatter_weights,
+    bd_sfused,
+    bd_sfused_bwd,
+    spmm_block_diag,
+)
 from tcgnn_tpu_torch.ops.fused import spmm_fused
 from tcgnn_tpu_torch.ops.sddmm import sddmm_tc_dense, sddmm_tc_tiles
 from tcgnn_tpu_torch.ops.row_index import RowIndex
 from tcgnn_tpu_torch.ops.sfused import sgt_row_index, spmm_sfused, spmm_sfused_bwd
 from tcgnn_tpu_torch.ops.spmm import build_a_tiles, spmm_tc_dense
 from tcgnn_tpu_torch.parallel import collectives as C
+from tcgnn_tpu_torch.parallel.blockdiag import BDDirection, build_bd_shard_meta, rim, upload_bd
 from tcgnn_tpu_torch.parallel.mesh import Mesh, make_mesh
 from tcgnn_tpu_torch.parallel.partition import ShardedSGTMeta, partition_graph
 from tcgnn_tpu_torch.sgt import native
@@ -74,8 +101,6 @@ from tcgnn_tpu_torch.sgt.translate import (
     transpose_csr,
 )
 
-BD_ROUTE = ("the distributed block-diagonal route is not ported yet "
-            "(ROADMAP.md, Queue 1 item 8a)")
 STREAMED_ROUTE = ("the distributed streamed route is not ported yet "
                   "(ROADMAP.md, Queue 1 item 8b)")
 CHUNK_ROUTE = ("the distributed chunk fallback (dense_tiles=False) is not ported yet "
@@ -192,8 +217,9 @@ class DistributedTiledGraph:
 
     ``dense_tiles``, ``block_diag`` and ``split`` as in JAX: ``None``
     decides by the JAX rules; a graph those rules send to a route not
-    ported yet (block-diagonal, streamed, chunk) raises
-    ``NotImplementedError``.
+    ported yet (streamed, chunk) raises ``NotImplementedError``.
+    ``block_diag=True`` on a graph the block-diagonal gate refuses raises
+    ``ValueError``.
     """
 
     def __init__(
@@ -228,20 +254,23 @@ class DistributedTiledGraph:
         # impl="auto": the native pass where its library loads.
         self.host_pass = native.pass_name("auto")
 
-        # ---- route gates: every route but the dense-tile one raises ------
+        # ---- route gates: the streamed route and the chunk fallback raise --
         if dense_tiles is False:
             raise NotImplementedError(CHUNK_ROUTE)
         t_csr = None
         if block_diag is not False:
-            ok, _, _, self.symmetric, t_csr = (
+            # ``_probe``: distributed_graph_from_dataset ran the gate on this
+            # exact CSR; its transpose serves the partition too.
+            ok, bdm, bdm_t, self.symmetric, t_csr = (
                 _probe if _probe is not None
                 else probe_block_diag(row_pointers, column_index, self.num_nodes, self.pg, config)
             )
-            if ok:
-                raise NotImplementedError(BD_ROUTE)
-            if block_diag:
+            if block_diag and not ok:
                 raise ValueError("block_diag requested but the graph is not fully covered "
                                  "by shard-compatible diagonals")
+            if ok:
+                self._init_bd(row_pointers, column_index, bdm, bdm_t, t_csr)
+                return
         elif _symmetric is not None:
             self.symmetric = _symmetric
         else:
@@ -283,9 +312,53 @@ class DistributedTiledGraph:
     def exp_edges(self) -> int:
         return self.host_fwd.num_real_blocks * self.config.blk_h * self.config.blk_w
 
+    def _init_bd(self, row_pointers, column_index, bdm, bdm_t, t_csr) -> None:
+        """Finish construction on the block-diagonal route: the light
+        partition (layout and ``TC_Blocks`` only), each direction's shard
+        metadata (``build_bd_shard_meta``) and its ext packs on the device
+        (the transpose's only where the graph is not symmetric), and the
+        forward shards' edges for the SDDMM."""
+        cfg, pg, dev = self.config, self.pg, self.device
+        self.block_diag = self.dense_tiles = True
+        fwd, bwd = partition_graph(row_pointers, column_index, self.num_nodes, pg, cfg,
+                                   build_tiles=False, transpose=t_csr)
+        self.host_fwd, self.host_bwd = fwd, bwd
+        rps = self.rows_per_shard = fwd.rows_per_shard
+        self.windows_per_shard = fwd.windows_per_shard
+        self.padded_nodes, self.padded_edges = fwd.padded_nodes, fwd.padded_edges
+        self.edge_capacity = fwd.edge_capacity
+        mf = build_bd_shard_meta(bdm, fwd.edge_start, rps, pg, fwd.edge_capacity)
+        mt = build_bd_shard_meta(bdm_t, bwd.edge_start, rps, pg, bwd.edge_capacity)
+
+        # Shard g's edges: its own rows, columns in its ext slab.
+        ptr = np.asarray(row_pointers, np.int64)
+        ptr = np.concatenate([ptr, np.full(self.padded_nodes + 1 - len(ptr), ptr[-1])])
+        cols = np.asarray(column_index, np.int64)
+        lead = -rim(mf.offsets)[0] * mf.bin_rows
+        edges = []
+        for g in range(pg):
+            local = ptr[g * rps:(g + 1) * rps + 1] - ptr[g * rps]
+            edges.append((np.repeat(np.arange(rps), np.diff(local)),
+                          cols[ptr[g * rps]:ptr[(g + 1) * rps]] - g * rps + lead))
+        sym = self.symmetric
+        self._fwd = upload_bd(mf, cfg, dev, np.diff(fwd.edge_start), row_index=sym and self.pf == 1,
+                              cells=sym and self.pf > 1, edges=edges)
+        self._bwd = upload_bd(mt, cfg, dev, np.diff(bwd.edge_start), w_src=bwd.edge_fwd_slot,
+                              packs=[sh.pack for sh in self._fwd.shards] if sym else None)
+        self.agnn_split = False
+        self.agnn_aggregate = self._agnn_aggregate if sym else None
+
     @property
     def route(self) -> str:
         """The trainer's route line."""
+        if self.block_diag:
+            f, t = self._fwd, self._bwd
+            agnn = ("none" if self.agnn_aggregate is None
+                    else "K6/K7" if self.pf == 1 else "K4 scores + K5")
+            bwd = ("" if t.offsets == f.offsets
+                   else f" transpose offsets={t.offsets} rim={t.rim}")
+            return (f"dense_tiles=True streamed=False block_diag=True mesh={self.pg}x{self.pf} "
+                    f"offsets={f.offsets} rim={f.rim}{bwd} agnn={agnn}")
         sp = lambda m: "split" if m.split is not None else "unsplit"  # noqa: E731
         agnn = ("none" if self.agnn_aggregate is None
                 else ("K2/K3" if self.pf == 1 else "K4 tiles + K10")
@@ -520,14 +593,19 @@ class DistributedTiledGraph:
         out = self._map(lambda g, x: spmm_tc_dense(x, streams[g].meta, tiles[g]), x_ext)
         return self._guest_return(out, dn.split) if dn.split is not None else out
 
-    def _spmm(self, x, dn: _Direction, w=None) -> torch.Tensor:
+    def _spmm(self, x, dn, w=None) -> torch.Tensor:
         d = x.shape[1]
-        return self._assemble(self._spmm_grid(self._grid(self._pad_d(x)), dn, w))[:, :d]
+        grid = self._grid(self._pad_d(x))
+        out = self._bd_spmm_grid(grid, dn, w) if self.block_diag else self._spmm_grid(grid, dn, w)
+        return self._assemble(out)[:, :d]
 
     def _sddmm(self, xa, xb) -> torch.Tensor:
         """Per-edge ``<xa[row_e], xb[col_e]>`` over the unsplit forward
-        stream, summed over the feature shards: ``[padded_edges]`` f32."""
+        stream (K4 an edge on the block-diagonal route), summed over the
+        feature shards: ``[padded_edges]`` f32."""
         dn = self._fwd
+        if self.block_diag:
+            return self._bd_sddmm(xa, xb)
         xb_ext = self._halo(self._grid(self._pad_d(xb)), dn)
 
         def scores(g, a, b):
@@ -565,7 +643,10 @@ class DistributedTiledGraph:
         return (dn.split.streams if self.agnn_split else dn.streams), dn
 
     def _agnn_f(self, x):
-        """``(A ⊙ x x^T) @ x`` on the shard grid, f32."""
+        """``(A ⊙ x x^T) @ x`` on the shard grid, f32 (the compute dtype on
+        the block-diagonal route)."""
+        if self.block_diag:
+            return self._bd_agnn_f(x)
         grid = self._grid(x)
         streams, dn = self._agnn_streams()
         x_ext = self._halo(grid, dn)
@@ -585,6 +666,8 @@ class DistributedTiledGraph:
     def _agnn_b(self, x, dy):
         """``(dx3, dc)``: the three dx terms of the AGNN backward on the shard
         grid, and ``dc = <dy, (A ⊙ S) x>`` summed over every shard."""
+        if self.block_diag:
+            return self._bd_agnn_b(x, dy)
         grid, dgrid = self._grid(x), self._grid(dy)
         streams, dn = self._agnn_streams()
         x_ext, dy_ext = self._halo(grid, dn), self._halo(dgrid, dn)
@@ -618,6 +701,137 @@ class DistributedTiledGraph:
         dc = self._map(lambda g, dw, uu: torch.dot(dw.float().reshape(-1),
                                                    uu[: dw.shape[0]].reshape(-1)),
                        dy_win, u)
+        dc = C.psum(dc, "graph")
+        if self.pf > 1:
+            dc = C.psum(dc, "feature")
+        return self._assemble(dx), dc[0][0]
+
+    # ---- the block-diagonal route --------------------------------------------
+    def _rim_ext(self, grid, dn: BDDirection):
+        """Each shard's rim stack ``x_ext = [rim of g-1 ; x_loc ; rim of
+        g+1]``, ``[(b_loc + kmax - kmin) * bn, d]``: the last ``-kmin`` bins
+        of the shard below and the first ``kmax`` bins of the shard above, by
+        two ``ppermute`` shifts (zeros at either end of the mesh)."""
+        (kmin, kmax), bn, pg = dn.rim, dn.bin_rows, self.pg
+        parts = self._map(lambda g, x: [x], grid)
+        if kmin < 0:
+            lo = C.ppermute(self._map(lambda g, x: x[x.shape[0] + kmin * bn:], grid),
+                            [(i, i + 1) for i in range(pg - 1)], "graph")
+            parts = self._map(lambda g, p, r: [r] + p, parts, lo)
+        if kmax > 0:
+            hi = C.ppermute(self._map(lambda g, x: x[:kmax * bn], grid),
+                            [(i, i - 1) for i in range(1, pg)], "graph")
+            parts = self._map(lambda g, p, r: p + [r], parts, hi)
+        return self._map(lambda g, p: torch.cat(p), parts)
+
+    def _own(self, y, dn: BDDirection):
+        """The shard's own rows of an output over its ext slab."""
+        return y[dn.lead: dn.lead + self.rows_per_shard]
+
+    def _bd_spmm_grid(self, grid, dn: BDDirection, w=None):
+        """``A @ x`` (or ``(A ⊙ w) @ x``) of one direction: K5 a shard over
+        its ext pack (or a weighted one) and its rim stack."""
+        cfg, pg, e = self.config, self.pg, self.edge_capacity
+        x_ext = self._rim_ext(grid, dn)
+        if w is not None:
+            # The transpose reads the forward-ordered weights after one
+            # all-gather; the forward, its own edge slots.
+            src = (self._w_all(w) if dn is self._bwd
+                   else [w[g * e:(g + 1) * e] for g in range(pg)])
+        out = []
+        for g, sh in enumerate(dn.shards):
+            pack = sh.pack
+            if w is not None:
+                pack = bd_scatter_weights(src[g][sh.w_src], sh.cov_pos, bp=pack.shape[0],
+                                          bn=pack.shape[1], k=len(dn.offsets),
+                                          dtype=cfg.compute_dtype)
+            out.append([self._k5(xe, pack, dn) for xe in x_ext[g]])
+        return out
+
+    def _bd_sddmm(self, xa, xb) -> torch.Tensor:
+        """K4 an edge of each shard: its own rows of ``xa`` against its rim
+        stack of ``xb``, summed over ``feature``; ``[padded_edges]`` f32."""
+        dn = self._fwd
+        xb_ext = self._rim_ext(self._grid(self._pad_d(xb)), dn)
+
+        def scores(g, a, b):
+            s = torch.zeros(self.edge_capacity, dtype=torch.float32, device=a.device)
+            m = dn.shards[g].edges
+            s[: m.num_edges] = sddmm_tc_dense(a, m, b)
+            return s
+
+        s = self._map(scores, self._grid(self._pad_d(xa)), xb_ext)
+        if self.pf > 1:
+            s = C.psum(s, "feature")
+        return torch.cat([s[g][0] for g in range(self.pg)])
+
+    def _cell_scores(self, a_ext, b_ext):
+        """One score a cell of each shard's ext pack: K4's partial dots on
+        each feature slice, summed over ``feature`` in f32, rounded to the
+        compute dtype and multiplied by the cell's count in it (the JAX
+        order); per shard g, ``[cells_g]``."""
+        dn, ct = self._fwd, self.config.compute_dtype
+        part = self._map(lambda g, a, b: sddmm_tc_dense(a, dn.shards[g].cells, b), a_ext, b_ext)
+        total = C.psum(part, "feature")
+        return [dn.shards[g].cell_cnt.to(ct) * total[g][0].to(ct) for g in range(self.pg)]
+
+    def _cell_pack(self, g, vals):
+        """Shard g's weighted ext pack from its cells' values."""
+        sh, ct = self._fwd.shards[g], self.config.compute_dtype
+        flat = torch.zeros(sh.pack.numel(), dtype=ct, device=vals.device)
+        flat[sh.cell_pos] = vals
+        return flat.view(sh.pack.shape)
+
+    def _k5(self, x_ext, pack, dn: BDDirection):
+        """K5 over a shard's ext pack (counts or weights): its own rows."""
+        return self._own(spmm_block_diag(x_ext, pack, offsets=dn.offsets, cfg=self.config), dn)
+
+    def _bd_agnn_f(self, x):
+        """``(A ⊙ x x^T) @ x`` a shard: K6 over the ext pack's row index at
+        one feature shard; else K5 over ``C ⊙ S``."""
+        dn, cfg = self._fwd, self.config
+        x_ext = self._rim_ext(self._grid(x), dn)
+        if self.pf == 1:
+            return self._map(lambda g, xe: self._own(bd_sfused(
+                xe, xe, xe, dn.shards[g].pack, offsets=dn.offsets, cfg=cfg,
+                index=dn.shards[g].index), dn), x_ext)
+        s = self._cell_scores(x_ext, x_ext)
+        out = []
+        for g in range(self.pg):
+            pack = self._cell_pack(g, s[g])
+            out.append([self._k5(xe, pack, dn) for xe in x_ext[g]])
+        return out
+
+    def _bd_agnn_b(self, x, dy):
+        """``(dx3, dc)`` a shard: K7 at one feature shard; else K5 over ``C ⊙
+        S`` (against dy and x), ``C ⊙ T`` and ``C ⊙ U`` (``T_ij = <dy_i,
+        x_j>``, ``U_ij = <x_i, dy_j>``: ``(C ⊙ T)^T = C ⊙ U`` on a symmetric
+        pack, so the transpose term needs no spill-back)."""
+        dn, cfg = self._fwd, self.config
+        grid, dgrid = self._grid(x), self._grid(dy)
+        x_ext, dy_ext = self._rim_ext(grid, dn), self._rim_ext(dgrid, dn)
+        if self.pf == 1:
+            both = self._map(lambda g, xe, de: [self._own(t, dn) for t in bd_sfused_bwd(
+                xe, de, dn.shards[g].pack, offsets=dn.offsets, cfg=cfg,
+                index=dn.shards[g].index)], x_ext, dy_ext)
+            dx = self._map(lambda g, p: p[0], both)
+            u = self._map(lambda g, p: p[1], both)
+        else:
+            s = self._cell_scores(x_ext, x_ext)
+            t = self._cell_scores(dy_ext, x_ext)
+            ut = self._cell_scores(x_ext, dy_ext)
+            dx, u = [], []
+            for g in range(self.pg):
+                cs = self._cell_pack(g, s[g])
+                u.append([self._k5(xe, cs, dn) for xe in x_ext[g]])
+                dx_g = [self._k5(de, cs, dn).float() for de in dy_ext[g]]
+                del cs
+                for vals in (t[g], ut[g]):
+                    pack = self._cell_pack(g, vals)
+                    dx_g = [a + self._k5(xe, pack, dn).float() for a, xe in zip(dx_g, x_ext[g])]
+                dx.append(dx_g)
+        dc = self._map(lambda g, dw, uu: torch.dot(dw.float().reshape(-1),
+                                                   uu.float().reshape(-1)), dgrid, u)
         dc = C.psum(dc, "graph")
         if self.pf > 1:
             dc = C.psum(dc, "feature")

@@ -11,8 +11,9 @@ The JAX host pass, carried over with the same arrays field by field
 (``tests/test_torch_partition.py`` holds the two to ``np.array_equal``):
 the stacked metadata (``_stack_shards``), the mega-window block-stream
 split (``build_split``), the boundary halo (``plan_halo_rounds``,
-``build_halo``), and both directions (``partition_graph``).  Two
-differences.  The JAX pass also builds local/remote block classes for its
+``build_halo``), both directions (``partition_graph``), and the light
+layout-only partition of the block-diagonal route (``build_tiles=False``).
+Two differences.  The JAX pass also builds local/remote block classes for its
 halo-overlap split; the port's ops run one pass over a shard's whole block
 stream (``parallel/graph.py``), so it builds none.  Tiles whose duplicate
 count passes 127 are f32 on the host whatever the compute dtype (NumPy has
@@ -32,6 +33,7 @@ from tcgnn_tpu_torch.sgt.translate import (
     build_a_tiles_host,
     sparse_graph_translate,
     transpose_csr,
+    window_blocks,
 )
 
 
@@ -540,13 +542,20 @@ def partition_csr(
     num_shards: int,
     config: TileConfig = DEFAULT_CONFIG,
     edge_capacity: Optional[int] = None,
+    build_tiles: bool = True,
     split: bool = False,
 ) -> ShardedSGTMeta:
     """Window-aligned 1-D partition of a CSR adjacency over ``num_shards``:
     each shard's rows tiled by the SGT pass, stacked, with the halo and
-    (``split``) the block-stream split.  The JAX
-    ``build_tiles=False`` light layout serves only the block-diagonal
-    route, not ported here."""
+    (``split``) the block-stream split.
+
+    ``build_tiles=False`` returns the light layout-only meta of the
+    block-diagonal route, which serves every op from its packs: the shapes,
+    the edge offsets and the real block count (``TC_Blocks``), and None for
+    every stacked array, the halo and the split.  No tile, chunk, halo or
+    split is built (on Yeast they would be gigabytes of host memory, thrown
+    away); each shard's block count is ``window_blocks``', the SGT pass's
+    own count."""
     blk_h = config.blk_h
     row_pointers = np.asarray(row_pointers, dtype=np.int64)
     column_index = np.asarray(column_index, dtype=np.int64)
@@ -561,6 +570,25 @@ def partition_csr(
         [row_pointers, np.full(n_pad + 1 - len(row_pointers), row_pointers[-1], np.int64)]
     )
     edge_start = ptr[::rows_per_shard].copy()  # [G+1]
+
+    if not build_tiles:
+        counts = np.diff(edge_start)
+        real_blocks = 0
+        for s in range(num_shards):
+            r0, r1 = s * rows_per_shard, (s + 1) * rows_per_shard
+            real_blocks += int(window_blocks(ptr[r0: r1 + 1] - ptr[r0],
+                                             column_index[ptr[r0]: ptr[r1]], rows_per_shard,
+                                             config).sum())
+        unbuilt = dict.fromkeys((
+            "col_ids", "a_tiles", "block_window", "block_first_in_window", "edge_pos",
+            "chunk_r", "chunk_c", "chunk_edge_id", "chunk_block", "chunk_window",
+            "chunk_first_in_window", "edge_perm", "edge_valid"))
+        return ShardedSGTMeta(
+            config=config, num_shards=num_shards, num_nodes=num_nodes, num_edges=num_edges,
+            rows_per_shard=rows_per_shard, windows_per_shard=wd,
+            edge_capacity=int(edge_capacity if edge_capacity is not None
+                              else max(counts.max(), 1)),
+            num_real_blocks=real_blocks, edge_start=edge_start.astype(np.int64), **unbuilt)
 
     metas, local_cols_list = [], []
     for s in range(num_shards):
@@ -609,22 +637,26 @@ def partition_graph(
     num_nodes: int,
     num_shards: int,
     config: TileConfig = DEFAULT_CONFIG,
+    build_tiles: bool = True,
     split: bool = False,
     transpose: Optional[tuple] = None,
 ) -> tuple[ShardedSGTMeta, ShardedSGTMeta]:
     """Forward and transpose partitions.  The transpose carries
-    ``chunk_fwd_slot`` and ``edge_fwd_slot`` (each transpose edge's forward
-    padded-layout slot) so per-edge weights in forward CSR order reach the
-    backward after one all-gather, and its split stream's ``w_src`` is
-    remapped to forward slots.  ``transpose``: a precomputed ``(t_ptr,
-    t_idx, t_src)`` of this CSR."""
-    fwd = partition_csr(row_pointers, column_index, num_nodes, num_shards, config, split=split)
+    ``chunk_fwd_slot`` (with ``build_tiles``) and ``edge_fwd_slot`` (each
+    transpose edge's forward padded-layout slot) so per-edge weights in
+    forward CSR order reach the backward after one all-gather, and its split
+    stream's ``w_src`` is remapped to forward slots.  ``build_tiles=False``:
+    the light layout-only metas (``partition_csr``).  ``transpose``: a
+    precomputed ``(t_ptr, t_idx, t_src)`` of this CSR."""
+    fwd = partition_csr(row_pointers, column_index, num_nodes, num_shards, config,
+                        build_tiles=build_tiles, split=split)
 
     t_ptr, t_idx, t_src = (
         transpose if transpose is not None
         else transpose_csr(np.asarray(row_pointers), np.asarray(column_index), num_nodes)
     )
-    bwd = partition_csr(t_ptr, t_idx, num_nodes, num_shards, config, split=split)
+    bwd = partition_csr(t_ptr, t_idx, num_nodes, num_shards, config, build_tiles=build_tiles,
+                        split=split)
 
     G, e_max_t = bwd.num_shards, bwd.edge_capacity
     e_max_f = fwd.edge_capacity
@@ -637,12 +669,13 @@ def partition_graph(
     fwd_slot_of_global[fwd.num_edges] = sentinel
 
     t_src_ext = np.concatenate([t_src.astype(np.int64), [fwd.num_edges]])
-    chunk_fwd_slot = np.empty_like(bwd.chunk_edge_id)
-    for s in range(G):
-        local = bwd.chunk_edge_id[s].astype(np.int64)
-        global_t = np.where(local == e_max_t, len(t_src), bwd.edge_start[s] + local)
-        chunk_fwd_slot[s] = fwd_slot_of_global[t_src_ext[global_t]].astype(np.int32)
-    bwd.chunk_fwd_slot = chunk_fwd_slot
+    if build_tiles:
+        chunk_fwd_slot = np.empty_like(bwd.chunk_edge_id)
+        for s in range(G):
+            local = bwd.chunk_edge_id[s].astype(np.int64)
+            global_t = np.where(local == e_max_t, len(t_src), bwd.edge_start[s] + local)
+            chunk_fwd_slot[s] = fwd_slot_of_global[t_src_ext[global_t]].astype(np.int32)
+        bwd.chunk_fwd_slot = chunk_fwd_slot
 
     if bwd.split is not None:
         src = bwd.split["w_src"].astype(np.int64)

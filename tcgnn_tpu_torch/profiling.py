@@ -168,8 +168,8 @@ EDGE_DATA = "<out_dir>/data"
 # Configurations of ``main``, by group: pubmed's (the condensed route), the
 # BD route's, reddit's (the streamed route), the per-edge AGNN route's (the
 # two directed graphs of ``data/edge_graphs.py``, as chip_smoke.py trains
-# them) and the one-card mesh's.  Each runs with the profiler off and then
-# on.
+# them), the one-card mesh's and its block-diagonal route's (Yeast).  Each
+# runs with the profiler off and then on.
 CONFIGS = {
     "bd": (
         ["--dataset", "DD", "--dim", "89", "--classes", "2", "--model", "gcn"],
@@ -195,6 +195,12 @@ CONFIGS = {
         ["--dataset", "reddit", "--dim", "602", "--classes", "41", "--model", "gcn"],
         ["--dataset", "reddit", "--dim", "602", "--classes", "41", "--model", "agnn",
          "--hidden", "32", "--num_layers", "2"],
+    ),
+    "bd_mesh": (  # the distributed block-diagonal route, every shard on this one card
+        ["--dataset", "Yeast", "--dim", "74", "--classes", "2", "--model", "gcn", "--mesh",
+         "4x1"],
+        ["--dataset", "Yeast", "--dim", "74", "--classes", "2", "--model", "agnn", "--hidden",
+         "32", "--num_layers", "2", "--mesh", "2x2"],
     ),
     "mesh": (  # every shard of the mesh on this one card
         ["--dataset", "pubmed", "--dim", "500", "--classes", "3", "--model", "gcn",

@@ -9,10 +9,13 @@
 * the port's mesh, from ``init_distributed_net``, trains the same model as
   one device from the same generator: the same 5 losses at ``rtol=1e-4``;
 * ``num_valid_classes`` masks padded classes out of the log-softmax;
+* a graph the block-diagonal gate passes takes that route (ROADMAP item
+  8a), and ``distributed_graph_from_dataset`` leaves it unbalanced; its
+  training step gives JAX's losses and one device's;
 * a graph headed for a route not ported yet raises ``NotImplementedError``
-  naming its ROADMAP entry: block-diagonal (8a), streamed and the chunk
-  fallback (8b); so do a mesh over several cards and, without a card,
-  ``--mesh`` on ``--device cuda`` (``RuntimeError``).
+  naming its ROADMAP entry: streamed and the chunk fallback (8b); so do a
+  mesh over several cards and, without a card, ``--mesh`` on ``--device
+  cuda`` (``RuntimeError``).
 """
 
 import types
@@ -125,13 +128,16 @@ def banded_csr(n=1000, half_band=40, seed=0):
 
 
 def test_block_diagonal_graph_raises():
+    """A banded graph the gate passes takes the block-diagonal route (it
+    raised before the route was ported; the name stays)."""
     ptr, idx = banded_csr()
-    with pytest.raises(NotImplementedError, match=r"block-diagonal.*ROADMAP.md, Queue 1 item 8a"):
-        DistributedTiledGraph(ptr, idx, 1000, make_mesh(2, 1, "cpu"), TileConfig())
-    # The dataset entry point leaves a BD-bound graph unbalanced, then raises.
+    g = DistributedTiledGraph(ptr, idx, 1000, make_mesh(2, 1, "cpu"), TileConfig())
+    assert g.block_diag and "block_diag=True mesh=2x1" in g.route
+    # The dataset entry point leaves a BD-bound graph unbalanced and reuses
+    # the gate's probe.
     ds = types.SimpleNamespace(row_pointers=ptr, column_index=idx.copy(), num_nodes=1000)
-    with pytest.raises(NotImplementedError, match="item 8a"):
-        distributed_graph_from_dataset(ds, make_mesh(2, 1, "cpu"), TileConfig())
+    g = distributed_graph_from_dataset(ds, make_mesh(2, 1, "cpu"), TileConfig())
+    assert g.block_diag
     np.testing.assert_array_equal(ds.column_index, idx)
 
 
@@ -195,3 +201,71 @@ def test_cli_mesh_no_balance_keeps_the_order(capsys):
         return int(np.bincount(np.repeat(np.arange(4), np.diff(g.host_fwd.edge_start))).max())
 
     assert heaviest(balanced) <= heaviest(kept)
+
+
+# ---- the block-diagonal route's training step -----------------------------------
+
+BD_CFG = TileConfig(blk_h=128, blk_w=128, edge_chunk=64)
+BD_N = 1024
+
+
+@pytest.fixture(scope="module")
+def bd_graphs():
+    from tcgnn_tpu_torch.data.synthetic import component_union_graph
+
+    ptr, idx = coo_to_csr(*component_union_graph(BD_N, 2600, 32, seed=9), BD_N)
+    jg = JaxDistributedTiledGraph(ptr, idx, BD_N, jax_make_mesh(4, 2),
+                                  JaxTileConfig(blk_h=128, blk_w=128, edge_chunk=64))
+    pg = DistributedTiledGraph(ptr, idx, BD_N, make_mesh(4, 2, "cpu"), BD_CFG)
+    assert jg.block_diag and pg.block_diag and pg.agnn_aggregate is not None
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((BD_N, 20)).astype(np.float32)
+    y = rng.integers(0, CLASSES, BD_N).astype(np.int32)
+    return ptr, idx, jg, pg, x, y
+
+
+@pytest.mark.parametrize("kind", ["gcn", "agnn"])
+def test_bd_train_step_matches_jax(bd_graphs, kind):
+    """JAX's parameters, features and labels: the port's 4x2 BD step gives
+    JAX's 5 losses (the AGNN through K4 cell scores and K5)."""
+    _, _, jg, pg, x, y = bd_graphs
+    xs, ys = jg.shard_features(x), jg.shard_nodes(y)
+    params, hidden_p, classes_p = jax_init_distributed_net(
+        jax.random.PRNGKey(5), kind, xs.shape[1], HIDDEN, CLASSES, 2, jg)
+    opt = optax.adam(0.01)
+    step = jax_make_step(jg, kind, xs, ys, opt, dropout_rate=0.0, num_valid_classes=CLASSES)
+    state, key, want = opt.init(params), jax.random.PRNGKey(1), []
+    net = GNN(kind, [xs.shape[1], hidden_p, classes_p], device="cpu")
+    net.params_from_jax([{k: np.asarray(v) for k, v in p.items()} for p in params])
+    for _ in range(STEPS):
+        params, state, key, loss = step(params, state, key)
+        want.append(float(loss))
+    pstep = make_distributed_train_step(
+        pg, net, pg.shard_features(x), pg.shard_nodes(y.astype(np.int64)),
+        torch.optim.Adam(net.parameters(), lr=0.01), dropout_rate=0.0,
+        num_valid_classes=CLASSES)
+    got = [float(pstep()) for _ in range(STEPS)]
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert got[-1] < got[0]
+
+
+@pytest.mark.parametrize("kind", ["gcn", "agnn"])
+def test_bd_mesh_trains_the_single_device_model(bd_graphs, kind):
+    """The 4x2 BD mesh and one device's BD route, from one generator: the
+    same 5 losses."""
+    ptr, idx, _, pg, x, y = bd_graphs
+    net_d, _, _ = init_distributed_net(torch.Generator().manual_seed(7), kind, 20, 7,
+                                       CLASSES, 2, pg)
+    step_d = make_distributed_train_step(
+        pg, net_d, pg.shard_features(x), pg.shard_nodes(y.astype(np.int64)),
+        torch.optim.Adam(net_d.parameters(), lr=0.01), dropout_rate=0.0,
+        num_valid_classes=CLASSES)
+    g = TiledGraph(ptr, idx, BD_N, BD_CFG, device="cpu")
+    assert g.block_diag
+    net_s = init_net(torch.Generator().manual_seed(7), kind, 20, 7, CLASSES, 2)
+    step_s = port_train.make_train_step(
+        g, net_s, torch.from_numpy(x), torch.from_numpy(y).long(),
+        torch.optim.Adam(net_s.parameters(), lr=0.01), dropout_rate=0.0)
+    got = [float(step_d()) for _ in range(STEPS)]
+    want = [float(step_s()) for _ in range(STEPS)]
+    np.testing.assert_allclose(got, want, rtol=1e-4)

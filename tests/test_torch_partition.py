@@ -136,6 +136,22 @@ def test_partition_graph_matches_jax(graph, shards):
         assert got[0].split is not None, "the planted mega window must engage the split"
 
 
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+def test_light_partition_matches_jax(graph, shards):
+    """``build_tiles=False``, the block-diagonal route's layout-only
+    partition: JAX's scalars, edge offsets and transpose slots; no tile,
+    chunk, halo or split."""
+    _, (n, ptr, idx) = graph
+    got = port_part.partition_graph(ptr, idx, n, shards, CFG, build_tiles=False)
+    want = jax_part.partition_graph(ptr, idx, n, shards, JCFG, build_tiles=False)
+    for tag, g, w in zip(("fwd", "bwd"), got, want):
+        for f in SCALARS:
+            assert getattr(g, f) == getattr(w, f), (tag, f)
+        for f in ARRAYS:
+            assert_same(f"{tag}.{f}", getattr(g, f), getattr(w, f))
+        assert g.halo is None and g.split is None
+
+
 def test_balance_dataset_permutes_in_place():
     from tcgnn_tpu_torch.data import synthesize
 

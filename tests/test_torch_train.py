@@ -166,9 +166,15 @@ def test_cli_takes_jax_warmup_steps(monkeypatch, extra):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "2x1"]])
-def test_cli_unported_paths_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_train.main(["--dataset", "rand_100_400", "--device", "cpu", *flag])
+def test_cli_unported_paths_raise(capsys, flag):
+    """``--mesh 2x1`` on ``rand_100_400``, a block-diagonal graph, trains on
+    the distributed block-diagonal route (it raised before that route was
+    ported; the name stays)."""
+    r = port_train.main(["--dataset", "rand_100_400", "--device", "cpu", "--epochs", "3",
+                         "--no_dropout", *flag])
+    assert "block_diag=True mesh=2x1" in capsys.readouterr().out
+    assert r["block_diag"] and r["split"] == (False, False)
+    assert np.isfinite(r["final_loss"]) and r["final_loss"] < r["first_loss"]
 
 
 def test_cli_agnn_prints_contract(capsys):
