@@ -153,10 +153,31 @@ Phases, in order; any failure raises and exits nonzero:
      (K6/K7) and ``2x2`` (K4 cell scores and K5), each on the route with no
      split, a falling loss, its kernels and no others, no plain version, a
      first loss within ``FIRST_LOSS_RTOL`` of one device's, and its ``Train
-     (ms)``, ``Prep. (ms)`` and ``torch.cuda.max_memory_allocated()``.
+     (ms)``, ``Prep. (ms)`` and ``torch.cuda.max_memory_allocated()``;
+ 18. the distributed streamed route and the chunk fallback, every shard on
+     this one card: on reddit at full size (phase 11's dataset, unbalanced),
+     a ``DistributedTiledGraph`` over 2x2 takes the streamed route (its
+     segments, caps and the device bytes of its layouts and row indexes
+     printed) and its ``spmm``, ``spmm_weighted`` (d=16) and ``sddmm``
+     (d=32), forward and every gradient, hold against phase 11's
+     single-device graph on the card (``rtol=atol=1e-4`` forward, ``1e-3``
+     gradients, elementwise), launching K8 and K9 only and no plain
+     version; K8 (d=16) and K9 (d=32) timed on its heaviest shard (event and
+     device time) beside ``csr_bound`` over the shard's edges and
+     ``torch.sparse.mm`` / ``sampled_addmm`` over the shard's CSR; then the
+     trainer, ``TRAIN_EPOCHS`` timed epochs, ``--no_dropout``: reddit GCN
+     (hidden 16, hoisted) on ``--mesh 4x1`` (K8) and AGNN 2 layers hidden 32
+     on ``--mesh 2x2`` (K8 and K9), each on the streamed route, with the
+     native host pass, a falling loss, its kernels and no others, no plain
+     version, a first loss within ``FIRST_LOSS_RTOL`` of one device's (the
+     trainer's first step over phase 11's graph with the same parameters),
+     and its ``Train (ms)``, ``Prep. (ms)``, ``Prep host (ms)`` by stage,
+     peak host RSS and ``torch.cuda.max_memory_allocated()``; last, pubmed
+     on the chunk fallback (``dense_tiles=False``) over 4x2: the same ops
+     against the single-device graph, K8 and K9 only.
 
 The kernels line's launches are summed over every run of phases 11, 13, 14,
-15, 16 and 17, each read with the counts set to 0 just before it.  Every bound
+15, 16, 17 and 18, each read with the counts set to 0 just before it.  Every bound
 is ``tcgnn_tpu_torch.bench.roofline_bound``'s ``csr_bound``.
 
 Every phase prints its elapsed seconds.  The line before the last is
@@ -194,6 +215,7 @@ from tcgnn_tpu_torch.bench.roofline_bound import csr_bound
 from tcgnn_tpu_torch.data import coo_to_csr, powerlaw_graph, synthesize
 from tcgnn_tpu_torch.data.edge_graphs import asymmetric_graph, banded_graph, write_npz
 from tcgnn_tpu_torch.data.synthetic import component_union_graph
+from tcgnn_tpu_torch.models import nets
 from tcgnn_tpu_torch.ops import (
     EdgeList,
     _kernels,
@@ -255,6 +277,8 @@ TIMING_RUNS = 25
 # makes the huge early AGNN losses swing from one update to the next:
 # pubmed's 2-layer AGNN reads above its first loss after 29).
 TRAIN_EPOCHS = 21
+# reddit at its published widths (phases 11 and 18).
+REDDIT = ["--dataset", "reddit", "--dim", "602", "--classes", "41"]
 KERNEL_SOURCES = ("spmm_dense", "spmm_sfused", "sddmm_dense", "spmm_bd", "chunk")
 # name, source, TPU kernel it replaces, wrappers that launch it
 KERNELS = {
@@ -878,7 +902,7 @@ def index_csr(m, dev, w=None) -> torch.Tensor:
     library yardsticks."""
     vals = torch.ones(m.num_edges, device=dev) if w is None else w
     return torch.sparse_csr_tensor(m.row_ptr, m.row_src.long(), vals,
-                                   size=(m.num_nodes, m.num_nodes))
+                                   size=(m.num_rows, m.num_src))
 
 
 def check_reddit_kernels(g, dev, card) -> dict:
@@ -1010,12 +1034,12 @@ def phase_train(data_dir, dev, card) -> tuple:
     the runs, each kernel's launches summed over them, the errors and
     records of ``check_reddit_kernels`` and the stages of
     ``host_pass_stages``, run on the reddit GCN run's graph once its counts
-    are read, and that graph with its features (phase 14 times them)."""
+    are read, and that graph with its features and dataset (phase 14 times
+    them; phase 18 holds the mesh to them)."""
     asym = write_npz(data_dir, "asymmetric", asymmetric_graph)
     banded = write_npz(data_dir, "banded", banded_graph)
     pubmed = ["--dataset", "pubmed", "--dim", "500", "--classes", "3"]
     dd = ["--dataset", "DD", "--dim", "89", "--classes", "2"]
-    reddit = ["--dataset", "reddit", "--dim", "602", "--classes", "41"]
     agnn = ["--model", "agnn", "--hidden", "32"]
     condensed, bd, streamed = (True, False, False), (True, False, True), (False, True, False)
     # label, arguments, kernels the run must launch, loss must fall, route
@@ -1048,8 +1072,8 @@ def phase_train(data_dir, dev, card) -> tuple:
         ("agnn 2 layers, banded graph",
          [*agnn, "--num_layers", "2", "--data_dir", data_dir, "--dataset", banded, "--dim", "64"],
          ("K5", "K4", "K1"), True, bd, None),
-        ("reddit gcn", [*reddit, "--model", "gcn"], ("K8",), True, streamed, 265_565),
-        ("reddit agnn 2 layers", [*reddit, *agnn, "--num_layers", "2"], ("K8", "K9"), True,
+        ("reddit gcn", [*REDDIT, "--model", "gcn"], ("K8",), True, streamed, 265_565),
+        ("reddit agnn 2 layers", [*REDDIT, *agnn, "--num_layers", "2"], ("K8", "K9"), True,
          streamed, 265_565),
     ]
     results, launches = [], {k: 0 for k in KERNELS}
@@ -1086,7 +1110,7 @@ def phase_train(data_dir, dev, card) -> tuple:
             reddit_errs, reddit_records = check_reddit_kernels(graph, dev, card)
             print(f"  reddit kernel checks done in {time.perf_counter() - t1:.1f} s")
             stages = host_pass_stages(ds, graph, dev, card)
-            reddit_graph = (graph, torch.from_numpy(ds.x).to(dev))
+            reddit_graph = (graph, torch.from_numpy(ds.x).to(dev), ds)
         del graph, ds
         results.append((label, r))
         torch.cuda.empty_cache()
@@ -1510,7 +1534,7 @@ def phase_single_kernel(reddit, dev) -> tuple[list, dict]:
         if set(r) != SAG_KEYS:
             raise AssertionError(f"{label}: --single_kernel returned {sorted(r)}")
         read(label, expected, r, t0)
-    graph, x = reddit
+    graph, x, _ = reddit
     print(f"--- train.profile_sag(the reddit GCN run's graph and features, "
           f"num_rounds={REDDIT_SAG_ROUNDS})")
     t0 = time.perf_counter()
@@ -1710,19 +1734,20 @@ def phase_incumbent_grads(dev) -> None:
 
 # ---- the distributed block-diagonal route -------------------------------------
 
-# The mesh's BD ops against one device's on the card, f32, elementwise
-# (``atol + rtol * |one device|``): the same kernels over the same pack rows;
-# at 2x2 the AGNN's scores are two feature shards' partial dots summed, at
-# 4x1 and 2x2 the SDDMM's too.  The CPU parity tests' tolerances.
-BD_MESH_FWD = dict(rtol=1e-4, atol=1e-4)
-BD_MESH_GRAD = dict(rtol=1e-3, atol=1e-3)
+# A mesh's ops against one device's on the card (phases 17 and 18), f32,
+# elementwise (``atol + rtol * |one device|``): the same kernels over the
+# same pack rows or edges; at 2x2 the AGNN's scores are two feature shards'
+# partial dots summed, at 4x1 and 2x2 the SDDMM's too.  The CPU parity
+# tests' tolerances.
+MESH_FWD = dict(rtol=1e-4, atol=1e-4)
+MESH_GRAD = dict(rtol=1e-3, atol=1e-3)
 BD_MESH_D = 32  # AGNN's hidden width
 # Kernels each mesh's op check launches: K4 is the SDDMM on both.
 BD_MESHES = {"4x1": ("K4", "K5", "K6", "K7"), "2x2": ("K4", "K5")}
 YEAST = ["--dataset", "Yeast", "--dim", "74", "--classes", "2"]
 
 
-def bd_mesh_op(g, op, x, w, att, r, mesh) -> dict:
+def mesh_op(g, op, x, w, att, r, mesh) -> dict:
     """``op``'s output and gradients (x; w for the weighted SpMM, the
     attention weights for the AGNN aggregate) with cotangent ``r``, in one
     device's layout: on a mesh graph the inputs are padded to its node and
@@ -1740,8 +1765,8 @@ def bd_mesh_op(g, op, x, w, att, r, mesh) -> dict:
         edges = g.edge_weights_to_sharded
     else:
         nodes = edges = back = torch.clone
-    xl, wl, al = nodes(x).requires_grad_(True), edges(w).requires_grad_(True), att.clone()
-    al.requires_grad_(True)
+    xl, wl = nodes(x).requires_grad_(True), edges(w).requires_grad_(True)
+    al = None if att is None else att.clone().requires_grad_(True)
     if op == "spmm_weighted":
         out = g.spmm_weighted(xl, wl)
     elif op == "agnn_aggregate":
@@ -1775,7 +1800,7 @@ def phase_bd_mesh_ops(dev) -> None:
     one = TiledGraph(*args, device=dev)
     if not (one.block_diag and one.bd_full_coverage and one.agnn_aggregate is not None):
         raise AssertionError("Yeast: one device must take the fully covered BD route")
-    want = {op: bd_mesh_op(one, op, x, w, att, cot[op], False) for op in ops}
+    want = {op: mesh_op(one, op, x, w, att, cot[op], False) for op in ops}
     print(f"Yeast one device: offsets {one.bd_offsets}, ops in {time.perf_counter() - t0:.1f} s")
     del one
     torch.cuda.empty_cache()
@@ -1787,7 +1812,7 @@ def phase_bd_mesh_ops(dev) -> None:
         prep = time.perf_counter() - t0
         pack_mb = sum(sh.pack.numel() * sh.pack.element_size() for sh in g._fwd.shards) / 2**20
         reset_counts()
-        got = {op: bd_mesh_op(g, op, x, w, att, cot[op], True) for op in ops}
+        got = {op: mesh_op(g, op, x, w, att, cot[op], True) for op in ops}
         torch.cuda.synchronize()
         counts = launch_counts()
         print(f"Yeast {mesh}: {g.route}; {pack_mb:.1f} MiB of ext packs, rows_per_shard "
@@ -1799,7 +1824,7 @@ def phase_bd_mesh_ops(dev) -> None:
             for part, a in got[op].items():
                 b = want[op][part]
                 compare(f"Yeast {mesh} {op} {part} vs one device", a, b, b.abs(),
-                        BD_MESH_FWD if part == "out" else BD_MESH_GRAD)
+                        MESH_FWD if part == "out" else MESH_GRAD)
         del g, got
         torch.cuda.empty_cache()
 
@@ -1867,6 +1892,235 @@ def phase_bd_mesh_train(dev) -> tuple[list, dict]:
             raise AssertionError(f"{label}: first loss {r['first_loss']} vs one device "
                                  f"{single[model]}")
     return results, launches
+
+
+# ---- the distributed streamed route and the chunk fallback ----------------------
+
+# Widths of phase 18's op check (``MESH_FWD``, ``MESH_GRAD``: the same
+# kernels over each shard's edges, the rows cut between warps elsewhere):
+# the SpMMs at GCN's hidden width, the SDDMM at AGNN's.
+STREAM_OP_D = {"spmm": 16, "spmm_weighted": 16, "sddmm": 32}
+
+
+def vm_hwm():
+    """The process's peak resident set in bytes (``VmHWM``), or None where
+    ``/proc/self/status`` has none."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmHWM:"):
+                return int(line.split()[1]) * 1024
+    return None
+
+
+def reset_peak_rss() -> bool:
+    """Reset the process's peak resident set (``/proc/self/clear_refs``);
+    False where the kernel has no such reset or no ``VmHWM`` to read it
+    back, and ``peak_rss`` then reads the process's peak since it
+    started."""
+    if vm_hwm() is None:
+        return False
+    try:
+        with open("/proc/self/clear_refs", "w") as f:
+            f.write("5")
+        return True
+    except OSError:
+        return False
+
+
+def peak_rss() -> int:
+    """The process's peak resident set in bytes: ``VmHWM``, else
+    ``getrusage``'s ``ru_maxrss``."""
+    hwm = vm_hwm()
+    return hwm if hwm is not None else resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def stream_mesh_ops(g, one, n, e, dev, tag, expected) -> None:
+    """``spmm``, ``spmm_weighted`` and ``sddmm`` of the mesh graph ``g``,
+    forward and every gradient, against the single-device graph ``one``'s on
+    the card (``mesh_op``'s layouts; f32 at ``STREAM_OP_D``'s widths);
+    the mesh's ops must launch ``expected`` and no other kernel, and no plain
+    version."""
+    w = randn((e,), 181, dev)
+    total = {k: (0, 0) for k in KERNELS}
+    for op, d in STREAM_OP_D.items():
+        x = randn((n, d), 180 + d, dev) * 0.3
+        r = randn((e,) if op == "sddmm" else (n, d), 182, dev)
+        want = mesh_op(one, op, x, w, None, r, False)
+        reset_counts()
+        got = mesh_op(g, op, x, w, None, r, True)
+        torch.cuda.synchronize()
+        total = {k: (c[0] + total[k][0], c[1] + total[k][1]) for k, c in launch_counts().items()}
+        for part, a in got.items():
+            b = want[part]
+            compare(f"{tag} {op} {part} vs one device", a, b, b.abs(),
+                    MESH_FWD if part == "out" else MESH_GRAD)
+        del want, got
+    print(f"  {tag} ops: " + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}"
+                                       for k, c in total.items() if c[0] or c[1]))
+    check_launches(f"{tag} ops", total, expected)
+    torch.cuda.empty_cache()
+
+
+def layout_bytes(metas) -> tuple[int, int]:
+    """Device bytes of chunk layouts (the slots the plain versions read) and
+    of their row indexes (what K8 and K9 read)."""
+    uniq = {id(m): m for m in metas}.values()
+    slots = sum(nbytes(m.seg_col_ids, m.seg_r, m.seg_c, m.seg_edge_id, m.seg_block,
+                       m.seg_window, m.seg_chunks) for m in uniq)
+    return slots, sum(nbytes(m.row_ptr, m.row_src) for m in uniq)
+
+
+def time_heaviest_shard(g, dev, card) -> dict:
+    """K8 (d=16) and K9 (d=32) on the mesh's heaviest shard layout: event
+    and device ms (``TIMING_RUNS`` back-to-back calls) beside ``csr_bound``
+    over the shard's edges and ``torch.sparse.mm`` / ``sampled_addmm`` over
+    the shard's CSR (its rows against all the rows)."""
+    m = max(g._fwd.metas, key=lambda t: t.num_edges)
+    e, rows, src = m.num_edges, m.num_rows, m.num_src
+    a_csr = torch.sparse_csr_tensor(m.row_ptr, m.row_src.long(),
+                                    torch.ones(e, device=dev), size=(rows, src))
+    out = {}
+    x = randn((src, 16), 190, dev)
+    b = csr_bound(e, rows, nbytes(x) + 4 * rows * 16, 2 * e * 16)
+    out["K8"] = dict(ms=median_ms(lambda: spmm_tc(x, m)), device_ms=device_ms(lambda: spmm_tc(x, m)),
+                     library_ms=device_ms(lambda: torch.sparse.mm(a_csr, x)), bound=b)
+    xa, xb = randn((rows, 32), 191, dev), randn((src, 32), 192, dev)
+    xbt = xb.t().contiguous()
+    b = csr_bound(e, rows, nbytes(xa, xb) + 4 * e, 2 * e * 32)
+    out["K9"] = dict(ms=median_ms(lambda: sddmm_tc(xa, m, xb)),
+                     device_ms=device_ms(lambda: sddmm_tc(xa, m, xb)),
+                     library_ms=device_ms(lambda: torch.sparse.sampled_addmm(
+                         a_csr, xa, xbt, beta=0.0)), bound=b)
+    for k, t in out.items():
+        d = 16 if k == "K8" else 32
+        print(f"  time {k} reddit 2x2 heaviest shard ({e} edges, {rows} rows against {src}) "
+              f"d={d}: event {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms, library "
+              f"(device) {t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
+              f"({t['bound'][1]}) (event: median of {TIMING_RUNS}; device: one pair around "
+              f"{TIMING_RUNS} calls; card: {card}; one card held all 4 shards)")
+    del a_csr
+    return out
+
+
+def phase_stream_mesh_ops(reddit, dev, card) -> dict:
+    """Phase 18 (a): reddit at full size (phase 11's dataset, in its own
+    order: unbalanced, so the mesh's rows are one device's), a
+    ``DistributedTiledGraph`` over 2x2 (the all-gather over ``graph`` and
+    the SDDMM's sum over ``feature``) on the streamed route: its layout
+    printed, its ops held to phase 11's single-device graph (K8 and K9
+    only), then K8 and K9 timed on its heaviest shard.  Returns the
+    timings."""
+    one, _, ds = reddit
+    n, e = ds.num_nodes, ds.num_edges
+    t0 = time.perf_counter()
+    g = DistributedTiledGraph(ds.row_pointers, ds.column_index, n, make_mesh(2, 2, dev))
+    torch.cuda.synchronize()
+    prep = time.perf_counter() - t0
+    if not (g.streamed and not g.dense_tiles and g.agnn_aggregate is None):
+        raise AssertionError(f"reddit 2x2: expected the streamed route: {g.route}")
+    slots, index = layout_bytes(g._fwd.metas + g._bwd.metas)
+    print(f"reddit 2x2: {g.route}; rows_per_shard {g.rows_per_shard}, edges a shard "
+          f"{[m.num_edges for m in g._fwd.metas]}; layouts {slots / 1e6:.1f} MB, row indexes "
+          f"{index / 1e6:.1f} MB on the card; built in {prep:.1f} s (Prep host "
+          f"{g.prep_host_s * 1e3:.1f} ms: "
+          + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in g.prep_stages.items()) + ")")
+    stream_mesh_ops(g, one, n, e, dev, "reddit 2x2", ("K8", "K9"))
+    times = time_heaviest_shard(g, dev, card)
+    del g
+    torch.cuda.empty_cache()
+    return times
+
+
+def one_device_first_loss(reddit, model, dev) -> float:
+    """The first loss of a ``--no_dropout`` trainer run of ``model`` on one
+    device: ``train.make_train_step``'s first step over phase 11's reddit
+    graph and dataset, the parameters ``nets.init_net``'s draws from the
+    trainer's seed (what ``train.main`` does after its preprocessing)."""
+    graph, x, ds = reddit
+    args = train.build_argparser().parse_args([*REDDIT, "--no_dropout", *model])
+    net = nets.init_net(torch.Generator().manual_seed(args.seed), args.model, ds.num_features,
+                        args.hidden, ds.num_classes, args.num_layers, device=dev,
+                        n_heads=args.n_heads)
+    y = torch.from_numpy(ds.y.astype(np.int64)).to(dev)
+    step = train.make_train_step(graph, net, x, y, torch.optim.Adam(net.parameters(), lr=args.lr),
+                                 0.0, hoist=not args.no_hoist)
+    return float(step())
+
+
+def phase_stream_mesh_train(reddit, dev, card) -> tuple[list, dict]:
+    """Phase 18 (b), the path: the trainer on reddit, ``TRAIN_EPOCHS`` timed
+    epochs each, ``--no_dropout``: GCN 2 layers hidden 16 hoisted (the
+    trainer's defaults) on ``--mesh 4x1`` (K8) and AGNN 2 layers hidden 32
+    on ``--mesh 2x2`` (K8 and K9), balanced as the trainer balances.  Each
+    on the streamed route, with the native host pass, a falling loss, its
+    kernels and no others, no plain version, and a first loss within
+    ``FIRST_LOSS_RTOL`` of one device's (``one_device_first_loss``; the loss
+    is a mean, so the balance's relabelling does not move it).  Every count
+    is set to 0 just before each run and read just after.  Returns the runs
+    and each kernel's launches summed over them."""
+    gcn = ["--model", "gcn"]
+    agnn = ["--model", "agnn", "--hidden", "32", "--num_layers", "2"]
+    runs = [  # label, model, mesh, kernels the run must launch
+        ("reddit gcn --mesh 4x1", gcn, "4x1", ("K8",)),
+        ("reddit agnn --mesh 2x2", agnn, "2x2", ("K8", "K9")),
+    ]
+    results, launches = [], {k: 0 for k in KERNELS}
+    for label, model, mesh, expected in runs:
+        extra = [*REDDIT, "--no_dropout", *model, "--mesh", mesh]
+        print(f"--- train.main {' '.join(extra)}")
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # phase 11's graph, for the first losses
+        rss_reset = reset_peak_rss()
+        reset_counts()
+        r = run_main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), *extra])
+        counts = launch_counts()
+        r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        r["held_before"] = held
+        r["peak_rss"], r["rss_of_run"] = peak_rss(), rss_reset
+        r["seconds"] = time.perf_counter() - t0
+        del r["graph"]
+        single = one_device_first_loss(reddit, model, dev)
+        rel = abs(r["first_loss"] - single) / abs(single)
+        print(f"  {r['route']}  first loss {r['first_loss']:.6f} (one device {single:.6f}, "
+              f"relative difference {rel:.3e}, rtol {FIRST_LOSS_RTOL})  final loss "
+              f"{r['final_loss']:.6f}  Train (ms) {r['train_ms']:.3f}  Prep. (ms) "
+              f"{r['prep_ms']:.3f}  Prep host (ms) {r['prep_host_ms']:.3f}  peak host RSS "
+              f"{r['peak_rss'] / 2**30:.2f} GiB ({'this run' if rss_reset else 'the process'})"
+              f"  max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB ("
+              f"{held / 2**30:.2f} GiB held before the run)  run {r['seconds']:.1f} s  "
+              + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}" for k, c in counts.items()
+                          if c[0] or c[1]) + f"  (card: {card})")
+        if not (r["streamed"] and "streamed=True" in r["route"]):
+            raise AssertionError(f"{label}: expected the streamed route: {r['route']}")
+        if not (math.isfinite(r["final_loss"]) and r["final_loss"] < r["first_loss"]):
+            raise AssertionError(f"{label}: loss did not fall ({r['first_loss']} -> "
+                                 f"{r['final_loss']})")
+        check_launches(label, counts, expected)
+        if not rel <= FIRST_LOSS_RTOL:
+            raise AssertionError(f"{label}: first loss {r['first_loss']} vs one device {single}")
+        for k, c in counts.items():
+            launches[k] += c[0]
+        results.append((label, r))
+        torch.cuda.empty_cache()
+    return results, launches
+
+
+def phase_chunk_fallback_ops(ds, dev) -> None:
+    """Phase 18 (c): pubmed on the chunk fallback (``dense_tiles=False``)
+    over a 4x2 mesh, in its own order: its ops and gradients against the
+    single-device graph's (its condensed route: K1 and K4) on the card,
+    the mesh's launching K8 and K9 only."""
+    n, e = ds.num_nodes, ds.num_edges
+    g = DistributedTiledGraph(ds.row_pointers, ds.column_index, n, make_mesh(4, 2, dev),
+                              dense_tiles=False)
+    if g.dense_tiles or g.streamed:
+        raise AssertionError(f"pubmed 4x2 dense_tiles=False: {g.route}")
+    one = TiledGraph(ds.row_pointers, ds.column_index, n, TileConfig(), device=dev)
+    print(f"pubmed 4x2: {g.route}")
+    stream_mesh_ops(g, one, n, e, dev, "pubmed 4x2 chunk fallback", ("K8", "K9"))
+    del g, one
+    torch.cuda.empty_cache()
 
 
 def build_kernels():
@@ -2027,8 +2281,6 @@ def main():
     # ---- 14. --single_kernel ----------------------------------------------------
     t0 = phase_start("14. --single_kernel on each route")
     sag_runs, sag_launches = phase_single_kernel(reddit, dev)
-    del reddit
-    torch.cuda.empty_cache()
     for k, c in sag_launches.items():
         launches[k] += c
     phase_end(t0)
@@ -2055,6 +2307,22 @@ def main():
         launches[k] += c
     phase_end(t0)
 
+    # ---- 18. the distributed streamed route and the chunk fallback -------------
+    t0 = phase_start("18. the distributed streamed route and the chunk fallback (every shard "
+                     "on this card)")
+    t1 = time.perf_counter()
+    shard_times = phase_stream_mesh_ops(reddit, dev, card)
+    print(f"  op check and timing done in {time.perf_counter() - t1:.1f} s")
+    stream_runs, stream_launches = phase_stream_mesh_train(reddit, dev, card)
+    for k, c in stream_launches.items():
+        launches[k] += c
+    del reddit
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    phase_chunk_fallback_ops(ds, dev)
+    print(f"  chunk fallback check done in {time.perf_counter() - t1:.1f} s")
+    phase_end(t0)
+
     for (k, geo, d), (kt, pt, dev) in times.items():
         print(f"  time {KERNELS[k][0]} {geo} d={d}: kernel {kt:.4f} ms (device {dev:.4f} ms), "
               f"plain {pt:.4f} ms (median of {TIMING_RUNS} event pairs a call; device: one "
@@ -2069,12 +2337,17 @@ def main():
               f"Final loss {r['final_loss']:.6f}  peak host RSS {r['peak_rss'] / 2**30:.2f} GiB  "
               f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB  "
               f"run {r['seconds']:.1f} s  (card: {card})")
-    for name, r in mesh_runs + bd_mesh_runs:
+    for name, r in mesh_runs + bd_mesh_runs + stream_runs:
         print(f"main path [{name}]: {r['route']}  TC_Blocks {r['tc_blocks']}  "
-              f"Prep. (ms) {r['prep_ms']:.3f}  Train (ms) {r['train_ms']:.3f}  "
+              f"Prep. (ms) {r['prep_ms']:.3f}  Prep host (ms) {r['prep_host_ms']:.3f}  "
+              f"Train (ms) {r['train_ms']:.3f}  "
               f"First loss {r['first_loss']:.6f}  Final loss {r['final_loss']:.6f}  "
               f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB  "
               f"run {r['seconds']:.1f} s  (card: {card}; one card held all shards)")
+    for k, t in shard_times.items():
+        print(f"  {KERNELS[k][0]} reddit 2x2 heaviest shard: {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f}), bound {t['bound'][0]:.4f} ({t['bound'][1]}), library "
+              f"(device) {t['library_ms']:.4f} (card: {card})")
     print("reddit Prep host (ms) by stage: " + json.dumps(
         {p: {k: round(v, 3) for k, v in st.items()} for p, st in prep_stages.items()})
           + f" (card host: {card})")

@@ -12,12 +12,17 @@ derived from the layout at upload (``row_ptr``, ``row_src``) and walk the
 edges in row order, one launch for any number of segments; the plain
 versions read the chunk slots.
 
-* SpMM: ``out = (A ⊙ w) @ x`` (``w`` per CSR edge, or none), ``[N, d]``
-  **f32** whatever the compute dtype, as the JAX chunk kernels store it: x
-  and w are rounded to the compute dtype and the products summed in f32.
-* SDDMM: per-edge ``e = <xa[row_e], xb[col_e]>``, ``[E]`` f32 in CSR order,
-  of compute-dtype operands.  The kernel writes the scores in CSR order
-  directly, so the layout's ``edge_perm`` is not needed on the device.
+* SpMM: ``out = (A ⊙ w) @ x`` (``w`` per CSR edge, or none), x ``[num_src,
+  d]``, out ``[num_rows, d]`` **f32** whatever the compute dtype, as the JAX
+  chunk kernels store it: x and w are rounded to the compute dtype and the
+  products summed in f32.
+* SDDMM: per-edge ``e = <xa[row_e], xb[col_e]>``, xa ``[num_rows, d]``, xb
+  ``[num_src, d]``, ``[E]`` f32 in CSR order, of compute-dtype operands.
+  The kernel writes the scores in CSR order directly, so the layout's
+  ``edge_perm`` is not needed on the device.
+
+On one device ``num_rows == num_src == N``; a shard of the distributed
+layer writes its own rows and gathers from the all-gathered features.
 
 A CUDA tensor runs the kernel (or raises); a CPU tensor runs the plain
 version (``*_torch``: ``index_add_`` over the slots, and per-slot dots, in
@@ -47,7 +52,7 @@ def spmm_tc_torch(
     ct = meta.config.compute_dtype
     xc = x.to(ct)
     w = None if edge_weights is None else edge_weights.float().to(ct).float()
-    out = torch.zeros((x.shape[0], x.shape[1]), dtype=torch.float32, device=x.device)
+    out = torch.zeros((meta.num_rows, x.shape[1]), dtype=torch.float32, device=x.device)
     for rows, src, eid in _slot_slabs(meta):
         vals = xc.index_select(0, src).float()
         if w is not None:
@@ -93,7 +98,7 @@ def _check_chunk_operands(op: str, x: torch.Tensor, meta: TorchChunkMeta) -> Non
 def _spmm_cuda(x, meta, edge_weights):
     _check_chunk_operands("spmm_tc", x, meta)
     ct = meta.config.compute_dtype
-    n, d = x.shape
+    n, d = meta.num_rows, x.shape[1]
     # Zeroed: rows cut between the kernel's warps are added with atomics.
     out = torch.zeros((n, d), dtype=torch.float32, device=x.device)
     if n == 0 or d == 0 or meta.num_edges == 0:
@@ -114,6 +119,8 @@ def _spmm_cuda(x, meta, edge_weights):
 
 def _sddmm_cuda(xa, xb, meta):
     _check_chunk_operands("sddmm_tc", xa, meta)
+    if xb is not None and xb.numel() >= 2**31:
+        raise ValueError("sddmm_tc: xb has 2**31 elements or more")
     ct = meta.config.compute_dtype
     n, d = xa.shape
     if meta.num_edges == 0 or d == 0:
@@ -131,9 +138,11 @@ def _sddmm_cuda(xa, xb, meta):
     return out
 
 
-def _check_x(op, x, meta, edge_weights=None):
-    if x.dim() != 2 or x.shape[0] != meta.num_nodes:
-        raise ValueError(f"{op}: x of shape {tuple(x.shape)}, expected [{meta.num_nodes}, d]")
+def _check_x(op, x, rows, meta, edge_weights=None):
+    """``x`` of ``rows`` rows (``num_src`` for the SpMM's x, ``num_rows``
+    for the SDDMM's xa) on a device with a kernel."""
+    if x.dim() != 2 or x.shape[0] != rows:
+        raise ValueError(f"{op}: x of shape {tuple(x.shape)}, expected [{rows}, d]")
     if edge_weights is not None and edge_weights.shape != (meta.num_edges,):
         raise ValueError(f"{op}: weights of shape {tuple(edge_weights.shape)}, "
                          f"expected ({meta.num_edges},)")
@@ -146,10 +155,10 @@ def spmm_tc(
     x: torch.Tensor, meta: TorchChunkMeta, edge_weights: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Chunk-route SpMM ``(A ⊙ w) @ x`` (``edge_weights`` None: ``A @ x``),
-    ``[N, d]`` f32, over any chunk layout: the flat one
-    (``SGTMeta.to_chunks``) or window segments (``StreamedMeta.to``), one
-    launch for all of them."""
-    _check_x("spmm_tc", x, meta, edge_weights)
+    x ``[num_src, d]``, ``[num_rows, d]`` f32, over any chunk layout: the
+    flat one (``SGTMeta.to_chunks``) or window segments (``StreamedMeta.to``),
+    one launch for all of them."""
+    _check_x("spmm_tc", x, meta.num_src, meta, edge_weights)
     if x.device.type == "cuda":
         return _spmm_cuda(x, meta, edge_weights)
     spmm_tc.plain_calls += 1
@@ -160,12 +169,17 @@ def spmm_tc(
 def sddmm_tc(
     xa: torch.Tensor, meta: TorchChunkMeta, xb: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """Chunk-route SDDMM: per-edge ``<xa[row_e], xb[col_e]>`` (``xb=None``:
-    ``xb = xa``), ``[E]`` f32 in CSR order, over any chunk layout."""
-    _check_x("sddmm_tc", xa, meta)
-    if xb is not None and (xb.shape != xa.shape or xb.device != xa.device):
-        raise ValueError(f"sddmm_tc: xb {tuple(xb.shape)} on {xb.device}, "
-                         f"xa {tuple(xa.shape)} on {xa.device}")
+    """Chunk-route SDDMM: per-edge ``<xa[row_e], xb[col_e]>``, xa
+    ``[num_rows, d]``, xb ``[num_src, d]`` (``xb=None``: ``xb = xa``, where
+    the two counts are equal), ``[E]`` f32 in CSR order, over any chunk
+    layout."""
+    _check_x("sddmm_tc", xa, meta.num_rows, meta)
+    if xb is None and meta.num_src != meta.num_rows:
+        raise ValueError(f"sddmm_tc: xb=None needs num_src == num_rows, got {meta.num_src} "
+                         f"and {meta.num_rows}")
+    if xb is not None and (xb.shape != (meta.num_src, xa.shape[1]) or xb.device != xa.device):
+        raise ValueError(f"sddmm_tc: xb {tuple(xb.shape)} on {xb.device}, expected "
+                         f"[{meta.num_src}, {xa.shape[1]}] on {xa.device}")
     if xa.device.type == "cuda":
         return _sddmm_cuda(xa, xb, meta)
     sddmm_tc.plain_calls += 1

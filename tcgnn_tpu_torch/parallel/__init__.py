@@ -1,7 +1,8 @@
 """The distributed layer of the port: the ``('graph', 'feature')`` mesh,
 the row-window partition with its halo and block-stream split, the
-block-diagonal route's shard packs and rim, and the dense-tile and
-block-diagonal routes' ops and training step, every shard on one device."""
+block-diagonal route's shard packs and rim, the streamed route's window
+segments, and the dense-tile, block-diagonal, streamed and chunk routes'
+ops and training step, every shard on one device."""
 
 from tcgnn_tpu_torch.parallel.graph import (
     DistributedTiledGraph,
@@ -9,11 +10,16 @@ from tcgnn_tpu_torch.parallel.graph import (
     probe_block_diag,
 )
 from tcgnn_tpu_torch.parallel.mesh import Mesh, make_mesh
-from tcgnn_tpu_torch.parallel.partition import ShardedSGTMeta, partition_csr, partition_graph
+from tcgnn_tpu_torch.parallel.partition import (
+    ShardedSGTMeta,
+    partition_csr,
+    partition_graph,
+    partition_streamed,
+)
 from tcgnn_tpu_torch.parallel.train import init_distributed_net, make_distributed_train_step
 
 __all__ = [
     "DistributedTiledGraph", "distributed_graph_from_dataset", "probe_block_diag", "Mesh",
-    "make_mesh", "ShardedSGTMeta", "partition_csr", "partition_graph",
+    "make_mesh", "ShardedSGTMeta", "partition_csr", "partition_graph", "partition_streamed",
     "init_distributed_net", "make_distributed_train_step",
 ]

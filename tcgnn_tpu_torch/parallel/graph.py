@@ -1,6 +1,6 @@
 """DistributedTiledGraph: the SGT-tiled graph over a ``('graph',
-'feature')`` shard grid (PyTorch port of the dense-tile and block-diagonal
-routes of ``tcgnn_tpu.parallel.graph``).
+'feature')`` shard grid (PyTorch port of ``tcgnn_tpu.parallel.graph``: the
+dense-tile, block-diagonal, streamed and chunk routes).
 
 Every shard of the grid lives on the mesh's one device (``parallel/mesh.py``);
 the shards run in turn, and the collectives between them are copies on that
@@ -46,6 +46,21 @@ at ``pf > 1`` one score a pack cell (K4's partial dots summed over
 ``feature`` in f32 and rounded once, the JAX order), multiplied by the
 cell's count and scattered into a weighted pack for K5.
 
+The streamed route, where a shard's chunk layout passes the streamed
+limits (``_shards_need_streaming``, the JAX gate; reddit), and the chunk
+fallback (``dense_tiles=False``, or a shard's tile index space past int32):
+every op all-gathers the sharded features over ``graph`` and runs K8 (the
+SpMMs) or K9 (the SDDMM) on each shard's chunk layout, its own rows against
+the all-gathered ``[padded_nodes, d]`` matrix.  The streamed route's layout
+is ``partition.partition_streamed``'s window segments (both directions,
+each from the light partition's offsets), the fallback's the partition's
+stacked chunk arrays, one segment a shard.  The weighted SpMM's forward
+reads the shard's own slice of the edge vector, its transpose the
+all-gathered forward vector through ``edge_fwd_slot``; the SDDMM writes each
+shard's scores into ``edge_capacity`` zeros, summed over ``feature``.
+Outputs are f32, as the JAX chunk routes store them, and there is no fused
+AGNN (``agnn_aggregate`` is None): AGNN runs K9 and the weighted K8.
+
 The port differs from the JAX route on purpose, changing no value:
 
 * the halo-overlap split (local and remote block classes, run against the
@@ -60,12 +75,18 @@ The port differs from the JAX route on purpose, changing no value:
   transpose term is K5 over ``C ⊙ U`` (``U_ij = <x_i, dy_j>``), the same
   value on a symmetric pack, where JAX spills rim bins back to the
   neighbours;
+* on the streamed route and the chunk fallback, K8 and K9 walk each
+  shard's CSR row index (derived from its layout at upload), one launch for
+  all its segments, where JAX scans a chunk kernel over the segments; a
+  symmetric graph's transpose shares the forward layout (the two
+  partitions' arrays are equal); each shard's layout takes its own edge
+  count, so its padding slots are the segment layout's own (row ``blk_h``),
+  and outputs are padded to ``edge_capacity`` afterwards;
 * every shard lives on one card, so no time this route gives is a
   multi-card figure.
 
-Routes not ported yet raise ``NotImplementedError`` naming their ROADMAP
-entry and never fall back to another route: the streamed route and the
-chunk fallback (item 8b).
+What is left of the JAX layer (ROADMAP.md, Queue 1 item 8): one process per
+card over NCCL (8c) and the collective byte counts (8d).
 """
 
 from __future__ import annotations
@@ -77,12 +98,14 @@ import numpy as np
 import torch
 
 from tcgnn_tpu_torch.config import DEFAULT_CONFIG, TileConfig
+from tcgnn_tpu_torch.graph import StageClock
 from tcgnn_tpu_torch.ops.blockdiag import (
     bd_scatter_weights,
     bd_sfused,
     bd_sfused_bwd,
     spmm_block_diag,
 )
+from tcgnn_tpu_torch.ops.chunk import sddmm_tc, spmm_tc
 from tcgnn_tpu_torch.ops.fused import spmm_fused
 from tcgnn_tpu_torch.ops.sddmm import sddmm_tc_dense, sddmm_tc_tiles
 from tcgnn_tpu_torch.ops.row_index import RowIndex
@@ -91,20 +114,21 @@ from tcgnn_tpu_torch.ops.spmm import build_a_tiles, spmm_tc_dense
 from tcgnn_tpu_torch.parallel import collectives as C
 from tcgnn_tpu_torch.parallel.blockdiag import BDDirection, build_bd_shard_meta, rim, upload_bd
 from tcgnn_tpu_torch.parallel.mesh import Mesh, make_mesh
-from tcgnn_tpu_torch.parallel.partition import ShardedSGTMeta, partition_graph
+from tcgnn_tpu_torch.parallel.partition import (
+    ShardedSGTMeta,
+    partition_graph,
+    partition_streamed,
+)
 from tcgnn_tpu_torch.sgt import native
 from tcgnn_tpu_torch.sgt.translate import (
+    TorchChunkMeta,
     TorchSGTMeta,
-    count_blocks,
     is_symmetric,
     shard_meta,
     transpose_csr,
+    window_blocks,
 )
 
-STREAMED_ROUTE = ("the distributed streamed route is not ported yet "
-                  "(ROADMAP.md, Queue 1 item 8b)")
-CHUNK_ROUTE = ("the distributed chunk fallback (dense_tiles=False) is not ported yet "
-               "(ROADMAP.md, Queue 1 item 8b)")
 # Input features are padded to a multiple of this many columns a feature
 # shard (JAX's ``d_tile``), so both packages build the same first layer.
 FEATURE_TILE = 128
@@ -143,8 +167,9 @@ def probe_block_diag(row_pointers, column_index, num_nodes: int, num_shards: int
 
 def _shards_need_streaming(row_pointers, column_index, num_nodes, num_shards, config) -> bool:
     """Would a shard's chunk layout pass the streamed route's limits
-    (``sgt.stream``'s, per shard)?  The JAX probe; the block count is
-    counted exactly where the bound does not settle it."""
+    (``sgt.stream``'s, per shard)?  The JAX probe; the real blocks are
+    counted (``window_blocks``, as JAX's native count, without the padding
+    blocks of empty windows) where the bound does not settle it."""
     from tcgnn_tpu_torch.sgt import stream
 
     blk_h = config.blk_h
@@ -161,8 +186,8 @@ def _shards_need_streaming(row_pointers, column_index, num_nodes, num_shards, co
             return True
         if (-(-e_s // config.blk_w) + wd) * config.blk_w <= stream.MAX_SLAB_ROWS:
             continue
-        blocks = count_blocks(ptr[r0:r1 + 1] - ptr[r0], cols[ptr[r0]:ptr[r1]], rows_per_shard,
-                              config)
+        blocks = int(window_blocks(ptr[r0:r1 + 1] - ptr[r0], cols[ptr[r0]:ptr[r1]],
+                                   rows_per_shard, config).sum())
         if blocks * config.blk_w > stream.MAX_SLAB_ROWS:
             return True
     return False
@@ -212,14 +237,34 @@ class _Direction:
     split: Optional[_Split]
 
 
+@dataclasses.dataclass
+class _ChunkDirection:
+    """One direction of the streamed route or the chunk fallback on the
+    device: per shard g, its chunk layout (``num_rows = rows_per_shard``,
+    ``num_src = padded_nodes``) with the row index K8/K9 walk, and on the
+    transpose each of its edges' forward slot."""
+
+    metas: list  # per shard g: TorchChunkMeta
+    edge_fwd_slot: Optional[list] = None  # transpose: per g, [e_g] int64
+
+
 class DistributedTiledGraph:
     """SGT-tiled graph partitioned over a ``('graph', 'feature')`` mesh.
 
-    ``dense_tiles``, ``block_diag`` and ``split`` as in JAX: ``None``
-    decides by the JAX rules; a graph those rules send to a route not
-    ported yet (streamed, chunk) raises ``NotImplementedError``.
-    ``block_diag=True`` on a graph the block-diagonal gate refuses raises
-    ``ValueError``.
+    ``dense_tiles``, ``block_diag``, ``split`` and ``streamed`` as in JAX:
+    ``None`` decides by the JAX rules.  The block-diagonal route wins over
+    the others; ``streamed=None`` streams where a shard's chunk layout
+    passes the streamed limits (``_shards_need_streaming``), ``True``
+    streams any graph off the block-diagonal route; ``dense_tiles=False``
+    (or ``None`` and a shard's tile index space past int32) takes the chunk
+    fallback.  ``block_diag=True`` on a graph the block-diagonal gate
+    refuses raises ``ValueError``.  ``_stream_limits``: ``(max_chunks,
+    max_slab_rows)`` of a segment in place of ``sgt.stream``'s (tests force
+    many segments on small graphs).
+
+    ``prep_stages`` holds the seconds of the host passes by stage (with
+    ``distributed_graph_from_dataset``, its probe and balance too) and
+    ``prep_host_s`` their sum.
     """
 
     def __init__(
@@ -232,8 +277,11 @@ class DistributedTiledGraph:
         dense_tiles: Optional[bool] = None,
         block_diag: Optional[bool] = None,
         split: Optional[bool] = None,
+        streamed: Optional[bool] = None,
         _probe=None,
         _symmetric: Optional[bool] = None,
+        _stream_limits: Optional[tuple] = None,
+        _clock: Optional[StageClock] = None,
     ):
         if mesh is None:
             mesh = make_mesh()
@@ -253,47 +301,54 @@ class DistributedTiledGraph:
         # The partition's host passes (transpose, SGT, BD probe) take
         # impl="auto": the native pass where its library loads.
         self.host_pass = native.pass_name("auto")
+        clock = _clock if _clock is not None else StageClock()
+        self.prep_stages = clock.seconds
 
-        # ---- route gates: the streamed route and the chunk fallback raise --
-        if dense_tiles is False:
-            raise NotImplementedError(CHUNK_ROUTE)
+        # ---- route gates, the JAX rules: block-diagonal, streamed, dense or
+        # chunk tiles.
         t_csr = None
-        if block_diag is not False:
+        if dense_tiles is not False and block_diag is not False:
             # ``_probe``: distributed_graph_from_dataset ran the gate on this
             # exact CSR; its transpose serves the partition too.
-            ok, bdm, bdm_t, self.symmetric, t_csr = (
-                _probe if _probe is not None
-                else probe_block_diag(row_pointers, column_index, self.num_nodes, self.pg, config)
-            )
+            if _probe is None:
+                with clock("bd_probe"):
+                    _probe = probe_block_diag(row_pointers, column_index, self.num_nodes,
+                                              self.pg, config)
+            ok, bdm, bdm_t, self.symmetric, t_csr = _probe
             if block_diag and not ok:
                 raise ValueError("block_diag requested but the graph is not fully covered "
                                  "by shard-compatible diagonals")
             if ok:
-                self._init_bd(row_pointers, column_index, bdm, bdm_t, t_csr)
+                self._init_bd(row_pointers, column_index, bdm, bdm_t, t_csr, clock)
                 return
         elif _symmetric is not None:
             self.symmetric = _symmetric
         else:
-            t_ptr, t_idx, _ = transpose_csr(row_pointers, column_index, self.num_nodes)
-            self.symmetric = is_symmetric(row_pointers, column_index, t_ptr, t_idx)
-        if _shards_need_streaming(row_pointers, column_index, self.num_nodes, self.pg, config):
-            raise NotImplementedError(STREAMED_ROUTE)
+            with clock("transpose"):
+                t_csr = transpose_csr(row_pointers, column_index, self.num_nodes)
+            with clock("symmetry"):
+                self.symmetric = is_symmetric(row_pointers, column_index, *t_csr[:2])
+        if streamed is None:
+            with clock("stream_gate"):
+                streamed = _shards_need_streaming(row_pointers, column_index, self.num_nodes,
+                                                  self.pg, config)
+        if streamed:
+            self._init_streamed(row_pointers, column_index, t_csr, _stream_limits, clock)
+            return
 
-        want_split = split is not False and self.pg > 1 and config.block_group == 1
-        fwd, bwd = partition_graph(row_pointers, column_index, self.num_nodes, self.pg, config,
-                                   split=want_split, transpose=t_csr)
+        want_split = (split is not False and dense_tiles is not False and self.pg > 1
+                      and config.block_group == 1)
+        with clock("partition"):
+            fwd, bwd = partition_graph(row_pointers, column_index, self.num_nodes, self.pg,
+                                       config, split=want_split, transpose=t_csr)
         if dense_tiles is None:
             dense_tiles = (max(fwd.a_tiles.shape[1], bwd.a_tiles.shape[1])
                            * config.blk_h * config.blk_w < 2**31)
         if not dense_tiles:
-            raise NotImplementedError(CHUNK_ROUTE)
+            self._init_chunk_fallback(fwd, bwd)
+            return
         self.dense_tiles = True
-        self.host_fwd, self.host_bwd = fwd, bwd
-        self.rows_per_shard = fwd.rows_per_shard
-        self.windows_per_shard = fwd.windows_per_shard
-        self.padded_nodes = fwd.padded_nodes
-        self.padded_edges = fwd.padded_edges
-        self.edge_capacity = fwd.edge_capacity
+        self._set_layout(fwd, bwd)
         # The fused AGNN rides the forward split stream where there is one;
         # on a mesh of one feature shard it is K2/K3, over the stream's row
         # index.
@@ -312,7 +367,90 @@ class DistributedTiledGraph:
     def exp_edges(self) -> int:
         return self.host_fwd.num_real_blocks * self.config.blk_h * self.config.blk_w
 
-    def _init_bd(self, row_pointers, column_index, bdm, bdm_t, t_csr) -> None:
+    @property
+    def prep_host_s(self) -> float:
+        return sum(self.prep_stages.values())
+
+    def _set_layout(self, fwd: ShardedSGTMeta, bwd: ShardedSGTMeta) -> None:
+        """The partition's shapes and edge offsets."""
+        self.host_fwd, self.host_bwd = fwd, bwd
+        self.rows_per_shard = fwd.rows_per_shard
+        self.windows_per_shard = fwd.windows_per_shard
+        self.padded_nodes, self.padded_edges = fwd.padded_nodes, fwd.padded_edges
+        self.edge_capacity = fwd.edge_capacity
+
+    def _init_streamed(self, row_pointers, column_index, t_csr, stream_limits, clock) -> None:
+        """Finish construction on the streamed route: the light partition
+        (offsets, capacities, ``edge_fwd_slot``), each direction's window
+        segments stacked over the shards (``partition_streamed``; a
+        symmetric graph's transpose shares the forward's, whose arrays it
+        equals), and each shard's layout on the device with its row index."""
+        cfg, pg, n = self.config, self.pg, self.num_nodes
+        self.streamed, self.dense_tiles = True, False
+        if t_csr is None:
+            with clock("transpose"):
+                t_csr = transpose_csr(row_pointers, column_index, n)
+        with clock("partition"):
+            fwd, bwd = partition_graph(row_pointers, column_index, n, pg, cfg,
+                                       build_tiles=False, transpose=t_csr)
+        self._set_layout(fwd, bwd)
+        mc, msr = stream_limits if stream_limits is not None else (None, None)
+        with clock("segments"):
+            sp_f = partition_streamed(row_pointers, column_index, n, pg, cfg,
+                                      edge_capacity=fwd.edge_capacity, max_chunks=mc,
+                                      max_slab_rows=msr)
+            sp_b = sp_f if self.symmetric else partition_streamed(
+                t_csr[0], t_csr[1], n, pg, cfg, edge_capacity=bwd.edge_capacity, max_chunks=mc,
+                max_slab_rows=msr)
+        a = sp_f["arrays"]
+        self.num_segments, self.wseg = sp_f["num_segments"], sp_f["wseg"]
+        self.chunk_cap = int(a["seg_r"].shape[2])
+        self.slab_blocks = int(a["seg_col_ids"].shape[2]) // cfg.blk_w
+
+        def upload(sp, m: ShardedSGTMeta):
+            a, counts = sp["arrays"], np.diff(m.edge_start)
+            return [TorchChunkMeta.upload(
+                cfg, self.rows_per_shard, self.padded_nodes, counts[g], self.windows_per_shard,
+                sp["wseg"], *(a[k][g] for k in (
+                    "seg_col_ids", "seg_r", "seg_c", "seg_edge_id", "seg_block", "seg_window",
+                    "seg_chunks")), self.device) for g in range(pg)]
+
+        metas_f = upload(sp_f, fwd)
+        metas_b = metas_f if self.symmetric else upload(sp_b, bwd)
+        self._set_chunk_directions(metas_f, metas_b, bwd)
+
+    def _init_chunk_fallback(self, fwd: ShardedSGTMeta, bwd: ShardedSGTMeta) -> None:
+        """Finish construction on the chunk fallback: each shard's stacked
+        chunk arrays as a layout of one segment (its padding chunks are
+        padding slots alike), on the device with its row index; no split."""
+        cfg, pg = self.config, self.pg
+        self.dense_tiles = False
+        fwd.split = bwd.split = None
+        self._set_layout(fwd, bwd)
+        self.num_segments, self.wseg = 1, self.windows_per_shard
+        self.chunk_cap = int(fwd.chunk_r.shape[1])
+
+        def upload(m: ShardedSGTMeta):
+            counts, cn = np.diff(m.edge_start), m.chunk_r.shape[1]
+            return [TorchChunkMeta.upload(
+                cfg, self.rows_per_shard, self.padded_nodes, counts[g], self.windows_per_shard,
+                self.windows_per_shard, m.col_ids[g][None], m.chunk_r[g][None],
+                m.chunk_c[g][None], m.chunk_edge_id[g][None], m.chunk_block[g][None],
+                m.chunk_window[g][None], np.array([cn], np.int32), self.device)
+                for g in range(pg)]
+
+        self._set_chunk_directions(upload(fwd), upload(bwd), bwd)
+
+    def _set_chunk_directions(self, metas_f, metas_b, bwd: ShardedSGTMeta) -> None:
+        counts = np.diff(bwd.edge_start)
+        slots = [torch.from_numpy(bwd.edge_fwd_slot[g][: counts[g]].astype(np.int64))
+                 .to(self.device) for g in range(self.pg)]
+        self._fwd = _ChunkDirection(metas_f)
+        self._bwd = _ChunkDirection(metas_b, edge_fwd_slot=slots)
+        self.agnn_split = False
+        self.agnn_aggregate = None
+
+    def _init_bd(self, row_pointers, column_index, bdm, bdm_t, t_csr, clock) -> None:
         """Finish construction on the block-diagonal route: the light
         partition (layout and ``TC_Blocks`` only), each direction's shard
         metadata (``build_bd_shard_meta``) and its ext packs on the device
@@ -320,15 +458,14 @@ class DistributedTiledGraph:
         forward shards' edges for the SDDMM."""
         cfg, pg, dev = self.config, self.pg, self.device
         self.block_diag = self.dense_tiles = True
-        fwd, bwd = partition_graph(row_pointers, column_index, self.num_nodes, pg, cfg,
-                                   build_tiles=False, transpose=t_csr)
-        self.host_fwd, self.host_bwd = fwd, bwd
-        rps = self.rows_per_shard = fwd.rows_per_shard
-        self.windows_per_shard = fwd.windows_per_shard
-        self.padded_nodes, self.padded_edges = fwd.padded_nodes, fwd.padded_edges
-        self.edge_capacity = fwd.edge_capacity
-        mf = build_bd_shard_meta(bdm, fwd.edge_start, rps, pg, fwd.edge_capacity)
-        mt = build_bd_shard_meta(bdm_t, bwd.edge_start, rps, pg, bwd.edge_capacity)
+        with clock("partition"):
+            fwd, bwd = partition_graph(row_pointers, column_index, self.num_nodes, pg, cfg,
+                                       build_tiles=False, transpose=t_csr)
+        self._set_layout(fwd, bwd)
+        rps = self.rows_per_shard
+        with clock("bd_shard_meta"):
+            mf = build_bd_shard_meta(bdm, fwd.edge_start, rps, pg, fwd.edge_capacity)
+            mt = build_bd_shard_meta(bdm_t, bwd.edge_start, rps, pg, bwd.edge_capacity)
 
         # Shard g's edges: its own rows, columns in its ext slab.
         ptr = np.asarray(row_pointers, np.int64)
@@ -359,6 +496,13 @@ class DistributedTiledGraph:
                    else f" transpose offsets={t.offsets} rim={t.rim}")
             return (f"dense_tiles=True streamed=False block_diag=True mesh={self.pg}x{self.pf} "
                     f"offsets={f.offsets} rim={f.rim}{bwd} agnn={agnn}")
+        if not self.dense_tiles:
+            layout = (f"segments={self.num_segments} wseg={self.wseg} "
+                      f"chunk_cap={self.chunk_cap} slab_blocks={self.slab_blocks}"
+                      if self.streamed else f"chunks={self.chunk_cap}")
+            shared = "shared" if self._bwd.metas is self._fwd.metas else "own"
+            return (f"dense_tiles=False streamed={self.streamed} block_diag=False "
+                    f"mesh={self.pg}x{self.pf} {layout} transpose_layout={shared} agnn=none")
         sp = lambda m: "split" if m.split is not None else "unsplit"  # noqa: E731
         agnn = ("none" if self.agnn_aggregate is None
                 else ("K2/K3" if self.pf == 1 else "K4 tiles + K10")
@@ -593,31 +737,61 @@ class DistributedTiledGraph:
         out = self._map(lambda g, x: spmm_tc_dense(x, streams[g].meta, tiles[g]), x_ext)
         return self._guest_return(out, dn.split) if dn.split is not None else out
 
+    def _chunk_spmm_grid(self, grid, dn: _ChunkDirection, w: Optional[torch.Tensor] = None):
+        """``A @ x`` (or ``(A ⊙ w) @ x``) of one direction on the streamed
+        route or the chunk fallback: K8 a shard over its layout against the
+        all-gathered features, f32.  The forward reads the shard's own edge
+        slice, the transpose the all-gathered forward vector through
+        ``edge_fwd_slot``."""
+        x_all = C.all_gather(grid, "graph")
+        vals = [None] * self.pg
+        if w is not None:
+            if dn.edge_fwd_slot is not None:
+                w_all = self._w_all(w)
+                vals = [w_all[g][dn.edge_fwd_slot[g]] for g in range(self.pg)]
+            else:
+                e = self.edge_capacity
+                vals = [w[g * e: g * e + dn.metas[g].num_edges] for g in range(self.pg)]
+        return self._map(lambda g, xa: spmm_tc(xa, dn.metas[g], vals[g]), x_all)
+
     def _spmm(self, x, dn, w=None) -> torch.Tensor:
         d = x.shape[1]
         grid = self._grid(self._pad_d(x))
-        out = self._bd_spmm_grid(grid, dn, w) if self.block_diag else self._spmm_grid(grid, dn, w)
+        if self.block_diag:
+            out = self._bd_spmm_grid(grid, dn, w)
+        elif not self.dense_tiles:
+            out = self._chunk_spmm_grid(grid, dn, w)
+        else:
+            out = self._spmm_grid(grid, dn, w)
         return self._assemble(out)[:, :d]
 
-    def _sddmm(self, xa, xb) -> torch.Tensor:
-        """Per-edge ``<xa[row_e], xb[col_e]>`` over the unsplit forward
-        stream (K4 an edge on the block-diagonal route), summed over the
-        feature shards: ``[padded_edges]`` f32."""
-        dn = self._fwd
-        if self.block_diag:
-            return self._bd_sddmm(xa, xb)
-        xb_ext = self._halo(self._grid(self._pad_d(xb)), dn)
-
+    def _edge_scores(self, op, metas, xa_grid, xb_ext) -> torch.Tensor:
+        """``op`` (K4 or K9) a shard: its rows of ``xa`` against the gather
+        side ``xb_ext``, written into ``edge_capacity`` zeros and summed over
+        ``feature``; ``[padded_edges]`` f32."""
         def scores(g, a, b):
             s = torch.zeros(self.edge_capacity, dtype=torch.float32, device=a.device)
-            m = dn.streams[g].meta
-            s[: m.num_edges] = sddmm_tc_dense(a, m, b)
+            s[: metas[g].num_edges] = op(a, metas[g], b)
             return s
 
-        s = self._map(scores, self._grid(self._pad_d(xa)), xb_ext)
+        s = self._map(scores, xa_grid, xb_ext)
         if self.pf > 1:
             s = C.psum(s, "feature")
         return torch.cat([s[g][0] for g in range(self.pg)])
+
+    def _sddmm(self, xa, xb) -> torch.Tensor:
+        """Per-edge ``<xa[row_e], xb[col_e]>``: K4 over the unsplit forward
+        stream against the halo slab (K4 an edge on the block-diagonal route,
+        K9 against the all-gathered features on the streamed and chunk
+        routes), summed over the feature shards: ``[padded_edges]`` f32."""
+        dn = self._fwd
+        if self.block_diag:
+            return self._bd_sddmm(xa, xb)
+        xa_grid, xb_grid = self._grid(self._pad_d(xa)), self._grid(self._pad_d(xb))
+        if not self.dense_tiles:
+            return self._edge_scores(sddmm_tc, dn.metas, xa_grid, C.all_gather(xb_grid, "graph"))
+        return self._edge_scores(sddmm_tc_dense, [st.meta for st in dn.streams], xa_grid,
+                                 self._halo(xb_grid, dn))
 
     # ---- the fused AGNN ------------------------------------------------------
     def _score_tiles(self, xa, xb, streams):
@@ -753,17 +927,8 @@ class DistributedTiledGraph:
         stack of ``xb``, summed over ``feature``; ``[padded_edges]`` f32."""
         dn = self._fwd
         xb_ext = self._rim_ext(self._grid(self._pad_d(xb)), dn)
-
-        def scores(g, a, b):
-            s = torch.zeros(self.edge_capacity, dtype=torch.float32, device=a.device)
-            m = dn.shards[g].edges
-            s[: m.num_edges] = sddmm_tc_dense(a, m, b)
-            return s
-
-        s = self._map(scores, self._grid(self._pad_d(xa)), xb_ext)
-        if self.pf > 1:
-            s = C.psum(s, "feature")
-        return torch.cat([s[g][0] for g in range(self.pg)])
+        return self._edge_scores(sddmm_tc_dense, [sh.edges for sh in dn.shards],
+                                 self._grid(self._pad_d(xa)), xb_ext)
 
     def _cell_scores(self, a_ext, b_ext):
         """One score a cell of each shard's ext pack: K4's partial dots on
@@ -934,23 +1099,29 @@ def distributed_graph_from_dataset(ds, mesh=None, config: TileConfig = DEFAULT_C
     ``balance`` (on unless False): the window-granular LPT shard balance
     (``sgt.reorder.shard_balance_permutation``) on a graph not headed for the
     block-diagonal route.  It permutes ``ds`` in place (graph, features,
-    labels, masks), as ``reorder_dataset`` does.
+    labels, masks), as ``reorder_dataset`` does.  The probe and the balance
+    are stages of the graph's ``prep_stages``.
     """
     if mesh is None:
         mesh = make_mesh()
     pg = mesh.n_graph
+    clock = StageClock()
     if balance and pg > 1 and kw.get("block_diag") is not True:
         bd_possible = kw.get("dense_tiles") is not False and kw.get("block_diag") is not False
-        probe = (probe_block_diag(ds.row_pointers, ds.column_index, ds.num_nodes, pg, config)
-                 if bd_possible else None)
+        probe = None
+        if bd_possible:
+            with clock("bd_probe"):
+                probe = probe_block_diag(ds.row_pointers, ds.column_index, ds.num_nodes, pg,
+                                         config)
         if probe is not None and probe[0]:
             kw.setdefault("_probe", probe)  # unchanged CSR: the constructor reuses the gate
         else:
             from tcgnn_tpu_torch.sgt.reorder import balance_dataset
 
-            balance_dataset(ds, pg, config)
+            with clock("balance"):
+                balance_dataset(ds, pg, config)
             kw.setdefault("block_diag", False)
             if probe is not None:
                 kw.setdefault("_symmetric", probe[3])  # invariant under relabelling
     return DistributedTiledGraph(ds.row_pointers, ds.column_index, ds.num_nodes, mesh, config,
-                                 **kw)
+                                 _clock=clock, **kw)

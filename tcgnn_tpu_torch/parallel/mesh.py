@@ -11,8 +11,8 @@ In this port every shard of the grid lives on one device: the JAX
 package's single-controller design (one program drives every shard)
 without its device placement.  The collectives between shards are copies
 between shard views on that device (``parallel/collectives.py``).  One
-process per card over NCCL is a later step (ROADMAP.md, Queue 1 item 8), so
-a mesh over more than one card raises.
+process per card over NCCL is a later step (ROADMAP.md, Queue 1 item 8c),
+so a mesh over more than one card raises.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch
 
 MULTI_CARD = (
     "a mesh over more than one card is not ported yet: every shard of this "
-    "port's mesh lives on one device (ROADMAP.md, Queue 1 item 8)"
+    "port's mesh lives on one device (ROADMAP.md, Queue 1 item 8c)"
 )
 
 

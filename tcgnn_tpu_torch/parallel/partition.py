@@ -11,8 +11,10 @@ The JAX host pass, carried over with the same arrays field by field
 (``tests/test_torch_partition.py`` holds the two to ``np.array_equal``):
 the stacked metadata (``_stack_shards``), the mega-window block-stream
 split (``build_split``), the boundary halo (``plan_halo_rounds``,
-``build_halo``), both directions (``partition_graph``), and the light
-layout-only partition of the block-diagonal route (``build_tiles=False``).
+``build_halo``), both directions (``partition_graph``), the light
+layout-only partition of the block-diagonal and streamed routes
+(``build_tiles=False``), and the streamed route's window segments stacked
+over the shards (``partition_streamed``).
 Two differences.  The JAX pass also builds local/remote block classes for its
 halo-overlap split; the port's ops run one pass over a shard's whole block
 stream (``parallel/graph.py``), so it builds none.  Tiles whose duplicate
@@ -386,6 +388,91 @@ def build_split(
     rr = np.where(recv_row[:, :, :, None] >= rows_per_shard, rows_per_shard, rr)
     split["recv_row_idx"] = rr.reshape(g, -1).astype(np.int32)
     return split
+
+
+def partition_streamed(
+    row_pointers: np.ndarray,
+    column_index: np.ndarray,
+    num_nodes: int,
+    num_shards: int,
+    config: TileConfig = DEFAULT_CONFIG,
+    edge_capacity: Optional[int] = None,
+    max_chunks: Optional[int] = None,
+    max_slab_rows: Optional[int] = None,
+) -> dict:
+    """Each shard's chunk layout cut into window segments (the streamed
+    route's, ``sgt/stream.py``), stacked ``[G, S, ...]`` with a segment
+    count and chunk and slab capacities the same for every shard: each
+    shard is planned at its natural S, the largest S is taken for all, and
+    chunks and slab blocks are padded to the maxima at that S.
+
+    Returns the stacked arrays (``"arrays"``: the segment fields,
+    ``edge_perm`` and ``edge_valid`` ``[G, Emax]``, and each segment's real
+    chunks ``seg_chunks`` ``[G, S]``) and the statics ``wseg``,
+    ``num_segments``, ``rows_per_shard``, ``windows_per_shard``,
+    ``edge_capacity``, ``edge_start`` and ``num_real_blocks``.
+    ``max_chunks`` / ``max_slab_rows`` override the per-segment limits
+    (tests force many segments on small graphs).  A padding slot has row
+    ``blk_h`` and its shard's own edge count as its edge id."""
+    from tcgnn_tpu_torch.sgt import stream as stream_lib
+
+    mc = stream_lib.MAX_PREFETCH_CHUNKS if max_chunks is None else max_chunks
+    msr = stream_lib.MAX_SLAB_ROWS if max_slab_rows is None else max_slab_rows
+    blk_h = config.blk_h
+    row_pointers = np.asarray(row_pointers, dtype=np.int64)
+    column_index = np.asarray(column_index, dtype=np.int64)
+    num_windows = max(_cdiv(num_nodes, blk_h), 1)
+    wd = _cdiv(num_windows, num_shards)
+    rows_per_shard = wd * blk_h
+    n_pad = num_shards * rows_per_shard
+    ptr = np.concatenate(
+        [row_pointers, np.full(n_pad + 1 - len(row_pointers), row_pointers[-1], np.int64)]
+    )
+    edge_start = ptr[::rows_per_shard].copy()
+
+    metas = []
+    for s in range(num_shards):
+        r0, r1 = s * rows_per_shard, (s + 1) * rows_per_shard
+        metas.append(sparse_graph_translate(ptr[r0:r1 + 1] - ptr[r0],
+                                            column_index[ptr[r0]:ptr[r1]], rows_per_shard,
+                                            config, emit_chunks=True))
+
+    plans = [stream_lib.segment_chunks(m, max_chunks=mc, max_slab_rows=msr, plan_only=True)
+             for m in metas]
+    S = max(p[0] for p in plans)
+    plans = [stream_lib.segment_chunks(m, num_segments=S, plan_only=True) for m in metas]
+    c_max = max(p[2] for p in plans)
+    b_max = max(p[3] for p in plans)
+    smetas = [stream_lib.segment_chunks(m, num_segments=S, pad_chunks_to=c_max,
+                                        pad_slab_blocks_to=b_max) for m in metas]
+
+    counts = np.diff(edge_start)
+    e_max = int(edge_capacity if edge_capacity is not None else max(counts.max(), 1))
+    G = num_shards
+    perm_dtype = np.int64 if S * c_max * config.edge_chunk >= 2**31 else np.int32
+    edge_perm = np.zeros((G, e_max), perm_dtype)
+    edge_valid = np.zeros((G, e_max), bool)
+    fields = ("seg_col_ids", "seg_r", "seg_c", "seg_edge_id", "seg_block", "seg_window",
+              "seg_first", "seg_chunks")
+    out = {k: [] for k in fields}
+    for s, sm in enumerate(smetas):
+        for k in fields:
+            out[k].append(getattr(sm, k))
+        edge_perm[s, : len(sm.edge_perm)] = sm.edge_perm
+        edge_valid[s, : len(sm.edge_perm)] = True
+    arrays = {k: np.stack(v) for k, v in out.items()}
+    arrays["edge_perm"] = edge_perm
+    arrays["edge_valid"] = edge_valid
+    return {
+        "arrays": arrays,
+        "wseg": int(smetas[0].wseg),
+        "num_segments": int(S),
+        "rows_per_shard": rows_per_shard,
+        "windows_per_shard": wd,
+        "edge_capacity": e_max,
+        "edge_start": edge_start.astype(np.int64),
+        "num_real_blocks": sum(m.num_real_blocks for m in metas),
+    }
 
 
 def plan_halo_rounds(

@@ -14,7 +14,7 @@ and TFLOP/s, with the keys of ``tcgnn_tpu.utils.profiling``.
 
 Run on the card from the repository root:
     python -m tcgnn_tpu_torch.profiling [OUT_DIR [GROUP ...]]
-    # groups: pubmed, bd (and K5-K7), edges (and K4), reddit, mesh
+    # groups: pubmed, bd (and K5-K7), edges (and K4), reddit, bd_mesh, reddit_mesh, mesh
     python -m tcgnn_tpu_torch.train --dataset DD --dim 89 --classes 2 --profile_dir prof/
 """
 
@@ -168,8 +168,8 @@ EDGE_DATA = "<out_dir>/data"
 # Configurations of ``main``, by group: pubmed's (the condensed route), the
 # BD route's, reddit's (the streamed route), the per-edge AGNN route's (the
 # two directed graphs of ``data/edge_graphs.py``, as chip_smoke.py trains
-# them), the one-card mesh's and its block-diagonal route's (Yeast).  Each
-# runs with the profiler off and then on.
+# them), the one-card mesh's, its block-diagonal route's (Yeast) and its
+# streamed route's (reddit).  Each runs with the profiler off and then on.
 CONFIGS = {
     "bd": (
         ["--dataset", "DD", "--dim", "89", "--classes", "2", "--model", "gcn"],
@@ -201,6 +201,12 @@ CONFIGS = {
          "4x1"],
         ["--dataset", "Yeast", "--dim", "74", "--classes", "2", "--model", "agnn", "--hidden",
          "32", "--num_layers", "2", "--mesh", "2x2"],
+    ),
+    "reddit_mesh": (  # the distributed streamed route, every shard on this one card
+        ["--dataset", "reddit", "--dim", "602", "--classes", "41", "--model", "gcn", "--mesh",
+         "4x1"],
+        ["--dataset", "reddit", "--dim", "602", "--classes", "41", "--model", "agnn",
+         "--hidden", "32", "--num_layers", "2", "--mesh", "2x2"],
     ),
     "mesh": (  # every shard of the mesh on this one card
         ["--dataset", "pubmed", "--dim", "500", "--classes", "3", "--model", "gcn",

@@ -153,10 +153,18 @@ class TorchChunkMeta:
     the slots by ``upload``: row ``r``'s edges are ``[row_ptr[r],
     row_ptr[r + 1])`` and edge ``e``'s source row is ``row_src[e]``, the CSR
     the layout was built from, bit for bit.
+
+    Two row counts, as ``TorchSGTMeta``'s: ``num_rows``, the rows of the
+    output and of the row-side operand (``row_ptr`` has ``num_rows + 1``
+    entries), and ``num_src``, the rows of the gathered operand (``row_src``
+    indexes it).  On one device both are the node count N; a shard of the
+    distributed layer writes its ``rows_per_shard`` rows and gathers from the
+    all-gathered ``[padded_nodes, d]`` features.
     """
 
     config: TileConfig
-    num_nodes: int
+    num_rows: int
+    num_src: int
     num_edges: int
     num_windows: int
     wseg: int
@@ -170,12 +178,12 @@ class TorchChunkMeta:
     seg_block: torch.Tensor  # [S, C_max] int32
     seg_window: torch.Tensor  # [S, C_max] int32
     seg_chunks: torch.Tensor  # [S] int32
-    row_ptr: Optional[torch.Tensor] = None  # [N + 1] int64
-    row_src: Optional[torch.Tensor] = None  # [E] int32
+    row_ptr: Optional[torch.Tensor] = None  # [num_rows + 1] int64
+    row_src: Optional[torch.Tensor] = None  # [E] int32, rows of the [num_src, d] operand
 
     @classmethod
-    def upload(cls, config, num_nodes, num_edges, num_windows, wseg, seg_col_ids, seg_r, seg_c,
-               seg_edge_id, seg_block, seg_window, seg_chunks, device) -> "TorchChunkMeta":
+    def upload(cls, config, num_rows, num_src, num_edges, num_windows, wseg, seg_col_ids, seg_r,
+               seg_c, seg_edge_id, seg_block, seg_window, seg_chunks, device) -> "TorchChunkMeta":
         """From host arrays of the stacked layout; the row index is derived
         on ``device``."""
 
@@ -183,7 +191,7 @@ class TorchChunkMeta:
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
         meta = cls(
-            config=config, num_nodes=int(num_nodes), num_edges=int(num_edges),
+            config=config, num_rows=int(num_rows), num_src=int(num_src), num_edges=int(num_edges),
             num_windows=int(num_windows), wseg=int(wseg), num_segments=int(seg_r.shape[0]),
             max_chunks=int(seg_r.shape[1]), num_real_chunks=int(np.sum(seg_chunks)),
             seg_col_ids=dev(seg_col_ids), seg_r=dev(seg_r), seg_c=dev(seg_c),
@@ -216,12 +224,12 @@ class TorchChunkMeta:
         real slots counted by output row, and each edge's source row
         scattered to its edge id, a slab at a time."""
         dev = self.seg_r.device
-        counts = torch.zeros(self.num_nodes, dtype=torch.int64, device=dev)
+        counts = torch.zeros(self.num_rows, dtype=torch.int64, device=dev)
         row_src = torch.empty(self.num_edges, dtype=torch.int32, device=dev)
         for rows, src, eid in self.slot_slabs():
-            counts += torch.bincount(rows, minlength=self.num_nodes)
+            counts += torch.bincount(rows, minlength=self.num_rows)
             row_src[eid] = src.to(torch.int32)
-        row_ptr = torch.zeros(self.num_nodes + 1, dtype=torch.int64, device=dev)
+        row_ptr = torch.zeros(self.num_rows + 1, dtype=torch.int64, device=dev)
         row_ptr[1:] = torch.cumsum(counts, 0)
         if int(row_ptr[-1]) != self.num_edges:
             raise ValueError(f"chunk layout holds {int(row_ptr[-1])} edges, "
@@ -276,13 +284,15 @@ class SGTMeta:
     def num_chunks(self) -> int:
         return 0 if self.chunk_block is None else int(self.chunk_block.shape[0])
 
-    def to_chunks(self, device) -> TorchChunkMeta:
+    def to_chunks(self, device, num_src: Optional[int] = None) -> TorchChunkMeta:
         """Upload the chunk layout (``emit_chunks=True``) to ``device`` as a
-        stack of one segment spanning every window."""
+        stack of one segment spanning every window; ``num_src``: the rows of
+        the gathered operand (default ``num_nodes``)."""
         if self.chunk_r is None:
             raise ValueError("to_chunks needs the chunk layout: translate with emit_chunks=True")
         return TorchChunkMeta.upload(
-            self.config, self.num_nodes, self.num_edges, self.num_windows, self.num_windows,
+            self.config, self.num_nodes, self.num_nodes if num_src is None else num_src,
+            self.num_edges, self.num_windows, self.num_windows,
             self.col_ids[None], self.chunk_r[None], self.chunk_c[None],
             self.chunk_edge_id[None], self.chunk_block[None], self.chunk_window[None],
             np.array([self.num_chunks], np.int32), device,

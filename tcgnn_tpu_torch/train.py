@@ -24,7 +24,9 @@ resume from the newest snapshot (one device, as in the JAX CLI).
 (``tcgnn_tpu_torch.parallel``), all on the one ``--device``: the graph is
 balanced over the shards (``--no_balance`` keeps its order), partitioned,
 and trained with the same output lines and a ``Route:`` line naming the
-block streams; ``block_group`` is 1, as the mesh's split needs.
+route and its layout (the block streams, the block-diagonal offsets, or
+the streamed route's segments); ``block_group`` is 1, as the mesh's split
+needs.
 
 Run:  python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --model gcn
       python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --mesh 4x2
@@ -33,6 +35,7 @@ Run:  python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --m
       python -m tcgnn_tpu_torch.train --dataset DD --dim 89 --classes 2 --model agnn --hidden 32
       python -m tcgnn_tpu_torch.train --dataset DD --dim 89 --classes 2 --reorder rcm
       python -m tcgnn_tpu_torch.train --dataset reddit --dim 602 --classes 41 --model gcn
+      python -m tcgnn_tpu_torch.train --dataset reddit --dim 602 --classes 41 --mesh 4x1
       python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --single_kernel
       python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --epochs 200 \
           --checkpoint_dir ckpt/ --checkpoint_every 50 [--resume]
@@ -305,6 +308,19 @@ def profile_sag(graph, x: torch.Tensor, num_rounds: int = SAG_ROUNDS) -> tuple:
     return kernel_s, stats
 
 
+def print_prep(graph, prep: float, route: str) -> None:
+    """The preprocessing lines (one device and the mesh): the tiling's
+    statistics, ``Prep. (ms)`` (``prep`` seconds), the host passes' time
+    and stages, the host pass that ran, and the route."""
+    print("TC_Blocks:\t{}\nExp_Edges:\t{}".format(graph.tc_blocks, graph.exp_edges))
+    print("Prep. (ms):\t{:.3f}".format(prep * 1e3))
+    print("Prep host (ms):\t{:.3f}".format(graph.prep_host_s * 1e3))
+    print("SGT pass:\t" + graph.host_pass)
+    print("Prep stages (ms):\t" + "  ".join(
+        "{} {:.3f}".format(k, v * 1e3) for k, v in graph.prep_stages.items()))
+    print("Route:\t" + route)
+
+
 def train_distributed(args, ds, cfg, device, sync) -> dict:
     """Full-batch training over a ``('graph','feature')`` mesh (``--mesh
     GxF``), every shard on ``device``."""
@@ -323,10 +339,7 @@ def train_distributed(args, ds, cfg, device, sync) -> dict:
     graph = distributed_graph_from_dataset(ds, mesh, cfg, balance=not args.no_balance)
     sync()
     prep = time.perf_counter() - start
-    print("TC_Blocks:\t{}\nExp_Edges:\t{}".format(graph.tc_blocks, graph.exp_edges))
-    print("Prep. (ms):\t{:.3f}".format(prep * 1e3))
-    print("SGT pass:\t" + graph.host_pass)
-    print("Route:\t" + graph.route)
+    print_prep(graph, prep, graph.route)
 
     x = graph.shard_features(ds.x)
     if args.single_kernel:
@@ -362,6 +375,8 @@ def train_distributed(args, ds, cfg, device, sync) -> dict:
         "block_diag": graph.block_diag, "mesh": (ng, nf), "route": graph.route,
         "split": (graph.host_fwd.split is not None, graph.host_bwd.split is not None),
         "tc_blocks": graph.tc_blocks, "exp_edges": graph.exp_edges, "prep_ms": prep * 1e3,
+        "prep_host_ms": graph.prep_host_s * 1e3,
+        "prep_stages_ms": {k: v * 1e3 for k, v in graph.prep_stages.items()},
         "host_pass": graph.host_pass, "first_loss": first_loss, "final_loss": final_loss,
         "train_ms": train_ms, "profile": prof, "graph": graph,
     }
@@ -414,13 +429,7 @@ def main(argv=None) -> dict:
     )
     sync()
     prep = time.perf_counter() - start
-    print("TC_Blocks:\t{}\nExp_Edges:\t{}".format(graph.tc_blocks, graph.exp_edges))
-    print("Prep. (ms):\t{:.3f}".format(prep * 1e3))
-    print("Prep host (ms):\t{:.3f}".format(graph.prep_host_s * 1e3))
-    print("SGT pass:\t" + graph.host_pass)
-    print("Prep stages (ms):\t" + "  ".join(
-        "{} {:.3f}".format(k, v * 1e3) for k, v in graph.prep_stages.items()))
-    print("Route:\tdense_tiles={} streamed={} block_diag={}".format(
+    print_prep(graph, prep, "dense_tiles={} streamed={} block_diag={}".format(
         graph.dense_tiles, graph.streamed, graph.block_diag))
 
     x = torch.from_numpy(ds.x).to(device)

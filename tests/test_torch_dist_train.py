@@ -12,10 +12,12 @@
 * a graph the block-diagonal gate passes takes that route (ROADMAP item
   8a), and ``distributed_graph_from_dataset`` leaves it unbalanced; its
   training step gives JAX's losses and one device's;
-* a graph headed for a route not ported yet raises ``NotImplementedError``
-  naming its ROADMAP entry: streamed and the chunk fallback (8b); so do a
-  mesh over several cards and, without a card, ``--mesh`` on ``--device
-  cuda`` (``RuntimeError``).
+* a graph the streamed gate passes takes the streamed route, and
+  ``dense_tiles=False`` the chunk fallback (ROADMAP item 8b); their training
+  steps give JAX's losses;
+* a mesh over several cards raises ``NotImplementedError`` naming its
+  ROADMAP entry; without a card, ``--mesh`` on ``--device cuda`` raises
+  ``RuntimeError``.
 """
 
 import types
@@ -65,6 +67,12 @@ def graphs():
 @pytest.mark.parametrize("kind", ["gcn", "gin", "agnn"])
 def test_train_step_matches_jax(graphs, kind):
     _, _, jg, pg, x, y = graphs
+    check_train_step_matches_jax(jg, pg, x, y, kind)
+
+
+def check_train_step_matches_jax(jg, pg, x, y, kind):
+    """``STEPS`` Adam steps of the port's mesh step with JAX's parameters
+    give the JAX step's losses, and the loss falls."""
     xs, ys = jg.shard_features(x), jg.shard_nodes(y)
     params, hidden_p, classes_p = jax_init_distributed_net(
         jax.random.PRNGKey(3), kind, xs.shape[1], HIDDEN, CLASSES, 2, jg)
@@ -142,18 +150,35 @@ def test_block_diagonal_graph_raises():
 
 
 def test_streamed_graph_raises(graphs, monkeypatch):
+    """A graph whose shards pass the (patched) streamed limits takes the
+    streamed route, as in JAX (it raised before the route was ported; the
+    name stays), and its training step gives JAX's losses."""
+    from tcgnn_tpu.sgt import stream as jax_stream
     from tcgnn_tpu_torch.sgt import stream
 
-    ptr, idx, *_ = graphs
-    monkeypatch.setattr(stream, "MAX_PREFETCH_CHUNKS", 4)
-    with pytest.raises(NotImplementedError, match=r"streamed.*ROADMAP.md, Queue 1 item 8b"):
-        DistributedTiledGraph(ptr, idx, N, make_mesh(4, 2, "cpu"), CFG)
+    ptr, idx, _, _, x, y = graphs
+    for mod in (stream, jax_stream):
+        monkeypatch.setattr(mod, "MAX_PREFETCH_CHUNKS", 4)
+    g = DistributedTiledGraph(ptr, idx, N, make_mesh(4, 2, "cpu"), CFG)
+    jg = JaxDistributedTiledGraph(ptr, idx, N, jax_make_mesh(4, 2), JCFG)
+    assert g.streamed and jg.streamed and not g.dense_tiles and g.agnn_aggregate is None
+    assert "streamed=True" in g.route and g.num_segments == jg._stream_static[0]["num_segments"]
+    check_train_step_matches_jax(jg, g, x, y, "gcn")
 
 
 def test_chunk_fallback_raises(graphs):
-    ptr, idx, *_ = graphs
-    with pytest.raises(NotImplementedError, match=r"chunk fallback.*ROADMAP.md, Queue 1 item 8b"):
-        DistributedTiledGraph(ptr, idx, N, make_mesh(4, 2, "cpu"), CFG, dense_tiles=False)
+    """``dense_tiles=False`` takes the chunk fallback, as in JAX (it raised
+    before the route was ported; the name stays), and its training step
+    gives the JAX dense route's losses: the same model (JAX's own chunk
+    fallback takes only feature shards of a multiple of 128 columns, so not
+    the hidden width of 8)."""
+    ptr, idx, jg, _, x, y = graphs
+    g = DistributedTiledGraph(ptr, idx, N, make_mesh(4, 2, "cpu"), CFG, dense_tiles=False)
+    jc = JaxDistributedTiledGraph(ptr, idx, N, jax_make_mesh(4, 2), JCFG, dense_tiles=False)
+    assert not g.dense_tiles and not g.streamed and not jc.dense_tiles
+    assert "dense_tiles=False streamed=False" in g.route and g.agnn_aggregate is None
+    for kind in ("gcn", "agnn"):
+        check_train_step_matches_jax(jg, g, x, y, kind)
 
 
 def test_mesh_over_several_cards_raises():

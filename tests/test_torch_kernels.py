@@ -816,6 +816,64 @@ def test_chunk_kernels_reject_what_they_do_not_take(cuda):
         spmm_tc(x, dataclasses.replace(meta, row_src=meta.row_src.long()))
 
 
+# ---- K8 and K9 on a distributed shard: its rows against all the rows -----------
+
+@functools.lru_cache(maxsize=2)
+def _shard_layouts(kind, route, dev):
+    """Each shard's chunk layout of a mesh graph on ``dev``: the streamed
+    route's window segments (forced to several a shard) or the chunk
+    fallback's one segment, each with ``num_rows = rows_per_shard`` below
+    ``num_src = padded_nodes`` (a shard's output rows against the
+    all-gathered features)."""
+    n, rp, ci = chunk_graph(kind)
+    kw = (dict(streamed=True, _stream_limits=(8, 384)) if route == "streamed"
+          else dict(dense_tiles=False))
+    g = DistributedTiledGraph(rp, ci, n, make_mesh(3, 1, dev),
+                              TileConfig(blk_h=16, blk_w=16, edge_chunk=16), **kw)
+    assert g.streamed == (route == "streamed") and not g.dense_tiles
+    metas = g._fwd.metas + ([] if g._bwd.metas is g._fwd.metas else g._bwd.metas)
+    assert all(m.num_rows == g.rows_per_shard < m.num_src == g.padded_nodes for m in metas)
+    return metas
+
+
+@pytest.mark.parametrize("kind", ["hub", "directed", "empty_rows"])
+@pytest.mark.parametrize("route", ["streamed", "chunk"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [3, 16, 41, 130, 602])
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+def test_chunk_spmm_kernel_on_a_shard(cuda, kind, route, dtype, d, weighted):
+    """K8 over each shard's layout: out ``[rows_per_shard, d]`` from x
+    ``[padded_nodes, d]``, f32 under bf16 too (the f32 tolerance)."""
+    for i, m in enumerate(_shard_layouts(kind, route, cuda)):
+        m = dataclasses.replace(m, config=dataclasses.replace(m.config, compute_dtype=dtype))
+        x = randn((m.num_src, d), d + i, cuda)
+        w = randn((m.num_edges,), i, cuda) if weighted else None
+        mag = spmm_tc_torch(x.to(dtype).abs(), m, None if w is None else w.abs())
+        before = spmm_tc.launches
+        got = spmm_tc(x, m, w)
+        torch.cuda.synchronize()
+        assert spmm_tc.launches == before + 1 and got.shape == (m.num_rows, d)
+        within(got, spmm_tc_torch(x, m, w), mag, **F32)
+
+
+@pytest.mark.parametrize("kind", ["hub", "directed", "empty_rows"])
+@pytest.mark.parametrize("route", ["streamed", "chunk"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [3, 32, 41, 130, 602])
+def test_chunk_sddmm_kernel_on_a_shard(cuda, kind, route, dtype, d):
+    """K9 over each shard's layout: xa ``[rows_per_shard, d]`` against xb
+    ``[padded_nodes, d]``, one score an edge of the shard."""
+    for i, m in enumerate(_shard_layouts(kind, route, cuda)):
+        m = dataclasses.replace(m, config=dataclasses.replace(m.config, compute_dtype=dtype))
+        xa, xb = randn((m.num_rows, d), d + i, cuda), randn((m.num_src, d), d + i + 1, cuda)
+        mag = sddmm_tc_torch(xa.to(dtype).abs(), m, xb.to(dtype).abs())
+        before = sddmm_tc.launches
+        got = sddmm_tc(xa, m, xb)
+        torch.cuda.synchronize()
+        assert sddmm_tc.launches == before + 1 and got.shape == (m.num_edges,)
+        within(got, sddmm_tc_torch(xa, m, xb), mag, **F32)
+
+
 # ---- the distributed dense-tile route: K10, K3's overrides, K4's tile mode ----
 
 def shard_stream(kind, geometry, dtype, dev, pad_blocks=3, extra_src=5):
