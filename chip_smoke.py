@@ -174,10 +174,24 @@ Phases, in order; any failure raises and exits nonzero:
      and its ``Train (ms)``, ``Prep. (ms)``, ``Prep host (ms)`` by stage,
      peak host RSS and ``torch.cuda.max_memory_allocated()``; last, pubmed
      on the chunk fallback (``dense_tiles=False``) over 4x2: the same ops
-     against the single-device graph, K8 and K9 only.
+     against the single-device graph, K8 and K9 only;
+ 19. traffic accounting (``tcgnn_tpu_torch.bench``'s ``measure_comm``,
+     ``partition_stats`` and ``scaling``), every shard on this one card:
+     ``measure_comm.measure`` (one 2-layer GCN training step, no hoist,
+     128x128 tiles, its collectives counted) on pubmed, amazon0601 and
+     soc-BlogCatalog over 4 and 8 shards (K1) and reddit over 4 (the
+     streamed route, K8), each row's bytes by kind, boundary rows, modeled
+     and ideal bytes equal to the JAX package's committed row
+     (``results/comm_measured.csv``), its ratio 1.000, its kernel launched
+     and no other, no plain version, and the counted step's wall ms printed;
+     ``partition_stats`` on pubmed and amazon0601 over 2, 4 and 8 shards
+     with the H100 data-sheet rates (each shard's edges summing to the
+     graph's); ``scaling`` on its default graph (``rand_20000_100000``, GCN
+     hidden 16, 10 epochs) over 1, 2, 4 and 8 shards (K1 only): epoch ms,
+     edges/s and efficiency printed.
 
 The kernels line's launches are summed over every run of phases 11, 13, 14,
-15, 16, 17 and 18, each read with the counts set to 0 just before it.  Every bound
+15, 16, 17, 18 and 19, each read with the counts set to 0 just before it.  Every bound
 is ``tcgnn_tpu_torch.bench.roofline_bound``'s ``csr_bound``.
 
 Every phase prints its elapsed seconds.  The line before the last is
@@ -209,7 +223,14 @@ import numpy as np
 import torch
 
 from tcgnn_tpu_torch import TileConfig, TiledGraph, train
-from tcgnn_tpu_torch.bench import accuracy_parity, epoch_ledger, sweep
+from tcgnn_tpu_torch.bench import (
+    accuracy_parity,
+    epoch_ledger,
+    measure_comm,
+    partition_stats,
+    scaling,
+    sweep,
+)
 from tcgnn_tpu_torch.bench.baseline import IMPLS as INCUMBENTS
 from tcgnn_tpu_torch.bench.roofline_bound import csr_bound
 from tcgnn_tpu_torch.data import coo_to_csr, powerlaw_graph, synthesize
@@ -2123,6 +2144,100 @@ def phase_chunk_fallback_ops(ds, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- traffic accounting (``bench``: measure_comm, partition_stats, scaling) ----
+
+# Phase 19's measure_comm rows: dataset, shard counts.  soc-BlogCatalog's
+# 4-shard row has no all_to_all (no split), reddit's takes the streamed route.
+COMM_ROWS = (("pubmed", (4, 8)), ("amazon0601", (4, 8)), ("soc-BlogCatalog", (4, 8)),
+             ("reddit", (4,)))
+# The JAX package's rows, and the columns a row must equal there: the bytes
+# by kind and the partition's rows depend on the partition and the widths,
+# not on the device.
+COMM_REFERENCE = "results/comm_measured.csv"
+COMM_EQUAL = ("measured_a2a_bytes", "measured_a2a_count", "measured_ag_bytes",
+              "measured_ppermute_bytes", "boundary_rows", "modeled_halo_bytes",
+              "ideal_boundary_bytes")
+
+
+def phase_measure_comm(dev, card) -> dict:
+    """Phase 19 (a): ``measure_comm.measure`` on ``COMM_ROWS``, each row
+    against the committed JAX row, its route's kernel (K1, or K8 streamed)
+    launched and no other, no plain version.  Every count is set to 0 just
+    before each row's graph and step and read just after.  Returns each
+    kernel's launches summed over the rows."""
+    with open(COMM_REFERENCE) as f:
+        want = {(r["dataset"], int(r["shards"])): r for r in csv.DictReader(f)}
+    columns = measure_comm.HEADER.split(",")
+    launches = {k: 0 for k in KERNELS}
+    for name, shard_counts in COMM_ROWS:
+        t0 = time.perf_counter()
+        ds = synthesize(name, 16, 4)
+        print(f"  {name}: N={ds.num_nodes} E={ds.num_edges}, synthesized in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for g in shard_counts:
+            t0 = time.perf_counter()
+            reset_counts()
+            r = measure_comm.measure(ds, name, g, 4, dev)
+            counts = launch_counts()
+            dg = r["graph"]
+            expected = ("K1",) if dg.dense_tiles else ("K8",)
+            print(f"  measure_comm {r['row']}  step {r['step_ms']:.3f} ms  row "
+                  f"{time.perf_counter() - t0:.1f} s  "
+                  + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}"
+                              for k, c in counts.items() if c[0] or c[1]) + f"  (card: {card})")
+            print(f"    {dg.route}")
+            if dg.block_diag or dg.streamed != (name == "reddit"):
+                raise AssertionError(f"measure_comm {name} {g}: unexpected route {dg.route}")
+            check_launches(f"measure_comm {name} {g}", counts, expected)
+            got, ref = dict(zip(columns, r["row"].split(","))), want[(name, g)]
+            bad = [c for c in COMM_EQUAL if got[c] != ref[c]]
+            if bad or got["ratio_measured_vs_model"] != "1.000":
+                raise AssertionError(f"measure_comm {name} {g}: {r['row']} against the JAX row "
+                                     f"{ref} (columns {bad} differ)")
+            for k, c in counts.items():
+                launches[k] += c[0]
+            del r, dg
+            torch.cuda.empty_cache()
+    return launches
+
+
+def phase_traffic(dev, card) -> dict:
+    """Phase 19: measure_comm's rows (``phase_measure_comm``), then
+    ``partition_stats`` on pubmed and amazon0601 over 2, 4 and 8 shards with
+    the H100's data-sheet rates, then ``scaling``'s default curve over 1, 2,
+    4 and 8 shards (K1 only, no plain version, the counts set to 0 just
+    before).  Returns each kernel's launches."""
+    t0 = time.perf_counter()
+    launches = phase_measure_comm(dev, card)
+    print(f"  measure_comm done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"  partition_stats rates (NVIDIA H100 80GB HBM3 SXM5 data sheet at 700 W, not "
+          f"measured): HBM {partition_stats.HBM_BPS / 1e12} TB/s, NVLink "
+          f"{partition_stats.NVLINK_BPS / 1e9:.0f} GB/s each way, bf16 "
+          f"{partition_stats.TENSOR_FLOPS / 1e12} TFLOP/s; card: {card}")
+    rows = partition_stats.main(["--datasets", "pubmed", "amazon0601", "--shards", "2", "4", "8"])
+    if len(rows) != 6 or not all(0 < r["pred_efficiency"] <= r["pred_efficiency_split"] <= 1
+                                 for r in rows):
+        raise AssertionError(f"partition_stats: {rows}")
+    print(f"  partition_stats done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    reset_counts()
+    curve = scaling.main(["--device", str(dev)])
+    counts = launch_counts()
+    for size, ms, eps, eff in curve:
+        print(f"  scaling {size} shards: epoch {ms:.3f} ms  {eps:.4e} edges/s  efficiency "
+              f"{eff:.3f}  (card: {card}; one card held all shards)")
+    print("  scaling " + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}"
+                                   for k, c in counts.items() if c[0] or c[1]))
+    if [r[0] for r in curve] != [1, 2, 4, 8] or curve[0][3] != 1.0:
+        raise AssertionError(f"scaling: {curve}")
+    check_launches("scaling", counts, ("K1",))
+    for k, c in counts.items():
+        launches[k] += c[0]
+    print(f"  scaling done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def build_kernels():
     """One nvcc per source and the native SGT pass's g++, all started
     together; prints ``-Xptxas -v``, the g++ flags and each build's
@@ -2321,6 +2436,13 @@ def main():
     t1 = time.perf_counter()
     phase_chunk_fallback_ops(ds, dev)
     print(f"  chunk fallback check done in {time.perf_counter() - t1:.1f} s")
+    phase_end(t0)
+
+    # ---- 19. traffic accounting -----------------------------------------------
+    t0 = phase_start("19. traffic accounting: measure_comm, partition_stats, scaling (every "
+                     "shard on this card)")
+    for k, c in phase_traffic(dev, card).items():
+        launches[k] += c
     phase_end(t0)
 
     for (k, geo, d), (kt, pt, dev) in times.items():

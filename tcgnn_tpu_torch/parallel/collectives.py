@@ -18,13 +18,66 @@ sums) between shard tensors there; each keeps its JAX semantics exactly:
   added in axis order.
 
 Members of a group that receive the same value share one tensor.
+
+Traffic accounting (``parallel/comm_stats.py``): inside ``recording(r)``,
+each call reports ``(kind, bytes)`` to it under the JAX
+package's kind names (``all_gather``, ``collective_permute``,
+``all_to_all``, ``all_reduce`` for ``psum``).  The bytes are JAX's per-device
+logical count, one member's result from its shape and dtype alone (no
+device sync), not the copies this one-device grid makes; one call over the
+grid is one instance, as JAX emits one instruction for a collective over
+all of an axis' groups.  A ``ppermute`` with ``num_devices`` set weighs its
+bytes by the pairs it lists over every group of the axis, over
+``num_devices``: a member no pair sends to gets zeros, which move nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 AXES = ("graph", "feature")
+
+# The active traffic recorder (``comm_stats.Recorder``), or None.  A module
+# attribute, not a context variable: autograd runs a CUDA backward on its
+# own device thread, which sees no context variable the caller set, and the
+# backward's collectives must be counted.
+_recorder = None
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Report every collective run inside the block, on any thread, to
+    ``recorder``."""
+    global _recorder
+    previous, _recorder = _recorder, recorder
+    try:
+        yield recorder
+    finally:
+        _recorder = previous
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _record(recorder, kind: str, grid, member_bytes: int, pairs=None,
+            axis: str = "graph") -> None:
+    """Report one instance of ``kind`` to ``recorder``: one member's result
+    bytes (a ``ppermute``'s weighed by its listed pairs over every group of
+    ``axis``, where the recorder has ``num_devices``)."""
+    if pairs is not None and recorder.num_devices:
+        groups = len(grid[0]) if axis == "graph" else len(grid)
+        member_bytes = int(round(member_bytes * len(pairs) * groups / recorder.num_devices))
+    recorder.add(kind, member_bytes)
+
+
+def _equal_shapes(grid) -> torch.Tensor:
+    shapes = {tuple(t.shape) for row in grid for t in row}
+    if len(shapes) != 1:
+        raise ValueError(f"collective over members of different shapes {sorted(shapes)}")
+    return grid[0][0]
 
 
 def _check_axis(axis: str) -> None:
@@ -53,7 +106,12 @@ def all_gather(grid, axis: str = "graph"):
         full = torch.cat(members, dim=0)
         return [full] * len(members)
 
-    return _over(axis, grid, group)
+    out = _over(axis, grid, group)
+    recorder = _recorder
+    if recorder is not None:
+        _equal_shapes(grid)
+        _record(recorder, "all_gather", grid, _nbytes(out[0][0]))
+    return out
 
 
 def ppermute(grid, pairs, axis: str = "graph"):
@@ -68,7 +126,11 @@ def ppermute(grid, pairs, axis: str = "graph"):
             out[dst] = members[src]
         return [torch.zeros_like(m) if o is None else o for m, o in zip(members, out)]
 
-    return _over(axis, grid, group)
+    out = _over(axis, grid, group)
+    recorder = _recorder
+    if recorder is not None:
+        _record(recorder, "collective_permute", grid, _nbytes(_equal_shapes(grid)), pairs, axis)
+    return out
 
 
 def all_to_all(grid, axis: str = "graph"):
@@ -84,7 +146,11 @@ def all_to_all(grid, axis: str = "graph"):
         chunks = [torch.chunk(m, n, dim=0) for m in members]
         return [torch.cat([chunks[s][j] for s in range(n)], dim=0) for j in range(n)]
 
-    return _over(axis, grid, group)
+    out = _over(axis, grid, group)
+    recorder = _recorder
+    if recorder is not None:
+        _record(recorder, "all_to_all", grid, _nbytes(_equal_shapes(grid)))
+    return out
 
 
 def psum(grid, axis: str):
@@ -96,4 +162,10 @@ def psum(grid, axis: str):
             total = total + m
         return [total] * len(members)
 
-    return _over(axis, grid, group)
+    out = _over(axis, grid, group)
+    recorder = _recorder
+    if recorder is not None:
+        # Groups may differ from each other (the block-diagonal route's
+        # per-shard cell scores): the largest group's result counts.
+        _record(recorder, "all_reduce", grid, max(_nbytes(t) for row in out for t in row))
+    return out

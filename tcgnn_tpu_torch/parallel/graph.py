@@ -85,12 +85,19 @@ The port differs from the JAX route on purpose, changing no value:
 * every shard lives on one card, so no time this route gives is a
   multi-card figure.
 
+Within a training step (``shared_exchanges``), an exchange the step repeats
+on the same tensor (an AGNN backward's halo of its input, an SDDMM's and a
+weighted SpMM's all-gather of the same features) returns the first one's
+result, as XLA merges the repeats in the compiled JAX step, so both move
+the same bytes; ``comm_stats.step_collective_bytes`` counts them.
+
 What is left of the JAX layer (ROADMAP.md, Queue 1 item 8): one process per
-card over NCCL (8c) and the collective byte counts (8d).
+card over NCCL (8c).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -298,6 +305,7 @@ class DistributedTiledGraph:
         self.num_nodes = int(num_nodes)
         self.num_edges = int(len(column_index))
         self.block_diag = self.streamed = False
+        self._memo = None  # shared_exchanges' memo, while one is open
         # The partition's host passes (transpose, SGT, BD probe) take
         # impl="auto": the native pass where its library loads.
         self.host_pass = native.pass_name("auto")
@@ -622,12 +630,39 @@ class DistributedTiledGraph:
         )
 
     # ---- shard grids --------------------------------------------------------
+    @contextlib.contextmanager
+    def shared_exchanges(self):
+        """Within this context (one training step's forward and backward),
+        an exchange of a tensor the step has already exchanged the same way
+        returns that result and moves nothing, as XLA merges the JAX step's
+        repeats (an AGNN backward's halo of its input, a weighted SpMM's and
+        an SDDMM's all-gather of the same features).  The results live until
+        the context closes."""
+        self._memo = {}
+        try:
+            yield
+        finally:
+            self._memo = None
+
+    def _shared(self, key, src: torch.Tensor, make):
+        """``make()``, or inside ``shared_exchanges`` the result of the
+        first ``make`` under ``key`` for the tensor ``src`` (held, so its
+        memory stays its own)."""
+        if self._memo is None:
+            return make()
+        k = (key, src.data_ptr(), tuple(src.shape), src.stride(), src.dtype, src._version)
+        if k not in self._memo:
+            self._memo[k] = (src, make())
+        return self._memo[k][1]
+
     def _pad_d(self, x: torch.Tensor) -> torch.Tensor:
         """Pad the feature dim to a multiple of ``8 * pf``: every feature
         shard gets an equal slice."""
         d = x.shape[1]
         d_pad = _round_up(max(d, 1), 8 * self.pf)
-        return torch.nn.functional.pad(x, (0, d_pad - d)) if d_pad != d else x
+        if d_pad == d:
+            return x
+        return self._shared("pad", x, lambda: torch.nn.functional.pad(x, (0, d_pad - d)))
 
     def _grid(self, x: torch.Tensor):
         """``[padded_nodes, D]`` -> shard views ``grid[g][f]``."""
@@ -652,10 +687,13 @@ class DistributedTiledGraph:
                 for g in range(self.pg)]
 
     # ---- collective steps ---------------------------------------------------
-    def _halo(self, grid, dn: _Direction):
-        """Each shard's extended slab ``[rows_per_shard + halo_rows, d]``: its
-        rows, then one segment per round of the partial-pair ``ppermute``
-        plan (receivers no pair lists get zeros)."""
+    def _halo(self, x: torch.Tensor, dn: _Direction):
+        """Each shard's extended slab ``[rows_per_shard + halo_rows, d]`` of
+        ``x``: its rows, then one segment per round of the partial-pair
+        ``ppermute`` plan (receivers no pair lists get zeros)."""
+        return self._shared(("halo", id(dn)), x, lambda: self._halo_grid(self._grid(x), dn))
+
+    def _halo_grid(self, grid, dn: _Direction):
         if self.pg == 1:
             return grid
         segs = self._map(lambda g, x: [x], grid)
@@ -670,8 +708,15 @@ class DistributedTiledGraph:
     def _w_all(self, w: torch.Tensor):
         """The all-gathered forward edge vector plus an appended zero (the
         sentinel slot), per shard."""
-        full = C.all_gather(self._edge_grid(w), "graph")
-        return [torch.cat([full[g][0], full[g][0].new_zeros(1)]) for g in range(self.pg)]
+        def make():
+            full = C.all_gather(self._edge_grid(w), "graph")
+            return [torch.cat([full[g][0], full[g][0].new_zeros(1)]) for g in range(self.pg)]
+
+        return self._shared("w_all", w, make)
+
+    def _all_gather(self, x: torch.Tensor):
+        """``x``'s shard grid all-gathered over ``graph``."""
+        return self._shared("all_gather", x, lambda: C.all_gather(self._grid(x), "graph"))
 
     def _guest_return(self, out, sp: _Split):
         """Split stream: guest windows' partial tiles ride one all_to_all to
@@ -694,28 +739,27 @@ class DistributedTiledGraph:
 
         return self._map(add, out, recv)
 
-    def _guest_rows(self, grid, sp: _Split):
+    def _guest_rows(self, x: torch.Tensor, sp: _Split):
         """The owners' window rows of each shard's guest slots
-        ``[guest_cap * blk_h, d]``, by one all_to_all (zeros for unused
-        slots)."""
+        ``[guest_cap * blk_h, d]`` of ``x``, by one all_to_all (zeros for
+        unused slots)."""
         def send(g, x):
             rows = x.index_select(0, sp.fetch_rows[g])
             return torch.where(sp.fetch_valid[g][:, None], rows, 0)
-
-        recv = C.all_to_all(self._map(send, grid), "graph")
 
         def pick(g, r):
             rows = r.index_select(0, sp.xa_fetch[g])
             return torch.where(sp.xa_valid[g][:, None], rows, 0)
 
-        return self._map(pick, recv)
+        return self._shared(("guest", id(sp)), x, lambda: self._map(
+            pick, C.all_to_all(self._map(send, self._grid(x)), "graph")))
 
     # ---- the SpMMs and the SDDMM --------------------------------------------
-    def _spmm_grid(self, grid, dn: _Direction, w: Optional[torch.Tensor] = None):
-        """``A @ x`` (or ``(A ⊙ w) @ x``) of one direction on a shard grid:
+    def _spmm_grid(self, x, dn: _Direction, w: Optional[torch.Tensor] = None):
+        """``A @ x`` (or ``(A ⊙ w) @ x``) of one direction as a shard grid:
         the split stream where the partition built one, else the shard's
         whole block stream against its halo slab."""
-        x_ext = self._halo(grid, dn)
+        x_ext = self._halo(x, dn)
         if dn.split is not None:
             sp = dn.split
             streams = sp.streams
@@ -737,13 +781,13 @@ class DistributedTiledGraph:
         out = self._map(lambda g, x: spmm_tc_dense(x, streams[g].meta, tiles[g]), x_ext)
         return self._guest_return(out, dn.split) if dn.split is not None else out
 
-    def _chunk_spmm_grid(self, grid, dn: _ChunkDirection, w: Optional[torch.Tensor] = None):
+    def _chunk_spmm_grid(self, x, dn: _ChunkDirection, w: Optional[torch.Tensor] = None):
         """``A @ x`` (or ``(A ⊙ w) @ x``) of one direction on the streamed
         route or the chunk fallback: K8 a shard over its layout against the
         all-gathered features, f32.  The forward reads the shard's own edge
         slice, the transpose the all-gathered forward vector through
         ``edge_fwd_slot``."""
-        x_all = C.all_gather(grid, "graph")
+        x_all = self._all_gather(x)
         vals = [None] * self.pg
         if w is not None:
             if dn.edge_fwd_slot is not None:
@@ -756,13 +800,13 @@ class DistributedTiledGraph:
 
     def _spmm(self, x, dn, w=None) -> torch.Tensor:
         d = x.shape[1]
-        grid = self._grid(self._pad_d(x))
+        xp = self._pad_d(x)
         if self.block_diag:
-            out = self._bd_spmm_grid(grid, dn, w)
+            out = self._bd_spmm_grid(xp, dn, w)
         elif not self.dense_tiles:
-            out = self._chunk_spmm_grid(grid, dn, w)
+            out = self._chunk_spmm_grid(xp, dn, w)
         else:
-            out = self._spmm_grid(grid, dn, w)
+            out = self._spmm_grid(xp, dn, w)
         return self._assemble(out)[:, :d]
 
     def _edge_scores(self, op, metas, xa_grid, xb_ext) -> torch.Tensor:
@@ -787,11 +831,11 @@ class DistributedTiledGraph:
         dn = self._fwd
         if self.block_diag:
             return self._bd_sddmm(xa, xb)
-        xa_grid, xb_grid = self._grid(self._pad_d(xa)), self._grid(self._pad_d(xb))
+        xa_grid, xb = self._grid(self._pad_d(xa)), self._pad_d(xb)
         if not self.dense_tiles:
-            return self._edge_scores(sddmm_tc, dn.metas, xa_grid, C.all_gather(xb_grid, "graph"))
+            return self._edge_scores(sddmm_tc, dn.metas, xa_grid, self._all_gather(xb))
         return self._edge_scores(sddmm_tc_dense, [st.meta for st in dn.streams], xa_grid,
-                                 self._halo(xb_grid, dn))
+                                 self._halo(xb, dn))
 
     # ---- the fused AGNN ------------------------------------------------------
     def _score_tiles(self, xa, xb, streams):
@@ -823,9 +867,9 @@ class DistributedTiledGraph:
             return self._bd_agnn_f(x)
         grid = self._grid(x)
         streams, dn = self._agnn_streams()
-        x_ext = self._halo(grid, dn)
+        x_ext = self._halo(x, dn)
         if self.agnn_split:
-            g_rows = self._guest_rows(grid, dn.split)
+            g_rows = self._guest_rows(x, dn.split)
             x_win = self._map(lambda g, a, b: torch.cat([a, b]), grid, g_rows)
         else:
             x_win = grid
@@ -844,10 +888,10 @@ class DistributedTiledGraph:
             return self._bd_agnn_b(x, dy)
         grid, dgrid = self._grid(x), self._grid(dy)
         streams, dn = self._agnn_streams()
-        x_ext, dy_ext = self._halo(grid, dn), self._halo(dgrid, dn)
+        x_ext, dy_ext = self._halo(x, dn), self._halo(dy, dn)
         if self.agnn_split:
-            x_guest = self._guest_rows(grid, dn.split)
-            dy_guest = self._guest_rows(dgrid, dn.split)
+            x_guest = self._guest_rows(x, dn.split)
+            dy_guest = self._guest_rows(dy, dn.split)
             x_win = self._map(lambda g, a, b: torch.cat([a, b]), grid, x_guest)
             dy_win = self._map(lambda g, a, b: torch.cat([a, b]), dgrid, dy_guest)
         else:
@@ -881,11 +925,16 @@ class DistributedTiledGraph:
         return self._assemble(dx), dc[0][0]
 
     # ---- the block-diagonal route --------------------------------------------
-    def _rim_ext(self, grid, dn: BDDirection):
-        """Each shard's rim stack ``x_ext = [rim of g-1 ; x_loc ; rim of
-        g+1]``, ``[(b_loc + kmax - kmin) * bn, d]``: the last ``-kmin`` bins
-        of the shard below and the first ``kmax`` bins of the shard above, by
-        two ``ppermute`` shifts (zeros at either end of the mesh)."""
+    def _rim_ext(self, x: torch.Tensor, dn: BDDirection):
+        """Each shard's rim stack of ``x``, ``x_ext = [rim of g-1 ; x_loc ;
+        rim of g+1]``, ``[(b_loc + kmax - kmin) * bn, d]``: the last
+        ``-kmin`` bins of the shard below and the first ``kmax`` bins of the
+        shard above, by two ``ppermute`` shifts (zeros at either end of the
+        mesh).  Directions of one rim share it."""
+        return self._shared(("rim", dn.rim, dn.bin_rows), x,
+                            lambda: self._rim_grid(self._grid(x), dn))
+
+    def _rim_grid(self, grid, dn: BDDirection):
         (kmin, kmax), bn, pg = dn.rim, dn.bin_rows, self.pg
         parts = self._map(lambda g, x: [x], grid)
         if kmin < 0:
@@ -902,11 +951,11 @@ class DistributedTiledGraph:
         """The shard's own rows of an output over its ext slab."""
         return y[dn.lead: dn.lead + self.rows_per_shard]
 
-    def _bd_spmm_grid(self, grid, dn: BDDirection, w=None):
+    def _bd_spmm_grid(self, x, dn: BDDirection, w=None):
         """``A @ x`` (or ``(A ⊙ w) @ x``) of one direction: K5 a shard over
         its ext pack (or a weighted one) and its rim stack."""
         cfg, pg, e = self.config, self.pg, self.edge_capacity
-        x_ext = self._rim_ext(grid, dn)
+        x_ext = self._rim_ext(x, dn)
         if w is not None:
             # The transpose reads the forward-ordered weights after one
             # all-gather; the forward, its own edge slots.
@@ -926,7 +975,7 @@ class DistributedTiledGraph:
         """K4 an edge of each shard: its own rows of ``xa`` against its rim
         stack of ``xb``, summed over ``feature``; ``[padded_edges]`` f32."""
         dn = self._fwd
-        xb_ext = self._rim_ext(self._grid(self._pad_d(xb)), dn)
+        xb_ext = self._rim_ext(self._pad_d(xb), dn)
         return self._edge_scores(sddmm_tc_dense, [sh.edges for sh in dn.shards],
                                  self._grid(self._pad_d(xa)), xb_ext)
 
@@ -955,7 +1004,7 @@ class DistributedTiledGraph:
         """``(A ⊙ x x^T) @ x`` a shard: K6 over the ext pack's row index at
         one feature shard; else K5 over ``C ⊙ S``."""
         dn, cfg = self._fwd, self.config
-        x_ext = self._rim_ext(self._grid(x), dn)
+        x_ext = self._rim_ext(x, dn)
         if self.pf == 1:
             return self._map(lambda g, xe: self._own(bd_sfused(
                 xe, xe, xe, dn.shards[g].pack, offsets=dn.offsets, cfg=cfg,
@@ -973,8 +1022,8 @@ class DistributedTiledGraph:
         x_j>``, ``U_ij = <x_i, dy_j>``: ``(C ⊙ T)^T = C ⊙ U`` on a symmetric
         pack, so the transpose term needs no spill-back)."""
         dn, cfg = self._fwd, self.config
-        grid, dgrid = self._grid(x), self._grid(dy)
-        x_ext, dy_ext = self._rim_ext(grid, dn), self._rim_ext(dgrid, dn)
+        dgrid = self._grid(dy)
+        x_ext, dy_ext = self._rim_ext(x, dn), self._rim_ext(dy, dn)
         if self.pf == 1:
             both = self._map(lambda g, xe, de: [self._own(t, dn) for t in bd_sfused_bwd(
                 xe, de, dn.shards[g].pack, offsets=dn.offsets, cfg=cfg,

@@ -13,6 +13,11 @@ without its device placement.  The collectives between shards are copies
 between shard views on that device (``parallel/collectives.py``).  One
 process per card over NCCL is a later step (ROADMAP.md, Queue 1 item 8c),
 so a mesh over more than one card raises.
+
+``make_mesh_two_level`` lays the graph axis out host-major, as JAX's does:
+shard ``g`` belongs to host ``g // chips_per_host``.  The placement changes
+no collective; ``comm_stats.dcn_halo_fraction`` reads which halo rows would
+cross a host boundary.
 """
 
 from __future__ import annotations
@@ -62,3 +67,15 @@ def make_mesh(n_graph: int = 1, n_feature: int = 1, device="cuda") -> Mesh:
         raise RuntimeError("mesh on cuda, but torch finds no CUDA device")
     return Mesh(int(n_graph), int(n_feature), device)
 
+
+
+def make_mesh_two_level(n_hosts: int, chips_per_host: int, n_feature: int = 1,
+                        device="cuda") -> Mesh:
+    """A ``('graph', 'feature')`` grid whose graph axis spans ``n_hosts *
+    chips_per_host`` shards laid out host-major: shard ``g`` belongs to host
+    ``g // chips_per_host``.  The partition gives consecutive graph indices
+    contiguous window ranges, so a bandwidth-ordered graph's halo stays
+    mostly within a host (``comm_stats.dcn_halo_fraction`` counts the rest).
+    Axes and collectives are ``make_mesh``'s: every shard lives on
+    ``device``, and a list naming more than one device raises."""
+    return make_mesh(n_hosts * chips_per_host, n_feature, device)

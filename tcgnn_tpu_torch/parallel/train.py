@@ -79,7 +79,9 @@ def make_distributed_train_step(
     ``x`` comes from ``graph.shard_features``, ``y`` (int labels, padded
     entries arbitrary) and ``norm`` (padded entries 0) from
     ``graph.shard_nodes``.  ``hoist`` computes the layer-1 aggregate once
-    (exact for GCN and GIN); ``generator`` draws the dropout masks.
+    (exact for GCN and GIN); ``generator`` draws the dropout masks.  The
+    forward and backward run inside ``graph.shared_exchanges``, so the step
+    moves what the compiled JAX step moves.
     """
     mask = graph.valid_node_mask()
     y = y.long()
@@ -88,11 +90,12 @@ def make_distributed_train_step(
 
     def step() -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        logp = net(x, graph, dropout_generator=gen, dropout_rate=dropout_rate, norm=norm,
-                   l1_agg=l1_agg, num_valid_classes=num_valid_classes)
-        nll = F.nll_loss(logp, y, reduction="none")
-        loss = torch.sum(nll * mask) / graph.num_nodes
-        loss.backward()
+        with graph.shared_exchanges():
+            logp = net(x, graph, dropout_generator=gen, dropout_rate=dropout_rate, norm=norm,
+                       l1_agg=l1_agg, num_valid_classes=num_valid_classes)
+            nll = F.nll_loss(logp, y, reduction="none")
+            loss = torch.sum(nll * mask) / graph.num_nodes
+            loss.backward()
         optimizer.step()
         return loss.detach()
 
