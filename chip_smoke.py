@@ -188,10 +188,18 @@ Phases, in order; any failure raises and exits nonzero:
      with the H100 data-sheet rates (each shard's edges summing to the
      graph's); ``scaling`` on its default graph (``rand_20000_100000``, GCN
      hidden 16, 10 epochs) over 1, 2, 4 and 8 shards (K1 only): epoch ms,
-     edges/s and efficiency printed.
+     edges/s and efficiency printed;
+ 20. the headline bench (``tcgnn_tpu_torch.bench.headline``, the port's
+     ``bench.py``) at its full schedule: pubmed GCN in bf16, no hoist and
+     hoisted, 200x3 epochs, and the 4-layer hidden-32 AGNN datum, 50x3.  Its
+     JSON line, printed, must have ``bench.py``'s keys in their order (read
+     from that file with ``ast``) and ``dtype`` last, ``backend`` cuda,
+     ``dtype`` bfloat16, ``tc_blocks`` 334, positive finite times and a
+     number for the AGNN datum; it must launch K1, K2 and K3 and no other
+     kernel, and no plain version.
 
 The kernels line's launches are summed over every run of phases 11, 13, 14,
-15, 16, 17, 18 and 19, each read with the counts set to 0 just before it.  Every bound
+15, 16, 17, 18, 19 and 20, each read with the counts set to 0 just before it.  Every bound
 is ``tcgnn_tpu_torch.bench.roofline_bound``'s ``csr_bound``.
 
 Every phase prints its elapsed seconds.  The line before the last is
@@ -202,6 +210,7 @@ Nothing of JAX is imported.
 from __future__ import annotations
 
 import argparse
+import ast
 import concurrent.futures
 import contextlib
 import copy
@@ -226,6 +235,7 @@ from tcgnn_tpu_torch import TileConfig, TiledGraph, train
 from tcgnn_tpu_torch.bench import (
     accuracy_parity,
     epoch_ledger,
+    headline,
     measure_comm,
     partition_stats,
     scaling,
@@ -2238,6 +2248,46 @@ def phase_traffic(dev, card) -> dict:
     return launches
 
 
+# ---- the headline bench (``tcgnn_tpu_torch.bench.headline``) -------------------
+
+def bench_py_keys() -> list:
+    """The keys, in order, of the dict literal inside ``bench.py``'s
+    ``json.dumps`` call: the file beside this script is read with ``ast``,
+    never imported (it imports JAX)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bench.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    (keys,) = [[k.value for k in node.args[0].keys] for node in ast.walk(tree)
+               if isinstance(node, ast.Call) and ast.unparse(node.func) == "json.dumps"]
+    return keys
+
+
+def phase_headline(card) -> tuple[dict, dict]:
+    """Phase 20: ``headline.main([])`` at its full schedule on the card, the
+    counts set to 0 just before; raises unless its line has ``bench.py``'s
+    keys and ``dtype``, the card's backend and dtype, pubmed's 334 TC blocks,
+    positive finite times and an AGNN datum, and unless it launched K1, K2
+    and K3 and no other kernel, and no plain version.  Returns the line and
+    each kernel's launches."""
+    reset_counts()
+    line = headline.main([])
+    counts = launch_counts()
+    print(f"  headline line: {json.dumps(line)}  (card: {card})")
+    print("  headline " + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}"
+                                    for k, c in counts.items() if c[0] or c[1]))
+    check_launches("headline", counts, ("K1", "K2", "K3"))
+    keys = bench_py_keys()
+    if len(keys) != 11 or list(line) != keys + ["dtype"]:
+        raise AssertionError(f"headline keys {list(line)}; bench.py's {keys} and dtype")
+    if (line["backend"], line["dtype"], line["tc_blocks"]) != ("cuda", "bfloat16", 334):
+        raise AssertionError(f"headline: {line}")
+    times = [line[k] for k in ("value", "value_hoisted_default", "prep_ms",
+                               "agnn_pubmed_epoch_ms")]
+    if not all(isinstance(t, (int, float)) and math.isfinite(t) and t > 0 for t in times):
+        raise AssertionError(f"headline times {times}")
+    return line, {k: c[0] for k, c in counts.items()}
+
+
 def build_kernels():
     """One nvcc per source and the native SGT pass's g++, all started
     together; prints ``-Xptxas -v``, the g++ flags and each build's
@@ -2445,6 +2495,13 @@ def main():
         launches[k] += c
     phase_end(t0)
 
+    # ---- 20. the headline bench ------------------------------------------------
+    t0 = phase_start("20. the headline bench (bench.headline: pubmed GCN bf16, AGNN datum)")
+    headline_line, headline_launches = phase_headline(card)
+    for k, c in headline_launches.items():
+        launches[k] += c
+    phase_end(t0)
+
     for (k, geo, d), (kt, pt, dev) in times.items():
         print(f"  time {KERNELS[k][0]} {geo} d={d}: kernel {kt:.4f} ms (device {dev:.4f} ms), "
               f"plain {pt:.4f} ms (median of {TIMING_RUNS} event pairs a call; device: one "
@@ -2473,6 +2530,7 @@ def main():
     print("reddit Prep host (ms) by stage: " + json.dumps(
         {p: {k: round(v, 3) for k, v in st.items()} for p, st in prep_stages.items()})
           + f" (card host: {card})")
+    print(f"headline: {json.dumps(headline_line)}  (card: {card})")
     for name, stats in sag_runs:
         print(f"--single_kernel [{name}]: " + "  ".join(
             f"{k} {v:.6g}" for k, v in stats.items()) + f"  (card: {card})")

@@ -219,6 +219,14 @@ CONFIGS = {
 }
 
 
+def card_line() -> str:
+    """The card's ``nvidia-smi`` name and power limit."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def main(out_dir: str = "prof_traces", *groups: str) -> None:
     """The epochs of the given groups of ``CONFIGS`` (all by default), each
     run with the profiler off and then on (traces under ``out_dir``); with
@@ -250,8 +258,7 @@ def main(out_dir: str = "prof_traces", *groups: str) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
     groups = groups or tuple(CONFIGS)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
+    print(card_line())
     data_dir = os.path.join(out_dir, "data")
     if "edges" in groups:
         os.makedirs(data_dir, exist_ok=True)

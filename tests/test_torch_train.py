@@ -214,9 +214,10 @@ def test_port_imports_no_jax(tmp_path):
     the block-diagonal route after ``--reorder rcm`` and ``--reorder
     community``, and on a 4x2 mesh; ``--single_kernel`` on one device and on
     the mesh; a checkpointed run resumed, and ``--save_params`` /
-    ``--load_params``), importing every module of its bench harness and
+    ``--load_params``), importing every module of its bench harness,
     running one sweep row (the trainer twice and the baseline) loads neither
-    JAX nor the JAX package."""
+    JAX nor the JAX package; nor does the headline bench's cut CPU run, in a
+    second fresh process (so that the first keeps its time limit to itself)."""
     code = (
         "import sys\n"
         "import tcgnn_tpu_torch\n"
@@ -263,6 +264,20 @@ def test_port_imports_no_jax(tmp_path):
     assert "Reorder (ms):" in proc.stdout and "SGT pass:\tnative" in proc.stdout
     assert "=> SAG profiling avg (ms):" in proc.stdout
     assert "# resumed at epoch 4" in proc.stdout
+    code = (
+        "import sys\n"
+        "from tcgnn_tpu_torch.bench import headline\n"
+        "line = headline.main(['--device', 'cpu', '--epochs', '3', '--reps', '1',"
+        " '--warmup', '1'])\n"
+        "assert line['tc_blocks'] == 334 and line['backend'] == 'cpu', line\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tcgnn_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('NO_JAX_OK')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "NO_JAX_OK" in proc.stdout and '"metric": "gcn_pubmed_epoch_ms"' in proc.stdout
 
 
 def test_profile_union_counts_overlap_once():
