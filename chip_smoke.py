@@ -196,10 +196,28 @@ Phases, in order; any failure raises and exits nonzero:
      from that file with ``ast``) and ``dtype`` last, ``backend`` cuda,
      ``dtype`` bfloat16, ``tc_blocks`` 334, positive finite times and a
      number for the AGNN datum; it must launch K1, K2 and K3 and no other
-     kernel, and no plain version.
+     kernel, and no plain version;
+ 21. the mesh over processes (``torch.distributed``): 2 ranks split the
+     graph axis, over NCCL one a card where the machine has two cards, else
+     (it is printed) over gloo on this one card, every transfer staged
+     through host memory.  Each rank runs ``train.main`` with ``--no_dropout``
+     and ``TRAIN_EPOCHS`` timed epochs: pubmed GCN ``--mesh 4x1`` at full
+     width (K1, the split stream's ``all_to_all``, the halo's ``ppermute``),
+     pubmed AGNN ``--mesh 4x1`` (K2/K3) and ``4x2`` (K4 tiles, K10), Yeast
+     GCN and AGNN ``--mesh 4x1`` (K5, K6/K7, the rim ``ppermute``), reddit GCN
+     ``--mesh 4x1`` at its published widths (K8, the all-gather).  Each run's
+     first loss within ``FIRST_LOSS_RTOL`` and final loss within
+     ``FINAL_LOSS_RTOL`` of the one-process mesh run (phases 13, 17 and 18;
+     the pubmed 4x1 runs in this phase); every rank launches the one-process
+     run's kernels and no other, no plain version, and each kernel's
+     launches over the ranks sum to the one-process run's.  Each rank's
+     ``Train (ms)`` and ``torch.cuda.max_memory_allocated()`` are printed,
+     then one ``torchrun`` CLI run's (pubmed GCN ``--mesh 4x1``; on one card
+     a gloo-on-one-card figure, not a multi-card one).
 
 The kernels line's launches are summed over every run of phases 11, 13, 14,
-15, 16, 17, 18, 19 and 20, each read with the counts set to 0 just before it.  Every bound
+15, 16, 17, 18, 19, 20 and 21 (every rank's), each read with the counts set
+to 0 just before it.  Every bound
 is ``tcgnn_tpu_torch.bench.roofline_bound``'s ``csr_bound``.
 
 Every phase prints its elapsed seconds.  The line before the last is
@@ -1485,7 +1503,7 @@ def phase_mesh_train(dev, card) -> tuple[list, dict]:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         r = run_main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), *extra])
-        counts = launch_counts()
+        counts = r["counts"] = launch_counts()
         r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         r["seconds"] = time.perf_counter() - t0
         print(f"  {r['route']}  first loss {r['first_loss']:.6f}  final loss "
@@ -1886,7 +1904,7 @@ def phase_bd_mesh_train(dev) -> tuple[list, dict]:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         r = run_main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), *extra])
-        counts = launch_counts()
+        counts = r["counts"] = launch_counts()
         r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         r["seconds"] = time.perf_counter() - t0
         del r["graph"]
@@ -2105,7 +2123,7 @@ def phase_stream_mesh_train(reddit, dev, card) -> tuple[list, dict]:
         rss_reset = reset_peak_rss()
         reset_counts()
         r = run_main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), *extra])
-        counts = launch_counts()
+        counts = r["counts"] = launch_counts()
         r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         r["held_before"] = held
         r["peak_rss"], r["rss_of_run"] = peak_rss(), rss_reset
@@ -2286,6 +2304,185 @@ def phase_headline(card) -> tuple[dict, dict]:
     if not all(isinstance(t, (int, float)) and math.isfinite(t) and t > 0 for t in times):
         raise AssertionError(f"headline times {times}")
     return line, {k: c[0] for k, c in counts.items()}
+
+
+# ---- the mesh over processes (torch.distributed) ------------------------------
+
+# Ranks of phase 21: the graph axis of every run's mesh (4) split in two.
+MESH_RANKS = 2
+# A 2-rank run's final loss against the one-process mesh run's, after the
+# same 30 Adam updates: the ranks sum each gradient from two partial sums
+# (the all-reduce) where one process sums it whole, and K1, K2/K3 and K8
+# add rows with atomics in no fixed order, so the last bits of every update
+# may move.
+FINAL_LOSS_RTOL = 1e-3
+PUBMED = ["--dataset", "pubmed", "--dim", "500", "--classes", "3"]
+MESH_GCN = ["--model", "gcn", "--hidden", "16", "--num_layers", "2"]
+MESH_AGNN = ["--model", "agnn", "--hidden", "32", "--num_layers", "2"]
+# label, trainer arguments (all --no_dropout, TRAIN_EPOCHS), kernels each
+# rank must launch, and where the one-process mesh run it is held to comes
+# from (the phase-13/17/18 run of that label, or phase 21's own).
+PROC_RUNS = [
+    ("pubmed gcn --mesh 4x1", [*PUBMED, *MESH_GCN, "--mesh", "4x1"], ("K1",), "21"),
+    ("pubmed agnn --mesh 4x1", [*PUBMED, *MESH_AGNN, "--mesh", "4x1"], ("K2", "K3"), "21"),
+    ("pubmed agnn --mesh 4x2", [*PUBMED, *MESH_AGNN, "--mesh", "4x2"], ("K4", "K10"),
+     "mesh 4x2 agnn"),
+    ("Yeast gcn --mesh 4x1", [*YEAST, *MESH_GCN, "--mesh", "4x1"], ("K5",),
+     "Yeast gcn --mesh 4x1"),
+    ("Yeast agnn --mesh 4x1", [*YEAST, *MESH_AGNN, "--mesh", "4x1"], ("K6", "K7"),
+     "Yeast agnn --mesh 4x1"),
+    ("reddit gcn --mesh 4x1", [*REDDIT, "--model", "gcn", "--mesh", "4x1"], ("K8",),
+     "reddit gcn --mesh 4x1"),
+]
+
+
+def mesh_rank(rank, world, store, backend, device, out_dir) -> None:
+    """One rank of phase 21 (started by ``torch.multiprocessing.spawn``):
+    join the group over the ``file://`` store, run every ``PROC_RUNS`` entry
+    through ``train.main`` on ``device`` (``{rank}`` is the rank), each with
+    the counts set to 0 just before it and read just after, and write each
+    run's losses, ``Train (ms)``, launches and peak device memory to
+    ``out_dir/rank<r>.pt``."""
+    from tcgnn_tpu_torch.parallel.mesh import init_process_group
+
+    device = init_process_group(device.format(rank=rank), backend=backend,
+                                init_method=f"file://{store}", rank=rank, world_size=world)
+    results = []
+    for label, argv, _, _ in PROC_RUNS:
+        args = ["--device", str(device), "--epochs", str(TRAIN_EPOCHS), "--no_dropout", *argv]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with contextlib.redirect_stdout(Tee(sys.stdout, buf)):
+            r = train.main(args)
+        counts = launch_counts()
+        results.append({
+            "label": label, "route": r["route"], "first_loss": r["first_loss"],
+            "final_loss": r["final_loss"], "train_ms": r["train_ms"], "counts": counts,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "native": "SGT pass:\tnative\n" in buf.getvalue(),
+            "seconds": time.perf_counter() - t0,
+        })
+        del r
+        torch.cuda.empty_cache()
+    torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(world, backend, device, timeout_s) -> list:
+    """``mesh_rank`` in ``world`` processes; every rank's results.  A rank
+    that fails ends the others and raises; so does the time limit."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.spawn(mesh_rank, args=(world, os.path.join(tmp, "store"), backend, device, tmp),
+                       nprocs=world, join=False)
+        deadline = time.perf_counter() + timeout_s
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"phase 21: ranks still running after {timeout_s} s")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+def torchrun_train_ms(backend, device, card) -> dict:
+    """One ``torchrun`` CLI run (pubmed GCN ``--mesh 4x1``, ``MESH_RANKS``
+    processes): rank 0's ``Train (ms)`` and final loss, read from its
+    output."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={MESH_RANKS}", "-m", "tcgnn_tpu_torch.train", "--device", device,
+           "--dist_backend", backend, "--epochs", str(TRAIN_EPOCHS), "--no_dropout",
+           *PUBMED, *MESH_GCN, "--mesh", "4x1"]
+    print("--- " + " ".join(cmd[1:]), flush=True)
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, check=False)
+    if out.returncode != 0:
+        raise AssertionError(f"torchrun exited {out.returncode}: {out.stderr[-4000:]}")
+    lines = dict(line.split(":\t", 1) for line in out.stdout.splitlines() if ":\t" in line)
+    for key in ("TC_Blocks", "Exp_Edges", "Prep. (ms)", "Final loss", "Train (ms)"):
+        if key not in lines:
+            raise AssertionError(f"torchrun: no {key!r} line in rank 0's output:\n{out.stdout}")
+    if out.stdout.count("Final loss:") != 1:
+        raise AssertionError("torchrun: a rank other than 0 printed")
+    r = {"train_ms": float(lines["Train (ms)"]), "final_loss": float(lines["Final loss"])}
+    print(f"  torchrun {MESH_RANKS} processes, backend {backend}, {device}: Train (ms) "
+          f"{r['train_ms']:.3f}, Final loss {r['final_loss']:.6f} (card: {card})")
+    return r
+
+
+def phase_mesh_procs(earlier, dev, card) -> tuple[list, dict]:
+    """Phase 21: the mesh over processes.  ``MESH_RANKS`` ranks split each
+    run's graph axis: over NCCL one rank a card where the machine has as
+    many cards, else over gloo on this one card, every transfer staged
+    through host memory.  Each rank runs ``PROC_RUNS`` through
+    ``train.main`` (``--no_dropout``, ``TRAIN_EPOCHS`` timed epochs): each
+    run's first loss within ``FIRST_LOSS_RTOL`` and final loss within
+    ``FINAL_LOSS_RTOL`` of the one-process mesh run (``earlier``: phases 13,
+    17 and 18, by label; the pubmed 4x1 runs here), every rank's launches of
+    the expected kernels and no other, no plain call, and each kernel's
+    launches summed over the ranks equal to the one-process run's (each
+    shard's on its own rank).  Then one ``torchrun`` CLI run.  Returns the
+    runs and each kernel's launches summed over every rank's runs."""
+    cards = torch.cuda.device_count()
+    if cards >= MESH_RANKS:
+        backend, device = "nccl", "cuda:{rank}"
+        print(f"{cards} cards: {MESH_RANKS} ranks over NCCL, one a card")
+    else:
+        backend, device = "gloo", "cuda:0"
+        print(f"{cards} card: NCCL is not run (it takes one rank a card); {MESH_RANKS} ranks on "
+              "card 0 over gloo, every transfer staged through host memory")
+    refs = dict(earlier)
+    for label, argv, expected, source in PROC_RUNS:
+        if source == "21":
+            print(f"--- one process: train.main {' '.join(argv)}")
+            reset_counts()
+            r = run_main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), "--no_dropout",
+                          *argv])
+            r["counts"] = launch_counts()
+            check_launches(f"one process {label}", r["counts"], expected)
+            del r["graph"]
+            refs[label] = r
+            torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(MESH_RANKS, backend, device, 900)
+    print(f"  {MESH_RANKS} ranks ran {len(PROC_RUNS)} runs in {time.perf_counter() - t1:.1f} s")
+    launches = {k: 0 for k in KERNELS}
+    runs = []
+    for i, (label, _, expected, source) in enumerate(PROC_RUNS):
+        ref = refs[label if source == "21" else source]
+        per_rank = [rk[i] for rk in ranks]
+        for rank, r in enumerate(per_rank):
+            check_launches(f"{label} rank {rank}", r["counts"], expected)
+            print(f"  {label} rank {rank}: {r['route']}  first loss {r['first_loss']:.6f}  "
+                  f"final loss {r['final_loss']:.6f}  Train (ms) {r['train_ms']:.3f}  "
+                  f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB  run "
+                  f"{r['seconds']:.1f} s  "
+                  + "  ".join(f"{k} launches {c[0]}" for k, c in r["counts"].items() if c[0])
+                  + f"  (card: {card}; {backend})")
+        if not per_rank[0]["native"]:
+            raise AssertionError(f"{label}: rank 0 printed no 'SGT pass:\tnative' line")
+        for k in KERNELS:
+            total = sum(r["counts"][k][0] for r in per_rank)
+            launches[k] += total
+            if total != ref["counts"][k][0]:
+                raise AssertionError(f"{label}: {k} launched {total} times over the ranks, "
+                                     f"{ref['counts'][k][0]} in one process")
+        for what, rtol in (("first_loss", FIRST_LOSS_RTOL), ("final_loss", FINAL_LOSS_RTOL)):
+            want = ref[what]
+            rels = [abs(r[what] - want) / abs(want) for r in per_rank]
+            print(f"  {label}: {what} {[r[what] for r in per_rank]} vs one process {want:.6f}: "
+                  f"relative difference {max(rels):.3e} (rtol {rtol})")
+            if not (math.isfinite(want) and max(rels) <= rtol):
+                raise AssertionError(f"{label}: {what} {[r[what] for r in per_rank]} vs one "
+                                     f"process {want}")
+        runs.append((label, per_rank, ref))
+    cli = torchrun_train_ms(backend, device.format(rank=0) if backend == "gloo" else "cuda", card)
+    want = refs["pubmed gcn --mesh 4x1"]["final_loss"]
+    if not abs(cli["final_loss"] - want) <= FINAL_LOSS_RTOL * abs(want):
+        raise AssertionError(f"torchrun final loss {cli['final_loss']} vs one process {want}")
+    return runs + [("torchrun pubmed gcn --mesh 4x1", cli, None)], launches
 
 
 def build_kernels():
@@ -2502,6 +2699,15 @@ def main():
         launches[k] += c
     phase_end(t0)
 
+    # ---- 21. the mesh over processes -------------------------------------------
+    t0 = phase_start(f"21. the mesh over processes ({MESH_RANKS} ranks, torch.distributed)")
+    torch.cuda.empty_cache()
+    proc_runs, proc_launches = phase_mesh_procs(mesh_runs + bd_mesh_runs + stream_runs, dev,
+                                                card)
+    for k, c in proc_launches.items():
+        launches[k] += c
+    phase_end(t0)
+
     for (k, geo, d), (kt, pt, dev) in times.items():
         print(f"  time {KERNELS[k][0]} {geo} d={d}: kernel {kt:.4f} ms (device {dev:.4f} ms), "
               f"plain {pt:.4f} ms (median of {TIMING_RUNS} event pairs a call; device: one "
@@ -2531,6 +2737,14 @@ def main():
         {p: {k: round(v, 3) for k, v in st.items()} for p, st in prep_stages.items()})
           + f" (card host: {card})")
     print(f"headline: {json.dumps(headline_line)}  (card: {card})")
+    for name, per_rank, _ in proc_runs[:-1]:
+        print(f"mesh over processes [{name}]: Train (ms) "
+              + " / ".join(f"{r['train_ms']:.3f}" for r in per_rank)
+              + "  max_memory_allocated (GiB) "
+              + " / ".join(f"{r['max_memory_allocated'] / 2**30:.2f}" for r in per_rank)
+              + f"  (rank 0 / rank 1; card: {card})")
+    print(f"mesh over processes [{proc_runs[-1][0]}]: Train (ms) {proc_runs[-1][1]['train_ms']:.3f}"
+          f" (card: {card})")
     for name, stats in sag_runs:
         print(f"--single_kernel [{name}]: " + "  ".join(
             f"{k} {v:.6g}" for k, v in stats.items()) + f"  (card: {card})")

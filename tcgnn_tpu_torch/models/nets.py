@@ -8,9 +8,10 @@ For L = num_layers the stack is
 
 ``GNN.forward`` is the counterpart of ``apply_net``: the same order, with
 the dropout mask drawn from a ``torch.Generator`` (dropout is active only
-when one is given).  Each layer's weights are an ``[in, out]`` parameter,
-the JAX layout, and an AGNN layer's attention weights ``[1, n_heads]``, so
-``params_from_jax`` can load JAX parameters.
+when one is given; on a mesh over processes, over the mesh's every row).
+Each layer's weights are an ``[in, out]`` parameter, the JAX layout, and an
+AGNN layer's attention weights ``[1, n_heads]``, so ``params_from_jax`` can
+load JAX parameters.
 """
 
 from __future__ import annotations
@@ -83,7 +84,12 @@ class GNN(nn.Module):
             h = torch.relu(self._conv(0, x, graph, norm))
         if dropout_generator is not None:
             keep = 1.0 - dropout_rate
-            mask = torch.rand(h.shape, generator=dropout_generator, device=h.device) < keep
+            # A graph that holds some of the rows (a process of the mesh:
+            # ``node_rows``) draws over all of them and keeps its own, so
+            # every process draws what one process would.
+            rows = getattr(graph, "node_rows", slice(None))
+            shape = (getattr(graph, "padded_nodes", h.shape[0]), h.shape[1])
+            mask = torch.rand(shape, generator=dropout_generator, device=h.device)[rows] < keep
             h = torch.where(mask, h * (1.0 / keep), 0.0)
         last = len(self.weights) - 1
         for i in range(1, last):

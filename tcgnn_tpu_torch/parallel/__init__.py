@@ -2,8 +2,9 @@
 the row-window partition with its halo and block-stream split, the
 block-diagonal route's shard packs and rim, the streamed route's window
 segments, the dense-tile, block-diagonal, streamed and chunk routes' ops
-and training step, every shard on one device, and the step's collective
-traffic (``comm_stats``)."""
+and training step, every shard on one device or the graph axis split over
+processes (``mesh.init_process_group``, ``torchrun``), and the step's
+collective traffic (``comm_stats``)."""
 
 from tcgnn_tpu_torch.parallel.comm_stats import dcn_halo_fraction, step_collective_bytes
 from tcgnn_tpu_torch.parallel.graph import (
@@ -11,7 +12,12 @@ from tcgnn_tpu_torch.parallel.graph import (
     distributed_graph_from_dataset,
     probe_block_diag,
 )
-from tcgnn_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh_two_level
+from tcgnn_tpu_torch.parallel.mesh import (
+    Mesh,
+    init_process_group,
+    make_mesh,
+    make_mesh_two_level,
+)
 from tcgnn_tpu_torch.parallel.partition import (
     ShardedSGTMeta,
     partition_csr,
@@ -22,7 +28,8 @@ from tcgnn_tpu_torch.parallel.train import init_distributed_net, make_distribute
 
 __all__ = [
     "DistributedTiledGraph", "distributed_graph_from_dataset", "probe_block_diag", "Mesh",
-    "make_mesh", "make_mesh_two_level", "dcn_halo_fraction", "step_collective_bytes",
+    "init_process_group", "make_mesh", "make_mesh_two_level", "dcn_halo_fraction",
+    "step_collective_bytes",
     "ShardedSGTMeta", "partition_csr", "partition_graph", "partition_streamed",
     "init_distributed_net", "make_distributed_train_step",
 ]

@@ -153,10 +153,11 @@ def _ext_cells(idx: torch.Tensor, offsets, b_loc: int, bn: int) -> tuple:
     return row * (k * bn) + ki * bn + c, row, col
 
 
-def upload_bd(m: BDShardMeta, config: TileConfig, device, edge_counts, w_src=None,
-              packs: Optional[list] = None, row_index: bool = False, cells: bool = False,
-              edges: Optional[list] = None) -> BDDirection:
-    """One direction's shards on ``device``.
+def upload_bd(m: BDShardMeta, config: TileConfig, device, edge_counts, shards: range,
+              w_src=None, packs: Optional[list] = None, row_index: bool = False,
+              cells: bool = False, edges: Optional[list] = None) -> BDDirection:
+    """The direction's ``shards`` (the graph shards this process holds) on
+    ``device``; ``packs`` and ``edges`` list them in that order.
 
     ``edge_counts[g]``: shard g's real edges.  ``w_src``: per shard, the
     all-gathered forward slot of each edge slot (the transpose's
@@ -178,13 +179,13 @@ def upload_bd(m: BDShardMeta, config: TileConfig, device, edge_counts, w_src=Non
     def dev32(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
-    shards = []
-    for g in range(m.pack_idx.shape[0]):
+    direction = []
+    for i, g in enumerate(shards):
         keep = m.pack_idx[g] < size
         pos, row, col = _ext_cells(dev64(m.pack_idx[g][keep]), m.offsets, b_loc, bn)
         cnt = torch.from_numpy(np.ascontiguousarray(m.pack_cnt[g][keep])).to(device)
         if packs is not None:
-            pack = packs[g]
+            pack = packs[i]
         else:
             flat = torch.zeros(padded_bins(n_ext // bn) * bn * k * bn, dtype=cnt.dtype,
                                device=device)
@@ -203,7 +204,7 @@ def upload_bd(m: BDShardMeta, config: TileConfig, device, edge_counts, w_src=Non
                                 row[order].to(torch.int32), col[order].to(torch.int32))
             sh.cell_pos, sh.cell_cnt = pos[order], cnt[order]
         if edges is not None:
-            rows, cols = edges[g]
+            rows, cols = edges[i]
             sh.edges = EdgeList(config, b_loc * bn, n_ext, len(rows), dev32(rows), dev32(cols))
-        shards.append(sh)
-    return BDDirection(offsets=m.offsets, bin_rows=bn, bins_per_shard=b_loc, shards=shards)
+        direction.append(sh)
+    return BDDirection(offsets=m.offsets, bin_rows=bn, bins_per_shard=b_loc, shards=direction)

@@ -3,9 +3,8 @@
 ``shard_map``).
 
 A shard grid is a list over the ``graph`` axis of lists over the
-``feature`` axis: ``grid[g][f]`` is shard ``(g, f)``'s tensor.  Every shard
-lives on the mesh's one device, so a collective is a set of copies (or
-sums) between shard tensors there; each keeps its JAX semantics exactly:
+``feature`` axis: ``grid[g][f]`` is shard ``(g, f)``'s tensor.  Each
+collective keeps its JAX semantics exactly:
 
 * ``all_gather(grid, axis)`` — tiled: every member of an axis group gets
   its members' tensors concatenated along dim 0, in axis order;
@@ -17,18 +16,30 @@ sums) between shard tensors there; each keeps its JAX semantics exactly:
 * ``psum(grid, axis)`` — every member gets the sum over its axis group,
   added in axis order.
 
-Members of a group that receive the same value share one tensor.
+In one process (``mesh`` None or of one rank) the grid holds every shard,
+and a collective is a set of copies (or sums) between shard tensors on the
+mesh's device; members of a group that receive the same value share one
+tensor.  Over processes (``parallel/mesh.py``) the grid holds this rank's
+graph shards only (``grid[i]`` is graph shard ``mesh.graph_shards[i]``):
+members on this rank still move by copies, and a graph-axis collective
+crosses ranks through ``torch.distributed``, one call for all the rank's
+members: ``all_gather_single`` (``all_gather_into_tensor``),
+``batch_isend_irecv`` (one message a pair of ranks), ``all_to_all_single``
+and ``all_reduce``.  With gloo on a card (``Mesh.staged``) every transfer
+goes through host memory.  ``all_reduce_bucket`` sums a list of tensors
+over the ranks in one call (the training step's gradients).
 
 Traffic accounting (``parallel/comm_stats.py``): inside ``recording(r)``,
 each call reports ``(kind, bytes)`` to it under the JAX
 package's kind names (``all_gather``, ``collective_permute``,
 ``all_to_all``, ``all_reduce`` for ``psum``).  The bytes are JAX's per-device
 logical count, one member's result from its shape and dtype alone (no
-device sync), not the copies this one-device grid makes; one call over the
-grid is one instance, as JAX emits one instruction for a collective over
-all of an axis' groups.  A ``ppermute`` with ``num_devices`` set weighs its
-bytes by the pairs it lists over every group of the axis, over
-``num_devices``: a member no pair sends to gets zeros, which move nothing.
+device sync), not the copies a grid makes; one call over the grid is one
+instance, as JAX emits one instruction for a collective over all of an
+axis' groups, whatever the number of processes.  A ``ppermute`` with
+``num_devices`` set weighs its bytes by the pairs it lists over every group
+of the axis, over ``num_devices``: a member no pair sends to gets zeros,
+which move nothing.
 """
 
 from __future__ import annotations
@@ -36,8 +47,12 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.distributed as dist
 
 AXES = ("graph", "feature")
+# torch 2.13 names all_gather_into_tensor all_gather_single (the old name
+# warns); older versions have only the old one.
+_all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 # The active traffic recorder (``comm_stats.Recorder``), or None.  A module
 # attribute, not a context variable: autograd runs a CUDA backward on its
@@ -62,13 +77,11 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _record(recorder, kind: str, grid, member_bytes: int, pairs=None,
-            axis: str = "graph") -> None:
+def _record(recorder, kind: str, member_bytes: int, pairs=None, groups: int = 1) -> None:
     """Report one instance of ``kind`` to ``recorder``: one member's result
-    bytes (a ``ppermute``'s weighed by its listed pairs over every group of
-    ``axis``, where the recorder has ``num_devices``)."""
+    bytes (a ``ppermute``'s weighed by its listed pairs over the axis'
+    ``groups``, where the recorder has ``num_devices``)."""
     if pairs is not None and recorder.num_devices:
-        groups = len(grid[0]) if axis == "graph" else len(grid)
         member_bytes = int(round(member_bytes * len(pairs) * groups / recorder.num_devices))
     recorder.add(kind, member_bytes)
 
@@ -99,22 +112,51 @@ def _over(axis, grid, fn):
     return _transposed([fn(list(col)) for col in _transposed(grid)])
 
 
-def all_gather(grid, axis: str = "graph"):
+def _ranks(mesh, axis: str) -> bool:
+    """Does a collective over ``axis`` cross ranks?"""
+    _check_axis(axis)
+    return axis == "graph" and mesh is not None and mesh.world > 1
+
+
+def _staged(mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` where the backend takes it: in host memory for gloo on a card."""
+    return t.cpu() if mesh.staged else t
+
+
+def _back(mesh, t: torch.Tensor) -> torch.Tensor:
+    return t.to(mesh.device) if mesh.staged else t
+
+
+def _columns(grid):
+    """The rank's members stacked a feature shard: ``[pf, L * m, ...]``, the
+    graph members of each column concatenated in axis order."""
+    return torch.stack([torch.cat(col) for col in _transposed(grid)])
+
+
+def all_gather(grid, axis: str = "graph", mesh=None):
     """Tiled all-gather along dim 0 over ``axis``."""
 
     def group(members):
         full = torch.cat(members, dim=0)
         return [full] * len(members)
 
-    out = _over(axis, grid, group)
+    if _ranks(mesh, axis):
+        local = _staged(mesh, _columns(grid))
+        full = local.new_empty((mesh.world * local.shape[0],) + tuple(local.shape[1:]))
+        _all_gather_single(full, local)
+        full = _back(mesh, full).view((mesh.world,) + tuple(local.shape))
+        cols = [full[:, f].reshape((-1,) + tuple(full.shape[3:])) for f in range(full.shape[1])]
+        out = [list(cols) for _ in grid]
+    else:
+        out = _over(axis, grid, group)
     recorder = _recorder
     if recorder is not None:
         _equal_shapes(grid)
-        _record(recorder, "all_gather", grid, _nbytes(out[0][0]))
+        _record(recorder, "all_gather", _nbytes(out[0][0]))
     return out
 
 
-def ppermute(grid, pairs, axis: str = "graph"):
+def ppermute(grid, pairs, axis: str = "graph", mesh=None):
     """Send member ``src``'s tensor to member ``dst`` for every ``(src,
     dst)`` in ``pairs``; members that receive nothing get zeros."""
 
@@ -126,35 +168,102 @@ def ppermute(grid, pairs, axis: str = "graph"):
             out[dst] = members[src]
         return [torch.zeros_like(m) if o is None else o for m, o in zip(members, out)]
 
-    out = _over(axis, grid, group)
+    out = _ppermute_ranks(grid, pairs, mesh) if _ranks(mesh, axis) else _over(axis, grid, group)
     recorder = _recorder
     if recorder is not None:
-        _record(recorder, "collective_permute", grid, _nbytes(_equal_shapes(grid)), pairs, axis)
+        # The axis' groups over the whole grid: a feature-axis group a graph
+        # shard, this rank's or another's.
+        groups = (len(grid[0]) if axis == "graph"
+                  else mesh.n_graph if mesh is not None else len(grid))
+        _record(recorder, "collective_permute", _nbytes(_equal_shapes(grid)), pairs, groups)
     return out
 
 
-def all_to_all(grid, axis: str = "graph"):
+def _ppermute_ranks(grid, pairs, mesh):
+    """A graph-axis ``ppermute`` over ranks: pairs within this rank are
+    copies; the members one rank sends another travel as one message, in
+    pair order, every feature shard of them."""
+    dsts = [dst for _, dst in pairs]
+    if len(set(dsts)) != len(dsts):
+        raise ValueError(f"ppermute: a member receives twice in {pairs}")
+    per, g0 = len(grid), mesh.graph_shards.start
+    proto = _equal_shapes(grid)
+    out = [None] * per
+    sends, recvs = {}, {}  # peer rank -> this rank's members, in pair order
+    for src, dst in pairs:
+        s_rank, d_rank = src // per, dst // per
+        if s_rank == d_rank == mesh.rank:
+            out[dst - g0] = grid[src - g0]
+        elif s_rank == mesh.rank:
+            sends.setdefault(d_rank, []).append(src - g0)
+        elif d_rank == mesh.rank:
+            recvs.setdefault(s_rank, []).append(dst - g0)
+    pf = len(grid[0])
+    ops, inbox = [], []
+    for peer, members in sorted(sends.items()):
+        buf = _staged(mesh, torch.stack([torch.stack(grid[i]) for i in members]))
+        ops.append(dist.P2POp(dist.isend, buf.contiguous(), peer))
+    for peer, members in sorted(recvs.items()):
+        buf = torch.empty((len(members), pf) + tuple(proto.shape), dtype=proto.dtype,
+                          device="cpu" if mesh.staged else proto.device)
+        ops.append(dist.P2POp(dist.irecv, buf, peer))
+        inbox.append((members, buf))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    for members, buf in inbox:
+        buf = _back(mesh, buf)
+        for k, i in enumerate(members):
+            out[i] = list(buf[k].unbind(0))
+    return [[torch.zeros_like(m) for m in row] if o is None else o
+            for row, o in zip(grid, out)]
+
+
+def all_to_all(grid, axis: str = "graph", mesh=None):
     """Tiled all-to-all along dim 0: member ``s``'s chunk ``j`` lands on
     member ``j`` at position ``s``."""
 
-    def group(members):
-        n = len(members)
+    def check(members, n):
         for m in members:
             if m.shape[0] % n:
                 raise ValueError(f"all_to_all: dim 0 of {tuple(m.shape)} "
                                  f"does not split into {n} chunks")
+
+    def group(members):
+        n = len(members)
+        check(members, n)
         chunks = [torch.chunk(m, n, dim=0) for m in members]
         return [torch.cat([chunks[s][j] for s in range(n)], dim=0) for j in range(n)]
 
-    out = _over(axis, grid, group)
+    if _ranks(mesh, axis):
+        # Member (i, f)'s chunks as [world, per, c, ...]: the chunks bound
+        # for each rank, in member order.  The send stack is [world (dest
+        # rank), per (source member), per (dest member), pf, c, ...]; the
+        # received one has the source rank first.
+        w, per = mesh.world, len(grid)
+        check([m for row in grid for m in row], w * per)
+        proto = grid[0][0]
+        c, rest = proto.shape[0] // (w * per), tuple(proto.shape[1:])
+        send = torch.stack([torch.stack([m.reshape((w, per, c) + rest) for m in row])
+                            for row in grid])          # [per_i, pf, w, per_j, c, ...]
+        send = _staged(mesh, send.movedim(2, 0).movedim(3, 2).contiguous())
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send)
+        recv = _back(mesh, recv)                       # [w, per_i, per_j, pf, c, ...]
+        out = [[recv[:, :, j, f].reshape((-1,) + rest) for f in range(len(grid[0]))]
+               for j in range(per)]
+    else:
+        out = _over(axis, grid, group)
     recorder = _recorder
     if recorder is not None:
-        _record(recorder, "all_to_all", grid, _nbytes(_equal_shapes(grid)))
+        _record(recorder, "all_to_all", _nbytes(_equal_shapes(grid)))
     return out
 
 
-def psum(grid, axis: str):
-    """Sum over ``axis``, added in axis order; every member gets the sum."""
+def psum(grid, axis: str, mesh=None):
+    """Sum over ``axis``, added in axis order; every member gets the sum.
+    Over ranks, each rank's members are summed in axis order and the ranks'
+    sums all-reduced."""
 
     def group(members):
         total = members[0]
@@ -163,9 +272,32 @@ def psum(grid, axis: str):
         return [total] * len(members)
 
     out = _over(axis, grid, group)
+    if _ranks(mesh, axis):
+        row = out[0]
+        local = _staged(mesh, torch.stack(row))
+        dist.all_reduce(local)
+        total = _back(mesh, local).unbind(0)
+        out = [list(total) for _ in grid]
     recorder = _recorder
     if recorder is not None:
         # Groups may differ from each other (the block-diagonal route's
         # per-shard cell scores): the largest group's result counts.
-        _record(recorder, "all_reduce", grid, max(_nbytes(t) for row in out for t in row))
+        _record(recorder, "all_reduce", max(_nbytes(t) for row in out for t in row))
     return out
+
+
+def all_reduce_bucket(tensors, mesh) -> None:
+    """Sum each tensor over the ranks in place, all of them flattened into
+    one bucket and one ``all_reduce`` (one instance of the bucket's bytes
+    to the recorder).  The tensors share a dtype."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    recorder = _recorder
+    if recorder is not None:
+        recorder.add("all_reduce", _nbytes(flat))
+    staged = _staged(mesh, flat)
+    dist.all_reduce(staged)
+    flat = _back(mesh, staged)
+    pos = 0
+    for t in tensors:
+        t.copy_(flat[pos:pos + t.numel()].view_as(t))
+        pos += t.numel()

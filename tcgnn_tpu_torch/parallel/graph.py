@@ -2,13 +2,19 @@
 'feature')`` shard grid (PyTorch port of ``tcgnn_tpu.parallel.graph``: the
 dense-tile, block-diagonal, streamed and chunk routes).
 
-Every shard of the grid lives on the mesh's one device (``parallel/mesh.py``);
-the shards run in turn, and the collectives between them are copies on that
-device (``parallel/collectives.py``).  Inputs and outputs of the ops are
-globally shaped tensors: node features ``[padded_nodes, D]`` (shard
+In one process every shard of the grid lives on the mesh's one device
+(``parallel/mesh.py``); the shards run in turn, and the collectives between
+them are copies on that device (``parallel/collectives.py``).  Over
+processes each rank holds its graph shards (``shards``, ``lg`` of them) with
+every feature shard of them, and graph-axis collectives cross ranks.  Every
+rank runs the whole host pass (deterministic: every rank gets the same
+partition) and uploads its own shards' metadata.  Inputs and outputs of the
+ops are the process's block of the globally shaped tensors: node features
+``[local_nodes, D]``, rows ``node_rows`` of ``[padded_nodes, D]`` (shard
 ``(g, f)`` is rows ``g * rows_per_shard ...`` and the f-th of ``pf`` equal
-column slices), per-edge vectors ``[padded_edges]`` (shard g's edges, the
-CSR slice of its rows, padded to ``edge_capacity``).
+column slices), per-edge vectors ``[lg * edge_capacity]`` of
+``[padded_edges]`` (shard g's edges, the CSR slice of its rows, padded to
+``edge_capacity``).  In one process the block is the whole tensor.
 
 What a shard does, as in JAX:
 
@@ -82,8 +88,12 @@ The port differs from the JAX route on purpose, changing no value:
   partitions' arrays are equal); each shard's layout takes its own edge
   count, so its padding slots are the segment layout's own (row ``blk_h``),
   and outputs are padded to ``edge_capacity`` afterwards;
-* every shard lives on one card, so no time this route gives is a
-  multi-card figure.
+* the attention gradient's partial dots ``dc`` are summed over the
+  rank's shards only (``_dc_sum``): the training step's gradient all-reduce
+  finishes the sum, as XLA folds JAX's ``psum`` into its gradient
+  all-reduce;
+* one process holds every shard on one card, so no time it gives is a
+  multi-card figure; nor is one of several processes on one card (gloo).
 
 Within a training step (``shared_exchanges``), an exchange the step repeats
 on the same tensor (an AGNN backward's halo of its input, an SDDMM's and a
@@ -91,8 +101,8 @@ weighted SpMM's all-gather of the same features) returns the first one's
 result, as XLA merges the repeats in the compiled JAX step, so both move
 the same bytes; ``comm_stats.step_collective_bytes`` counts them.
 
-What is left of the JAX layer (ROADMAP.md, Queue 1 item 8): one process per
-card over NCCL (8c).
+What is left of the JAX layer (ROADMAP.md, Queue 1 item 8c): the feature
+axis across processes, and a multi-card run over NCCL.
 """
 
 from __future__ import annotations
@@ -301,6 +311,10 @@ class DistributedTiledGraph:
         self.mesh = mesh
         self.device = mesh.device
         self.pg, self.pf = mesh.n_graph, mesh.n_feature
+        # The graph shards this process holds (all of them in one process),
+        # and their count: shard grids and device metadata are over these.
+        self.shards = mesh.graph_shards
+        self.lg = len(self.shards)
         self.config = config
         self.num_nodes = int(num_nodes)
         self.num_edges = int(len(column_index))
@@ -386,6 +400,12 @@ class DistributedTiledGraph:
         self.windows_per_shard = fwd.windows_per_shard
         self.padded_nodes, self.padded_edges = fwd.padded_nodes, fwd.padded_edges
         self.edge_capacity = fwd.edge_capacity
+        # This process's rows of the padded node order, and its count of
+        # them: the ops take and give these rows (all of them in one
+        # process), and the per-edge vectors ``lg * edge_capacity`` slots.
+        rps, g0 = self.rows_per_shard, self.shards.start
+        self.node_rows = slice(g0 * rps, (g0 + self.lg) * rps)
+        self.local_nodes = self.lg * rps
 
     def _init_streamed(self, row_pointers, column_index, t_csr, stream_limits, clock) -> None:
         """Finish construction on the streamed route: the light partition
@@ -421,7 +441,7 @@ class DistributedTiledGraph:
                 cfg, self.rows_per_shard, self.padded_nodes, counts[g], self.windows_per_shard,
                 sp["wseg"], *(a[k][g] for k in (
                     "seg_col_ids", "seg_r", "seg_c", "seg_edge_id", "seg_block", "seg_window",
-                    "seg_chunks")), self.device) for g in range(pg)]
+                    "seg_chunks")), self.device) for g in self.shards]
 
         metas_f = upload(sp_f, fwd)
         metas_b = metas_f if self.symmetric else upload(sp_b, bwd)
@@ -431,7 +451,7 @@ class DistributedTiledGraph:
         """Finish construction on the chunk fallback: each shard's stacked
         chunk arrays as a layout of one segment (its padding chunks are
         padding slots alike), on the device with its row index; no split."""
-        cfg, pg = self.config, self.pg
+        cfg = self.config
         self.dense_tiles = False
         fwd.split = bwd.split = None
         self._set_layout(fwd, bwd)
@@ -445,14 +465,14 @@ class DistributedTiledGraph:
                 self.windows_per_shard, m.col_ids[g][None], m.chunk_r[g][None],
                 m.chunk_c[g][None], m.chunk_edge_id[g][None], m.chunk_block[g][None],
                 m.chunk_window[g][None], np.array([cn], np.int32), self.device)
-                for g in range(pg)]
+                for g in self.shards]
 
         self._set_chunk_directions(upload(fwd), upload(bwd), bwd)
 
     def _set_chunk_directions(self, metas_f, metas_b, bwd: ShardedSGTMeta) -> None:
         counts = np.diff(bwd.edge_start)
         slots = [torch.from_numpy(bwd.edge_fwd_slot[g][: counts[g]].astype(np.int64))
-                 .to(self.device) for g in range(self.pg)]
+                 .to(self.device) for g in self.shards]
         self._fwd = _ChunkDirection(metas_f)
         self._bwd = _ChunkDirection(metas_b, edge_fwd_slot=slots)
         self.agnn_split = False
@@ -481,14 +501,16 @@ class DistributedTiledGraph:
         cols = np.asarray(column_index, np.int64)
         lead = -rim(mf.offsets)[0] * mf.bin_rows
         edges = []
-        for g in range(pg):
+        for g in self.shards:
             local = ptr[g * rps:(g + 1) * rps + 1] - ptr[g * rps]
             edges.append((np.repeat(np.arange(rps), np.diff(local)),
                           cols[ptr[g * rps]:ptr[(g + 1) * rps]] - g * rps + lead))
         sym = self.symmetric
-        self._fwd = upload_bd(mf, cfg, dev, np.diff(fwd.edge_start), row_index=sym and self.pf == 1,
-                              cells=sym and self.pf > 1, edges=edges)
-        self._bwd = upload_bd(mt, cfg, dev, np.diff(bwd.edge_start), w_src=bwd.edge_fwd_slot,
+        self._fwd = upload_bd(mf, cfg, dev, np.diff(fwd.edge_start), self.shards,
+                              row_index=sym and self.pf == 1, cells=sym and self.pf > 1,
+                              edges=edges)
+        self._bwd = upload_bd(mt, cfg, dev, np.diff(bwd.edge_start), self.shards,
+                              w_src=bwd.edge_fwd_slot,
                               packs=[sh.pack for sh in self._fwd.shards] if sym else None)
         self.agnn_split = False
         self.agnn_aggregate = self._agnn_aggregate if sym else None
@@ -524,50 +546,60 @@ class DistributedTiledGraph:
         multiple of ``FEATURE_TILE * pf`` (JAX's ``d_tile``)."""
         return _round_up(max(d, 1), FEATURE_TILE * self.pf)
 
+    def _rows(self, v) -> torch.Tensor:
+        """This process's rows (``node_rows``) of a per-node array of up to
+        ``padded_nodes`` rows, zero padded, on the mesh's device."""
+        v = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+        rows = self.node_rows
+        own = v[rows.start: min(rows.stop, v.shape[0])]
+        pad = torch.zeros((self.local_nodes - own.shape[0],) + tuple(v.shape[1:]), dtype=v.dtype)
+        return torch.cat([own.cpu(), pad]).to(self.device)
+
     def shard_features(self, x) -> torch.Tensor:
         """``[N, D]`` features padded to ``[padded_nodes,
-        feature_width(D)]`` on the mesh's device."""
-        x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x).to(self.device)
-        n, d = x.shape
-        return torch.nn.functional.pad(x, (0, self.feature_width(d) - d, 0, self.padded_nodes - n))
+        feature_width(D)]``: this process's rows (``node_rows``), on the
+        mesh's device."""
+        x = self._rows(x)
+        d = x.shape[1]
+        return torch.nn.functional.pad(x, (0, self.feature_width(d) - d))
 
     def shard_nodes(self, v) -> torch.Tensor:
         """A per-node vector (labels, masks, norms) padded with zeros to
-        ``padded_nodes`` rows."""
-        v = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v).to(self.device)
-        pad = torch.zeros((self.padded_nodes - v.shape[0],) + tuple(v.shape[1:]), dtype=v.dtype,
-                          device=self.device)
-        return torch.cat([v, pad])
+        ``padded_nodes`` rows: this process's rows."""
+        return self._rows(v)
 
     def valid_node_mask(self) -> torch.Tensor:
-        mask = torch.zeros(self.padded_nodes, dtype=torch.float32, device=self.device)
-        mask[: self.num_nodes] = 1.0
-        return mask
+        """1 on this process's rows that are real nodes, 0 on padding."""
+        rows = torch.arange(self.node_rows.start, self.node_rows.stop, device=self.device)
+        return (rows < self.num_nodes).float()
 
     def edge_weights_to_sharded(self, w_csr) -> torch.Tensor:
         """A ``[num_edges]`` CSR-ordered vector in the padded edge layout
-        ``[padded_edges]``."""
+        ``[padded_edges]``: this process's shards' slots, ``[lg *
+        edge_capacity]``."""
         w = torch.as_tensor(np.asarray(w_csr) if not torch.is_tensor(w_csr) else w_csr)
-        out = torch.zeros((self.pg, self.edge_capacity), dtype=w.dtype)
+        out = torch.zeros((self.lg, self.edge_capacity), dtype=w.dtype)
         es = self.host_fwd.edge_start
-        for s in range(self.pg):
+        for i, s in enumerate(self.shards):
             lo, hi = int(es[s]), int(es[s + 1])
-            out[s, : hi - lo] = w[lo:hi].cpu()
+            out[i, : hi - lo] = w[lo:hi].cpu()
         return out.reshape(-1).to(self.device)
 
     def gather_edge_vector(self, v) -> np.ndarray:
-        """``[padded_edges]`` -> host ``[num_edges]`` in CSR order."""
+        """This process's ``[lg * edge_capacity]`` slots -> host, in CSR
+        order: its shards' edges (``[num_edges]`` in one process)."""
         v = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
-        v = v.reshape(self.pg, self.edge_capacity)
+        v = v.reshape(self.lg, self.edge_capacity)
         es = self.host_fwd.edge_start
-        return np.concatenate([v[s, : int(es[s + 1] - es[s])] for s in range(self.pg)])
+        return np.concatenate([v[i, : int(es[s + 1] - es[s])] for i, s in enumerate(self.shards)])
 
     # ---- device metadata ---------------------------------------------------
     def _upload(self, m: ShardedSGTMeta, with_fwd_slot: bool, sfused: bool = False) -> _Direction:
         """One direction's streams, halo tables and split on the device;
         ``sfused``: with the row index of the streams K2/K3 run over (the
         split streams where there are, else the plain ones)."""
-        dev, cfg, pg = self.device, self.config, self.pg
+        dev, cfg, pg, shards = self.device, self.config, self.pg, self.shards
+        own = slice(shards.start, shards.stop)
         halo = m.halo
         num_src = m.rows_per_shard + halo["halo_rows"]
         counts = np.diff(m.edge_start)
@@ -579,13 +611,13 @@ class DistributedTiledGraph:
             t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             return t if t.dtype == torch.int8 else t.to(cfg.compute_dtype)
 
-        a_dev = tiles(m.a_tiles)
+        a_dev = tiles(m.a_tiles[own])
         streams = [
             _Stream.make(shard_meta(cfg, m.a_tiles[g], m.block_window[g],
                                     m.block_first_in_window[g], halo["col_ids_ext"][g],
                                     m.edge_pos[g][: counts[g]], m.windows_per_shard, num_src,
-                                    dev), a_dev[g], sfused and m.split is None)
-            for g in range(pg)
+                                    dev), a_dev[i], sfused and m.split is None)
+            for i, g in enumerate(shards)
         ]
         sp = None
         if m.split is not None:
@@ -593,7 +625,7 @@ class DistributedTiledGraph:
             gcap, qcap = int(s["guest_cap"]), int(s["pair_cap"])
             sentinel = s["a_tiles"].shape[1] * cfg.blk_h * cfg.blk_w
             es = (s["edge_pos"] < sentinel).sum(axis=1)
-            sa_dev = tiles(s["a_tiles"])
+            sa_dev = tiles(s["a_tiles"][own])
             rows = m.rows_per_shard
             stack = pg * qcap * cfg.blk_h
             sp = _Split(
@@ -603,28 +635,26 @@ class DistributedTiledGraph:
                                             s["block_first"][g], s["col_ids_ext"][g],
                                             s["edge_pos"][g][: es[g]],
                                             m.windows_per_shard + gcap, num_src, dev),
-                                 sa_dev[g], sfused)
-                    for g in range(pg)
+                                 sa_dev[i], sfused)
+                    for i, g in enumerate(shards)
                 ],
-                w_src=[ids(s["w_src"][g][: es[g]]) for g in range(pg)],
-                guest_slot=[ids(np.flatnonzero(s["send_pos"][g] < pg * qcap)) for g in range(pg)],
-                guest_dest=[ids(s["send_pos"][g][s["send_pos"][g] < pg * qcap])
-                            for g in range(pg)],
-                recv_src=[ids(np.flatnonzero(s["recv_row_idx"][g] < rows)) for g in range(pg)],
-                recv_dst=[ids(s["recv_row_idx"][g][s["recv_row_idx"][g] < rows])
-                          for g in range(pg)],
-                fetch_rows=[ids(np.minimum(s["recv_row_idx"][g], rows - 1)) for g in range(pg)],
+                w_src=[ids(s["w_src"][g][: es[g]]) for g in shards],
+                guest_slot=[ids(np.flatnonzero(s["send_pos"][g] < pg * qcap)) for g in shards],
+                guest_dest=[ids(s["send_pos"][g][s["send_pos"][g] < pg * qcap]) for g in shards],
+                recv_src=[ids(np.flatnonzero(s["recv_row_idx"][g] < rows)) for g in shards],
+                recv_dst=[ids(s["recv_row_idx"][g][s["recv_row_idx"][g] < rows]) for g in shards],
+                fetch_rows=[ids(np.minimum(s["recv_row_idx"][g], rows - 1)) for g in shards],
                 fetch_valid=[torch.from_numpy(s["recv_row_idx"][g] < rows).to(dev)
-                             for g in range(pg)],
-                xa_fetch=[ids(np.minimum(s["xa_fetch"][g], stack - 1)) for g in range(pg)],
-                xa_valid=[torch.from_numpy(s["xa_fetch"][g] < stack).to(dev) for g in range(pg)],
+                             for g in shards],
+                xa_fetch=[ids(np.minimum(s["xa_fetch"][g], stack - 1)) for g in shards],
+                xa_valid=[torch.from_numpy(s["xa_fetch"][g] < stack).to(dev) for g in shards],
             )
         return _Direction(
             host=m,
             rounds=tuple(halo["rounds"]),
-            send_idx=[ids(halo["send_idx"][g]) for g in range(pg)],
+            send_idx=[ids(halo["send_idx"][g]) for g in shards],
             streams=streams,
-            edge_fwd_slot=([ids(m.edge_fwd_slot[g][: counts[g]]) for g in range(pg)]
+            edge_fwd_slot=([ids(m.edge_fwd_slot[g][: counts[g]]) for g in shards]
                            if with_fwd_slot else None),
             split=sp,
         )
@@ -665,17 +695,18 @@ class DistributedTiledGraph:
         return self._shared("pad", x, lambda: torch.nn.functional.pad(x, (0, d_pad - d)))
 
     def _grid(self, x: torch.Tensor):
-        """``[padded_nodes, D]`` -> shard views ``grid[g][f]``."""
-        if x.shape[0] != self.padded_nodes:
-            raise ValueError(f"node features of {x.shape[0]} rows, expected {self.padded_nodes}")
+        """This process's ``[local_nodes, D]`` rows -> shard views
+        ``grid[g][f]``, ``g`` over its graph shards."""
+        if x.shape[0] != self.local_nodes:
+            raise ValueError(f"node features of {x.shape[0]} rows, expected {self.local_nodes}")
         rps, dl = self.rows_per_shard, x.shape[1] // self.pf
         return [[x[g * rps:(g + 1) * rps, f * dl:(f + 1) * dl] for f in range(self.pf)]
-                for g in range(self.pg)]
+                for g in range(self.lg)]
 
     def _edge_grid(self, w: torch.Tensor):
-        """``[padded_edges]`` -> shard g's slice, the same for every f."""
+        """``[lg * edge_capacity]`` -> shard g's slice, the same for every f."""
         e = self.edge_capacity
-        return [[w[g * e:(g + 1) * e]] * self.pf for g in range(self.pg)]
+        return [[w[g * e:(g + 1) * e]] * self.pf for g in range(self.lg)]
 
     @staticmethod
     def _assemble(grid) -> torch.Tensor:
@@ -684,7 +715,7 @@ class DistributedTiledGraph:
     def _map(self, fn, *grids):
         """``fn(g, *shard_tensors)`` on every shard."""
         return [[fn(g, *(gr[g][f] for gr in grids)) for f in range(self.pf)]
-                for g in range(self.pg)]
+                for g in range(self.lg)]
 
     # ---- collective steps ---------------------------------------------------
     def _halo(self, x: torch.Tensor, dn: _Direction):
@@ -699,8 +730,8 @@ class DistributedTiledGraph:
         segs = self._map(lambda g, x: [x], grid)
         for pos, size, pairs in dn.rounds:
             send = self._map(lambda g, x: x.index_select(0, dn.send_idx[g][pos:pos + size]), grid)
-            recv = C.ppermute(send, pairs, "graph")
-            for g in range(self.pg):
+            recv = C.ppermute(send, pairs, "graph", self.mesh)
+            for g in range(self.lg):
                 for f in range(self.pf):
                     segs[g][f].append(recv[g][f])
         return self._map(lambda g, s: torch.cat(s), segs)
@@ -709,14 +740,15 @@ class DistributedTiledGraph:
         """The all-gathered forward edge vector plus an appended zero (the
         sentinel slot), per shard."""
         def make():
-            full = C.all_gather(self._edge_grid(w), "graph")
-            return [torch.cat([full[g][0], full[g][0].new_zeros(1)]) for g in range(self.pg)]
+            full = C.all_gather(self._edge_grid(w), "graph", self.mesh)
+            return [torch.cat([full[g][0], full[g][0].new_zeros(1)]) for g in range(self.lg)]
 
         return self._shared("w_all", w, make)
 
     def _all_gather(self, x: torch.Tensor):
         """``x``'s shard grid all-gathered over ``graph``."""
-        return self._shared("all_gather", x, lambda: C.all_gather(self._grid(x), "graph"))
+        return self._shared("all_gather", x,
+                            lambda: C.all_gather(self._grid(x), "graph", self.mesh))
 
     def _guest_return(self, out, sp: _Split):
         """Split stream: guest windows' partial tiles ride one all_to_all to
@@ -730,7 +762,7 @@ class DistributedTiledGraph:
             send[sp.guest_dest[g]] = guests[sp.guest_slot[g]]
             return send
 
-        recv = C.all_to_all(self._map(pack, out), "graph")
+        recv = C.all_to_all(self._map(pack, out), "graph", self.mesh)
 
         def add(g, y, r):
             own = y[:rows].clone()
@@ -752,7 +784,7 @@ class DistributedTiledGraph:
             return torch.where(sp.xa_valid[g][:, None], rows, 0)
 
         return self._shared(("guest", id(sp)), x, lambda: self._map(
-            pick, C.all_to_all(self._map(send, self._grid(x)), "graph")))
+            pick, C.all_to_all(self._map(send, self._grid(x)), "graph", self.mesh)))
 
     # ---- the SpMMs and the SDDMM --------------------------------------------
     def _spmm_grid(self, x, dn: _Direction, w: Optional[torch.Tensor] = None):
@@ -765,17 +797,17 @@ class DistributedTiledGraph:
             streams = sp.streams
             if w is not None:
                 w_all = self._w_all(w)
-                vals = [w_all[g][sp.w_src[g]].float() for g in range(self.pg)]
+                vals = [w_all[g][sp.w_src[g]].float() for g in range(self.lg)]
         else:
             streams = dn.streams
             if w is not None:
                 if dn.edge_fwd_slot is not None:  # forward-ordered weights
                     w_all = self._w_all(w)
-                    vals = [w_all[g][dn.edge_fwd_slot[g]].float() for g in range(self.pg)]
+                    vals = [w_all[g][dn.edge_fwd_slot[g]].float() for g in range(self.lg)]
                 else:
                     e = self.edge_capacity
                     vals = [w[g * e: g * e + streams[g].meta.num_edges].float()
-                            for g in range(self.pg)]
+                            for g in range(self.lg)]
         tiles = [s.tiles if w is None else build_a_tiles(s.meta, vals[g])
                  for g, s in enumerate(streams)]
         out = self._map(lambda g, x: spmm_tc_dense(x, streams[g].meta, tiles[g]), x_ext)
@@ -788,14 +820,14 @@ class DistributedTiledGraph:
         slice, the transpose the all-gathered forward vector through
         ``edge_fwd_slot``."""
         x_all = self._all_gather(x)
-        vals = [None] * self.pg
+        vals = [None] * self.lg
         if w is not None:
             if dn.edge_fwd_slot is not None:
                 w_all = self._w_all(w)
-                vals = [w_all[g][dn.edge_fwd_slot[g]] for g in range(self.pg)]
+                vals = [w_all[g][dn.edge_fwd_slot[g]] for g in range(self.lg)]
             else:
                 e = self.edge_capacity
-                vals = [w[g * e: g * e + dn.metas[g].num_edges] for g in range(self.pg)]
+                vals = [w[g * e: g * e + dn.metas[g].num_edges] for g in range(self.lg)]
         return self._map(lambda g, xa: spmm_tc(xa, dn.metas[g], vals[g]), x_all)
 
     def _spmm(self, x, dn, w=None) -> torch.Tensor:
@@ -821,7 +853,7 @@ class DistributedTiledGraph:
         s = self._map(scores, xa_grid, xb_ext)
         if self.pf > 1:
             s = C.psum(s, "feature")
-        return torch.cat([s[g][0] for g in range(self.pg)])
+        return torch.cat([s[g][0] for g in range(self.lg)])
 
     def _sddmm(self, xa, xb) -> torch.Tensor:
         """Per-edge ``<xa[row_e], xb[col_e]>``: K4 over the unsplit forward
@@ -919,10 +951,17 @@ class DistributedTiledGraph:
         dc = self._map(lambda g, dw, uu: torch.dot(dw.float().reshape(-1),
                                                    uu[: dw.shape[0]].reshape(-1)),
                        dy_win, u)
-        dc = C.psum(dc, "graph")
-        if self.pf > 1:
-            dc = C.psum(dc, "feature")
+        dc = self._dc_sum(dc)
         return self._assemble(dx), dc[0][0]
+
+    def _dc_sum(self, dc):
+        """The attention gradient's partial dots summed over ``graph`` and
+        ``feature``.  Over processes the ``graph`` sum stays within the rank
+        (its shards): the training step's gradient all-reduce finishes it,
+        as XLA folds JAX's into that all-reduce, so no rank sums another's
+        part twice.  It counts as one ``all_reduce``, as in one process."""
+        dc = C.psum(dc, "graph")
+        return C.psum(dc, "feature") if self.pf > 1 else dc
 
     # ---- the block-diagonal route --------------------------------------------
     def _rim_ext(self, x: torch.Tensor, dn: BDDirection):
@@ -939,11 +978,11 @@ class DistributedTiledGraph:
         parts = self._map(lambda g, x: [x], grid)
         if kmin < 0:
             lo = C.ppermute(self._map(lambda g, x: x[x.shape[0] + kmin * bn:], grid),
-                            [(i, i + 1) for i in range(pg - 1)], "graph")
+                            [(i, i + 1) for i in range(pg - 1)], "graph", self.mesh)
             parts = self._map(lambda g, p, r: [r] + p, parts, lo)
         if kmax > 0:
             hi = C.ppermute(self._map(lambda g, x: x[:kmax * bn], grid),
-                            [(i, i - 1) for i in range(1, pg)], "graph")
+                            [(i, i - 1) for i in range(1, pg)], "graph", self.mesh)
             parts = self._map(lambda g, p, r: p + [r], parts, hi)
         return self._map(lambda g, p: torch.cat(p), parts)
 
@@ -954,13 +993,13 @@ class DistributedTiledGraph:
     def _bd_spmm_grid(self, x, dn: BDDirection, w=None):
         """``A @ x`` (or ``(A ⊙ w) @ x``) of one direction: K5 a shard over
         its ext pack (or a weighted one) and its rim stack."""
-        cfg, pg, e = self.config, self.pg, self.edge_capacity
+        cfg, e = self.config, self.edge_capacity
         x_ext = self._rim_ext(x, dn)
         if w is not None:
             # The transpose reads the forward-ordered weights after one
             # all-gather; the forward, its own edge slots.
             src = (self._w_all(w) if dn is self._bwd
-                   else [w[g * e:(g + 1) * e] for g in range(pg)])
+                   else [w[g * e:(g + 1) * e] for g in range(self.lg)])
         out = []
         for g, sh in enumerate(dn.shards):
             pack = sh.pack
@@ -987,7 +1026,7 @@ class DistributedTiledGraph:
         dn, ct = self._fwd, self.config.compute_dtype
         part = self._map(lambda g, a, b: sddmm_tc_dense(a, dn.shards[g].cells, b), a_ext, b_ext)
         total = C.psum(part, "feature")
-        return [dn.shards[g].cell_cnt.to(ct) * total[g][0].to(ct) for g in range(self.pg)]
+        return [dn.shards[g].cell_cnt.to(ct) * total[g][0].to(ct) for g in range(self.lg)]
 
     def _cell_pack(self, g, vals):
         """Shard g's weighted ext pack from its cells' values."""
@@ -1011,7 +1050,7 @@ class DistributedTiledGraph:
                 index=dn.shards[g].index), dn), x_ext)
         s = self._cell_scores(x_ext, x_ext)
         out = []
-        for g in range(self.pg):
+        for g in range(self.lg):
             pack = self._cell_pack(g, s[g])
             out.append([self._k5(xe, pack, dn) for xe in x_ext[g]])
         return out
@@ -1035,7 +1074,7 @@ class DistributedTiledGraph:
             t = self._cell_scores(dy_ext, x_ext)
             ut = self._cell_scores(x_ext, dy_ext)
             dx, u = [], []
-            for g in range(self.pg):
+            for g in range(self.lg):
                 cs = self._cell_pack(g, s[g])
                 u.append([self._k5(xe, cs, dn) for xe in x_ext[g]])
                 dx_g = [self._k5(de, cs, dn).float() for de in dy_ext[g]]
@@ -1046,9 +1085,7 @@ class DistributedTiledGraph:
                 dx.append(dx_g)
         dc = self._map(lambda g, dw, uu: torch.dot(dw.float().reshape(-1),
                                                    uu.float().reshape(-1)), dgrid, u)
-        dc = C.psum(dc, "graph")
-        if self.pf > 1:
-            dc = C.psum(dc, "feature")
+        dc = self._dc_sum(dc)
         return self._assemble(dx), dc[0][0]
 
     # ---- the public ops (autograd) ------------------------------------------

@@ -7,38 +7,62 @@ Axes:
   * ``feature`` — the embedding dimension, cut into ``n_feature`` equal
     column slices.
 
-In this port every shard of the grid lives on one device: the JAX
-package's single-controller design (one program drives every shard)
-without its device placement.  The collectives between shards are copies
-between shard views on that device (``parallel/collectives.py``).  One
-process per card over NCCL is a later step (ROADMAP.md, Queue 1 item 8c),
-so a mesh over more than one card raises.
+The grid runs in one process or over several, one a card, under
+``torch.distributed`` (launched by ``torchrun``; ``init_process_group``
+joins the group).  JAX drives every device from one controller; PyTorch's
+idiom is one process a device, which also spans hosts.
+
+* One process (``world == 1``): every shard of the grid lives on one device,
+  and the collectives between shards are copies between shard views there
+  (``parallel/collectives.py``).
+* ``world`` processes split the graph axis: rank r holds graph shards
+  ``[r * n_graph / world, (r + 1) * n_graph / world)`` with every feature
+  shard of them (``Mesh.graph_shards``).  Feature-axis collectives stay
+  copies inside a rank; graph-axis ones between ranks go through
+  ``torch.distributed``.  Each rank holds the whole parameters, and the
+  training step all-reduces their gradients (``parallel/train.py``).  The
+  feature axis across ranks is a later step (ROADMAP.md, Queue 1 item 8c).
+
+The backend is NCCL for CUDA and gloo for the CPU.  gloo on CUDA tensors
+(two ranks on one card, where NCCL refuses to run) is taken where it is asked
+for, and then every transfer is staged through host memory
+(``Mesh.staged``).
 
 ``make_mesh_two_level`` lays the graph axis out host-major, as JAX's does:
-shard ``g`` belongs to host ``g // chips_per_host``.  The placement changes
-no collective; ``comm_stats.dcn_halo_fraction`` reads which halo rows would
-cross a host boundary.
+shard ``g`` belongs to host ``g // chips_per_host``; over processes rank r's
+host is ``r // local_world``.  ``comm_stats.dcn_halo_fraction`` reads which
+halo rows cross a host boundary.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 MULTI_CARD = (
-    "a mesh over more than one card is not ported yet: every shard of this "
-    "port's mesh lives on one device (ROADMAP.md, Queue 1 item 8c)"
+    "one process drives one card: run one process a card under torchrun "
+    "(torchrun --nproc_per_node N -m tcgnn_tpu_torch.train ... --mesh GxF); "
+    "the feature axis across cards is not ported yet (ROADMAP.md, Queue 1 item 8c)"
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A ``[n_graph, n_feature]`` grid of shards, all on ``device``."""
+    """A ``[n_graph, n_feature]`` grid of shards.  This process (``rank`` of
+    ``world``) holds graph shards ``graph_shards`` on ``device``;
+    ``local_world`` ranks share a host."""
 
     n_graph: int
     n_feature: int
     device: torch.device
+    rank: int = 0
+    world: int = 1
+    backend: Optional[str] = None
+    local_world: int = 1
 
     axis_names = ("graph", "feature")
 
@@ -50,11 +74,69 @@ class Mesh:
     def size(self) -> int:
         return self.n_graph * self.n_feature
 
+    @property
+    def graph_shards(self) -> range:
+        """The graph shards this rank holds: a contiguous range."""
+        per = self.n_graph // self.world
+        return range(self.rank * per, (self.rank + 1) * per)
 
-def make_mesh(n_graph: int = 1, n_feature: int = 1, device="cuda") -> Mesh:
-    """A ``('graph', 'feature')`` grid of ``n_graph x n_feature`` shards on
-    ``device`` (one device: see the module docstring).  A list of devices
-    naming more than one raises."""
+    @property
+    def host(self) -> int:
+        return self.rank // self.local_world
+
+    @property
+    def staged(self) -> bool:
+        """gloo moves CPU tensors only (apart from broadcast and all-reduce):
+        on a card, each transfer goes through host memory."""
+        return self.world > 1 and self.backend == "gloo" and self.device.type == "cuda"
+
+
+def init_process_group(device="cuda", backend: Optional[str] = None,
+                       init_method: Optional[str] = None, rank: Optional[int] = None,
+                       world_size: Optional[int] = None) -> torch.device:
+    """Join the process group and return this rank's device.
+
+    Without ``init_method`` the group comes from ``torchrun``'s environment
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``); with one
+    (a ``file://`` store, ``tcp://localhost:<port>``), ``rank`` and
+    ``world_size`` are given.  ``backend`` defaults to ``nccl`` on CUDA and
+    ``gloo`` on the CPU.  On CUDA a device without an index takes
+    ``LOCAL_RANK``'s card; ``torch.cuda.set_device`` runs before the group
+    forms.  Nothing falls back: a group that cannot form raises."""
+    device = torch.device(device)
+    if init_method is None:
+        missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+                   if k not in os.environ]
+        if missing:
+            raise RuntimeError(f"no process group: {', '.join(missing)} not set "
+                               "(launch with torchrun, or pass init_method)")
+        rank, world_size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        init_method = "env://"
+    elif rank is None or world_size is None:
+        raise ValueError("init_method needs rank and world_size")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("process group on cuda, but torch finds no CUDA device")
+        if device.index is None:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+        torch.cuda.set_device(device)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world_size)
+    # The first collective involves every rank (NCCL's rule for a group's
+    # first point-to-point batch).
+    dist.barrier()
+    return device
+
+
+def make_mesh(n_graph: int = 1, n_feature: int = 1, device="cuda",
+              local_world: Optional[int] = None) -> Mesh:
+    """A ``('graph', 'feature')`` grid of ``n_graph x n_feature`` shards.
+
+    Where ``torch.distributed``'s group is initialized, the grid spans its
+    ranks (``world`` must divide ``n_graph``) and ``device`` is this rank's
+    (``init_process_group``'s); else every shard lives on ``device``.  A
+    list of devices naming more than one raises: one process drives one
+    card."""
     if n_graph < 1 or n_feature < 1:
         raise ValueError(f"mesh {n_graph}x{n_feature}: both sizes must be >= 1")
     if isinstance(device, (list, tuple)):
@@ -65,8 +147,17 @@ def make_mesh(n_graph: int = 1, n_feature: int = 1, device="cuda") -> Mesh:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("mesh on cuda, but torch finds no CUDA device")
-    return Mesh(int(n_graph), int(n_feature), device)
-
+    if not (dist.is_available() and dist.is_initialized()):
+        return Mesh(int(n_graph), int(n_feature), device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if n_graph % world:
+        raise ValueError(f"mesh {n_graph}x{n_feature} over {world} processes: the process "
+                         "count must divide the graph axis")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    local_world = local_world or int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    return Mesh(int(n_graph), int(n_feature), device, rank, world, dist.get_backend(),
+                local_world)
 
 
 def make_mesh_two_level(n_hosts: int, chips_per_host: int, n_feature: int = 1,
@@ -76,6 +167,19 @@ def make_mesh_two_level(n_hosts: int, chips_per_host: int, n_feature: int = 1,
     ``g // chips_per_host``.  The partition gives consecutive graph indices
     contiguous window ranges, so a bandwidth-ordered graph's halo stays
     mostly within a host (``comm_stats.dcn_halo_fraction`` counts the rest).
-    Axes and collectives are ``make_mesh``'s: every shard lives on
-    ``device``, and a list naming more than one device raises."""
+
+    Over processes the ranks are ``n_hosts`` hosts of ``world / n_hosts``
+    ranks, rank-major within a host, so rank r (host ``r // local_world``)
+    holds shards of its host only.  In one process every shard lives on
+    ``device``."""
+    if dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+        if world % n_hosts:
+            raise ValueError(f"{world} processes do not split into {n_hosts} hosts")
+        local_world = world // n_hosts
+        env = os.environ.get("LOCAL_WORLD_SIZE")
+        if env is not None and int(env) != local_world:
+            raise ValueError(f"LOCAL_WORLD_SIZE={env}, but {world} processes over {n_hosts} "
+                             f"hosts make {local_world} a host")
+        return make_mesh(n_hosts * chips_per_host, n_feature, device, local_world)
     return make_mesh(n_hosts * chips_per_host, n_feature, device)

@@ -1,10 +1,16 @@
 """Full-graph training over the ``('graph', 'feature')`` mesh (PyTorch port
 of ``tcgnn_tpu.parallel.train``).
 
-Node features, labels and norms are globally shaped and padded to
-``graph.padded_nodes``; the parameters are whole (one copy: every shard is
-on one device, so no gradient all-reduce runs).  Padding conventions, as in
-JAX:
+Node features, labels and norms are padded to ``graph.padded_nodes`` rows
+and cut to the rows this process holds (``graph.node_rows``: all of them in
+one process).  Every process holds the whole parameters, drawn from the
+same seed, as JAX replicates them.  In one process they have one copy and
+no gradient all-reduce runs; over processes (``parallel/mesh.py``) each
+rank's loss is its rows' NLL sum over the global node count, and after the
+backward one ``all_reduce`` sums every parameter's gradient and the loss,
+flattened into one bucket (``collectives.all_reduce_bucket``, JAX's one
+gradient all-reduce, which also carries its loss), so every rank steps Adam
+identically.  Padding conventions, as in JAX:
 
 * the NLL is summed over real nodes and divided by their count;
 * hidden and class widths are rounded up to a multiple of the ``feature``
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from tcgnn_tpu_torch.models import nets
+from tcgnn_tpu_torch.parallel import collectives as C
 from tcgnn_tpu_torch.parallel.graph import DistributedTiledGraph, _round_up
 
 
@@ -79,14 +86,17 @@ def make_distributed_train_step(
     ``x`` comes from ``graph.shard_features``, ``y`` (int labels, padded
     entries arbitrary) and ``norm`` (padded entries 0) from
     ``graph.shard_nodes``.  ``hoist`` computes the layer-1 aggregate once
-    (exact for GCN and GIN); ``generator`` draws the dropout masks.  The
-    forward and backward run inside ``graph.shared_exchanges``, so the step
-    moves what the compiled JAX step moves.
+    (exact for GCN and GIN); ``generator`` draws the dropout masks (over
+    the global rows: ``GNN.forward``).  The forward and backward run inside
+    ``graph.shared_exchanges``, so the step moves what the compiled JAX step
+    moves.  Over processes the returned loss is the all-reduced one.
     """
     mask = graph.valid_node_mask()
     y = y.long()
     l1_agg = nets.hoist_l1_aggregate(net.kind, x, graph, norm=norm) if hoist else None
     gen = generator if dropout_rate > 0 else None
+    mesh = graph.mesh
+    params = list(net.parameters())
 
     def step() -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
@@ -96,7 +106,15 @@ def make_distributed_train_step(
             nll = F.nll_loss(logp, y, reduction="none")
             loss = torch.sum(nll * mask) / graph.num_nodes
             loss.backward()
+            loss = loss.detach()
+            if mesh.world > 1:
+                for p in params:  # the bucket holds every parameter
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                loss = loss.reshape(1)
+                C.all_reduce_bucket([p.grad for p in params] + [loss], mesh)
+                loss = loss[0]
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step

@@ -26,7 +26,15 @@ balanced over the shards (``--no_balance`` keeps its order), partitioned,
 and trained with the same output lines and a ``Route:`` line naming the
 route and its layout (the block streams, the block-diagonal offsets, or
 the streamed route's segments); ``block_group`` is 1, as the mesh's split
-needs.
+needs.  Under ``torchrun`` (``WORLD_SIZE > 1``) the trainer joins the
+process group (``parallel.mesh.init_process_group``; ``--dist_backend``,
+default NCCL on a card and gloo on the CPU) and the processes split the
+mesh's graph axis, one a card (``--device cuda`` takes ``LOCAL_RANK``'s;
+``--device cuda:0`` puts every rank on card 0, which only gloo allows).
+Rank 0 prints the output lines; ``Acc`` counts are all-reduced; ``Train
+(ms)`` is rank 0's after a barrier, so it covers the slowest rank;
+``--save_params`` is written by rank 0 and ``--load_params`` read by every
+rank.  ``--single_kernel`` over processes raises.
 
 Run:  python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --model gcn
       python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --mesh 4x2
@@ -36,6 +44,8 @@ Run:  python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --m
       python -m tcgnn_tpu_torch.train --dataset DD --dim 89 --classes 2 --reorder rcm
       python -m tcgnn_tpu_torch.train --dataset reddit --dim 602 --classes 41 --model gcn
       python -m tcgnn_tpu_torch.train --dataset reddit --dim 602 --classes 41 --mesh 4x1
+      torchrun --nproc_per_node 4 -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 \
+          --classes 3 --mesh 4x1
       python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --single_kernel
       python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --epochs 200 \
           --checkpoint_dir ckpt/ --checkpoint_every 50 [--resume]
@@ -44,11 +54,13 @@ Run:  python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --m
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from tcgnn_tpu_torch.config import TileConfig
@@ -135,6 +147,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    "every shard lives on --device")
     p.add_argument("--no_balance", action="store_true",
                    help="(--mesh only) disable the window-granular LPT shard balance")
+    p.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="(under torchrun) the process group's backend: nccl on a card, gloo "
+                   "on the CPU by default; gloo on a card stages transfers through the host")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -323,8 +338,10 @@ def print_prep(graph, prep: float, route: str) -> None:
 
 def train_distributed(args, ds, cfg, device, sync) -> dict:
     """Full-batch training over a ``('graph','feature')`` mesh (``--mesh
-    GxF``), every shard on ``device``."""
+    GxF``): every shard on ``device``, or, in a process group, this rank's
+    graph shards."""
     from tcgnn_tpu_torch.parallel import (
+        collectives,
         distributed_graph_from_dataset,
         init_distributed_net,
         make_distributed_train_step,
@@ -335,6 +352,19 @@ def train_distributed(args, ds, cfg, device, sync) -> dict:
         raise ValueError("--checkpoint_dir is not taken with --mesh (as in the JAX CLI)")
     ng, nf = (int(v) for v in args.mesh.lower().split("x"))
     mesh = make_mesh(ng, nf, device)
+    if mesh.world > 1:
+        if args.single_kernel:
+            raise NotImplementedError("--single_kernel over processes is not ported yet "
+                                      "(ROADMAP.md, Queue 1 item 8c-iii)")
+        one = sync
+
+        def sync():
+            one()
+            dist.barrier()
+
+        if mesh.rank:
+            args.profile_dir = None  # rank 0 traces
+
     start = time.perf_counter()
     graph = distributed_graph_from_dataset(ds, mesh, cfg, balance=not args.no_balance)
     sync()
@@ -367,9 +397,12 @@ def train_distributed(args, ds, cfg, device, sync) -> dict:
         for split, m_host in (("train", ds.train_mask), ("test", ds.test_mask)):
             if m_host.any():
                 m = graph.shard_nodes(m_host).bool()
-                acc = float((pred[m] == y[m]).float().mean())
-                print("Acc {}:\t{:.4f}".format(split, acc))
-    save_params(args, net)
+                counts = torch.stack([(pred[m] == y[m]).sum(), m.sum()]).double()
+                if mesh.world > 1:
+                    collectives.all_reduce_bucket([counts], mesh)
+                print("Acc {}:\t{:.4f}".format(split, float(counts[0] / counts[1])))
+    if mesh.rank == 0:
+        save_params(args, net)
     return {
         "dense_tiles": graph.dense_tiles, "streamed": graph.streamed,
         "block_diag": graph.block_diag, "mesh": (ng, nf), "route": graph.route,
@@ -395,11 +428,36 @@ def save_params(args, net) -> None:
 
 
 def main(argv=None) -> dict:
+    """Parse ``argv`` and train.  Under ``torchrun`` (``WORLD_SIZE > 1``) or
+    in a process group the caller formed, the run is one rank of ``--mesh``:
+    it joins the group where none is formed (and leaves it at the end), and
+    only rank 0 prints."""
     args = build_argparser().parse_args(argv)
-    print(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch finds no CUDA device")
+    formed = dist.is_available() and dist.is_initialized()
+    join = not formed and int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if (join or (formed and dist.get_world_size() > 1)) and not args.mesh:
+        raise ValueError("over several processes the trainer trains a --mesh GxF")
+    if join:
+        from tcgnn_tpu_torch.parallel.mesh import init_process_group
+
+        device = init_process_group(device, backend=args.dist_backend)
+    rank = dist.get_rank() if (formed or join) else 0
+    try:
+        with contextlib.ExitStack() as quiet:
+            if rank:
+                quiet.enter_context(contextlib.redirect_stdout(
+                    quiet.enter_context(open(os.devnull, "w"))))
+            return _run(args, device)
+    finally:
+        if join:
+            dist.destroy_process_group()
+
+
+def _run(args, device) -> dict:
+    print(args)
     if args.resume and not args.checkpoint_dir:
         raise ValueError("--resume needs --checkpoint_dir")
     # f32 means f32: no TF32 in the dense products.

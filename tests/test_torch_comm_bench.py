@@ -86,10 +86,13 @@ def test_scaling_prints_its_sizes(capsys):
 
 
 def test_comm_modules_import_no_jax():
-    """A fresh process (this one has JAX loaded by conftest)."""
+    """A fresh process (this one has JAX loaded by conftest); with the mesh
+    over processes' entry points (``init_process_group``,
+    ``all_reduce_bucket``)."""
     code = (
         "import sys\n"
-        "from tcgnn_tpu_torch.parallel import comm_stats\n"
+        "from tcgnn_tpu_torch.parallel import comm_stats, init_process_group\n"
+        "from tcgnn_tpu_torch.parallel.collectives import all_reduce_bucket\n"
         "from tcgnn_tpu_torch.bench import measure_comm, partition_stats, scaling\n"
         "from tcgnn_tpu_torch.data import synthesize\n"
         "r = measure_comm.measure(synthesize('rand_600_3000', 16, 4), 'rand_600_3000', 4, 4,"

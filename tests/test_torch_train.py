@@ -192,12 +192,13 @@ def test_cli_agnn_prints_contract(capsys):
 
 def test_cli_defaults_match_jax():
     """Every option the two trainers share has the same default, so the same
-    arguments build the same model (``--device`` is the port's own)."""
+    arguments build the same model (``--device`` and, for the mesh over
+    processes, ``--dist_backend`` are the port's own)."""
     jax_opts = {a.dest: a.default for a in jax_build_argparser()._actions}
     port_opts = {a.dest: a.default for a in port_train.build_argparser()._actions}
     shared = sorted(set(jax_opts) & set(port_opts) - {"help"})
     assert {"dim", "classes", "reorder", "dataset", "hidden", "epochs"} <= set(shared)
-    assert set(port_opts) - set(jax_opts) == {"device"}
+    assert set(port_opts) - set(jax_opts) == {"device", "dist_backend"}
     assert {k: port_opts[k] for k in shared} == {k: jax_opts[k] for k in shared}
 
 
