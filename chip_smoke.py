@@ -213,11 +213,28 @@ Phases, in order; any failure raises and exits nonzero:
      launches over the ranks sum to the one-process run's.  Each rank's
      ``Train (ms)`` and ``torch.cuda.max_memory_allocated()`` are printed,
      then one ``torchrun`` CLI run's (pubmed GCN ``--mesh 4x1``; on one card
-     a gloo-on-one-card figure, not a multi-card one).
+     a gloo-on-one-card figure, not a multi-card one);
+ 22. the feature axis over processes, one feature shard a rank (the
+     column-parallel dense side, the feature-axis sums across ranks), over
+     gloo on this one card unless the machine has a card a rank (then
+     NCCL): 4 ranks over ``--mesh 2x2`` (two graph blocks of two feature
+     shards) train pubmed GCN (K1), pubmed AGNN (K4 tiles, K10) and Yeast
+     AGNN (K4 cell scores, K5), 2 ranks over ``--mesh 1x2`` reddit AGNN at
+     its published widths (K8, K9), each with ``--no_dropout`` and
+     ``TRAIN_EPOCHS`` timed epochs, held to the one-process mesh run of the
+     same shape (phase 17's Yeast run; the others run in this phase) as
+     phase 21 holds its runs (losses, kernels, launches summed over the
+     ranks); each rank's ``Train (ms)``, ``max_memory_allocated``, peak host
+     RSS and launches are printed.  The 2 ranks then run ``--single_kernel``
+     on pubmed ``--mesh 1x2`` and ``2x2`` (K1, K4; every rank reports the
+     slowest rank's stats) and ``measure_comm`` on pubmed over 4 and 8
+     shards (every rank's rows equal, each against
+     ``results/comm_measured.csv``); then one ``torchrun`` CLI run of pubmed
+     AGNN ``--mesh 2x2`` over 4 processes.
 
 The kernels line's launches are summed over every run of phases 11, 13, 14,
-15, 16, 17, 18, 19, 20 and 21 (every rank's), each read with the counts set
-to 0 just before it.  Every bound
+15, 16, 17, 18, 19, 20, 21 and 22 (every rank's), each read with the counts
+set to 0 just before it.  Every bound
 is ``tcgnn_tpu_torch.bench.roofline_bound``'s ``csr_bound``.
 
 Every phase prints its elapsed seconds.  The line before the last is
@@ -244,6 +261,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1983,6 +2001,52 @@ def peak_rss() -> int:
     return hwm if hwm is not None else resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
+def rss_bytes() -> int:
+    """The process's resident set now (``/proc/self/statm``)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def mem_available() -> int:
+    """The host's available memory now (``MemAvailable``), bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable")
+
+
+class Sampled:
+    """The extreme (``pick``: max or min) of ``read()`` over a block
+    (``value``), sampled every 10 ms by a thread.  A spawned rank cannot
+    always reset ``VmHWM`` (``reset_peak_rss``), which then reads the peak
+    since the process began, so the ranks sample their resident set."""
+
+    def __init__(self, read=rss_bytes, pick=max, period_s: float = 0.01):
+        self.read, self.pick, self.period_s = read, pick, period_s
+        self.value = None
+        self._stop = threading.Event()
+
+    def _sample(self) -> None:
+        v = self.read()
+        self.value = v if self.value is None else self.pick(self.value, v)
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.period_s):
+            self._sample()
+
+    def __enter__(self) -> "Sampled":
+        self._sample()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self._sample()
+
+
 def stream_mesh_ops(g, one, n, e, dev, tag, expected) -> None:
     """``spmm``, ``spmm_weighted`` and ``sddmm`` of the mesh graph ``g``,
     forward and every gradient, against the single-device graph ``one``'s on
@@ -2336,79 +2400,112 @@ PROC_RUNS = [
 ]
 
 
-def mesh_rank(rank, world, store, backend, device, out_dir) -> None:
-    """One rank of phase 21 (started by ``torch.multiprocessing.spawn``):
-    join the group over the ``file://`` store, run every ``PROC_RUNS`` entry
-    through ``train.main`` on ``device`` (``{rank}`` is the rank), each with
+def mesh_rank(rank, world, store, backend, device, out_dir, tasks=None) -> None:
+    """One rank of phases 21 and 22 (started by
+    ``torch.multiprocessing.spawn``): join the group over the ``file://``
+    store, run every task on ``device`` (``{rank}`` is the rank), each with
     the counts set to 0 just before it and read just after, and write each
-    run's losses, ``Train (ms)``, launches and peak device memory to
-    ``out_dir/rank<r>.pt``."""
+    task's results to ``out_dir/rank<r>.pt``.  A task is ``(kind, label,
+    argv)``: ``train`` runs ``train.main`` with ``--no_dropout`` and
+    ``TRAIN_EPOCHS`` timed epochs (losses, ``Train (ms)``, peak device
+    memory and host RSS), ``single_kernel`` runs it with ``--single_kernel``
+    (the stats), ``measure_comm`` runs ``measure_comm.main`` (the rows).
+    Without ``tasks``, ``PROC_RUNS``' trainer runs."""
     from tcgnn_tpu_torch.parallel.mesh import init_process_group
 
     device = init_process_group(device.format(rank=rank), backend=backend,
                                 init_method=f"file://{store}", rank=rank, world_size=world)
+    if tasks is None:
+        tasks = [("train", label, argv) for label, argv, _, _ in PROC_RUNS]
     results = []
-    for label, argv, _, _ in PROC_RUNS:
-        args = ["--device", str(device), "--epochs", str(TRAIN_EPOCHS), "--no_dropout", *argv]
+    for kind, label, argv in tasks:
         buf = io.StringIO()
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        with contextlib.redirect_stdout(Tee(sys.stdout, buf)):
-            r = train.main(args)
+        with contextlib.redirect_stdout(Tee(sys.stdout, buf)), Sampled() as rss:
+            if kind == "measure_comm":
+                out_csv = os.path.join(out_dir, f"comm_rank{rank}.csv")
+                r = {"rows": measure_comm.main([*argv, "--device", str(device),
+                                                "--out", out_csv])}
+            elif kind == "single_kernel":
+                r = {"stats": train.main(["--device", str(device), *argv, "--single_kernel"])}
+            else:
+                r = train.main(["--device", str(device), "--epochs", str(TRAIN_EPOCHS),
+                                "--no_dropout", *argv])
         counts = launch_counts()
-        results.append({
-            "label": label, "route": r["route"], "first_loss": r["first_loss"],
-            "final_loss": r["final_loss"], "train_ms": r["train_ms"], "counts": counts,
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "native": "SGT pass:\tnative\n" in buf.getvalue(),
-            "seconds": time.perf_counter() - t0,
-        })
+        res = {"label": label, "counts": counts, "seconds": time.perf_counter() - t0,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "peak_rss": rss.value, "native": "SGT pass:\tnative\n" in buf.getvalue()}
+        if kind == "train":
+            res.update({k: r[k] for k in ("route", "first_loss", "final_loss", "train_ms")})
+        else:
+            res.update(r)
+        results.append(res)
         del r
         torch.cuda.empty_cache()
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
 
-def spawn_ranks(world, backend, device, timeout_s) -> list:
-    """``mesh_rank`` in ``world`` processes; every rank's results.  A rank
-    that fails ends the others and raises; so does the time limit."""
+@contextlib.contextmanager
+def ranks_running(world, backend, device, tasks=None, phase="21"):
+    """``mesh_rank`` started in ``world`` processes; yields ``wait(timeout_s)``,
+    which returns every rank's results.  A rank that fails ends the others
+    and raises; so does the time limit; leaving the block ends any rank
+    still running."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.spawn(mesh_rank, args=(world, os.path.join(tmp, "store"), backend, device, tmp),
+        ctx = mp.spawn(mesh_rank, args=(world, os.path.join(tmp, "store"), backend, device, tmp,
+                                        tasks),
                        nprocs=world, join=False)
-        deadline = time.perf_counter() + timeout_s
-        while not ctx.join(timeout=5):
-            if time.perf_counter() > deadline:
-                for p in ctx.processes:
+
+        def wait(timeout_s) -> list:
+            deadline = time.perf_counter() + timeout_s
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"phase {phase}: ranks still running after {timeout_s} s")
+            return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                    for r in range(world)]
+
+        try:
+            yield wait
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
                     p.kill()
-                raise AssertionError(f"phase 21: ranks still running after {timeout_s} s")
-        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-                for r in range(world)]
 
 
-def torchrun_train_ms(backend, device, card) -> dict:
-    """One ``torchrun`` CLI run (pubmed GCN ``--mesh 4x1``, ``MESH_RANKS``
-    processes): rank 0's ``Train (ms)`` and final loss, read from its
-    output."""
+def spawn_ranks(world, backend, device, timeout_s, tasks=None, phase="21") -> list:
+    """``mesh_rank`` in ``world`` processes; every rank's results."""
+    with ranks_running(world, backend, device, tasks, phase) as wait:
+        return wait(timeout_s)
+
+
+def torchrun_train_ms(backend, device, card, nproc=MESH_RANKS,
+                      argv=(*PUBMED, *MESH_GCN, "--mesh", "4x1")) -> dict:
+    """One ``torchrun`` CLI run (``nproc`` processes; by default pubmed GCN
+    ``--mesh 4x1`` over ``MESH_RANKS``): rank 0's ``Train (ms)``, final loss
+    and route, read from its output."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc_per_node={MESH_RANKS}", "-m", "tcgnn_tpu_torch.train", "--device", device,
-           "--dist_backend", backend, "--epochs", str(TRAIN_EPOCHS), "--no_dropout",
-           *PUBMED, *MESH_GCN, "--mesh", "4x1"]
+           f"--nproc_per_node={nproc}", "-m", "tcgnn_tpu_torch.train", "--device", device,
+           "--dist_backend", backend, "--epochs", str(TRAIN_EPOCHS), "--no_dropout", *argv]
     print("--- " + " ".join(cmd[1:]), flush=True)
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, check=False)
     if out.returncode != 0:
         raise AssertionError(f"torchrun exited {out.returncode}: {out.stderr[-4000:]}")
     lines = dict(line.split(":\t", 1) for line in out.stdout.splitlines() if ":\t" in line)
-    for key in ("TC_Blocks", "Exp_Edges", "Prep. (ms)", "Final loss", "Train (ms)"):
+    for key in ("TC_Blocks", "Exp_Edges", "Prep. (ms)", "Final loss", "Train (ms)", "Route"):
         if key not in lines:
             raise AssertionError(f"torchrun: no {key!r} line in rank 0's output:\n{out.stdout}")
     if out.stdout.count("Final loss:") != 1:
         raise AssertionError("torchrun: a rank other than 0 printed")
-    r = {"train_ms": float(lines["Train (ms)"]), "final_loss": float(lines["Final loss"])}
-    print(f"  torchrun {MESH_RANKS} processes, backend {backend}, {device}: Train (ms) "
-          f"{r['train_ms']:.3f}, Final loss {r['final_loss']:.6f} (card: {card})")
+    r = {"train_ms": float(lines["Train (ms)"]), "final_loss": float(lines["Final loss"]),
+         "route": lines["Route"]}
+    print(f"  torchrun {nproc} processes, backend {backend}, {device}: Train (ms) "
+          f"{r['train_ms']:.3f}, Final loss {r['final_loss']:.6f}, Route {r['route']} "
+          f"(card: {card})")
     return r
 
 
@@ -2425,39 +2522,100 @@ def phase_mesh_procs(earlier, dev, card) -> tuple[list, dict]:
     launches summed over the ranks equal to the one-process run's (each
     shard's on its own rank).  Then one ``torchrun`` CLI run.  Returns the
     runs and each kernel's launches summed over every rank's runs."""
-    cards = torch.cuda.device_count()
-    if cards >= MESH_RANKS:
-        backend, device = "nccl", "cuda:{rank}"
-        print(f"{cards} cards: {MESH_RANKS} ranks over NCCL, one a card")
-    else:
-        backend, device = "gloo", "cuda:0"
-        print(f"{cards} card: NCCL is not run (it takes one rank a card); {MESH_RANKS} ranks on "
-              "card 0 over gloo, every transfer staged through host memory")
+    backend, device = rank_backend(MESH_RANKS)
     refs = dict(earlier)
     for label, argv, expected, source in PROC_RUNS:
         if source == "21":
-            print(f"--- one process: train.main {' '.join(argv)}")
-            reset_counts()
-            r = run_main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), "--no_dropout",
-                          *argv])
-            r["counts"] = launch_counts()
-            check_launches(f"one process {label}", r["counts"], expected)
-            del r["graph"]
-            refs[label] = r
-            torch.cuda.empty_cache()
+            one_process_run(label, argv, expected, refs, card)
     t1 = time.perf_counter()
     ranks = spawn_ranks(MESH_RANKS, backend, device, 900)
     print(f"  {MESH_RANKS} ranks ran {len(PROC_RUNS)} runs in {time.perf_counter() - t1:.1f} s")
     launches = {k: 0 for k in KERNELS}
+    runs = check_rank_runs(PROC_RUNS, ranks, refs, card, launches, backend)
+    cli = torchrun_train_ms(backend, device.format(rank=0) if backend == "gloo" else "cuda", card)
+    want = refs["pubmed gcn --mesh 4x1"]["final_loss"]
+    if not abs(cli["final_loss"] - want) <= FINAL_LOSS_RTOL * abs(want):
+        raise AssertionError(f"torchrun final loss {cli['final_loss']} vs one process {want}")
+    return runs + [("torchrun pubmed gcn --mesh 4x1", cli, None)], launches
+
+
+# ---- the feature axis over processes (phase 22) ----------------------------------
+
+# Phase 22's trainer runs, one feature shard a rank: label, trainer
+# arguments (all --no_dropout, TRAIN_EPOCHS), kernels each rank must launch,
+# and where the one-process mesh run it is held to comes from (phase 17's
+# run of that label, or phase 22's own).  Four ranks take 2x2 (two graph
+# blocks, two feature shards); two take reddit's 1x2 (two reddit host
+# passes fit the host, as phase 21 shows; four are unmeasured).
+SPLIT_RUNS = {
+    4: [("pubmed gcn --mesh 2x2", [*PUBMED, *MESH_GCN, "--mesh", "2x2"], ("K1",), "22"),
+        ("pubmed agnn --mesh 2x2", [*PUBMED, *MESH_AGNN, "--mesh", "2x2"], ("K4", "K10"), "22"),
+        ("Yeast agnn --mesh 2x2", [*YEAST, *MESH_AGNN, "--mesh", "2x2"], ("K4", "K5"),
+         "Yeast agnn --mesh 2x2")],
+    2: [("reddit agnn --mesh 1x2", [*REDDIT, *MESH_AGNN, "--mesh", "1x2"], ("K8", "K9"), "22")],
+}
+# The two-rank spawn's other tasks: --single_kernel one feature shard a
+# rank (1x2) and the graph axis split (2x2), and measure_comm on pubmed.
+SPLIT_SAG = [("pubmed --mesh 1x2 --single_kernel", [*PUBMED, "--mesh", "1x2"]),
+             ("pubmed --mesh 2x2 --single_kernel", [*PUBMED, "--mesh", "2x2"])]
+SPLIT_COMM = ("pubmed", (4, 8))
+
+
+def rank_backend(world) -> tuple[str, str]:
+    """NCCL one rank a card where the machine has ``world`` cards, else gloo
+    on card 0 (every transfer staged through host memory): the backend and
+    the device (``{rank}`` the rank's)."""
+    cards = torch.cuda.device_count()
+    if cards >= world:
+        print(f"{cards} cards: {world} ranks over NCCL, one a card")
+        return "nccl", "cuda:{rank}"
+    print(f"{cards} card: NCCL is not run (it takes one rank a card); {world} ranks on card 0 "
+          "over gloo, every transfer staged through host memory")
+    return "gloo", "cuda:0"
+
+
+def one_process_run(label, argv, expected, refs, card) -> None:
+    """The one-process mesh run a rank run is held to: ``train.main`` with
+    ``--no_dropout`` and ``TRAIN_EPOCHS`` timed epochs, its kernels and no
+    other, no plain call; kept in ``refs`` under ``label`` with its
+    launches."""
+    print(f"--- one process: train.main {' '.join(argv)}")
+    t0 = time.perf_counter()
+    reset_counts()
+    r = run_main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), "--no_dropout", *argv])
+    r["counts"] = launch_counts()
+    check_launches(f"one process {label}", r["counts"], expected)
+    print(f"  one process {label}: first loss {r['first_loss']:.6f}  final loss "
+          f"{r['final_loss']:.6f}  Train (ms) {r['train_ms']:.3f}  run "
+          f"{time.perf_counter() - t0:.1f} s  (card: {card})")
+    del r["graph"]
+    refs[label] = r
+    torch.cuda.empty_cache()
+
+
+def check_rank_runs(specs, ranks, refs, card, launches, backend, layout=None) -> list:
+    """Each trainer run of ``specs`` (label, arguments, kernels, the label
+    of its one-process run in ``refs``, or a phase's own under the run's
+    label) over the ranks: every rank's route (ending in ``layout`` where
+    given), its kernels and no other, no plain call, each kernel's launches
+    summed over the ranks equal to one process's, the first and final
+    losses within ``FIRST_LOSS_RTOL`` and ``FINAL_LOSS_RTOL``.  Prints each
+    rank's ``Train (ms)``, peak device memory, sampled peak host RSS and
+    launches; adds the launches to ``launches``.  Returns ``(label, the
+    ranks' results, the reference)`` a run."""
     runs = []
-    for i, (label, _, expected, source) in enumerate(PROC_RUNS):
-        ref = refs[label if source == "21" else source]
+    for i, (label, _, expected, source) in enumerate(specs):
+        ref = refs[source] if source in refs else refs[label]
         per_rank = [rk[i] for rk in ranks]
         for rank, r in enumerate(per_rank):
             check_launches(f"{label} rank {rank}", r["counts"], expected)
+            if layout is not None and not r["route"].endswith(layout):
+                raise AssertionError(f"{label} rank {rank}: route {r['route']}, expected "
+                                     f"{layout!r} at its end")
             print(f"  {label} rank {rank}: {r['route']}  first loss {r['first_loss']:.6f}  "
                   f"final loss {r['final_loss']:.6f}  Train (ms) {r['train_ms']:.3f}  "
-                  f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB  run "
+                  f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB  "
+                  f"peak host RSS {r['peak_rss'] / 2**30:.2f} GiB (sampled)  run "
                   f"{r['seconds']:.1f} s  "
                   + "  ".join(f"{k} launches {c[0]}" for k, c in r["counts"].items() if c[0])
                   + f"  (card: {card}; {backend})")
@@ -2478,11 +2636,105 @@ def phase_mesh_procs(earlier, dev, card) -> tuple[list, dict]:
                 raise AssertionError(f"{label}: {what} {[r[what] for r in per_rank]} vs one "
                                      f"process {want}")
         runs.append((label, per_rank, ref))
-    cli = torchrun_train_ms(backend, device.format(rank=0) if backend == "gloo" else "cuda", card)
-    want = refs["pubmed gcn --mesh 4x1"]["final_loss"]
-    if not abs(cli["final_loss"] - want) <= FINAL_LOSS_RTOL * abs(want):
-        raise AssertionError(f"torchrun final loss {cli['final_loss']} vs one process {want}")
-    return runs + [("torchrun pubmed gcn --mesh 4x1", cli, None)], launches
+    return runs
+
+
+def check_split_extras(ranks, card, launches) -> list:
+    """The two-rank spawn's ``--single_kernel`` runs (every rank reports the
+    slowest rank's stats, ``SAG_KEYS``, positive and finite; K1 and K4 and
+    no other kernel, no plain call) and its ``measure_comm`` rows (every
+    rank's equal, each against ``results/comm_measured.csv``'s row).
+    Returns the ``--single_kernel`` stats by label."""
+    n_runs = len(SPLIT_RUNS[2])
+    sag = []
+    for j, (label, _) in enumerate(SPLIT_SAG):
+        per_rank = [rk[n_runs + j] for rk in ranks]
+        stats = per_rank[0]["stats"]
+        for rank, r in enumerate(per_rank):
+            check_launches(f"{label} rank {rank}", r["counts"], ("K1", "K4"))
+            if set(r["stats"]) != SAG_KEYS or r["stats"] != stats:
+                raise AssertionError(f"{label} rank {rank}: {r['stats']} vs rank 0 {stats}")
+        if not all(math.isfinite(v) and v > 0 for v in stats.values()):
+            raise AssertionError(f"{label}: {stats}")
+        for k in KERNELS:
+            launches[k] += sum(r["counts"][k][0] for r in per_rank)
+        print(f"  {label} (the slowest of 2 ranks): SAG {stats['ms']:.4f} ms a round, "
+              f"dispatch-chained {stats['dispatch_chained_ms']:.4f} ms, SDDMM "
+              f"{stats['sddmm_ms']:.4f} ms; launches a rank "
+              + " / ".join(f"K1 {r['counts']['K1'][0]} K4 {r['counts']['K4'][0]}"
+                           for r in per_rank) + f"  (card: {card})")
+        sag.append((label, stats))
+    per_rank = [rk[n_runs + len(SPLIT_SAG)] for rk in ranks]
+    rows = per_rank[0]["rows"]
+    with open(COMM_REFERENCE) as f:
+        want = {(r["dataset"], int(r["shards"])): r for r in csv.DictReader(f)}
+    columns = measure_comm.HEADER.split(",")
+    for rank, r in enumerate(per_rank):
+        check_launches(f"measure_comm rank {rank}", r["counts"], ("K1",))
+        if r["rows"] != rows:
+            raise AssertionError(f"measure_comm rank {rank}: {r['rows']} vs rank 0 {rows}")
+    for k in KERNELS:
+        launches[k] += sum(r["counts"][k][0] for r in per_rank)
+    name, shard_counts = SPLIT_COMM
+    for row, g in zip(rows, shard_counts):
+        got, ref = dict(zip(columns, row.split(","))), want[(name, g)]
+        bad = [c for c in COMM_EQUAL if got[c] != ref[c]]
+        if bad or got["ratio_measured_vs_model"] != "1.000":
+            raise AssertionError(f"measure_comm over 2 ranks {name} {g}: {row} against the JAX "
+                                 f"row {ref} (columns {bad} differ)")
+        print(f"  measure_comm over 2 ranks: {row} (the JAX row's columns; card: {card})")
+    return sag
+
+
+def phase_feature_procs(earlier, dev, card) -> tuple[list, list, dict]:
+    """Phase 22: the feature axis over processes, one feature shard a rank
+    (``rank_backend``: gloo on this one card unless the machine has a card
+    a rank).  The one-process mesh runs ``SPLIT_RUNS`` holds the ranks to,
+    where no earlier phase ran them (``earlier``: phase 17's, by label);
+    four ranks over 2x2 and two over reddit's 1x2, each rank through
+    ``train.main`` (``check_rank_runs``), the two ranks then
+    ``--single_kernel`` and ``measure_comm`` (``check_split_extras``); then
+    one ``torchrun`` CLI run of pubmed AGNN 2x2 over four processes.
+    Returns the runs, the ``--single_kernel`` stats and each kernel's
+    launches summed over every rank's runs."""
+    refs = dict(earlier)
+    launches = {k: 0 for k in KERNELS}
+    tasks = {w: [("train", label, argv) for label, argv, _, _ in SPLIT_RUNS[w]] for w in (4, 2)}
+    tasks[2] += [("single_kernel", label, argv) for label, argv in SPLIT_SAG]
+    tasks[2].append(("measure_comm", "measure_comm",
+                     ["--datasets", SPLIT_COMM[0], "--shards", *map(str, SPLIT_COMM[1])]))
+    (b4, d4), (b2, d2) = rank_backend(4), rank_backend(2)
+    for label, argv, expected, source in SPLIT_RUNS[4]:
+        if source == "22":
+            one_process_run(label, argv, expected, refs, card)
+    # The 2 ranks (reddit's host pass, then its epochs) run beside the rest:
+    # reddit's one-process run, then the 4 ranks, then the torchrun run.
+    # Each rank's times are taken with the others on the host and the card.
+    print("  the 2 ranks run beside reddit's one-process run, the 4 ranks and the torchrun run")
+    t1 = time.perf_counter()
+    with Sampled(mem_available, min) as low, \
+            ranks_running(2, b2, d2, tasks[2], "22") as wait2:
+        for label, argv, expected, _ in SPLIT_RUNS[2]:
+            one_process_run(label, argv, expected, refs, card)
+        with ranks_running(4, b4, d4, tasks[4], "22") as wait4:
+            ranks4 = wait4(600)
+        print(f"  4 ranks ran {len(tasks[4])} tasks by {time.perf_counter() - t1:.1f} s")
+        runs = check_rank_runs(SPLIT_RUNS[4], ranks4, refs, card, launches, b4, " ranks=2x2")
+        label, argv, _, _ = SPLIT_RUNS[4][1]
+        cli = torchrun_train_ms(b4, d4.format(rank=0) if b4 == "gloo" else "cuda", card,
+                                nproc=4, argv=argv)
+        ranks2 = wait2(600)
+        print(f"  2 ranks ran {len(tasks[2])} tasks in {time.perf_counter() - t1:.1f} s")
+    print(f"  the host's available memory fell to {low.value / 2**30:.2f} GiB while the ranks "
+          f"ran (card host: {card})")
+    runs += check_rank_runs(SPLIT_RUNS[2], ranks2, refs, card, launches, b2, " ranks=1x2")
+    sag = check_split_extras(ranks2, card, launches)
+    want = refs[label]["final_loss"]
+    if not (abs(cli["final_loss"] - want) <= FINAL_LOSS_RTOL * abs(want)
+            and cli["route"].endswith(" ranks=2x2")):
+        raise AssertionError(f"torchrun {label}: final loss {cli['final_loss']} vs one process "
+                             f"{want}, route {cli['route']}")
+    return runs + [(f"torchrun 4 processes {label}", cli, None)], sag, launches
 
 
 def build_kernels():
@@ -2526,6 +2778,25 @@ class Tee(io.TextIOBase):
     def flush(self):
         for st in self.streams:
             st.flush()
+
+
+class SyntheticCache:
+    """``train.load_dataset`` with the synthesized reddit dataset kept in
+    this process and copied for each run (a run may permute its dataset in
+    place: the mesh's shard balance): each trainer run of the smoke's
+    process after the first skips reddit's ~20 s synthesis.  Spawned ranks
+    synthesize their own."""
+
+    def __init__(self, load):
+        self.load, self.kept = load, {}
+
+    def __call__(self, args):
+        if args.dataset != "reddit":
+            return self.load(args)
+        key = (args.dataset, args.dim, args.classes, args.seed, args.data_dir)
+        if key not in self.kept:
+            self.kept[key] = self.load(args)
+        return copy.deepcopy(self.kept[key])
 
 
 def run_main(args) -> dict:
@@ -2576,6 +2847,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    train.load_dataset = SyntheticCache(train.load_dataset)
 
     # ---- 2. build K1-K10 ------------------------------------------------------
     t0 = phase_start("2. build")
@@ -2708,6 +2980,15 @@ def main():
         launches[k] += c
     phase_end(t0)
 
+    # ---- 22. the feature axis over processes -----------------------------------
+    t0 = phase_start("22. the feature axis over processes (4 ranks over 2x2, 2 over reddit's "
+                     "1x2, one feature shard a rank)")
+    torch.cuda.empty_cache()
+    split_runs, split_sag, split_launches = phase_feature_procs(bd_mesh_runs, dev, card)
+    for k, c in split_launches.items():
+        launches[k] += c
+    phase_end(t0)
+
     for (k, geo, d), (kt, pt, dev) in times.items():
         print(f"  time {KERNELS[k][0]} {geo} d={d}: kernel {kt:.4f} ms (device {dev:.4f} ms), "
               f"plain {pt:.4f} ms (median of {TIMING_RUNS} event pairs a call; device: one "
@@ -2745,6 +3026,19 @@ def main():
               + f"  (rank 0 / rank 1; card: {card})")
     print(f"mesh over processes [{proc_runs[-1][0]}]: Train (ms) {proc_runs[-1][1]['train_ms']:.3f}"
           f" (card: {card})")
+    for name, per_rank, _ in split_runs[:-1]:
+        print(f"one feature shard a rank [{name}]: Train (ms) "
+              + " / ".join(f"{r['train_ms']:.3f}" for r in per_rank)
+              + "  max_memory_allocated (GiB) "
+              + " / ".join(f"{r['max_memory_allocated'] / 2**30:.2f}" for r in per_rank)
+              + "  peak host RSS (GiB) "
+              + " / ".join(f"{r['peak_rss'] / 2**30:.2f}" for r in per_rank)
+              + f"  (rank 0 / 1 / ...; card: {card})")
+    print(f"one feature shard a rank [{split_runs[-1][0]}]: Train (ms) "
+          f"{split_runs[-1][1]['train_ms']:.3f} (card: {card})")
+    for name, stats in split_sag:
+        print(f"--single_kernel over 2 ranks [{name}]: " + "  ".join(
+            f"{k} {v:.6g}" for k, v in stats.items()) + f"  (card: {card})")
     for name, stats in sag_runs:
         print(f"--single_kernel [{name}]: " + "  ".join(
             f"{k} {v:.6g}" for k, v in stats.items()) + f"  (card: {card})")

@@ -20,11 +20,23 @@ the trainer's schedule: halo rounds and the split's partial-tile returns
 fallback) and two rim shifts a pass (block-diagonal).
 ``ratio_measured_vs_model`` compares the route's own kinds.  Each row is printed with the counted step's wall time on the
 device (host work included), which the CSV, JAX's 12 columns, leaves out.
+
+Under ``torchrun`` (or in a process group the caller formed) the mesh
+spans the ranks (``parallel.make_mesh``): each rank counts its step's
+collectives, which are the one-process counts (a call is one instance,
+whatever the process count; the gradient all-reduce is not among the CSV's
+kinds), and rank 0 writes the CSV with each row's wall ms the slowest
+rank's:
+
+    torchrun --nproc_per_node 2 -m tcgnn_tpu_torch.bench.measure_comm \
+        --datasets pubmed --device cuda [--dist_backend gloo]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
 
@@ -105,6 +117,10 @@ def measure(ds, name: str, shards: int, classes: int, device, cfg=CONFIG, **grap
     stats = step_collective_bytes(step, num_devices=g)
     sync()
     step_ms = (time.perf_counter() - t0) * 1e3
+    if dg.mesh.world > 1:
+        from tcgnn_tpu_torch.parallel.collectives import all_reduce_max
+
+        step_ms = all_reduce_max([step_ms], dg.mesh)[0]  # the slowest rank's
     _, per_shard = shard_stats(ds.row_pointers, ds.column_index, ds.num_nodes, g, config=cfg)
     halo_rows = sum(s["boundary"] for s in per_shard)
     # The step's SpMM passes, the trainer's schedule (``aggregate_first``):
@@ -142,24 +158,44 @@ def main(argv=None):
     p.add_argument("--dim", type=int, default=16)
     p.add_argument("--classes", type=int, default=4)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="(under torchrun) the process group's backend: nccl on a card, gloo on "
+                   "the CPU by default")
     p.add_argument("--out", default="comm_measured.csv")
     args = p.parse_args(argv)
 
+    import torch.distributed as dist
+
     from tcgnn_tpu_torch.data import synthetic
 
+    device = args.device
+    join = (not (dist.is_available() and dist.is_initialized())
+            and int(os.environ.get("WORLD_SIZE", "1")) > 1)
+    if join:
+        from tcgnn_tpu_torch.parallel.mesh import init_process_group
+
+        device = init_process_group(device, backend=args.dist_backend)
+    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
     rows = []
-    with open(args.out, "w") as f:
-        f.write(HEADER + "\n")
-        for name in args.datasets:
-            ds = synthetic.synthesize(name, args.dim, args.classes)
-            for g in args.shards:
-                r = measure(ds, name, g, args.classes, args.device)
-                f.write(r["row"] + "\n")
-                f.flush()
-                print(f"{r['row']}  # step {r['step_ms']:.3f} ms", flush=True)
-                rows.append(r["row"])
-                del r
-    print(f"wrote {args.out}")
+    try:
+        with open(args.out, "w") if rank == 0 else contextlib.nullcontext() as f:
+            if f is not None:
+                f.write(HEADER + "\n")
+            for name in args.datasets:
+                ds = synthetic.synthesize(name, args.dim, args.classes)
+                for g in args.shards:
+                    r = measure(ds, name, g, args.classes, device)
+                    if f is not None:
+                        f.write(r["row"] + "\n")
+                        f.flush()
+                        print(f"{r['row']}  # step {r['step_ms']:.3f} ms", flush=True)
+                    rows.append(r["row"])
+                    del r
+        if rank == 0:
+            print(f"wrote {args.out}")
+    finally:
+        if join:
+            dist.destroy_process_group()
     return rows
 
 

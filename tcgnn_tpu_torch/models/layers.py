@@ -13,7 +13,11 @@ Counterpart of ``tcgnn_tpu.models.layers`` with the same schedule:
 
 Weights keep the JAX layout ``[in, out]``.  Dense products are plain torch
 (cuBLAS on the card); aggregation runs the port's kernels through
-``TiledGraph``.
+``TiledGraph``.  A graph whose process holds one feature shard of several
+(``parallel.DistributedTiledGraph`` over feature ranks) gives the products
+as its ``feature_dot`` (column-parallel) and has the attention weights of
+the per-edge AGNN counted once (``count_once``); elsewhere those hooks are
+absent or None.
 """
 
 from __future__ import annotations
@@ -35,6 +39,13 @@ def _amp_dot(a: torch.Tensor, w: torch.Tensor, ct: torch.dtype) -> torch.Tensor:
     """Dense update product in the compute dtype: operands in ``ct``, f32
     accumulation (cuBLAS accumulates bf16 products in f32), output in ``ct``."""
     return torch.matmul(a.to(ct), w.to(ct))
+
+
+def _dot(graph, a: torch.Tensor, w: torch.Tensor, ct: torch.dtype) -> torch.Tensor:
+    """``_amp_dot``, or the graph's column-parallel ``feature_dot`` where it
+    has one."""
+    feature_dot = getattr(graph, "feature_dot", None)
+    return _amp_dot(a, w, ct) if feature_dot is None else feature_dot(a, w, ct)
 
 
 def aggregate_first(in_dim: int, out_dim: int, block_diag: bool = False) -> bool:
@@ -72,8 +83,8 @@ def gcn_conv(
         agg = graph.spmm(h)
         if nv is not None:
             agg = agg * nv[: agg.shape[0], None].to(agg.dtype)
-        return _amp_dot(agg, weights, ct)
-    x_prime = _amp_dot(x, weights, ct)
+        return _dot(graph, agg, weights, ct)
+    x_prime = _dot(graph, x, weights, ct)
     if nv is not None:
         x_prime = x_prime * nv[: x_prime.shape[0], None]
     out = graph.spmm(x_prime)
@@ -85,7 +96,7 @@ def gcn_conv(
 def gin_conv(weights: torch.Tensor, x: torch.Tensor, graph: TiledGraph) -> torch.Tensor:
     """SpMM aggregation first, then GEMM update."""
     ct = _ct(graph)
-    return _amp_dot(graph.spmm(x.to(ct)), weights, ct)
+    return _dot(graph, graph.spmm(x.to(ct)), weights, ct)
 
 
 def _uniform(generator: torch.Generator, shape, out_dim: int) -> torch.Tensor:
@@ -125,11 +136,14 @@ def agnn_conv(
     count.  Otherwise the reference schedule: scores once, one weighted SpMM
     per head, then the head average.
     """
-    x_prime = _amp_dot(x, weights, _ct(graph))
+    x_prime = _dot(graph, x, weights, _ct(graph))
     fused = getattr(graph, "agnn_aggregate", None)
     if fused is not None:
         return fused(x_prime, attention_w)
     n_heads = attention_w.shape[1]
+    count_once = getattr(graph, "count_once", None)
+    if count_once is not None:
+        attention_w = count_once(attention_w)
     edge_feature = graph.sddmm(x_prime)  # [E] f32
     edge_attentions = edge_feature[:, None] * attention_w  # [E, n_heads]
     out = graph.spmm_weighted(x_prime, edge_attentions[:, 0])

@@ -8,7 +8,10 @@ For L = num_layers the stack is
 
 ``GNN.forward`` is the counterpart of ``apply_net``: the same order, with
 the dropout mask drawn from a ``torch.Generator`` (dropout is active only
-when one is given; on a mesh over processes, over the mesh's every row).
+when one is given; on a mesh over processes, over the mesh's every row and
+column).  Where the graph's process holds one feature shard of several, the
+logits are all-gathered over the feature axis (``gather_features``) before
+the class mask and the log-softmax.
 Each layer's weights are an ``[in, out]`` parameter, the JAX layout, and an
 AGNN layer's attention weights ``[1, n_heads]``, so ``params_from_jax`` can
 load JAX parameters.
@@ -79,22 +82,29 @@ class GNN(nn.Module):
         weights, so it has none.
         """
         if l1_agg is not None and self.kind in ("gcn", "gin"):
-            h = torch.relu(L._amp_dot(l1_agg, self.weights[0], L._ct(graph)))
+            h = torch.relu(L._dot(graph, l1_agg, self.weights[0], L._ct(graph)))
         else:
             h = torch.relu(self._conv(0, x, graph, norm))
         if dropout_generator is not None:
             keep = 1.0 - dropout_rate
-            # A graph that holds some of the rows (a process of the mesh:
-            # ``node_rows``) draws over all of them and keeps its own, so
-            # every process draws what one process would.
+            # A graph that holds a block of the rows and columns (a process
+            # of the mesh: ``node_rows``, ``node_cols``) draws over all of
+            # them and keeps its own, so every process draws what one
+            # process would.
             rows = getattr(graph, "node_rows", slice(None))
-            shape = (getattr(graph, "padded_nodes", h.shape[0]), h.shape[1])
-            mask = torch.rand(shape, generator=dropout_generator, device=h.device)[rows] < keep
+            width, cols = (graph.node_cols(h.shape[1]) if hasattr(graph, "node_cols")
+                           else (h.shape[1], slice(None)))
+            shape = (getattr(graph, "padded_nodes", h.shape[0]), width)
+            mask = torch.rand(shape, generator=dropout_generator,
+                              device=h.device)[rows, cols] < keep
             h = torch.where(mask, h * (1.0 / keep), 0.0)
         last = len(self.weights) - 1
         for i in range(1, last):
             h = torch.relu(self._conv(i, h, graph, norm))
         h = self._conv(last, h, graph, norm)
+        gather = getattr(graph, "gather_features", None)
+        if gather is not None:
+            h = gather(h)
         if num_valid_classes is not None and num_valid_classes < h.shape[1]:
             col = torch.arange(h.shape[1], device=h.device)[None, :]
             h = torch.where(col < num_valid_classes, h, -1e30)

@@ -2,9 +2,9 @@
 the row-window partition with its halo and block-stream split, the
 block-diagonal route's shard packs and rim, the streamed route's window
 segments, the dense-tile, block-diagonal, streamed and chunk routes' ops
-and training step, every shard on one device or the graph axis split over
-processes (``mesh.init_process_group``, ``torchrun``), and the step's
-collective traffic (``comm_stats``)."""
+and training step, every shard on one device or the grid over processes
+(``mesh.init_process_group``, ``torchrun``: the graph axis split, or one
+feature shard a rank), and the step's collective traffic (``comm_stats``)."""
 
 from tcgnn_tpu_torch.parallel.comm_stats import dcn_halo_fraction, step_collective_bytes
 from tcgnn_tpu_torch.parallel.graph import (

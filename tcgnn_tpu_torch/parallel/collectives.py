@@ -14,25 +14,32 @@ collective keeps its JAX semantics exactly:
   member ``s`` cuts its tensor into as many chunks as the axis has members,
   and chunk ``j`` lands on member ``j`` at position ``s``;
 * ``psum(grid, axis)`` — every member gets the sum over its axis group,
-  added in axis order.
+  added in axis order;
+* ``psum_scatter(grid, axis)`` — tiled: member ``j`` gets chunk ``j``
+  (along dim 0) of the sum over its axis group (``lax.psum_scatter``).
 
 In one process (``mesh`` None or of one rank) the grid holds every shard,
 and a collective is a set of copies (or sums) between shard tensors on the
 mesh's device; members of a group that receive the same value share one
 tensor.  Over processes (``parallel/mesh.py``) the grid holds this rank's
-graph shards only (``grid[i]`` is graph shard ``mesh.graph_shards[i]``):
-members on this rank still move by copies, and a graph-axis collective
-crosses ranks through ``torch.distributed``, one call for all the rank's
-members: ``all_gather_single`` (``all_gather_into_tensor``),
-``batch_isend_irecv`` (one message a pair of ranks), ``all_to_all_single``
-and ``all_reduce``.  With gloo on a card (``Mesh.staged``) every transfer
-goes through host memory.  ``all_reduce_bucket`` sums a list of tensors
-over the ranks in one call (the training step's gradients).
+members only: ``grid[i][j]`` is shard ``(mesh.graph_shards[i],
+mesh.feature_shards[j])``.  Members on this rank still move by copies, and
+a collective over an axis the rank does not hold whole crosses ranks
+through ``torch.distributed``, within the rank's group of that axis
+(``Mesh.graph_group``, ``Mesh.feature_group``), one call for all the
+rank's members: ``all_gather_single`` (``all_gather_into_tensor``),
+``batch_isend_irecv`` (one message a pair of ranks, peers by global rank),
+``all_to_all_single``, ``all_reduce`` and ``reduce_scatter_single``
+(``reduce_scatter_tensor``).  With
+gloo on a card (``Mesh.staged``) every transfer goes through host memory.
+``all_reduce_bucket`` sums a list of tensors over every rank in one call
+(the training step's gradients).
 
 Traffic accounting (``parallel/comm_stats.py``): inside ``recording(r)``,
 each call reports ``(kind, bytes)`` to it under the JAX
 package's kind names (``all_gather``, ``collective_permute``,
-``all_to_all``, ``all_reduce`` for ``psum``).  The bytes are JAX's per-device
+``all_to_all``, ``all_reduce`` for ``psum``, ``reduce_scatter`` for
+``psum_scatter``).  The bytes are JAX's per-device
 logical count, one member's result from its shape and dtype alone (no
 device sync), not the copies a grid makes; one call over the grid is one
 instance, as JAX emits one instruction for a collective over all of an
@@ -50,9 +57,12 @@ import torch
 import torch.distributed as dist
 
 AXES = ("graph", "feature")
-# torch 2.13 names all_gather_into_tensor all_gather_single (the old name
-# warns); older versions have only the old one.
+# torch 2.13 names all_gather_into_tensor all_gather_single and
+# reduce_scatter_tensor reduce_scatter_single (the old names warn); older
+# versions have only the old ones.
 _all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_reduce_scatter_single = (getattr(dist, "reduce_scatter_single", None)
+                          or dist.reduce_scatter_tensor)
 
 # The active traffic recorder (``comm_stats.Recorder``), or None.  A module
 # attribute, not a context variable: autograd runs a CUDA backward on its
@@ -115,7 +125,22 @@ def _over(axis, grid, fn):
 def _ranks(mesh, axis: str) -> bool:
     """Does a collective over ``axis`` cross ranks?"""
     _check_axis(axis)
-    return axis == "graph" and mesh is not None and mesh.world > 1
+    if mesh is None or mesh.world == 1:
+        return False
+    return (mesh.graph_world if axis == "graph" else mesh.feature_world) > 1
+
+
+def _axis_world(mesh, axis: str) -> tuple:
+    """``(ranks, this rank's place, group)`` along ``axis``."""
+    if axis == "graph":
+        return mesh.graph_world, mesh.graph_rank, mesh.graph_group
+    return mesh.feature_world, mesh.feature_rank, mesh.feature_group
+
+
+def _members(grid, axis: str):
+    """The grid as ``[member along axis][group]``: the grid for ``graph``,
+    its transpose for ``feature``; ``_members`` of the result undoes it."""
+    return grid if axis == "graph" else _transposed(grid)
 
 
 def _staged(mesh, t: torch.Tensor) -> torch.Tensor:
@@ -127,10 +152,10 @@ def _back(mesh, t: torch.Tensor) -> torch.Tensor:
     return t.to(mesh.device) if mesh.staged else t
 
 
-def _columns(grid):
-    """The rank's members stacked a feature shard: ``[pf, L * m, ...]``, the
-    graph members of each column concatenated in axis order."""
-    return torch.stack([torch.cat(col) for col in _transposed(grid)])
+def _columns(members):
+    """The rank's members stacked a group: ``[groups, L * m, ...]``, the
+    members of each group concatenated in axis order."""
+    return torch.stack([torch.cat(col) for col in _transposed(members)])
 
 
 def all_gather(grid, axis: str = "graph", mesh=None):
@@ -141,12 +166,14 @@ def all_gather(grid, axis: str = "graph", mesh=None):
         return [full] * len(members)
 
     if _ranks(mesh, axis):
-        local = _staged(mesh, _columns(grid))
-        full = local.new_empty((mesh.world * local.shape[0],) + tuple(local.shape[1:]))
-        _all_gather_single(full, local)
-        full = _back(mesh, full).view((mesh.world,) + tuple(local.shape))
-        cols = [full[:, f].reshape((-1,) + tuple(full.shape[3:])) for f in range(full.shape[1])]
-        out = [list(cols) for _ in grid]
+        world, _, pg = _axis_world(mesh, axis)
+        members = _members(grid, axis)
+        local = _staged(mesh, _columns(members))
+        full = local.new_empty((world * local.shape[0],) + tuple(local.shape[1:]))
+        _all_gather_single(full, local, group=pg)
+        full = _back(mesh, full).view((world,) + tuple(local.shape))
+        cols = [full[:, j].reshape((-1,) + tuple(full.shape[3:])) for j in range(full.shape[1])]
+        out = _members([list(cols) for _ in members], axis)
     else:
         out = _over(axis, grid, group)
     recorder = _recorder
@@ -168,55 +195,63 @@ def ppermute(grid, pairs, axis: str = "graph", mesh=None):
             out[dst] = members[src]
         return [torch.zeros_like(m) if o is None else o for m, o in zip(members, out)]
 
-    out = _ppermute_ranks(grid, pairs, mesh) if _ranks(mesh, axis) else _over(axis, grid, group)
+    if _ranks(mesh, axis):
+        out = _members(_ppermute_ranks(_members(grid, axis), pairs, axis, mesh), axis)
+    else:
+        out = _over(axis, grid, group)
     recorder = _recorder
     if recorder is not None:
-        # The axis' groups over the whole grid: a feature-axis group a graph
-        # shard, this rank's or another's.
-        groups = (len(grid[0]) if axis == "graph"
-                  else mesh.n_graph if mesh is not None else len(grid))
+        # The axis' groups over the whole grid: a group a shard of the other
+        # axis, this rank's or another's.
+        if mesh is not None:
+            groups = mesh.n_feature if axis == "graph" else mesh.n_graph
+        else:
+            groups = len(grid[0]) if axis == "graph" else len(grid)
         _record(recorder, "collective_permute", _nbytes(_equal_shapes(grid)), pairs, groups)
     return out
 
 
-def _ppermute_ranks(grid, pairs, mesh):
-    """A graph-axis ``ppermute`` over ranks: pairs within this rank are
-    copies; the members one rank sends another travel as one message, in
-    pair order, every feature shard of them."""
+def _ppermute_ranks(members, pairs, axis, mesh):
+    """A ``ppermute`` over ranks on ``members[i][j]`` (member i of this
+    rank's along the axis, of group j): pairs within this rank are copies;
+    the members one rank sends another travel as one message, in pair
+    order, every group of them."""
     dsts = [dst for _, dst in pairs]
     if len(set(dsts)) != len(dsts):
         raise ValueError(f"ppermute: a member receives twice in {pairs}")
-    per, g0 = len(grid), mesh.graph_shards.start
-    proto = _equal_shapes(grid)
+    _, me, _ = _axis_world(mesh, axis)
+    per = len(members)
+    g0 = me * per
+    proto = _equal_shapes(members)
     out = [None] * per
-    sends, recvs = {}, {}  # peer rank -> this rank's members, in pair order
+    sends, recvs = {}, {}  # peer's place on the axis -> this rank's members, in pair order
     for src, dst in pairs:
         s_rank, d_rank = src // per, dst // per
-        if s_rank == d_rank == mesh.rank:
-            out[dst - g0] = grid[src - g0]
-        elif s_rank == mesh.rank:
+        if s_rank == d_rank == me:
+            out[dst - g0] = members[src - g0]
+        elif s_rank == me:
             sends.setdefault(d_rank, []).append(src - g0)
-        elif d_rank == mesh.rank:
+        elif d_rank == me:
             recvs.setdefault(s_rank, []).append(dst - g0)
-    pf = len(grid[0])
+    groups = len(members[0])
     ops, inbox = [], []
-    for peer, members in sorted(sends.items()):
-        buf = _staged(mesh, torch.stack([torch.stack(grid[i]) for i in members]))
-        ops.append(dist.P2POp(dist.isend, buf.contiguous(), peer))
-    for peer, members in sorted(recvs.items()):
-        buf = torch.empty((len(members), pf) + tuple(proto.shape), dtype=proto.dtype,
+    for peer, idx in sorted(sends.items()):
+        buf = _staged(mesh, torch.stack([torch.stack(members[i]) for i in idx]))
+        ops.append(dist.P2POp(dist.isend, buf.contiguous(), mesh.peer(axis, peer)))
+    for peer, idx in sorted(recvs.items()):
+        buf = torch.empty((len(idx), groups) + tuple(proto.shape), dtype=proto.dtype,
                           device="cpu" if mesh.staged else proto.device)
-        ops.append(dist.P2POp(dist.irecv, buf, peer))
-        inbox.append((members, buf))
+        ops.append(dist.P2POp(dist.irecv, buf, mesh.peer(axis, peer)))
+        inbox.append((idx, buf))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    for members, buf in inbox:
+    for idx, buf in inbox:
         buf = _back(mesh, buf)
-        for k, i in enumerate(members):
+        for k, i in enumerate(idx):
             out[i] = list(buf[k].unbind(0))
     return [[torch.zeros_like(m) for m in row] if o is None else o
-            for row, o in zip(grid, out)]
+            for row, o in zip(members, out)]
 
 
 def all_to_all(grid, axis: str = "graph", mesh=None):
@@ -236,22 +271,24 @@ def all_to_all(grid, axis: str = "graph", mesh=None):
         return [torch.cat([chunks[s][j] for s in range(n)], dim=0) for j in range(n)]
 
     if _ranks(mesh, axis):
-        # Member (i, f)'s chunks as [world, per, c, ...]: the chunks bound
-        # for each rank, in member order.  The send stack is [world (dest
-        # rank), per (source member), per (dest member), pf, c, ...]; the
-        # received one has the source rank first.
-        w, per = mesh.world, len(grid)
-        check([m for row in grid for m in row], w * per)
-        proto = grid[0][0]
+        # Member (i, q)'s chunks as [w, per, c, ...]: the chunks bound for
+        # each rank of the axis, in member order.  The send stack is [w
+        # (dest rank), per (source member), per (dest member), groups, c,
+        # ...]; the received one has the source rank first.
+        w, _, pg = _axis_world(mesh, axis)
+        members = _members(grid, axis)
+        per = len(members)
+        check([m for row in members for m in row], w * per)
+        proto = members[0][0]
         c, rest = proto.shape[0] // (w * per), tuple(proto.shape[1:])
         send = torch.stack([torch.stack([m.reshape((w, per, c) + rest) for m in row])
-                            for row in grid])          # [per_i, pf, w, per_j, c, ...]
+                            for row in members])       # [per_i, groups, w, per_j, c, ...]
         send = _staged(mesh, send.movedim(2, 0).movedim(3, 2).contiguous())
         recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send)
-        recv = _back(mesh, recv)                       # [w, per_i, per_j, pf, c, ...]
-        out = [[recv[:, :, j, f].reshape((-1,) + rest) for f in range(len(grid[0]))]
-               for j in range(per)]
+        dist.all_to_all_single(recv, send, group=pg)
+        recv = _back(mesh, recv)                       # [w, per_i, per_j, groups, c, ...]
+        out = _members([[recv[:, :, j, q].reshape((-1,) + rest)
+                         for q in range(len(members[0]))] for j in range(per)], axis)
     else:
         out = _over(axis, grid, group)
     recorder = _recorder
@@ -260,10 +297,21 @@ def all_to_all(grid, axis: str = "graph", mesh=None):
     return out
 
 
+def _rank_sums(members):
+    """Each group's members on this rank summed in axis order."""
+    sums = []
+    for col in _transposed(members):
+        total = col[0]
+        for m in col[1:]:
+            total = total + m
+        sums.append(total)
+    return sums
+
+
 def psum(grid, axis: str, mesh=None):
     """Sum over ``axis``, added in axis order; every member gets the sum.
     Over ranks, each rank's members are summed in axis order and the ranks'
-    sums all-reduced."""
+    sums all-reduced (groups of any shapes, flattened into one call)."""
 
     def group(members):
         total = members[0]
@@ -271,13 +319,20 @@ def psum(grid, axis: str, mesh=None):
             total = total + m
         return [total] * len(members)
 
-    out = _over(axis, grid, group)
     if _ranks(mesh, axis):
-        row = out[0]
-        local = _staged(mesh, torch.stack(row))
-        dist.all_reduce(local)
-        total = _back(mesh, local).unbind(0)
-        out = [list(total) for _ in grid]
+        _, _, pg = _axis_world(mesh, axis)
+        members = _members(grid, axis)
+        sums = _rank_sums(members)
+        flat = _staged(mesh, torch.cat([t.reshape(-1) for t in sums]))
+        dist.all_reduce(flat, group=pg)
+        flat = _back(mesh, flat)
+        total, pos = [], 0
+        for t in sums:
+            total.append(flat[pos:pos + t.numel()].view_as(t))
+            pos += t.numel()
+        out = _members([list(total) for _ in members], axis)
+    else:
+        out = _over(axis, grid, group)
     recorder = _recorder
     if recorder is not None:
         # Groups may differ from each other (the block-diagonal route's
@@ -286,8 +341,48 @@ def psum(grid, axis: str, mesh=None):
     return out
 
 
+def psum_scatter(grid, axis: str, mesh=None):
+    """Tiled reduce-scatter along dim 0 over ``axis``: member ``j`` gets
+    chunk ``j`` of the group's sum, added in axis order.  Over ranks, each
+    rank's members are summed in axis order and the ranks' sums
+    reduce-scattered."""
+
+    def group(members):
+        total = members[0]
+        for m in members[1:]:
+            total = total + m
+        if total.shape[0] % len(members):
+            raise ValueError(f"psum_scatter: dim 0 of {tuple(total.shape)} does not split "
+                             f"into {len(members)} chunks")
+        return list(torch.chunk(total, len(members), dim=0))
+
+    if _ranks(mesh, axis):
+        w, _, pg = _axis_world(mesh, axis)
+        members = _members(grid, axis)
+        per = len(members)
+        sums = torch.stack(_rank_sums(members))           # [groups, w * per * c, ...]
+        if sums.shape[1] % (w * per):
+            raise ValueError(f"psum_scatter: dim 0 of {tuple(sums.shape[1:])} does not split "
+                             f"into {w * per} chunks")
+        c, rest = sums.shape[1] // (w * per), tuple(sums.shape[2:])
+        # [w, groups, per, c, ...]: rank k's chunks first, as the call cuts.
+        send = _staged(mesh, sums.reshape((sums.shape[0], w, per, c) + rest)
+                       .movedim(1, 0).contiguous())
+        recv = send.new_empty(tuple(send.shape[1:]))
+        _reduce_scatter_single(recv.view(-1), send.view(-1), group=pg)
+        recv = _back(mesh, recv)                          # [groups, per, c, ...]
+        out = _members([[recv[q, i] for q in range(recv.shape[0])] for i in range(per)], axis)
+    else:
+        out = _over(axis, grid, group)
+    recorder = _recorder
+    if recorder is not None:
+        _equal_shapes(grid)
+        _record(recorder, "reduce_scatter", _nbytes(out[0][0]))
+    return out
+
+
 def all_reduce_bucket(tensors, mesh) -> None:
-    """Sum each tensor over the ranks in place, all of them flattened into
+    """Sum each tensor over every rank in place, all of them flattened into
     one bucket and one ``all_reduce`` (one instance of the bucket's bytes
     to the recorder).  The tensors share a dtype."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
@@ -301,3 +396,11 @@ def all_reduce_bucket(tensors, mesh) -> None:
     for t in tensors:
         t.copy_(flat[pos:pos + t.numel()].view_as(t))
         pos += t.numel()
+
+
+def all_reduce_max(values, mesh) -> list:
+    """The largest of each of ``values`` (floats) over every rank."""
+    t = torch.tensor(values, dtype=torch.float64,
+                     device="cpu" if mesh.staged or mesh.device.type == "cpu" else mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.tolist()

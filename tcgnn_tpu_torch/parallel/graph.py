@@ -5,16 +5,29 @@ dense-tile, block-diagonal, streamed and chunk routes).
 In one process every shard of the grid lives on the mesh's one device
 (``parallel/mesh.py``); the shards run in turn, and the collectives between
 them are copies on that device (``parallel/collectives.py``).  Over
-processes each rank holds its graph shards (``shards``, ``lg`` of them) with
-every feature shard of them, and graph-axis collectives cross ranks.  Every
+processes each rank holds its graph shards (``shards``, ``lg`` of them) and,
+of each, every feature shard or one (``fshards``, ``lf`` of them); a
+collective over an axis the rank does not hold whole crosses ranks.  Every
 rank runs the whole host pass (deterministic: every rank gets the same
 partition) and uploads its own shards' metadata.  Inputs and outputs of the
 ops are the process's block of the globally shaped tensors: node features
-``[local_nodes, D]``, rows ``node_rows`` of ``[padded_nodes, D]`` (shard
-``(g, f)`` is rows ``g * rows_per_shard ...`` and the f-th of ``pf`` equal
-column slices), per-edge vectors ``[lg * edge_capacity]`` of
-``[padded_edges]`` (shard g's edges, the CSR slice of its rows, padded to
-``edge_capacity``).  In one process the block is the whole tensor.
+``[local_nodes, D * lf / pf]``, rows ``node_rows`` and columns
+``node_cols`` of ``[padded_nodes, D]`` (shard ``(g, f)`` is rows ``g *
+rows_per_shard ...`` and the f-th of ``pf`` equal column slices), per-edge
+vectors ``[lg * edge_capacity]`` of ``[padded_edges]`` (shard g's edges, the
+CSR slice of its rows, padded to ``edge_capacity``), the same on every
+feature rank.  In one process the block is the whole tensor.
+
+Where a rank holds one feature shard of several, the dense side reshards as
+JAX's partitioner does for it, with the JAX layout kept for every node
+tensor: each product ``x @ W`` is column-parallel (``feature_dot``: ``x``
+all-gathered over ``feature``, times the rank's columns of ``W``; its
+backward reduce-scatters), the logits are all-gathered before the
+log-softmax (``gather_features``; every feature rank then holds the same
+loss, which the training step counts once), and the per-edge AGNN's
+attention weights, which meet the all-reduced edge scores, have their
+gradient counted on one feature rank (``count_once``).  Elsewhere these
+hooks are None.
 
 What a shard does, as in JAX:
 
@@ -89,9 +102,13 @@ The port differs from the JAX route on purpose, changing no value:
   count, so its padding slots are the segment layout's own (row ``blk_h``),
   and outputs are padded to ``edge_capacity`` afterwards;
 * the attention gradient's partial dots ``dc`` are summed over the
-  rank's shards only (``_dc_sum``): the training step's gradient all-reduce
-  finishes the sum, as XLA folds JAX's ``psum`` into its gradient
+  rank's shards only (``_dc_sum``, both axes): the training step's gradient
+  all-reduce finishes the sum, as XLA folds JAX's ``psum`` into its gradient
   all-reduce;
+* one feature shard a rank, the op pads its own slice to a multiple of 8
+  columns, where JAX pads the whole width to ``8 * pf`` and cuts it (so a
+  narrow width's padding falls in JAX's last shards, in every shard here):
+  the values a column are the same;
 * one process holds every shard on one card, so no time it gives is a
   multi-card figure; nor is one of several processes on one card (gloo).
 
@@ -101,8 +118,8 @@ weighted SpMM's all-gather of the same features) returns the first one's
 result, as XLA merges the repeats in the compiled JAX step, so both move
 the same bytes; ``comm_stats.step_collective_bytes`` counts them.
 
-What is left of the JAX layer (ROADMAP.md, Queue 1 item 8c): the feature
-axis across processes, and a multi-card run over NCCL.
+What is left of the JAX layer (ROADMAP.md, Queue 1 item 8c-iv): a
+multi-card run over NCCL.
 """
 
 from __future__ import annotations
@@ -312,9 +329,20 @@ class DistributedTiledGraph:
         self.device = mesh.device
         self.pg, self.pf = mesh.n_graph, mesh.n_feature
         # The graph shards this process holds (all of them in one process),
-        # and their count: shard grids and device metadata are over these.
+        # and their count: shard grids and device metadata are over these;
+        # and of each, the feature shards it holds (every one, or one where
+        # the ranks split the feature axis) and their count.
         self.shards = mesh.graph_shards
         self.lg = len(self.shards)
+        self.fshards = mesh.feature_shards
+        self.lf = len(self.fshards)
+        # The dense side's resharding hooks (``models/layers.py``,
+        # ``models/nets.py``), where the process holds one feature shard of
+        # several; None where it holds the whole width.
+        one_of_several = self.lf < self.pf
+        self.feature_dot = self._feature_dot if one_of_several else None
+        self.gather_features = self._gather_features if one_of_several else None
+        self.count_once = self._count_once if one_of_several else None
         self.config = config
         self.num_nodes = int(num_nodes)
         self.num_edges = int(len(column_index))
@@ -517,7 +545,14 @@ class DistributedTiledGraph:
 
     @property
     def route(self) -> str:
-        """The trainer's route line."""
+        """The trainer's route line; where the ranks split the feature axis,
+        its layout (``ranks=WgxF``) at the end."""
+        if self.lf == self.pf:
+            return self._route
+        return f"{self._route} ranks={self.mesh.graph_world}x{self.mesh.feature_world}"
+
+    @property
+    def _route(self) -> str:
         if self.block_diag:
             f, t = self._fwd, self._bwd
             agnn = ("none" if self.agnn_aggregate is None
@@ -546,6 +581,13 @@ class DistributedTiledGraph:
         multiple of ``FEATURE_TILE * pf`` (JAX's ``d_tile``)."""
         return _round_up(max(d, 1), FEATURE_TILE * self.pf)
 
+    def node_cols(self, d: int) -> tuple:
+        """For a node tensor of ``d`` columns on this process: the width of
+        the global tensor it is a block of, and its columns there (every
+        column where the process holds every feature shard)."""
+        width = d * self.pf // self.lf
+        return width, slice(self.fshards.start * d // self.lf, self.fshards.stop * d // self.lf)
+
     def _rows(self, v) -> torch.Tensor:
         """This process's rows (``node_rows``) of a per-node array of up to
         ``padded_nodes`` rows, zero padded, on the mesh's device."""
@@ -557,11 +599,16 @@ class DistributedTiledGraph:
 
     def shard_features(self, x) -> torch.Tensor:
         """``[N, D]`` features padded to ``[padded_nodes,
-        feature_width(D)]``: this process's rows (``node_rows``), on the
-        mesh's device."""
+        feature_width(D)]``: this process's rows (``node_rows``) and columns
+        (its feature shards' slices), on the mesh's device."""
         x = self._rows(x)
         d = x.shape[1]
-        return torch.nn.functional.pad(x, (0, self.feature_width(d) - d))
+        width = self.feature_width(d)
+        x = torch.nn.functional.pad(x, (0, width - d))
+        if self.lf == self.pf:
+            return x
+        dl = width // self.pf
+        return x[:, self.fshards.start * dl:self.fshards.stop * dl].contiguous()
 
     def shard_nodes(self, v) -> torch.Tensor:
         """A per-node vector (labels, masks, norms) padded with zeros to
@@ -686,27 +733,31 @@ class DistributedTiledGraph:
         return self._memo[k][1]
 
     def _pad_d(self, x: torch.Tensor) -> torch.Tensor:
-        """Pad the feature dim to a multiple of ``8 * pf``: every feature
-        shard gets an equal slice."""
+        """Pad the feature dim to a multiple of ``8 * lf``: every feature
+        shard of the process gets an equal slice.  Where the process holds
+        one feature shard, its own slice is padded to a multiple of 8 (in
+        one process the padding of the whole width falls in the last
+        shards): the values a column are the same."""
         d = x.shape[1]
-        d_pad = _round_up(max(d, 1), 8 * self.pf)
+        d_pad = _round_up(max(d, 1), 8 * self.lf)
         if d_pad == d:
             return x
         return self._shared("pad", x, lambda: torch.nn.functional.pad(x, (0, d_pad - d)))
 
     def _grid(self, x: torch.Tensor):
-        """This process's ``[local_nodes, D]`` rows -> shard views
-        ``grid[g][f]``, ``g`` over its graph shards."""
+        """This process's ``[local_nodes, D]`` block -> shard views
+        ``grid[g][f]``, ``g`` over its graph shards, ``f`` over its feature
+        shards."""
         if x.shape[0] != self.local_nodes:
             raise ValueError(f"node features of {x.shape[0]} rows, expected {self.local_nodes}")
-        rps, dl = self.rows_per_shard, x.shape[1] // self.pf
-        return [[x[g * rps:(g + 1) * rps, f * dl:(f + 1) * dl] for f in range(self.pf)]
+        rps, dl = self.rows_per_shard, x.shape[1] // self.lf
+        return [[x[g * rps:(g + 1) * rps, f * dl:(f + 1) * dl] for f in range(self.lf)]
                 for g in range(self.lg)]
 
     def _edge_grid(self, w: torch.Tensor):
         """``[lg * edge_capacity]`` -> shard g's slice, the same for every f."""
         e = self.edge_capacity
-        return [[w[g * e:(g + 1) * e]] * self.pf for g in range(self.lg)]
+        return [[w[g * e:(g + 1) * e]] * self.lf for g in range(self.lg)]
 
     @staticmethod
     def _assemble(grid) -> torch.Tensor:
@@ -714,7 +765,7 @@ class DistributedTiledGraph:
 
     def _map(self, fn, *grids):
         """``fn(g, *shard_tensors)`` on every shard."""
-        return [[fn(g, *(gr[g][f] for gr in grids)) for f in range(self.pf)]
+        return [[fn(g, *(gr[g][f] for gr in grids)) for f in range(self.lf)]
                 for g in range(self.lg)]
 
     # ---- collective steps ---------------------------------------------------
@@ -732,7 +783,7 @@ class DistributedTiledGraph:
             send = self._map(lambda g, x: x.index_select(0, dn.send_idx[g][pos:pos + size]), grid)
             recv = C.ppermute(send, pairs, "graph", self.mesh)
             for g in range(self.lg):
-                for f in range(self.pf):
+                for f in range(self.lf):
                     segs[g][f].append(recv[g][f])
         return self._map(lambda g, s: torch.cat(s), segs)
 
@@ -852,7 +903,7 @@ class DistributedTiledGraph:
 
         s = self._map(scores, xa_grid, xb_ext)
         if self.pf > 1:
-            s = C.psum(s, "feature")
+            s = C.psum(s, "feature", self.mesh)
         return torch.cat([s[g][0] for g in range(self.lg)])
 
     def _sddmm(self, xa, xb) -> torch.Tensor:
@@ -881,7 +932,7 @@ class DistributedTiledGraph:
         wide = xa[0][0].shape[1] > 128
         s = self._map(lambda g, a, b: sddmm_tc_tiles(
             a, streams[g].meta, b, out_dtype=torch.float32 if wide else ct), xa, xb)
-        s = C.psum(self._map(lambda g, t: t.float(), s), "feature")
+        s = C.psum(self._map(lambda g, t: t.float(), s), "feature", self.mesh)
         return self._map(lambda g, t: t.to(ct), s)
 
     def _fused(self, x_ext, s, streams):
@@ -956,10 +1007,11 @@ class DistributedTiledGraph:
 
     def _dc_sum(self, dc):
         """The attention gradient's partial dots summed over ``graph`` and
-        ``feature``.  Over processes the ``graph`` sum stays within the rank
-        (its shards): the training step's gradient all-reduce finishes it,
-        as XLA folds JAX's into that all-reduce, so no rank sums another's
-        part twice.  It counts as one ``all_reduce``, as in one process."""
+        ``feature``.  Over processes both sums stay within the rank (its
+        graph and feature shards): the training step's gradient all-reduce
+        finishes them, as XLA folds JAX's into that all-reduce, so no rank
+        sums another's part twice.  Each counts as one ``all_reduce``, as in
+        one process."""
         dc = C.psum(dc, "graph")
         return C.psum(dc, "feature") if self.pf > 1 else dc
 
@@ -1025,7 +1077,7 @@ class DistributedTiledGraph:
         order); per shard g, ``[cells_g]``."""
         dn, ct = self._fwd, self.config.compute_dtype
         part = self._map(lambda g, a, b: sddmm_tc_dense(a, dn.shards[g].cells, b), a_ext, b_ext)
-        total = C.psum(part, "feature")
+        total = C.psum(part, "feature", self.mesh)
         return [dn.shards[g].cell_cnt.to(ct) * total[g][0].to(ct) for g in range(self.lg)]
 
     def _cell_pack(self, g, vals):
@@ -1087,6 +1139,54 @@ class DistributedTiledGraph:
                                                    uu.float().reshape(-1)), dgrid, u)
         dc = self._dc_sum(dc)
         return self._assemble(dx), dc[0][0]
+
+    # ---- the dense side over feature ranks -------------------------------------
+    def _cols_grid(self, x: torch.Tensor):
+        """``[local_nodes, d]`` -> one member a graph shard, ``[rps, d]``."""
+        rps = self.rows_per_shard
+        return [[x[g * rps:(g + 1) * rps]] for g in range(self.lg)]
+
+    def _all_gather_cols(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's ``[local_nodes, d / pf]`` columns -> the whole
+        ``[local_nodes, d]``, by one all-gather over ``feature``."""
+        rps, dl, pf = self.rows_per_shard, x.shape[1], self.pf
+        full = C.all_gather(self._cols_grid(x), "feature", self.mesh)
+        return torch.cat([full[g][0].view(pf, rps, dl).transpose(0, 1).reshape(rps, pf * dl)
+                          for g in range(self.lg)])
+
+    def _reduce_scatter_cols(self, y: torch.Tensor) -> torch.Tensor:
+        """Partial ``[local_nodes, d]`` sums, one a feature rank -> this
+        process's columns of their sum, ``[local_nodes, d / pf]``, by one
+        reduce-scatter over ``feature``."""
+        rps, pf = self.rows_per_shard, self.pf
+        dl = y.shape[1] // pf
+        grid = [[m.reshape(rps, pf, dl).transpose(0, 1).reshape(pf * rps, dl)]
+                for (m,) in self._cols_grid(y)]
+        out = C.psum_scatter(grid, "feature", self.mesh)
+        return torch.cat([out[g][0] for g in range(self.lg)])
+
+    def _feature_dot(self, x: torch.Tensor, w: torch.Tensor, ct: torch.dtype) -> torch.Tensor:
+        """The column-parallel ``x @ w`` of a feature-sharded ``x``: ``x``
+        all-gathered over ``feature`` (its backward a reduce-scatter of the
+        partial ``dy @ w_f^T``) times this rank's columns of ``w``, in the
+        compute dtype; ``w``'s gradient is nonzero in those columns only, and
+        the training step's all-reduce sums it over the ranks."""
+        _, cols = self.node_cols(w.shape[1] // self.pf)
+        return torch.matmul(_DGatherCols.apply(x, self, True).to(ct), w[:, cols].to(ct))
+
+    def _gather_features(self, x: torch.Tensor) -> torch.Tensor:
+        """A feature-sharded ``x`` (the logits) all-gathered over
+        ``feature``: every feature rank then computes the same values from
+        it, so its backward keeps this rank's columns of the (equal)
+        gradients and sums nothing."""
+        return _DGatherCols.apply(x, self, False)
+
+    def _count_once(self, p: torch.Tensor) -> torch.Tensor:
+        """``p`` (a parameter) as used in work every feature rank repeats
+        whole (the attention weights over all-reduced edge scores): its
+        gradient counts on feature rank 0 only, so the training step's
+        all-reduce sums it once."""
+        return _DCountOnce.apply(p, self.mesh.feature_rank == 0)
 
     # ---- the public ops (autograd) ------------------------------------------
     def spmm(self, x: torch.Tensor) -> torch.Tensor:
@@ -1176,6 +1276,39 @@ class _DAGNNAggregate(torch.autograd.Function):
         dx = (att_w.mean().to(dx.dtype) * dx[:, :d]).to(x.dtype)
         datt = (dc / att_w.numel()).to(att_w.dtype).expand(att_w.shape).clone()
         return dx, datt, None
+
+
+class _DGatherCols(torch.autograd.Function):
+    """All-gather of a feature-sharded ``x`` over ``feature``.  Backward,
+    ``reduce``: the gradients are partial sums (each rank's product took
+    its own columns), reduce-scattered; else they are equal on every
+    feature rank, and each keeps its own columns."""
+
+    @staticmethod
+    def forward(ctx, x, graph, reduce):
+        ctx.graph, ctx.reduce = graph, reduce
+        return graph._all_gather_cols(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        g = ctx.graph
+        if ctx.reduce:
+            return g._reduce_scatter_cols(dy.contiguous()), None, None
+        _, cols = g.node_cols(dy.shape[1] // g.pf)
+        return dy[:, cols].contiguous(), None, None
+
+
+class _DCountOnce(torch.autograd.Function):
+    """Identity; backward keeps the gradient where ``keep``, else zeros."""
+
+    @staticmethod
+    def forward(ctx, p, keep):
+        ctx.keep = keep
+        return p.view_as(p)
+
+    @staticmethod
+    def backward(ctx, dp):
+        return (dp if ctx.keep else torch.zeros_like(dp)), None
 
 
 def distributed_graph_from_dataset(ds, mesh=None, config: TileConfig = DEFAULT_CONFIG,

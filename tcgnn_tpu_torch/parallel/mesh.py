@@ -15,13 +15,25 @@ idiom is one process a device, which also spans hosts.
 * One process (``world == 1``): every shard of the grid lives on one device,
   and the collectives between shards are copies between shard views there
   (``parallel/collectives.py``).
-* ``world`` processes split the graph axis: rank r holds graph shards
-  ``[r * n_graph / world, (r + 1) * n_graph / world)`` with every feature
-  shard of them (``Mesh.graph_shards``).  Feature-axis collectives stay
-  copies inside a rank; graph-axis ones between ranks go through
-  ``torch.distributed``.  Each rank holds the whole parameters, and the
-  training step all-reduces their gradients (``parallel/train.py``).  The
-  feature axis across ranks is a later step (ROADMAP.md, Queue 1 item 8c).
+* ``world`` processes take the grid in one of two layouts:
+
+  - ``world`` divides ``n_graph``: the ranks split the graph axis.  Rank r
+    holds graph shards ``[r * n_graph / world, (r + 1) * n_graph / world)``
+    with every feature shard of them; feature-axis collectives stay copies
+    inside a rank.
+  - else, where ``world = Wg * n_feature`` and ``Wg`` divides ``n_graph``:
+    rank ``r = rg * n_feature + f`` holds feature shard ``f`` of graph
+    shards ``[rg * n_graph / Wg, (rg + 1) * n_graph / Wg)`` (JAX's own
+    layout at ``world = n_graph * n_feature``: one device a shard).  Ranks
+    are feature-minor, so a feature group sits on adjacent ranks.
+
+  Graph-axis collectives run within a *graph group* (the ranks of one
+  feature index), feature-axis ones within a *feature group* (the ranks of
+  one graph block): subgroups every rank creates with ``dist.new_group``, in
+  the same order.  Each rank holds the whole parameters, and the training
+  step all-reduces their gradients (``parallel/train.py``).  One process
+  given several devices raises (``MULTI_CARD``): the multi-card run over
+  NCCL is ROADMAP.md, Queue 1 item 8c-iv.
 
 The backend is NCCL for CUDA and gloo for the CPU.  gloo on CUDA tensors
 (two ranks on one card, where NCCL refuses to run) is taken where it is asked
@@ -45,16 +57,20 @@ import torch.distributed as dist
 
 MULTI_CARD = (
     "one process drives one card: run one process a card under torchrun "
-    "(torchrun --nproc_per_node N -m tcgnn_tpu_torch.train ... --mesh GxF); "
-    "the feature axis across cards is not ported yet (ROADMAP.md, Queue 1 item 8c)"
+    "(torchrun --nproc_per_node N -m tcgnn_tpu_torch.train ... --mesh GxF; N divides G, or "
+    "N = Wg * F with Wg dividing G); see ROADMAP.md, Queue 1 item 8c"
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A ``[n_graph, n_feature]`` grid of shards.  This process (``rank`` of
-    ``world``) holds graph shards ``graph_shards`` on ``device``;
-    ``local_world`` ranks share a host."""
+    ``world``) holds graph shards ``graph_shards`` and, of each, feature
+    shards ``feature_shards`` on ``device``; ``local_world`` ranks share a
+    host.  ``feature_world`` is 1 where a rank holds every feature shard,
+    else ``n_feature`` (one feature shard a rank); ``graph_group`` and
+    ``feature_group`` are the subgroups its graph-axis and feature-axis
+    collectives run in (None: the default group, or no other rank)."""
 
     n_graph: int
     n_feature: int
@@ -63,6 +79,9 @@ class Mesh:
     world: int = 1
     backend: Optional[str] = None
     local_world: int = 1
+    feature_world: int = 1
+    graph_group: object = dataclasses.field(default=None, compare=False, repr=False)
+    feature_group: object = dataclasses.field(default=None, compare=False, repr=False)
 
     axis_names = ("graph", "feature")
 
@@ -75,10 +94,39 @@ class Mesh:
         return self.n_graph * self.n_feature
 
     @property
+    def graph_world(self) -> int:
+        """Ranks along the graph axis (the size of a graph group)."""
+        return self.world // self.feature_world
+
+    @property
+    def graph_rank(self) -> int:
+        """This rank's place in its graph group: its block of graph shards."""
+        return self.rank // self.feature_world
+
+    @property
+    def feature_rank(self) -> int:
+        """This rank's place in its feature group (0 where it holds every
+        feature shard)."""
+        return self.rank % self.feature_world
+
+    @property
     def graph_shards(self) -> range:
         """The graph shards this rank holds: a contiguous range."""
-        per = self.n_graph // self.world
-        return range(self.rank * per, (self.rank + 1) * per)
+        per = self.n_graph // self.graph_world
+        return range(self.graph_rank * per, (self.graph_rank + 1) * per)
+
+    @property
+    def feature_shards(self) -> range:
+        """The feature shards this rank holds of each of its graph shards."""
+        if self.feature_world == 1:
+            return range(self.n_feature)
+        return range(self.feature_rank, self.feature_rank + 1)
+
+    def peer(self, axis: str, k: int) -> int:
+        """The global rank of member ``k`` of this rank's ``axis`` group."""
+        if axis == "graph":
+            return k * self.feature_world + self.feature_rank
+        return self.graph_rank * self.feature_world + k
 
     @property
     def host(self) -> int:
@@ -89,6 +137,14 @@ class Mesh:
         """gloo moves CPU tensors only (apart from broadcast and all-reduce):
         on a card, each transfer goes through host memory."""
         return self.world > 1 and self.backend == "gloo" and self.device.type == "cuda"
+
+
+def _subgroup(ranks: list, world: int):
+    """The process group of ``ranks``: None (the default group) for the
+    whole world, else a new group.  Every rank calls this for every group,
+    with the same lists in the same order, as ``dist.new_group`` asks; a
+    group that cannot form raises."""
+    return None if len(ranks) == world else dist.new_group(list(ranks))
 
 
 def init_process_group(device="cuda", backend: Optional[str] = None,
@@ -133,10 +189,12 @@ def make_mesh(n_graph: int = 1, n_feature: int = 1, device="cuda",
     """A ``('graph', 'feature')`` grid of ``n_graph x n_feature`` shards.
 
     Where ``torch.distributed``'s group is initialized, the grid spans its
-    ranks (``world`` must divide ``n_graph``) and ``device`` is this rank's
-    (``init_process_group``'s); else every shard lives on ``device``.  A
-    list of devices naming more than one raises: one process drives one
-    card."""
+    ranks and ``device`` is this rank's (``init_process_group``'s): the
+    graph axis split over them where ``world`` divides ``n_graph``, else one
+    feature shard a rank where ``world = Wg * n_feature`` and ``Wg`` divides
+    ``n_graph``; any other world raises ``ValueError``.  Without a group
+    every shard lives on ``device``.  A list of devices naming more than
+    one raises: one process drives one card."""
     if n_graph < 1 or n_feature < 1:
         raise ValueError(f"mesh {n_graph}x{n_feature}: both sizes must be >= 1")
     if isinstance(device, (list, tuple)):
@@ -150,14 +208,25 @@ def make_mesh(n_graph: int = 1, n_feature: int = 1, device="cuda",
     if not (dist.is_available() and dist.is_initialized()):
         return Mesh(int(n_graph), int(n_feature), device)
     rank, world = dist.get_rank(), dist.get_world_size()
-    if n_graph % world:
+    if n_graph % world == 0:
+        fw = 1
+    elif world % n_feature == 0 and n_graph % (world // n_feature) == 0:
+        fw = n_feature
+    else:
         raise ValueError(f"mesh {n_graph}x{n_feature} over {world} processes: the process "
-                         "count must divide the graph axis")
+                         "count must divide the graph axis, or be a multiple of the feature "
+                         "axis whose quotient divides the graph axis")
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     local_world = local_world or int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    wg = world // fw
+    # Every rank makes every group, graph groups first, in rank order.
+    graph_groups = [_subgroup([rg * fw + f for rg in range(wg)], world) if wg > 1 else None
+                    for f in range(fw)]
+    feature_groups = [_subgroup([rg * fw + f for f in range(fw)], world) if fw > 1 else None
+                      for rg in range(wg)]
     return Mesh(int(n_graph), int(n_feature), device, rank, world, dist.get_backend(),
-                local_world)
+                local_world, fw, graph_groups[rank % fw], feature_groups[rank // fw])
 
 
 def make_mesh_two_level(n_hosts: int, chips_per_host: int, n_feature: int = 1,
@@ -170,7 +239,9 @@ def make_mesh_two_level(n_hosts: int, chips_per_host: int, n_feature: int = 1,
 
     Over processes the ranks are ``n_hosts`` hosts of ``world / n_hosts``
     ranks, rank-major within a host, so rank r (host ``r // local_world``)
-    holds shards of its host only.  In one process every shard lives on
+    holds shards of its host only; where a rank holds one feature shard,
+    ``local_world`` must be a multiple of ``n_feature``, so that a feature
+    group stays on one host.  In one process every shard lives on
     ``device``."""
     if dist.is_available() and dist.is_initialized():
         world = dist.get_world_size()
@@ -181,5 +252,9 @@ def make_mesh_two_level(n_hosts: int, chips_per_host: int, n_feature: int = 1,
         if env is not None and int(env) != local_world:
             raise ValueError(f"LOCAL_WORLD_SIZE={env}, but {world} processes over {n_hosts} "
                              f"hosts make {local_world} a host")
-        return make_mesh(n_hosts * chips_per_host, n_feature, device, local_world)
+        mesh = make_mesh(n_hosts * chips_per_host, n_feature, device, local_world)
+        if local_world % mesh.feature_world:
+            raise ValueError(f"{local_world} processes a host do not hold whole feature groups "
+                             f"of {mesh.feature_world}")
+        return mesh
     return make_mesh(n_hosts * chips_per_host, n_feature, device)

@@ -10,7 +10,12 @@ rank's loss is its rows' NLL sum over the global node count, and after the
 backward one ``all_reduce`` sums every parameter's gradient and the loss,
 flattened into one bucket (``collectives.all_reduce_bucket``, JAX's one
 gradient all-reduce, which also carries its loss), so every rank steps Adam
-identically.  Padding conventions, as in JAX:
+identically.  Where the ranks split the feature axis, the ranks of one
+graph block hold the same rows' loss (the logits are all-gathered over
+``feature`` first): feature rank 0 alone puts it in the bucket, so it
+counts once, and every gradient a rank holds is its part (column-parallel
+products, ``DistributedTiledGraph.feature_dot``).  Padding conventions, as
+in JAX:
 
 * the NLL is summed over real nodes and divided by their count;
 * hidden and class widths are rounded up to a multiple of the ``feature``
@@ -112,6 +117,8 @@ def make_distributed_train_step(
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
                 loss = loss.reshape(1)
+                if mesh.feature_rank:  # the feature group's loss counts once
+                    loss = torch.zeros_like(loss)
                 C.all_reduce_bucket([p.grad for p in params] + [loss], mesh)
                 loss = loss[0]
         optimizer.step()

@@ -15,7 +15,9 @@ host prep's stages (``Prep stages (ms):``).
 
 ``--single_kernel`` trains nothing: it times chained rounds of the graph's
 SpMM and SDDMM (``profile_sag``, the reference's single-kernel mode) on any
-route, the mesh's included.  ``--save_params`` / ``--load_params`` write and
+route, the mesh's included, over processes too (each rank times its shards'
+rounds, whose collectives cross ranks as a step's do; rank 0 prints the
+slowest rank's).  ``--save_params`` / ``--load_params`` write and
 read the parameters (one device and the mesh); ``--checkpoint_dir`` /
 ``--checkpoint_every`` / ``--resume`` checkpoint the training state and
 resume from the newest snapshot (one device, as in the JAX CLI).
@@ -28,13 +30,15 @@ route and its layout (the block streams, the block-diagonal offsets, or
 the streamed route's segments); ``block_group`` is 1, as the mesh's split
 needs.  Under ``torchrun`` (``WORLD_SIZE > 1``) the trainer joins the
 process group (``parallel.mesh.init_process_group``; ``--dist_backend``,
-default NCCL on a card and gloo on the CPU) and the processes split the
-mesh's graph axis, one a card (``--device cuda`` takes ``LOCAL_RANK``'s;
-``--device cuda:0`` puts every rank on card 0, which only gloo allows).
-Rank 0 prints the output lines; ``Acc`` counts are all-reduced; ``Train
-(ms)`` is rank 0's after a barrier, so it covers the slowest rank;
-``--save_params`` is written by rank 0 and ``--load_params`` read by every
-rank.  ``--single_kernel`` over processes raises.
+default NCCL on a card and gloo on the CPU) and the processes take the
+mesh, one a card (``--device cuda`` takes ``LOCAL_RANK``'s; ``--device
+cuda:0`` puts every rank on card 0, which only gloo allows): they split
+its graph axis where their count divides G, else each holds one feature
+shard of a block of graph shards (N = Wg x F ranks, Wg dividing G; the
+``Route:`` line ends in ``ranks=WgxF``).  Rank 0 prints the output lines;
+``Acc`` counts are all-reduced, each graph block's once; ``Train (ms)`` is
+rank 0's after a barrier, so it covers the slowest rank; ``--save_params``
+is written by rank 0 and ``--load_params`` read by every rank.
 
 Run:  python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --model gcn
       python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --mesh 4x2
@@ -46,6 +50,8 @@ Run:  python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --m
       python -m tcgnn_tpu_torch.train --dataset reddit --dim 602 --classes 41 --mesh 4x1
       torchrun --nproc_per_node 4 -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 \
           --classes 3 --mesh 4x1
+      torchrun --nproc_per_node 4 -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 \
+          --classes 3 --model agnn --hidden 32 --mesh 2x2
       python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --single_kernel
       python -m tcgnn_tpu_torch.train --dataset pubmed --dim 500 --classes 3 --epochs 200 \
           --checkpoint_dir ckpt/ --checkpoint_every 50 [--resume]
@@ -256,7 +262,9 @@ def profile_sag(graph, x: torch.Tensor, num_rounds: int = SAG_ROUNDS) -> tuple:
     """The reference's single-kernel mode (``gnn_conv.py:179-189``): chained
     rounds of the graph's SpMM, each taking the previous output, then of its
     SDDMM, no gradient.  Returns ``(seconds a round, stats)``, the stats
-    with the JAX ``profile_sag``'s keys.
+    with the JAX ``profile_sag``'s keys.  On a mesh over processes each rank
+    times its shards' rounds, and the slowest rank's times (each the largest
+    over the ranks) are the ones reported; ``d`` is the global width.
 
     "SAG profiling avg" is the device time a round (``profiling.device_ms``
     over ``num_rounds`` chained rounds) on the card, the host clock on the
@@ -305,8 +313,13 @@ def profile_sag(graph, x: torch.Tensor, num_rounds: int = SAG_ROUNDS) -> tuple:
         sync()
         pipelined = (time.perf_counter() - start) / chain_rounds
         sddmm_s = per_round(sddmm_round, max(num_rounds // 2, 4))
+    mesh = getattr(graph, "mesh", None)
+    if mesh is not None and mesh.world > 1:
+        from tcgnn_tpu_torch.parallel.collectives import all_reduce_max
 
-    d = x.shape[1]
+        kernel_s, pipelined, sddmm_s = all_reduce_max([kernel_s, pipelined, sddmm_s], mesh)
+
+    d = graph.node_cols(x.shape[1])[0] if hasattr(graph, "node_cols") else x.shape[1]
     print("=> SAG profiling avg (ms): {:.3f}".format(kernel_s * 1e3))
     print("=> SAG dispatch-chained avg (ms): {:.3f}".format(pipelined * 1e3))
     stats = profiling.kernel_report(graph.num_edges, graph.exp_edges, d, kernel_s)
@@ -353,9 +366,6 @@ def train_distributed(args, ds, cfg, device, sync) -> dict:
     ng, nf = (int(v) for v in args.mesh.lower().split("x"))
     mesh = make_mesh(ng, nf, device)
     if mesh.world > 1:
-        if args.single_kernel:
-            raise NotImplementedError("--single_kernel over processes is not ported yet "
-                                      "(ROADMAP.md, Queue 1 item 8c-iii)")
         one = sync
 
         def sync():
@@ -399,6 +409,8 @@ def train_distributed(args, ds, cfg, device, sync) -> dict:
                 m = graph.shard_nodes(m_host).bool()
                 counts = torch.stack([(pred[m] == y[m]).sum(), m.sum()]).double()
                 if mesh.world > 1:
+                    if mesh.feature_rank:  # each graph block's rows count once
+                        counts.zero_()
                     collectives.all_reduce_bucket([counts], mesh)
                 print("Acc {}:\t{:.4f}".format(split, float(counts[0] / counts[1])))
     if mesh.rank == 0:

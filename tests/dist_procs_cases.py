@@ -3,8 +3,10 @@ process group and, for the one-process references, in the test's own
 process.  This module imports no JAX: the ranks start from it.
 
 ``run_rank`` is a rank's whole run: it joins the group over a ``file://``
-store, runs every case on its graph shards and writes a dict of numpy
-results to ``out_dir/rank<r>.pt``.
+store, runs every case on its shards and writes a dict of numpy results to
+``out_dir/rank<r>.pt``.  Two layouts: the graph axis split over the ranks
+(``--mesh 4xF``), and one feature shard a rank (``SPLIT``: W = 2 takes
+``1x2``, W = 4 takes ``2x2``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from tcgnn_tpu_torch import train
 from tcgnn_tpu_torch.config import TileConfig
+from tcgnn_tpu_torch.bench import measure_comm
 from tcgnn_tpu_torch.data import coo_to_csr, powerlaw_graph, synthesize
 from tcgnn_tpu_torch.data.synthetic import component_union_graph
 from tcgnn_tpu_torch.models import GNN
@@ -42,14 +45,28 @@ OPS = ("spmm", "spmm_weighted", "sddmm", "agnn_aggregate")
 TRAIN_N, TRAIN_DIM, CLASSES, HIDDEN, STEPS = 240, 20, 5, 8, 3
 # Count cases: tests/test_torch_comm_stats.py's graph and widths.
 COMM_DIM, COMM_CLASSES, COMM_HIDDEN = 16, 4, 8
+# The feature-split layout's mesh a world size (W = Wg * F, Wg divides G,
+# W does not), and the hand-built grid of its collectives case: its shape
+# (W = 4: two graph blocks of 3 shards), its members' rows, its graph-axis
+# ppermute pairs (within a rank's block and across).
+SPLIT = {2: (1, 2), 4: (2, 2)}
+SPLIT_GRID = {2: ((3, 2), 12, [(0, 1), (1, 2), (2, 0)]),
+              4: ((6, 2), 12, [(0, 1), (2, 3), (1, 4), (5, 0)])}
+GRID_4X2 = ((4, 2), 8, [(0, 1), (1, 2), (3, 0)])
+# --single_kernel's chained rounds in these cases.
+SAG_ROUNDS = 4
+SMALL = ["--dataset", "rand_300_1200", "--dim", "8", "--classes", "3", "--device", "cpu"]
+MEASURE_COMM = ["--datasets", "rand_4000_32000", "--shards", "4", "--device", "cpu"]
 
 
-def mega_csr(n=400, seed=11):
-    """A symmetric sparse graph with one dense row window at the front:
-    the split stream in both directions on a 4-shard mesh."""
+def mega_csr(n=400, seed=11, hub_rows=16, hub_deg=160, avg_deg=4):
+    """A symmetric sparse graph with dense row windows at the front (one by
+    default): the split stream in both directions on a 4-shard mesh; with
+    three windows of rows of 400 draws and degree 1 elsewhere, on a 2-shard
+    mesh too."""
     rng = np.random.default_rng(seed)
-    deg = rng.poisson(4, n).clip(0, n - 1)
-    deg[:16] = 160
+    deg = rng.poisson(avg_deg, n).clip(0, n - 1)
+    deg[:hub_rows] = hub_deg
     cols = [np.unique(rng.integers(0, n, d)) for d in deg]
     rows = np.repeat(np.arange(n), [len(c) for c in cols])
     cols = np.concatenate(cols)
@@ -81,12 +98,18 @@ ROUTES = {
     "chunk": (random_csr, 430, CFG, dict(dense_tiles=False), "streamed=False block_diag=False"),
 }
 OP_CASES = [(route, f) for route in ROUTES for f in (1, 2)]
+# One feature shard a rank: the dense route's graph splits its stream over
+# 2 graph shards (2x2).
+SPLIT_ROUTES = dict(ROUTES, dense=(lambda: mega_csr(hub_rows=48, hub_deg=400, avg_deg=1), 400,
+                                   CFG, {}, "split bwd=split"))
 
 
-def op_graph(route: str, f: int) -> DistributedTiledGraph:
-    make, n, cfg, kw, _ = ROUTES[route]
+def op_graph(route: str, f: int, shape=None) -> DistributedTiledGraph:
+    """The route's graph on a 4 x f mesh, or its ``SPLIT_ROUTES`` graph on a
+    mesh of ``shape``."""
+    make, n, cfg, kw, _ = (ROUTES if shape is None else SPLIT_ROUTES)[route]
     ptr, idx = make()
-    return DistributedTiledGraph(ptr, idx, n, make_mesh(4, f, "cpu"), cfg, **kw)
+    return DistributedTiledGraph(ptr, idx, n, make_mesh(*(shape or (4, f)), "cpu"), cfg, **kw)
 
 
 def op_inputs(route: str, f: int, e: int):
@@ -101,11 +124,13 @@ def op_inputs(route: str, f: int, e: int):
 
 
 def run_ops(g: DistributedTiledGraph, x, w, wv, att) -> dict:
-    """Each op's forward on this process's rows and every gradient of a
+    """Each op's forward on this process's block and every gradient of a
     scalar summed over its real rows (or its edges): node arrays as this
-    process's ``[local_nodes, ...]`` rows, edge arrays in CSR order (its
-    shards' edges), the attention gradient as this process's part."""
-    xs = g.shard_nodes(x)
+    process's ``[local_nodes, ...]`` rows and its columns (``node_cols``),
+    edge arrays in CSR order (its shards' edges), the attention gradient as
+    this process's part."""
+    _, cols = g.node_cols(x.shape[1] * g.lf // g.pf)
+    xs = g.shard_nodes(x)[:, cols].contiguous()
     ws, wvs = g.edge_weights_to_sharded(w), g.edge_weights_to_sharded(wv)
     real = g.valid_node_mask()[:, None]
     out = {}
@@ -130,28 +155,34 @@ def run_ops(g: DistributedTiledGraph, x, w, wv, att) -> dict:
     return out
 
 
-def run_collectives(mesh) -> tuple:
-    """Every collective over a hand-built 4x2 grid of ``[8, 3]`` members
-    (this process's graph rows of it), along both axes: the outputs (numpy,
-    this process's rows) and the recorder's counts."""
+def run_collectives(mesh, grid_case=GRID_4X2) -> tuple:
+    """Every collective over a hand-built grid (``grid_case``: its shape,
+    its members' rows of 3 columns, its graph-axis ppermute pairs; this
+    process's block of it), along both axes: the outputs (numpy, this
+    process's block) and the recorder's counts."""
+    (ng, nf), rows, pairs = grid_case
     rng = np.random.default_rng(5)
-    full = [[torch.from_numpy(rng.standard_normal((8, 3)).astype(np.float32)) for _ in range(2)]
-            for _ in range(4)]
-    rows = mesh.graph_shards if mesh is not None else range(4)
-    grid = [full[g] for g in rows]
+    full = [[torch.from_numpy(rng.standard_normal((rows, 3)).astype(np.float32))
+             for _ in range(nf)] for _ in range(ng)]
+    gs = mesh.graph_shards if mesh is not None else range(ng)
+    fs = mesh.feature_shards if mesh is not None else range(nf)
+    grid = [[full[g][f] for f in fs] for g in gs]
     calls = {
         "all_gather graph": lambda: collectives.all_gather(grid, "graph", mesh),
         "all_gather feature": lambda: collectives.all_gather(grid, "feature", mesh),
-        # 0 -> 1 stays on a rank of two shards, 1 -> 2 and 3 -> 0 cross.
-        "ppermute graph": lambda: collectives.ppermute(grid, [(0, 1), (1, 2), (3, 0)], "graph",
-                                                       mesh),
+        # 4x2 over 2 ranks: 0 -> 1 stays on a rank of two shards, 1 -> 2 and
+        # 3 -> 0 cross.
+        "ppermute graph": lambda: collectives.ppermute(grid, pairs, "graph", mesh),
         "ppermute feature": lambda: collectives.ppermute(grid, [(1, 0)], "feature", mesh),
         "all_to_all graph": lambda: collectives.all_to_all(grid, "graph", mesh),
+        "all_to_all feature": lambda: collectives.all_to_all(grid, "feature", mesh),
         "psum graph": lambda: collectives.psum(grid, "graph", mesh),
         "psum feature": lambda: collectives.psum(grid, "feature", mesh),
+        "psum_scatter graph": lambda: collectives.psum_scatter(grid, "graph", mesh),
+        "psum_scatter feature": lambda: collectives.psum_scatter(grid, "feature", mesh),
     }
     out = {}
-    with collectives.recording(Recorder(num_devices=8)) as rec:
+    with collectives.recording(Recorder(num_devices=ng * nf)) as rec:
         for name, call in calls.items():
             out[name] = [[t.numpy().copy() for t in row] for row in call()]
     return out, rec.stats
@@ -167,23 +198,25 @@ def train_inputs() -> tuple:
     return ptr, idx, x, y
 
 
-def train_graph(f: int) -> tuple:
-    """The training cases' graph on a 4 x f mesh, its features and labels."""
+def train_graph(shape) -> tuple:
+    """The training cases' graph on a mesh of ``shape``, its features and
+    labels."""
     ptr, idx, x, y = train_inputs()
-    return DistributedTiledGraph(ptr, idx, TRAIN_N, make_mesh(4, f, "cpu"), CFG), x, y
+    return DistributedTiledGraph(ptr, idx, TRAIN_N, make_mesh(*shape, "cpu"), CFG), x, y
 
 
-def train_steps(kind: str, f: int, params=None, dropout: float = 0.0) -> dict:
-    """``STEPS`` Adam steps of the mesh step: from ``params`` (JAX's, numpy)
-    or, without them, ``init_distributed_net``'s draws; returns the losses
-    and the parameters after the steps."""
-    g, x, y = train_graph(f)
+def train_steps(kind: str, shape, params=None, dropout: float = 0.0) -> dict:
+    """``STEPS`` Adam steps of the mesh step on a mesh of ``shape``: from
+    ``params`` (JAX's, numpy) or, without them, ``init_distributed_net``'s
+    draws; returns the losses and the parameters after the steps."""
+    g, x, y = train_graph(shape)
     xs = g.shard_features(x)
     if params is None:
         net, _, _ = init_distributed_net(torch.Generator().manual_seed(7), kind, TRAIN_DIM,
                                          HIDDEN, CLASSES, 2, g)
     else:
-        net = GNN(kind, [xs.shape[1]] + [p["weights"].shape[1] for p in params], device="cpu")
+        net = GNN(kind, [g.feature_width(TRAIN_DIM)] + [p["weights"].shape[1] for p in params],
+                  device="cpu")
         net.params_from_jax(params)
     step = make_distributed_train_step(
         g, net, xs, g.shard_nodes(y), torch.optim.Adam(net.parameters(), lr=0.01),
@@ -193,12 +226,58 @@ def train_steps(kind: str, f: int, params=None, dropout: float = 0.0) -> dict:
     return {"losses": losses, "params": [p.detach().numpy().copy() for p in net.parameters()]}
 
 
-def comm_counts(kind: str) -> dict:
+class GradRecorder:
+    """An optimizer that steps nothing: it keeps the gradients each step
+    leaves (the training step's, all-reduced over the ranks)."""
+
+    def __init__(self, params):
+        self.params, self.grads = list(params), None
+
+    def zero_grad(self, set_to_none=True):
+        for p in self.params:
+            p.grad = None
+
+    def step(self):
+        self.grads = [p.grad.detach().numpy().copy() for p in self.params]
+
+
+# Gradient cases: (model, graph). The training graph takes the fused AGNN;
+# the directed one the per-edge AGNN, whose attention weights meet the
+# all-reduced edge scores (``count_once``).
+GRAD_CASES = [("gcn", "train"), ("agnn", "train"), ("agnn", "directed")]
+
+
+def step_grads(kind: str, graph: str, shape) -> dict:
+    """One training step's loss and gradients (dropout on, every parameter
+    drawn by ``init_distributed_net``) on a mesh of ``shape``: the
+    training graph, or ``random_csr``'s directed one with the training
+    widths."""
+    if graph == "train":
+        g, x, y = train_graph(shape)
+    else:
+        ptr, idx = random_csr()
+        n = len(ptr) - 1
+        g = DistributedTiledGraph(ptr, idx, n, make_mesh(*shape, "cpu"), CFG)
+        rng = np.random.default_rng(6)
+        x = rng.standard_normal((n, TRAIN_DIM)).astype(np.float32)
+        y = rng.integers(0, CLASSES, n).astype(np.int64)
+    net, _, _ = init_distributed_net(torch.Generator().manual_seed(7), kind, TRAIN_DIM, HIDDEN,
+                                     CLASSES, 2, g)
+    opt = GradRecorder(net.parameters())
+    step = make_distributed_train_step(g, net, g.shard_features(x), g.shard_nodes(y), opt,
+                                       dropout_rate=0.5, num_valid_classes=CLASSES,
+                                       generator=torch.Generator().manual_seed(11))
+    loss = float(step())
+    return {"loss": loss, "grads": opt.grads, "agnn": g.agnn_aggregate is not None}
+
+
+def comm_counts(kind: str, shape=(4, 1)) -> dict:
     """The collective traffic of one hoist=False GCN or AGNN step on
-    ``rand_4000_32000`` over 4x1 (``tests/test_torch_comm_stats.py``'s row)."""
+    ``rand_4000_32000`` over 4x1 (``tests/test_torch_comm_stats.py``'s row)
+    or a mesh of ``shape``, with the padded widths and the rows a shard."""
     ds = synthesize("rand_4000_32000", COMM_DIM, COMM_CLASSES)
     n = ds.num_nodes
-    g = DistributedTiledGraph(ds.row_pointers, ds.column_index, n, make_mesh(4, 1, "cpu"),
+    g = DistributedTiledGraph(ds.row_pointers, ds.column_index, n, make_mesh(*shape, "cpu"),
                               COMM_CFG)
     rng = np.random.default_rng(0)
     x = g.shard_features(rng.standard_normal((n, COMM_DIM)).astype(np.float32))
@@ -207,9 +286,21 @@ def comm_counts(kind: str) -> dict:
                                      COMM_HIDDEN, COMM_CLASSES, 2, g)
     step = make_distributed_train_step(g, net, x, y, torch.optim.Adam(net.parameters(), lr=0.01),
                                        0.0, num_valid_classes=COMM_CLASSES, hoist=False)
-    stats = step_collective_bytes(step, num_devices=4)
+    stats = step_collective_bytes(step, num_devices=shape[0] * shape[1])
     stats["grad_bytes"] = sum(p.numel() * 4 for p in net.parameters())
+    stats["widths"] = [w.shape[0] for w in net.weights] + [net.weights[-1].shape[1]]
+    stats["rows_per_shard"] = g.rows_per_shard
     return stats
+
+
+def single_kernel(mesh_arg: str) -> dict:
+    """``train.main --single_kernel`` on ``SMALL`` over ``--mesh mesh_arg``,
+    ``SAG_ROUNDS`` rounds."""
+    rounds, train.SAG_ROUNDS = train.SAG_ROUNDS, SAG_ROUNDS
+    try:
+        return train.main([*SMALL, "--mesh", mesh_arg, "--single_kernel"])
+    finally:
+        train.SAG_ROUNDS = rounds
 
 
 def run_rank(rank: int, world: int, store: str, out_dir: str, jax_params: dict) -> None:
@@ -226,17 +317,52 @@ def run_rank(rank: int, world: int, store: str, out_dir: str, jax_params: dict) 
                                     int(g.host_fwd.edge_start[g.shards.stop]))
         res[("ops", route, f)] = run_ops(g, *op_inputs(route, f, g.num_edges))
     for kind, params in jax_params.items():
-        res[("jax_train", kind)] = train_steps(kind, 2, params)
-    res["dropout"] = train_steps("gcn", 2, dropout=0.5)
+        res[("jax_train", kind)] = train_steps(kind, (4, 2), params)
+    res["dropout"] = train_steps("gcn", (4, 2), dropout=0.5)
     for kind in ("gcn", "agnn"):
         res[("comm", kind)] = comm_counts(kind)
-    try:
-        make_mesh(3 * world // 2, 1, "cpu")
-    except ValueError as e:
-        res["indivisible"] = str(e)
-    small = ["--dataset", "rand_300_1200", "--dim", "8", "--classes", "3", "--device", "cpu"]
-    for name, argv in (("no_mesh", small), ("single_kernel", [*small, "--mesh", "4x1",
-                                                              "--single_kernel"])):
+    # One feature shard a rank.
+    shape = SPLIT[world]
+    mesh = make_mesh(*shape, "cpu")
+    res["split mesh"] = (tuple(mesh.graph_shards), tuple(mesh.feature_shards),
+                         mesh.graph_world, mesh.feature_world)
+    res["split collectives"] = run_collectives(make_mesh(*SPLIT_GRID[world][0], "cpu"),
+                                               SPLIT_GRID[world])
+    for route in ROUTES:
+        g = op_graph(route, 2, shape)
+        res[("split route", route)] = g.route
+        res[("split rows", route)] = (g.node_rows.start, g.node_rows.stop)
+        res[("split cols", route)] = g.node_cols(D // 2)
+        res[("split edges", route)] = (int(g.host_fwd.edge_start[g.shards.start]),
+                                       int(g.host_fwd.edge_start[g.shards.stop]))
+        res[("split ops", route)] = run_ops(g, *op_inputs(route, 2, g.num_edges))
+    for kind, params in jax_params.items():
+        res[("split jax_train", kind)] = train_steps(kind, shape, params)
+    res["split dropout"] = train_steps("gcn", shape, dropout=0.5)
+    for kind, graph in GRAD_CASES:
+        res[("split grads", kind, graph)] = step_grads(kind, graph, shape)
+    for kind in ("gcn", "agnn"):
+        res[("split comm", kind)] = comm_counts(kind, shape)
+    # --single_kernel (each layout) and measure_comm over the ranks.
+    for mesh_arg in ("4x1", f"{shape[0]}x{shape[1]}"):
+        r = single_kernel(mesh_arg)
+        res[("single_kernel", mesh_arg)] = {k: v for k, v in r.items()
+                                            if isinstance(v, float)}
+    out_csv = os.path.join(out_dir, f"comm_rank{rank}.csv")
+    rows = measure_comm.main([*MEASURE_COMM, "--out", out_csv])
+    res["measure_comm"] = (rows, open(out_csv).read() if os.path.exists(out_csv) else None)
+    # Refusals.
+    refusals = {"indivisible": lambda: make_mesh(3 * world // 2, 1, "cpu"),
+                "feature indivisible": lambda: make_mesh(1, 3, "cpu"),
+                "cli indivisible": lambda: train.main([*SMALL, "--mesh", "1x3"])}
+    if world == 4:  # 2 hosts of 2 ranks cannot hold feature groups of 4
+        refusals["two_level features"] = lambda: make_mesh_two_level(2, 1, 4, "cpu")
+    for name, call in refusals.items():
+        try:
+            call()
+        except ValueError as e:
+            res[name] = str(e)
+    for name, argv in (("no_mesh", SMALL),):
         try:
             train.main(argv)
         except (ValueError, NotImplementedError) as e:

@@ -1,6 +1,8 @@
-"""The mesh over several processes (``torch.distributed``, gloo on the CPU):
-the graph axis split across ranks, each rank holding its graph shards with
-every feature shard of them.
+"""The mesh over several processes (``torch.distributed``, gloo on the CPU)
+in its two layouts: the graph axis split across ranks, each rank holding its
+graph shards with every feature shard of them (``--mesh 4xF``); and one
+feature shard a rank (W = 2 over ``1x2``, W = 4 over ``2x2``: the
+column-parallel dense side, the feature-axis sums across ranks).
 
 One ``torch.multiprocessing.spawn`` a world size (W = 2 and W = 4, over a
 ``file://`` store in a temporary directory) runs every case of
@@ -8,7 +10,8 @@ One ``torch.multiprocessing.spawn`` a world size (W = 2 and W = 4, over a
 hold them to the one-process mesh (run here) and to JAX:
 
 * every collective on a hand-built 4x2 grid, along both axes: each rank's
-  members equal the one-process grid's, and the recorder's counts too;
+  members equal the one-process grid's, and the recorder's counts too; the
+  same on a grid one feature shard a rank (W = 2: 3x2, W = 4: 6x2);
 * on each route (dense tiles with the split stream, block-diagonal,
   streamed, chunk fallback) at F = 1 and 2 within a rank: ``spmm``,
   ``spmm_weighted``, ``sddmm`` and ``agnn_aggregate``, forward and every
@@ -25,9 +28,22 @@ hold them to the one-process mesh (run here) and to JAX:
   plus one ``all_reduce`` of the flattened gradients and the loss: 4,228 B
   for GCN and 4,236 B for AGNN on ``rand_4000_32000`` over 4x1, JAX's
   instance to the byte (ROADMAP.md, Queue 1);
-* a mesh whose ``n_graph`` the world does not divide raises, and so do
-  the trainer without ``--mesh`` and with ``--single_kernel``; a two-level
-  mesh puts a rank's shards on its host; the ranks load no JAX;
+* one feature shard a rank: on each route the four ops, forward and every
+  gradient, equal to the one-process mesh of the same shape, each rank's
+  node tensors ``D / F`` columns wide, the ranks' attention gradients (their
+  parts of ``dc``) summing to one process's; three Adam steps of GCN and
+  AGNN equal to JAX's 2x2 and 1x2 steps; dropout on equal to one process;
+  ``step_collective_bytes`` one process's plus the gradient bucket plus the
+  resharding collectives (the column-parallel products' all-gathers and
+  reduce-scatters, the logits' all-gather), reckoned from the widths;
+* ``--single_kernel`` over the ranks in both layouts (every rank reports
+  the slowest rank's times, with one process's keys), and
+  ``measure_comm`` over the ranks: rank 0 alone writes the CSV, whose rows
+  are one process's;
+* a mesh that fits neither layout raises (the library and the trainer),
+  and so do the trainer without ``--mesh`` and, at W = 4, a two-level mesh
+  whose hosts cannot hold a feature group; a two-level mesh puts a rank's
+  shards on its host; the ranks load no JAX;
 * the trainer under ``torchrun`` (2 processes, AGNN ``--mesh 4x2``, dropout
   on): rank 0's lines are the one-process mesh run's.
 """
@@ -51,6 +67,7 @@ from tcgnn_tpu.parallel import init_distributed_net as jax_init_distributed_net
 from tcgnn_tpu.parallel import make_distributed_train_step as jax_make_step
 from tcgnn_tpu.parallel import make_mesh as jax_make_mesh
 from tcgnn_tpu_torch import train as port_train
+from tcgnn_tpu_torch.bench import measure_comm as port_measure_comm
 from tcgnn_tpu_torch.parallel import make_mesh
 from tcgnn_tpu_torch.parallel.mesh import init_process_group
 
@@ -64,15 +81,28 @@ SPAWN_TIMEOUT_S = 240
 # JAX's one gradient all-reduce of the step (tests/test_torch_comm_stats.py,
 # rand_4000_32000 over 4x1): the gradients and the loss.
 JAX_ALL_REDUCE_BYTES = {"gcn": 4228, "agnn": 4236}
+# The meshes JAX's train step runs on: the graph-axis layout's (4x2), and
+# each world's feature-split one.
+JAX_MESHES = ((4, 2),) + tuple(cases.SPLIT[w] for w in WORLDS)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
 def jax_train():
-    """JAX's 4x2 mesh step on the training graph: its initial parameters
-    (numpy) and, after ``STEPS`` steps, its losses and parameters."""
+    """JAX's mesh step on the training graph, by mesh shape (``JAX_MESHES``)
+    and model: its initial parameters (numpy; the same on every mesh of two
+    feature shards) and, after ``STEPS`` steps, its losses and parameters."""
+    out = {shape: _jax_train(shape) for shape in JAX_MESHES}
+    for shape in JAX_MESHES[1:]:
+        for kind, r in out[shape].items():
+            for p, q in zip(r["init"], out[JAX_MESHES[0]][kind]["init"]):
+                assert all(np.array_equal(p[k], q[k]) for k in p)
+    return out
+
+
+def _jax_train(shape):
     ptr, idx, x, y = cases.train_inputs()
-    jg = JaxDistributedTiledGraph(ptr, idx, cases.TRAIN_N, jax_make_mesh(4, 2),
+    jg = JaxDistributedTiledGraph(ptr, idx, cases.TRAIN_N, jax_make_mesh(*shape),
                                   JaxTileConfig(blk_h=16, blk_w=16, edge_chunk=16))
     xs, ys = jg.shard_features(x), jg.shard_nodes(y.astype(np.int32))
     out = {}
@@ -113,26 +143,54 @@ def _spawn(world, root, jax_params):
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory, jax_train):
     """Every rank's results, by world size: one spawn each."""
-    params = {k: v["init"] for k, v in jax_train.items()}
+    params = {k: v["init"] for k, v in jax_train[JAX_MESHES[0]].items()}
     return {w: _spawn(w, str(tmp_path_factory.mktemp(f"w{w}")), params) for w in WORLDS}
 
 
 @pytest.fixture(scope="module")
-def one_process():
-    """The one-process mesh's results of the same cases."""
+def one_process(tmp_path_factory):
+    """The one-process mesh's results of the same cases, on one thread as
+    each rank runs (torch's threads would oversubscribe the cores the other
+    test workers share)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return _one_process(tmp_path_factory)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _one_process(tmp_path_factory):
     res = {}
     for route, f in cases.OP_CASES:
         g = cases.op_graph(route, f)
         res[("route", route, f)] = g.route
         res[("ops", route, f)] = cases.run_ops(g, *cases.op_inputs(route, f, g.num_edges))
-    res["dropout"] = cases.train_steps("gcn", 2, dropout=0.5)
+    res["dropout"] = cases.train_steps("gcn", (4, 2), dropout=0.5)
     for kind in ("gcn", "agnn"):
         res[("comm", kind)] = cases.comm_counts(kind)
+    for world in WORLDS:
+        shape = cases.SPLIT[world]
+        for route in cases.ROUTES:
+            g = cases.op_graph(route, 2, shape)
+            res[("split route", route, world)] = g.route
+            res[("split ops", route, world)] = cases.run_ops(
+                g, *cases.op_inputs(route, 2, g.num_edges))
+        res[("split dropout", world)] = cases.train_steps("gcn", shape, dropout=0.5)
+        for kind, graph in cases.GRAD_CASES:
+            res[("split grads", kind, graph, world)] = cases.step_grads(kind, graph, shape)
+        for kind in ("gcn", "agnn"):
+            res[("split comm", kind, world)] = cases.comm_counts(kind, shape)
+    res["single_kernel"] = cases.single_kernel("4x1")
+    out_csv = str(tmp_path_factory.mktemp("one") / "comm.csv")
+    res["measure_comm"] = (port_measure_comm.main([*cases.MEASURE_COMM, "--out", out_csv]),
+                           open(out_csv).read())
     return res
 
 
 COLLECTIVES = ("all_gather graph", "all_gather feature", "ppermute graph", "ppermute feature",
-               "all_to_all graph", "psum graph", "psum feature")
+               "all_to_all graph", "psum graph", "psum feature", "all_to_all feature",
+               "psum_scatter graph", "psum_scatter feature")
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -188,7 +246,7 @@ def test_op_matches_one_process(ranks, one_process, world, route, f, op):
 @pytest.mark.parametrize("world", WORLDS)
 @pytest.mark.parametrize("kind", ["gcn", "agnn"])
 def test_train_steps_match_jax(ranks, jax_train, world, kind):
-    want = jax_train[kind]
+    want = jax_train[JAX_MESHES[0]][kind]
     first = ranks[world][0][("jax_train", kind)]
     for r in ranks[world]:
         got = r[("jax_train", kind)]
@@ -223,19 +281,188 @@ def test_collectives_one_process_plus_the_gradient_all_reduce(ranks, one_process
 
 
 @pytest.mark.parametrize("world", WORLDS)
-def test_mesh_layout_over_ranks(ranks, world):
-    """A mesh the world does not divide raises, and so do the trainer
-    without ``--mesh`` and ``--single_kernel`` (ROADMAP item 8c-iii) in a
-    group; a two-level mesh of 2 hosts x 2 chips puts each rank's shards on
-    its host; no rank loads JAX."""
+def test_mesh_layout_over_ranks(ranks, one_process, world):
+    """A mesh that fits neither layout raises (in the library and the
+    trainer), and so does the trainer without ``--mesh`` in a group; at W =
+    4 so does a two-level mesh of 2 hosts that cannot hold a feature group
+    of 4; ``--single_kernel`` runs over the ranks (ROADMAP item 8c-iii);
+    a two-level mesh of 2 hosts x 2 chips puts each rank's shards on its
+    host; no rank loads JAX."""
+    want_keys = sorted(k for k, v in one_process["single_kernel"].items()
+                       if isinstance(v, float))
     for r in ranks[world]:
-        assert "process count must divide the graph axis" in r["indivisible"]
+        for name in ("indivisible", "feature indivisible", "cli indivisible"):
+            assert "process count must divide the graph axis" in r[name], name
+        if world == 4:
+            assert "feature groups of 4" in r["two_level features"]
         assert r["no_mesh"].startswith("ValueError") and "--mesh" in r["no_mesh"]
-        assert r["single_kernel"].startswith("NotImplementedError")
-        assert "8c-iii" in r["single_kernel"]
+        for mesh_arg in ("4x1", "x".join(map(str, cases.SPLIT[world]))):
+            got = r[("single_kernel", mesh_arg)]
+            assert sorted(got) == want_keys, mesh_arg
+            assert all(np.isfinite(v) and v > 0 for v in got.values()), (mesh_arg, got)
+            # Every rank reports the slowest rank's times.
+            assert got == ranks[world][0][("single_kernel", mesh_arg)], mesh_arg
         host, shard_hosts = r["two_level"]
         assert host == r["rank"] // (world // 2) and set(shard_hosts) == {host}
         assert r["jax_loaded"] == []
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_measure_comm_over_ranks(ranks, one_process, world):
+    """``measure_comm`` over the ranks: every rank's rows are one
+    process's, and rank 0 alone writes the CSV, one process's file."""
+    want_rows, want_csv = one_process["measure_comm"]
+    for r in ranks[world]:
+        rows, csv = r["measure_comm"]
+        assert rows == want_rows
+        assert csv == (want_csv if r["rank"] == 0 else None)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", COLLECTIVES)
+def test_split_collective_matches_one_process(ranks, world, name):
+    """Each collective on a grid of one feature shard a rank: every rank's
+    members equal the one-process grid's block of them, and the recorder
+    counts the same."""
+    grid_case = cases.SPLIT_GRID[world]
+    (ng, nf), _, _ = grid_case
+    want, want_stats = cases.run_collectives(None, grid_case)
+    per = ng // (world // nf)
+    for r in ranks[world]:
+        got, stats = r["split collectives"]
+        assert stats == want_stats
+        rg, f = divmod(r["rank"], nf)
+        for i, row in enumerate(got[name]):
+            assert len(row) == 1
+            np.testing.assert_allclose(row[0], want[name][rg * per + i][f], rtol=1e-6,
+                                       atol=1e-6, err_msg=f"rank {r['rank']} member "
+                                       f"({rg * per + i}, {f})")
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("route", list(cases.ROUTES))
+@pytest.mark.parametrize("op", cases.OPS)
+def test_split_op_matches_one_process(ranks, one_process, world, route, op):
+    """One feature shard a rank: each op's forward and gradients on the
+    rank's block equal the one-process mesh's of the same shape, the node
+    tensors ``D / F`` columns wide; the ranks' attention gradients (their
+    parts of ``dc``, over graph and feature) sum to one process's."""
+    ng, nf = cases.SPLIT[world]
+    want = one_process[("split ops", route, world)]
+    if op not in want:  # no fused AGNN on the streamed and chunk routes
+        assert route in ("streamed", "chunk")
+        assert all(op not in r[("split ops", route)] for r in ranks[world])
+        return
+    dl = cases.D // nf
+    att_grads = []
+    for r in ranks[world]:
+        assert r["split mesh"] == (tuple(range(r["rank"] // nf * ng // (world // nf),
+                                               (r["rank"] // nf + 1) * ng // (world // nf))),
+                                   (r["rank"] % nf,), world // nf, nf)
+        assert (r[("split route", route)] == one_process[("split route", route, world)]
+                + f" ranks={world // nf}x{nf}")
+        if ng > 1:
+            assert cases.SPLIT_ROUTES[route][4] in r[("split route", route)]
+        lo, hi = r[("split rows", route)]
+        elo, ehi = r[("split edges", route)]
+        width, cols = r[("split cols", route)]
+        f = r["rank"] % nf
+        assert (width, cols) == (cases.D, slice(f * dl, (f + 1) * dl))
+        got_fwd, got_grads = r[("split ops", route)][op]
+        want_fwd, want_grads = want[op]
+        if op == "sddmm":
+            np.testing.assert_allclose(got_fwd, want_fwd[elo:ehi], **FWD)
+        else:
+            assert got_fwd.shape == (hi - lo, dl)
+            np.testing.assert_allclose(got_fwd, want_fwd[lo:hi, cols], **FWD)
+        for i, (g, w) in enumerate(zip(got_grads, want_grads)):
+            if op == "agnn_aggregate" and i == 1:
+                att_grads.append(g)
+                continue
+            if i == 0:
+                assert g.shape == (hi - lo, dl)
+                w = w[lo:hi, cols]
+            else:
+                w = w[elo:ehi]
+            np.testing.assert_allclose(g, w, err_msg=f"rank {r['rank']} gradient {i}", **GRAD)
+    if op == "agnn_aggregate":
+        np.testing.assert_allclose(sum(att_grads), want[op][1][1], err_msg="attention", **GRAD)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("kind", ["gcn", "agnn"])
+def test_split_train_steps_match_jax(ranks, jax_train, world, kind):
+    """Three Adam steps one feature shard a rank equal JAX's steps on the
+    same mesh (W = 2: 1x2, W = 4: 2x2), every rank's parameters equal bit
+    for bit."""
+    want = jax_train[cases.SPLIT[world]][kind]
+    first = ranks[world][0][("split jax_train", kind)]
+    for r in ranks[world]:
+        got = r[("split jax_train", kind)]
+        np.testing.assert_allclose(got["losses"], want["losses"], **TRAIN)
+        for i, (p, q) in enumerate(zip(got["params"], want["params"])):
+            np.testing.assert_allclose(p, q, err_msg=f"parameter {i}", **TRAIN)
+        for p, q in zip(got["params"], first["params"]):
+            assert np.array_equal(p, q), "ranks stepped Adam differently"
+    assert want["losses"][-1] < want["losses"][0]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_split_dropout_matches_one_process(ranks, one_process, world):
+    want = one_process[("split dropout", world)]["losses"]
+    for r in ranks[world]:
+        np.testing.assert_allclose(r["split dropout"]["losses"], want, **TRAIN)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("kind,graph", cases.GRAD_CASES,
+                         ids=[f"{k}-{g}" for k, g in cases.GRAD_CASES])
+def test_split_gradients_match_one_process(ranks, one_process, world, kind, graph):
+    """One step's loss and every gradient (dropout on), all-reduced over
+    the ranks, equal the one-process mesh's: the loss and the attention
+    weights' gradient are counted once, every weight's columns summed from
+    the feature ranks' parts (Adam would hide a gradient scaled by F)."""
+    want = one_process[("split grads", kind, graph, world)]
+    assert want["agnn"] == (kind == "agnn" and graph == "train") or kind == "gcn"
+    for r in ranks[world]:
+        got = r[("split grads", kind, graph)]
+        np.testing.assert_allclose(got["loss"], want["loss"], **FWD)
+        for i, (p, q) in enumerate(zip(got["grads"], want["grads"])):
+            np.testing.assert_allclose(p, q, err_msg=f"rank {r['rank']} gradient {i}", **GRAD)
+
+
+def resharding(rows: int, widths, pf: int) -> dict:
+    """The resharding collectives of one hoist=False 2-layer GCN or AGNN
+    step, one feature shard a rank, by kind: ``{kind: (count, bytes)}``
+    (f32, one shard's ``rows``; ``widths``: input, hidden, classes, padded).
+    Layer 1 projects first (GCN: ``aggregate_first(256, 8)`` is false) and
+    its input needs no gradient: one all-gather of the input.  Layer 2's
+    product all-gathers the hidden width and its backward reduce-scatters
+    it.  The logits are all-gathered; their backward moves nothing."""
+    d_in, hidden, classes = widths
+    return {"all_gather": (3, rows * (d_in + hidden + classes) * 4),
+            "reduce_scatter": (1, rows * hidden // pf * 4)}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("kind", ["gcn", "agnn"])
+def test_split_collectives_one_process_plus_bucket_and_resharding(ranks, one_process, world,
+                                                                    kind):
+    want = one_process[("split comm", kind, world)]
+    bucket = want["grad_bytes"] + 4  # the gradients and the loss, f32
+    extra = resharding(want["rows_per_shard"], want["widths"], cases.SPLIT[world][1])
+    for r in ranks[world]:
+        got = r[("split comm", kind)]
+        assert got["widths"] == want["widths"] and got["rows_per_shard"] == want["rows_per_shard"]
+        for k in ("all_to_all", "collective_permute"):
+            assert got[k] == want[k], k
+        for k, (count, nbytes) in extra.items():
+            assert got[k] == {"count": want[k]["count"] + count,
+                              "bytes": want[k]["bytes"] + nbytes}, k
+        assert got["all_reduce"] == {"count": want["all_reduce"]["count"] + 1,
+                                     "bytes": want["all_reduce"]["bytes"] + bucket}
+        assert got["total_bytes"] == (want["total_bytes"] + bucket
+                                      + sum(b for _, b in extra.values()))
 
 
 def test_no_group_without_torchrun(monkeypatch):
