@@ -117,6 +117,23 @@ Phases, in order; any failure raises and exits nonzero:
      three rounds) beside its bound (``csr_bound``
      over the shard's edges, one f32 score read an edge) and
      ``torch.sparse.mm`` over the shard's CSR with the scores as values;
+ 13b. the halo-overlap split (``DistributedTiledGraph.use_overlap``: the
+     local and remote block classes), every shard on this one card: the
+     asymmetric graph over 2x1 with ``split=False`` (every dense op through
+     the classes, the weighted transpose too): ``spmm``, ``spmm_weighted``
+     and ``sddmm``, forward and every gradient, against the single-device
+     ``TiledGraph``'s (f32, d=32, ``rtol=atol=1e-4`` forward, ``1e-3``
+     gradients), K1 and K4 launched once a class a shard a pass and no
+     plain version; then the trainer, ``TRAIN_EPOCHS`` timed epochs,
+     ``--no_dropout``: soc-BlogCatalog GCN (``--dim 128 --classes 39``, no
+     hoist) over ``--mesh 2x1`` (both directions unsplit: every SpMM through
+     the classes, K1) and the asymmetric graph's AGNN over ``--mesh 2x1``
+     (its forward unsplit: the SDDMM and the forward weighted SpMM through
+     the classes, K1 and K4), each with ``use_overlap``, a falling loss, its
+     kernels and no others, no plain version, a first loss within
+     ``FIRST_LOSS_RTOL`` of the single-device run's, and its ``Train (ms)``,
+     ``max_memory_allocated`` and the device bytes of its classes beside
+     the unsplit streams';
  14. ``--single_kernel`` (``train.profile_sag``: chained SpMM rounds, then
      SDDMM rounds, device time a round) through the trainer on pubmed at
      512x128 (K1, K4), DD (K5, K1, K4) and pubmed on ``--mesh 4x2`` (K1,
@@ -205,15 +222,21 @@ Phases, in order; any failure raises and exits nonzero:
      width (K1, the split stream's ``all_to_all``, the halo's ``ppermute``),
      pubmed AGNN ``--mesh 4x1`` (K2/K3) and ``4x2`` (K4 tiles, K10), Yeast
      GCN and AGNN ``--mesh 4x1`` (K5, K6/K7, the rim ``ppermute``), reddit GCN
-     ``--mesh 4x1`` at its published widths (K8, the all-gather).  Each run's
-     first loss within ``FIRST_LOSS_RTOL`` and final loss within
-     ``FINAL_LOSS_RTOL`` of the one-process mesh run (phases 13, 17 and 18;
-     the pubmed 4x1 runs in this phase); every rank launches the one-process
-     run's kernels and no other, no plain version, and each kernel's
-     launches over the ranks sum to the one-process run's.  Each rank's
-     ``Train (ms)`` and ``torch.cuda.max_memory_allocated()`` are printed,
-     then one ``torchrun`` CLI run's (pubmed GCN ``--mesh 4x1``; on one card
-     a gloo-on-one-card figure, not a multi-card one);
+     ``--mesh 4x1`` at its published widths (K8, the all-gather), and phase
+     13b's soc-BlogCatalog GCN and asymmetric AGNN over ``--mesh 2x1`` (the
+     overlap classes, the local class enqueued while the halo's transfers
+     are in flight).  Each run's first loss within ``FIRST_LOSS_RTOL`` and
+     final loss within ``FINAL_LOSS_RTOL`` of the one-process mesh run
+     (phases 13, 13b, 17 and 18; the pubmed 4x1 runs in this phase); every
+     rank launches the one-process run's kernels and no other, no plain
+     version, and each kernel's launches over the ranks sum to the
+     one-process run's.  Each rank's ``Train (ms)`` and
+     ``torch.cuda.max_memory_allocated()`` are printed; then the overlap
+     evidence: rank 0's ``torch.profiler`` trace of a few soc-BlogCatalog
+     steps, the host's time waiting on the exchanges a step and the device
+     time of K1 inside those waits (the local class's), compared with
+     nothing; then one ``torchrun`` CLI run's (pubmed GCN ``--mesh 4x1``; on
+     one card a gloo-on-one-card figure, not a multi-card one);
  22. the feature axis over processes, one feature shard a rank (the
      column-parallel dense side, the feature-axis sums across ranks), over
      gloo on this one card unless the machine has a card a rank (then
@@ -221,8 +244,10 @@ Phases, in order; any failure raises and exits nonzero:
      shards) train pubmed GCN (K1), pubmed AGNN (K4 tiles, K10) and Yeast
      AGNN (K4 cell scores, K5), 2 ranks over ``--mesh 1x2`` reddit AGNN at
      its published widths (K8, K9), each with ``--no_dropout`` and
-     ``TRAIN_EPOCHS`` timed epochs, held to the one-process mesh run of the
-     same shape (phase 17's Yeast run; the others run in this phase) as
+     ``TRAIN_EPOCHS`` timed epochs (reddit ``REDDIT_SPLIT_EPOCHS``), held
+     to the one-process mesh run of the same shape (phase 17's Yeast run;
+     the others run in this phase; pubmed over two graph shards is unsplit
+     after the balance, so its GCN's SpMMs take the overlap classes) as
      phase 21 holds its runs (losses, kernels, launches summed over the
      ranks); each rank's ``Train (ms)``, ``max_memory_allocated``, peak host
      RSS and launches are printed.  The 2 ranks then run ``--single_kernel``
@@ -232,8 +257,8 @@ Phases, in order; any failure raises and exits nonzero:
      ``results/comm_measured.csv``); then one ``torchrun`` CLI run of pubmed
      AGNN ``--mesh 2x2`` over 4 processes.
 
-The kernels line's launches are summed over every run of phases 11, 13, 14,
-15, 16, 17, 18, 19, 20, 21 and 22 (every rank's), each read with the counts
+The kernels line's launches are summed over every run of phases 11, 13, 13b,
+14, 15, 16, 17, 18, 19, 20, 21 and 22 (every rank's), each read with the counts
 set to 0 just before it.  Every bound
 is ``tcgnn_tpu_torch.bench.roofline_bound``'s ``csr_bound``.
 
@@ -1435,7 +1460,7 @@ def phase_mesh_kernels(ds, dev, card) -> tuple[dict, dict]:
     if sp is None or g.host_bwd.split is None:
         raise AssertionError("pubmed 4x2: expected the split stream in both directions")
     print(f"pubmed 4x2: {g.route}; split stream {sp.streams[0].meta.num_blocks} blocks a shard "
-          f"(unsplit {g._fwd.streams[0].meta.num_blocks}), guest_cap {sp.guest_cap}, "
+          f"(unsplit capacity {g.host_fwd.a_tiles.shape[1]}), guest_cap {sp.guest_cap}, "
           f"pair_cap {sp.pair_cap}, halo rows {g.host_fwd.halo['halo_rows']}")
     for i, st in enumerate(sp.streams):
         a = st.tiles
@@ -1548,6 +1573,194 @@ def phase_mesh_train(dev, card) -> tuple[list, dict]:
         results.append((label, r))
         torch.cuda.empty_cache()
     return results, launches
+
+
+# ---- the halo-overlap split (phase 13b) -------------------------------------------
+
+# soc-BlogCatalog at its AE row's widths: both directions unsplit over 2x1,
+# so every SpMM takes the overlap classes.
+SOC = ["--dataset", "soc-BlogCatalog", "--dim", "128", "--classes", "39"]
+# The op check's width (AGNN's hidden width) and the kernels each op's
+# forward and backward launch on a 2x1 mesh with both directions unsplit: K1
+# once a class a shard in each SpMM pass, K4 once a class a shard in each
+# SDDMM.
+OVERLAP_D = 32
+OVERLAP_OPS = {"spmm": {"K1": 8}, "spmm_weighted": {"K1": 8, "K4": 4},
+               "sddmm": {"K1": 8, "K4": 4}}
+# Timed epochs of rank 0's traced soc-BlogCatalog run (after the trainer's
+# 9 warm-ups).
+OVERLAP_TRACE_EPOCHS = 3
+HALO_WAIT = "halo exchange wait"
+
+
+def overlap_runs(data_dir) -> list:
+    """The overlap split's trainer runs (one process in phase 13b, two
+    ranks in phase 21), ``--no_dropout``, ``TRAIN_EPOCHS``: label,
+    arguments, kernels, each direction's split, the single-device
+    arguments its first loss is held to.  soc-BlogCatalog GCN without hoist
+    (every SpMM through the classes) and the asymmetric graph's AGNN
+    (``data_dir``; its forward unsplit: the SDDMM and the forward weighted
+    SpMM through the classes, the transpose's split stream)."""
+    gcn = [*SOC, *MESH_GCN, "--no_hoist"]
+    agnn = ["--data_dir", data_dir, "--dataset", "asymmetric", "--dim", "64", *MESH_AGNN]
+    return [("soc-BlogCatalog gcn --mesh 2x1 --no_hoist", [*gcn, "--mesh", "2x1"], ("K1",),
+             (False, False), gcn),
+            ("asymmetric agnn --mesh 2x1", [*agnn, "--mesh", "2x1"], ("K1", "K4"),
+             (False, True), agnn)]
+
+
+def class_bytes(g) -> tuple[int, int]:
+    """The device bytes of the overlap classes (tiles and window and edge
+    arrays, both directions) and of the unsplit streams beside them (the
+    forward's, where the fused AGNN reads them)."""
+    def size(st):
+        m = st.meta
+        arrays = [st.tiles, m.col_ids, m.block_window, m.win_start, m.run_window, m.run_block,
+                  m.edge_pos, m.edge_rows, m.edge_cols] + ([st.edges] if st.edges is not None
+                                                            else [])
+        return sum(a.numel() * a.element_size() for a in arrays)
+
+    dirs = (g._fwd, g._bwd)
+    return (sum(size(st) for dn in dirs for st in dn.local + dn.remote),
+            sum(size(st) for dn in dirs for st in dn.streams))
+
+
+def phase_overlap_ops(dev) -> None:
+    """Phase 13b, ops: the asymmetric graph over a 2x1 mesh on the card with
+    ``split=False``, so every dense op takes the overlap classes, the
+    weighted transpose too: ``spmm``, ``spmm_weighted`` and ``sddmm``,
+    forward and every gradient, against the single-device ``TiledGraph``'s
+    (f32, d=32, ``MESH_FWD`` and ``MESH_GRAD``); each op launches K1 (K4)
+    once a class a shard in every pass (``OVERLAP_OPS``) and no plain
+    version."""
+    n, rp, ci = asymmetric_graph()
+    e = len(ci)
+    x, w = randn((n, OVERLAP_D), 190, dev) * 0.3, randn((e,), 191, dev)
+    cot = {op: randn((e,) if op == "sddmm" else (n, OVERLAP_D), 192, dev) for op in OVERLAP_OPS}
+    one = TiledGraph(rp, ci, n, device=dev)
+    want = {op: mesh_op(one, op, x, w, None, cot[op], False) for op in OVERLAP_OPS}
+    del one
+    g = DistributedTiledGraph(rp, ci, n, mesh=make_mesh(2, 1, dev), split=False)
+    if not (g.use_overlap and g.host_fwd.split is None and g.host_bwd.split is None):
+        raise AssertionError(f"asymmetric 2x1 split=False: {g.route}, use_overlap "
+                             f"{g.use_overlap}")
+    for op, expected in OVERLAP_OPS.items():
+        reset_counts()
+        got = mesh_op(g, op, x, w, None, cot[op], True)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check_launches(f"asymmetric 2x1 overlap {op}", counts, tuple(expected))
+        if any(counts[k][0] != c for k, c in expected.items()):
+            raise AssertionError(f"asymmetric 2x1 overlap {op}: launches {counts}, expected "
+                                 f"{expected} (once a class a shard a pass)")
+        for part, a in got.items():
+            b = want[op][part]
+            compare(f"asymmetric 2x1 overlap {op} {part} vs one device", a, b, b.abs(),
+                    MESH_FWD if part == "out" else MESH_GRAD)
+        print(f"  asymmetric 2x1 overlap {op}: "
+              + "  ".join(f"{k} launches {counts[k][0]}" for k in expected))
+    local, unsplit = class_bytes(g)
+    print(f"asymmetric 2x1 split=False: {g.route}; classes {local / 2**20:.2f} MiB beside the "
+          f"unsplit streams' {unsplit / 2**20:.2f} MiB")
+    del g
+    torch.cuda.empty_cache()
+
+
+def phase_overlap_train(data_dir, dev, card) -> tuple[list, dict]:
+    """Phase 13b, the path: ``overlap_runs`` through the trainer in one
+    process, every count set to 0 just before each run and read just after:
+    ``use_overlap``, each direction's split as expected, a falling loss, its
+    kernels and no others, no plain version, and a first loss within
+    ``FIRST_LOSS_RTOL`` of the single-device run's; its ``Train (ms)``,
+    ``max_memory_allocated`` and the device bytes of its classes beside the
+    unsplit streams'.  Returns the runs (with their counts: phase 21 holds
+    its ranks to them) and each kernel's launches summed over them."""
+    results, launches = [], {k: 0 for k in KERNELS}
+    for label, argv, expected, split, single_argv in overlap_runs(data_dir):
+        print(f"--- train.main {' '.join(argv)}")
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        r = run_main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), "--no_dropout", *argv])
+        counts = r["counts"] = launch_counts()
+        r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        r["seconds"] = time.perf_counter() - t0
+        g = r.pop("graph")
+        local, unsplit = class_bytes(g)
+        print(f"  {r['route']}  first loss {r['first_loss']:.6f}  final loss "
+              f"{r['final_loss']:.6f}  Train (ms) {r['train_ms']:.3f}  max_memory_allocated "
+              f"{r['max_memory_allocated'] / 2**30:.2f} GiB, of which the classes "
+              f"{local / 2**30:.3f} GiB (the unsplit streams {unsplit / 2**30:.3f} GiB)  "
+              + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}" for k, c in counts.items()
+                          if c[0] or c[1]) + f"  (card: {card})")
+        if not (g.use_overlap and "overlap=True" in r["route"] and r["split"] == split):
+            raise AssertionError(f"{label}: {r['route']}, use_overlap {g.use_overlap}, split "
+                                 f"{r['split']}; expected the classes and split {split}")
+        del g
+        if not (math.isfinite(r["final_loss"]) and r["final_loss"] < r["first_loss"]):
+            raise AssertionError(f"{label}: loss did not fall ({r['first_loss']} -> "
+                                 f"{r['final_loss']})")
+        check_launches(label, counts, expected)
+        for k, c in counts.items():
+            launches[k] += c[0]
+        torch.cuda.empty_cache()
+        single = run_main(["--device", "cuda", "--epochs", "1", "--no_dropout", *single_argv])
+        rel = abs(r["first_loss"] - single["first_loss"]) / abs(single["first_loss"])
+        print(f"  first loss {r['first_loss']:.6f} vs one device {single['first_loss']:.6f}: "
+              f"relative difference {rel:.3e} (rtol {FIRST_LOSS_RTOL})")
+        if not rel <= FIRST_LOSS_RTOL:
+            raise AssertionError(f"{label}: first loss {r['first_loss']} vs one device "
+                                 f"{single['first_loss']}")
+        del single
+        results.append((label, r))
+        torch.cuda.empty_cache()
+    return results, launches
+
+
+def overlap_trace(device, argv, out_dir, rank) -> dict:
+    """A rank's soc-BlogCatalog run with ``OVERLAP_TRACE_EPOCHS`` timed
+    epochs under ``torch.profiler`` (rank 0 traces, ``--profile_dir``), a
+    ``record_function`` range around each wait on an exchange (the
+    outermost ``collectives.Started.wait``).  Rank 0 reads its trace: the
+    host's time in those waits a step, and the device time of K1 inside
+    them (the local class's: the remote class is enqueued after the wait)
+    and in all a step."""
+    from tcgnn_tpu_torch.parallel import collectives
+
+    prof_dir = os.path.join(out_dir, f"trace_rank{rank}")
+    wait, depth = collectives.Started.wait, [0]
+
+    def ranged(self):
+        if depth[0]:
+            return wait(self)
+        depth[0] += 1
+        try:
+            with torch.profiler.record_function(HALO_WAIT):
+                return wait(self)
+        finally:
+            depth[0] -= 1
+
+    collectives.Started.wait = ranged
+    try:
+        r = train.main(["--device", str(device), "--epochs", str(OVERLAP_TRACE_EPOCHS),
+                        "--no_dropout", "--profile_dir", prof_dir, *argv])
+    finally:
+        collectives.Started.wait = wait
+    out = {"route": r["route"], "final_loss": r["final_loss"]}
+    if rank:
+        return out
+    with open(os.path.join(prof_dir, "trace.json")) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    waits = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"] == HALO_WAIT]
+    k1 = [(e["ts"], e["ts"] + e["dur"]) for e in events
+          if e.get("cat") == "kernel" and "spmm_dense_kernel" in e["name"]]
+    inside = sum(max(0.0, min(b, wb) - max(a, wa)) for a, b in k1 for wa, wb in waits)
+    steps = OVERLAP_TRACE_EPOCHS
+    out.update(waits=len(waits) / steps, wait_ms=sum(b - a for a, b in waits) / 1e3 / steps,
+               k1_in_wait_ms=inside / 1e3 / steps, k1_ms=sum(b - a for a, b in k1) / 1e3 / steps,
+               k1_calls=len(k1) / steps)
+    return out
 
 
 # The keys ``train.main([..., "--single_kernel"])`` returns: the JAX CLI's.
@@ -2409,8 +2622,9 @@ def mesh_rank(rank, world, store, backend, device, out_dir, tasks=None) -> None:
     argv)``: ``train`` runs ``train.main`` with ``--no_dropout`` and
     ``TRAIN_EPOCHS`` timed epochs (losses, ``Train (ms)``, peak device
     memory and host RSS), ``single_kernel`` runs it with ``--single_kernel``
-    (the stats), ``measure_comm`` runs ``measure_comm.main`` (the rows).
-    Without ``tasks``, ``PROC_RUNS``' trainer runs."""
+    (the stats), ``measure_comm`` runs ``measure_comm.main`` (the rows),
+    ``overlap_trace`` runs ``overlap_trace`` (rank 0's figures).  Without
+    ``tasks``, ``PROC_RUNS``' trainer runs."""
     from tcgnn_tpu_torch.parallel.mesh import init_process_group
 
     device = init_process_group(device.format(rank=rank), backend=backend,
@@ -2430,6 +2644,8 @@ def mesh_rank(rank, world, store, backend, device, out_dir, tasks=None) -> None:
                                                 "--out", out_csv])}
             elif kind == "single_kernel":
                 r = {"stats": train.main(["--device", str(device), *argv, "--single_kernel"])}
+            elif kind == "overlap_trace":
+                r = overlap_trace(device, argv, out_dir, rank)
             else:
                 r = train.main(["--device", str(device), "--epochs", str(TRAIN_EPOCHS),
                                 "--no_dropout", *argv])
@@ -2509,38 +2725,64 @@ def torchrun_train_ms(backend, device, card, nproc=MESH_RANKS,
     return r
 
 
-def phase_mesh_procs(earlier, dev, card) -> tuple[list, dict]:
+def phase_mesh_procs(earlier, dev, card, data_dir) -> tuple[list, dict, dict]:
     """Phase 21: the mesh over processes.  ``MESH_RANKS`` ranks split each
     run's graph axis: over NCCL one rank a card where the machine has as
     many cards, else over gloo on this one card, every transfer staged
-    through host memory.  Each rank runs ``PROC_RUNS`` through
-    ``train.main`` (``--no_dropout``, ``TRAIN_EPOCHS`` timed epochs): each
-    run's first loss within ``FIRST_LOSS_RTOL`` and final loss within
-    ``FINAL_LOSS_RTOL`` of the one-process mesh run (``earlier``: phases 13,
-    17 and 18, by label; the pubmed 4x1 runs here), every rank's launches of
-    the expected kernels and no other, no plain call, and each kernel's
-    launches summed over the ranks equal to the one-process run's (each
-    shard's on its own rank).  Then one ``torchrun`` CLI run.  Returns the
-    runs and each kernel's launches summed over every rank's runs."""
+    through host memory.  Each rank runs ``PROC_RUNS`` and phase 13b's
+    ``overlap_runs`` (``data_dir``) through ``train.main`` (``--no_dropout``,
+    ``TRAIN_EPOCHS`` timed epochs): each run's first loss within
+    ``FIRST_LOSS_RTOL`` and final loss within ``FINAL_LOSS_RTOL`` of the
+    one-process mesh run (``earlier``: phases 13, 13b, 17 and 18, by label;
+    the pubmed 4x1 runs here), every rank's launches of the expected
+    kernels and no other, no plain call, and each kernel's launches summed
+    over the ranks equal to the one-process run's (each shard's on its own
+    rank); then ``overlap_trace`` of the soc-BlogCatalog run (rank 0's
+    figures printed).  Then one ``torchrun`` CLI run.  Returns the runs,
+    each kernel's launches summed over every rank's runs and rank 0's
+    trace figures."""
     backend, device = rank_backend(MESH_RANKS)
     refs = dict(earlier)
     for label, argv, expected, source in PROC_RUNS:
         if source == "21":
             one_process_run(label, argv, expected, refs, card)
+    specs = PROC_RUNS + [(label, argv, expected, label)
+                         for label, argv, expected, _, _ in overlap_runs(data_dir)]
+    tasks = [("train", label, argv) for label, argv, _, _ in specs]
+    trace_label, trace_argv = f"{specs[len(PROC_RUNS)][0]} traced", specs[len(PROC_RUNS)][1]
+    tasks.append(("overlap_trace", trace_label, trace_argv))
     t1 = time.perf_counter()
-    ranks = spawn_ranks(MESH_RANKS, backend, device, 900)
-    print(f"  {MESH_RANKS} ranks ran {len(PROC_RUNS)} runs in {time.perf_counter() - t1:.1f} s")
+    ranks = spawn_ranks(MESH_RANKS, backend, device, 900, tasks)
+    print(f"  {MESH_RANKS} ranks ran {len(tasks)} tasks in {time.perf_counter() - t1:.1f} s")
     launches = {k: 0 for k in KERNELS}
-    runs = check_rank_runs(PROC_RUNS, ranks, refs, card, launches, backend)
+    runs = check_rank_runs(specs, ranks, refs, card, launches, backend)
+    per_rank = [rk[len(specs)] for rk in ranks]
+    for rank, r in enumerate(per_rank):
+        check_launches(f"{trace_label} rank {rank}", r["counts"], ("K1",))
+        for k in KERNELS:
+            launches[k] += r["counts"][k][0]
+    trace = per_rank[0]
+    if not trace["waits"] > 0:
+        raise AssertionError(f"{trace_label}: rank 0's trace holds no wait on an exchange")
+    print(f"  {trace_label}, rank 0 of {MESH_RANKS} ({backend}), {OVERLAP_TRACE_EPOCHS} steps "
+          f"under torch.profiler: {trace['waits']:.0f} exchange waits a step, the host waits "
+          f"{trace['wait_ms']:.3f} ms a step; K1 {trace['k1_ms']:.3f} ms a step on the device "
+          f"({trace['k1_calls']:.0f} calls), {trace['k1_in_wait_ms']:.3f} ms of it inside the "
+          f"waits (the local class's)  (card: {card})")
     cli = torchrun_train_ms(backend, device.format(rank=0) if backend == "gloo" else "cuda", card)
     want = refs["pubmed gcn --mesh 4x1"]["final_loss"]
     if not abs(cli["final_loss"] - want) <= FINAL_LOSS_RTOL * abs(want):
         raise AssertionError(f"torchrun final loss {cli['final_loss']} vs one process {want}")
-    return runs + [("torchrun pubmed gcn --mesh 4x1", cli, None)], launches
+    return runs + [("torchrun pubmed gcn --mesh 4x1", cli, None)], launches, trace
 
 
 # ---- the feature axis over processes (phase 22) ----------------------------------
 
+# Timed epochs of phase 22's reddit AGNN 1x2 (after the 9 warm-ups; its
+# argument comes after ``TRAIN_EPOCHS``' and wins): at about 5 s an epoch
+# over gloo on one card it is the phase's long pole, cut to keep the smoke
+# within its time.
+REDDIT_SPLIT_EPOCHS = 3
 # Phase 22's trainer runs, one feature shard a rank: label, trainer
 # arguments (all --no_dropout, TRAIN_EPOCHS), kernels each rank must launch,
 # and where the one-process mesh run it is held to comes from (phase 17's
@@ -2552,7 +2794,8 @@ SPLIT_RUNS = {
         ("pubmed agnn --mesh 2x2", [*PUBMED, *MESH_AGNN, "--mesh", "2x2"], ("K4", "K10"), "22"),
         ("Yeast agnn --mesh 2x2", [*YEAST, *MESH_AGNN, "--mesh", "2x2"], ("K4", "K5"),
          "Yeast agnn --mesh 2x2")],
-    2: [("reddit agnn --mesh 1x2", [*REDDIT, *MESH_AGNN, "--mesh", "1x2"], ("K8", "K9"), "22")],
+    2: [("reddit agnn --mesh 1x2", [*REDDIT, *MESH_AGNN, "--mesh", "1x2", "--epochs",
+                                     str(REDDIT_SPLIT_EPOCHS)], ("K8", "K9"), "22")],
 }
 # The two-rank spawn's other tasks: --single_kernel one feature shard a
 # rank (1x2) and the graph axis split (2x2), and measure_comm on pubmed.
@@ -2912,6 +3155,16 @@ def main():
         launches[k] += c
     phase_end(t0)
 
+    # ---- 13b. the halo-overlap split --------------------------------------------
+    t0 = phase_start("13b. the halo-overlap split (every shard on this card)")
+    overlap_dir = tempfile.TemporaryDirectory()  # phase 21's ranks read it too
+    write_npz(overlap_dir.name, "asymmetric", asymmetric_graph)
+    phase_overlap_ops(dev)
+    overlap_mesh_runs, overlap_launches = phase_overlap_train(overlap_dir.name, dev, card)
+    for k, c in overlap_launches.items():
+        launches[k] += c
+    phase_end(t0)
+
     # ---- 14. --single_kernel ----------------------------------------------------
     t0 = phase_start("14. --single_kernel on each route")
     sag_runs, sag_launches = phase_single_kernel(reddit, dev)
@@ -2974,8 +3227,9 @@ def main():
     # ---- 21. the mesh over processes -------------------------------------------
     t0 = phase_start(f"21. the mesh over processes ({MESH_RANKS} ranks, torch.distributed)")
     torch.cuda.empty_cache()
-    proc_runs, proc_launches = phase_mesh_procs(mesh_runs + bd_mesh_runs + stream_runs, dev,
-                                                card)
+    proc_runs, proc_launches, overlap_figures = phase_mesh_procs(
+        mesh_runs + overlap_mesh_runs + bd_mesh_runs + stream_runs, dev, card, overlap_dir.name)
+    overlap_dir.cleanup()
     for k, c in proc_launches.items():
         launches[k] += c
     phase_end(t0)
@@ -3003,7 +3257,7 @@ def main():
               f"Final loss {r['final_loss']:.6f}  peak host RSS {r['peak_rss'] / 2**30:.2f} GiB  "
               f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB  "
               f"run {r['seconds']:.1f} s  (card: {card})")
-    for name, r in mesh_runs + bd_mesh_runs + stream_runs:
+    for name, r in mesh_runs + overlap_mesh_runs + bd_mesh_runs + stream_runs:
         print(f"main path [{name}]: {r['route']}  TC_Blocks {r['tc_blocks']}  "
               f"Prep. (ms) {r['prep_ms']:.3f}  Prep host (ms) {r['prep_host_ms']:.3f}  "
               f"Train (ms) {r['train_ms']:.3f}  "
@@ -3026,6 +3280,10 @@ def main():
               + f"  (rank 0 / rank 1; card: {card})")
     print(f"mesh over processes [{proc_runs[-1][0]}]: Train (ms) {proc_runs[-1][1]['train_ms']:.3f}"
           f" (card: {card})")
+    print(f"overlap evidence [soc-BlogCatalog gcn --mesh 2x1, rank 0 of 2]: host wait on the "
+          f"exchanges {overlap_figures['wait_ms']:.3f} ms a step, K1 inside it "
+          f"{overlap_figures['k1_in_wait_ms']:.3f} ms a step of {overlap_figures['k1_ms']:.3f} "
+          f"(card: {card})")
     for name, per_rank, _ in split_runs[:-1]:
         print(f"one feature shard a rank [{name}]: Train (ms) "
               + " / ".join(f"{r['train_ms']:.3f}" for r in per_rank)

@@ -9,7 +9,10 @@ collective keeps its JAX semantics exactly:
 * ``all_gather(grid, axis)`` — tiled: every member of an axis group gets
   its members' tensors concatenated along dim 0, in axis order;
 * ``ppermute(grid, pairs, axis)`` — ``(src, dst)`` pairs along the axis; a
-  member no pair sends to receives zeros;
+  member no pair sends to receives zeros.  ``ppermute_start`` is its
+  started form: it issues the transfers and returns a ``Started`` whose
+  ``wait()`` gives the grid, so work that does not need the result can be
+  issued in between (``ppermute`` is start, then wait);
 * ``all_to_all(grid, axis)`` — tiled, split and concatenated along dim 0:
   member ``s`` cuts its tensor into as many chunks as the axis has members,
   and chunk ``j`` lands on member ``j`` at position ``s``;
@@ -183,9 +186,34 @@ def all_gather(grid, axis: str = "graph", mesh=None):
     return out
 
 
+class Started:
+    """A collective in flight: ``wait()`` finishes it (once) and gives its
+    grid.  Until then it holds what the transfer reads and writes."""
+
+    def __init__(self, finish):
+        self._finish, self._out = finish, None
+
+    @classmethod
+    def done(cls, out) -> "Started":
+        return cls(lambda: out)
+
+    def wait(self):
+        if self._finish is not None:
+            self._out, self._finish = self._finish(), None
+        return self._out
+
+
 def ppermute(grid, pairs, axis: str = "graph", mesh=None):
     """Send member ``src``'s tensor to member ``dst`` for every ``(src,
     dst)`` in ``pairs``; members that receive nothing get zeros."""
+    return ppermute_start(grid, pairs, axis, mesh).wait()
+
+
+def ppermute_start(grid, pairs, axis: str = "graph", mesh=None, tag: int = 0) -> Started:
+    """``ppermute``, started: over ranks the round's sends and receives are
+    issued (``batch_isend_irecv``, under ``tag``: rounds in flight together
+    take distinct tags) and ``wait()`` waits on them; in one process the
+    copies are made here.  The recorder counts the call here."""
 
     def group(members):
         out = [None] * len(members)
@@ -196,9 +224,10 @@ def ppermute(grid, pairs, axis: str = "graph", mesh=None):
         return [torch.zeros_like(m) if o is None else o for m, o in zip(members, out)]
 
     if _ranks(mesh, axis):
-        out = _members(_ppermute_ranks(_members(grid, axis), pairs, axis, mesh), axis)
+        started = _ppermute_ranks(_members(grid, axis), pairs, axis, mesh, tag)
+        out = Started(lambda: _members(started.wait(), axis))
     else:
-        out = _over(axis, grid, group)
+        out = Started.done(_over(axis, grid, group))
     recorder = _recorder
     if recorder is not None:
         # The axis' groups over the whole grid: a group a shard of the other
@@ -211,11 +240,13 @@ def ppermute(grid, pairs, axis: str = "graph", mesh=None):
     return out
 
 
-def _ppermute_ranks(members, pairs, axis, mesh):
+def _ppermute_ranks(members, pairs, axis, mesh, tag) -> Started:
     """A ``ppermute`` over ranks on ``members[i][j]`` (member i of this
-    rank's along the axis, of group j): pairs within this rank are copies;
-    the members one rank sends another travel as one message, in pair
-    order, every group of them."""
+    rank's along the axis, of group j), started: pairs within this rank are
+    copies; the members one rank sends another travel as one message, in
+    pair order, every group of them.  The send buffers (staged in host
+    memory for gloo on a card, before the sends are issued) live until
+    ``wait()``, which copies what arrived back to the device."""
     dsts = [dst for _, dst in pairs]
     if len(set(dsts)) != len(dsts):
         raise ValueError(f"ppermute: a member receives twice in {pairs}")
@@ -237,21 +268,26 @@ def _ppermute_ranks(members, pairs, axis, mesh):
     ops, inbox = [], []
     for peer, idx in sorted(sends.items()):
         buf = _staged(mesh, torch.stack([torch.stack(members[i]) for i in idx]))
-        ops.append(dist.P2POp(dist.isend, buf.contiguous(), mesh.peer(axis, peer)))
+        ops.append(dist.P2POp(dist.isend, buf.contiguous(), mesh.peer(axis, peer), tag=tag))
     for peer, idx in sorted(recvs.items()):
         buf = torch.empty((len(idx), groups) + tuple(proto.shape), dtype=proto.dtype,
                           device="cpu" if mesh.staged else proto.device)
-        ops.append(dist.P2POp(dist.irecv, buf, mesh.peer(axis, peer)))
+        ops.append(dist.P2POp(dist.irecv, buf, mesh.peer(axis, peer), tag=tag))
         inbox.append((idx, buf))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
+    reqs = dist.batch_isend_irecv(ops) if ops else []
+
+    def finish():
+        for req in reqs:
             req.wait()
-    for idx, buf in inbox:
-        buf = _back(mesh, buf)
-        for k, i in enumerate(idx):
-            out[i] = list(buf[k].unbind(0))
-    return [[torch.zeros_like(m) for m in row] if o is None else o
-            for row, o in zip(members, out)]
+        ops.clear()  # the send buffers, held until here
+        for idx, buf in inbox:
+            buf = _back(mesh, buf)
+            for k, i in enumerate(idx):
+                out[i] = list(buf[k].unbind(0))
+        return [[torch.zeros_like(m) for m in row] if o is None else o
+                for row, o in zip(members, out)]
+
+    return Started(finish)
 
 
 def all_to_all(grid, axis: str = "graph", mesh=None):

@@ -43,8 +43,19 @@ What a shard does, as in JAX:
   ``all_to_all``.  Both SpMM flavours ride it (the weighted one rebuilds its
   tiles from the all-gathered edge vector through ``w_src``), and so does
   the fused AGNN, whose guest score tiles get the owners' window rows by a
-  second ``all_to_all`` (``xa_fetch``).  Per-edge outputs (the SDDMM) keep
-  the unsplit stream;
+  second ``all_to_all`` (``xa_fetch``).  Per-edge outputs (the SDDMM) take
+  the overlap classes below;
+* **the halo-overlap split** (``partition.split_local_remote``) — each
+  shard's blocks in two classes: the *local* blocks, whose columns are all
+  the shard's own rows, and the *remote* ones.  An unsplit SpMM (the split
+  stream takes a direction's SpMMs wherever the partition built one) and
+  every SDDMM start the halo exchange, run the local class against the
+  resident rows, wait, run the remote class against the halo slab, and add
+  the two outputs, each stored in the compute dtype (the SDDMM's f32 scores
+  into ``edge_capacity`` zeros a class).  Over processes the local class's
+  kernels are enqueued while the transfers are in flight.  Each class has
+  its own edges: the weighted SpMM builds a class's tiles from them, K4
+  scores them;
 * **the fused AGNN** (symmetric graphs) — ``pf == 1``: K2 forward and K3
   backward (with the window-side overrides on the split stream); ``pf >
   1``: a score needs every feature, so each feature shard forms partial
@@ -82,12 +93,11 @@ AGNN (``agnn_aggregate`` is None): AGNN runs K9 and the weighted K8.
 
 The port differs from the JAX route on purpose, changing no value:
 
-* the halo-overlap split (local and remote block classes, run against the
-  resident slab while the exchange is in flight) is not run: it only hides
-  collective latency behind XLA's async collectives.  Each op takes JAX's
-  no-overlap branch, which JAX runs itself when a partition has no overlap
-  classes: one pass over the shard's whole block stream against its halo
-  slab.  The partition builds no classes (``parallel/partition.py``);
+* JAX leaves the overlap of the local class with the exchange to XLA's
+  async collectives; the port issues the exchange's transfers, enqueues
+  the local class's kernels and then waits (``collectives.ppermute_start``);
+  in one process the exchange is a set of copies, made before the local
+  class runs;
 * the block-diagonal route contracts each shard's ext pack against its rim
   stack with K5-K7, where JAX contracts the shard's pack against a stack of
   rim and bins with XLA einsums; at ``pf > 1`` the AGNN backward's
@@ -230,11 +240,14 @@ def _shards_need_streaming(row_pointers, column_index, num_nodes, num_shards, co
 @dataclasses.dataclass
 class _Stream:
     """One shard's block stream on the device: its metadata and tiles, and
-    where K2/K3 run over it, the tiles' per-row index."""
+    where K2/K3 run over it, the tiles' per-row index.  A class of the
+    halo-overlap split also holds its edges' slots among the shard's edges
+    (``edges``, in CSR order: ``meta``'s edges are these)."""
 
     meta: TorchSGTMeta
     tiles: torch.Tensor  # [B, blk_h, blk_w] structural
     index: Optional[RowIndex] = None
+    edges: Optional[torch.Tensor] = None  # [E_class] int64
 
     @classmethod
     def make(cls, meta, tiles, with_index: bool) -> "_Stream":
@@ -266,9 +279,11 @@ class _Direction:
     host: ShardedSGTMeta
     rounds: tuple  # the halo plan: (pos, size, pairs), ...
     send_idx: list  # per shard g: [halo_rows] int64 local rows to send
-    streams: list  # per shard g: the unsplit _Stream
+    streams: list  # per shard g: the unsplit _Stream where the fused AGNN reads it, else []
     edge_fwd_slot: Optional[list]  # transpose: per g, [e_g] int64 forward slots
     split: Optional[_Split]
+    local: list  # per shard g: the local class, gathering the shard's own rows
+    remote: list  # per shard g: the remote class, gathering the halo slab
 
 
 @dataclasses.dataclass
@@ -399,11 +414,13 @@ class DistributedTiledGraph:
             return
         self.dense_tiles = True
         self._set_layout(fwd, bwd)
-        # The fused AGNN rides the forward split stream where there is one;
-        # on a mesh of one feature shard it is K2/K3, over the stream's row
-        # index.
+        # The fused AGNN rides the forward split stream where there is one,
+        # else the forward's unsplit stream (the one op that still reads
+        # it); on a mesh of one feature shard it is K2/K3, over the stream's
+        # row index.
         self._fwd = self._upload(fwd, with_fwd_slot=False,
-                                 sfused=self.symmetric and self.pf == 1)
+                                 sfused=self.symmetric and self.pf == 1,
+                                 unsplit=self.symmetric and fwd.split is None)
         self._bwd = self._upload(bwd, with_fwd_slot=True)
         self.agnn_split = self.symmetric and fwd.split is not None
         self.agnn_aggregate = self._agnn_aggregate if self.symmetric else None
@@ -573,8 +590,15 @@ class DistributedTiledGraph:
                 else ("K2/K3" if self.pf == 1 else "K4 tiles + K10")
                 + (" on the split stream" if self.agnn_split else ""))
         return (f"dense_tiles=True streamed=False block_diag=False mesh={self.pg}x{self.pf} "
-                f"stream fwd={sp(self.host_fwd)} bwd={sp(self.host_bwd)} "
+                f"stream fwd={sp(self.host_fwd)} bwd={sp(self.host_bwd)} overlap=True "
                 f"halo_rounds={len(self.host_fwd.halo['rounds'])} agnn={agnn}")
+
+    @property
+    def use_overlap(self) -> bool:
+        """Do the ops take the halo-overlap split's classes (JAX's
+        ``_use_overlap``)?  On the dense-tile route, always: the SDDMM, and
+        each direction's SpMMs where it has no split stream."""
+        return self.dense_tiles and not self.block_diag
 
     def feature_width(self, d: int) -> int:
         """The width ``shard_features`` pads ``d`` input features to: a
@@ -641,10 +665,12 @@ class DistributedTiledGraph:
         return np.concatenate([v[i, : int(es[s + 1] - es[s])] for i, s in enumerate(self.shards)])
 
     # ---- device metadata ---------------------------------------------------
-    def _upload(self, m: ShardedSGTMeta, with_fwd_slot: bool, sfused: bool = False) -> _Direction:
-        """One direction's streams, halo tables and split on the device;
-        ``sfused``: with the row index of the streams K2/K3 run over (the
-        split streams where there are, else the plain ones)."""
+    def _upload(self, m: ShardedSGTMeta, with_fwd_slot: bool, sfused: bool = False,
+                unsplit: bool = False) -> _Direction:
+        """One direction's overlap classes, halo tables and split on the
+        device, and with ``unsplit`` its unsplit streams; ``sfused``: with
+        the row index of the streams K2/K3 run over (the split streams where
+        there are, else the unsplit ones)."""
         dev, cfg, pg, shards = self.device, self.config, self.pg, self.shards
         own = slice(shards.start, shards.stop)
         halo = m.halo
@@ -658,14 +684,16 @@ class DistributedTiledGraph:
             t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             return t if t.dtype == torch.int8 else t.to(cfg.compute_dtype)
 
-        a_dev = tiles(m.a_tiles[own])
-        streams = [
-            _Stream.make(shard_meta(cfg, m.a_tiles[g], m.block_window[g],
-                                    m.block_first_in_window[g], halo["col_ids_ext"][g],
-                                    m.edge_pos[g][: counts[g]], m.windows_per_shard, num_src,
-                                    dev), a_dev[i], sfused and m.split is None)
-            for i, g in enumerate(shards)
-        ]
+        streams = []
+        if unsplit:
+            a_dev = tiles(m.a_tiles[own])
+            streams = [
+                _Stream.make(shard_meta(cfg, m.a_tiles[g], m.block_window[g],
+                                        m.block_first_in_window[g], halo["col_ids_ext"][g],
+                                        m.edge_pos[g][: counts[g]], m.windows_per_shard,
+                                        num_src, dev), a_dev[i], sfused and m.split is None)
+                for i, g in enumerate(shards)
+            ]
         sp = None
         if m.split is not None:
             s = m.split
@@ -696,6 +724,24 @@ class DistributedTiledGraph:
                 xa_fetch=[ids(np.minimum(s["xa_fetch"][g], stack - 1)) for g in shards],
                 xa_valid=[torch.from_numpy(s["xa_fetch"][g] < stack).to(dev) for g in shards],
             )
+        # The overlap classes: the local one gathers the shard's own rows,
+        # the remote one the halo slab; each with its own edges.
+        tile = cfg.blk_h * cfg.blk_w
+
+        def classes(name, col_ids, rows):
+            c = m.overlap[name]
+            sentinel = c["a_tiles"].shape[1] * tile
+            c_dev = tiles(c["a_tiles"][own])
+            out = []
+            for i, g in enumerate(shards):
+                epos = c["edge_pos"][g][: counts[g]]
+                edges = np.flatnonzero(epos < sentinel)
+                meta = shard_meta(cfg, c["a_tiles"][g], c["block_window"][g],
+                                  c["block_first_in_window"][g], col_ids[g], epos[edges],
+                                  m.windows_per_shard, rows, dev)
+                out.append(_Stream(meta, c_dev[i], edges=ids(edges)))
+            return out
+
         return _Direction(
             host=m,
             rounds=tuple(halo["rounds"]),
@@ -704,6 +750,8 @@ class DistributedTiledGraph:
             edge_fwd_slot=([ids(m.edge_fwd_slot[g][: counts[g]]) for g in shards]
                            if with_fwd_slot else None),
             split=sp,
+            local=classes("local", m.overlap["local"]["col_ids"], m.rows_per_shard),
+            remote=classes("remote", halo["overlap_remote_col_ids_ext"], num_src),
         )
 
     # ---- shard grids --------------------------------------------------------
@@ -725,12 +773,19 @@ class DistributedTiledGraph:
         """``make()``, or inside ``shared_exchanges`` the result of the
         first ``make`` under ``key`` for the tensor ``src`` (held, so its
         memory stays its own)."""
-        if self._memo is None:
+        k = self._memo_key(key, src)
+        if k is None:
             return make()
-        k = (key, src.data_ptr(), tuple(src.shape), src.stride(), src.dtype, src._version)
         if k not in self._memo:
             self._memo[k] = (src, make())
         return self._memo[k][1]
+
+    def _memo_key(self, key, src: torch.Tensor):
+        """The memo's key of ``key`` for ``src``; None outside
+        ``shared_exchanges``."""
+        if self._memo is None:
+            return None
+        return (key, src.data_ptr(), tuple(src.shape), src.stride(), src.dtype, src._version)
 
     def _pad_d(self, x: torch.Tensor) -> torch.Tensor:
         """Pad the feature dim to a multiple of ``8 * lf``: every feature
@@ -773,19 +828,44 @@ class DistributedTiledGraph:
         """Each shard's extended slab ``[rows_per_shard + halo_rows, d]`` of
         ``x``: its rows, then one segment per round of the partial-pair
         ``ppermute`` plan (receivers no pair lists get zeros)."""
-        return self._shared(("halo", id(dn)), x, lambda: self._halo_grid(self._grid(x), dn))
+        return self._halo_start(x, dn).wait()
 
-    def _halo_grid(self, grid, dn: _Direction):
+    def _halo_start(self, x: torch.Tensor, dn: _Direction) -> C.Started:
+        """``_halo``, started: every round of the plan is issued, and
+        ``wait()`` waits on them and gives the slabs.  Within
+        ``shared_exchanges`` a finished slab is kept, and an exchange of the
+        same tensor returns it and moves nothing."""
+        key = self._memo_key(("halo", id(dn)), x)
+        if key is not None and key in self._memo:
+            return C.Started.done(self._memo[key][1])
+        started = self._halo_grid_start(self._grid(x), dn)
+
+        def finish():
+            out = started.wait()
+            if key is not None and self._memo is not None:
+                self._memo[key] = (x, out)
+            return out
+
+        return C.Started(finish)
+
+    def _halo_grid_start(self, grid, dn: _Direction) -> C.Started:
         if self.pg == 1:
-            return grid
-        segs = self._map(lambda g, x: [x], grid)
-        for pos, size, pairs in dn.rounds:
+            return C.Started.done(grid)
+        rounds = []
+        for k, (pos, size, pairs) in enumerate(dn.rounds):
             send = self._map(lambda g, x: x.index_select(0, dn.send_idx[g][pos:pos + size]), grid)
-            recv = C.ppermute(send, pairs, "graph", self.mesh)
-            for g in range(self.lg):
-                for f in range(self.lf):
-                    segs[g][f].append(recv[g][f])
-        return self._map(lambda g, s: torch.cat(s), segs)
+            rounds.append(C.ppermute_start(send, pairs, "graph", self.mesh, tag=k))
+
+        def finish():
+            segs = self._map(lambda g, x: [x], grid)
+            for r in rounds:
+                recv = r.wait()
+                for g in range(self.lg):
+                    for f in range(self.lf):
+                        segs[g][f].append(recv[g][f])
+            return self._map(lambda g, s: torch.cat(s), segs)
+
+        return C.Started(finish)
 
     def _w_all(self, w: torch.Tensor):
         """The all-gathered forward edge vector plus an appended zero (the
@@ -840,29 +920,42 @@ class DistributedTiledGraph:
     # ---- the SpMMs and the SDDMM --------------------------------------------
     def _spmm_grid(self, x, dn: _Direction, w: Optional[torch.Tensor] = None):
         """``A @ x`` (or ``(A ⊙ w) @ x``) of one direction as a shard grid:
-        the split stream where the partition built one, else the shard's
-        whole block stream against its halo slab."""
+        the split stream where the partition built one, else the overlap
+        classes: the halo exchange started, K1 over the local class against
+        the shard's own rows, the exchange waited, K1 over the remote class
+        against the halo slab, the two outputs added in the compute
+        dtype."""
+        if dn.split is None:
+            vals = None if w is None else self._edge_vals(w, dn)
+
+            def run(g, xs, cls):
+                tiles = (cls.tiles if vals is None
+                         else build_a_tiles(cls.meta, vals[g].index_select(0, cls.edges)))
+                return spmm_tc_dense(xs, cls.meta, tiles)
+
+            started = self._halo_start(x, dn)
+            local = self._map(lambda g, xs: run(g, xs, dn.local[g]), self._grid(x))
+            remote = self._map(lambda g, xe: run(g, xe, dn.remote[g]), started.wait())
+            return self._map(lambda g, a, b: a + b, local, remote)
         x_ext = self._halo(x, dn)
-        if dn.split is not None:
-            sp = dn.split
-            streams = sp.streams
-            if w is not None:
-                w_all = self._w_all(w)
-                vals = [w_all[g][sp.w_src[g]].float() for g in range(self.lg)]
-        else:
-            streams = dn.streams
-            if w is not None:
-                if dn.edge_fwd_slot is not None:  # forward-ordered weights
-                    w_all = self._w_all(w)
-                    vals = [w_all[g][dn.edge_fwd_slot[g]].float() for g in range(self.lg)]
-                else:
-                    e = self.edge_capacity
-                    vals = [w[g * e: g * e + streams[g].meta.num_edges].float()
-                            for g in range(self.lg)]
+        sp = dn.split
+        if w is not None:
+            w_all = self._w_all(w)
+            vals = [w_all[g][sp.w_src[g]].float() for g in range(self.lg)]
         tiles = [s.tiles if w is None else build_a_tiles(s.meta, vals[g])
-                 for g, s in enumerate(streams)]
-        out = self._map(lambda g, x: spmm_tc_dense(x, streams[g].meta, tiles[g]), x_ext)
-        return self._guest_return(out, dn.split) if dn.split is not None else out
+                 for g, s in enumerate(sp.streams)]
+        out = self._map(lambda g, x: spmm_tc_dense(x, sp.streams[g].meta, tiles[g]), x_ext)
+        return self._guest_return(out, sp)
+
+    def _edge_vals(self, w: torch.Tensor, dn) -> list:
+        """Each shard's per-edge weights, f32, its edges in CSR order: the
+        forward's from the shard's own slice of ``w``, the transpose's from
+        the all-gathered forward vector through ``edge_fwd_slot``."""
+        if dn.edge_fwd_slot is not None:  # forward-ordered weights
+            w_all = self._w_all(w)
+            return [w_all[g][dn.edge_fwd_slot[g]].float() for g in range(self.lg)]
+        e, counts = self.edge_capacity, np.diff(dn.host.edge_start)
+        return [w[g * e: g * e + int(counts[s])].float() for g, s in enumerate(self.shards)]
 
     def _chunk_spmm_grid(self, x, dn: _ChunkDirection, w: Optional[torch.Tensor] = None):
         """``A @ x`` (or ``(A ⊙ w) @ x``) of one direction on the streamed
@@ -892,33 +985,50 @@ class DistributedTiledGraph:
             out = self._spmm_grid(xp, dn, w)
         return self._assemble(out)[:, :d]
 
-    def _edge_scores(self, op, metas, xa_grid, xb_ext) -> torch.Tensor:
+    def _edge_scores(self, op, metas, xa_grid, xb_ext, edges=None):
         """``op`` (K4 or K9) a shard: its rows of ``xa`` against the gather
-        side ``xb_ext``, written into ``edge_capacity`` zeros and summed over
-        ``feature``; ``[padded_edges]`` f32."""
+        side ``xb_ext``, written into ``edge_capacity`` zeros at the shard's
+        first ``num_edges`` slots, or at ``edges[g]`` (an overlap class's
+        edges); a shard grid of ``[edge_capacity]`` f32."""
         def scores(g, a, b):
             s = torch.zeros(self.edge_capacity, dtype=torch.float32, device=a.device)
-            s[: metas[g].num_edges] = op(a, metas[g], b)
+            s[slice(metas[g].num_edges) if edges is None else edges[g]] = op(a, metas[g], b)
             return s
 
-        s = self._map(scores, xa_grid, xb_ext)
+        return self._map(scores, xa_grid, xb_ext)
+
+    def _feature_sum(self, s) -> torch.Tensor:
+        """A shard grid of per-edge scores summed over ``feature``:
+        ``[lg * edge_capacity]``."""
         if self.pf > 1:
             s = C.psum(s, "feature", self.mesh)
         return torch.cat([s[g][0] for g in range(self.lg)])
 
     def _sddmm(self, xa, xb) -> torch.Tensor:
-        """Per-edge ``<xa[row_e], xb[col_e]>``: K4 over the unsplit forward
-        stream against the halo slab (K4 an edge on the block-diagonal route,
-        K9 against the all-gathered features on the streamed and chunk
-        routes), summed over the feature shards: ``[padded_edges]`` f32."""
+        """Per-edge ``<xa[row_e], xb[col_e]>``, summed over the feature
+        shards: ``[padded_edges]`` f32.  On the dense-tile route K4 over the
+        forward overlap classes: the halo exchange started, the local
+        class's edges against the shard's own rows, the exchange waited, the
+        remote class's against the halo slab, each class's scores written
+        into ``edge_capacity`` zeros and the two added.  K4 an edge on the
+        block-diagonal route, K9 against the all-gathered features on the
+        streamed and chunk routes."""
         dn = self._fwd
         if self.block_diag:
             return self._bd_sddmm(xa, xb)
         xa_grid, xb = self._grid(self._pad_d(xa)), self._pad_d(xb)
         if not self.dense_tiles:
-            return self._edge_scores(sddmm_tc, dn.metas, xa_grid, self._all_gather(xb))
-        return self._edge_scores(sddmm_tc_dense, [st.meta for st in dn.streams], xa_grid,
-                                 self._halo(xb, dn))
+            return self._feature_sum(
+                self._edge_scores(sddmm_tc, dn.metas, xa_grid, self._all_gather(xb)))
+
+        def scores(classes, xb_grid):
+            return self._edge_scores(sddmm_tc_dense, [c.meta for c in classes], xa_grid, xb_grid,
+                                     [c.edges for c in classes])
+
+        started = self._halo_start(xb, dn)
+        local = scores(dn.local, self._grid(xb))
+        remote = scores(dn.remote, started.wait())
+        return self._feature_sum(self._map(lambda g, a, b: a + b, local, remote))
 
     # ---- the fused AGNN ------------------------------------------------------
     def _score_tiles(self, xa, xb, streams):
@@ -1067,8 +1177,8 @@ class DistributedTiledGraph:
         stack of ``xb``, summed over ``feature``; ``[padded_edges]`` f32."""
         dn = self._fwd
         xb_ext = self._rim_ext(self._pad_d(xb), dn)
-        return self._edge_scores(sddmm_tc_dense, [sh.edges for sh in dn.shards],
-                                 self._grid(self._pad_d(xa)), xb_ext)
+        return self._feature_sum(self._edge_scores(sddmm_tc_dense, [sh.edges for sh in dn.shards],
+                                                   self._grid(self._pad_d(xa)), xb_ext))
 
     def _cell_scores(self, a_ext, b_ext):
         """One score a cell of each shard's ext pack: K4's partial dots on

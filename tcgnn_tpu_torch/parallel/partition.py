@@ -10,16 +10,16 @@ are the contiguous CSR slice of its rows.
 The JAX host pass, carried over with the same arrays field by field
 (``tests/test_torch_partition.py`` holds the two to ``np.array_equal``):
 the stacked metadata (``_stack_shards``), the mega-window block-stream
-split (``build_split``), the boundary halo (``plan_halo_rounds``,
-``build_halo``), both directions (``partition_graph``), the light
+split (``build_split``), the local and remote block classes of the
+halo-overlap split (``split_local_remote``, ``_stack_overlap``), the
+boundary halo (``plan_halo_rounds``, ``build_halo``, the remote class's
+columns in the slab too), both directions (``partition_graph``), the light
 layout-only partition of the block-diagonal and streamed routes
-(``build_tiles=False``), and the streamed route's window segments stacked
-over the shards (``partition_streamed``).
-Two differences.  The JAX pass also builds local/remote block classes for its
-halo-overlap split; the port's ops run one pass over a shard's whole block
-stream (``parallel/graph.py``), so it builds none.  Tiles whose duplicate
-count passes 127 are f32 on the host whatever the compute dtype (NumPy has
-no bfloat16); the device copy takes the compute dtype.
+(``build_tiles=False``: no tile, class, halo or split), and the streamed
+route's window segments stacked over the shards (``partition_streamed``).
+One difference: tiles whose duplicate count passes 127 are f32 on the host
+whatever the compute dtype (NumPy has no bfloat16); the device copy takes
+the compute dtype.
 """
 
 from __future__ import annotations
@@ -78,10 +78,16 @@ class ShardedSGTMeta:
     edge_perm: np.ndarray         # [G, Emax] int32
     edge_valid: np.ndarray        # [G, Emax] bool
     chunk_fwd_slot: Optional[np.ndarray] = None  # [G, Cn, EC] int32
+    # The halo-overlap split (_stack_overlap): {"local": {...}, "remote":
+    # {...}}, each stacked "a_tiles", "col_ids", "block_window",
+    # "block_first_in_window" and "edge_pos" [G, Emax]; local col_ids are
+    # shard-relative (the resident rows), remote ones global.
+    overlap: Optional[dict] = None
     edge_fwd_slot: Optional[np.ndarray] = None  # [G, Emax] int32
     # Boundary halo (build_halo): "offset_caps", "rounds" ((pos, size,
     # pairs), ...), "halo_rows", "send_idx" [G, halo_rows], "col_ids_ext"
-    # [G, Bw], "pair_counts", ...
+    # [G, Bw], "overlap_remote_col_ids_ext" (the remote class's columns in
+    # the slab), "pair_counts", ...
     halo: Optional[dict] = None
     # Block-stream split (build_split): "a_tiles" [G, Bs, bh, bw],
     # "col_ids_ext" [G, Bs*bw], "block_window"/"block_first" [G, Bs],
@@ -390,6 +396,127 @@ def build_split(
     return split
 
 
+def split_local_remote(meta: SGTMeta, column_index: np.ndarray, lo: int, hi: int,
+                       config: TileConfig, tiles_full: Optional[np.ndarray] = None,
+                       tile_dtype=np.int8):
+    """One shard's blocks in two classes for the halo-overlap split.
+
+    A block is *local* when every edge it holds has its column among the
+    shard's own rows (``lo <= col < hi``): it needs only the resident
+    features, so it can run while the halo exchange is in flight; edgeless
+    padding blocks are local.  The others are *remote*.  Each class keeps
+    the blocks' order within a window and pads every window to at least one
+    block, rounded up to ``block_group`` (so its kernel writes every output
+    row).
+
+    Returns ``(local, remote)``, dicts of ``a_tiles`` (``tile_dtype``: the
+    stacked tiles' dtype, so no count wraps), ``col_ids`` (local: relative
+    to the shard; remote: global), ``block_window``,
+    ``block_first_in_window``, ``edge_pos`` (``[num_edges]`` int64, the
+    edge's slot in the class's tile space, -1 for the other class's edges)
+    and ``num_blocks``.
+    """
+    blk_h, blk_w = config.blk_h, config.blk_w
+    tile = blk_h * blk_w
+    num_blocks = meta.num_blocks
+    num_windows = meta.num_windows
+    cols = np.asarray(column_index, dtype=np.int64)
+
+    edge_block = meta.edge_pos // tile
+    remote_edge = (cols < lo) | (cols >= hi)
+    block_is_remote = np.zeros(num_blocks, dtype=bool)
+    np.logical_or.at(block_is_remote, edge_block, remote_edge)
+
+    if tiles_full is None:
+        tiles_full = build_a_tiles_host(meta)
+    tiles_full = tiles_full.astype(tile_dtype)
+    block_start = np.zeros(num_windows + 1, dtype=np.int64)
+    np.cumsum(meta.block_partition.astype(np.int64), out=block_start[1:])
+
+    group = max(int(config.block_group), 1)
+    out = {}
+    for cls, sel in (("local", ~block_is_remote), ("remote", block_is_remote)):
+        per_window = (np.add.reduceat(sel.astype(np.int64), block_start[:-1]) if num_blocks
+                      else np.zeros(num_windows, np.int64))
+        per_window_p = -(-np.maximum(per_window, 1) // group) * group
+        new_start = np.zeros(num_windows + 1, dtype=np.int64)
+        np.cumsum(per_window_p, out=new_start[1:])
+        nb = int(new_start[-1])
+
+        # Each selected block's new index, in order within its window.
+        sel_idx = np.flatnonzero(sel)
+        win_of_sel = meta.block_window[sel_idx].astype(np.int64)
+        rank_in_window = (np.arange(len(sel_idx))
+                          - np.concatenate([[0], np.cumsum(per_window)])[win_of_sel])
+        new_block = np.full(num_blocks, -1, dtype=np.int64)
+        new_block[sel_idx] = new_start[win_of_sel] + rank_in_window
+
+        a_tiles = np.zeros((nb, blk_h, blk_w), dtype=tile_dtype)
+        col_ids = np.zeros(nb * blk_w, dtype=np.int32)
+        a_tiles[new_block[sel_idx]] = tiles_full[sel_idx]
+        col_ids.reshape(nb, blk_w)[new_block[sel_idx]] = (
+            meta.col_ids.reshape(num_blocks, blk_w)[sel_idx])
+
+        block_window = np.repeat(np.arange(num_windows, dtype=np.int32), per_window_p)
+        block_first = np.zeros(nb, dtype=np.int32)
+        block_first[new_start[:-1]] = 1
+
+        e_sel = sel[edge_block]
+        edge_pos = np.full(meta.num_edges, -1, dtype=np.int64)
+        edge_pos[e_sel] = new_block[edge_block[e_sel]] * tile + meta.edge_pos[e_sel] % tile
+        out[cls] = dict(a_tiles=a_tiles, col_ids=col_ids, block_window=block_window,
+                        block_first_in_window=block_first, edge_pos=edge_pos, num_blocks=nb)
+
+    # The local class gathers from the resident rows: ids relative to them.
+    lc = out["local"]["col_ids"].astype(np.int64) - lo
+    out["local"]["col_ids"] = np.clip(lc, 0, hi - lo - 1).astype(np.int32)
+    return out["local"], out["remote"]
+
+
+def _stack_overlap(metas, local_cols_list, rows_per_shard, config, edge_capacity,
+                   tiles_per_shard=None) -> dict:
+    """Every shard's local and remote classes (``split_local_remote``)
+    stacked, each class padded to its largest block count with zero blocks
+    that revisit the shard's last window.  A class's ``edge_pos`` ``[G,
+    edge_capacity]`` holds each edge's slot in the class's tile space; the
+    other class's edges and the capacity padding hold one past the end,
+    ``B * blk_h * blk_w``."""
+    tdt = _tile_dtype(tiles_per_shard) if tiles_per_shard is not None else np.int8
+    classes = {"local": [], "remote": []}
+    for s, m in enumerate(metas):
+        lo, hi = s * rows_per_shard, (s + 1) * rows_per_shard
+        loc, rem = split_local_remote(
+            m, local_cols_list[s], lo, hi, config,
+            tiles_full=tiles_per_shard[s] if tiles_per_shard is not None else None,
+            tile_dtype=tdt)
+        classes["local"].append(loc)
+        classes["remote"].append(rem)
+
+    group = max(int(config.block_group), 1)
+    tile = config.blk_h * config.blk_w
+    last_window = rows_per_shard // config.blk_h - 1
+    out = {}
+    for cls, parts in classes.items():
+        b_max = -(-max(p["num_blocks"] for p in parts) // group) * group
+        sentinel = b_max * tile
+        assert sentinel + 1 < 2**31, (cls, b_max)
+        epos = np.full((len(parts), edge_capacity), sentinel, dtype=np.int32)
+        for s, p in enumerate(parts):
+            e = p["edge_pos"]
+            epos[s, : len(e)] = np.where(e < 0, sentinel, e).astype(np.int32)
+        out[cls] = {
+            "a_tiles": np.stack([_pad_axis0(p["a_tiles"], b_max, 0) for p in parts]),
+            "col_ids": np.stack([_pad_axis0(p["col_ids"], b_max * config.blk_w, 0)
+                                 for p in parts]),
+            "block_window": np.stack([_pad_axis0(p["block_window"], b_max, last_window)
+                                      for p in parts]),
+            "block_first_in_window": np.stack([_pad_axis0(p["block_first_in_window"], b_max, 0)
+                                               for p in parts]),
+            "edge_pos": epos,
+        }
+    return out
+
+
 def partition_streamed(
     row_pointers: np.ndarray,
     column_index: np.ndarray,
@@ -532,6 +659,7 @@ def plan_halo_rounds(
 def build_halo(
     local_cols_list: list[np.ndarray],
     col_ids_stacked: np.ndarray,
+    overlap_remote_col_ids: Optional[np.ndarray],
     num_shards: int,
     rows_per_shard: int,
     extra_cols_list: Optional[list] = None,
@@ -545,8 +673,10 @@ def build_halo(
     lies at ``rows_per_shard + seg_start[(t-s) % G] + p``.  ``send_idx[t]``
     lists, per offset segment, t's local rows for its offset-o receiver
     (0-padded: padded slots land where no column refers).  Column ids are
-    remapped into the slab (``col_ids_ext``); padding columns that are not
-    the shard's columns map to local slot 0 (their tile entries are zero).
+    remapped into the slab (``col_ids_ext``, and the remote class's
+    ``overlap_remote_col_ids_ext`` where ``overlap_remote_col_ids`` is
+    given); padding columns that are not the shard's columns map to local
+    slot 0 (their tile entries are zero).
     """
     G = num_shards
     requests = []  # requests[s][t]: sorted unique ids owned by t, needed by s
@@ -607,6 +737,9 @@ def build_halo(
 
     remaps = [make_remap(s) for s in range(G)]
     col_ids_ext = np.stack([remaps[s](col_ids_stacked[s]) for s in range(G)])
+    ov_ext = None
+    if overlap_remote_col_ids is not None:
+        ov_ext = np.stack([remaps[s](overlap_remote_col_ids[s]) for s in range(G)])
     sp_ext = None
     if split_col_ids is not None:
         sp_ext = np.stack([remaps[s](split_col_ids[s]) for s in range(G)])
@@ -617,6 +750,7 @@ def build_halo(
         "halo_rows": halo_rows,
         "send_idx": send_idx,
         "col_ids_ext": col_ids_ext,
+        "overlap_remote_col_ids_ext": ov_ext,
         "split_col_ids_ext": sp_ext,
         "pair_counts": pair_counts,
     }
@@ -633,14 +767,14 @@ def partition_csr(
     split: bool = False,
 ) -> ShardedSGTMeta:
     """Window-aligned 1-D partition of a CSR adjacency over ``num_shards``:
-    each shard's rows tiled by the SGT pass, stacked, with the halo and
-    (``split``) the block-stream split.
+    each shard's rows tiled by the SGT pass, stacked, with the local and
+    remote block classes, the halo and (``split``) the block-stream split.
 
     ``build_tiles=False`` returns the light layout-only meta of the
     block-diagonal route, which serves every op from its packs: the shapes,
     the edge offsets and the real block count (``TC_Blocks``), and None for
-    every stacked array, the halo and the split.  No tile, chunk, halo or
-    split is built (on Yeast they would be gigabytes of host memory, thrown
+    every stacked array, the classes, the halo and the split.  No tile,
+    chunk, class, halo or split is built (on Yeast they would be gigabytes of host memory, thrown
     away); each shard's block count is ``window_blocks``', the SGT pass's
     own count."""
     blk_h = config.blk_h
@@ -693,6 +827,8 @@ def partition_csr(
         metas, edge_start, num_nodes, num_edges, rows_per_shard, config,
         edge_capacity, tiles_per_shard=tiles_per_shard,
     )
+    stacked.overlap = _stack_overlap(metas, local_cols_list, rows_per_shard, config,
+                                     stacked.edge_capacity, tiles_per_shard=tiles_per_shard)
     split_host = (
         build_split(metas, rows_per_shard, config, tiles_per_shard=tiles_per_shard,
                     edge_capacity=stacked.edge_capacity)
@@ -701,6 +837,7 @@ def partition_csr(
     stacked.halo = build_halo(
         local_cols_list,
         stacked.col_ids,
+        stacked.overlap["remote"]["col_ids"],
         num_shards,
         rows_per_shard,
         extra_cols_list=(

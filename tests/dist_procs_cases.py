@@ -6,7 +6,9 @@ process.  This module imports no JAX: the ranks start from it.
 store, runs every case on its shards and writes a dict of numpy results to
 ``out_dir/rank<r>.pt``.  Two layouts: the graph axis split over the ranks
 (``--mesh 4xF``), and one feature shard a rank (``SPLIT``: W = 2 takes
-``1x2``, W = 4 takes ``2x2``).
+``1x2``, W = 4 takes ``2x2``).  The halo-overlap split's classes run over
+the ranks on an unsplit graph of two graph shards (``OVERLAP``: W = 2 takes
+``2x1``, one shard a rank; W = 4 takes ``2x2``, one feature shard a rank).
 """
 
 from __future__ import annotations
@@ -53,6 +55,9 @@ SPLIT = {2: (1, 2), 4: (2, 2)}
 SPLIT_GRID = {2: ((3, 2), 12, [(0, 1), (1, 2), (2, 0)]),
               4: ((6, 2), 12, [(0, 1), (2, 3), (1, 4), (5, 0)])}
 GRID_4X2 = ((4, 2), 8, [(0, 1), (1, 2), (3, 0)])
+# The overlap cases' mesh a world size: two graph shards, so the halo
+# crosses ranks in either layout.
+OVERLAP = {2: (2, 1), 4: (2, 2)}
 # --single_kernel's chained rounds in these cases.
 SAG_ROUNDS = 4
 SMALL = ["--dataset", "rand_300_1200", "--dim", "8", "--classes", "3", "--device", "cpu"]
@@ -152,6 +157,44 @@ def run_ops(g: DistributedTiledGraph, x, w, wv, att) -> dict:
     if g.agnn_aggregate is not None:
         run("agnn_aggregate", lambda xx, aa: ((torch.sin(g.agnn_aggregate(xx, aa)) * real).sum(),
                                               g.agnn_aggregate(xx, aa)), xs, torch.tensor(att))
+    return out
+
+
+def overlap_graph(shape) -> DistributedTiledGraph:
+    """``random_csr``'s directed graph without the split stream on a mesh
+    of ``shape``: every SpMM and SDDMM takes the overlap classes."""
+    ptr, idx = random_csr()
+    return DistributedTiledGraph(ptr, idx, len(ptr) - 1, make_mesh(*shape, "cpu"), CFG,
+                                 split=False)
+
+
+def class_waits(g: DistributedTiledGraph, x) -> dict:
+    """For one SpMM a direction and one SDDMM on ``g``: K1's and K4's plain
+    calls each time an exchange is waited on (``collectives.Started.wait``),
+    and after the op."""
+    from tcgnn_tpu_torch.ops import reset_counts, sddmm_tc_dense, spmm_tc_dense
+
+    _, cols = g.node_cols(x.shape[1] * g.lf // g.pf)
+    xs = g.shard_nodes(x)[:, cols].contiguous()
+    seen = []
+    wait = collectives.Started.wait
+
+    def recorded(self):
+        seen.append((spmm_tc_dense.plain_calls, sddmm_tc_dense.plain_calls))
+        return wait(self)
+
+    out = {}
+    collectives.Started.wait = recorded
+    try:
+        for name, op in (("spmm", lambda: g._spmm(xs, g._fwd)),
+                         ("transpose", lambda: g._spmm(xs, g._bwd)),
+                         ("sddmm", lambda: g.sddmm(xs))):
+            reset_counts()
+            seen.clear()
+            op()
+            out[name] = (list(seen), (spmm_tc_dense.plain_calls, sddmm_tc_dense.plain_calls))
+    finally:
+        collectives.Started.wait = wait
     return out
 
 
@@ -343,6 +386,16 @@ def run_rank(rank: int, world: int, store: str, out_dir: str, jax_params: dict) 
         res[("split grads", kind, graph)] = step_grads(kind, graph, shape)
     for kind in ("gcn", "agnn"):
         res[("split comm", kind)] = comm_counts(kind, shape)
+    # The overlap classes over the ranks.
+    g = overlap_graph(OVERLAP[world])
+    x = op_inputs("chunk", 1, g.num_edges)  # the chunk route's graph is this one
+    res["overlap"] = {"route": g.route, "use_overlap": g.use_overlap,
+                      "rows": (g.node_rows.start, g.node_rows.stop),
+                      "cols": g.node_cols(D * g.lf // g.pf),
+                      "edges": (int(g.host_fwd.edge_start[g.shards.start]),
+                                int(g.host_fwd.edge_start[g.shards.stop])),
+                      "ops": run_ops(g, *x), "waits": class_waits(g, x[0]),
+                      "shards": g.lg * g.lf}
     # --single_kernel (each layout) and measure_comm over the ranks.
     for mesh_arg in ("4x1", f"{shape[0]}x{shape[1]}"):
         r = single_kernel(mesh_arg)

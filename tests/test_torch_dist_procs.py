@@ -36,6 +36,13 @@ hold them to the one-process mesh (run here) and to JAX:
   ``step_collective_bytes`` one process's plus the gradient bucket plus the
   resharding collectives (the column-parallel products' all-gathers and
   reduce-scatters, the logits' all-gather), reckoned from the widths;
+* the halo-overlap split's classes on a directed graph without the split
+  stream, over 2 graph shards (W = 2: ``2x1``, one shard a rank; W = 4:
+  ``2x2``, one feature shard a rank): ``spmm``, ``spmm_weighted`` and
+  ``sddmm``, forward and every gradient, equal to the one-process mesh's;
+  in one SpMM a direction and one SDDMM, every exchange is waited on after
+  the local class's K1 (K4) ran on each of the rank's shards and before
+  the remote class's did;
 * ``--single_kernel`` over the ranks in both layouts (every rank reports
   the slowest rank's times, with one process's keys), and
   ``measure_comm`` over the ranks: rank 0 alone writes the CSV, whose rows
@@ -181,6 +188,9 @@ def _one_process(tmp_path_factory):
             res[("split grads", kind, graph, world)] = cases.step_grads(kind, graph, shape)
         for kind in ("gcn", "agnn"):
             res[("split comm", kind, world)] = cases.comm_counts(kind, shape)
+        g = cases.overlap_graph(cases.OVERLAP[world])
+        res[("overlap route", world)] = g.route
+        res[("overlap ops", world)] = cases.run_ops(g, *cases.op_inputs("chunk", 1, g.num_edges))
     res["single_kernel"] = cases.single_kernel("4x1")
     out_csv = str(tmp_path_factory.mktemp("one") / "comm.csv")
     res["measure_comm"] = (port_measure_comm.main([*cases.MEASURE_COMM, "--out", out_csv]),
@@ -463,6 +473,43 @@ def test_split_collectives_one_process_plus_bucket_and_resharding(ranks, one_pro
                                      "bytes": want["all_reduce"]["bytes"] + bucket}
         assert got["total_bytes"] == (want["total_bytes"] + bucket
                                       + sum(b for _, b in extra.values()))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("op", ["spmm", "spmm_weighted", "sddmm"])
+def test_overlap_op_matches_one_process(ranks, one_process, world, op):
+    """The overlap classes over the ranks (W = 2: 2x1, W = 4: 2x2 one
+    feature shard a rank): each op's forward and gradients on the rank's
+    block equal the one-process mesh's of the same shape."""
+    want_fwd, want_grads = one_process[("overlap ops", world)][op]
+    assert "overlap=True" in one_process[("overlap route", world)]
+    for r in ranks[world]:
+        ov = r["overlap"]
+        assert ov["use_overlap"] and "overlap=True" in ov["route"] and "fwd=unsplit" in ov["route"]
+        (lo, hi), (_, cols), (elo, ehi) = ov["rows"], ov["cols"], ov["edges"]
+        got_fwd, got_grads = ov["ops"][op]
+        if op == "sddmm":
+            np.testing.assert_allclose(got_fwd, want_fwd[elo:ehi], **FWD)
+        else:
+            np.testing.assert_allclose(got_fwd, want_fwd[lo:hi, cols], **FWD)
+        for i, (g, w) in enumerate(zip(got_grads, want_grads)):
+            w = w[lo:hi, cols] if i == 0 else w[elo:ehi]
+            np.testing.assert_allclose(g, w, err_msg=f"rank {r['rank']} gradient {i}", **GRAD)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_overlap_exchange_waited_between_the_classes(ranks, world):
+    """In one SpMM a direction and one SDDMM over the ranks, every wait on
+    the halo exchange comes after the local class's kernel ran on each of
+    the rank's shards and before the remote class's ran on any; each op ran
+    its kernel once a class a shard."""
+    for r in ranks[world]:
+        ov = r["overlap"]
+        k = ov["shards"]
+        for name, (waits, after) in ov["waits"].items():
+            local, total = ((k, 0), (2 * k, 0)) if name != "sddmm" else ((0, k), (0, 2 * k))
+            assert waits and set(waits) == {local}, (r["rank"], name, waits)
+            assert after == total, (r["rank"], name, after)
 
 
 def test_no_group_without_torchrun(monkeypatch):

@@ -9,14 +9,21 @@ stream engaged in both directions (a symmetric mega-window graph), in the
 forward only (a directed one), and not at all (a random directed graph, a
 symmetric power-law graph); AGNN on the symmetric ones takes K2/K3 at
 ``pf == 1`` (with K3's window-side overrides on the split stream) and K4
-tiles + K10 at ``pf == 2``.
+tiles + K10 at ``pf == 2``.  Both packages take the halo-overlap split's
+classes on every case (``use_overlap``): the SDDMM always, each direction's
+SpMMs where it has no split stream; with ``split=False`` both directions'
+SpMMs (the weighted transpose too) take them.  On the cases without a split
+stream, K1 and K4 run once a class a shard, the exchange waited between the
+local and the remote class.
 
 Tolerances, as the JAX tests use: f32 ``rtol=atol=1e-4`` forward, ``1e-3``
 for gradients.  The 4x2 split AGNN also runs in bf16, whose partial score
 tiles are rounded per feature shard, summed in f32 and rounded again (the
 JAX order): there a score whose last f32 bit the summation order moved may
 round to the next bf16 value, so ``rtol=atol=2e-2`` (8 mantissa bits),
-forward and gradients (its outputs are f32 sums).
+forward and gradients (its outputs are f32 sums).  The unsplit SpMM in bf16
+stores each class's output in bf16 and adds the two, as JAX does: it
+matches JAX at one bf16 rounding step, ``rtol=atol=8e-3``.
 """
 
 import dataclasses
@@ -42,6 +49,7 @@ JCFG = JaxTileConfig(blk_h=16, blk_w=16, edge_chunk=16)
 FWD = dict(rtol=1e-4, atol=1e-4)
 GRAD = dict(rtol=1e-3, atol=1e-3)
 BF16 = dict(rtol=2e-2, atol=2e-2)
+BF16_STEP = dict(rtol=8e-3, atol=8e-3)
 D = 16
 
 
@@ -86,6 +94,10 @@ CASES = {
                                        (False, False)),
     "random directed 4x2": (150, lambda: random_csr(150, 6, seed=3), (4, 2), None,
                             (False, False)),
+    "mega directed 4x2 unsplit": (400, lambda: mega_csr(400, 7, False), (4, 2), False,
+                                  (False, False)),
+    "mega symmetric 8x1 unsplit": (400, lambda: mega_csr(400, 11, True), (8, 1), False,
+                                   (False, False)),
 }
 
 
@@ -152,13 +164,15 @@ def case(request):
     assert (pg.host_fwd.split is not None, pg.host_bwd.split is not None) == split
     assert (jg.host_fwd.split is not None, jg.host_bwd.split is not None) == split
     assert (pg.agnn_aggregate is None) == (jg.agnn_aggregate is None)
+    assert pg.use_overlap == jg._use_overlap and pg.use_overlap
+    assert "overlap=True" in pg.route
     rng = np.random.default_rng(len(name))
     x = (0.5 * rng.standard_normal((n, D))).astype(np.float32)
     w = rng.standard_normal(len(idx)).astype(np.float32)
     wv = (np.arange(len(idx)) % 7 - 3).astype(np.float32)
     att = rng.standard_normal((1, 2)).astype(np.float32)
     port = _port_ops(pg, n, x, w, wv, att)
-    return dict(name=name, n=n, pg=pg, jax=_jax_ops(jg, n, x, w, wv, att), port=port,
+    return dict(name=name, n=n, pg=pg, x=x, jax=_jax_ops(jg, n, x, w, wv, att), port=port,
                 counts=(spmm_fused.plain_calls, sddmm_tc_tiles.plain_calls,
                         spmm_sfused_bwd.plain_calls))
 
@@ -194,6 +208,66 @@ def test_agnn_takes_the_kernels_of_its_mesh(case):
         assert fused > 0 and tiles > 0 and sfused_bwd == 0
     else:
         assert fused == tiles == 0 and sfused_bwd > 0
+
+
+def test_unsplit_ops_run_each_class_once_a_shard(case, monkeypatch):
+    """Where a direction has no split stream, its SpMM is K1 once a class a
+    shard, the SDDMM K4 once a class a shard (on every case), and the halo
+    exchange is waited after every local class ran and before any remote
+    one did."""
+    from tcgnn_tpu_torch.ops import sddmm_tc_dense, spmm_tc_dense
+    from tcgnn_tpu_torch.parallel import collectives
+
+    pg, n = case["pg"], case["n"]
+    shards = pg.pg * pg.pf
+    waits = []
+    wait = collectives.Started.wait
+    monkeypatch.setattr(collectives.Started, "wait", lambda self: waits.append(
+        (spmm_tc_dense.plain_calls, sddmm_tc_dense.plain_calls)) or wait(self))
+    xs = torch.nn.functional.pad(torch.from_numpy(case["x"]), (0, 0, 0, pg.padded_nodes - n))
+    for dn in (pg._fwd, pg._bwd):
+        if dn.split is not None:
+            continue
+        reset_counts()
+        waits.clear()
+        pg._spmm(xs, dn)
+        assert spmm_tc_dense.plain_calls == 2 * shards
+        assert waits and set(waits) == {(shards, 0)}, waits
+    reset_counts()
+    waits.clear()
+    pg.sddmm(xs)
+    assert sddmm_tc_dense.plain_calls == 2 * shards and spmm_tc_dense.plain_calls == 0
+    assert waits and set(waits) == {(0, shards)}, waits
+
+
+def test_spmm_bf16_unsplit_matches_jax_at_one_rounding_step():
+    """The unsplit SpMM in bf16, forward and gradient (a linear loss, so the
+    cotangent is exact in bf16): each class's output stored in bf16 and the
+    two added, the JAX order; one bf16 rounding step apart at most."""
+    n = 400
+    ptr, idx = mega_csr(n, 7, False)
+    jcfg = dataclasses.replace(JCFG, compute_dtype=jnp.bfloat16)
+    cfg = dataclasses.replace(CFG, compute_dtype=torch.bfloat16)
+    jg = JaxDistributedTiledGraph(ptr, idx, n, jax_make_mesh(4, 2), jcfg, split=False)
+    pg = DistributedTiledGraph(ptr, idx, n, make_mesh(4, 2, "cpu"), cfg, split=False)
+    assert pg.use_overlap and jg._use_overlap
+    assert pg.host_fwd.split is None and pg.host_bwd.split is None
+    rng = np.random.default_rng(23)
+    x = (0.5 * rng.standard_normal((n, D))).astype(np.float32)
+    c = (rng.integers(-4, 5, (n, D)) / 4).astype(np.float32)  # exact in bf16
+
+    xj = jax.device_put(jnp.pad(jnp.asarray(x), ((0, jg.padded_nodes - n), (0, 0))),
+                        NamedSharding(jg.mesh, P("graph", "feature")))
+    want_dx = jax.jit(jax.grad(lambda xx: jnp.sum(jg.spmm(xx)[:n].astype(jnp.float32) * c)))(xj)
+    want_y = np.asarray(jax.jit(jg.spmm)(xj)).astype(np.float32)[:n]
+    xp = torch.nn.functional.pad(torch.from_numpy(x), (0, 0, 0, pg.padded_nodes - n))
+    xp.requires_grad_(True)
+    y = pg.spmm(xp)
+    assert y.dtype == torch.bfloat16
+    (y[:n].float() * torch.from_numpy(c)).sum().backward()
+    np.testing.assert_allclose(y[:n].detach().float().numpy(), want_y, **BF16_STEP)
+    np.testing.assert_allclose(xp.grad[:n].float().numpy(),
+                               np.asarray(want_dx).astype(np.float32)[:n], **BF16_STEP)
 
 
 def test_agnn_bf16_split_4x2_matches_jax():

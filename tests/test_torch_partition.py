@@ -5,10 +5,9 @@ carry the JAX NumPy passes over; every array they build must be
 ``np.array_equal`` to JAX's: the window-granular LPT balance, and for G in
 {1, 2, 4, 8} every field of the forward and transpose ``ShardedSGTMeta``
 (the stacked tiles and chunks, ``edge_fwd_slot`` and ``chunk_fwd_slot``),
-the halo tables and rounds, and the split stream.  The JAX pass's
-local/remote block classes (``overlap``, and the halo's remote columns of
-them) feed its halo-overlap split, which the port does not run, so the port
-builds neither.
+the halo tables and rounds (the remote class's columns in the slab too),
+the split stream, and the local and remote block classes of the
+halo-overlap split (``overlap``).
 JAX's ``DistributedTiledGraph`` pads ``send_idx`` apart when two halo
 plans share a width (a tracing workaround); the port's plans travel with
 their metadata, so this compares ``partition_graph``'s tables, before any
@@ -129,8 +128,8 @@ def test_partition_graph_matches_jax(graph, shards):
             assert getattr(g, f) == getattr(w, f), (tag, f)
         for f in ARRAYS:
             assert_same(f"{tag}.{f}", getattr(g, f), getattr(w, f))
-        want_halo = {k: v for k, v in w.halo.items() if k != "overlap_remote_col_ids_ext"}
-        assert_same(f"{tag}.halo", g.halo, want_halo)
+        assert_same(f"{tag}.halo", g.halo, w.halo)
+        assert_same(f"{tag}.overlap", g.overlap, w.overlap)
         assert_same(f"{tag}.split", g.split, w.split)
     if name.startswith("mega") and shards == 4:
         assert got[0].split is not None, "the planted mega window must engage the split"
@@ -149,7 +148,45 @@ def test_light_partition_matches_jax(graph, shards):
             assert getattr(g, f) == getattr(w, f), (tag, f)
         for f in ARRAYS:
             assert_same(f"{tag}.{f}", getattr(g, f), getattr(w, f))
-        assert g.halo is None and g.split is None
+        assert g.halo is None and g.split is None and g.overlap is None
+
+
+def test_overlap_split_is_nontrivial(graph):
+    """Counterpart of JAX's ``test_overlap_split_is_nontrivial_and_used``:
+    over 4 shards both classes hold real blocks, every window of a class
+    has a block, and each real edge lies in exactly one class."""
+    _, (n, ptr, idx) = graph
+    fwd, _ = port_part.partition_graph(ptr, idx, n, 4, CFG)
+    ov = fwd.overlap
+    real = {c: int((ov[c]["a_tiles"] != 0).any(axis=(2, 3)).sum()) for c in ov}
+    assert real["local"] > 0 and real["remote"] > 0, real
+    tile = CFG.blk_h * CFG.blk_w
+    counts = np.diff(fwd.edge_start)
+    for s in range(4):
+        in_class = [ov[c]["edge_pos"][s] < ov[c]["a_tiles"].shape[1] * tile for c in ov]
+        assert np.array_equal(in_class[0] ^ in_class[1], np.arange(fwd.edge_capacity) < counts[s])
+        for c in ov:
+            starts = ov[c]["block_window"][s][ov[c]["block_first_in_window"][s] == 1]
+            assert np.array_equal(starts, np.arange(fwd.windows_per_shard)), c
+    # The local class gathers the shard's own rows only.
+    assert int(ov["local"]["col_ids"].max()) < fwd.rows_per_shard
+
+
+def test_int8_overflow_classes_take_the_wide_dtype():
+    """A multigraph with a duplicate count above 127: the stacked tiles and
+    both classes take f32 (int8 would wrap 200 to -56), as JAX's do."""
+    n = 48
+    cols = np.concatenate([np.zeros(200, np.int64), np.arange(1, n)])
+    ptr = np.zeros(n + 1, np.int64)
+    ptr[1] = 200
+    ptr[2:] = 200 + np.arange(1, n)
+    fwd, _ = port_part.partition_graph(ptr.astype(np.int32), cols.astype(np.int32), n, 2, CFG)
+    want, _ = jax_part.partition_graph(ptr.astype(np.int32), cols.astype(np.int32), n, 2, JCFG)
+    assert fwd.a_tiles.dtype != np.int8 and fwd.a_tiles.max() == 200
+    for cls in ("local", "remote"):
+        assert fwd.overlap[cls]["a_tiles"].dtype != np.int8
+    assert max(fwd.overlap[c]["a_tiles"].max() for c in ("local", "remote")) == 200
+    assert_same("overlap", fwd.overlap, want.overlap)
 
 
 def test_balance_dataset_permutes_in_place():

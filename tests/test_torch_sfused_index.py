@@ -184,9 +184,10 @@ def test_shard_streams_carry_their_index(split):
         assert_index(st.index, ptr, rows, cols, vals)
         guest_rows += int(np.sum(rows >= dg.windows_per_shard * 16))
     assert (guest_rows > 0) == (split is None)
-    # The streams K2/K3 do not run over carry none.
-    other = dg._fwd.streams if split is None else []
-    assert all(st.index is None for st in other + dg._bwd.streams)
+    # No other stream carries one: the unsplit streams are built only where
+    # K2/K3 run over them (the forward's, without a split stream).
+    assert dg._bwd.streams == [] and (dg._fwd.streams == []) == (split is None)
+    assert all(st.index is None for dn in (dg._fwd, dg._bwd) for st in dn.local + dn.remote)
 
 
 def jax_triples(rp, ci, n, geometry):
