@@ -57,7 +57,9 @@ Phases, in order; any failure raises and exits nonzero:
      ``spmm``, ``spmm_weighted`` and ``sddmm`` on the asymmetric graph,
      against f64 oracle autograd;
  11. the main path through ``tcgnn_tpu_torch.train.main``, 21 timed epochs
-     each unless named: pubmed (``--dim 500 --classes 3``) GCN with and without
+     each unless named, every epoch after the first through ``step.many``
+     (on the card one CUDA graph of the step, captured once in the warm-up
+     and replayed an epoch): pubmed (``--dim 500 --classes 3``) GCN with and without
      ``--no_hoist``, GIN (K1), AGNN hidden 32 with 2 and 4 layers (K2/K3),
      AGNN 2 layers on the asymmetric graph (K4 and weighted K1); DD
      (``--dim 89 --classes 2``) GCN with and without ``--no_hoist``, GIN
@@ -67,8 +69,15 @@ Phases, in order; any failure raises and exits nonzero:
      (K4, K5 over weighted packs, K1); reddit (``--dim 602 --classes 41``,
      the streamed route, TC_Blocks 265,565) GCN hoisted (K8) and AGNN hidden
      32, 2 layers (K8 and K9).  Each run must take the expected route and
-     launch its kernels and no others of K1-K10, and no plain version may
-     have run; the loss must be finite and fall, except in the 4-layer AGNN
+     launch its kernels and no others of K1-K10, by its wrappers and on the
+     card (``device_launches``: a ``torch.profiler`` trace of the run's
+     device activity, which shows a CUDA graph's replays), and no plain
+     version may have run; its step must have been captured once, and the
+     card must have run, beyond what the wrappers launched, each kernel's
+     launches an epoch (the run table's) once for every replay but one
+     (``check_replays``: the wrappers count the capture, which runs
+     nothing, and no replay); the loss must be
+     finite and fall, except in the 4-layer AGNN
      runs (pubmed overflows to nan in f32, as in the JAX package), which are
      only timed.  Every run must print ``SGT pass:\tnative`` (the native
      host pass tiled its graph).  The reddit runs print the peak host RSS
@@ -80,7 +89,15 @@ Phases, in order; any failure raises and exits nonzero:
      ``torch.sparse.sampled_addmm`` over the row index; then the NumPy host
      pass over the same arrays, its ``Prep host (ms)`` stage by stage
      (transpose, symmetry check, block counts, SGT and chunk layout,
-     segments) beside the native run's, the two graphs' row indexes equal;
+     segments) beside the native run's, the two graphs' row indexes equal.
+     Last, the epoch chain against eager steps (``CHAIN_RUNS``: pubmed GCN
+     no hoist, K1; DD AGNN, K6/K7; the banded AGNN, K4, weighted K5 and K1,
+     ``index_add_``): from the same parameters and dropout generator,
+     dropout 0.5, ``step.many(30)`` (its warm-up steps, the capture, the
+     replays) against 30 eager steps, the final losses within
+     ``RESUME_RTOL``, the launches the card ran equal on both sides and
+     equal to the eager steps' wrappers' count, then 30 more epochs of each
+     timed (ms an epoch, eager and replayed, printed);
  12. every kernel and its plain version timed with CUDA events (K1-K4, K8
      and K9 at the pubmed shapes, K2/K3 over the row index the graph builds,
      K4 also over the banded graph's 1.22 M edges at d=32 and 22, first
@@ -146,7 +163,8 @@ Phases, in order; any failure raises and exits nonzero:
      ``rtol=1e-5`` of an uninterrupted 8-epoch run's (whether bit-equal is
      printed); ``--save_params`` then ``--load_params`` on one device and
      on ``--mesh 4x2`` restoring every parameter exactly (a learning-rate-0
-     run saves them back bit for bit);
+     run saves them back bit for bit); each run launches K1 on the card
+     (``device_launches``);
  16. the AE harness (``tcgnn_tpu_torch.bench``) through its entry points:
      ``sweep`` GCN (no hoist and hoisted, 20 epochs) against both torch
      incumbents (10 epochs each) on cora, pubmed, PROTEINS_full, DD and
@@ -154,7 +172,11 @@ Phases, in order; any failure raises and exits nonzero:
      ``--single_kernel`` on cora and DD, ``epoch_ledger`` on pubmed and DD
      and ``accuracy_parity`` (GCN, AGNN) on the golden fixture: every CSV row
      there, finite and positive, each graph on its route, parity passing,
-     K1-K7 launched and no plain version run; then, on each of the five
+     every ``Fig_6a`` row's incumbent ``replayed`` (``gather``: one CUDA
+     graph of its step) or ``eager`` (``sparse``, which cannot be captured),
+     K1-K7 launched (on the card, but ``--single_kernel``'s, which traces
+     its rounds itself and replays nothing: its wrappers' count) and no
+     plain version run; then, on each of the five
      sweep graphs, both incumbents' ``spmm``, ``spmm_weighted`` and
      ``sddmm`` outputs and gradients against ``TiledGraph``'s at d=16;
  17. the distributed block-diagonal route, every shard on this one card: on
@@ -213,7 +235,10 @@ Phases, in order; any failure raises and exits nonzero:
      from that file with ``ast``) and ``dtype`` last, ``backend`` cuda,
      ``dtype`` bfloat16, ``tc_blocks`` 334, positive finite times and a
      number for the AGNN datum; it must launch K1, K2 and K3 and no other
-     kernel, and no plain version;
+     kernel, and no plain version, and each of its three measures
+     (``HEADLINE_STEPS``) must have captured its step once (its reps are
+     replays, as ``bench.py``'s are ``step.many``) and the card must have
+     run every replayed epoch's launches (``check_replays``);
  21. the mesh over processes (``torch.distributed``): 2 ranks split the
      graph axis, over NCCL one a card where the machine has two cards, else
      (it is printed) over gloo on this one card, every transfer staged
@@ -259,7 +284,10 @@ Phases, in order; any failure raises and exits nonzero:
 
 The kernels line's launches are summed over every run of phases 11, 13, 13b,
 14, 15, 16, 17, 18, 19, 20, 21 and 22 (every rank's), each read with the counts
-set to 0 just before it.  Every bound
+set to 0 just before it: where a run replays a CUDA graph (phases 11, 15, 16
+and 20) the launches the card ran, from a profiler trace of the run
+(``device_launches``), else the wrappers' counts (eager launches, which the
+card runs one for one).  Every bound
 is ``tcgnn_tpu_torch.bench.roofline_bound``'s ``csr_bound``.
 
 Every phase prints its elapsed seconds.  The line before the last is
@@ -281,6 +309,7 @@ import io
 import json
 import math
 import os
+import re
 import resource
 import statistics
 import subprocess
@@ -302,6 +331,7 @@ from tcgnn_tpu_torch.bench import (
     scaling,
     sweep,
 )
+from tcgnn_tpu_torch.bench.baseline import EAGER_IMPLS as EAGER_INCUMBENTS
 from tcgnn_tpu_torch.bench.baseline import IMPLS as INCUMBENTS
 from tcgnn_tpu_torch.bench.roofline_bound import csr_bound
 from tcgnn_tpu_torch.data import coo_to_csr, powerlaw_graph, synthesize
@@ -347,6 +377,7 @@ from tcgnn_tpu_torch.parallel import (
     make_mesh,
 )
 from tcgnn_tpu_torch.profiling import device_ms as kernel_ms
+from tcgnn_tpu_torch.train import CAPTURE_WARMUP, WARMUP_EPOCHS
 from tcgnn_tpu_torch.sgt import native
 from tcgnn_tpu_torch.sgt.blockdiag import extract_block_diag
 from tcgnn_tpu_torch.sgt.stream import segment_chunks
@@ -371,6 +402,19 @@ TIMING_RUNS = 25
 TRAIN_EPOCHS = 21
 # reddit at its published widths (phases 11 and 18).
 REDDIT = ["--dataset", "reddit", "--dim", "602", "--classes", "41"]
+# The epoch chain against eager steps (phase 11): label, trainer arguments
+# ("BANDED" is the banded graph's data directory), and the updates of each
+# side before the losses are compared (then as many more are timed).
+CHAIN_RUNS = [
+    ("pubmed gcn --no_hoist (K1)",
+     ["--dataset", "pubmed", "--dim", "500", "--classes", "3", "--model", "gcn", "--no_hoist"]),
+    ("DD agnn 2 layers (K6/K7, K2/K3)",
+     ["--dataset", "DD", "--dim", "89", "--classes", "2", "--model", "agnn", "--hidden", "32"]),
+    ("banded agnn 2 layers (K4, weighted K5 and K1, index_add_)",
+     ["--data_dir", "BANDED", "--dataset", "banded", "--dim", "64", "--model", "agnn",
+      "--hidden", "32"]),
+]
+CHAIN_EPOCHS = 30
 KERNEL_SOURCES = ("spmm_dense", "spmm_sfused", "sddmm_dense", "spmm_bd", "chunk")
 # name, source, TPU kernel it replaces, wrappers that launch it
 KERNELS = {
@@ -1134,68 +1178,76 @@ def phase_train(data_dir, dev, card) -> tuple:
     dd = ["--dataset", "DD", "--dim", "89", "--classes", "2"]
     agnn = ["--model", "agnn", "--hidden", "32"]
     condensed, bd, streamed = (True, False, False), (True, False, True), (False, True, False)
-    # label, arguments, kernels the run must launch, loss must fall, route
-    # (dense_tiles, streamed, block_diag), TC blocks (None: not checked);
-    # every other kernel of K1-K10 must not launch
+    # label, arguments, the launches of one epoch (the kernels the run must
+    # launch; every other kernel of K1-K10 must not), loss must fall, route
+    # (dense_tiles, streamed, block_diag), TC blocks (None: not checked)
     runs = [
-        ("gcn --no_hoist", [*pubmed, "--model", "gcn", "--no_hoist"], ("K1",), True, condensed,
-         334),
-        ("gcn", [*pubmed, "--model", "gcn"], ("K1",), True, condensed, 334),
-        ("gin", [*pubmed, "--model", "gin"], ("K1",), True, condensed, 334),
-        ("agnn 2 layers", [*pubmed, *agnn, "--num_layers", "2"], ("K2", "K3"), True, condensed,
-         334),
-        ("agnn 4 layers", [*pubmed, *agnn, "--num_layers", "4"], ("K2", "K3"), False, condensed,
-         334),
+        ("gcn --no_hoist", [*pubmed, "--model", "gcn", "--no_hoist"], {"K1": 4}, True,
+         condensed, 334),
+        ("gcn", [*pubmed, "--model", "gcn"], {"K1": 2}, True, condensed, 334),
+        ("gin", [*pubmed, "--model", "gin"], {"K1": 2}, True, condensed, 334),
+        ("agnn 2 layers", [*pubmed, *agnn, "--num_layers", "2"], {"K2": 2, "K3": 2}, True,
+         condensed, 334),
+        ("agnn 4 layers", [*pubmed, *agnn, "--num_layers", "4"], {"K2": 4, "K3": 4}, False,
+         condensed, 334),
         ("agnn 2 layers, asymmetric graph",
          [*agnn, "--num_layers", "2", "--data_dir", data_dir, "--dataset", asym, "--dim", "64"],
-         ("K1", "K4"), True, condensed, None),
-        ("DD gcn --no_hoist", [*dd, "--model", "gcn", "--no_hoist"], ("K5", "K1"), True, bd,
-         None),
-        ("DD gcn", [*dd, "--model", "gcn"], ("K5", "K1"), True, bd, None),
-        ("DD gin", [*dd, "--model", "gin"], ("K5", "K1"), True, bd, None),
-        ("DD agnn 2 layers", [*dd, *agnn, "--num_layers", "2"], ("K6", "K7", "K2", "K3"), True,
+         {"K1": 8, "K4": 4}, True, condensed, None),
+        ("DD gcn --no_hoist", [*dd, "--model", "gcn", "--no_hoist"], {"K5": 4, "K1": 4}, True,
          bd, None),
-        ("DD agnn 4 layers", [*dd, *agnn, "--num_layers", "4"], ("K6", "K7", "K2", "K3"), False,
-         bd, None),
-        ("DD gcn --reorder rcm", [*dd, "--model", "gcn", "--reorder", "rcm"], ("K5", "K1"),
-         True, bd, None),
+        ("DD gcn", [*dd, "--model", "gcn"], {"K5": 2, "K1": 2}, True, bd, None),
+        ("DD gin", [*dd, "--model", "gin"], {"K5": 2, "K1": 2}, True, bd, None),
+        ("DD agnn 2 layers", [*dd, *agnn, "--num_layers", "2"],
+         {"K6": 2, "K7": 2, "K2": 2, "K3": 2}, True, bd, None),
+        ("DD agnn 4 layers", [*dd, *agnn, "--num_layers", "4"],
+         {"K6": 4, "K7": 4, "K2": 4, "K3": 4}, False, bd, None),
+        ("DD gcn --reorder rcm", [*dd, "--model", "gcn", "--reorder", "rcm"],
+         {"K5": 2, "K1": 2}, True, bd, None),
         ("Yeast gcn", ["--dataset", "Yeast", "--dim", "74", "--classes", "2", "--model", "gcn"],
-         ("K5",), True, bd, None),
+         {"K5": 2}, True, bd, None),
         ("agnn 2 layers, banded graph",
          [*agnn, "--num_layers", "2", "--data_dir", data_dir, "--dataset", banded, "--dim", "64"],
-         ("K5", "K4", "K1"), True, bd, None),
-        ("reddit gcn", [*REDDIT, "--model", "gcn"], ("K8",), True, streamed, 265_565),
-        ("reddit agnn 2 layers", [*REDDIT, *agnn, "--num_layers", "2"], ("K8", "K9"), True,
-         streamed, 265_565),
+         {"K5": 8, "K4": 4, "K1": 8}, True, bd, None),
+        ("reddit gcn", [*REDDIT, "--model", "gcn"], {"K8": 2}, True, streamed, 265_565),
+        ("reddit agnn 2 layers", [*REDDIT, *agnn, "--num_layers", "2"], {"K8": 8, "K9": 4},
+         True, streamed, 265_565),
     ]
     results, launches = [], {k: 0 for k in KERNELS}
     reddit_errs, reddit_records, stages, reddit_graph = {}, {}, {}, None
-    for label, extra, expected, must_fall, route, tc_blocks in runs:
+    for label, extra, per_epoch, must_fall, route, tc_blocks in runs:
         print(f"--- train.main {' '.join(extra)}")
         t0 = time.perf_counter()
         args = ["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), *extra]
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        r = run_main(args)
+        with device_launches() as ran:
+            r = run_main(args)
         counts = launch_counts()
         r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         r["peak_rss"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
         r["seconds"] = time.perf_counter() - t0
         print(f"  route {(r['dense_tiles'], r['streamed'], r['block_diag'])}  first loss "
               f"{r['first_loss']:.6f}  final loss {r['final_loss']:.6f}  "
-              + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}" for k, c in counts.items()))
+              + "  ".join(f"{k} launches {c[0]} (on the card {ran[k]}) plain calls {c[1]}"
+                          for k, c in counts.items()))
         if must_fall and not (math.isfinite(r["final_loss"])
                               and r["final_loss"] < r["first_loss"]):
             raise AssertionError(f"{label}: loss did not fall "
                                  f"({r['first_loss']} -> {r['final_loss']})")
-        check_launches(label, counts, expected)
+        check_launches(label, counts, per_epoch)
+        check_launches(f"{label} (on the card)", on_card(ran), per_epoch)
+        check_replays(label, counts, ran, [r["captures"]],
+                      [(WARMUP_EPOCHS + TRAIN_EPOCHS, per_epoch)])
+        r["step_launches"] = per_epoch
+        print(f"  captured once in {r['capture_s']:.3f} s; launches an epoch "
+              + "  ".join(f"{k} {c}" for k, c in per_epoch.items()))
         if (r["dense_tiles"], r["streamed"], r["block_diag"]) != route:
             raise AssertionError(f"{label}: route {(r['dense_tiles'], r['streamed'], r['block_diag'])}"
                                  f", expected {route}")
         if tc_blocks is not None and r["tc_blocks"] != tc_blocks:
             raise AssertionError(f"{label}: {r['tc_blocks']} TC blocks, expected {tc_blocks}")
-        for k, c in counts.items():
-            launches[k] += c[0]
+        for k, c in ran.items():
+            launches[k] += c
         graph, ds = r.pop("graph"), r.pop("dataset")
         if label == "reddit gcn":
             t1 = time.perf_counter()
@@ -1206,7 +1258,167 @@ def phase_train(data_dir, dev, card) -> tuple:
         del graph, ds
         results.append((label, r))
         torch.cuda.empty_cache()
+    for label, argv in CHAIN_RUNS:
+        chain_against_eager(label, [data_dir if a == "BANDED" else a for a in argv], dev, card)
+        torch.cuda.empty_cache()
     return results, launches, reddit_errs, reddit_records, stages, reddit_graph
+
+
+# A kernel's name in a profiler trace (``void (anonymous namespace)::
+# spmm_dense_kernel<float, signed char, float, false>(...)``): the function
+# and its template arguments.
+TRACED_KERNEL = re.compile(r"::(\w+)<([^<>]*)>\(")
+# The function each of K2-K9 launches, one a wrapper call; K1 and K10 are
+# both ``spmm_dense_kernel``, K10 the scored one (its last template
+# argument ``true``).
+TRACED_NAMES = {"sfused_kernel": "K2", "sfused_bwd_kernel": "K3", "sddmm_edge_kernel": "K4",
+                "spmm_bd_kernel": "K5", "bd_sfused_kernel": "K6",
+                "bd_sfused_bwd_kernel": "K7", "spmm_csr_kernel": "K8",
+                "sddmm_csr_kernel": "K9"}
+
+
+# A ``device_launches`` trace drops device operations at its ends: past its
+# window's end, where their time converted to the host's clock falls
+# outside it, and, once a process has run phase 11, the first few of a
+# trace (the first step's forward, in every other trace of one step; an
+# H100, torch 2.11).  So each end holds ``TRACE_PADS`` spin
+# kernels (``torch.cuda._sleep``), then an idle ``TRACE_MARGIN_S``, and a
+# trace that kept no more than ``TRACE_PADS`` of them may have lost more
+# than its pads at one end: it raises.
+TRACE_PADS = 256
+TRACE_MARGIN_S = 0.1
+
+
+def traced_kernel(name) -> str | None:
+    """Which of K1-K10 a device operation of a profiler trace is, or None."""
+    m = TRACED_KERNEL.search(name)
+    if m is None:
+        return None
+    if m.group(1) == "spmm_dense_kernel":
+        return "K10" if m.group(2).rsplit(",", 1)[-1].strip() == "true" else "K1"
+    return TRACED_NAMES.get(m.group(1))
+
+
+@contextlib.contextmanager
+def device_launches():
+    """Traces the block's device activity with ``torch.profiler`` and
+    yields a dict that holds, once the block has ended, each kernel's
+    launches that the card ran in it: the replays of a captured CUDA graph
+    too, where no wrapper runs.  The block must not start a profiler of its
+    own (``--single_kernel`` does)."""
+    ran = dict.fromkeys(KERNELS, 0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        pad_trace()
+        yield ran
+        pad_trace()
+    # The trace's raw events: ``prof.events()`` would build the whole event
+    # tree first, some seconds for the headline's tens of thousands.
+    pads = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if "spin_kernel" in e.name():
+                pads += 1
+            elif (k := traced_kernel(e.name())) is not None:
+                ran[k] += 1
+    if pads <= TRACE_PADS:
+        raise AssertionError(f"device_launches: the trace kept {pads} of its {2 * TRACE_PADS} "
+                             "pad kernels, so it may have lost more than its pads at one end")
+
+
+def pad_trace() -> None:
+    """``TRACE_PADS`` spin kernels, then ``TRACE_MARGIN_S`` of idle card."""
+    for _ in range(TRACE_PADS):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+    time.sleep(TRACE_MARGIN_S)
+
+
+def on_card(ran) -> dict:
+    """``device_launches``' counts as ``launch_counts`` gives the
+    wrappers': (launches, plain calls), no plain call on the card."""
+    return {k: (n, 0) for k, n in ran.items()}
+
+
+def check_replays(label, counts, ran, captures, steps) -> None:
+    """Raise unless each of ``steps`` (its epochs and the launches of one
+    epoch) captured its step once and the card ran, beyond what the
+    wrappers launched (``counts``), each kernel's launches an epoch once for
+    every epoch but ``CAPTURE_WARMUP`` + 1 of each step.  Both sides count
+    the launches outside the step (the hoisted aggregate) and the eager
+    warm-up steps' (``CAPTURE_WARMUP`` of each step); the wrappers count
+    one step's more at the capture, which runs nothing, and the card the
+    replays', which no wrapper sees."""
+    want = {k: sum((epochs - CAPTURE_WARMUP - 1) * per_epoch.get(k, 0)
+                   for epochs, per_epoch in steps) for k in KERNELS}
+    got = {k: ran[k] - counts[k][0] for k in KERNELS}
+    if captures != [1] * len(steps) or got != want:
+        raise AssertionError(f"{label}: captures {captures} (one a step expected); the card "
+                             f"ran {got} launches more than the wrappers counted, expected "
+                             f"{want}")
+
+
+def chain_against_eager(label, argv, dev, card) -> None:
+    """Two steps of one model from the same parameters and dropout
+    generator (dropout 0.5): ``CHAIN_EPOCHS`` eager steps against
+    ``step.many(CHAIN_EPOCHS)`` (its warm-up steps, the capture, the
+    replays), the final losses within ``RESUME_RTOL`` (the atomics' last
+    bits), and the launches the card ran (``device_launches``) equal on
+    both sides and to what the eager steps' wrappers counted; then
+    ``CHAIN_EPOCHS`` more of each, timed."""
+    t0 = time.perf_counter()
+    args = train.build_argparser().parse_args(["--device", "cuda", *argv])
+    ds = train.load_dataset(args)
+    graph = TiledGraph(ds.row_pointers, ds.column_index, ds.num_nodes, train.make_config(args),
+                       device=dev, weighted_traffic=args.model == "agnn")
+    x = torch.from_numpy(ds.x).to(dev)
+    y = torch.from_numpy(ds.y.astype(np.int64)).to(dev)
+
+    def made():
+        net = nets.init_net(torch.Generator().manual_seed(args.seed), args.model,
+                            ds.num_features, args.hidden, ds.num_classes, args.num_layers,
+                            device=dev)
+        return train.make_train_step(
+            graph, net, x, y, train.make_optimizer(net.parameters(), args.lr, dev), 0.5,
+            hoist=not args.no_hoist, generator=torch.Generator(device=dev).manual_seed(
+                args.seed + 1))
+
+    def eager_epochs():
+        for _ in range(CHAIN_EPOCHS):
+            loss = eager()
+        return loss
+
+    eager, chained = made(), made()
+    reset_counts()
+    with device_launches() as ran_eager:
+        want = eager_epochs()
+    counted = {k: c[0] for k, c in launch_counts().items()}
+    with device_launches() as ran_chained:
+        got = chained.many(CHAIN_EPOCHS)
+    a, b = float(got), float(want)
+    rel = abs(a - b) / abs(b)
+
+    def ms_an_epoch(run) -> float:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        loss = run()
+        float(loss)
+        return (time.perf_counter() - start) * 1e3 / CHAIN_EPOCHS
+
+    eager_ms = ms_an_epoch(eager_epochs)
+    replay_ms = ms_an_epoch(lambda: chained.many(CHAIN_EPOCHS))
+    print(f"chain against eager [{label}]: final loss after {CHAIN_EPOCHS} updates, many "
+          f"{a:.9g} against eager {b:.9g}: relative difference {rel:.3e} (rtol {RESUME_RTOL}), "
+          f"bit-equal {a == b}; the card ran, on each side, "
+          + " ".join(f"{k} {n}" for k, n in ran_chained.items() if n)
+          + f"; captured once in {chained.capture_s:.3f} s; ms an epoch over "
+          f"{CHAIN_EPOCHS} more: eager {eager_ms:.4f}, replayed {replay_ms:.4f}  (card: {card}; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    if chained.captures != 1 or not rel <= RESUME_RTOL:
+        raise AssertionError(f"{label}: step.many does not make the eager steps' updates")
+    if not any(ran_eager.values()) or ran_eager != counted or ran_chained != ran_eager:
+        raise AssertionError(f"{label}: the card ran {ran_eager} launches in the eager steps "
+                             f"(their wrappers counted {counted}) and {ran_chained} in "
+                             "step.many; all three must agree")
 
 
 def median_ms(fn, runs=TIMING_RUNS) -> float:
@@ -1766,11 +1978,11 @@ def overlap_trace(device, argv, out_dir, rank) -> dict:
 # The keys ``train.main([..., "--single_kernel"])`` returns: the JAX CLI's.
 SAG_KEYS = {"ms", "edges_per_s", "useful_tflops", "tile_tflops", "mfu_pct",
             "dispatch_chained_ms", "sddmm_ms", "sddmm_edges_per_s"}
-# Rounds of reddit's single-kernel chain (phase 14), the trainer's default:
-# at reddit's input width (d=602; K8 about 43 ms a call on an H100 at 700 W)
-# its 200 SpMM rounds, 50 dispatch-chained ones and 100 SDDMM rounds take
-# about 25 s.
-REDDIT_SAG_ROUNDS = 200
+# Rounds of reddit's single-kernel chain (phase 14): at reddit's input
+# width (d=602; K8 about 43 ms a call on an H100 at 700 W) the trainer's 200
+# took about 25 s; 50 SpMM rounds, 50 dispatch-chained ones and 25 SDDMM
+# rounds keep the smoke inside its time.
+REDDIT_SAG_ROUNDS = 50
 # A resumed run's final loss against an uninterrupted run's: K1 adds the
 # parts of a split window's rows (pubmed's hub window) with f32 atomics in
 # no fixed order, as K2/K3 and K8 add rows cut between ranges, so the last
@@ -1839,11 +2051,13 @@ def phase_checkpoints(dev) -> dict:
     def run(label, args) -> dict:
         print(f"--- train.main {' '.join(args)}")
         reset_counts()
-        r = run_main(args)
+        with device_launches() as ran:
+            r = run_main(args)
         counts = launch_counts()
         check_launches(label, counts, ("K1",))
-        for k, c in counts.items():
-            launches[k] += c[0]
+        check_launches(f"{label} (on the card)", on_card(ran), ("K1",))
+        for k, c in ran.items():
+            launches[k] += c
         r.pop("graph", None), r.pop("dataset", None)
         torch.cuda.empty_cache()
         return r
@@ -1899,6 +2113,19 @@ def in_dir(path):
         os.chdir(old)
 
 
+def check_baseline_step(path, impl) -> None:
+    """Raise unless every row of a sweep's ``Fig_6a`` CSV says how its
+    incumbent ran on the card: ``eager`` for ``baseline.EAGER_IMPLS``, else
+    ``replayed`` (one CUDA graph of its step)."""
+    want = "eager" if impl in EAGER_INCUMBENTS else "replayed"
+    with open(path) as f:
+        got = {r["dataset"]: r["baseline_step"] for r in csv.DictReader(f)}
+    if set(got.values()) != {want}:
+        raise AssertionError(f"{os.path.basename(path)} ({impl}): baseline_step {got}, "
+                             f"expected {want}")
+    print(f"  {os.path.basename(path)} ({impl}): every incumbent epoch {want}")
+
+
 def check_csv(path, names, columns) -> None:
     """Raise unless ``path`` has a row for each of ``names`` whose
     ``columns`` are finite and positive."""
@@ -1927,17 +2154,42 @@ def phase_ae_harness(out_dir) -> dict:
     cora, ``--single_kernel`` on cora and DD, ``epoch_ledger`` on pubmed and
     DD and ``accuracy_parity`` (GCN, AGNN) on the golden fixture.  The counts
     are set to 0 before the first and read after the last: K1-K7 must have
-    launched, and no plain version run.  Every CSV row must be there, finite
-    and positive, each graph on its route, and parity must pass.  Returns the
-    launches."""
-    fig = ("torch_baseline", "tcgnn_torch", "speedup", "tcgnn_torch_hoisted",
-           "speedup_hoisted")
+    launched, and no plain version run; the launches are the card's
+    (``device_launches``, the replays of the trainer's and the ``gather``
+    incumbent's steps included) but ``--single_kernel``'s, which traces its
+    rounds itself and replays nothing: its wrappers count them.  Every CSV
+    row must be there, finite and positive, each graph on its route, and
+    parity must pass.  Returns the launches."""
     sk_cols = ("SAG avg (ms)", "edges_per_s", "useful_TFLOPs", "tile_TFLOPs", "MFU (%)",
                "SDDMM avg (ms)", "sddmm_edges_per_s")
+    reset_counts()
+    t0 = time.perf_counter()
+    with device_launches() as ran:
+        harness_runs(out_dir)
+    counts = launch_counts()
+    reset_counts()
+    with in_dir(os.path.join(out_dir, "single_kernel")) as d:
+        sweep.main(["--single_kernel", "--datasets", "cora", "DD", "--device", "cuda"])
+        check_csv(os.path.join(d, "2_tcgnn_single_kernel.csv"), ("cora", "DD"), sk_cols)
+    single = launch_counts()
+    total = {k: (n + single[k][0], counts[k][1] + single[k][1]) for k, n in ran.items()}
+    print("  AE harness: " + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}"
+                                       for k, c in total.items()))
+    if (any(total[k][0] <= 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"))
+            or any(c[1] for c in total.values())):
+        raise AssertionError(f"AE harness: K1-K7 must launch and no plain version run: "
+                             f"{total}")
+    print(f"  AE harness done in {time.perf_counter() - t0:.1f} s")
+    return {k: c[0] for k, c in total.items()}
+
+
+def harness_runs(out_dir) -> None:
+    """Phase 16's runs but ``--single_kernel``'s."""
+    fig = ("torch_baseline", "tcgnn_torch", "speedup", "tcgnn_torch_hoisted",
+           "speedup_hoisted")
     ledger_cols = ("epoch_ms", "agg_ms", "dense_rest_ms", "stage_sum_ms")
     common = ["--epochs", str(AE_EPOCHS), "--baseline_epochs", str(AE_BASELINE_EPOCHS),
               "--dtype", "float32", "--device", "cuda"]
-    reset_counts()
     t0 = time.perf_counter()
     for impl in INCUMBENTS:
         with in_dir(os.path.join(out_dir, f"gcn_{impl}")) as d:
@@ -1946,18 +2198,17 @@ def phase_ae_harness(out_dir) -> dict:
             check_sweep_routes(f"gcn {impl}", rows, AE_ROUTES)
             check_csv(os.path.join(d, "1_bench_gcn.csv"), AE_GCN_GRAPHS, ("Avg.Epoch (ms)",))
             check_csv(os.path.join(d, "Fig_6a_torch_gcn.csv"), AE_GCN_GRAPHS, fig)
+            check_baseline_step(os.path.join(d, "Fig_6a_torch_gcn.csv"), impl)
     print(f"  GCN sweeps: {time.perf_counter() - t0:.1f} s")
     with in_dir(os.path.join(out_dir, "agnn")) as d:
         rows = sweep.main(["--model", "agnn", "--num_layers", "2", "--hidden", "32",
                            "--datasets", "pubmed", "DD", *common])
         check_sweep_routes("agnn", rows, AE_ROUTES)
         check_csv(os.path.join(d, "Fig_6a_torch_agnn.csv"), ("pubmed", "DD"), fig)
+        check_baseline_step(os.path.join(d, "Fig_6a_torch_agnn.csv"), "gather")
     with in_dir(os.path.join(out_dir, "gin")) as d:
         sweep.main(["--model", "gin", "--datasets", "cora", *common])
         check_csv(os.path.join(d, "Fig_6a_torch_gin.csv"), ("cora",), fig)
-    with in_dir(os.path.join(out_dir, "single_kernel")) as d:
-        sweep.main(["--single_kernel", "--datasets", "cora", "DD", "--device", "cuda"])
-        check_csv(os.path.join(d, "2_tcgnn_single_kernel.csv"), ("cora", "DD"), sk_cols)
     with in_dir(os.path.join(out_dir, "ledger")) as d:
         epoch_ledger.main(["--datasets", "pubmed", "DD", "--epochs", str(AE_EPOCHS),
                            "--device", "cuda"])
@@ -1965,14 +2216,6 @@ def phase_ae_harness(out_dir) -> dict:
     failures = accuracy_parity.main(["--models", "gcn", "agnn", "--device", "cuda"])
     if failures:
         raise AssertionError(f"accuracy parity: {failures} failure(s)")
-    counts = launch_counts()
-    print("  AE harness: " + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}"
-                                       for k, c in counts.items()))
-    if (any(counts[k][0] <= 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"))
-            or any(c[1] for c in counts.values())):
-        raise AssertionError(f"AE harness: K1-K7 must launch and no plain version run: "
-                             f"{counts}")
-    return {k: c[0] for k, c in counts.items()}
 
 
 def op_grads(graph, op, x, w, r):
@@ -2368,8 +2611,9 @@ def one_device_first_loss(reddit, model, dev) -> float:
                         args.hidden, ds.num_classes, args.num_layers, device=dev,
                         n_heads=args.n_heads)
     y = torch.from_numpy(ds.y.astype(np.int64)).to(dev)
-    step = train.make_train_step(graph, net, x, y, torch.optim.Adam(net.parameters(), lr=args.lr),
-                                 0.0, hoist=not args.no_hoist)
+    step = train.make_train_step(graph, net, x, y,
+                                 train.make_optimizer(net.parameters(), args.lr, dev), 0.0,
+                                 hoist=not args.no_hoist)
     return float(step())
 
 
@@ -2557,20 +2801,37 @@ def bench_py_keys() -> list:
     return keys
 
 
+# The headline's three measures at its defaults on the card
+# (``bench/headline.py``): the epochs of each (its warm-up, then 3 reps) and
+# the launches of one epoch.
+HEADLINE_STEPS = [
+    (headline.WARMUP_EPOCHS + 3 * 200, {"K1": 4}),  # GCN, no hoist
+    (headline.WARMUP_EPOCHS + 3 * 200, {"K1": 2}),  # GCN hoisted
+    (headline.WARMUP_EPOCHS + 3 * 50, {"K2": 4, "K3": 4}),  # AGNN, 4 layers
+]
+
+
 def phase_headline(card) -> tuple[dict, dict]:
     """Phase 20: ``headline.main([])`` at its full schedule on the card, the
     counts set to 0 just before; raises unless its line has ``bench.py``'s
     keys and ``dtype``, the card's backend and dtype, pubmed's 334 TC blocks,
     positive finite times and an AGNN datum, and unless it launched K1, K2
-    and K3 and no other kernel, and no plain version.  Returns the line and
-    each kernel's launches."""
+    and K3 and no other kernel, and no plain version, and unless each of its
+    three measures (``HEADLINE_STEPS``) captured its step once and the card
+    ran every replayed epoch's launches (``check_replays``).  Returns the
+    line and each kernel's launches on the card."""
     reset_counts()
-    line = headline.main([])
+    out = io.StringIO()
+    with device_launches() as ran, contextlib.redirect_stdout(Tee(sys.stdout, out)):
+        line = headline.main([])
     counts = launch_counts()
+    captures = [int(c) for c in re.findall(r"step captured (\d+) time", out.getvalue())]
     print(f"  headline line: {json.dumps(line)}  (card: {card})")
-    print("  headline " + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}"
-                                    for k, c in counts.items() if c[0] or c[1]))
+    print("  headline " + "  ".join(f"{k} launches {c[0]} (on the card {ran[k]}) plain calls "
+                                    f"{c[1]}" for k, c in counts.items() if c[0] or c[1]))
     check_launches("headline", counts, ("K1", "K2", "K3"))
+    check_launches("headline (on the card)", on_card(ran), ("K1", "K2", "K3"))
+    check_replays("headline", counts, ran, captures, HEADLINE_STEPS)
     keys = bench_py_keys()
     if len(keys) != 11 or list(line) != keys + ["dtype"]:
         raise AssertionError(f"headline keys {list(line)}; bench.py's {keys} and dtype")
@@ -2580,7 +2841,7 @@ def phase_headline(card) -> tuple[dict, dict]:
                                "agnn_pubmed_epoch_ms")]
     if not all(isinstance(t, (int, float)) and math.isfinite(t) and t > 0 for t in times):
         raise AssertionError(f"headline times {times}")
-    return line, {k: c[0] for k, c in counts.items()}
+    return line, ran
 
 
 # ---- the mesh over processes (torch.distributed) ------------------------------
@@ -2782,7 +3043,7 @@ def phase_mesh_procs(earlier, dev, card, data_dir) -> tuple[list, dict, dict]:
 # argument comes after ``TRAIN_EPOCHS``' and wins): at about 5 s an epoch
 # over gloo on one card it is the phase's long pole, cut to keep the smoke
 # within its time.
-REDDIT_SPLIT_EPOCHS = 3
+REDDIT_SPLIT_EPOCHS = 1
 # Phase 22's trainer runs, one feature shard a rank: label, trainer
 # arguments (all --no_dropout, TRAIN_EPOCHS), kernels each rank must launch,
 # and where the one-process mesh run it is held to comes from (phase 17's
@@ -3256,7 +3517,9 @@ def main():
               f"Train (ms) {r['train_ms']:.3f}  First loss {r['first_loss']:.6f}  "
               f"Final loss {r['final_loss']:.6f}  peak host RSS {r['peak_rss'] / 2**30:.2f} GiB  "
               f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB  "
-              f"run {r['seconds']:.1f} s  (card: {card})")
+              f"capture {r['capture_s']:.3f} s  launches an epoch "
+              + " ".join(f"{k} {c}" for k, c in r["step_launches"].items() if c)
+              + f"  run {r['seconds']:.1f} s  (card: {card})")
     for name, r in mesh_runs + overlap_mesh_runs + bd_mesh_runs + stream_runs:
         print(f"main path [{name}]: {r['route']}  TC_Blocks {r['tc_blocks']}  "
               f"Prep. (ms) {r['prep_ms']:.3f}  Prep host (ms) {r['prep_host_ms']:.3f}  "

@@ -30,10 +30,15 @@ Both graphs duck-type ``TiledGraph``'s ``spmm`` / ``spmm_weighted`` /
 no ``config`` (the layers compute in f32) under the port's own ``GNN``.  The
 training loop is the trainer's: ``train.make_train_step`` without the hoist
 (``F.nll_loss`` over all nodes, Adam), 9 warm-up steps, then ``--epochs``
-timed under ``torch.cuda.synchronize()`` by ``train.timed_epochs``, with the
+timed under ``torch.cuda.synchronize()`` by ``train.timed_epochs``, on the
+card as one CUDA graph of the step replayed an epoch (``step.many``), as
+JAX compiles each incumbent's epoch into one program, with the
 same output lines (``Prep. (ms)``, ``Final loss``, ``Train (ms)``).  The
 first loss (no dropout) equals the trainer's: the same parameters from the
-same seed.
+same seed.  The ``sparse`` incumbent's step cannot be captured
+(``EAGER_IMPLS``), so it runs one eager step an epoch; ``main`` returns
+which it was (``step``: ``replayed`` or ``eager``), and the sweep writes it
+beside each row.
 
 Run:  python -m tcgnn_tpu_torch.bench.baseline --dataset pubmed --dim 500 --classes 3 \
           --model gcn --impl sparse
@@ -218,6 +223,12 @@ class SparseBaselineGraph:
 
 
 IMPLS = {"gather": GatherBaselineGraph, "sparse": SparseBaselineGraph}
+# Incumbents whose step cannot be captured into a CUDA graph: the backward
+# of ``torch.sparse.mm`` (torch's own, over the CSR adjacency) copies from
+# an unpinned host tensor, which a capture refuses (on an H100 with torch
+# 2.11: "Cannot copy between CPU and CUDA tensors during CUDA graph capture
+# unless the CPU tensor is pinned").  Their epochs stay eager.
+EAGER_IMPLS = ("sparse",)
 
 
 def main(argv=None) -> dict:
@@ -251,15 +262,17 @@ def main(argv=None) -> dict:
         torch.Generator().manual_seed(args.seed), args.model, ds.num_features,
         args.hidden, ds.num_classes, args.num_layers, device=device, n_heads=args.n_heads,
     )
-    optimizer = torch.optim.Adam(net.parameters(), lr=args.lr)
+    optimizer = train.make_optimizer(net.parameters(), args.lr, device)
     norm = torch.from_numpy(1.0 / ds.norm_degrees()).to(device) if args.gcn_norm else None
     step = train.make_train_step(
         graph, net, x, y, optimizer, 0.0 if args.no_dropout else args.dropout, norm=norm,
         hoist=False, generator=torch.Generator(device=device).manual_seed(args.seed + 1),
+        eager=args.impl in EAGER_IMPLS,
     )
     first_loss, final_loss, train_ms, _ = train.timed_epochs(step, args, device, sync)
     return {"impl": args.impl, "prep_ms": prep * 1e3, "first_loss": first_loss,
-            "final_loss": final_loss, "train_ms": train_ms}
+            "final_loss": final_loss, "train_ms": train_ms,
+            "step": "replayed" if step.captures else "eager"}
 
 
 if __name__ == "__main__":

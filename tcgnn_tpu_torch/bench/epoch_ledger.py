@@ -21,7 +21,9 @@ Stages of a GCN/GIN no-hoist epoch (the headline configuration, reference
 Timing: warm-up epochs (or rounds), then ``--epochs`` rounds between two
 CUDA events around a ``torch.cuda.synchronize()``, over the rounds, as the
 trainer brackets its own ``Train (ms)``: each stage's number includes its
-dispatch, as the epoch's does (the host clock on the CPU).  The JAX
+dispatch, as the epoch's does (the host clock on the CPU), so an epoch is
+one eager call of the step (``step()``), not the trainer's replayed CUDA
+graph.  The JAX
 package's in-program chain differencing (``_timed_scan_rounds``) and its
 narrow/128-lane carry pair are TPU workarounds and are left out; an
 aggregation round takes the previous round's output at its true width.

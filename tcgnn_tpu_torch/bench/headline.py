@@ -9,14 +9,15 @@ graph built twice (``prep_ms`` cold, ``prep_warm_ms`` warm); Adam at 0.01,
 dropout 0.5; each datum the median of ``--reps`` reps of ``--epochs``
 epochs (200x3 on the card, 10x2 on the CPU) after ``--warmup`` epochs; the
 headline without the layer-1 hoist, the hoisted epoch beside it, and on the
-card the 4-layer hidden-32 AGNN datum (50x3), left null if it raises.
+card the 4-layer hidden-32 AGNN datum (50x3), left null if it raises.  As
+``bench.py`` times ``step.many``, the warm-up is one ``step.many`` and each
+rep one ``step.many`` closed by reading its loss on the host's clock: on
+the card the step is captured once, in the warm-up, and each epoch is one
+replay of its CUDA graph (``train.TrainStep``).
 
 Where it differs from ``bench.py``:
   * it runs on ``--device`` (default ``cuda``) and raises where torch finds
     no CUDA device; only ``--device cpu`` reaches the CPU;
-  * each epoch is one eager step (``train.make_train_step``), timed on the
-    host's clock with the host's dispatch of every kernel in it; there is no
-    device-side epoch chain;
   * the kernels' and the native host pass's libraries are loaded (built
     where needed) and the device's context started before the prep clock
     starts, so ``prep_ms`` is the graph's first build in the process and
@@ -138,27 +139,25 @@ def main(argv=None) -> dict:
     def measure(hoist, kind="gcn", hidden=16, layers=2, n_epochs=None, n_reps=None):
         """The median rep's average epoch ms and that rep's final loss:
         fresh parameters and optimizer, ``--warmup`` epochs, then ``n_reps``
-        reps of ``n_epochs`` eager steps, each closed by reading its last
-        loss on the host."""
+        reps of ``step.many(n_epochs)``, each closed by reading its loss on
+        the host."""
         n_epochs = epochs if n_epochs is None else n_epochs
         n_reps = reps if n_reps is None else n_reps
         net = nets.init_net(torch.Generator().manual_seed(0), kind, ds.num_features, hidden,
                             ds.num_classes, layers, device=dev)
-        opt = torch.optim.Adam(net.parameters(), lr=0.01)
+        opt = train.make_optimizer(net.parameters(), 0.01, dev)
         gen = torch.Generator(device=dev).manual_seed(1)
         step = train.make_train_step(graph, net, x, y, opt, 0.5, hoist=hoist, generator=gen)
-        for _ in range(args.warmup):
-            step()
+        if args.warmup:
+            step.many(args.warmup)
         samples = []
         for _ in range(n_reps):
             sync()
             t0 = time.perf_counter()
-            for _ in range(n_epochs):
-                loss = step()
-            final_loss = float(loss)  # waits for the rep's last epoch
+            final_loss = float(step.many(n_epochs))  # waits for the rep's last epoch
             samples.append((time.perf_counter() - t0) * 1e3 / n_epochs)
         print(f"# {kind} {layers}L h{hidden} hoist={hoist}: {n_reps} reps of {n_epochs} "
-              f"epochs, ms an epoch: {samples}")
+              f"epochs, ms an epoch: {samples}; step captured {step.captures} time(s)")
         return sorted(samples)[len(samples) // 2], final_loss
 
     # The headline is measured WITHOUT the layer-1 hoist, like for like with

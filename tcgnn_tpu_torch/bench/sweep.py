@@ -15,7 +15,11 @@ package's contracts):
   * ``1_bench_<model>.csv`` — ``dataset,Avg.Epoch (ms)``, the no-hoist epoch;
   * ``Fig_6a_torch_<model>.csv`` — ``dataset,torch_baseline,tcgnn_torch,
     speedup,tcgnn_torch_hoisted,speedup_hoisted,tcgnn_epochs,
-    baseline_epochs`` (JAX: ``Fig_6a_xla_<model>.csv``);
+    baseline_epochs,baseline_step`` (JAX: ``Fig_6a_xla_<model>.csv``;
+    ``baseline_step`` is the port's own: ``replayed`` where the incumbent's
+    epochs were replays of one CUDA graph of its step, as the port's are on
+    the card, ``eager`` where each was one eager step, ``baseline.EAGER_IMPLS``
+    and every CPU run);
   * ``--single_kernel``: ``2_tcgnn_single_kernel.csv`` with the keys
     ``train.profile_sag`` returns, at d=96 (``2_tcgnn_single_kernel.py``).
 
@@ -51,7 +55,8 @@ ROUTE_KEYS = ("dense_tiles", "streamed", "block_diag")
 
 def run_one(module_main, name, dim, classes, args, extra=()):
     """``module_main`` on one graph: the epoch ms (``train_ms``) of a
-    training run and its route (None for the baseline), or the statistics
+    training run, its route (None for the baseline) and how the baseline
+    ran its epochs (``step``; None for the trainer), or the statistics
     dict of a ``--single_kernel`` run; None where the run raised."""
     is_trainer = module_main.__module__ == "tcgnn_tpu_torch.train"
     argv = [
@@ -74,7 +79,7 @@ def run_one(module_main, name, dim, classes, args, extra=()):
         if "train_ms" not in r:
             return r
         route = tuple(r[k] for k in ROUTE_KEYS) if is_trainer else None
-        return r["train_ms"], route
+        return r["train_ms"], route, r.get("step")
     except Exception:
         traceback.print_exc()
         return None
@@ -176,7 +181,7 @@ def main(argv=None):
         f_fig.write(
             "dataset,torch_baseline,tcgnn_torch,speedup,"
             "tcgnn_torch_hoisted,speedup_hoisted,"
-            "tcgnn_epochs,baseline_epochs\n"
+            "tcgnn_epochs,baseline_epochs,baseline_step\n"
         )
     hoistable = args.model in ("gcn", "gin")
     for name, dim, classes in table:
@@ -189,12 +194,13 @@ def main(argv=None):
             if hoistable else res
         )
         ours, ours_hoisted = _ms(res), _ms(res_hoisted)
-        base = None
+        base = base_step = None
         if not args.skip_baseline:
             bargs = copy.copy(args)
             bargs.epochs = args.baseline_epochs
-            base = _ms(run_one(torch_baseline.main, name, dim, classes, bargs,
-                               extra=("--impl", args.baseline_impl)))
+            res_base = run_one(torch_baseline.main, name, dim, classes, bargs,
+                               extra=("--impl", args.baseline_impl))
+            base, base_step = _ms(res_base), None if res_base is None else res_base[2]
         route = None if res is None else res[1]
         rows.append((name, base, ours, ours_hoisted, route))
         if ours is not None:
@@ -205,7 +211,7 @@ def main(argv=None):
             sph = f"{base / ours_hoisted:.3f}" if ours_hoisted is not None else ""
             f_fig.write(
                 f"{name},{base:.3f},{ours:.3f},{base / ours:.3f},{oh},{sph},"
-                f"{args.epochs},{args.baseline_epochs}\n"
+                f"{args.epochs},{args.baseline_epochs},{base_step}\n"
             )
             f_fig.flush()
     f_bench.close()

@@ -162,7 +162,10 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 # Every kernel wrapper, each with two counters: ``launches`` (kernel
-# launches) and ``plain_calls`` (runs of the plain version on a CPU tensor).
+# launches, one a call; a call under a CUDA graph capture records its launch
+# into the graph, and the graph's replays launch it again with no Python, so
+# no wrapper counts them) and ``plain_calls`` (runs of the plain version on a
+# CPU tensor).
 COUNTED = []
 
 

@@ -5,7 +5,12 @@ Single device: SGT preprocessing timed as ``Prep. (ms)`` with the
 (lr 0.01) and NLL over all nodes: 9 warm-up epochs, as the JAX CLI runs
 (``tcgnn_tpu/train.py`` ``step.many(..., 9)``), then ``--epochs`` timed
 epochs reported as ``Train (ms)``.  The timed loop reads no value from the
-device; it is bracketed by ``torch.cuda.synchronize()``.
+device; it is bracketed by ``torch.cuda.synchronize()``.  On the card the
+epochs after the first run as JAX's device-side epoch chain runs them: the
+step is captured once into a CUDA graph (in the warm-up, so the capture
+stays out of ``Train (ms)``) and replayed once an epoch (``TrainStep.many``),
+with no host dispatch of its kernels; on the CPU, and on the mesh, every
+epoch is one eager step.
 
 The device is explicit (``--device``, default ``cuda``) and the trainer never
 moves to another one: without a card, ``--device cuda`` raises.  It prints
@@ -81,6 +86,11 @@ from tcgnn_tpu_torch.utils import checkpoint as ckpt
 # Warm-up steps before the timed epochs, the first one's loss included: the
 # JAX CLI's 9, on one device and on the mesh.
 WARMUP_EPOCHS = 9
+# Eager steps before a step is captured (``TrainStep.many``), the calls of
+# the step before counting: PyTorch's capture recipe runs a few, so that
+# what a step sets up once (Adam's state, cuBLAS's workspace, the kernels'
+# libraries) is set up outside the capture.
+CAPTURE_WARMUP = 3
 # SpMM rounds of --single_kernel's chain: the reference's 200
 # (main_tcgnn.py:65-70), as in the JAX CLI.
 SAG_ROUNDS = 200
@@ -181,17 +191,129 @@ def make_config(args) -> TileConfig:
     )
 
 
+def make_optimizer(params, lr: float, device) -> torch.optim.Adam:
+    """Adam at ``lr``, capturable on the card (``TrainStep.many`` captures
+    its update into a CUDA graph); the CPU takes the plain update."""
+    return torch.optim.Adam(params, lr=lr, capturable=torch.device(device).type == "cuda")
+
+
+class TrainStep:
+    """One full-batch epoch per call: forward, NLL over all nodes, Adam
+    update; returns the epoch's loss (before the update) as a device tensor.
+
+    ``many(n)`` runs n epochs and returns the n-th one's loss: JAX's
+    ``step.many`` (``tcgnn_tpu/train.py:203-236``), n epochs in one device
+    program.  On the card its first call captures the step into a CUDA
+    graph, and every epoch after that is one replay: the same kernels, with
+    no Python and no host dispatch between them.  PyTorch's capture recipe
+    is kept: a few eager steps first (``CAPTURE_WARMUP``, the calls of the
+    step before counting), on a side stream, then the capture, which runs
+    nothing, then the replays.  The warm-up steps are real updates and count
+    among the n, so ``many(n)`` makes exactly the updates of n calls, with
+    the dropout masks of the same generator in the same order (it is
+    registered with the graph, so every replay draws the next masks).  The
+    graph's static inputs are the features, labels, norms, hoisted
+    aggregate and graph arrays, the parameters and Adam's state: each must
+    keep its storage after the capture, and ``many`` raises where one has
+    moved.  The capture needs a capturable Adam (``make_optimizer``); a
+    capture that fails raises, naming what broke it, and nothing falls back
+    to eager steps.  A kernel wrapper counts its launch once, at the
+    capture: a replay runs no Python.  On the CPU, and for an ``eager``
+    step (one that cannot be captured), ``many(n)`` is n calls.
+    """
+
+    def __init__(self, fn, params, optimizer, generator, device: torch.device,
+                 eager: bool = False):
+        self._fn, self._params, self._optimizer = fn, list(params), optimizer
+        self._generator, self.device = generator, device
+        self.replays = device.type == "cuda" and not eager
+        self._graph = self._loss = self._storage = None
+        self.eager_steps = 0
+        self.captures = 0
+        self.capture_s = None
+
+    def __call__(self) -> torch.Tensor:
+        loss = self._fn()
+        self.eager_steps += 1
+        return loss
+
+    def many(self, n: int) -> torch.Tensor:
+        """``n`` epochs; the n-th one's loss, a tensor no later call
+        overwrites."""
+        if n < 1:
+            raise ValueError(f"step.many: n must be at least 1, got {n}")
+        if not self.replays:
+            for _ in range(n):
+                loss = self()
+            return loss
+        if self._graph is None:
+            if not all(g.get("capturable", False) for g in self._optimizer.param_groups):
+                raise ValueError("step.many: on the card the optimizer's update is captured "
+                                 "into a CUDA graph; build it with capturable=True "
+                                 "(train.make_optimizer)")
+            warm = min(max(CAPTURE_WARMUP - self.eager_steps, 0), n - 1)
+            if self.eager_steps + warm == 0:  # one epoch, and no step to capture after
+                return self()
+            if warm:
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(side):
+                    for _ in range(warm):
+                        self()
+                torch.cuda.current_stream(self.device).wait_stream(side)
+                n -= warm
+            self._capture()
+        elif self._tensor_storage() != self._storage:
+            raise RuntimeError(
+                "step.many: a parameter or Adam state tensor was given new storage after the "
+                "step was captured; restore parameters and optimizer state in place, before "
+                "the first many()")
+        for _ in range(n):
+            self._graph.replay()
+        return self._loss.clone()
+
+    def _tensor_storage(self) -> list:
+        """The storage of every parameter and Adam state tensor, which the
+        graph reads and writes where they lay at the capture."""
+        tensors = list(self._params)
+        for state in self._optimizer.state.values():
+            tensors += [v for v in state.values() if torch.is_tensor(v)]
+        return [t.data_ptr() for t in tensors]
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        if self._generator is not None:
+            graph.register_generator_state(self._generator)
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                loss = self._fn()
+        except RuntimeError as e:
+            causes = [e] + ([e.__context__] if e.__context__ is not None else [])
+            raise RuntimeError(
+                "step.many: the training step could not be captured into a CUDA graph: "
+                + "; ".join(f"{type(c).__name__}: {c}" for c in reversed(causes))
+                + " (a host read in the step, such as .item(), float(), nonzero or a shape "
+                "taken from device data, or a launch off the current stream, breaks a "
+                "capture)") from e
+        self.capture_s = time.perf_counter() - t0
+        self._graph, self._loss = graph, loss
+        self._storage = self._tensor_storage()
+        self.captures += 1
+
+
 def make_train_step(
     graph: TiledGraph, net: nets.GNN, x, y, optimizer, dropout_rate, norm=None,
-    hoist: bool = True, generator: torch.Generator | None = None,
-):
-    """One full-batch epoch per call: forward, NLL over all nodes, Adam
-    update.  Returns the epoch's loss (before the update) as a device tensor.
-
+    hoist: bool = True, generator: torch.Generator | None = None, eager: bool = False,
+) -> TrainStep:
+    """The one-device training step, a ``TrainStep``: ``step()`` runs one
+    eager epoch, ``step.many(n)`` n epochs, on the card replays of one CUDA
+    graph of the step unless ``eager`` (a step that cannot be captured).
     ``hoist`` computes the loop-invariant layer-1 aggregate once
     (``nets.hoist_l1_aggregate``), removing that SpMM and its transpose
-    from every epoch; exact for GCN and GIN, and no change for AGNN.  ``generator`` draws the
-    dropout masks (no dropout without one, or at rate 0).
+    from every epoch; exact for GCN and GIN, and no change for AGNN.
+    ``generator`` draws the dropout masks (no dropout without one, or at
+    rate 0).
     """
     l1_agg = nets.hoist_l1_aggregate(net.kind, x, graph, norm=norm) if hoist else None
     gen = generator if dropout_rate > 0 else None
@@ -205,7 +327,7 @@ def make_train_step(
         optimizer.step()
         return loss.detach()
 
-    return step
+    return TrainStep(step, net.parameters(), optimizer, gen, x.device, eager=eager)
 
 
 def timed_epochs(step, args, device, sync, checkpoint=None, resumed_at=None) -> tuple:
@@ -213,19 +335,32 @@ def timed_epochs(step, args, device, sync, checkpoint=None, resumed_at=None) -> 
     ``--profile_dir``): ``(first_loss, final_loss, train_ms, profile)``, or
     None where a resumed run has no epoch left.
 
-    A run resumed at epoch ``resumed_at`` takes no warm-up step: the
-    restored state must take no update the first run did not count.  With
+    The JAX CLI's loop (``tcgnn_tpu/train.py:597-630``): the first epoch is
+    one ``step()`` (its loss is ``first_loss``), the other warm-up epochs
+    one ``step.many``, which holds the capture, and the timed epochs one
+    ``step.many`` a piece; the mesh's step, a function without ``many``,
+    runs each epoch as one call.  A run resumed at epoch ``resumed_at`` takes no
+    warm-up step: the restored state must take no update the first run did
+    not count, so its first piece holds its first epoch's ``step()`` and
+    the capture, as JAX's first chunk holds its compile.  With
     ``checkpoint`` (a function of the epoch that writes the training state)
     the timed epochs run in pieces that end on multiples of
     ``--checkpoint_every``; a synchronize closes each piece before its
     write, and the writes are left out of ``Train (ms)``.  The final state
     is always written."""
+    def epochs(n):
+        """``n`` epochs; the last one's loss."""
+        if isinstance(step, TrainStep):
+            return step.many(n)
+        for _ in range(n):
+            loss = step()
+        return loss
+
     start_epoch = resumed_at or 0
     first_loss = loss = None
     if resumed_at is None:
-        first_loss = loss = step()
-        for _ in range(WARMUP_EPOCHS - 1):
-            loss = step()
+        first_loss = step()
+        loss = epochs(WARMUP_EPOCHS - 1)
     sync()
     every = args.checkpoint_every
     epochs_run = max(args.epochs - start_epoch, 1)
@@ -235,10 +370,12 @@ def timed_epochs(step, args, device, sync, checkpoint=None, resumed_at=None) -> 
             piece = args.epochs - epoch
             if checkpoint is not None:
                 piece = min(piece, every - epoch % every)
-            for _ in range(piece):
-                loss = step()
-                if first_loss is None:
-                    first_loss = loss
+            if first_loss is None:
+                first_loss = loss = step()
+                if piece > 1:
+                    loss = epochs(piece - 1)
+            else:
+                loss = epochs(piece)
             epoch += piece
             if checkpoint is not None and epoch % every == 0:
                 sync()
@@ -514,7 +651,7 @@ def _run(args, device) -> dict:
         args.hidden, ds.num_classes, args.num_layers, device=device, n_heads=args.n_heads,
     )
     load_params(args, net)
-    optimizer = torch.optim.Adam(net.parameters(), lr=args.lr)
+    optimizer = make_optimizer(net.parameters(), args.lr, device)
     dropout = 0.0 if args.no_dropout else args.dropout
     norm = (
         torch.from_numpy(1.0 / ds.norm_degrees()).to(device) if args.gcn_norm else None
@@ -565,6 +702,8 @@ def _run(args, device) -> dict:
         "final_loss": final_loss,
         "train_ms": train_ms,
         "profile": prof,
+        "captures": step.captures,
+        "capture_s": step.capture_s,
         "graph": graph,
         "dataset": ds,
     }

@@ -245,7 +245,8 @@ def test_baseline_main_runs_and_reports(impl, capsys):
     r = baseline.main(["--dataset", "rand_500_2500", "--dim", "8", "--classes", "3",
                        "--hidden", "8", "--epochs", "3", "--model", "gcn", "--impl", impl, *CPU])
     out = capsys.readouterr().out
-    assert set(r) == {"impl", "prep_ms", "first_loss", "final_loss", "train_ms"}
+    assert set(r) == {"impl", "prep_ms", "first_loss", "final_loss", "train_ms", "step"}
+    assert r["step"] == "eager"  # the CPU replays nothing
     assert r["train_ms"] > 0 and np.isfinite(r["final_loss"])
     assert "Prep. (ms):" in out and "Final loss:" in out and "Train (ms):" in out
 
@@ -355,9 +356,9 @@ def test_sweep_writes_bench_and_fig_csvs(one_row, impl):
     assert bench[0] == "dataset,Avg.Epoch (ms)" and bench[1].startswith("rand_600_3000,")
     fig = (one_row / "Fig_6a_torch_gcn.csv").read_text().splitlines()
     assert fig[0] == ("dataset,torch_baseline,tcgnn_torch,speedup,tcgnn_torch_hoisted,"
-                      "speedup_hoisted,tcgnn_epochs,baseline_epochs")
+                      "speedup_hoisted,tcgnn_epochs,baseline_epochs,baseline_step")
     cells = fig[1].split(",")
-    assert cells[0] == "rand_600_3000" and cells[-2:] == ["2", "2"]
+    assert cells[0] == "rand_600_3000" and cells[-3:] == ["2", "2", "eager"]  # the CPU's
     assert float(cells[3]) == pytest.approx(float(cells[1]) / float(cells[2]), rel=1e-2)
 
 

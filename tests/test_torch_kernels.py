@@ -25,18 +25,22 @@ tile mode stores each score rounded once, so f32 tiles take the f32
 tolerance and bf16 tiles one bf16 unit (``rtol=8e-3``).
 """
 
+import collections
 import dataclasses
 import functools
+import re
+import time
 
 import numpy as np
 import pytest
 import torch
 
-from tcgnn_tpu_torch import TileConfig, TiledGraph
+from tcgnn_tpu_torch import TileConfig, TiledGraph, train
 from tcgnn_tpu_torch.data import coo_to_csr, powerlaw_graph
 from tcgnn_tpu_torch.data.synthetic import component_union_graph
-from tcgnn_tpu_torch.models import agnn_conv, gcn_conv
+from tcgnn_tpu_torch.models import GNN, agnn_conv, gcn_conv, init_net
 from tcgnn_tpu_torch.ops import (
+    _kernels,
     EdgeList,
     bd_sfused,
     bd_sfused_bwd,
@@ -983,3 +987,132 @@ def test_distributed_route_on_card_matches_cpu(cuda, mesh):
     for got, want in zip(results[1], results[0]):
         scale = float(want.abs().max())
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * max(scale, 1.0))
+
+
+# ---- the epoch chain (``train.TrainStep.many``: one CUDA graph of the step) ----
+
+def chain_case(cuda, kind="gcn", net_cls=GNN, optimizer=None, eager=False):
+    """A training step on a symmetric hub graph (K1 for GCN, K2/K3 for
+    AGNN), dropout 0.5, its parameters and dropout generator from seeds."""
+    n, rp, ci = sfused_graph("hub")
+    g = TiledGraph(rp, ci, n, TileConfig(blk_h=16, blk_w=16), device=cuda, block_diag=False)
+    x = randn((n, 24), 30, cuda, scale=0.3)
+    y = torch.from_numpy(np.random.default_rng(31).integers(0, 4, n)).to(cuda)
+    net = init_net(torch.Generator().manual_seed(32), kind, 24, 16, 4, 2, device=cuda)
+    if net_cls is not GNN:
+        net.__class__ = net_cls
+    opt = optimizer(net) if optimizer else train.make_optimizer(net.parameters(), 0.01, cuda)
+    return train.make_train_step(g, net, x, y, opt, 0.5, hoist=False,
+                                 generator=torch.Generator(device=cuda).manual_seed(33),
+                                 eager=eager)
+
+
+PORT_KERNEL = re.compile(r"::(spmm_dense_kernel|sfused_kernel|sfused_bwd_kernel)<")
+
+
+def pad_trace(pads=256):
+    """Spin kernels, then an idle tenth of a second: a trace may drop
+    device operations at either end (``chip_smoke.py``'s ``TRACE_PADS``)."""
+    for _ in range(pads):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+    time.sleep(0.1)
+
+
+def device_kernels(fn):
+    """``fn()`` and the launches of the port's kernels that the card ran in
+    it, by kernel name, from a ``torch.profiler`` trace of device activity
+    (where a CUDA graph's replays show, which no wrapper counts)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        pad_trace()
+        out = fn()
+        pad_trace()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("spin_kernel" in n for n in names) > 256  # lost fewer than its pads at each end
+    found = (PORT_KERNEL.search(n) for n in names)
+    return out, collections.Counter(m.group(1) for m in found if m)
+
+
+def wrapper_launches():
+    return sum(w.launches for w in _kernels.COUNTED)
+
+
+@pytest.mark.parametrize("kind", ["gcn", "agnn"])
+def test_many_matches_eager_steps(cuda, kind):
+    """many(30) (3 eager warm-up steps, the capture, 27 replays) against 30
+    eager steps from the same state, dropout on: the same updates and masks,
+    so the final loss agrees to the atomics' last bits (rtol 1e-5).  The
+    card runs the same kernel launches on both sides (a profiler trace);
+    the wrappers count the eager steps' and the capture's, not the
+    replays'."""
+    eager, chained = chain_case(cuda, kind), chain_case(cuda, kind)
+
+    def eager_steps():
+        for _ in range(30):
+            loss = eager()
+        return loss
+
+    before = wrapper_launches()
+    want, ran_eager = device_kernels(eager_steps)
+    counted_eager = wrapper_launches() - before
+    got, ran_chained = device_kernels(lambda: chained.many(30))
+    counted_chained = wrapper_launches() - before - counted_eager
+    assert chained.captures == 1 and chained.eager_steps == train.CAPTURE_WARMUP
+    assert ran_eager and ran_chained == ran_eager
+    assert sum(ran_eager.values()) == counted_eager
+    assert 30 * counted_chained == (train.CAPTURE_WARMUP + 1) * counted_eager
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    again = chained.many(5)
+    for _ in range(5):
+        want = eager()
+    assert chained.captures == 1
+    torch.testing.assert_close(again, want, rtol=1e-5, atol=0)
+
+
+def test_eager_step_is_never_captured(cuda):
+    """``eager`` (a step that cannot be captured, such as the ``sparse``
+    incumbent's): on the card ``many`` is eager calls, and Adam need not be
+    capturable."""
+    step = chain_case(cuda, optimizer=lambda net: torch.optim.Adam(net.parameters(), lr=0.01),
+                      eager=True)
+    assert not step.replays and torch.isfinite(step.many(4))
+    assert (step.eager_steps, step.captures) == (4, 0)
+
+
+class _HostReadNet(GNN):
+    """A GNN whose forward reads a value on the host."""
+
+    def forward(self, *args, **kwargs):
+        out = super().forward(*args, **kwargs)
+        self.last_sum = float(out.sum())
+        return out
+
+
+def test_many_raises_where_the_step_reads_the_host(cuda):
+    """A step that reads a value on the host runs eagerly (the warm-up) but
+    cannot be captured: many raises at the capture and runs no eager epoch
+    in its place."""
+    step = chain_case(cuda, net_cls=_HostReadNet)
+    with pytest.raises(RuntimeError, match="could not be captured"):
+        step.many(10)
+    assert step.captures == 0 and step.eager_steps == train.CAPTURE_WARMUP
+    torch.cuda.synchronize()
+
+
+def test_many_needs_a_capturable_optimizer(cuda):
+    """A plain Adam serves eager steps, but many raises before its first
+    capture, having run no epoch."""
+    step = chain_case(cuda, optimizer=lambda net: torch.optim.Adam(net.parameters(), lr=0.01))
+    assert torch.isfinite(step())
+    with pytest.raises(ValueError, match="capturable"):
+        step.many(10)
+    assert (step.eager_steps, step.captures) == (1, 0)
+
+
+def test_many_raises_where_a_parameter_moved(cuda):
+    step = chain_case(cuda)
+    step.many(5)
+    p = step._params[0]
+    p.data = p.data.clone()  # the same values in new storage
+    with pytest.raises(RuntimeError, match="new storage"):
+        step.many(2)
