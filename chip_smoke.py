@@ -125,9 +125,14 @@ Phases, in order; any failure raises and exits nonzero:
      epochs each, ``--no_dropout``: pubmed GCN hidden 16 on ``--mesh 4x2``
      (K1), AGNN hidden 32 on ``--mesh 4x2`` (K4 tiles and K10) and on
      ``--mesh 8x1`` (K2/K3), each with the split stream in both directions,
-     a finite falling loss, its kernels and no others, no plain version, and
-     a first loss within ``rtol=1e-4`` of the single-device run's (the same
-     model: ``init_distributed_net`` zero-pads the single-device draws);
+     a finite falling loss, its kernels and no others, no plain version, a
+     first loss within ``rtol=1e-4`` of the single-device run's (the same
+     model: ``init_distributed_net`` zero-pads the single-device draws), and
+     its whole mesh step captured once and replayed an epoch as phase 11's
+     runs are (``mesh_run``: the launches read on the card, one epoch's as
+     the capture recorded them, ``check_replays``); then the mesh's epoch
+     chain against eager steps (``MESH_CHAIN_RUNS``: pubmed GCN 4x2 and
+     AGNN 8x1) as phase 11's chain check runs;
      K4's tile mode timed at d=16 on the heaviest shard (event and device
      time, its kernel time and the tiles' zeroing apart under
      torch.profiler); K10 timed there (event and device time, in
@@ -146,16 +151,17 @@ Phases, in order; any failure raises and exits nonzero:
      hoist) over ``--mesh 2x1`` (both directions unsplit: every SpMM through
      the classes, K1) and the asymmetric graph's AGNN over ``--mesh 2x1``
      (its forward unsplit: the SDDMM and the forward weighted SpMM through
-     the classes, K1 and K4), each with ``use_overlap``, a falling loss, its
-     kernels and no others, no plain version, a first loss within
+     the classes, K1 and K4), each replayed (``mesh_run``) with
+     ``use_overlap``, a falling loss, its kernels and no others, no plain
+     version, a first loss within
      ``FIRST_LOSS_RTOL`` of the single-device run's, and its ``Train (ms)``,
      ``max_memory_allocated`` and the device bytes of its classes beside
      the unsplit streams';
  14. ``--single_kernel`` (``train.profile_sag``: chained SpMM rounds, then
      SDDMM rounds, device time a round) through the trainer on pubmed at
      512x128 (K1, K4), DD (K5, K1, K4) and pubmed on ``--mesh 4x2`` (K1,
-     K4), and over phase 11's reddit GCN graph (K8, K9,
-     ``REDDIT_SAG_ROUNDS`` rounds): each run must return the JAX CLI's
+     K4, ``MESH_SAG_ROUNDS`` rounds), and over phase 11's reddit GCN graph
+     (K8, K9, ``REDDIT_SAG_ROUNDS`` rounds): each run must return the JAX CLI's
      keys, launch its kernels and no others, and no plain version; it
      prints its SAG and SDDMM lines, edges/s and ``mfu_pct``;
  15. checkpoints: pubmed GCN with ``--checkpoint_dir`` every 2 epochs for
@@ -170,7 +176,10 @@ Phases, in order; any failure raises and exits nonzero:
      incumbents (10 epochs each) on cora, pubmed, PROTEINS_full, DD and
      amazon0601, AGNN (2 layers, hidden 32) on pubmed and DD, GIN on cora,
      ``--single_kernel`` on cora and DD, ``epoch_ledger`` on pubmed and DD
-     and ``accuracy_parity`` (GCN, AGNN) on the golden fixture: every CSV row
+     (every stage timed under replays: ``step.many`` epochs, one CUDA graph
+     of a chain of aggregation rounds; each row printed beside
+     ``LEDGER_EAGER``'s row of eager steps) and ``accuracy_parity`` (GCN,
+     AGNN) on the golden fixture: every CSV row
      there, finite and positive, each graph on its route, parity passing,
      every ``Fig_6a`` row's incumbent ``replayed`` (``gather``: one CUDA
      graph of its step) or ``eager`` (``sparse``, which cannot be captured),
@@ -189,10 +198,12 @@ Phases, in order; any failure raises and exits nonzero:
      and no plain version; then the trainer, ``TRAIN_EPOCHS`` timed
      epochs each, ``--no_dropout``: GCN 2 layers hidden 16 on ``--mesh
      4x1`` and ``2x2`` (K5), AGNN 2 layers hidden 32 on ``--mesh 4x1``
-     (K6/K7) and ``2x2`` (K4 cell scores and K5), each on the route with no
-     split, a falling loss, its kernels and no others, no plain version, a
-     first loss within ``FIRST_LOSS_RTOL`` of one device's, and its ``Train
-     (ms)``, ``Prep. (ms)`` and ``torch.cuda.max_memory_allocated()``;
+     (K6/K7) and ``2x2`` (K4 cell scores and K5), each replayed
+     (``mesh_run``) on the route with no split, a falling loss, its kernels
+     and no others, no plain version, a first loss within
+     ``FIRST_LOSS_RTOL`` of one device's, and its ``Train (ms)``, ``Prep.
+     (ms)`` and ``torch.cuda.max_memory_allocated()``; then the mesh's epoch
+     chain against eager steps (``MESH_CHAIN_RUNS``: Yeast AGNN 2x2);
  18. the distributed streamed route and the chunk fallback, every shard on
      this one card: on reddit at full size (phase 11's dataset, unbalanced),
      a ``DistributedTiledGraph`` over 2x2 takes the streamed route (its
@@ -206,8 +217,9 @@ Phases, in order; any failure raises and exits nonzero:
      ``torch.sparse.mm`` / ``sampled_addmm`` over the shard's CSR; then the
      trainer, ``TRAIN_EPOCHS`` timed epochs, ``--no_dropout``: reddit GCN
      (hidden 16, hoisted) on ``--mesh 4x1`` (K8) and AGNN 2 layers hidden 32
-     on ``--mesh 2x2`` (K8 and K9), each on the streamed route, with the
-     native host pass, a falling loss, its kernels and no others, no plain
+     on ``--mesh 2x2`` (K8 and K9), each replayed (``mesh_run``) on the
+     streamed route, with the native host pass, a falling loss, its kernels
+     and no others, no plain
      version, a first loss within ``FIRST_LOSS_RTOL`` of one device's (the
      trainer's first step over phase 11's graph with the same parameters),
      and its ``Train (ms)``, ``Prep. (ms)``, ``Prep host (ms)`` by stage,
@@ -219,15 +231,18 @@ Phases, in order; any failure raises and exits nonzero:
      ``measure_comm.measure`` (one 2-layer GCN training step, no hoist,
      128x128 tiles, its collectives counted) on pubmed, amazon0601 and
      soc-BlogCatalog over 4 and 8 shards (K1) and reddit over 4 (the
-     streamed route, K8), each row's bytes by kind, boundary rows, modeled
+     streamed route, K8; phase 11's graph, not synthesized again), each
+     row's bytes by kind, boundary rows, modeled
      and ideal bytes equal to the JAX package's committed row
      (``results/comm_measured.csv``), its ratio 1.000, its kernel launched
      and no other, no plain version, and the counted step's wall ms printed;
      ``partition_stats`` on pubmed and amazon0601 over 2, 4 and 8 shards
      with the H100 data-sheet rates (each shard's edges summing to the
      graph's); ``scaling`` on its default graph (``rand_20000_100000``, GCN
-     hidden 16, 10 epochs) over 1, 2, 4 and 8 shards (K1 only): epoch ms,
-     edges/s and efficiency printed;
+     hidden 16, 10 epochs) over 1, 2, 4 and 8 shards (K1 only; each size's
+     step captured in its warm-up and its timed epochs replays, the launches
+     read on the card and held to the replays, ``check_replays``): epoch
+     ms, edges/s and efficiency printed;
  20. the headline bench (``tcgnn_tpu_torch.bench.headline``, the port's
      ``bench.py``) at its full schedule: pubmed GCN in bf16, no hoist and
      hoisted, 200x3 epochs, and the 4-layer hidden-32 AGNN datum, 50x3.  Its
@@ -243,7 +258,8 @@ Phases, in order; any failure raises and exits nonzero:
      graph axis, over NCCL one a card where the machine has two cards, else
      (it is printed) over gloo on this one card, every transfer staged
      through host memory.  Each rank runs ``train.main`` with ``--no_dropout``
-     and ``TRAIN_EPOCHS`` timed epochs: pubmed GCN ``--mesh 4x1`` at full
+     and ``TRAIN_EPOCHS`` timed epochs (reddit's run in 2 ranks of its own,
+     beside the others): pubmed GCN ``--mesh 4x1`` at full
      width (K1, the split stream's ``all_to_all``, the halo's ``ppermute``),
      pubmed AGNN ``--mesh 4x1`` (K2/K3) and ``4x2`` (K4 tiles, K10), Yeast
      GCN and AGNN ``--mesh 4x1`` (K5, K6/K7, the rim ``ppermute``), reddit GCN
@@ -252,10 +268,12 @@ Phases, in order; any failure raises and exits nonzero:
      overlap classes, the local class enqueued while the halo's transfers
      are in flight).  Each run's first loss within ``FIRST_LOSS_RTOL`` and
      final loss within ``FINAL_LOSS_RTOL`` of the one-process mesh run
-     (phases 13, 13b, 17 and 18; the pubmed 4x1 runs in this phase); every
-     rank launches the one-process run's kernels and no other, no plain
-     version, and each kernel's launches over the ranks sum to the
-     one-process run's.  Each rank's ``Train (ms)`` and
+     (phases 13, 13b, 17 and 18; the pubmed 4x1 runs in this phase, all
+     replayed); every rank's step is eager (gloo stages every transfer
+     through host memory, which a CUDA graph cannot hold) and launches the
+     one-process run's kernels and no other, no plain version, and each
+     kernel's launches over the ranks (the wrappers') sum to the
+     one-process run's (the card's).  Each rank's ``Train (ms)`` and
      ``torch.cuda.max_memory_allocated()`` are printed; then the overlap
      evidence: rank 0's ``torch.profiler`` trace of a few soc-BlogCatalog
      steps, the host's time waiting on the exchanges a step and the device
@@ -269,13 +287,13 @@ Phases, in order; any failure raises and exits nonzero:
      shards) train pubmed GCN (K1), pubmed AGNN (K4 tiles, K10) and Yeast
      AGNN (K4 cell scores, K5), 2 ranks over ``--mesh 1x2`` reddit AGNN at
      its published widths (K8, K9), each with ``--no_dropout`` and
-     ``TRAIN_EPOCHS`` timed epochs (reddit ``REDDIT_SPLIT_EPOCHS``), held
-     to the one-process mesh run of the same shape (phase 17's Yeast run;
-     the others run in this phase; pubmed over two graph shards is unsplit
-     after the balance, so its GCN's SpMMs take the overlap classes) as
-     phase 21 holds its runs (losses, kernels, launches summed over the
-     ranks); each rank's ``Train (ms)``, ``max_memory_allocated``, peak host
-     RSS and launches are printed.  The 2 ranks then run ``--single_kernel``
+     ``TRAIN_EPOCHS`` timed epochs (the AGNN runs ``SPLIT_AGNN_EPOCHS``),
+     held to the one-process mesh run of the same shape and depth (run in
+     this phase, replayed; pubmed over two graph shards is unsplit after the
+     balance, so its GCN's SpMMs take the overlap classes) as phase 21 holds
+     its runs (losses, kernels, launches summed over the ranks); each rank's
+     ``Train (ms)``, ``max_memory_allocated``, peak host RSS and launches
+     are printed.  Two more ranks, beside them, run ``--single_kernel``
      on pubmed ``--mesh 1x2`` and ``2x2`` (K1, K4; every rank reports the
      slowest rank's stats) and ``measure_comm`` on pubmed over 4 and 8
      shards (every rank's rows equal, each against
@@ -284,10 +302,12 @@ Phases, in order; any failure raises and exits nonzero:
 
 The kernels line's launches are summed over every run of phases 11, 13, 13b,
 14, 15, 16, 17, 18, 19, 20, 21 and 22 (every rank's), each read with the counts
-set to 0 just before it: where a run replays a CUDA graph (phases 11, 15, 16
-and 20) the launches the card ran, from a profiler trace of the run
+set to 0 just before it: where a run replays a CUDA graph (phases 11, 13, 13b,
+15, 16, 17, 18, 19's ``scaling``, 20, and the one-process runs of 21 and 22)
+the launches the card ran, from a profiler trace of the run
 (``device_launches``), else the wrappers' counts (eager launches, which the
-card runs one for one).  Every bound
+card runs one for one: ``--single_kernel``, ``measure_comm``'s counted step,
+the ranks over processes).  Every bound
 is ``tcgnn_tpu_torch.bench.roofline_bound``'s ``csr_bound``.
 
 Every phase prints its elapsed seconds.  The line before the last is
@@ -374,6 +394,8 @@ from tcgnn_tpu_torch.ops.sfused import sgt_row_index
 from tcgnn_tpu_torch.parallel import (
     DistributedTiledGraph,
     distributed_graph_from_dataset,
+    init_distributed_net,
+    make_distributed_train_step,
     make_mesh,
 )
 from tcgnn_tpu_torch.profiling import device_ms as kernel_ms
@@ -415,6 +437,31 @@ CHAIN_RUNS = [
       "--hidden", "32"]),
 ]
 CHAIN_EPOCHS = 30
+# A resumed run's final loss against an uninterrupted run's: K1 adds the
+# parts of a split window's rows (pubmed's hub window) with f32 atomics in
+# no fixed order, as K2/K3 and K8 add rows cut between ranges, so the last
+# bits vary from run to run and only a tolerance is promised on the card.
+RESUME_RTOL = 1e-5
+# The pubmed AGNN chain's final losses, many against eager: K2/K3 add the
+# parts of the hub's rows (degree 17,058, cut between many ranges) with f32
+# atomics in no fixed order, and 30 updates of the 2-layer AGNN from its
+# huge first loss (about 1e9) magnify those last bits, so two eager runs
+# from one state differ too (printed beside; chip_smoke's own runs put
+# both spreads near 1e-5).
+ATOMICS_CHAIN_RTOL = 1e-4
+# The mesh's epoch chain against eager steps (``check_chain``), by phase:
+# label, trainer arguments, the final losses' tolerance.
+MESH_CHAIN_RUNS = {
+    "13": [("pubmed gcn --mesh 4x2 (K1)",
+            ["--dataset", "pubmed", "--dim", "500", "--classes", "3", "--model", "gcn",
+             "--mesh", "4x2"], RESUME_RTOL),
+           ("pubmed agnn --mesh 8x1 (K2/K3)",
+            ["--dataset", "pubmed", "--dim", "500", "--classes", "3", "--model", "agnn",
+             "--hidden", "32", "--num_layers", "2", "--mesh", "8x1"], ATOMICS_CHAIN_RTOL)],
+    "17": [("Yeast agnn --mesh 2x2 (K4 cell scores, K5)",
+            ["--dataset", "Yeast", "--dim", "74", "--classes", "2", "--model", "agnn",
+             "--hidden", "32", "--num_layers", "2", "--mesh", "2x2"], RESUME_RTOL)],
+}
 KERNEL_SOURCES = ("spmm_dense", "spmm_sfused", "sddmm_dense", "spmm_bd", "chunk")
 # name, source, TPU kernel it replaces, wrappers that launch it
 KERNELS = {
@@ -1281,11 +1328,11 @@ TRACED_NAMES = {"sfused_kernel": "K2", "sfused_bwd_kernel": "K3", "sddmm_edge_ke
 # window's end, where their time converted to the host's clock falls
 # outside it, and, once a process has run phase 11, the first few of a
 # trace (the first step's forward, in every other trace of one step; an
-# H100, torch 2.11).  So each end holds ``TRACE_PADS`` spin
-# kernels (``torch.cuda._sleep``), then an idle ``TRACE_MARGIN_S``, and a
-# trace that kept no more than ``TRACE_PADS`` of them may have lost more
-# than its pads at one end: it raises.
-TRACE_PADS = 256
+# H100, torch 2.11; once, all of 256 pads at one end of a trace).  So each
+# end holds ``TRACE_PADS`` spin kernels (``torch.cuda._sleep``), then an
+# idle ``TRACE_MARGIN_S``, and a trace whose first or last device
+# operation is not a pad may have lost operations of the block: it raises.
+TRACE_PADS = 1024
 TRACE_MARGIN_S = 0.1
 
 
@@ -1313,16 +1360,20 @@ def device_launches():
         pad_trace()
     # The trace's raw events: ``prof.events()`` would build the whole event
     # tree first, some seconds for the headline's tens of thousands.
-    pads = 0
+    pads, ends = 0, []
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
-            if "spin_kernel" in e.name():
+            pad = "spin_kernel" in e.name()
+            ends = sorted(ends + [(e.start_ns(), pad)])
+            ends = ends[:1] + ends[-1:]
+            if pad:
                 pads += 1
             elif (k := traced_kernel(e.name())) is not None:
                 ran[k] += 1
-    if pads <= TRACE_PADS:
-        raise AssertionError(f"device_launches: the trace kept {pads} of its {2 * TRACE_PADS} "
-                             "pad kernels, so it may have lost more than its pads at one end")
+    if not (ends and ends[0][1] and ends[-1][1]):
+        raise AssertionError(f"device_launches: the trace's first or last device operation is "
+                             f"not a pad kernel (it kept {pads} of its {2 * TRACE_PADS}), so it "
+                             "may have lost operations of the block")
 
 
 def pad_trace() -> None:
@@ -1339,16 +1390,17 @@ def on_card(ran) -> dict:
     return {k: (n, 0) for k, n in ran.items()}
 
 
-def check_replays(label, counts, ran, captures, steps) -> None:
+def check_replays(label, counts, ran, captures, steps, eager=CAPTURE_WARMUP) -> None:
     """Raise unless each of ``steps`` (its epochs and the launches of one
     epoch) captured its step once and the card ran, beyond what the
     wrappers launched (``counts``), each kernel's launches an epoch once for
-    every epoch but ``CAPTURE_WARMUP`` + 1 of each step.  Both sides count
-    the launches outside the step (the hoisted aggregate) and the eager
-    warm-up steps' (``CAPTURE_WARMUP`` of each step); the wrappers count
-    one step's more at the capture, which runs nothing, and the card the
-    replays', which no wrapper sees."""
-    want = {k: sum((epochs - CAPTURE_WARMUP - 1) * per_epoch.get(k, 0)
+    every epoch but ``eager`` + 1 of each step.  Both sides count the
+    launches outside the step (the hoisted aggregate) and the eager warm-up
+    steps' (``eager`` of each step, ``CAPTURE_WARMUP`` unless its first
+    ``many`` was shorter); the wrappers count one step's more at the
+    capture, which runs nothing, and the card the replays', which no
+    wrapper sees."""
+    want = {k: sum((epochs - eager - 1) * per_epoch.get(k, 0)
                    for epochs, per_epoch in steps) for k in KERNELS}
     got = {k: ran[k] - counts[k][0] for k in KERNELS}
     if captures != [1] * len(steps) or got != want:
@@ -1357,14 +1409,65 @@ def check_replays(label, counts, ran, captures, steps) -> None:
                              f"{want}")
 
 
+@contextlib.contextmanager
+def capture_launches():
+    """Yields a list that holds, once the block has ended, each kernel's
+    launches that every ``train.TrainStep`` capture in it recorded: one
+    epoch's, what each replay of that step runs (the wrappers' counts
+    around the capture, which runs nothing)."""
+    captured, capture = [], train.TrainStep._capture
+
+    def counted(step):
+        before = launch_counts()
+        capture(step)
+        captured.append({k: c[0] - before[k][0] for k, c in launch_counts().items()
+                         if c[0] > before[k][0]})
+
+    train.TrainStep._capture = counted
+    try:
+        yield captured
+    finally:
+        train.TrainStep._capture = capture
+
+
+def mesh_run(label, argv, expected, card) -> dict:
+    """A one-process mesh run through ``train.main`` (``--device cuda
+    --epochs TRAIN_EPOCHS``, then ``argv``), every count set to 0 just
+    before it and read just after: its kernels ``expected`` launched and no
+    other, by its wrappers and on the card (``device_launches``), no plain
+    version; its step captured once, and the card's launches the wrappers'
+    plus every replay's (``check_replays``, one epoch's launches as the
+    capture recorded them, ``capture_launches``).  The result gains
+    ``counts``, the card's launches as ``launch_counts`` gives the
+    wrappers' (phases 21 and 22 hold their ranks' eager launches to them),
+    ``step_launches``, ``max_memory_allocated`` and ``seconds``."""
+    t0 = time.perf_counter()
+    argv = ["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), *argv]
+    epochs = WARMUP_EPOCHS + train.build_argparser().parse_args(argv).epochs
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with device_launches() as ran, capture_launches() as captured:
+        r = run_main(argv)
+    counts = launch_counts()
+    r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    r["seconds"] = time.perf_counter() - t0
+    check_launches(label, counts, expected)
+    check_launches(f"{label} (on the card)", on_card(ran), expected)
+    check_replays(label, counts, ran, [r["captures"]],
+                  [(epochs, per_epoch) for per_epoch in captured] or [(epochs, {})])
+    r["counts"], r["step_launches"] = on_card(ran), captured[0]
+    print(f"  {label}: captured once in {r['capture_s']:.3f} s, replayed "
+          f"{epochs - CAPTURE_WARMUP} times; launches an epoch "
+          + " ".join(f"{k} {c}" for k, c in captured[0].items())
+          + "; on the card " + " ".join(f"{k} {n}" for k, n in ran.items() if n)
+          + " (the wrappers counted " + " ".join(f"{k} {c[0]}" for k, c in counts.items()
+                                                 if c[0]) + f")  (card: {card})")
+    return r
+
+
 def chain_against_eager(label, argv, dev, card) -> None:
-    """Two steps of one model from the same parameters and dropout
-    generator (dropout 0.5): ``CHAIN_EPOCHS`` eager steps against
-    ``step.many(CHAIN_EPOCHS)`` (its warm-up steps, the capture, the
-    replays), the final losses within ``RESUME_RTOL`` (the atomics' last
-    bits), and the launches the card ran (``device_launches``) equal on
-    both sides and to what the eager steps' wrappers counted; then
-    ``CHAIN_EPOCHS`` more of each, timed."""
+    """The one-device epoch chain against eager steps (``check_chain``) on
+    the trainer's graph of ``argv``."""
     t0 = time.perf_counter()
     args = train.build_argparser().parse_args(["--device", "cuda", *argv])
     ds = train.load_dataset(args)
@@ -1382,20 +1485,59 @@ def chain_against_eager(label, argv, dev, card) -> None:
             hoist=not args.no_hoist, generator=torch.Generator(device=dev).manual_seed(
                 args.seed + 1))
 
-    def eager_epochs():
+    check_chain(label, made, card, t0)
+
+
+def mesh_chain_against_eager(label, argv, dev, card, rtol) -> None:
+    """The mesh's epoch chain against eager steps (``check_chain``): the
+    trainer's mesh of ``argv`` (``--mesh GxF``, balanced as the trainer
+    balances), every shard on this card, its step
+    ``make_distributed_train_step``'s."""
+    t0 = time.perf_counter()
+    args = train.build_argparser().parse_args(["--device", "cuda", *argv])
+    ds = train.load_dataset(args)
+    graph = distributed_graph_from_dataset(
+        ds, make_mesh(*(int(v) for v in args.mesh.split("x")), dev), train.make_config(args))
+    x = graph.shard_features(ds.x)
+    y = graph.shard_nodes(ds.y.astype(np.int64))
+
+    def made():
+        net, _, _ = init_distributed_net(torch.Generator().manual_seed(args.seed), args.model,
+                                         ds.num_features, args.hidden, ds.num_classes,
+                                         args.num_layers, graph)
+        return make_distributed_train_step(
+            graph, net, x, y, train.make_optimizer(net.parameters(), args.lr, dev), 0.5,
+            num_valid_classes=ds.num_classes, hoist=not args.no_hoist,
+            generator=torch.Generator(device=dev).manual_seed(args.seed + 1))
+
+    print(f"  {label}: {graph.route}")
+    check_chain(label, made, card, t0, rtol)
+
+
+def check_chain(label, made, card, t0, rtol=RESUME_RTOL) -> None:
+    """Two steps of one model from ``made()`` (the same parameters and
+    dropout generator, dropout 0.5): ``CHAIN_EPOCHS`` eager steps against
+    ``step.many(CHAIN_EPOCHS)`` (its warm-up steps, the capture, the
+    replays), the final losses within ``rtol`` (the atomics' last bits),
+    and the launches the card ran (``device_launches``) equal on both sides
+    and to what the eager steps' wrappers counted; a third step's
+    ``CHAIN_EPOCHS`` eager steps give the eager steps' own spread, printed
+    beside; then ``CHAIN_EPOCHS`` more of the first two, timed."""
+    def eager_epochs(step):
         for _ in range(CHAIN_EPOCHS):
-            loss = eager()
+            loss = step()
         return loss
 
     eager, chained = made(), made()
     reset_counts()
     with device_launches() as ran_eager:
-        want = eager_epochs()
+        want = eager_epochs(eager)
     counted = {k: c[0] for k, c in launch_counts().items()}
     with device_launches() as ran_chained:
         got = chained.many(CHAIN_EPOCHS)
     a, b = float(got), float(want)
     rel = abs(a - b) / abs(b)
+    again = float(eager_epochs(made()))
 
     def ms_an_epoch(run) -> float:
         torch.cuda.synchronize()
@@ -1404,16 +1546,17 @@ def chain_against_eager(label, argv, dev, card) -> None:
         float(loss)
         return (time.perf_counter() - start) * 1e3 / CHAIN_EPOCHS
 
-    eager_ms = ms_an_epoch(eager_epochs)
+    eager_ms = ms_an_epoch(lambda: eager_epochs(eager))
     replay_ms = ms_an_epoch(lambda: chained.many(CHAIN_EPOCHS))
     print(f"chain against eager [{label}]: final loss after {CHAIN_EPOCHS} updates, many "
-          f"{a:.9g} against eager {b:.9g}: relative difference {rel:.3e} (rtol {RESUME_RTOL}), "
-          f"bit-equal {a == b}; the card ran, on each side, "
+          f"{a:.9g} against eager {b:.9g}: relative difference {rel:.3e} (rtol {rtol}), "
+          f"bit-equal {a == b}; a second eager run {again:.9g}: relative difference "
+          f"{abs(again - b) / abs(b):.3e}; the card ran, on each side, "
           + " ".join(f"{k} {n}" for k, n in ran_chained.items() if n)
           + f"; captured once in {chained.capture_s:.3f} s; ms an epoch over "
           f"{CHAIN_EPOCHS} more: eager {eager_ms:.4f}, replayed {replay_ms:.4f}  (card: {card}; "
           f"{time.perf_counter() - t0:.1f} s)")
-    if chained.captures != 1 or not rel <= RESUME_RTOL:
+    if chained.captures != 1 or not rel <= rtol:
         raise AssertionError(f"{label}: step.many does not make the eager steps' updates")
     if not any(ran_eager.values()) or ran_eager != counted or ran_chained != ran_eager:
         raise AssertionError(f"{label}: the card ran {ran_eager} launches in the eager steps "
@@ -1754,20 +1897,14 @@ def phase_mesh_train(dev, card) -> tuple[list, dict]:
     for label, model, mesh, expected in runs:
         extra = [*pubmed, *model, "--mesh", mesh]
         print(f"--- train.main {' '.join(extra)}")
-        t0 = time.perf_counter()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        r = run_main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), *extra])
-        counts = r["counts"] = launch_counts()
-        r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-        r["seconds"] = time.perf_counter() - t0
+        r = mesh_run(label, extra, expected, card)
+        counts = r["counts"]
         print(f"  {r['route']}  first loss {r['first_loss']:.6f}  final loss "
-              f"{r['final_loss']:.6f}  "
-              + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}" for k, c in counts.items()))
+              f"{r['final_loss']:.6f}  Train (ms) {r['train_ms']:.3f}  "
+              + "  ".join(f"{k} launches {c[0]}" for k, c in counts.items() if c[0]))
         if not (math.isfinite(r["final_loss"]) and r["final_loss"] < r["first_loss"]):
             raise AssertionError(f"{label}: loss did not fall ({r['first_loss']} -> "
                                  f"{r['final_loss']})")
-        check_launches(label, counts, expected)
         if r["split"] != (True, True) or r["tc_blocks"] != 334:
             raise AssertionError(f"{label}: split {r['split']}, {r['tc_blocks']} TC blocks; "
                                  "expected the split stream both ways and 334")
@@ -1783,6 +1920,9 @@ def phase_mesh_train(dev, card) -> tuple[list, dict]:
                                  f"{single['first_loss']}")
         del single["graph"], single["dataset"]
         results.append((label, r))
+        torch.cuda.empty_cache()
+    for label, argv, rtol in MESH_CHAIN_RUNS["13"]:
+        mesh_chain_against_eager(label, argv, dev, card, rtol)
         torch.cuda.empty_cache()
     return results, launches
 
@@ -1890,21 +2030,16 @@ def phase_overlap_train(data_dir, dev, card) -> tuple[list, dict]:
     results, launches = [], {k: 0 for k in KERNELS}
     for label, argv, expected, split, single_argv in overlap_runs(data_dir):
         print(f"--- train.main {' '.join(argv)}")
-        t0 = time.perf_counter()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        r = run_main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), "--no_dropout", *argv])
-        counts = r["counts"] = launch_counts()
-        r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-        r["seconds"] = time.perf_counter() - t0
+        r = mesh_run(label, ["--no_dropout", *argv], expected, card)
+        counts = r["counts"]
         g = r.pop("graph")
         local, unsplit = class_bytes(g)
         print(f"  {r['route']}  first loss {r['first_loss']:.6f}  final loss "
               f"{r['final_loss']:.6f}  Train (ms) {r['train_ms']:.3f}  max_memory_allocated "
               f"{r['max_memory_allocated'] / 2**30:.2f} GiB, of which the classes "
               f"{local / 2**30:.3f} GiB (the unsplit streams {unsplit / 2**30:.3f} GiB)  "
-              + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}" for k, c in counts.items()
-                          if c[0] or c[1]) + f"  (card: {card})")
+              + "  ".join(f"{k} launches {c[0]}" for k, c in counts.items() if c[0])
+              + f"  (card: {card})")
         if not (g.use_overlap and "overlap=True" in r["route"] and r["split"] == split):
             raise AssertionError(f"{label}: {r['route']}, use_overlap {g.use_overlap}, split "
                                  f"{r['split']}; expected the classes and split {split}")
@@ -1912,7 +2047,6 @@ def phase_overlap_train(data_dir, dev, card) -> tuple[list, dict]:
         if not (math.isfinite(r["final_loss"]) and r["final_loss"] < r["first_loss"]):
             raise AssertionError(f"{label}: loss did not fall ({r['first_loss']} -> "
                                  f"{r['final_loss']})")
-        check_launches(label, counts, expected)
         for k, c in counts.items():
             launches[k] += c[0]
         torch.cuda.empty_cache()
@@ -1983,26 +2117,27 @@ SAG_KEYS = {"ms", "edges_per_s", "useful_tflops", "tile_tflops", "mfu_pct",
 # took about 25 s; 50 SpMM rounds, 50 dispatch-chained ones and 25 SDDMM
 # rounds keep the smoke inside its time.
 REDDIT_SAG_ROUNDS = 50
-# A resumed run's final loss against an uninterrupted run's: K1 adds the
-# parts of a split window's rows (pubmed's hub window) with f32 atomics in
-# no fixed order, as K2/K3 and K8 add rows cut between ranges, so the last
-# bits vary from run to run and only a tolerance is promised on the card.
-RESUME_RTOL = 1e-5
+# Rounds of the one-card pubmed 4x2 mesh's chain (phase 14): 200 took about
+# 17 s, a mesh round's dispatch included; 50 keep the smoke inside its
+# time.
+MESH_SAG_ROUNDS = 50
 
 
 def phase_single_kernel(reddit, dev) -> tuple[list, dict]:
     """Phase 14: the trainer's ``--single_kernel`` (``train.profile_sag``):
     pubmed at 512x128 (K1, K4), DD (K5, K1 for the residual, K4), pubmed on
-    ``--mesh 4x2`` (K1, K4), and reddit: ``profile_sag`` over phase 11's
-    reddit GCN graph and features (K8, K9), ``REDDIT_SAG_ROUNDS`` rounds.
+    ``--mesh 4x2`` (K1, K4, ``MESH_SAG_ROUNDS`` rounds), and reddit:
+    ``profile_sag`` over phase 11's reddit GCN graph and features (K8, K9),
+    ``REDDIT_SAG_ROUNDS`` rounds.
     Every count is set to 0 just before each run and read just after: each
     run must launch its kernels and no others, and no plain version.
     Returns each run's stats and the launches summed over them."""
     pubmed = ["--dataset", "pubmed", "--dim", "500", "--classes", "3"]
-    runs = [
-        ("pubmed 512x128", pubmed, ("K1", "K4")),
-        ("DD", ["--dataset", "DD", "--dim", "89", "--classes", "2"], ("K5", "K1", "K4")),
-        ("pubmed --mesh 4x2", [*pubmed, "--mesh", "4x2"], ("K1", "K4")),
+    runs = [  # label, arguments, kernels, rounds (the trainer's, or cut)
+        ("pubmed 512x128", pubmed, ("K1", "K4"), train.SAG_ROUNDS),
+        ("DD", ["--dataset", "DD", "--dim", "89", "--classes", "2"], ("K5", "K1", "K4"),
+         train.SAG_ROUNDS),
+        ("pubmed --mesh 4x2", [*pubmed, "--mesh", "4x2"], ("K1", "K4"), MESH_SAG_ROUNDS),
     ]
     results, launches = [], {k: 0 for k in KERNELS}
 
@@ -2018,11 +2153,15 @@ def phase_single_kernel(reddit, dev) -> tuple[list, dict]:
               + "  ".join(f"{k} launches {c[0]}" for k, c in counts.items() if c[0]))
         results.append((label, stats))
 
-    for label, extra, expected in runs:
-        print(f"--- train.main {' '.join(extra)} --single_kernel")
+    for label, extra, expected, rounds in runs:
+        print(f"--- train.main {' '.join(extra)} --single_kernel  ({rounds} rounds)")
         t0 = time.perf_counter()
         reset_counts()
-        r = run_main(["--device", "cuda", *extra, "--single_kernel"])
+        trainer_rounds, train.SAG_ROUNDS = train.SAG_ROUNDS, rounds
+        try:
+            r = run_main(["--device", "cuda", *extra, "--single_kernel"])
+        finally:
+            train.SAG_ROUNDS = trainer_rounds
         if set(r) != SAG_KEYS:
             raise AssertionError(f"{label}: --single_kernel returned {sorted(r)}")
         read(label, expected, r, t0)
@@ -2183,6 +2322,12 @@ def phase_ae_harness(out_dir) -> dict:
     return {k: c[0] for k, c in total.items()}
 
 
+# The epoch ledger's rows of eager steps (the AE run on an H100 before its
+# stages were timed under replays), which phase 16 prints beside its own.
+LEDGER_EAGER = "results_h100/ledger/epoch_ledger_all.csv"
+LEDGER_MS = ("epoch_ms", "agg_ms", "dense_rest_ms", "stage_sum_ms", "residual_ms")
+
+
 def harness_runs(out_dir) -> None:
     """Phase 16's runs but ``--single_kernel``'s."""
     fig = ("torch_baseline", "tcgnn_torch", "speedup", "tcgnn_torch_hoisted",
@@ -2210,9 +2355,19 @@ def harness_runs(out_dir) -> None:
         sweep.main(["--model", "gin", "--datasets", "cora", *common])
         check_csv(os.path.join(d, "Fig_6a_torch_gin.csv"), ("cora",), fig)
     with in_dir(os.path.join(out_dir, "ledger")) as d:
-        epoch_ledger.main(["--datasets", "pubmed", "DD", "--epochs", str(AE_EPOCHS),
-                           "--device", "cuda"])
+        rows = epoch_ledger.main(["--datasets", "pubmed", "DD", "--epochs", str(AE_EPOCHS),
+                                  "--device", "cuda"])
         check_csv(os.path.join(d, "epoch_ledger.csv"), ("pubmed", "DD"), ledger_cols)
+    with open(LEDGER_EAGER) as f:
+        eager = {r["dataset"]: r for r in csv.DictReader(f)}
+    for row in rows:
+        old = eager[row["dataset"]]
+        print(f"  ledger {row['dataset']} (replayed): "
+              + "  ".join(f"{c} {row[c]:.3f}" for c in LEDGER_MS)
+              + "  [" + " + ".join(f"{lbl}[w{w}]={ms:.3f}" for lbl, w, ms in row["agg_stages"])
+              + "]  against the eager row of " + LEDGER_EAGER + ": "
+              + "  ".join(f"{c} {float(old[c]):.3f}" for c in LEDGER_MS)
+              + f"  [{old['agg_stages']}]")
     failures = accuracy_parity.main(["--models", "gcn", "agnn", "--device", "cuda"])
     if failures:
         raise AssertionError(f"accuracy parity: {failures} failure(s)")
@@ -2352,7 +2507,7 @@ def phase_bd_mesh_ops(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_bd_mesh_train(dev) -> tuple[list, dict]:
+def phase_bd_mesh_train(dev, card) -> tuple[list, dict]:
     """Phase 17, the path: the trainer on Yeast over 4x1 and 2x2 meshes,
     ``TRAIN_EPOCHS`` timed epochs each, ``--no_dropout``: GCN 2 layers
     hidden 16 (K5), AGNN 2 layers hidden 32 (4x1: K6/K7; 2x2: K4 cell
@@ -2374,20 +2529,14 @@ def phase_bd_mesh_train(dev) -> tuple[list, dict]:
     for label, model, mesh, expected in runs:
         extra = [*YEAST, "--no_dropout", *model, "--mesh", mesh]
         print(f"--- train.main {' '.join(extra)}")
-        t0 = time.perf_counter()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        r = run_main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), *extra])
-        counts = r["counts"] = launch_counts()
-        r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-        r["seconds"] = time.perf_counter() - t0
+        r = mesh_run(label, extra, expected, card)
+        counts = r["counts"]
         del r["graph"]
         print(f"  {r['route']}  first loss {r['first_loss']:.6f}  final loss "
               f"{r['final_loss']:.6f}  Train (ms) {r['train_ms']:.3f}  Prep. (ms) "
               f"{r['prep_ms']:.3f}  max_memory_allocated "
               f"{r['max_memory_allocated'] / 2**30:.2f} GiB  "
-              + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}" for k, c in counts.items()
-                          if c[0] or c[1]))
+              + "  ".join(f"{k} launches {c[0]}" for k, c in counts.items() if c[0]))
         if not (r["block_diag"] and "block_diag=True" in r["route"]
                 and r["split"] == (False, False)):
             raise AssertionError(f"{label}: expected the BD route, no split: {r['route']}, "
@@ -2395,7 +2544,6 @@ def phase_bd_mesh_train(dev) -> tuple[list, dict]:
         if not (math.isfinite(r["final_loss"]) and r["final_loss"] < r["first_loss"]):
             raise AssertionError(f"{label}: loss did not fall ({r['first_loss']} -> "
                                  f"{r['final_loss']})")
-        check_launches(label, counts, expected)
         for k, c in counts.items():
             launches[k] += c[0]
         results.append((label, r))
@@ -2414,6 +2562,9 @@ def phase_bd_mesh_train(dev) -> tuple[list, dict]:
         if not rel <= FIRST_LOSS_RTOL:
             raise AssertionError(f"{label}: first loss {r['first_loss']} vs one device "
                                  f"{single[model]}")
+    for label, argv, rtol in MESH_CHAIN_RUNS["17"]:
+        mesh_chain_against_eager(label, argv, dev, card, rtol)
+        torch.cuda.empty_cache()
     return results, launches
 
 
@@ -2642,10 +2793,8 @@ def phase_stream_mesh_train(reddit, dev, card) -> tuple[list, dict]:
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()  # phase 11's graph, for the first losses
         rss_reset = reset_peak_rss()
-        reset_counts()
-        r = run_main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), *extra])
-        counts = r["counts"] = launch_counts()
-        r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        r = mesh_run(label, extra, expected, card)
+        counts = r["counts"]
         r["held_before"] = held
         r["peak_rss"], r["rss_of_run"] = peak_rss(), rss_reset
         r["seconds"] = time.perf_counter() - t0
@@ -2659,14 +2808,13 @@ def phase_stream_mesh_train(reddit, dev, card) -> tuple[list, dict]:
               f"{r['peak_rss'] / 2**30:.2f} GiB ({'this run' if rss_reset else 'the process'})"
               f"  max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB ("
               f"{held / 2**30:.2f} GiB held before the run)  run {r['seconds']:.1f} s  "
-              + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}" for k, c in counts.items()
-                          if c[0] or c[1]) + f"  (card: {card})")
+              + "  ".join(f"{k} launches {c[0]}" for k, c in counts.items() if c[0])
+              + f"  (card: {card})")
         if not (r["streamed"] and "streamed=True" in r["route"]):
             raise AssertionError(f"{label}: expected the streamed route: {r['route']}")
         if not (math.isfinite(r["final_loss"]) and r["final_loss"] < r["first_loss"]):
             raise AssertionError(f"{label}: loss did not fall ({r['first_loss']} -> "
                                  f"{r['final_loss']})")
-        check_launches(label, counts, expected)
         if not rel <= FIRST_LOSS_RTOL:
             raise AssertionError(f"{label}: first loss {r['first_loss']} vs one device {single}")
         for k, c in counts.items():
@@ -2708,21 +2856,28 @@ COMM_EQUAL = ("measured_a2a_bytes", "measured_a2a_count", "measured_ag_bytes",
               "ideal_boundary_bytes")
 
 
-def phase_measure_comm(dev, card) -> dict:
+def phase_measure_comm(dev, card, synthesized) -> dict:
     """Phase 19 (a): ``measure_comm.measure`` on ``COMM_ROWS``, each row
     against the committed JAX row, its route's kernel (K1, or K8 streamed)
-    launched and no other, no plain version.  Every count is set to 0 just
-    before each row's graph and step and read just after.  Returns each
-    kernel's launches summed over the rows."""
+    launched and no other, no plain version.  A graph of ``synthesized``
+    (name -> an earlier phase's dataset: a synthetic graph's edges do not
+    depend on its widths) is not synthesized again.  Every count is set to
+    0 just before each row's graph and step and read just after.  Returns
+    each kernel's launches summed over the rows."""
     with open(COMM_REFERENCE) as f:
         want = {(r["dataset"], int(r["shards"])): r for r in csv.DictReader(f)}
     columns = measure_comm.HEADER.split(",")
     launches = {k: 0 for k in KERNELS}
     for name, shard_counts in COMM_ROWS:
         t0 = time.perf_counter()
-        ds = synthesize(name, 16, 4)
-        print(f"  {name}: N={ds.num_nodes} E={ds.num_edges}, synthesized in "
-              f"{time.perf_counter() - t0:.1f} s")
+        if name in synthesized:  # the rows read the features' width only
+            ds = dataclasses.replace(synthesized[name],
+                                     x=np.empty((synthesized[name].num_nodes, 16), np.float32))
+        else:
+            ds = synthesize(name, 16, 4)
+        print(f"  {name}: N={ds.num_nodes} E={ds.num_edges}, "
+              + ("phase 11's graph" if name in synthesized else "synthesized")
+              + f" in {time.perf_counter() - t0:.1f} s")
         for g in shard_counts:
             t0 = time.perf_counter()
             reset_counts()
@@ -2750,14 +2905,18 @@ def phase_measure_comm(dev, card) -> dict:
     return launches
 
 
-def phase_traffic(dev, card) -> dict:
+# ``scaling``'s timed epochs a mesh size (its default).
+SCALING_EPOCHS = 10
+
+
+def phase_traffic(dev, card, synthesized) -> dict:
     """Phase 19: measure_comm's rows (``phase_measure_comm``), then
     ``partition_stats`` on pubmed and amazon0601 over 2, 4 and 8 shards with
     the H100's data-sheet rates, then ``scaling``'s default curve over 1, 2,
     4 and 8 shards (K1 only, no plain version, the counts set to 0 just
     before).  Returns each kernel's launches."""
     t0 = time.perf_counter()
-    launches = phase_measure_comm(dev, card)
+    launches = phase_measure_comm(dev, card, synthesized)
     print(f"  measure_comm done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     print(f"  partition_stats rates (NVIDIA H100 80GB HBM3 SXM5 data sheet at 700 W, not "
@@ -2771,18 +2930,28 @@ def phase_traffic(dev, card) -> dict:
     print(f"  partition_stats done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     reset_counts()
-    curve = scaling.main(["--device", str(dev)])
+    with device_launches() as ran, capture_launches() as captured:
+        curve = scaling.main(["--device", str(dev)])
     counts = launch_counts()
     for size, ms, eps, eff in curve:
         print(f"  scaling {size} shards: epoch {ms:.3f} ms  {eps:.4e} edges/s  efficiency "
-              f"{eff:.3f}  (card: {card}; one card held all shards)")
-    print("  scaling " + "  ".join(f"{k} launches {c[0]} plain calls {c[1]}"
-                                   for k, c in counts.items() if c[0] or c[1]))
+              f"{eff:.3f}  (replays; card: {card}; one card held all shards)")
+    print("  scaling " + "  ".join(f"{k} launches {c[0]} (on the card {ran[k]}) plain calls "
+                                   f"{c[1]}" for k, c in counts.items() if c[0] or c[1])
+          + "; launches an epoch by mesh size " + " / ".join(
+              " ".join(f"{k} {n}" for k, n in per_epoch.items()) for per_epoch in captured))
     if [r[0] for r in curve] != [1, 2, 4, 8] or curve[0][3] != 1.0:
         raise AssertionError(f"scaling: {curve}")
     check_launches("scaling", counts, ("K1",))
-    for k, c in counts.items():
-        launches[k] += c[0]
+    check_launches("scaling (on the card)", on_card(ran), ("K1",))
+    # Each size: ``many(3)`` (2 eager steps, the capture, a replay), then
+    # ``many(10)`` replays.
+    check_replays("scaling", counts, ran, [1] * len(captured),
+                  [(3 + SCALING_EPOCHS, per_epoch) for per_epoch in captured], eager=2)
+    if len(captured) != len(curve):
+        raise AssertionError(f"scaling: {len(captured)} captures over {len(curve)} sizes")
+    for k, n in ran.items():
+        launches[k] += n
     print(f"  scaling done in {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -2915,7 +3084,8 @@ def mesh_rank(rank, world, store, backend, device, out_dir, tasks=None) -> None:
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
                "peak_rss": rss.value, "native": "SGT pass:\tnative\n" in buf.getvalue()}
         if kind == "train":
-            res.update({k: r[k] for k in ("route", "first_loss", "final_loss", "train_ms")})
+            res.update({k: r[k] for k in ("route", "first_loss", "final_loss", "train_ms",
+                                          "captures")})
         else:
             res.update(r)
         results.append(res)
@@ -2965,25 +3135,45 @@ def torchrun_train_ms(backend, device, card, nproc=MESH_RANKS,
     """One ``torchrun`` CLI run (``nproc`` processes; by default pubmed GCN
     ``--mesh 4x1`` over ``MESH_RANKS``): rank 0's ``Train (ms)``, final loss
     and route, read from its output."""
+    with torchrun_running(backend, device, nproc, argv) as finish:
+        return finish(card)
+
+
+@contextlib.contextmanager
+def torchrun_running(backend, device, nproc=MESH_RANKS,
+                     argv=(*PUBMED, *MESH_GCN, "--mesh", "4x1")):
+    """``torchrun_train_ms``'s run, started; yields ``finish(card)``, which
+    waits for it (600 s at most) and reads rank 0's lines.  Leaving the
+    block ends the run if it is still running."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={nproc}", "-m", "tcgnn_tpu_torch.train", "--device", device,
            "--dist_backend", backend, "--epochs", str(TRAIN_EPOCHS), "--no_dropout", *argv]
     print("--- " + " ".join(cmd[1:]), flush=True)
-    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, check=False)
-    if out.returncode != 0:
-        raise AssertionError(f"torchrun exited {out.returncode}: {out.stderr[-4000:]}")
-    lines = dict(line.split(":\t", 1) for line in out.stdout.splitlines() if ":\t" in line)
-    for key in ("TC_Blocks", "Exp_Edges", "Prep. (ms)", "Final loss", "Train (ms)", "Route"):
-        if key not in lines:
-            raise AssertionError(f"torchrun: no {key!r} line in rank 0's output:\n{out.stdout}")
-    if out.stdout.count("Final loss:") != 1:
-        raise AssertionError("torchrun: a rank other than 0 printed")
-    r = {"train_ms": float(lines["Train (ms)"]), "final_loss": float(lines["Final loss"]),
-         "route": lines["Route"]}
-    print(f"  torchrun {nproc} processes, backend {backend}, {device}: Train (ms) "
-          f"{r['train_ms']:.3f}, Final loss {r['final_loss']:.6f}, Route {r['route']} "
-          f"(card: {card})")
-    return r
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish(card) -> dict:
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun exited {proc.returncode}: {stderr[-4000:]}")
+        lines = dict(line.split(":\t", 1) for line in stdout.splitlines() if ":\t" in line)
+        for key in ("TC_Blocks", "Exp_Edges", "Prep. (ms)", "Final loss", "Train (ms)", "Route"):
+            if key not in lines:
+                raise AssertionError(f"torchrun: no {key!r} line in rank 0's output:\n{stdout}")
+        if stdout.count("Final loss:") != 1:
+            raise AssertionError("torchrun: a rank other than 0 printed")
+        r = {"train_ms": float(lines["Train (ms)"]), "final_loss": float(lines["Final loss"]),
+             "route": lines["Route"]}
+        print(f"  torchrun {nproc} processes, backend {backend}, {device}: Train (ms) "
+              f"{r['train_ms']:.3f}, Final loss {r['final_loss']:.6f}, Route {r['route']} "
+              f"(card: {card})")
+        return r
+
+    try:
+        yield finish
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 def phase_mesh_procs(earlier, dev, card, data_dir) -> tuple[list, dict, dict]:
@@ -2992,31 +3182,47 @@ def phase_mesh_procs(earlier, dev, card, data_dir) -> tuple[list, dict, dict]:
     many cards, else over gloo on this one card, every transfer staged
     through host memory.  Each rank runs ``PROC_RUNS`` and phase 13b's
     ``overlap_runs`` (``data_dir``) through ``train.main`` (``--no_dropout``,
-    ``TRAIN_EPOCHS`` timed epochs): each run's first loss within
+    ``TRAIN_EPOCHS`` timed epochs; reddit's run in 2 ranks of its own,
+    beside the others): each run's first loss within
     ``FIRST_LOSS_RTOL`` and final loss within ``FINAL_LOSS_RTOL`` of the
     one-process mesh run (``earlier``: phases 13, 13b, 17 and 18, by label;
     the pubmed 4x1 runs here), every rank's launches of the expected
     kernels and no other, no plain call, and each kernel's launches summed
     over the ranks equal to the one-process run's (each shard's on its own
     rank); then ``overlap_trace`` of the soc-BlogCatalog run (rank 0's
-    figures printed).  Then one ``torchrun`` CLI run.  Returns the runs,
-    each kernel's launches summed over every rank's runs and rank 0's
-    trace figures."""
+    figures printed).  One ``torchrun`` CLI run runs beside the ranks.
+    Returns the runs, each kernel's launches summed over every rank's runs
+    and rank 0's trace figures."""
     backend, device = rank_backend(MESH_RANKS)
     refs = dict(earlier)
     for label, argv, expected, source in PROC_RUNS:
         if source == "21":
             one_process_run(label, argv, expected, refs, card)
-    specs = PROC_RUNS + [(label, argv, expected, label)
-                         for label, argv, expected, _, _ in overlap_runs(data_dir)]
+    overlap = [(label, argv, expected, label)
+               for label, argv, expected, _, _ in overlap_runs(data_dir)]
+    # reddit's run (its host pass in every rank, the phase's long pole) takes
+    # ranks of its own, beside the others'.
+    reddit = [spec for spec in PROC_RUNS if spec[0].startswith("reddit")]
+    specs = [spec for spec in PROC_RUNS if spec not in reddit] + overlap
     tasks = [("train", label, argv) for label, argv, _, _ in specs]
-    trace_label, trace_argv = f"{specs[len(PROC_RUNS)][0]} traced", specs[len(PROC_RUNS)][1]
+    trace_label, trace_argv = f"{overlap[0][0]} traced", overlap[0][1]
     tasks.append(("overlap_trace", trace_label, trace_argv))
     t1 = time.perf_counter()
-    ranks = spawn_ranks(MESH_RANKS, backend, device, 900, tasks)
-    print(f"  {MESH_RANKS} ranks ran {len(tasks)} tasks in {time.perf_counter() - t1:.1f} s")
+    # The torchrun CLI run, reddit's ranks and the other ranks run at once.
+    with torchrun_running(backend, device.format(rank=0) if backend == "gloo" else "cuda") \
+            as finish_cli, \
+            ranks_running(MESH_RANKS, backend, device,
+                          [("train", label, argv) for label, argv, _, _ in reddit]) as wait_reddit:
+        ranks = spawn_ranks(MESH_RANKS, backend, device, 900, tasks)
+        print(f"  {MESH_RANKS} ranks ran {len(tasks)} tasks in {time.perf_counter() - t1:.1f} s")
+        ranks_reddit = wait_reddit(900)
+        print(f"  reddit's {MESH_RANKS} ranks ran {len(reddit)} task by "
+              f"{time.perf_counter() - t1:.1f} s")
+        cli = finish_cli(card)
     launches = {k: 0 for k in KERNELS}
-    runs = check_rank_runs(specs, ranks, refs, card, launches, backend)
+    runs = check_rank_runs(specs + reddit, [rk[:len(specs)] + rd for rk, rd in
+                                           zip(ranks, ranks_reddit)],
+                           refs, card, launches, backend)
     per_rank = [rk[len(specs)] for rk in ranks]
     for rank, r in enumerate(per_rank):
         check_launches(f"{trace_label} rank {rank}", r["counts"], ("K1",))
@@ -3030,7 +3236,6 @@ def phase_mesh_procs(earlier, dev, card, data_dir) -> tuple[list, dict, dict]:
           f"{trace['wait_ms']:.3f} ms a step; K1 {trace['k1_ms']:.3f} ms a step on the device "
           f"({trace['k1_calls']:.0f} calls), {trace['k1_in_wait_ms']:.3f} ms of it inside the "
           f"waits (the local class's)  (card: {card})")
-    cli = torchrun_train_ms(backend, device.format(rank=0) if backend == "gloo" else "cuda", card)
     want = refs["pubmed gcn --mesh 4x1"]["final_loss"]
     if not abs(cli["final_loss"] - want) <= FINAL_LOSS_RTOL * abs(want):
         raise AssertionError(f"torchrun final loss {cli['final_loss']} vs one process {want}")
@@ -3039,26 +3244,27 @@ def phase_mesh_procs(earlier, dev, card, data_dir) -> tuple[list, dict, dict]:
 
 # ---- the feature axis over processes (phase 22) ----------------------------------
 
-# Timed epochs of phase 22's reddit AGNN 1x2 (after the 9 warm-ups; its
-# argument comes after ``TRAIN_EPOCHS``' and wins): at about 5 s an epoch
-# over gloo on one card it is the phase's long pole, cut to keep the smoke
-# within its time.
-REDDIT_SPLIT_EPOCHS = 1
+# Timed epochs of phase 22's AGNN runs (after the 9 warm-ups; the argument
+# comes after ``TRAIN_EPOCHS``' and wins): an epoch over gloo on one card
+# takes about 8 s (reddit 1x2), 2.7 s (Yeast 2x2) and 1.6 s (pubmed 2x2), so
+# they are cut to keep the smoke within its time (30 updates to 10 each).
+SPLIT_AGNN_EPOCHS = 1
 # Phase 22's trainer runs, one feature shard a rank: label, trainer
 # arguments (all --no_dropout, TRAIN_EPOCHS), kernels each rank must launch,
-# and where the one-process mesh run it is held to comes from (phase 17's
-# run of that label, or phase 22's own).  Four ranks take 2x2 (two graph
-# blocks, two feature shards); two take reddit's 1x2 (two reddit host
-# passes fit the host, as phase 21 shows; four are unmeasured).
+# and where the one-process mesh run it is held to comes from (phase 22's
+# own, of the same depth).  Four ranks take 2x2 (two graph blocks, two
+# feature shards); two take reddit's 1x2 (two reddit host passes fit the
+# host, as phase 21 shows; four are unmeasured).
 SPLIT_RUNS = {
     4: [("pubmed gcn --mesh 2x2", [*PUBMED, *MESH_GCN, "--mesh", "2x2"], ("K1",), "22"),
-        ("pubmed agnn --mesh 2x2", [*PUBMED, *MESH_AGNN, "--mesh", "2x2"], ("K4", "K10"), "22"),
-        ("Yeast agnn --mesh 2x2", [*YEAST, *MESH_AGNN, "--mesh", "2x2"], ("K4", "K5"),
-         "Yeast agnn --mesh 2x2")],
+        ("pubmed agnn --mesh 2x2", [*PUBMED, *MESH_AGNN, "--mesh", "2x2", "--epochs",
+                                    str(SPLIT_AGNN_EPOCHS)], ("K4", "K10"), "22"),
+        ("Yeast agnn --mesh 2x2", [*YEAST, *MESH_AGNN, "--mesh", "2x2", "--epochs",
+                                   str(SPLIT_AGNN_EPOCHS)], ("K4", "K5"), "22")],
     2: [("reddit agnn --mesh 1x2", [*REDDIT, *MESH_AGNN, "--mesh", "1x2", "--epochs",
-                                     str(REDDIT_SPLIT_EPOCHS)], ("K8", "K9"), "22")],
+                                     str(SPLIT_AGNN_EPOCHS)], ("K8", "K9"), "22")],
 }
-# The two-rank spawn's other tasks: --single_kernel one feature shard a
+# The other two-rank spawn's tasks: --single_kernel one feature shard a
 # rank (1x2) and the graph axis split (2x2), and measure_comm on pubmed.
 SPLIT_SAG = [("pubmed --mesh 1x2 --single_kernel", [*PUBMED, "--mesh", "1x2"]),
              ("pubmed --mesh 2x2 --single_kernel", [*PUBMED, "--mesh", "2x2"])]
@@ -3080,15 +3286,12 @@ def rank_backend(world) -> tuple[str, str]:
 
 def one_process_run(label, argv, expected, refs, card) -> None:
     """The one-process mesh run a rank run is held to: ``train.main`` with
-    ``--no_dropout`` and ``TRAIN_EPOCHS`` timed epochs, its kernels and no
-    other, no plain call; kept in ``refs`` under ``label`` with its
-    launches."""
+    ``--no_dropout`` and ``TRAIN_EPOCHS`` timed epochs (``mesh_run``: its
+    step replayed, its kernels and no other, no plain call); kept in
+    ``refs`` under ``label`` with the launches the card ran."""
     print(f"--- one process: train.main {' '.join(argv)}")
     t0 = time.perf_counter()
-    reset_counts()
-    r = run_main(["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), "--no_dropout", *argv])
-    r["counts"] = launch_counts()
-    check_launches(f"one process {label}", r["counts"], expected)
+    r = mesh_run(f"one process {label}", ["--no_dropout", *argv], expected, card)
     print(f"  one process {label}: first loss {r['first_loss']:.6f}  final loss "
           f"{r['final_loss']:.6f}  Train (ms) {r['train_ms']:.3f}  run "
           f"{time.perf_counter() - t0:.1f} s  (card: {card})")
@@ -3102,7 +3305,8 @@ def check_rank_runs(specs, ranks, refs, card, launches, backend, layout=None) ->
     of its one-process run in ``refs``, or a phase's own under the run's
     label) over the ranks: every rank's route (ending in ``layout`` where
     given), its kernels and no other, no plain call, each kernel's launches
-    summed over the ranks equal to one process's, the first and final
+    summed over the ranks equal to one process's (the card's count of its
+    replayed run), every rank's step eager (no capture), the first and final
     losses within ``FIRST_LOSS_RTOL`` and ``FINAL_LOSS_RTOL``.  Prints each
     rank's ``Train (ms)``, peak device memory, sampled peak host RSS and
     launches; adds the launches to ``launches``.  Returns ``(label, the
@@ -3113,6 +3317,9 @@ def check_rank_runs(specs, ranks, refs, card, launches, backend, layout=None) ->
         per_rank = [rk[i] for rk in ranks]
         for rank, r in enumerate(per_rank):
             check_launches(f"{label} rank {rank}", r["counts"], expected)
+            if r["captures"]:
+                raise AssertionError(f"{label} rank {rank}: {r['captures']} capture(s); a step "
+                                     "over processes runs eager")
             if layout is not None and not r["route"].endswith(layout):
                 raise AssertionError(f"{label} rank {rank}: route {r['route']}, expected "
                                      f"{layout!r} at its end")
@@ -3144,15 +3351,14 @@ def check_rank_runs(specs, ranks, refs, card, launches, backend, layout=None) ->
 
 
 def check_split_extras(ranks, card, launches) -> list:
-    """The two-rank spawn's ``--single_kernel`` runs (every rank reports the
+    """The second two-rank spawn's ``--single_kernel`` runs (every rank reports the
     slowest rank's stats, ``SAG_KEYS``, positive and finite; K1 and K4 and
     no other kernel, no plain call) and its ``measure_comm`` rows (every
     rank's equal, each against ``results/comm_measured.csv``'s row).
     Returns the ``--single_kernel`` stats by label."""
-    n_runs = len(SPLIT_RUNS[2])
     sag = []
     for j, (label, _) in enumerate(SPLIT_SAG):
-        per_rank = [rk[n_runs + j] for rk in ranks]
+        per_rank = [rk[j] for rk in ranks]
         stats = per_rank[0]["stats"]
         for rank, r in enumerate(per_rank):
             check_launches(f"{label} rank {rank}", r["counts"], ("K1", "K4"))
@@ -3168,7 +3374,7 @@ def check_split_extras(ranks, card, launches) -> list:
               + " / ".join(f"K1 {r['counts']['K1'][0]} K4 {r['counts']['K4'][0]}"
                            for r in per_rank) + f"  (card: {card})")
         sag.append((label, stats))
-    per_rank = [rk[n_runs + len(SPLIT_SAG)] for rk in ranks]
+    per_rank = [rk[len(SPLIT_SAG)] for rk in ranks]
     rows = per_rank[0]["rows"]
     with open(COMM_REFERENCE) as f:
         want = {(r["dataset"], int(r["shards"])): r for r in csv.DictReader(f)}
@@ -3190,34 +3396,35 @@ def check_split_extras(ranks, card, launches) -> list:
     return sag
 
 
-def phase_feature_procs(earlier, dev, card) -> tuple[list, list, dict]:
+def phase_feature_procs(dev, card) -> tuple[list, list, dict]:
     """Phase 22: the feature axis over processes, one feature shard a rank
     (``rank_backend``: gloo on this one card unless the machine has a card
-    a rank).  The one-process mesh runs ``SPLIT_RUNS`` holds the ranks to,
-    where no earlier phase ran them (``earlier``: phase 17's, by label);
+    a rank).  The one-process mesh runs ``SPLIT_RUNS`` holds the ranks to;
     four ranks over 2x2 and two over reddit's 1x2, each rank through
-    ``train.main`` (``check_rank_runs``), the two ranks then
+    ``train.main`` (``check_rank_runs``); two more ranks run
     ``--single_kernel`` and ``measure_comm`` (``check_split_extras``); then
     one ``torchrun`` CLI run of pubmed AGNN 2x2 over four processes.
     Returns the runs, the ``--single_kernel`` stats and each kernel's
     launches summed over every rank's runs."""
-    refs = dict(earlier)
+    refs = {}
     launches = {k: 0 for k in KERNELS}
     tasks = {w: [("train", label, argv) for label, argv, _, _ in SPLIT_RUNS[w]] for w in (4, 2)}
-    tasks[2] += [("single_kernel", label, argv) for label, argv in SPLIT_SAG]
-    tasks[2].append(("measure_comm", "measure_comm",
-                     ["--datasets", SPLIT_COMM[0], "--shards", *map(str, SPLIT_COMM[1])]))
+    extras = [("single_kernel", label, argv) for label, argv in SPLIT_SAG]
+    extras.append(("measure_comm", "measure_comm",
+                   ["--datasets", SPLIT_COMM[0], "--shards", *map(str, SPLIT_COMM[1])]))
     (b4, d4), (b2, d2) = rank_backend(4), rank_backend(2)
-    for label, argv, expected, source in SPLIT_RUNS[4]:
-        if source == "22":
-            one_process_run(label, argv, expected, refs, card)
-    # The 2 ranks (reddit's host pass, then its epochs) run beside the rest:
-    # reddit's one-process run, then the 4 ranks, then the torchrun run.
-    # Each rank's times are taken with the others on the host and the card.
-    print("  the 2 ranks run beside reddit's one-process run, the 4 ranks and the torchrun run")
+    for label, argv, expected, _ in SPLIT_RUNS[4]:
+        one_process_run(label, argv, expected, refs, card)
+    # Reddit's 2 ranks (its host pass, then its epochs) and the 2 ranks of
+    # the other tasks run beside the rest: reddit's one-process run, then
+    # the 4 ranks, then the torchrun run.  Each rank's times are taken with
+    # the others on the host and the card.
+    print("  reddit's 2 ranks and 2 ranks of --single_kernel and measure_comm run beside "
+          "reddit's one-process run, the 4 ranks and the torchrun run")
     t1 = time.perf_counter()
     with Sampled(mem_available, min) as low, \
-            ranks_running(2, b2, d2, tasks[2], "22") as wait2:
+            ranks_running(2, b2, d2, tasks[2], "22") as wait2, \
+            ranks_running(2, b2, d2, extras, "22") as wait_extras:
         for label, argv, expected, _ in SPLIT_RUNS[2]:
             one_process_run(label, argv, expected, refs, card)
         with ranks_running(4, b4, d4, tasks[4], "22") as wait4:
@@ -3227,12 +3434,14 @@ def phase_feature_procs(earlier, dev, card) -> tuple[list, list, dict]:
         label, argv, _, _ = SPLIT_RUNS[4][1]
         cli = torchrun_train_ms(b4, d4.format(rank=0) if b4 == "gloo" else "cuda", card,
                                 nproc=4, argv=argv)
+        ranks_extras = wait_extras(600)
+        print(f"  2 ranks ran {len(extras)} tasks by {time.perf_counter() - t1:.1f} s")
         ranks2 = wait2(600)
-        print(f"  2 ranks ran {len(tasks[2])} tasks in {time.perf_counter() - t1:.1f} s")
+        print(f"  reddit's 2 ranks ran {len(tasks[2])} task in {time.perf_counter() - t1:.1f} s")
     print(f"  the host's available memory fell to {low.value / 2**30:.2f} GiB while the ranks "
           f"ran (card host: {card})")
     runs += check_rank_runs(SPLIT_RUNS[2], ranks2, refs, card, launches, b2, " ranks=1x2")
-    sag = check_split_extras(ranks2, card, launches)
+    sag = check_split_extras(ranks_extras, card, launches)
     want = refs[label]["final_loss"]
     if not (abs(cli["final_loss"] - want) <= FINAL_LOSS_RTOL * abs(want)
             and cli["route"].endswith(" ranks=2x2")):
@@ -3450,7 +3659,7 @@ def main():
     # ---- 17. the distributed block-diagonal route ------------------------------
     t0 = phase_start("17. the distributed block-diagonal route (every shard on this card)")
     phase_bd_mesh_ops(dev)
-    bd_mesh_runs, bd_mesh_launches = phase_bd_mesh_train(dev)
+    bd_mesh_runs, bd_mesh_launches = phase_bd_mesh_train(dev, card)
     for k, c in bd_mesh_launches.items():
         launches[k] += c
     phase_end(t0)
@@ -3464,6 +3673,7 @@ def main():
     stream_runs, stream_launches = phase_stream_mesh_train(reddit, dev, card)
     for k, c in stream_launches.items():
         launches[k] += c
+    reddit_ds = reddit[2]
     del reddit
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
@@ -3474,8 +3684,9 @@ def main():
     # ---- 19. traffic accounting -----------------------------------------------
     t0 = phase_start("19. traffic accounting: measure_comm, partition_stats, scaling (every "
                      "shard on this card)")
-    for k, c in phase_traffic(dev, card).items():
+    for k, c in phase_traffic(dev, card, {"reddit": reddit_ds}).items():
         launches[k] += c
+    del reddit_ds
     phase_end(t0)
 
     # ---- 20. the headline bench ------------------------------------------------
@@ -3499,7 +3710,7 @@ def main():
     t0 = phase_start("22. the feature axis over processes (4 ranks over 2x2, 2 over reddit's "
                      "1x2, one feature shard a rank)")
     torch.cuda.empty_cache()
-    split_runs, split_sag, split_launches = phase_feature_procs(bd_mesh_runs, dev, card)
+    split_runs, split_sag, split_launches = phase_feature_procs(dev, card)
     for k, c in split_launches.items():
         launches[k] += c
     phase_end(t0)
@@ -3526,7 +3737,10 @@ def main():
               f"Train (ms) {r['train_ms']:.3f}  "
               f"First loss {r['first_loss']:.6f}  Final loss {r['final_loss']:.6f}  "
               f"max_memory_allocated {r['max_memory_allocated'] / 2**30:.2f} GiB  "
-              f"run {r['seconds']:.1f} s  (card: {card}; one card held all shards)")
+              f"capture {r['capture_s']:.3f} s  launches an epoch "
+              + " ".join(f"{k} {c}" for k, c in r["step_launches"].items())
+              + f"  run {r['seconds']:.1f} s  (card: {card}; one card held all shards, "
+              "replays)")
     for k, t in shard_times.items():
         print(f"  {KERNELS[k][0]} reddit 2x2 heaviest shard: {t['ms']:.4f} ms (device "
               f"{t['device_ms']:.4f}), bound {t['bound'][0]:.4f} ({t['bound'][1]}), library "

@@ -18,15 +18,19 @@ Stages of a GCN/GIN no-hoist epoch (the headline configuration, reference
                       (``_IdentityGraph``: the same shapes, the same dense
                       ops).
 
-Timing: warm-up epochs (or rounds), then ``--epochs`` rounds between two
-CUDA events around a ``torch.cuda.synchronize()``, over the rounds, as the
-trainer brackets its own ``Train (ms)``: each stage's number includes its
-dispatch, as the epoch's does (the host clock on the CPU), so an epoch is
-one eager call of the step (``step()``), not the trainer's replayed CUDA
-graph.  The JAX
-package's in-program chain differencing (``_timed_scan_rounds``) and its
-narrow/128-lane carry pair are TPU workarounds and are left out; an
-aggregation round takes the previous round's output at its true width.
+Timing, as the JAX ledger times its stages (``_epoch_chain_runner``,
+``_spmm_chain_s``): on the card every stage is timed as replays of one CUDA
+graph between two CUDA events, synchronized before and after, so no number
+holds a per-op host dispatch.  An epoch stage (the real graph's, and
+``dense_rest``'s over ``_IdentityGraph``) warms up with
+``step.many(WARMUP)``, which holds the step's capture (``TrainStep.many``),
+and times ``step.many(--epochs)``, as the trainer replays its epochs; an
+aggregation stage runs ``WARMUP`` eager rounds, then captures a chain of
+``--epochs`` rounds over a static input buffer into one CUDA graph (JAX's
+``fori_loop``, each round taking the previous round's output at its true
+width) and times one replay.  On the CPU the same rounds run eagerly under
+the host clock.  The JAX package's chain differencing and its
+narrow/128-lane carry pair are TPU workarounds and are left out.
 
 Run:  python -m tcgnn_tpu_torch.bench.epoch_ledger [--datasets DD amazon0601]
 Writes ``epoch_ledger.csv`` (one row per dataset) and prints the table.
@@ -71,39 +75,46 @@ class _IdentityGraph:
         return x
 
 
-def timed_rounds_ms(fn, rounds, device, warmup=WARMUP) -> float:
-    """ms a round of ``rounds`` calls of ``fn`` after ``warmup`` calls: CUDA
-    events around the rounds, synchronized before and after, on the card;
-    the host clock on the CPU."""
-    for _ in range(warmup):
-        fn()
+def timed_ms(run, units, device) -> float:
+    """ms a unit of ``run()``, which runs ``units`` of them: CUDA events
+    around it, synchronized before and after, on the card; the host clock
+    on the CPU."""
     if device.type != "cuda":
         start = time.perf_counter()
-        for _ in range(rounds):
-            fn()
-        return (time.perf_counter() - start) * 1e3 / rounds
+        run()
+        return (time.perf_counter() - start) * 1e3 / units
     torch.cuda.synchronize(device)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(rounds):
-        fn()
+    run()
     end.record()
     torch.cuda.synchronize(device)
-    return start.elapsed_time(end) / rounds
+    return start.elapsed_time(end) / units
 
 
 def _spmm_round_ms(graph, width, rounds, transpose=False) -> float:
     """ms of one aggregation pass at ``width`` (``A @ x``, or ``A^T @ dy``
-    with ``transpose``), each round taking the previous round's output."""
+    with ``transpose``) in a chain of ``rounds``, each round taking the
+    previous round's output: on the card one replay of the chain, captured
+    after ``WARMUP`` eager rounds."""
     ct = graph.config.compute_dtype
     op = graph._spmm_b if transpose else graph._spmm_f
-    carry = {"x": torch.full((graph.num_nodes, width), 0.01, dtype=ct, device=graph.device)}
+    x0 = torch.full((graph.num_nodes, width), 0.01, dtype=ct, device=graph.device)
 
-    def round_():
-        carry["x"] = op(carry["x"]).to(ct)
+    def chain(n):
+        x = x0
+        for _ in range(n):
+            x = op(x).to(ct)
 
     with torch.no_grad():
-        return timed_rounds_ms(round_, rounds, graph.device)
+        chain(WARMUP)
+        if graph.device.type != "cuda":
+            return timed_ms(lambda: chain(rounds), rounds, graph.device)
+        torch.cuda.synchronize(graph.device)
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            chain(rounds)
+        return timed_ms(captured.replay, rounds, graph.device)
 
 
 def _agg_stages(graph, kind, din, hidden, classes, num_layers):
@@ -143,10 +154,11 @@ def ledger_for(ds, args):
     def epoch_ms(g):
         net = nets.init_net(torch.Generator().manual_seed(0), args.model, ds.num_features,
                             args.hidden, ds.num_classes, args.num_layers, device=device)
-        optimizer = torch.optim.Adam(net.parameters(), lr=0.01)
-        step = T.make_train_step(g, net, x, y, optimizer, 0.5, hoist=False,
+        step = T.make_train_step(g, net, x, y, T.make_optimizer(net.parameters(), 0.01, device),
+                                 0.5, hoist=False,
                                  generator=torch.Generator(device=device).manual_seed(1))
-        return timed_rounds_ms(step, args.epochs, device)
+        step.many(WARMUP)
+        return timed_ms(lambda: step.many(args.epochs), args.epochs, device)
 
     row = {"dataset": args.dataset}
     row["epoch_ms"] = epoch_ms(graph)

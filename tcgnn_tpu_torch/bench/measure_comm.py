@@ -95,6 +95,7 @@ def measure(ds, name: str, shards: int, classes: int, device, cfg=CONFIG, **grap
         step_collective_bytes,
     )
     from tcgnn_tpu_torch.parallel.graph import _round_up
+    from tcgnn_tpu_torch.train import make_optimizer
 
     device, g = torch.device(device), shards
     dg = DistributedTiledGraph(ds.row_pointers, ds.column_index, ds.num_nodes,
@@ -105,9 +106,10 @@ def measure(ds, name: str, shards: int, classes: int, device, cfg=CONFIG, **grap
     net, _, _ = init_distributed_net(torch.Generator(device).manual_seed(0), "gcn", x.shape[1],
                                      HIDDEN, classes, 2, dg)
     # hoist=False: the layer-1 SpMM stays in the step, so the counted step
-    # holds the whole per-epoch schedule.
+    # holds the whole per-epoch schedule.  Both steps are eager calls: a
+    # replay runs no Python, so no recorder could count it.
     step = make_distributed_train_step(
-        dg, net, x, y, torch.optim.Adam(net.parameters(), lr=0.01), 0.5,
+        dg, net, x, y, make_optimizer(net.parameters(), 0.01, device), 0.5,
         num_valid_classes=classes, hoist=False,
         generator=torch.Generator(device).manual_seed(1))
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)

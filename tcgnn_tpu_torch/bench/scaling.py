@@ -6,8 +6,9 @@ scaling efficiency from 1 device to N): the same full-graph training step
 on ``('graph', 'feature')`` meshes of growing size, its edges/s, and the
 efficiency against the 1-shard mesh.  Every shard of the port's mesh lives
 on one device, so on one card the curve measures the one-card mesh's
-overhead (shards run in turn, collectives are copies), not NVLink scaling;
-the JAX tool says the same of its virtual CPU mesh.
+device work (shards run in turn, collectives are copies, the step replayed
+from one CUDA graph), not NVLink scaling; the JAX tool says the same of
+its virtual CPU mesh.
 
 Run:
   python -m tcgnn_tpu_torch.bench.scaling --dataset rand_20000_100000 [--device cuda]
@@ -29,14 +30,18 @@ SIZES = (1, 2, 4, 8)
 
 
 def measure(mesh_shape, ds, cfg, model, hidden, epochs, seed=0, device="cuda"):
-    """``(seconds an epoch, edges/s)`` of ``epochs`` timed steps after 3
-    warm-up ones on a ``mesh_shape`` mesh."""
+    """``(seconds an epoch, edges/s)`` of ``step.many(epochs)`` after a
+    ``step.many(3)`` warm-up on a ``mesh_shape`` mesh: on the card the
+    warm-up holds the capture, and the timed epochs are replays of one CUDA
+    graph of the step, as the JAX tool times jitted steps; on the CPU,
+    eager steps."""
     from tcgnn_tpu_torch.parallel import (
         distributed_graph_from_dataset,
         init_distributed_net,
         make_distributed_train_step,
         make_mesh,
     )
+    from tcgnn_tpu_torch.train import make_optimizer
 
     device = torch.device(device)
     ng, nf = mesh_shape
@@ -46,15 +51,13 @@ def measure(mesh_shape, ds, cfg, model, hidden, epochs, seed=0, device="cuda"):
     net, _, _ = init_distributed_net(torch.Generator(device).manual_seed(seed), model,
                                      ds.x.shape[1], hidden, ds.num_classes, 2, graph)
     step = make_distributed_train_step(graph, net, x, y,
-                                       torch.optim.Adam(net.parameters(), lr=0.01),
+                                       make_optimizer(net.parameters(), 0.01, device),
                                        dropout_rate=0.0, num_valid_classes=ds.num_classes)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    for _ in range(3):
-        step()
+    step.many(3)
     sync()
     t0 = time.perf_counter()
-    for _ in range(epochs):
-        step()
+    step.many(epochs)
     sync()
     dt = (time.perf_counter() - t0) / epochs
     return dt, ds.num_edges / dt

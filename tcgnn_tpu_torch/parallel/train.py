@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from tcgnn_tpu_torch import train as T
 from tcgnn_tpu_torch.models import nets
 from tcgnn_tpu_torch.parallel import collectives as C
 from tcgnn_tpu_torch.parallel.graph import DistributedTiledGraph, _round_up
@@ -84,9 +85,11 @@ def make_distributed_train_step(
     norm: Optional[torch.Tensor] = None,
     hoist: bool = True,
     generator: Optional[torch.Generator] = None,
-):
-    """One full-batch epoch per call on the mesh: forward, the masked NLL,
-    Adam.  Returns the epoch's loss (before the update) as a device tensor.
+) -> T.TrainStep:
+    """The mesh's training step, a ``train.TrainStep``: each call is one
+    full-batch epoch on the mesh (forward, the masked NLL, Adam) and returns
+    the epoch's loss (before the update) as a device tensor; ``many(n)``
+    runs n epochs.
 
     ``x`` comes from ``graph.shard_features``, ``y`` (int labels, padded
     entries arbitrary) and ``norm`` (padded entries 0) from
@@ -95,6 +98,14 @@ def make_distributed_train_step(
     the global rows: ``GNN.forward``).  The forward and backward run inside
     ``graph.shared_exchanges``, so the step moves what the compiled JAX step
     moves.  Over processes the returned loss is the all-reduced one.
+
+    In one process on the card, ``many`` captures the whole step (the
+    exchanges, every shard's kernels, the loss and Adam, which must be
+    ``train.make_optimizer``'s) into one CUDA graph and replays it, as JAX
+    runs its step as one compiled program.  Over processes the step is
+    ``eager``: its transfers go through ``torch.distributed``, which gloo
+    stages through host memory, and a capture cannot hold them (a captured
+    step a rank over NCCL is ROADMAP item 8c-iv).
     """
     mask = graph.valid_node_mask()
     y = y.long()
@@ -124,4 +135,4 @@ def make_distributed_train_step(
         optimizer.step()
         return loss
 
-    return step
+    return T.TrainStep(step, params, optimizer, gen, graph.device, eager=mesh.world > 1)

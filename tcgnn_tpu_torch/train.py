@@ -9,8 +9,9 @@ device; it is bracketed by ``torch.cuda.synchronize()``.  On the card the
 epochs after the first run as JAX's device-side epoch chain runs them: the
 step is captured once into a CUDA graph (in the warm-up, so the capture
 stays out of ``Train (ms)``) and replayed once an epoch (``TrainStep.many``),
-with no host dispatch of its kernels; on the CPU, and on the mesh, every
-epoch is one eager step.
+with no host dispatch of its kernels, on one device and on the mesh in one
+process alike; on the CPU, and on a mesh over processes (whose transfers
+gloo stages through the host), every epoch is one eager step.
 
 The device is explicit (``--device``, default ``cuda``) and the trainer never
 moves to another one: without a card, ``--device cuda`` raises.  It prints
@@ -219,13 +220,15 @@ class TrainStep:
     capture that fails raises, naming what broke it, and nothing falls back
     to eager steps.  A kernel wrapper counts its launch once, at the
     capture: a replay runs no Python.  On the CPU, and for an ``eager``
-    step (one that cannot be captured), ``many(n)`` is n calls.
+    step (one that cannot be captured: the ``sparse`` incumbent's, a mesh
+    step over processes), ``many(n)`` is n calls.
     """
 
     def __init__(self, fn, params, optimizer, generator, device: torch.device,
                  eager: bool = False):
         self._fn, self._params, self._optimizer = fn, list(params), optimizer
         self._generator, self.device = generator, device
+        self.eager = eager
         self.replays = device.type == "cuda" and not eager
         self._graph = self._loss = self._storage = None
         self.eager_steps = 0
@@ -338,8 +341,8 @@ def timed_epochs(step, args, device, sync, checkpoint=None, resumed_at=None) -> 
     The JAX CLI's loop (``tcgnn_tpu/train.py:597-630``): the first epoch is
     one ``step()`` (its loss is ``first_loss``), the other warm-up epochs
     one ``step.many``, which holds the capture, and the timed epochs one
-    ``step.many`` a piece; the mesh's step, a function without ``many``,
-    runs each epoch as one call.  A run resumed at epoch ``resumed_at`` takes no
+    ``step.many`` a piece (``step`` is a ``TrainStep``, the mesh's too).  A
+    run resumed at epoch ``resumed_at`` takes no
     warm-up step: the restored state must take no update the first run did
     not count, so its first piece holds its first epoch's ``step()`` and
     the capture, as JAX's first chunk holds its compile.  With
@@ -348,19 +351,11 @@ def timed_epochs(step, args, device, sync, checkpoint=None, resumed_at=None) -> 
     ``--checkpoint_every``; a synchronize closes each piece before its
     write, and the writes are left out of ``Train (ms)``.  The final state
     is always written."""
-    def epochs(n):
-        """``n`` epochs; the last one's loss."""
-        if isinstance(step, TrainStep):
-            return step.many(n)
-        for _ in range(n):
-            loss = step()
-        return loss
-
     start_epoch = resumed_at or 0
     first_loss = loss = None
     if resumed_at is None:
         first_loss = step()
-        loss = epochs(WARMUP_EPOCHS - 1)
+        loss = step.many(WARMUP_EPOCHS - 1)
     sync()
     every = args.checkpoint_every
     epochs_run = max(args.epochs - start_epoch, 1)
@@ -373,9 +368,9 @@ def timed_epochs(step, args, device, sync, checkpoint=None, resumed_at=None) -> 
             if first_loss is None:
                 first_loss = loss = step()
                 if piece > 1:
-                    loss = epochs(piece - 1)
+                    loss = step.many(piece - 1)
             else:
-                loss = epochs(piece)
+                loss = step.many(piece)
             epoch += piece
             if checkpoint is not None and epoch % every == 0:
                 sync()
@@ -528,7 +523,7 @@ def train_distributed(args, ds, cfg, device, sync) -> dict:
         ds.num_classes, args.num_layers, graph, n_heads=args.n_heads,
     )
     load_params(args, net)
-    optimizer = torch.optim.Adam(net.parameters(), lr=args.lr)
+    optimizer = make_optimizer(net.parameters(), args.lr, device)
     norm = (graph.shard_nodes((1.0 / ds.norm_degrees()).astype(np.float32))
             if args.gcn_norm else None)
     step = make_distributed_train_step(
@@ -560,7 +555,8 @@ def train_distributed(args, ds, cfg, device, sync) -> dict:
         "prep_host_ms": graph.prep_host_s * 1e3,
         "prep_stages_ms": {k: v * 1e3 for k, v in graph.prep_stages.items()},
         "host_pass": graph.host_pass, "first_loss": first_loss, "final_loss": final_loss,
-        "train_ms": train_ms, "profile": prof, "graph": graph,
+        "train_ms": train_ms, "profile": prof, "captures": step.captures,
+        "capture_s": step.capture_s, "graph": graph,
     }
 
 

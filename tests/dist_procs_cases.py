@@ -266,7 +266,8 @@ def train_steps(kind: str, shape, params=None, dropout: float = 0.0) -> dict:
         dropout_rate=dropout, num_valid_classes=CLASSES,
         generator=torch.Generator().manual_seed(11))
     losses = [float(step()) for _ in range(STEPS)]
-    return {"losses": losses, "params": [p.detach().numpy().copy() for p in net.parameters()]}
+    return {"losses": losses, "params": [p.detach().numpy().copy() for p in net.parameters()],
+            "eager": step.eager}
 
 
 class GradRecorder:

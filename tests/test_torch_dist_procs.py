@@ -24,6 +24,8 @@ hold them to the one-process mesh (run here) and to JAX:
   ``test_torch_dist_train.check_train_step_matches_jax``), and the ranks'
   parameters equal to each other bit for bit;
 * dropout on: every rank's losses equal to the one-process port mesh's;
+  every rank's step is an ``eager`` ``TrainStep`` in both layouts (a CUDA
+  graph cannot hold gloo's host-staged transfers), the one process's not;
 * every rank's ``step_collective_bytes`` equal to the one-process mesh's
   plus one ``all_reduce`` of the flattened gradients and the loss: 4,228 B
   for GCN and 4,236 B for AGNN on ``rand_4000_32000`` over 4x1, JAX's
@@ -273,6 +275,17 @@ def test_dropout_matches_one_process(ranks, one_process, world):
     want = one_process["dropout"]["losses"]
     for r in ranks[world]:
         np.testing.assert_allclose(r["dropout"]["losses"], want, **TRAIN)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_step_over_ranks_is_eager(ranks, one_process, world):
+    """Over processes the mesh step is built ``eager`` (gloo stages its
+    transfers through the host, which a CUDA graph cannot hold; ROADMAP
+    item 8c-iv), in both layouts; in one process it is not."""
+    assert one_process["dropout"]["eager"] is False
+    for r in ranks[world]:
+        assert r["dropout"]["eager"] is True
+        assert r["split dropout"]["eager"] is True
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -69,7 +69,12 @@ from tcgnn_tpu_torch.ops.spmm import spmm_tc_dense, spmm_tc_dense_torch
 from tcgnn_tpu_torch.sgt.stream import segment_chunks
 from tcgnn_tpu_torch.ops.fused import spmm_fused, spmm_fused_torch
 from tcgnn_tpu_torch.ops.sddmm import sddmm_tc_tiles, sddmm_tc_tiles_torch
-from tcgnn_tpu_torch.parallel import DistributedTiledGraph, make_mesh
+from tcgnn_tpu_torch.parallel import (
+    DistributedTiledGraph,
+    init_distributed_net,
+    make_distributed_train_step,
+    make_mesh,
+)
 from tcgnn_tpu_torch.sgt.translate import shard_meta, sparse_graph_translate
 
 pytestmark = pytest.mark.gpu
@@ -960,18 +965,24 @@ def test_sddmm_tile_mode_matches_plain(cuda, kind, geometry, dtype, d, f32_tiles
     within(got.float(), want.float(), mag, **t)
 
 
-@pytest.mark.parametrize("mesh", [(4, 2), (8, 1)])
-def test_distributed_route_on_card_matches_cpu(cuda, mesh):
-    """spmm and agnn_aggregate on a mesh, forward and every gradient: the
-    card's kernels (K1, and K4 tiles + K10 at 4x2, K2/K3 at 8x1) against the
-    plain versions on the CPU, on a graph whose split stream engages."""
+def symmetric_hub():
+    """The hub graph with every edge both ways, once: the mesh's AGNN takes
+    the score-fused kernels at F = 1."""
     n, rp, ci = graph("hub")
     src = np.repeat(np.arange(n), np.diff(rp))
     rp, ci = coo_to_csr(np.concatenate([src, ci]), np.concatenate([ci, src]), n)
     keep = np.ones(len(ci), bool)
     rows = np.repeat(np.arange(n), np.diff(rp))
     keep[1:] = (rows[1:] != rows[:-1]) | (ci[1:] != ci[:-1])
-    rp, ci = coo_to_csr(rows[keep], ci[keep], n)
+    return (n, *coo_to_csr(rows[keep], ci[keep], n))
+
+
+@pytest.mark.parametrize("mesh", [(4, 2), (8, 1)])
+def test_distributed_route_on_card_matches_cpu(cuda, mesh):
+    """spmm and agnn_aggregate on a mesh, forward and every gradient: the
+    card's kernels (K1, and K4 tiles + K10 at 4x2, K2/K3 at 8x1) against the
+    plain versions on the CPU, on a graph whose split stream engages."""
+    n, rp, ci = symmetric_hub()
     x = torch.randn(n, 24, generator=torch.Generator().manual_seed(0)) * 0.3
     att = torch.tensor([[0.6, -0.3]])
     r = torch.randn(n, 24, generator=torch.Generator().manual_seed(2))
@@ -1007,7 +1018,24 @@ def chain_case(cuda, kind="gcn", net_cls=GNN, optimizer=None, eager=False):
                                  eager=eager)
 
 
-PORT_KERNEL = re.compile(r"::(spmm_dense_kernel|sfused_kernel|sfused_bwd_kernel)<")
+def mesh_chain_case(cuda, kind, shape):
+    """The mesh's training step (every shard on the card) over ``shape`` on
+    the symmetric hub graph (K1 for GCN; AGNN: K2/K3 at F = 1, K4 tiles and
+    K10 at F > 1), dropout 0.5, its parameters and dropout generator from
+    seeds."""
+    n, rp, ci = symmetric_hub()
+    g = DistributedTiledGraph(rp, ci, n, make_mesh(*shape, cuda), TileConfig(16, 8))
+    rng = np.random.default_rng(31)
+    x = g.shard_features((rng.standard_normal((n, 24)) * 0.3).astype(np.float32))
+    y = g.shard_nodes(rng.integers(0, 4, n))
+    net, _, _ = init_distributed_net(torch.Generator().manual_seed(32), kind, 24, 16, 4, 2, g)
+    return make_distributed_train_step(
+        g, net, x, y, train.make_optimizer(net.parameters(), 0.01, cuda), 0.5,
+        num_valid_classes=4, generator=torch.Generator(device=cuda).manual_seed(33))
+
+
+PORT_KERNEL = re.compile(
+    r"::(spmm_dense_kernel|sfused_kernel|sfused_bwd_kernel|sddmm_edge_kernel)<")
 
 
 def pad_trace(pads=256):
@@ -1045,8 +1073,27 @@ def test_many_matches_eager_steps(cuda, kind):
     card runs the same kernel launches on both sides (a profiler trace);
     the wrappers count the eager steps' and the capture's, not the
     replays'."""
-    eager, chained = chain_case(cuda, kind), chain_case(cuda, kind)
+    check_many_against_eager(chain_case(cuda, kind), chain_case(cuda, kind))
 
+
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)])
+@pytest.mark.parametrize("kind", ["gcn", "agnn"])
+def test_mesh_many_matches_eager_steps(cuda, kind, shape):
+    """The one-process mesh's step (``make_distributed_train_step``, a
+    ``TrainStep``): many(30) captures the whole step (the halo rounds, the
+    split stream, every shard's kernels, the loss and Adam) once and replays
+    it, against 30 eager steps from the same state, dropout on, as
+    ``test_many_matches_eager_steps``."""
+    eager, chained = mesh_chain_case(cuda, kind, shape), mesh_chain_case(cuda, kind, shape)
+    assert not chained.eager and chained.replays
+    check_many_against_eager(eager, chained)
+
+
+def check_many_against_eager(eager, chained):
+    """many(30) of ``chained`` against 30 calls of ``eager`` (two steps
+    from the same state): the final loss within rtol 1e-5, the same kernel
+    launches on the card, the wrappers counting the warm-up steps' and the
+    capture's; then many(5) against 5 more calls, with no new capture."""
     def eager_steps():
         for _ in range(30):
             loss = eager()

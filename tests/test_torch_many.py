@@ -12,12 +12,21 @@ differences of the gradients), for GCN and GIN with and without the hoist
 and a 2-layer AGNN (score-fused and per-edge); ``many(n)`` equals n calls
 bit for bit with dropout 0.5 and runs n steps' plain versions; the
 trainer's loop (``timed_epochs``) takes JAX's shape, and a run resumed from
-a checkpoint still ends bit-equal to an uninterrupted one.  The capture and
-the replays themselves run only on the card (``tests/test_torch_kernels.py``,
+a checkpoint still ends bit-equal to an uninterrupted one.
+
+The mesh's step (``parallel.make_distributed_train_step``) is a
+``TrainStep`` too, JAX's one compiled step a call: in one process on the
+CPU its ``many(n)`` is n calls bit for bit (dropout 0.5, GCN and AGNN, 4x1
+and 2x2), and chained epochs from JAX's parameters match JAX's mesh step
+called as many times, on its 8 virtual CPU devices, at ``rtol=1e-4`` (the
+tolerance of ``tests/test_torch_dist_train.py``'s mesh steps).  The epoch
+ledger times its epochs through ``many``.  The capture and the replays
+themselves run only on the card (``tests/test_torch_kernels.py``,
 ``chip_smoke.py``).
 """
 
 import argparse
+import os
 
 import jax
 import jax.numpy as jnp
@@ -29,13 +38,24 @@ import torch
 from tcgnn_tpu.config import TileConfig as JaxTileConfig
 from tcgnn_tpu.graph import TiledGraph as JaxTiledGraph
 from tcgnn_tpu.models import nets as jax_nets
+from tcgnn_tpu.parallel import DistributedTiledGraph as JaxDistributedTiledGraph
+from tcgnn_tpu.parallel import init_distributed_net as jax_init_distributed_net
+from tcgnn_tpu.parallel import make_distributed_train_step as jax_make_mesh_step
+from tcgnn_tpu.parallel import make_mesh as jax_make_mesh
 from tcgnn_tpu.train import make_train_step as jax_make_train_step
 from tcgnn_tpu_torch import train
+from tcgnn_tpu_torch.bench import epoch_ledger
 from tcgnn_tpu_torch.config import TileConfig
 from tcgnn_tpu_torch.data import coo_to_csr, powerlaw_graph
 from tcgnn_tpu_torch.graph import TiledGraph
 from tcgnn_tpu_torch.models import GNN, init_net
 from tcgnn_tpu_torch.ops import _kernels
+from tcgnn_tpu_torch.parallel import (
+    DistributedTiledGraph,
+    init_distributed_net,
+    make_distributed_train_step,
+    make_mesh,
+)
 
 N, CLASSES, HIDDEN, DIM = 150, 4, 16, 24
 CHUNKS = (9, 11)
@@ -171,6 +191,16 @@ class FakeStep(train.TrainStep):
         return torch.tensor(float(len(self.calls)))
 
 
+def eager_step(calls):
+    """An ``eager`` ``TrainStep`` (as a mesh step over processes is) whose
+    epoch records itself."""
+    def epoch():
+        calls.append("step")
+        return torch.tensor(float(len(calls)))
+
+    return train.TrainStep(epoch, [], None, None, torch.device("cpu"), eager=True)
+
+
 @pytest.mark.parametrize("epochs,every,resumed_at,calls", [
     (21, None, None, ["step", 8, 21]),
     (12, 5, None, ["step", 8, 5, 5, 2]),
@@ -181,19 +211,14 @@ class FakeStep(train.TrainStep):
 def test_timed_epochs_takes_jax_loop_shape(epochs, every, resumed_at, calls):
     """The first epoch is one call, the other warm-up epochs one ``many``,
     every checkpoint piece one ``many``; a resumed run's first piece starts
-    with its first epoch's call.  The mesh's step, a function without
-    ``many``, runs the same epochs one call each."""
+    with its first epoch's call.  An ``eager`` step (a mesh step over
+    processes) runs the same epochs, one call each."""
     args = argparse.Namespace(epochs=epochs, checkpoint_every=every or 50, profile_dir=None)
     written = []
     ckpt = None if every is None else written.append
     for chained in (True, False):
         got = []
-
-        def mesh_step():
-            got.append("step")
-            return torch.tensor(float(len(got)))
-
-        step = FakeStep(got) if chained else mesh_step
+        step = FakeStep(got) if chained else eager_step(got)
         first, _, _, _ = train.timed_epochs(step, args, torch.device("cpu"), lambda: None,
                                             ckpt, resumed_at)
         epochs_run = epochs - (resumed_at or 0) + (0 if resumed_at else train.WARMUP_EPOCHS)
@@ -228,3 +253,117 @@ def test_resumed_run_is_bit_equal(tmp_path, every, stop):
     pb = torch.load(tmp_path / "whole.pt", weights_only=True)["params"]
     assert pa.keys() == pb.keys() and all(torch.equal(pa[k], pb[k]) for k in pa)
     assert whole["captures"] == 0
+
+
+# ---- the mesh's step (``parallel.make_distributed_train_step``) ---------------------
+
+MESH_N, MESH_DIM, MESH_CLASSES = 240, 20, 5
+MESH_CFG = TileConfig(blk_h=32, blk_w=32, edge_chunk=32)
+MESH_CHUNKS = (3, 2)
+
+
+@pytest.fixture(scope="module")
+def mesh_data():
+    """A symmetric graph of a few hundred nodes (AGNN takes the fused
+    path), its features and labels."""
+    src, dst = powerlaw_graph(MESH_N, 1500, seed=8)
+    ptr, idx = coo_to_csr(src, dst, MESH_N)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((MESH_N, MESH_DIM)).astype(np.float32)
+    y = rng.integers(0, MESH_CLASSES, MESH_N).astype(np.int64)
+    return ptr, idx, x, y
+
+
+@pytest.fixture(scope="module", params=[(4, 1), (2, 2)], ids=["4x1", "2x2"])
+def mesh_graph(request, mesh_data):
+    ptr, idx, x, y = mesh_data
+    return DistributedTiledGraph(ptr, idx, MESH_N, make_mesh(*request.param, "cpu"), MESH_CFG)
+
+
+def mesh_step(g, kind, x, y, dropout=0.5, params=None):
+    """The port's mesh step on ``g``: ``init_distributed_net``'s draws, or
+    JAX's parameters (numpy)."""
+    if params is None:
+        net, _, _ = init_distributed_net(torch.Generator().manual_seed(7), kind, MESH_DIM, 8,
+                                         MESH_CLASSES, 2, g)
+    else:
+        net = GNN(kind, [g.feature_width(MESH_DIM)] + [p["weights"].shape[1] for p in params])
+        net.params_from_jax(params)
+    step = make_distributed_train_step(
+        g, net, g.shard_features(x), g.shard_nodes(y),
+        train.make_optimizer(net.parameters(), 0.01, "cpu"), dropout_rate=dropout,
+        num_valid_classes=MESH_CLASSES, generator=torch.Generator().manual_seed(11))
+    return step, net
+
+
+@pytest.mark.parametrize("kind", ["gcn", "agnn"])
+def test_mesh_many_is_n_steps_bit_for_bit(mesh_graph, mesh_data, kind):
+    """The one-process mesh's step is a ``TrainStep`` that would capture on
+    the card; on the CPU its ``many(n)`` is n calls: with dropout 0.5 the
+    same loss and parameters bit for bit, and n steps' plain versions."""
+    _, _, x, y = mesh_data
+    n = 3
+    one, net_one = mesh_step(mesh_graph, kind, x, y)
+    chained, net_chained = mesh_step(mesh_graph, kind, x, y)
+    assert isinstance(chained, train.TrainStep) and not chained.eager
+    plain = {w: w.plain_calls for w in _kernels.COUNTED}
+    want = one()
+    per_step = {w: w.plain_calls - plain[w] for w in _kernels.COUNTED}
+    for _ in range(n - 1):
+        want = one()
+    plain = {w: w.plain_calls for w in _kernels.COUNTED}
+    got = chained.many(n)
+    assert torch.equal(got, want)
+    for a, b in zip(net_chained.parameters(), net_one.parameters()):
+        assert torch.equal(a, b)
+    assert any(per_step.values())
+    assert {w: w.plain_calls - plain[w] for w in _kernels.COUNTED} == {
+        w: n * c for w, c in per_step.items()}
+    assert (chained.eager_steps, chained.captures) == (n, 0)
+
+
+@pytest.mark.parametrize("kind", ["gcn", "agnn"])
+def test_mesh_many_matches_jax_steps(mesh_data, kind):
+    """Chunks of 3 then 2 epochs of the port's 2x2 mesh step (``many``) from
+    JAX's parameters, no dropout: the loss each chunk returns against JAX's
+    mesh step (one compiled program a call) after as many calls."""
+    ptr, idx, x, y = mesh_data
+    jg = JaxDistributedTiledGraph(ptr, idx, MESH_N, jax_make_mesh(2, 2),
+                                  JaxTileConfig(blk_h=32, blk_w=32, edge_chunk=32))
+    xs = jg.shard_features(x)
+    params, _, _ = jax_init_distributed_net(jax.random.PRNGKey(3), kind, xs.shape[1], 8,
+                                            MESH_CLASSES, 2, jg)
+    numpy_params = [{k: np.asarray(v) for k, v in p.items()} for p in params]
+    opt = optax.adam(0.01)
+    jstep = jax_make_mesh_step(jg, kind, xs, jg.shard_nodes(y.astype(np.int32)), opt,
+                               dropout_rate=0.0, num_valid_classes=MESH_CLASSES)
+    state, key, want = opt.init(params), jax.random.PRNGKey(1), []
+    for n in MESH_CHUNKS:
+        for _ in range(n):
+            params, state, key, loss = jstep(params, state, key)
+        want.append(float(loss))
+
+    g = DistributedTiledGraph(ptr, idx, MESH_N, make_mesh(2, 2, "cpu"), MESH_CFG)
+    step, _ = mesh_step(g, kind, x, y, dropout=0.0, params=numpy_params)
+    got = [float(step.many(n)) for n in MESH_CHUNKS]
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert got[-1] < got[0] and step.captures == 0
+
+
+def test_ledger_times_epochs_through_many(monkeypatch):
+    """The epoch ledger's epoch stages (the real graph's and
+    ``dense_rest``'s) run ``step.many``: ``WARMUP`` epochs, then
+    ``--epochs``, as the JAX ledger times ``step.many`` chains."""
+    calls = []
+    many = train.TrainStep.many
+
+    def recorded(self, n):
+        calls.append(n)
+        return many(self, n)
+
+    monkeypatch.setattr(train.TrainStep, "many", recorded)
+    rows = epoch_ledger.main(["--datasets", "rand_300_1500", "--epochs", "3", "--reorder",
+                              "none", "--blk_h", "32", "--blk_w", "32", "--out",
+                              os.devnull, "--device", "cpu"])
+    assert calls == [epoch_ledger.WARMUP, 3] * 2
+    assert rows[0]["epoch_ms"] > 0 and rows[0]["dense_rest_ms"] > 0
