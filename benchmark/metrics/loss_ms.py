@@ -1,0 +1,10 @@
+"""Model, loss: device ms an epoch of the NLL loss over all nodes, forward
+(``F.nll_loss``) and backward (from ``loss.backward()`` to the gradient of
+the log-probabilities), from the program's device stamps (``spans.phases``,
+phases ``loss.fwd`` and ``loss.bwd``).  Moves ``epoch_ms``."""
+
+from benchmark import spans
+
+
+def read(run):
+    return spans.phase_ms(run, "loss.fwd", "loss.bwd")

@@ -72,7 +72,13 @@ hence padding chunks: TC_Blocks, Exp_Edges and every op value stay the same.
 The host passes run natively (``sgt/native``) where its library loads, as
 the JAX package's do, else in NumPy; both give the same arrays bit for bit.
 ``host_pass`` names the one that ran, and ``prep_stages`` their seconds by
-stage (``prep_host_s`` is their total).
+stage (``prep_host_s`` is their total).  Each stage, the uploads
+(``graph.upload``) and the device row indexes (``graph.row_index``, closed
+by one synchronize on the card) are host spans of ``profiling.RECORDER``.
+The four autograd Functions stamp the aggregation phases (``agg.fwd`` in
+``forward``, ``agg.bwd`` in ``backward``) where their forward ran while
+stamps were recorded: autograd runs ``backward`` on a thread of its own, so
+the choice rides on ``ctx``.
 """
 
 from __future__ import annotations
@@ -86,6 +92,7 @@ import numpy as np
 import torch
 
 from tcgnn_tpu_torch.config import DEFAULT_CONFIG, TileConfig
+from tcgnn_tpu_torch.profiling import RECORDER, span
 from tcgnn_tpu_torch.ops.blockdiag import (
     BD_BIN_GROUP,
     bd_row_index,
@@ -119,6 +126,17 @@ from tcgnn_tpu_torch.sgt.translate import (
 DENSE_TILE_BUDGET_BYTES = 8 << 30
 
 
+@contextlib.contextmanager
+def _phase(ctx, name: str):
+    """Stamps ``name`` and its end around the block where the Function's
+    forward ran while stamps were recorded (``ctx.stamps``)."""
+    if ctx.stamps:
+        RECORDER.stamp(name)
+    yield
+    if ctx.stamps:
+        RECORDER.stamp("/" + name)
+
+
 class _SpMM(torch.autograd.Function):
     """``A @ x`` forward, ``A^T @ dy`` backward."""
 
@@ -126,11 +144,14 @@ class _SpMM(torch.autograd.Function):
     def forward(ctx, x, graph):
         ctx.graph = graph
         ctx.x_dtype = x.dtype
-        return graph._spmm_f(x)
+        ctx.stamps = RECORDER.stamping
+        with _phase(ctx, "agg.fwd"):
+            return graph._spmm_f(x)
 
     @staticmethod
     def backward(ctx, dy):
-        return ctx.graph._spmm_b(dy.contiguous()).to(ctx.x_dtype), None
+        with _phase(ctx, "agg.bwd"):
+            return ctx.graph._spmm_b(dy.contiguous()).to(ctx.x_dtype), None
 
 
 class _SpMMWeighted(torch.autograd.Function):
@@ -144,18 +165,21 @@ class _SpMMWeighted(torch.autograd.Function):
     def forward(ctx, x, w, graph):
         ctx.graph = graph
         ctx.save_for_backward(x, w)
-        return graph._spmm_w(x, w)
+        ctx.stamps = RECORDER.stamping
+        with _phase(ctx, "agg.fwd"):
+            return graph._spmm_w(x, w)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         g = ctx.graph
-        dy = dy.contiguous()
         dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = g._spmm_w_t(dy, w).to(x.dtype)
-        if ctx.needs_input_grad[1]:
-            dw = g._sddmm(dy, x).to(w.dtype)
+        with _phase(ctx, "agg.bwd"):
+            dy = dy.contiguous()
+            if ctx.needs_input_grad[0]:
+                dx = g._spmm_w_t(dy, w).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = g._sddmm(dy, x).to(w.dtype)
         return dx, dw, None
 
 
@@ -169,15 +193,18 @@ class _SDDMM(torch.autograd.Function):
     def forward(ctx, x, graph):
         ctx.graph = graph
         ctx.save_for_backward(x)
-        return graph._sddmm(x, x)
+        ctx.stamps = RECORDER.stamping
+        with _phase(ctx, "agg.fwd"):
+            return graph._sddmm(x, x)
 
     @staticmethod
     def backward(ctx, de):
         (x,) = ctx.saved_tensors
         g = ctx.graph
-        d_rows = g._spmm_w(x, de)
-        d_cols = g._spmm_w_t(x, de)
-        return (d_rows + d_cols).to(x.dtype), None
+        with _phase(ctx, "agg.bwd"):
+            d_rows = g._spmm_w(x, de)
+            d_cols = g._spmm_w_t(x, de)
+            return (d_rows + d_cols).to(x.dtype), None
 
 
 class _AGNNAggregate(torch.autograd.Function):
@@ -195,18 +222,21 @@ class _AGNNAggregate(torch.autograd.Function):
     def forward(ctx, x, att_w, graph):
         ctx.graph = graph
         ctx.save_for_backward(x, att_w)
-        out = graph._agnn_f(x)
-        # The gate in the aggregate's own dtype, as in JAX.
-        return out * att_w.mean().to(out.dtype)
+        ctx.stamps = RECORDER.stamping
+        with _phase(ctx, "agg.fwd"):
+            out = graph._agnn_f(x)
+            # The gate in the aggregate's own dtype, as in JAX.
+            return out * att_w.mean().to(out.dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x, att_w = ctx.saved_tensors
-        dx3, u = ctx.graph._agnn_b(x, dy.contiguous())
-        dx = (att_w.mean().to(dx3.dtype) * dx3).to(x.dtype)
-        d_cbar = torch.dot(dy.float().reshape(-1), u.float().reshape(-1))
-        datt = (d_cbar / att_w.numel()).to(att_w.dtype).expand(att_w.shape).clone()
-        return dx, datt, None
+        with _phase(ctx, "agg.bwd"):
+            dx3, u = ctx.graph._agnn_b(x, dy.contiguous())
+            dx = (att_w.mean().to(dx3.dtype) * dx3).to(x.dtype)
+            d_cbar = torch.dot(dy.float().reshape(-1), u.float().reshape(-1))
+            datt = (d_cbar / att_w.numel()).to(att_w.dtype).expand(att_w.shape).clone()
+            return dx, datt, None
 
 
 @dataclasses.dataclass
@@ -228,18 +258,17 @@ class BDPack:
 
 class StageClock:
     """Seconds of the host passes by stage, each stage's calls summed
-    (both directions, the residual's tiling with the graph's)."""
+    (both directions, the residual's tiling with the graph's); each call is
+    a host span ``prep.<stage>`` of ``profiling.RECORDER``."""
 
     def __init__(self):
         self.seconds: dict[str, float] = {}
 
     @contextlib.contextmanager
     def __call__(self, stage: str):
-        t0 = time.perf_counter()
-        try:
+        with span("prep." + stage) as s:
             yield
-        finally:
-            self.seconds[stage] = self.seconds.get(stage, 0.0) + time.perf_counter() - t0
+        self.seconds[stage] = self.seconds.get(stage, 0.0) + s.seconds
 
 
 def _pack_elems(m: BDMeta) -> int:
@@ -404,20 +433,7 @@ class TiledGraph:
             np.arange(self.num_nodes, dtype=np.int32), np.diff(row_pointers))
         self.prep_host_s = time.perf_counter() - t0
 
-        # ---- uploads --------------------------------------------------------
-        self.meta = self.meta_t = self.a_struct = self.a_struct_t = None
-        if needs_condensed:
-            self.meta = self.host_meta.to(self.device)
-            self.a_struct = self._upload_tiles(self.host_meta)
-            if symmetric:
-                self.meta_t, self.a_struct_t = self.meta, self.a_struct
-            else:
-                self.meta_t = self.host_meta_t.to(self.device)
-                self.a_struct_t = self._upload_tiles(self.host_meta_t)
-        # Transpose edge k is forward edge t_edge_src[k]: per-edge weights in
-        # CSR order, taken to the transpose's order.
-        self.t_edge_src = torch.from_numpy(t_src.astype(np.int64)).to(self.device)
-
+        # ---- uploads, then the device row indexes ---------------------------
         # Score-fused AGNN on symmetric graphs.  BD takes K6/K7 where the
         # JAX kernel's 3-panel halo covers the offsets and the residual is
         # symmetric (a sign-symmetric offset set, A being symmetric); a
@@ -428,17 +444,38 @@ class TiledGraph:
             max(abs(o) for o in self.bd_offsets) <= BD_BIN_GROUP
             and (self.bd_full_coverage or set(self.bd_offsets) == {-o for o in self.bd_offsets})
         )
+        self.meta = self.meta_t = self.a_struct = self.a_struct_t = None
         self.bd = self.bd_t = None
-        if self.block_diag:
-            self.bd = self._bd_dev(bdm, res_host, row_index=self._agnn_bd)
-            self.bd_t = self.bd if symmetric else self._bd_dev(bdm_t, res_host_t)
-        self._sddmm_meta = self.meta if needs_condensed else EdgeList.from_rows(
-            edge_rows, column_index, self.num_nodes, config, self.device)
+        with span("graph.upload"):
+            if needs_condensed:
+                self.meta = self.host_meta.to(self.device)
+                self.a_struct = self._upload_tiles(self.host_meta)
+                if symmetric:
+                    self.meta_t, self.a_struct_t = self.meta, self.a_struct
+                else:
+                    self.meta_t = self.host_meta_t.to(self.device)
+                    self.a_struct_t = self._upload_tiles(self.host_meta_t)
+            # Transpose edge k is forward edge t_edge_src[k]: per-edge weights
+            # in CSR order, taken to the transpose's order.
+            self.t_edge_src = torch.from_numpy(t_src.astype(np.int64)).to(self.device)
+            if self.block_diag:
+                self.bd = self._bd_dev(bdm, res_host)
+                self.bd_t = self.bd if symmetric else self._bd_dev(bdm_t, res_host_t)
+            self._sddmm_meta = self.meta if needs_condensed else EdgeList.from_rows(
+                edge_rows, column_index, self.num_nodes, config, self.device)
         fused = symmetric and (self._agnn_bd or self.meta is not None)
         self.agnn_aggregate = self._agnn_aggregate if fused else None
-        # K2/K3 walk the tiles' per-row index, built here where they run.
-        self.sfused_index = (sgt_row_index(self.meta, self.a_struct)
-                             if fused and not self._agnn_bd else None)
+        with span("graph.row_index"):
+            # K2/K3 walk the tiles' per-row index, K6/K7 the pack's and the
+            # residual tiles', built here where they run.
+            if self._agnn_bd:
+                bd = self.bd
+                bd.row_index = bd_row_index(bd.pack, bd.offsets, self.num_nodes)
+                if bd.res_meta is not None:
+                    bd.res_index = sgt_row_index(bd.res_meta, bd.res_a)
+            self.sfused_index = (sgt_row_index(self.meta, self.a_struct)
+                                 if fused and not self._agnn_bd else None)
+            self._synchronize()
 
     def _init_chunk_route(self, row_pointers, column_index, t_ptr, t_idx, t_src, streamed, t0,
                           clock, impl):
@@ -469,12 +506,24 @@ class TiledGraph:
 
         # The host arrays (several GB on reddit) go once uploaded.
         def upload(h):
-            return h.to(self.device) if streamed else h.to_chunks(self.device)
+            return (h.to(self.device, index=False) if streamed
+                    else h.to_chunks(self.device, index=False))
 
-        self.chunks = upload(host)
-        self.chunks_t = self.chunks if self.symmetric else upload(host_t)
-        self.host_meta = self.host_meta_t = None
-        self.t_edge_src = torch.from_numpy(t_src.astype(np.int64)).to(self.device)
+        with span("graph.upload"):
+            chunks = upload(host)
+            chunks_t = chunks if self.symmetric else upload(host_t)
+            self.host_meta = self.host_meta_t = None
+            self.t_edge_src = torch.from_numpy(t_src.astype(np.int64)).to(self.device)
+        with span("graph.row_index"):
+            self.chunks = chunks.indexed()
+            self.chunks_t = self.chunks if self.symmetric else chunks_t.indexed()
+            self._synchronize()
+
+    def _synchronize(self) -> None:
+        """Waits for the build's device work on the card, which closes the
+        last of its spans."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _upload_tiles(self, host_meta) -> torch.Tensor:
         """int8 structural tiles; the compute dtype when a duplicate count
@@ -484,9 +533,9 @@ class TiledGraph:
             tiles = tiles.to(self.config.compute_dtype)
         return tiles.to(self.device)
 
-    def _bd_dev(self, m: BDMeta, res_host, row_index: bool = False) -> BDPack:
-        """One direction's BD arrays on the device; with ``row_index``, the
-        pack's per-row index (K6/K7) and the residual tiles' (K2/K3) too."""
+    def _bd_dev(self, m: BDMeta, res_host) -> BDPack:
+        """One direction's BD arrays on the device, without the row indexes
+        (the build adds them where K6/K7 run)."""
         dev = self.device
 
         def ids(a):
@@ -504,9 +553,6 @@ class TiledGraph:
             cov_pack=ids(m.packed_cov_idx()) if _bd_addressable(m) else None,
             cov_ids=ids(m.cov_edge_ids),
             res_ids=ids(m.res_edge_ids),
-            row_index=bd_row_index(pack, m.offsets, self.num_nodes) if row_index else None,
-            res_index=(sgt_row_index(res_meta, res_a)
-                       if row_index and res_host is not None else None),
         )
 
     def spmm(self, x: torch.Tensor) -> torch.Tensor:

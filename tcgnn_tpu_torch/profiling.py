@@ -12,6 +12,21 @@ call of one function (a kernel or its plain version).  ``op_stats`` and
 ``kernel_report`` turn a time a round of ``--single_kernel`` into edges/s
 and TFLOP/s, with the keys of ``tcgnn_tpu.utils.profiling``.
 
+``RECORDER`` is the port's one recorder of spans.  Host spans
+(``span(name)``) hold a name, start, end and parent, are kept in memory and
+open a ``torch.profiler.record_function`` range of the same name, so a
+trace shows them on its own clock: the host passes' stages (``prep.*``,
+summed into ``TiledGraph.prep_stages``), ``graph.upload`` and
+``graph.row_index`` (closed by one synchronize on the card),
+``step.optimizer_build`` and ``step.hoist``.  Device stamps mark the phases
+inside the training step (``PHASES``): a replay of the step's CUDA graph
+runs no Python, so only a one-thread kernel captured into the graph, which
+writes ``%globaltimer`` into a ring on the card (``DeviceStamps``,
+``csrc/stamp.cu``), can mark them.  Stamps are recorded only while a step
+is captured (or run eagerly) inside ``RECORDER.stamps_into``: the
+instrumented twin of ``TrainStep.span_ms``, which ``many`` never replays.
+``phase_ms`` turns a twin's stamps into device ms an epoch by phase.
+
 Run on the card from the repository root:
     python -m tcgnn_tpu_torch.profiling [OUT_DIR [GROUP ...]]
     # groups: pubmed, bd (and K5-K7), edges (and K4), reddit, bd_mesh, reddit_mesh, mesh
@@ -22,12 +37,18 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
+import dataclasses
 import os
 import subprocess
 import sys
+import time
 
+import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from tcgnn_tpu_torch.ops import _kernels
 
 TOP_ITEMS = 8
 
@@ -36,6 +57,207 @@ TOP_ITEMS = 8
 # TFLOP/s without sparsity), not a measurement.  ``mfu_pct`` is quoted
 # against it, as the JAX package quotes its chip's nominal peak.
 PEAK_BF16_TFLOPS = 989.4
+
+# The leaf phases of a training step, in the order a step runs them: a
+# stamp opens each top-level phase and closes the one before, and the
+# aggregations' own stamps open and close ``agg.fwd`` inside ``forward``
+# and ``agg.bwd`` inside ``backward`` (``graph.py``'s four autograd
+# Functions).  ``forward`` and ``backward`` keep what their aggregations
+# leave: the dense layers, the dropout, the log-softmax.
+PHASES = ("forward", "agg.fwd", "loss.fwd", "loss.bwd", "backward", "agg.bwd", "optimizer")
+_TOP = ("forward", "loss.fwd", "loss.bwd", "backward", "optimizer", "end")
+_NESTED = {"agg.fwd": "forward", "agg.bwd": "backward"}
+# Stamps a step may hold, replays a ring holds between two reads, and host
+# spans the recorder keeps.
+MAX_STAMPS = 256
+RING_ROWS = 64
+KEEP_SPANS = 4096
+
+
+@dataclasses.dataclass
+class Span:
+    """A host span: ``start`` and ``end`` in ``time.perf_counter`` seconds;
+    ``parent`` is the span that was open when it opened."""
+
+    name: str
+    start: float
+    end: float | None = None
+    parent: "Span | None" = None
+
+    @property
+    def seconds(self) -> float:
+        return self.end - self.start
+
+
+class Recorder:
+    """Host spans, kept in memory (the latest ``KEEP_SPANS``), and the sink
+    of the device stamps while a step is recorded with them."""
+
+    def __init__(self):
+        self.spans: collections.deque = collections.deque(maxlen=KEEP_SPANS)
+        self._open: list = []
+        self._stamps = None
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        """A host span around the block, and a profiler range of its name."""
+        s = Span(name, time.perf_counter(), parent=self._open[-1] if self._open else None)
+        self._open.append(s)
+        try:
+            with record_function(name):
+                yield s
+        finally:
+            s.end = time.perf_counter()
+            self._open.pop()
+            self.spans.append(s)
+
+    def last(self, name: str) -> Span | None:
+        """The latest closed span of ``name``."""
+        return next((s for s in reversed(self.spans) if s.name == name), None)
+
+    @property
+    def stamping(self) -> bool:
+        return self._stamps is not None
+
+    @contextlib.contextmanager
+    def stamps_into(self, sink):
+        """Records the stamps of the block into ``sink``: a ``DeviceStamps``
+        on the card, or any object with ``stamp(label, last)``."""
+        if self._stamps is not None:
+            raise RuntimeError("stamps are already being recorded")
+        self._stamps = sink
+        try:
+            yield sink
+        finally:
+            self._stamps = None
+
+    def stamp(self, label: str, last: bool = False) -> None:
+        """A stamp of ``label`` while stamps are recorded (``last``: the
+        step's final stamp, which moves the ring to its next row); nothing
+        otherwise."""
+        if self._stamps is not None:
+            self._stamps.stamp(label, last)
+
+
+RECORDER = Recorder()
+span = RECORDER.span
+
+
+class _Mark(torch.autograd.Function):
+    """The identity, whose backward stamps ``label``: the point where the
+    gradient reaches the tensor."""
+
+    @staticmethod
+    def forward(ctx, x, label):
+        ctx.label = label
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        RECORDER.stamp(ctx.label)
+        return grad, None
+
+
+def mark(x: torch.Tensor, label: str) -> torch.Tensor:
+    """``x`` with a stamp of ``label`` where its gradient arrives, while
+    stamps are recorded; ``x`` itself, and no Function, otherwise."""
+    return _Mark.apply(x, label) if RECORDER.stamping else x
+
+
+class DeviceStamps:
+    """Stamps on the card: a ring of ``RING_ROWS`` x ``MAX_STAMPS`` int64
+    ``%globaltimer`` readings (ns), one row a replay, at the row a counter
+    on the card selects; the step's last stamp advances the counter.  Each
+    stamp's slot and label are fixed when it is launched, in launch order,
+    which is the order of the stream the step runs on.  The library is
+    built at the first ``DeviceStamps``, and its kernel runs once here,
+    outside any capture."""
+
+    def __init__(self, device: torch.device):
+        self.device, self.rows = device, RING_ROWS
+        self.ring = torch.zeros(RING_ROWS, MAX_STAMPS, dtype=torch.int64, device=device)
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+        self.labels: list = []
+        self._launch(0, False)
+        torch.cuda.synchronize(device)
+
+    def _launch(self, slot: int, last: bool) -> None:
+        _kernels.call("stamp", "tcgnn_stamp", self.device, self.ring.data_ptr(),
+                      self.counter.data_ptr(), slot, MAX_STAMPS, self.rows, int(last),
+                      _kernels.stream_of(self.ring))
+
+    def stamp(self, label: str, last: bool) -> None:
+        if len(self.labels) == MAX_STAMPS:
+            raise RuntimeError(f"a step holds at most {MAX_STAMPS} stamps")
+        self._launch(len(self.labels), last)
+        self.labels.append(label)
+
+    def rewind(self) -> None:
+        """The next replay writes row 0."""
+        self.counter.zero_()
+
+    def read(self, replays: int) -> np.ndarray:
+        """The first ``replays`` rows since ``rewind``, ``[replays, stamps]``
+        ns (synchronizes)."""
+        return self.ring[:replays, :len(self.labels)].cpu().numpy()
+
+
+def graph_nodes(graph: "torch.cuda.CUDAGraph") -> dict:
+    """The kernel, memset and copy nodes of a CUDA graph captured with
+    ``keep_graph=True``, child graphs' nodes included, read from the graph
+    itself (``cudaGraphGetNodes``, ``cudaGraphNodeGetType``)."""
+    counts = (ctypes.c_int * 4)()
+    lib = _kernels.load("stamp")
+    _kernels.check(lib, lib.tcgnn_graph_nodes(graph.raw_cuda_graph(), ctypes.addressof(counts)),
+                   "stamp")
+    return {"kernel": counts[0], "memset": counts[1], "memcpy": counts[2]}
+
+
+def leaf_phases(labels) -> list:
+    """The leaf phase (of ``PHASES``) of each interval between consecutive
+    stamps; raises where the labels do not nest and follow each other as a
+    step's phases do: ``forward`` first and ``end`` last, the top-level
+    phases in the order of ``_TOP``, each aggregation opened and closed
+    inside its phase."""
+    labels = list(labels)
+    if not labels or labels[0] != "forward" or labels[-1] != "end":
+        raise ValueError(f"a step's stamps run from 'forward' to 'end', got {labels}")
+    stack, top, leaves = [], -1, []
+    for i, label in enumerate(labels):
+        if label.startswith("/"):
+            if stack[-1] != label[1:] or len(stack) < 2:
+                raise ValueError(f"stamp {i}: {label} closes {stack[-1]}")
+            stack.pop()
+        elif label in _NESTED:
+            if stack != [_NESTED[label]]:
+                raise ValueError(f"stamp {i}: {label} opens inside {stack}")
+            stack.append(label)
+        elif label in _TOP and _TOP.index(label) > top and len(stack) <= 1:
+            top, stack = _TOP.index(label), [label]
+        else:
+            raise ValueError(f"stamp {i}: {label} out of order after {stack}")
+        if i < len(labels) - 1:
+            leaves.append(stack[-1])
+    return leaves
+
+
+def phase_ms(labels, stamps_ns: np.ndarray) -> dict:
+    """Device ms an epoch of each leaf phase, the median over the replays
+    (the rows of ``stamps_ns``), with ``epoch`` (first stamp to last),
+    ``replays`` and ``tick_ns``, the greatest common divisor of the
+    intervals read: the timer's resolution as the card shows it."""
+    leaves = leaf_phases(labels)
+    ns = np.asarray(stamps_ns, dtype=np.int64)
+    gaps = np.diff(ns, axis=1)
+    out = {}
+    for phase in PHASES:
+        cols = [i for i, leaf in enumerate(leaves) if leaf == phase]
+        out[phase] = float(np.median(gaps[:, cols].sum(axis=1))) / 1e6
+    out["epoch"] = float(np.median(ns[:, -1] - ns[:, 0])) / 1e6
+    out["replays"] = int(ns.shape[0])
+    positive = gaps[gaps > 0]
+    out["tick_ns"] = int(np.gcd.reduce(positive)) if positive.size else 0
+    return out
 
 
 def union_us(intervals) -> float:
@@ -61,10 +283,12 @@ def _device_events(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def summarize(prof, epochs: int) -> dict:
-    """Per-epoch device figures of a finished trace; ``None`` where the
-    trace holds no device operation (off the card)."""
-    events = _device_events(prof)
+def summarize(prof, epochs: int, before: float | None = None) -> dict:
+    """Per-epoch device figures of a finished trace, over the device
+    operations that start before ``before`` (the trace's µs; all of them
+    by default); ``None`` where the trace holds no device operation (off
+    the card)."""
+    events = [e for e in _device_events(prof) if before is None or e.time_range.start < before]
     if not events:
         return {"epochs": epochs, "busy_ms": None, "idle_share": None, "device_ops": 0, "top": []}
     spans = [(e.time_range.start, e.time_range.end) for e in events]
@@ -95,11 +319,19 @@ def print_summary(s: dict) -> None:
         print("  {:.4f} ms/epoch  {:.0f} calls  {}".format(ms, calls, key[:110]))
 
 
+# The profiler range around ``trace``'s tail.
+TAIL_RANGE = "spans.twin"
+
+
 @contextlib.contextmanager
-def trace(log_dir: str | None, device: torch.device, epochs: int):
+def trace(log_dir: str | None, device: torch.device, epochs: int, tail=None):
     """Traces the block under ``torch.profiler`` when ``log_dir`` is set;
     yields a dict that holds the summary once the block has ended.  The
-    block must synchronize the device before it ends."""
+    block must synchronize the device before it ends.  ``tail``, a
+    function, runs after the block inside the trace, in a range named
+    ``TAIL_RANGE`` (the trainer replays the stamped twin of its step there,
+    so the trace shows the stamps between their phases); the summary leaves
+    its device operations out."""
     summary: dict = {}
     if not log_dir:
         yield summary
@@ -109,12 +341,42 @@ def trace(log_dir: str | None, device: torch.device, epochs: int):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
         yield summary
+        if tail is not None:
+            with record_function(TAIL_RANGE):
+                tail()
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, "trace.json")
     prof.export_chrome_trace(path)
     print(f"# profiler trace written to {path}")
-    summary.update(summarize(prof, max(epochs, 1)))
+    before = next((e.time_range.start for e in prof.events() if e.name == TAIL_RANGE), None)
+    summary.update(summarize(prof, max(epochs, 1), before))
     print_summary(summary)
+
+
+# The set-up spans ``print_phases`` shows.
+SETUP_SPANS = ("graph.upload", "graph.row_index", "step.optimizer_build", "step.hoist")
+
+
+def print_phases(phases: dict | None, nodes: dict | None, summary: dict) -> None:
+    """The trainer's ``--profile_dir`` table: the step's phases from its
+    stamped twin (``TrainStep.span_ms``), its graph's nodes beside the
+    device operations an epoch the trace counted, and the set-up spans."""
+    if phases is None:
+        print("Phases: device time not measured (no stamped CUDA graph of the step)")
+    else:
+        print("Phases (device ms an epoch, median of {} replays of the stamped step; "
+              "timer tick {} ns):".format(phases["replays"], phases["tick_ns"]))
+        for phase in PHASES:
+            print("  {:<10} {:.4f}".format(phase, phases[phase]))
+        print("  {:<10} {:.4f} (sum {:.4f})".format(
+            "epoch", phases["epoch"], sum(phases[p] for p in PHASES)))
+    if nodes is not None:
+        print("Step graph: {} nodes a replay (kernel {}, memset {}, copy {}); the trace: {} "
+              "device ops an epoch".format(sum(nodes.values()), nodes["kernel"], nodes["memset"],
+                                           nodes["memcpy"], summary.get("device_ops")))
+    spans = [(n, RECORDER.last(n)) for n in SETUP_SPANS]
+    print("Set-up spans (s):\t" + "  ".join(
+        "{} {:.4f}".format(n, s.seconds) for n, s in spans if s is not None))
 
 
 def op_stats(num_edges: int, feature_dim: int, seconds: float) -> dict:

@@ -64,16 +64,16 @@ class StreamedMeta:
     edge_perm: np.ndarray  # [E] each edge's slot in the stacked layout
     seg_chunks: np.ndarray  # [S] int32
 
-    def to(self, device, num_src: Optional[int] = None) -> TorchChunkMeta:
+    def to(self, device, num_src: Optional[int] = None, index: bool = True) -> TorchChunkMeta:
         """Upload what the chunk kernels read (``seg_first`` and
         ``edge_perm`` stay on the host: the kernels need neither);
         ``num_src``: the rows of the gathered operand (default
-        ``num_nodes``)."""
+        ``num_nodes``); ``index``: as ``TorchChunkMeta.upload``'s."""
         return TorchChunkMeta.upload(
             self.config, self.num_nodes, self.num_nodes if num_src is None else num_src,
             self.num_edges, self.num_windows, self.wseg,
             self.seg_col_ids, self.seg_r, self.seg_c, self.seg_edge_id, self.seg_block,
-            self.seg_window, self.seg_chunks, device,
+            self.seg_window, self.seg_chunks, device, index,
         )
 
 

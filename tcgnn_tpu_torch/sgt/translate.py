@@ -183,9 +183,10 @@ class TorchChunkMeta:
 
     @classmethod
     def upload(cls, config, num_rows, num_src, num_edges, num_windows, wseg, seg_col_ids, seg_r,
-               seg_c, seg_edge_id, seg_block, seg_window, seg_chunks, device) -> "TorchChunkMeta":
+               seg_c, seg_edge_id, seg_block, seg_window, seg_chunks, device,
+               index: bool = True) -> "TorchChunkMeta":
         """From host arrays of the stacked layout; the row index is derived
-        on ``device``."""
+        on ``device`` (``index=False`` leaves it to ``indexed``)."""
 
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
@@ -198,7 +199,11 @@ class TorchChunkMeta:
             seg_edge_id=dev(seg_edge_id), seg_block=dev(seg_block),
             seg_window=dev(seg_window), seg_chunks=dev(seg_chunks),
         )
-        return dataclasses.replace(meta, **meta.row_index())
+        return meta.indexed() if index else meta
+
+    def indexed(self) -> "TorchChunkMeta":
+        """This layout with its row index (``row_ptr``, ``row_src``)."""
+        return dataclasses.replace(self, **self.row_index())
 
     def slot_slabs(self):
         """Each slab of real slots, segment by segment: their output rows,
@@ -284,10 +289,12 @@ class SGTMeta:
     def num_chunks(self) -> int:
         return 0 if self.chunk_block is None else int(self.chunk_block.shape[0])
 
-    def to_chunks(self, device, num_src: Optional[int] = None) -> TorchChunkMeta:
+    def to_chunks(self, device, num_src: Optional[int] = None,
+                  index: bool = True) -> TorchChunkMeta:
         """Upload the chunk layout (``emit_chunks=True``) to ``device`` as a
         stack of one segment spanning every window; ``num_src``: the rows of
-        the gathered operand (default ``num_nodes``)."""
+        the gathered operand (default ``num_nodes``); ``index``: as
+        ``TorchChunkMeta.upload``'s."""
         if self.chunk_r is None:
             raise ValueError("to_chunks needs the chunk layout: translate with emit_chunks=True")
         return TorchChunkMeta.upload(
@@ -295,7 +302,7 @@ class SGTMeta:
             self.num_edges, self.num_windows, self.num_windows,
             self.col_ids[None], self.chunk_r[None], self.chunk_c[None],
             self.chunk_edge_id[None], self.chunk_block[None], self.chunk_window[None],
-            np.array([self.num_chunks], np.int32), device,
+            np.array([self.num_chunks], np.int32), device, index,
         )
 
     @property

@@ -95,6 +95,10 @@ CAPTURE_WARMUP = 3
 # SpMM rounds of --single_kernel's chain: the reference's 200
 # (main_tcgnn.py:65-70), as in the JAX CLI.
 SAG_ROUNDS = 200
+# --profile_dir: replays of the stamped twin of the step inside the trace,
+# and behind the phase table.
+TRACED_TWIN_EPOCHS = 3
+PHASE_EPOCHS = 50
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -194,8 +198,11 @@ def make_config(args) -> TileConfig:
 
 def make_optimizer(params, lr: float, device) -> torch.optim.Adam:
     """Adam at ``lr``, capturable on the card (``TrainStep.many`` captures
-    its update into a CUDA graph); the CPU takes the plain update."""
-    return torch.optim.Adam(params, lr=lr, capturable=torch.device(device).type == "cuda")
+    its update into a CUDA graph); the CPU takes the plain update.  Its
+    construction is the host span ``step.optimizer_build`` (the first one in
+    a process imports ``torch._dynamo``)."""
+    with profiling.span("step.optimizer_build"):
+        return torch.optim.Adam(params, lr=lr, capturable=torch.device(device).type == "cuda")
 
 
 class TrainStep:
@@ -222,15 +229,23 @@ class TrainStep:
     capture: a replay runs no Python.  On the CPU, and for an ``eager``
     step (one that cannot be captured: the ``sparse`` incumbent's, a mesh
     step over processes), ``many(n)`` is n calls.
+
+    ``graph_nodes()`` reads the captured graph's kernel, memset and copy
+    nodes (a replay runs them, and fills the registered dropout generator's
+    seed and offset before them).  ``span_ms(n)`` times the
+    step's phases (``profiling.PHASES``) on the card from a ``stamped``
+    step's device stamps, in a twin of the graph that ``many`` never
+    replays, so the epochs ``many`` runs carry no stamp.
     """
 
     def __init__(self, fn, params, optimizer, generator, device: torch.device,
-                 eager: bool = False):
+                 eager: bool = False, stamped: bool = False):
         self._fn, self._params, self._optimizer = fn, list(params), optimizer
         self._generator, self.device = generator, device
         self.eager = eager
+        self.stamped = stamped
         self.replays = device.type == "cuda" and not eager
-        self._graph = self._loss = self._storage = None
+        self._graph = self._loss = self._storage = self._twin = None
         self.eager_steps = 0
         self.captures = 0
         self.capture_s = None
@@ -275,22 +290,28 @@ class TrainStep:
             self._graph.replay()
         return self._loss.clone()
 
-    def _tensor_storage(self) -> list:
-        """The storage of every parameter and Adam state tensor, which the
-        graph reads and writes where they lay at the capture."""
+    def _state(self) -> list:
+        """Every parameter and Adam state tensor, which the graph reads and
+        writes where they lay at the capture."""
         tensors = list(self._params)
         for state in self._optimizer.state.values():
             tensors += [v for v in state.values() if torch.is_tensor(v)]
-        return [t.data_ptr() for t in tensors]
+        return tensors
+
+    def _tensor_storage(self) -> list:
+        return [t.data_ptr() for t in self._state()]
 
     def _capture(self) -> None:
-        graph = torch.cuda.CUDAGraph()
+        # The graph is kept after its instantiation (``graph_nodes`` reads it);
+        # the instantiation is timed with the capture, as without it.
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         if self._generator is not None:
             graph.register_generator_state(self._generator)
         t0 = time.perf_counter()
         try:
             with torch.cuda.graph(graph):
                 loss = self._fn()
+            graph.instantiate()
         except RuntimeError as e:
             causes = [e] + ([e.__context__] if e.__context__ is not None else [])
             raise RuntimeError(
@@ -304,6 +325,47 @@ class TrainStep:
         self._storage = self._tensor_storage()
         self.captures += 1
 
+    def graph_nodes(self) -> dict | None:
+        """The captured step's kernel, memset and copy nodes; None before the
+        capture, on the CPU and for an ``eager`` step."""
+        return None if self._graph is None else profiling.graph_nodes(self._graph)
+
+    def span_ms(self, epochs: int) -> dict | None:
+        """Device ms an epoch of each phase of the step (``profiling.phase_ms``:
+        the median over ``epochs`` replays, with ``epoch``, ``replays`` and
+        ``tick_ns``); None on the CPU, for an ``eager`` step, for a step
+        built without stamps and before the step's capture.
+
+        The first call captures the twin: the same step once more, with the
+        device stamps on (``profiling.DeviceStamps``), its dropout generator
+        registered and the plain graph's memory pool shared.  ``many`` keeps
+        replaying the plain graph.  The twin's replays are training epochs;
+        the parameters and Adam's state are put back afterwards, in place.
+        """
+        if not (self.replays and self.stamped) or self._graph is None:
+            return None
+        if self._twin is None:
+            stamps = profiling.DeviceStamps(self.device)
+            twin = torch.cuda.CUDAGraph()
+            if self._generator is not None:
+                twin.register_generator_state(self._generator)
+            with profiling.RECORDER.stamps_into(stamps):
+                with torch.cuda.graph(twin, pool=self._graph.pool()):
+                    self._fn()
+            self._twin = twin, stamps
+        twin, stamps = self._twin
+        saved = [t.clone() for t in self._state()]
+        rows = []
+        for start in range(0, epochs, stamps.rows):
+            stamps.rewind()
+            for _ in range(min(stamps.rows, epochs - start)):
+                twin.replay()
+            rows.append(stamps.read(min(stamps.rows, epochs - start)))
+        with torch.no_grad():
+            for t, v in zip(self._state(), saved):
+                t.copy_(v)
+        return profiling.phase_ms(stamps.labels, np.concatenate(rows))
+
 
 def make_train_step(
     graph: TiledGraph, net: nets.GNN, x, y, optimizer, dropout_rate, norm=None,
@@ -316,21 +378,33 @@ def make_train_step(
     (``nets.hoist_l1_aggregate``), removing that SpMM and its transpose
     from every epoch; exact for GCN and GIN, and no change for AGNN.
     ``generator`` draws the dropout masks (no dropout without one, or at
-    rate 0).
+    rate 0).  The hoist is the host span ``step.hoist``.  The step stamps
+    its phases (``profiling.PHASES``) where stamps are recorded
+    (``TrainStep.span_ms``), and nothing otherwise.
     """
-    l1_agg = nets.hoist_l1_aggregate(net.kind, x, graph, norm=norm) if hoist else None
+    l1_agg = None
+    if hoist:
+        with profiling.span("step.hoist"):
+            l1_agg = nets.hoist_l1_aggregate(net.kind, x, graph, norm=norm)
     gen = generator if dropout_rate > 0 else None
+    stamp = profiling.RECORDER.stamp
 
     def step() -> torch.Tensor:
+        stamp("forward")
         optimizer.zero_grad(set_to_none=True)
         logp = net(x, graph, dropout_generator=gen, dropout_rate=dropout_rate,
                    norm=norm, l1_agg=l1_agg)
-        loss = F.nll_loss(logp, y)
+        stamp("loss.fwd")
+        loss = F.nll_loss(profiling.mark(logp, "backward"), y)
+        stamp("loss.bwd")
         loss.backward()
+        stamp("optimizer")
         optimizer.step()
+        stamp("end", last=True)
         return loss.detach()
 
-    return TrainStep(step, net.parameters(), optimizer, gen, x.device, eager=eager)
+    return TrainStep(step, net.parameters(), optimizer, gen, x.device, eager=eager,
+                     stamped=True)
 
 
 def timed_epochs(step, args, device, sync, checkpoint=None, resumed_at=None) -> tuple:
@@ -350,7 +424,9 @@ def timed_epochs(step, args, device, sync, checkpoint=None, resumed_at=None) -> 
     the timed epochs run in pieces that end on multiples of
     ``--checkpoint_every``; a synchronize closes each piece before its
     write, and the writes are left out of ``Train (ms)``.  The final state
-    is always written."""
+    is always written.  With ``--profile_dir`` the stamped twin of the step
+    (``TrainStep.span_ms``) replays a few epochs at the end of the trace,
+    outside its summary, and the phase table follows ``Train (ms)``."""
     start_epoch = resumed_at or 0
     first_loss = loss = None
     if resumed_at is None:
@@ -359,7 +435,8 @@ def timed_epochs(step, args, device, sync, checkpoint=None, resumed_at=None) -> 
     sync()
     every = args.checkpoint_every
     epochs_run = max(args.epochs - start_epoch, 1)
-    with profiling.trace(args.profile_dir, device, epochs_run) as prof:
+    twin = (lambda: step.span_ms(TRACED_TWIN_EPOCHS)) if args.profile_dir else None
+    with profiling.trace(args.profile_dir, device, epochs_run, tail=twin) as prof:
         start_train, ckpt_s, epoch = time.perf_counter(), 0.0, start_epoch
         while epoch < args.epochs:
             piece = args.epochs - epoch
@@ -387,6 +464,8 @@ def timed_epochs(step, args, device, sync, checkpoint=None, resumed_at=None) -> 
     final_loss = float(loss)
     print("Final loss:\t{:.6f}".format(final_loss))
     print("Train (ms):\t{:6.3f}".format(train_time * 1e3 / epochs_run))
+    if args.profile_dir:
+        profiling.print_phases(step.span_ms(PHASE_EPOCHS), step.graph_nodes(), prof)
     return float(first_loss), final_loss, train_time * 1e3 / epochs_run, prof or None
 
 
