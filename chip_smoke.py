@@ -16,8 +16,8 @@ Phases, in order; any failure raises and exits nonzero:
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
   2. build K1-K10 (``tcgnn_tpu_torch/csrc/{spmm_dense,spmm_sfused,
      sddmm_dense,spmm_bd,chunk}.cu``; K10 is K1's kernel with a score
-     operand) with nvcc for sm_90a, one nvcc per source, and the native SGT
-     host pass (``tcgnn_tpu_torch/sgt/native/sgt.cpp``) with g++, all at
+     operand) and the NLL loss's pair (``nll.cu``) with nvcc for sm_90a,
+     one nvcc per source, and the native SGT host pass (``tcgnn_tpu_torch/sgt/native/sgt.cpp``) with g++, all at
      once, printing ``-Xptxas -v``, the g++ flags and the build seconds;
   3. K1 against its plain PyTorch version on the card: pubmed tiling at
      512x128 and 16x8, d in {16, 500}, f32 and bf16; a graph with a
@@ -76,7 +76,9 @@ Phases, in order; any failure raises and exits nonzero:
      card must have run, beyond what the wrappers launched, each kernel's
      launches an epoch (the run table's) once for every replay but one
      (``check_replays``: the wrappers count the capture, which runs
-     nothing, and no replay); the loss must be
+     nothing, and no replay); its loss must have gone through the NLL
+     kernel pair, one forward and one backward an eager step and a replay
+     on the card, no plain version (``check_nll_launches``); the loss must be
      finite and fall, except in the 4-layer AGNN
      runs (pubmed overflows to nan in f32, as in the JAX package), which are
      only timed.  Every run must print ``SGT pass:\tnative`` (the native
@@ -113,7 +115,12 @@ Phases, in order; any failure raises and exits nonzero:
      there is one: ``torch.sparse.mm`` on a CSR tensor (K1, K5, K8),
      ``torch.sparse.sampled_addmm`` (K4, K9).  Yardsticks only: nothing on
      the main path calls them.  The kernels line takes K8 and K9 from phase
-     11's reddit timing (d=16 and d=32), the shapes of their main path;
+     11's reddit timing (d=16 and d=32), the shapes of their main path.
+     Last, the NLL loss's pair at Yeast's, amazon0505's and reddit's N and
+     C (``phase_nll``): held to ``F.nll_loss``, then timed beside its plain
+     version, the library's many-block ``F.nll_loss(..., reduction="none")
+     .mean()``, ``F.nll_loss``'s one-block reduction and its bound; the
+     kernels line takes its Yeast record and lists every shape's;
  13. the distributed dense-tile route (``tcgnn_tpu_torch.parallel``), every
      shard of the mesh on this one card: on pubmed balanced over an 8x1
      mesh, each split stream's row index (built at upload) and K2/K3 over it
@@ -307,7 +314,8 @@ set to 0 just before it: where a run replays a CUDA graph (phases 11, 13, 13b,
 the launches the card ran, from a profiler trace of the run
 (``device_launches``), else the wrappers' counts (eager launches, which the
 card runs one for one: ``--single_kernel``, ``measure_comm``'s counted step,
-the ranks over processes).  Every bound
+the ranks over processes).  The NLL pair's launches are phase 11's, read
+on the card.  Every bound of K1-K10
 is ``tcgnn_tpu_torch.bench.roofline_bound``'s ``csr_bound``.
 
 Every phase prints its elapsed seconds.  The line before the last is
@@ -340,6 +348,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tcgnn_tpu_torch import TileConfig, TiledGraph, train
 from tcgnn_tpu_torch.bench import (
@@ -372,6 +381,8 @@ from tcgnn_tpu_torch.ops import (
     bd_sfused_torch,
     build_a_tiles,
     build_bd_pack,
+    nll_loss,
+    nll_loss_torch,
     reset_counts,
     sddmm_tc,
     sddmm_tc_dense,
@@ -1259,7 +1270,7 @@ def phase_train(data_dir, dev, card) -> tuple:
         ("reddit agnn 2 layers", [*REDDIT, *agnn, "--num_layers", "2"], {"K8": 8, "K9": 4},
          True, streamed, 265_565),
     ]
-    results, launches = [], {k: 0 for k in KERNELS}
+    results, launches = [], {k: 0 for k in (*KERNELS, "NLL")}
     reddit_errs, reddit_records, stages, reddit_graph = {}, {}, {}, None
     for label, extra, per_epoch, must_fall, route, tc_blocks in runs:
         print(f"--- train.main {' '.join(extra)}")
@@ -1267,7 +1278,8 @@ def phase_train(data_dir, dev, card) -> tuple:
         args = ["--device", "cuda", "--epochs", str(TRAIN_EPOCHS), *extra]
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        with device_launches() as ran:
+        nll_ran = {"NLL": 0}
+        with device_launches(nll_ran) as ran:
             r = run_main(args)
         counts = launch_counts()
         r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -1285,6 +1297,9 @@ def phase_train(data_dir, dev, card) -> tuple:
         check_launches(f"{label} (on the card)", on_card(ran), per_epoch)
         check_replays(label, counts, ran, [r["captures"]],
                       [(WARMUP_EPOCHS + TRAIN_EPOCHS, per_epoch)])
+        check_nll_launches(label, nll_loss.launches, nll_ran["NLL"],
+                           WARMUP_EPOCHS + TRAIN_EPOCHS)
+        launches["NLL"] += nll_ran["NLL"]
         r["step_launches"] = per_epoch
         print(f"  captured once in {r['capture_s']:.3f} s; launches an epoch "
               + "  ".join(f"{k} {c}" for k, c in per_epoch.items()))
@@ -1322,6 +1337,8 @@ TRACED_NAMES = {"sfused_kernel": "K2", "sfused_bwd_kernel": "K3", "sddmm_edge_ke
                 "spmm_bd_kernel": "K5", "bd_sfused_kernel": "K6",
                 "bd_sfused_bwd_kernel": "K7", "spmm_csr_kernel": "K8",
                 "sddmm_csr_kernel": "K9"}
+# The NLL loss's pair (``csrc/nll.cu``), not templated.
+TRACED_NLL = re.compile(r"::nll_(forward|backward)_kernel\(")
 
 
 # A ``device_launches`` trace drops device operations at its ends: past its
@@ -1347,11 +1364,12 @@ def traced_kernel(name) -> str | None:
 
 
 @contextlib.contextmanager
-def device_launches():
+def device_launches(nll=None):
     """Traces the block's device activity with ``torch.profiler`` and
     yields a dict that holds, once the block has ended, each kernel's
     launches that the card ran in it: the replays of a captured CUDA graph
-    too, where no wrapper runs.  The block must not start a profiler of its
+    too, where no wrapper runs.  ``nll``, a dict, takes the NLL pair's
+    launches under ``"NLL"``.  The block must not start a profiler of its
     own (``--single_kernel`` does)."""
     ran = dict.fromkeys(KERNELS, 0)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1370,6 +1388,8 @@ def device_launches():
                 pads += 1
             elif (k := traced_kernel(e.name())) is not None:
                 ran[k] += 1
+            elif nll is not None and TRACED_NLL.search(e.name()):
+                nll["NLL"] += 1
     if not (ends and ends[0][1] and ends[-1][1]):
         raise AssertionError(f"device_launches: the trace's first or last device operation is "
                              f"not a pad kernel (it kept {pads} of its {2 * TRACE_PADS}), so it "
@@ -3462,13 +3482,14 @@ def build_kernels():
         native.build(native.BUILD_DIR)
         return time.perf_counter() - t, found
 
-    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
+    sources = (*KERNEL_SOURCES, "nll")
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
         native_build = pool.submit(build_native)
-        list(pool.map(lambda name: _kernels.build(name, verbose=True), KERNEL_SOURCES))
+        list(pool.map(lambda name: _kernels.build(name, verbose=True), sources))
         native_s, found = native_build.result()
-    for name in KERNEL_SOURCES:
+    for name in sources:
         _kernels.load(name)
-    print(f"K1-K10 build (nvcc, sm_90a, {len(KERNEL_SOURCES)} sources at once): "
+    print(f"K1-K10 and NLL build (nvcc, sm_90a, {len(sources)} sources at once): "
           f"{time.perf_counter() - t0:.2f} s")
     if not native.available():
         raise RuntimeError(f"the native SGT pass did not load: {native.error()}")
@@ -3612,6 +3633,7 @@ def main():
     times.update(bd_times)
     records.update(bd_records)
     records.update(reddit_records)  # K8 and K9 at the main path's shapes
+    nll_err, nll_records = phase_nll(dev, card)
     torch.cuda.synchronize()
     phase_end(t0)
 
@@ -3792,6 +3814,9 @@ def main():
               f"plain {records[k]['plain_ms']:.4f}, bound "
               f"{records[k]['bound_ms']:.4f} ({records[k]['bound_by']}), library "
               f"{records[k]['library_ms']} (card: {card})")
+    kernels.append({"name": "nll (NLL)", "route": "cuda", "source": "tcgnn_tpu_torch/csrc/nll.cu",
+                    "replaces": NLL_REPLACES, "launches": launches["NLL"],
+                    "max_abs_err": nll_err, **nll_records[0], "shapes": nll_records})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4160,6 +4185,82 @@ def ab_main(other_dir) -> None:
     print(json.dumps({"card": card, "torch": torch.__version__, "other": other_dir,
                       "results": results}))
     print(card)
+
+
+# ---- the NLL loss (phases 11 and 12) ------------------------------------------
+
+# (graph, N, C): Yeast's, amazon0505's and reddit's nodes and classes.
+NLL_SHAPES = (("Yeast", 1_714_644, 2), ("amazon0505", 410_236, 22), ("reddit", 232_965, 41))
+NLL_REPLACES = "none: the JAX package's one-hot NLL (tcgnn_tpu/train.py:180)"
+
+
+def check_nll_launches(label, wrapped, ran, epochs) -> None:
+    """Raise unless a one-device run's loss went through the NLL kernel
+    pair, one forward and one backward a step: the wrapper counts the
+    ``CAPTURE_WARMUP`` eager steps and the capture; the card runs every
+    epoch, the eager steps and the replays (the capture runs nothing, and
+    its epoch is the first replay); no plain version ran."""
+    want = (2 * (CAPTURE_WARMUP + 1), 2 * epochs, 0)
+    if (wrapped, ran, nll_loss.plain_calls) != want:
+        raise AssertionError(f"{label}: NLL launches {wrapped} by the wrapper, {ran} on the "
+                             f"card, plain calls {nll_loss.plain_calls}; expected {want}")
+
+
+def phase_nll(dev, card) -> tuple[float, list]:
+    """Phase 12's NLL kernel pair at each of ``NLL_SHAPES``.  First held to
+    ``F.nll_loss``, a tenth of the labels -100 and then none: the loss
+    within rtol 1e-5, the gradient to the bit.  Then, over labels with no
+    -100 (the step's), forward and backward together (the loss and
+    ``torch.autograd.grad``) timed as every kernel of the smoke is (event
+    ms, device ms of back-to-back calls) and by the profiler's device time
+    of all their operations (``kernel_ms``: the autograd seed's fill and
+    the ticket's memset included), beside the plain version, the library's
+    many-block form ``F.nll_loss(..., reduction="none").mean()``
+    (``library_*``), ``F.nll_loss``'s one-block reduction (``reduce_*``)
+    and the bound (the labels read once, one f32 of ``logp`` a row, the N x
+    C gradient written once, at 3.35 TB/s).  Returns the largest error and
+    a record a shape."""
+    err, rows = 0.0, []
+    for name, n, c in NLL_SHAPES:
+        rng = np.random.default_rng(n)
+        logits = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32)).to(dev)
+        logp = torch.log_softmax(logits, 1).requires_grad_(True)
+        labels = rng.integers(0, c, n)
+
+        def pair(fn, y):
+            def run():
+                loss = fn(logp, y)
+                return loss, torch.autograd.grad(loss, logp)[0]
+            return run
+
+        def unreduced(lp, y):
+            return F.nll_loss(lp, y, reduction="none").mean()
+
+        y = torch.from_numpy(labels).to(dev)
+        ignored = labels.copy()
+        ignored[rng.random(n) < 0.1] = -100
+        for labelled in (torch.from_numpy(ignored).to(dev), y):
+            got, want = pair(nll_loss, labelled)(), pair(F.nll_loss, labelled)()
+            torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+            if not torch.equal(got[1], want[1]):
+                raise AssertionError(f"nll {name}: the kernel's gradient is not F.nll_loss's")
+            err = max(err, (got[0] - want[0]).abs().item())
+        kernel, plain = pair(nll_loss, y), pair(nll_loss_torch, y)
+        library, reduce = pair(unreduced, y), pair(F.nll_loss, y)
+        torch.testing.assert_close(library()[0], kernel()[0], rtol=1e-5, atol=0)
+        event, plain_event, device = timed_pair(kernel, plain)
+        bound = (8 * n + 4 * n + 4 * n * c) / 3.35e12 * 1e3
+        row = {"graph": name, "n": n, "c": c, "ms": event, "device_ms": device,
+               "kernel_ms": kernel_ms(kernel), "plain_ms": plain_event,
+               "library_ms": median_ms(library), "library_device_ms": device_ms(library),
+               "library_kernel_ms": kernel_ms(library), "reduce_ms": median_ms(reduce),
+               "reduce_device_ms": device_ms(reduce), "reduce_kernel_ms": kernel_ms(reduce),
+               "bound_ms": bound, "bound_by": "bytes"}
+        rows.append(row)
+        print(f"  nll {name} N {n} C {c}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in row.items() if isinstance(v, float))
+              + f" (card: {card})", flush=True)
+    return err, rows
 
 
 if __name__ == "__main__":

@@ -29,7 +29,8 @@ Both graphs duck-type ``TiledGraph``'s ``spmm`` / ``spmm_weighted`` /
 ``sddmm`` with ``agnn_aggregate = None`` (AGNN takes the per-edge ops) and
 no ``config`` (the layers compute in f32) under the port's own ``GNN``.  The
 training loop is the trainer's: ``train.make_train_step`` without the hoist
-(``F.nll_loss`` over all nodes, Adam), 9 warm-up steps, then ``--epochs``
+(``torch.nn.functional.nll_loss`` over all nodes, the library's and not
+the port's kernel pair, Adam), 9 warm-up steps, then ``--epochs``
 timed under ``torch.cuda.synchronize()`` by ``train.timed_epochs``, on the
 card as one CUDA graph of the step replayed an epoch (``step.many``), as
 JAX compiles each incumbent's epoch into one program, with the
@@ -50,6 +51,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tcgnn_tpu_torch import train
 from tcgnn_tpu_torch.models import nets
@@ -267,7 +269,7 @@ def main(argv=None) -> dict:
     step = train.make_train_step(
         graph, net, x, y, optimizer, 0.0 if args.no_dropout else args.dropout, norm=norm,
         hoist=False, generator=torch.Generator(device=device).manual_seed(args.seed + 1),
-        eager=args.impl in EAGER_IMPLS,
+        eager=args.impl in EAGER_IMPLS, loss_fn=F.nll_loss,
     )
     first_loss, final_loss, train_ms, _ = train.timed_epochs(step, args, device, sync)
     return {"impl": args.impl, "prep_ms": prep * 1e3, "first_loss": first_loss,

@@ -20,6 +20,7 @@ from tcgnn_tpu_torch.ops.chunk import (
     spmm_tc_torch,
 )
 from tcgnn_tpu_torch.ops.fused import spmm_fused, spmm_fused_torch
+from tcgnn_tpu_torch.ops.loss import nll_loss, nll_loss_torch
 from tcgnn_tpu_torch.ops.reference import sddmm_ref, sfused_bwd_ref, sfused_ref, spmm_ref
 from tcgnn_tpu_torch.ops.sddmm import (
     EdgeList,
@@ -46,4 +47,5 @@ __all__ = [
     "sfused_bwd_ref", "spmm_tc", "spmm_tc_torch", "spmm_tc_streamed", "spmm_tc_streamed_torch",
     "sddmm_tc", "sddmm_tc_torch", "sddmm_tc_streamed", "sddmm_tc_streamed_torch",
     "sddmm_tc_tiles", "sddmm_tc_tiles_torch", "spmm_fused", "spmm_fused_torch", "sgt_row_index",
+    "nll_loss", "nll_loss_torch",
 ]

@@ -96,6 +96,10 @@ SIGNATURES = {
         "tcgnn_spmm_chunk": [_P] * 5 + [_I] * 4 + [_P],
         "tcgnn_sddmm_chunk": [_P] * 5 + [_I] * 4 + [_P],
     },
+    "nll": {
+        "tcgnn_nll_forward": [_P] * 5 + [_I] * 3 + [_P],
+        "tcgnn_nll_backward": [_P] * 4 + [_I] * 2 + [_P],
+    },
     "stamp": {
         "tcgnn_stamp": [_P] * 2 + [_I] * 4 + [_P],
         "tcgnn_graph_nodes": [_P] * 2,

@@ -73,7 +73,6 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 
 from tcgnn_tpu_torch.config import TileConfig
 from tcgnn_tpu_torch.data import dataset as data_lib
@@ -81,6 +80,8 @@ from tcgnn_tpu_torch.data import synthetic
 from tcgnn_tpu_torch.graph import TiledGraph
 from tcgnn_tpu_torch import profiling
 from tcgnn_tpu_torch.models import nets
+# The step's ``F.nll_loss`` is the port's NLL kernel pair (``ops/loss.py``).
+from tcgnn_tpu_torch.ops import loss as F
 from tcgnn_tpu_torch.sgt import reorder
 from tcgnn_tpu_torch.utils import checkpoint as ckpt
 
@@ -370,6 +371,7 @@ class TrainStep:
 def make_train_step(
     graph: TiledGraph, net: nets.GNN, x, y, optimizer, dropout_rate, norm=None,
     hoist: bool = True, generator: torch.Generator | None = None, eager: bool = False,
+    loss_fn=None,
 ) -> TrainStep:
     """The one-device training step, a ``TrainStep``: ``step()`` runs one
     eager epoch, ``step.many(n)`` n epochs, on the card replays of one CUDA
@@ -380,7 +382,10 @@ def make_train_step(
     ``generator`` draws the dropout masks (no dropout without one, or at
     rate 0).  The hoist is the host span ``step.hoist``.  The step stamps
     its phases (``profiling.PHASES``) where stamps are recorded
-    (``TrainStep.span_ms``), and nothing otherwise.
+    (``TrainStep.span_ms``), and nothing otherwise.  ``loss_fn`` takes the
+    log-probabilities and labels to the loss; without it the step calls
+    ``F.nll_loss`` (the port's NLL kernel pair, ``ops/loss.py``) at each
+    call, so that a caller may swap ``train.F``.
     """
     l1_agg = None
     if hoist:
@@ -395,7 +400,8 @@ def make_train_step(
         logp = net(x, graph, dropout_generator=gen, dropout_rate=dropout_rate,
                    norm=norm, l1_agg=l1_agg)
         stamp("loss.fwd")
-        loss = F.nll_loss(profiling.mark(logp, "backward"), y)
+        nll = F.nll_loss if loss_fn is None else loss_fn
+        loss = nll(profiling.mark(logp, "backward"), y)
         stamp("loss.bwd")
         loss.backward()
         stamp("optimizer")

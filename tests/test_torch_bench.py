@@ -263,6 +263,26 @@ def test_baseline_first_loss_matches_trainer(impl, model):
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
+@pytest.mark.parametrize("impl", ["gather", "sparse"])
+def test_baseline_takes_the_library_loss(impl, monkeypatch):
+    """The incumbents are yardsticks: their step takes
+    ``torch.nn.functional.nll_loss``, never the port's NLL kernel pair."""
+    library = torch.nn.functional.nll_loss
+    calls = []
+
+    def counted(logp, y):
+        calls.append(1)
+        return library(logp, y)
+
+    monkeypatch.setattr(torch.nn.functional, "nll_loss", counted)
+    port_loss = port_train.F.nll_loss
+    before = (port_loss.launches, port_loss.plain_calls)
+    baseline.main(["--dataset", "rand_300_1500", "--dim", "8", "--classes", "3",
+                   "--hidden", "8", "--epochs", "2", "--model", "gcn", "--impl", impl, *CPU])
+    assert (port_loss.launches, port_loss.plain_calls) == before
+    assert len(calls) > 0
+
+
 def test_training_path_does_not_import_the_incumbents():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for f in ("train.py", "graph.py"):

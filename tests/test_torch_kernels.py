@@ -1035,7 +1035,8 @@ def mesh_chain_case(cuda, kind, shape):
 
 
 PORT_KERNEL = re.compile(
-    r"::(spmm_dense_kernel|sfused_kernel|sfused_bwd_kernel|sddmm_edge_kernel)<")
+    r"::(spmm_dense_kernel|sfused_kernel|sfused_bwd_kernel|sddmm_edge_kernel"
+    r"|nll_forward_kernel|nll_backward_kernel)[<(]")
 
 
 def pad_trace(pads=256):
