@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from benchmark import correct, counts, program, reference, spec, synthetic
+from benchmark import correct, program, reference, spec, synthetic
 from tcgnn_tpu_torch import train
 
 
@@ -82,7 +82,7 @@ def main(argv=None) -> list:
     torch.backends.cudnn.allow_tf32 = False
     cell = spec.load_cell(args.workload, *([Path(args.root)] if args.root else []))
     lines = []
-    config, traffic = cell.config, cell.traffic
+    config, traffic, model = cell.config, cell.traffic, cell.model
     seeds = seeds_of(args.seeds)
     out = open(args.out, "a") if args.out else None
 
@@ -95,20 +95,22 @@ def main(argv=None) -> list:
             out.flush()
 
     csr = synthetic.make_graph(traffic)
-    dims = counts.layer_dims(config, traffic)
+    dims = model.layer_dims(config, traffic)
     data = synthetic.make_dataset(traffic, seeds[0], csr)
-    graphs = {"float32": program.build_graph(config, data, device)[0]}
+    graphs = {"float32": program.build_graph(config, model, data, device)[0]}
     if args.control:
-        graphs["bfloat16"] = program.build_graph(config, data, device, dtype="bfloat16")[0]
+        graphs["bfloat16"] = program.build_graph(config, model, data, device,
+                                                 dtype="bfloat16")[0]
     ref_graph = reference.Graph(*csr, device)
     for i, seed in enumerate(seeds):
         x_np, y_np = synthetic.make_features(traffic, seed)
         x = torch.from_numpy(x_np).to(device)
         y = torch.from_numpy(y_np.astype(np.int64)).to(device)
-        weights = reference.make_weights(config, dims, seed + 2, device)
+        weights = model.make_weights(config, dims, seed + 2, device)
         program.sync(device)
         t0 = time.perf_counter()
-        ref = reference.train(config, weights, x, y, ref_graph, seed + 3, correct.FIRST_STEPS)
+        ref = reference.train(config, model, weights, x, y, ref_graph, seed + 3,
+                              correct.FIRST_STEPS)
         program.sync(device)
         ref_s = time.perf_counter() - t0
         runs = [("program", "float32", contextlib.nullcontext)]
@@ -118,7 +120,8 @@ def main(argv=None) -> list:
             runs.append(("half_batch", "float32", half_batch))
         for kind, dtype, ctx in runs:
             with ctx():
-                prog = program.build(config, dims, graphs[dtype], x, y, weights, seed + 3)
+                prog = program.build(config, model, dims, graphs[dtype], x, y, weights,
+                                     seed + 3)
                 got = program.first_steps(prog, weights, correct.FIRST_STEPS)
             del prog
             if device.type == "cuda":

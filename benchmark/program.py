@@ -6,6 +6,10 @@
 benchmark's weights copied in place, ``train.make_optimizer`` (capturable
 Adam on the card), a device generator for dropout, and
 ``train.make_train_step(..., hoist=...)``, whose ``many`` the window calls.
+What depends on the model comes from its module (``spec.model``) as plain
+data: ``WEIGHTED_TRAFFIC`` and ``NET_ARGS``.  A configuration's
+``optimizer`` settings go to ``make_optimizer`` as keyword arguments where
+the file states them, and not otherwise.
 """
 
 from __future__ import annotations
@@ -35,26 +39,29 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def build_graph(config: dict, data, device, dtype: str | None = None):
+def build_graph(config: dict, model, data, device, dtype: str | None = None):
     """The port's graph of ``data`` and the seconds its build took, closed
     by a synchronize.  ``dtype`` overrides the configuration's (the
     lower-precision control)."""
     cfg = TileConfig(compute_dtype=DTYPES[dtype or config["dtype"]])
     start = time.perf_counter()
     graph = tiled_graph_from_dataset(data, cfg, device=device,
-                                     weighted_traffic=config["model"] == "agnn")
+                                     weighted_traffic=model.WEIGHTED_TRAFFIC)
     sync(device)
     return graph, time.perf_counter() - start
 
 
-def build(config: dict, dims: list, graph, x, y, weights: dict, dropout_seed: int) -> Program:
+def build(config: dict, model, dims: list, graph, x, y, weights: dict,
+          dropout_seed: int) -> Program:
     """The training step over ``graph`` from ``weights`` (copied in place)."""
     device = x.device
-    net = nets.GNN(config["model"], dims, device=device, n_heads=int(config["n_heads"]))
+    net = nets.GNN(config["model"], dims, device=device,
+                   **{key: config[key] for key in model.NET_ARGS})
     with torch.no_grad():
         for name, value in weights.items():
             net.get_parameter(name).copy_(value)
-    optimizer = train.make_optimizer(net.parameters(), float(config["lr"]), device)
+    optimizer = train.make_optimizer(net.parameters(), float(config["lr"]), device,
+                                     **config.get("optimizer", {}))
     generator = torch.Generator(device=device).manual_seed(dropout_seed)
     step = train.make_train_step(graph, net, x, y, optimizer, float(config["dropout"]),
                                  hoist=bool(config["hoist"]), generator=generator)

@@ -1,29 +1,31 @@
-"""The plain reference: full-graph GCN and AGNN training in plain PyTorch.
+"""The plain reference: full-graph training in plain PyTorch, the part every model shares.
 
-It follows the TC-GNN reference trainer (``main_tcgnn.py``): ReLU and
-dropout after the first layer, NLL over all nodes, Adam at the
-configuration's learning rate.  It computes in float64 (``DTYPE``), above
-the configurations' f32, so that its own rounding stays far below the
-program's: an f32 reference summing a hub row's thousands of neighbours in
-one accumulator, in atomics' order, strays from the exact result by more
-than the port's tiled sums do.  It works
-everything out from the CSR adjacency the benchmark made, edge by edge, in
-blocks of ``EDGE_BLOCK`` edges so that the largest graph fits beside its
-gathers: an aggregation gathers the source rows of a block and adds them
-into the destination rows (``index_add_``); AGNN's score of an edge is the
-dot product of its two end rows.  Its backward passes are written out
-(``_Aggregate``, ``_Attention``) so that each runs in the same blocks.
+A model's own reference lives in ``models/<model>.py`` (``spec.model``):
+its weights, its forward pass and written-out backward passes, its dropout
+masks.  This file holds what they share: the graph (``Graph``), TC-GNN's
+layer stack (``stack_dims``, ``stack_masks``, ``stack_forward``: the
+reference trainer ``main_tcgnn.py``'s ReLU and dropout after the first
+layer and log-softmax at the end), and the training loop (``train``): NLL
+over all nodes and Adam at the configuration's learning rate.
 
-It imports nothing of the program: the weights (``make_weights``) and the
-dropout masks (a ``torch.Generator`` seeded as the program's) are drawn
-here from the seed, and the benchmark hands the same CSR, features and
-labels to both sides.
+It computes in float64 (``DTYPE``), above the configurations' f32, so that
+its own rounding stays far below the program's: an f32 reference summing a
+hub row's thousands of neighbours in one accumulator, in atomics' order,
+strays from the exact result by more than the port's tiled sums do.  It
+works everything out from the CSR adjacency the benchmark made, edge by
+edge, in blocks of ``EDGE_BLOCK`` edges so that the largest graph fits
+beside its gathers: an aggregation gathers the source rows of a block and
+adds them into the destination rows (``index_add_``).
+
+It imports nothing of the program: the weights (the model's
+``make_weights``) and the dropout masks (a ``torch.Generator`` seeded as the
+program's) are drawn from the seed, and the benchmark hands the same CSR,
+features and labels to both sides.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -59,88 +61,26 @@ class Graph:
         return out
 
 
-class _Aggregate(torch.autograd.Function):
-    """``A @ x``; backward ``A^T @ dy``."""
-
-    @staticmethod
-    def forward(ctx, x, graph):
-        ctx.graph = graph
-        return graph.spmm(x)
-
-    @staticmethod
-    def backward(ctx, dy):
-        return ctx.graph.spmm(dy, transpose=True), None
+def stack_dims(config: dict, traffic: dict) -> list:
+    """Layer widths: input features, ``num_layers - 1`` hidden, classes."""
+    layers = int(config["num_layers"])
+    return [int(traffic["features"])] + [int(config["hidden"])] * (layers - 1) + [
+        int(traffic["classes"])]
 
 
-class _Attention(torch.autograd.Function):
-    """AGNN's aggregation ``out_i = c * sum_{e=(i,j)} s_e x_j`` with the
-    score ``s_e = <x_i, x_j>``.  With ``g`` the output's gradient and
-    ``t_e = <g_i, x_j>``: ``dc = sum_e s_e t_e`` and
-    ``dx = c * (sum_{e=(i,j)} s_e g_i + t_e x_i, into row j) + c * (sum_{e=(i,j)} t_e x_j, into row i)``."""
-
-    @staticmethod
-    def forward(ctx, x, c, graph):
-        ctx.graph = graph
-        ctx.save_for_backward(x, c)
-        out = torch.zeros_like(x)
-        for r, col in graph.blocks():
-            xc = x.index_select(0, col)
-            s = (x.index_select(0, r) * xc).sum(1, keepdim=True)
-            out.index_add_(0, r, s * xc)
-        return out * c
-
-    @staticmethod
-    def backward(ctx, g):
-        x, c = ctx.saved_tensors
-        dx = torch.zeros_like(x)
-        dc = torch.zeros((), dtype=x.dtype, device=x.device)
-        for r, col in ctx.graph.blocks():
-            xr, xc, gr = x.index_select(0, r), x.index_select(0, col), g.index_select(0, r)
-            s = (xr * xc).sum(1, keepdim=True)
-            t = (gr * xc).sum(1, keepdim=True)
-            dc += (s * t).sum()
-            dx.index_add_(0, col, s * gr + t * xr)
-            dx.index_add_(0, r, t * xc)
-        return dx * c, dc.reshape(c.shape), None
+def stack_masks(config: dict, num_nodes: int, generator: torch.Generator, device):
+    """One step's dropout mask, the ``(N, hidden)`` elements the first
+    layer's output keeps, drawn as the port's ``nets.GNN`` draws it."""
+    return torch.rand((num_nodes, int(config["hidden"])), generator=generator,
+                      device=device) < 1.0 - float(config["dropout"])
 
 
-def make_weights(config: dict, dims: list, seed: int, device) -> dict:
-    """The initial parameters, drawn on ``device`` from ``seed``: GCN's plain
-    randn ``[in, out]`` weights (the reference's layers leave them so); AGNN's
-    uniform on ``+-1/sqrt(out)``, weights and then the ``[1, n_heads]``
-    attention weights a layer."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    out = {}
-    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-        if config["model"] == "gcn":
-            out[f"weights.{i}"] = torch.randn((a, b), generator=gen, device=device)
-            continue
-        stdv = 1.0 / math.sqrt(b)
-        for name, shape in ((f"weights.{i}", (a, b)),
-                            (f"attention_w.{i}", (1, int(config["n_heads"])))):
-            u = torch.rand(shape, generator=gen, device=device)
-            out[name] = u * (2 * stdv) - stdv
-    return out
-
-
-def _gcn_layer(h, w, graph):
-    """GCN at the narrower width: ``(A h) W`` or ``A (h W)``."""
-    a, b = w.shape
-    return _Aggregate.apply(h, graph) @ w if a <= b else _Aggregate.apply(h @ w, graph)
-
-
-def forward(config: dict, p: dict, x, graph: Graph, mask, agg_x=None):
-    """Log-probabilities ``[N, classes]``; ``mask`` keeps the first layer's
-    outputs (dropout), ``agg_x`` is ``A @ x`` for GCN."""
+def stack_forward(config: dict, layer, x, mask):
+    """Log-probabilities ``[N, classes]`` of TC-GNN's stack over
+    ``layer(i, h)``, layer i's output before its activation; ``mask`` keeps
+    the first layer's outputs (dropout), None without dropout."""
     layers = int(config["num_layers"])
     keep = 1.0 - float(config["dropout"])
-
-    def layer(i, h):
-        w = p[f"weights.{i}"]
-        if config["model"] == "gcn":
-            return agg_x @ w if i == 0 else _gcn_layer(h, w, graph)
-        return _Attention.apply(h @ w, p[f"attention_w.{i}"].mean(), graph)
-
     h = torch.relu(layer(0, x))
     if mask is not None:
         h = torch.where(mask, h * (1.0 / keep), 0.0)
@@ -160,10 +100,14 @@ class Readings:
     change: dict
 
 
-def train(config: dict, params: dict, x, y, graph: Graph, dropout_seed: int, steps: int,
-          dtype: torch.dtype = DTYPE) -> Readings:
-    """``steps`` full-batch Adam steps from ``params`` (left unchanged), in
-    ``dtype``."""
+def train(config: dict, model, params: dict, x, y, graph: Graph, dropout_seed: int,
+          steps: int, dtype: torch.dtype = DTYPE) -> Readings:
+    """``steps`` full-batch Adam steps of ``model`` (its module,
+    ``spec.model``) from ``params`` (left unchanged), in ``dtype``.  The
+    configuration's optional ``optimizer`` settings may state a
+    ``weight_decay``, added to each gradient as ``torch.optim.Adam`` adds it
+    (``g + wd * p``); the first gradient is read after the add, as the
+    optimizer gets it."""
     device = x.device
     x = x.to(dtype)
     params = {k: v.detach().to(dtype) for k, v in params.items()}
@@ -171,19 +115,20 @@ def train(config: dict, params: dict, x, y, graph: Graph, dropout_seed: int, ste
     names = list(p)
     rate = float(config["dropout"])
     gen = torch.Generator(device=device).manual_seed(dropout_seed) if rate > 0 else None
-    agg_x = graph.spmm(x) if config["model"] == "gcn" else None
+    fixed = model.prepare(config, x, graph)
     lr, (b1, b2) = float(config["lr"]), ADAM_BETAS
+    decay = float(config.get("optimizer", {}).get("weight_decay", 0))
     m = {k: torch.zeros_like(v) for k, v in p.items()}
     v2 = {k: torch.zeros_like(v) for k, v in p.items()}
     losses, grad1 = [], {}
-    hidden = int(config["hidden"])
     for t in range(1, steps + 1):
-        mask = None
+        masks = None
         if gen is not None:
-            mask = torch.rand((graph.num_nodes, hidden), generator=gen,
-                              device=device) < 1.0 - rate
-        loss = F.nll_loss(forward(config, p, x, graph, mask, agg_x), y)
+            masks = model.dropout_masks(config, graph.num_nodes, gen, device)
+        loss = F.nll_loss(model.forward(config, p, x, graph, masks, fixed), y)
         grads = torch.autograd.grad(loss, [p[k] for k in names])
+        if decay:
+            grads = [g.add(p[k].detach(), alpha=decay) for k, g in zip(names, grads)]
         losses.append(float(loss.detach()))
         if t == 1:
             grad1 = {k: g.detach().cpu() for k, g in zip(names, grads)}

@@ -117,13 +117,13 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, root: Path | 
     import numpy as np
     import torch
 
-    from benchmark import correct, counts, program, reference, spec, synthetic
+    from benchmark import correct, program, reference, spec, synthetic
     from benchmark import trace as tr
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     on_card = device.type == "cuda"
-    config, traffic = cell.config, cell.traffic
+    config, traffic, model = cell.config, cell.traffic, cell.model
     weight_seed, dropout_seed = seed + 2, seed + 3
 
     marks = [("imports", time.perf_counter())]
@@ -134,15 +134,15 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, root: Path | 
     input_s = marks[-1][1] - marks[-2][1]
 
     # ---- set-up: the graph, the step, its first steps, warm-up ----------
-    dims = counts.layer_dims(config, traffic)
-    graph, build_s = program.build_graph(config, data, device)
+    dims = model.layer_dims(config, traffic)
+    graph, build_s = program.build_graph(config, model, data, device)
     marks.append(("graph", time.perf_counter()))
     x = torch.from_numpy(data.x).to(device)
     y = torch.from_numpy(data.y.astype(np.int64)).to(device)
-    weights = reference.make_weights(config, dims, weight_seed, device)
+    weights = model.make_weights(config, dims, weight_seed, device)
     program.sync(device)
     marks.append(("upload_and_weights", time.perf_counter()))
-    prog = program.build(config, dims, graph, x, y, weights, dropout_seed)
+    prog = program.build(config, model, dims, graph, x, y, weights, dropout_seed)
     program.sync(device)
     marks.append(("step", time.perf_counter()))
     readings = program.first_steps(prog, weights, correct.FIRST_STEPS)
@@ -182,7 +182,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, root: Path | 
         run = Run(config=config, traffic=traffic, dims=dims, num_nodes=data.num_nodes,
                   num_edges=data.num_edges, graph=graph, step=prog.step, graph_build_s=build_s,
                   epoch_ms=epoch_ms, trace=traced, on_card=on_card,
-                  counts=counts.epoch_counts(config, dims, data.num_nodes, data.num_edges))
+                  counts=model.epoch_counts(config, dims, data.num_nodes, data.num_edges))
         for m in cell.per_layer:
             value = spec.reader(m["name"], root or spec.ROOT)(run)
             if value is not None:
@@ -200,7 +200,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, root: Path | 
     if on_card:
         torch.cuda.empty_cache()
     ref_graph = reference.Graph(data.row_pointers, data.column_index, device)
-    ref = reference.train(config, reference.make_weights(config, dims, weight_seed, device),
+    ref = reference.train(config, model, model.make_weights(config, dims, weight_seed, device),
                           torch.from_numpy(data.x).to(device),
                           torch.from_numpy(data.y.astype(np.int64)).to(device),
                           ref_graph, dropout_seed, correct.FIRST_STEPS)

@@ -12,8 +12,13 @@ from benchmark import spec
 SMALL = {
     "gcn-tiny": ("gcn-2l-h16", "powerlaw", "gcn-amazon0505"),
     "gcn-tiny-bd": ("gcn-2l-h16", "components", "gcn-yeast"),
+    "gcn-tiny-nohoist": ("gcn-2l-h16-nohoist", "powerlaw", "gcn-amazon0505"),
     "agnn-tiny": ("agnn-2l-h32", "powerlaw", "agnn-amazon0505"),
 }
+
+# Configurations of the small cells that the benchmark has no cell of: each
+# made from one of its configurations with the keys given.
+DERIVED = {"gcn-2l-h16-nohoist": ("gcn-2l-h16", {"hoist": False})}
 
 
 def small_traffic(generator: str) -> dict:
@@ -24,11 +29,18 @@ def small_traffic(generator: str) -> dict:
 
 def copy_root(tmp: Path) -> Path:
     """A copy of the checkout's ``BENCHMARK.json`` and ``benchmark/`` with the
-    small cells added as files and entries."""
+    small cells, and the configurations in ``DERIVED``, added as files and
+    entries."""
     root = tmp / "checkout"
     shutil.copytree(spec.BENCH_DIR, root / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
     bench = json.loads((spec.ROOT / "BENCHMARK.json").read_text())
+    for name, (base, keys) in DERIVED.items():
+        entry = next(c for c in bench["configs"] if c["name"] == base)
+        config = json.loads((spec.ROOT / entry["file"]).read_text())
+        file = f"benchmark/configs/{name}.json"
+        (root / file).write_text(json.dumps({**config, **keys, "name": name}))
+        bench["configs"].append({**entry, "name": name, "file": file})
     for name, (config, generator, like) in SMALL.items():
         (root / "benchmark" / "traffic" / f"tiny-{generator}.json").write_text(
             json.dumps(small_traffic(generator)))

@@ -1,4 +1,5 @@
-"""No run loads JAX or the JAX package, and the reference loads nothing of the port."""
+"""No run loads JAX or the JAX package, and the reference and the model modules load
+nothing of the port."""
 
 import json
 import os
@@ -22,7 +23,9 @@ def _python(code: str, cwd=spec.ROOT) -> subprocess.CompletedProcess:
 
 def test_the_reference_imports_nothing_of_the_port():
     p = _python("import sys, benchmark.reference, benchmark.correct, benchmark.counts, "
-                "benchmark.synthetic, benchmark.trace; "
+                "benchmark.synthetic, benchmark.trace, benchmark.spec; "
+                "[benchmark.spec.model(p.stem) for p in "
+                "(benchmark.spec.BENCH_DIR / 'models').glob('*.py')]; "
                 "print(sorted({m.partition('.')[0] for m in sys.modules} & "
                 "{'tcgnn_tpu_torch', 'tcgnn_tpu', 'jax', 'jaxlib', 'flax'}))")
     assert p.returncode == 0, p.stderr

@@ -44,6 +44,9 @@ def test_every_file_is_used():
     names = {p.stem for p in (spec.BENCH_DIR / "metrics").glob("*.py")}
     assert names == {m["name"] for m in BENCH["per_layer"]}
     assert {c["name"] for c in BENCH["configs"]} == {w["config"] for w in BENCH["workloads"]}
+    names = {p.stem for p in (spec.BENCH_DIR / "models").glob("*.py")}
+    assert names == {json.loads((spec.ROOT / c["file"]).read_text())["model"]
+                     for c in BENCH["configs"]}
 
 
 def test_a_cell_and_a_metric_added_as_files_are_found(tmp_path):
@@ -66,3 +69,13 @@ def test_a_cell_and_a_metric_added_as_files_are_found(tmp_path):
 def test_an_unknown_cell_raises():
     with pytest.raises(KeyError):
         spec.load_cell("no-such-cell")
+
+
+def test_a_model_without_a_module_raises(tmp_path):
+    root = cells.copy_root(tmp_path)
+    config = json.loads((root / "benchmark" / "configs" / "gcn-2l-h16.json").read_text())
+    (root / "benchmark" / "configs" / "gcn-2l-h16.json").write_text(
+        json.dumps({**config, "model": "no-such-model"}))
+    with pytest.raises(FileNotFoundError) as raised:
+        spec.load_cell("gcn-tiny", root)
+    assert str(root / "benchmark" / "models" / "no-such-model.py") in str(raised.value)
